@@ -1,0 +1,572 @@
+"""Forward path-tracing megakernel (CUDA) and its plain torch version.
+
+Port of the JAX package's ops/wavefront_pallas.py forward path: the
+unrolled-mode Pallas kernel (K1) and its capped/resume variant plus the
+compacted driver (K2). Here both are one hand-written CUDA kernel,
+csrc/wavefront.cu, built with nvcc for sm_90a at first use and bound with
+ctypes. Beside it:
+
+  - `render_pass_reference`: the same lane wavefront in plain torch, built
+    from the integrator's per-bounce step (ops/integrator.py): persistent
+    lane regeneration, `cap`, `carry` and `pix_lanes`, the same 14-row carry
+    layout. The CPU tests run it; on the card only the parity checks do.
+  - `pass_function` / `render_pass`: the dispatcher. A scene on a CUDA
+    device launches the kernel (or raises), its tables packed once by
+    `prepare_kernel`; a scene on the CPU runs the plain version.
+  - `render_pass_compacted`: the capped + lane-compacted schedule, torch
+    code shared by both (stable argsort by remaining samples, index_add_).
+
+Lane layout: one lane per pixel, padded to a multiple of LANE_BLOCK; pad
+lanes repeat the last pixel and are cropped, and the compaction permutes
+them like any other lane.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..scene.flat import FlatScene, TEX_CHECKER, TEX_NOISE
+from ..models.camera import CameraState, generate_rays
+from ..utils import rng
+from ..utils.vecmath import normalize
+from .integrator import bounce_step, medium_uniforms
+
+# gate bounds, as the JAX package's wavefront_pallas.py (MAX_* constants and
+# _use_unrolled); SMEM_BUDGET there models the TPU's 1 MiB scalar memory and
+# has no counterpart here
+MAX_PRIMS_UNROLL = 64
+MAX_MATS = 16
+MAX_TEXS = 16
+MAX_LIGHTS = 32
+MAX_MEDIUMS = 4
+# what one block may hold in shared memory on Hopper (227 KB)
+MAX_SHARED_BYTES = 232_448
+
+LANE_BLOCK = 128
+CARRY_ROWS = 14   # work, alive, bounce, sample, time, o xyz, d xyz, th xyz
+
+_PKG_DIR = Path(__file__).resolve().parents[1]
+_CSRC = _PKG_DIR / "csrc"
+BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
+# --fmad=false: no a*b+c contraction, so the kernel rounds as the plain
+# torch version does op by op (with contraction, 3.4% of Cornell 128^2
+# spp16 d50 pixels flipped a branch, over the 1% parity rule)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+
+# ------------------------------------------------------------------- gate
+def _use_unrolled(flat: FlatScene) -> bool:
+    """The JAX package's unrolled-kernel bounds (_use_unrolled)."""
+    S, Q = flat.sph_center.shape[0], flat.quad_corner.shape[0]
+    return (S + Q <= MAX_PRIMS_UNROLL and flat.mat_type.shape[0] <= MAX_MATS
+            and flat.tex_type.shape[0] <= MAX_TEXS)
+
+
+def kernel_gate_reason(flat: FlatScene) -> str | None:
+    """Why this scene cannot run on the CUDA kernel (None = it can): the
+    JAX package's pallas_gate_reason plus the unrolled-mode bounds, plus the
+    shared-memory bound of the tables."""
+    if flat.n_mediums > MAX_MEDIUMS:
+        return (f"{flat.n_mediums} constant mediums exceeds the kernel bound "
+                f"MAX_MEDIUMS={MAX_MEDIUMS}")
+    if flat.n_prims == 0:
+        return "empty scene (no primitives)"
+    if flat.n_lights > MAX_LIGHTS:
+        return (f"{flat.n_lights} MIS lights exceeds the kernel bound "
+                f"MAX_LIGHTS={MAX_LIGHTS}")
+    if not _use_unrolled(flat):
+        S, Q = flat.sph_center.shape[0], flat.quad_corner.shape[0]
+        return (f"{S + Q} prims / {flat.mat_type.shape[0]} materials / "
+                f"{flat.tex_type.shape[0]} textures exceeds the kernel bounds "
+                f"({MAX_PRIMS_UNROLL} / {MAX_MATS} / {MAX_TEXS}); the "
+                "large-scene kernels (K6 vscan, K7 vquad) are not ported "
+                "yet")
+    n_bytes = 4 * _table_floats(flat)
+    if n_bytes > MAX_SHARED_BYTES:
+        return (f"scene tables need {n_bytes} B of shared memory, over the "
+                f"{MAX_SHARED_BYTES} B a Hopper block can hold")
+    return None
+
+
+# ----------------------------------------------------------------- tables
+def _pack_tables(flat: FlatScene):
+    """The JAX package's _pack_tables: the scene gathered into kernel rows.
+
+    Returns (sphf (S, 8), quadf (Q, 18), prim_mat (S+Q,), lightf (L, 25),
+    mati (NM, 2), matf (NM, 2), texf (NT, 14), medf (M, 3+4*MS+17*MQ)) with
+    the same columns. The JAX package's scan-mode resolved row table
+    (primmatf) waits for the large-scene kernel that reads it."""
+    f32 = torch.float32
+    sphf = torch.cat([flat.sph_center, flat.sph_cdelta,
+                      flat.sph_radius[:, None],
+                      flat.sph_active.to(f32)[:, None]], dim=1)
+    quadf = torch.cat([flat.quad_corner, flat.quad_u, flat.quad_v,
+                       flat.quad_normal, flat.quad_d[:, None], flat.quad_w,
+                       flat.quad_area[:, None],
+                       flat.quad_active.to(f32)[:, None]], dim=1)
+    prim_mat = torch.cat([flat.sph_mat, flat.quad_mat])
+
+    S = flat.sph_center.shape[0]
+    li = flat.light_prim.to(torch.int64)
+    is_sph = (li < S).to(f32)
+    si = torch.clamp(li, 0, S - 1)
+    qi = torch.clamp(li - S, 0, flat.quad_corner.shape[0] - 1)
+    lightf = torch.cat([
+        is_sph[:, None], flat.sph_center[si], flat.sph_cdelta[si],
+        flat.sph_radius[si][:, None],
+        flat.quad_corner[qi], flat.quad_u[qi], flat.quad_v[qi],
+        flat.quad_normal[qi], flat.quad_d[qi][:, None], flat.quad_w[qi],
+        flat.quad_area[qi][:, None]], dim=1)
+
+    mati = torch.stack([flat.mat_type, flat.mat_tex], dim=1)
+    matf = torch.stack([flat.mat_fuzz, flat.mat_ior], dim=1)
+
+    even_i = flat.tex_child_even.to(torch.int64)
+    odd_i = flat.tex_child_odd.to(torch.int64)
+    even_c = flat.tex_color[even_i]
+    odd_c = flat.tex_color[odd_i]
+    is_chk = (flat.tex_type == TEX_CHECKER).to(f32)
+    is_noi = (flat.tex_type == TEX_NOISE).to(f32)
+    texf = torch.cat([
+        flat.tex_color, flat.tex_scale[:, None], is_chk[:, None],
+        even_c, odd_c, flat.tex_child_even.to(f32)[:, None],
+        flat.tex_child_odd.to(f32)[:, None], is_noi[:, None]], dim=1)
+
+    n_med = flat.med_mat.shape[0]
+    quad_cols = torch.cat([
+        flat.med_quad_corner, flat.med_quad_u, flat.med_quad_v,
+        flat.med_quad_normal, flat.med_quad_d[..., None], flat.med_quad_w,
+        flat.med_quad_active.to(f32)[..., None]], dim=2).reshape(n_med, -1)
+    sph_cols = torch.cat([flat.med_sph_center,
+                          flat.med_sph_radius[..., None]],
+                         dim=2).reshape(n_med, -1)
+    medf = torch.cat([flat.med_neg_inv_density[:, None],
+                      flat.med_active.to(f32)[:, None], sph_cols, quad_cols,
+                      flat.med_mat.to(f32)[:, None]], dim=1)
+    return (sphf, quadf, prim_mat, lightf, mati, matf, texf, medf)
+
+
+def _table_floats(flat: FlatScene) -> int:
+    """Floats in the kernel's shared-memory table (see _kernel_tables)."""
+    S, Q = flat.sph_center.shape[0], flat.quad_corner.shape[0]
+    NM, NT = flat.mat_type.shape[0], flat.tex_type.shape[0]
+    MS, MQ = flat.med_sph_center.shape[1], flat.med_quad_corner.shape[1]
+    return (8 * S + 18 * Q + (S + Q) + 25 * max(flat.n_lights, 1)
+            + 4 * NM + 14 * NT
+            + flat.n_mediums * (3 + 4 * MS + 17 * MQ))
+
+
+def _kernel_tables(flat: FlatScene):
+    """One contiguous float32 buffer of the tables the kernel reads, and
+    the offset of each (integer columns stored as exact floats)."""
+    sphf, quadf, prim_mat, lightf, mati, matf, texf, medf = \
+        _pack_tables(flat)
+    parts = {"sph": sphf, "quad": quadf, "pmat": prim_mat,
+             "light": lightf[:max(flat.n_lights, 1)], "mati": mati,
+             "matf": matf, "tex": texf, "med": medf[:flat.n_mediums]}
+    offsets, off, flat_parts = {}, 0, []
+    for name, t in parts.items():
+        offsets[name] = off
+        t = t.to(torch.float32).reshape(-1)
+        off += t.numel()
+        flat_parts.append(t)
+    buf = torch.cat(flat_parts).contiguous()
+    return buf, offsets, int(medf.shape[1])
+
+
+# ------------------------------------------------------------ lane layout
+def lane_count(n_pix: int) -> int:
+    return -(-n_pix // LANE_BLOCK) * LANE_BLOCK
+
+
+def _identity_pixels(n_lanes: int, n_pix: int, device) -> torch.Tensor:
+    return torch.clamp(torch.arange(n_lanes, device=device), max=n_pix - 1)
+
+
+def _image_from_lanes(rad, width: int, height: int) -> torch.Tensor:
+    """(3, n_lanes) lane radiance -> (height, width, 3) image."""
+    return rad[:, :width * height].T.reshape(height, width, 3)
+
+
+def _check_carry(carry, pix_lanes, n_lanes: int):
+    if carry is not None and tuple(carry.shape) != (CARRY_ROWS, n_lanes):
+        raise ValueError(f"carry has shape {tuple(carry.shape)}, expected "
+                         f"({CARRY_ROWS}, {n_lanes})")
+    if pix_lanes is not None and tuple(pix_lanes.shape) != (n_lanes,):
+        raise ValueError(f"pix_lanes has shape {tuple(pix_lanes.shape)}, "
+                         f"expected ({n_lanes},)")
+
+
+def _pass_result(rad, st, *, cap, pix_lanes, width, height):
+    """The JAX driver's return convention: (radiance, carry) when capped,
+    raw radiance planes under an explicit lane permutation, else the
+    image."""
+    if cap:
+        return rad, st
+    if pix_lanes is not None:
+        return rad
+    return _image_from_lanes(rad, width, height)
+
+
+# ---------------------------------------------------- plain torch version
+def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
+                          sample_start, *, width: int, height: int,
+                          n_strata: int, max_depth: int, n_samples: int,
+                          sky_gradient: bool = False, cap: int = 0,
+                          carry=None, pix_lanes=None):
+    """Sum of n_samples stratified samples per pixel by a persistent lane
+    wavefront in plain torch — the kernel's semantics, lane for lane.
+
+    Each loop iteration advances every lane that still has work by one
+    bounce; a lane whose path ended restarts on its pixel's next sample. A
+    lane with no work left is frozen. cap > 0 stops after `cap` iterations
+    and returns (radiance (3, n_lanes), carry (14, n_lanes)); carry resumes
+    from such a state (same sample_start); pix_lanes ((n_lanes,) pixel ids)
+    replaces the identity lane layout and returns raw radiance planes.
+    Each call adds one to render_pass_reference.calls."""
+    render_pass_reference.calls += 1
+    device = flat.device
+    n_pix = width * height
+    n_lanes = lane_count(n_pix)
+    _check_carry(carry, pix_lanes, n_lanes)
+    pix = (_identity_pixels(n_lanes, n_pix, device) if pix_lanes is None
+           else pix_lanes.to(device=device, dtype=torch.int64))
+    sample_start = int(sample_start)
+    background = cam.background
+
+    def camera(p, s):
+        keys = rng.ray_keys(seed, p, sample_start + s)
+        org, dr, tm = generate_rays(cam, width, p, sample_start + s,
+                                    n_strata, keys)
+        return org, normalize(dr), tm
+
+    if carry is None:
+        sample = torch.zeros(n_lanes, dtype=torch.int64, device=device)
+        org, dr, tm = camera(pix, sample)
+        th = torch.ones_like(org)
+        alive = torch.ones(n_lanes, dtype=torch.bool, device=device)
+        work = alive.clone()
+        bounce = torch.zeros_like(sample)
+    else:
+        carry = carry.to(device=device, dtype=torch.float32)
+        work, alive = carry[0] > 0.5, carry[1] > 0.5
+        bounce, sample = carry[2].to(torch.int64), carry[3].to(torch.int64)
+        tm = carry[4].clone()
+        org, dr, th = carry[5:8].T.clone(), carry[8:11].T.clone(), \
+            carry[11:14].T.clone()
+    rad = torch.zeros(n_lanes, 3, dtype=torch.float32, device=device)
+
+    it = 0
+    while cap == 0 or it < cap:
+        idx = torch.nonzero(work).squeeze(1)
+        if idx.numel() == 0:
+            break
+        p, s, b, a = pix[idx], sample[idx], bounce[idx], alive[idx]
+        o, d, t_, h = org[idx], dr[idx], tm[idx], th[idx]
+        # a finished path restarts on the pixel's next stratified sample
+        regen = ~a
+        s = torch.where(regen, s + 1, s)
+        go, gd, gt = camera(p, s)
+        o = torch.where(regen[:, None], go, o)
+        d = torch.where(regen[:, None], gd, d)
+        t_ = torch.where(regen, gt, t_)
+        h = torch.where(regen[:, None], 1.0, h)
+        b = torch.where(regen, 0, b)
+        a = a | regen
+
+        keys = rng.ray_keys(seed, p, sample_start + s)
+        u = rng.bounce_uniforms(keys, b)
+        u_med = medium_uniforms(flat, keys, b)
+        drad, o, d, h, a = bounce_step(flat, o, d, t_, h, a, u, u_med,
+                                       background, sky_gradient)
+        rad[idx] += drad
+        b = b + 1
+        a = a & (b < max_depth)
+        org[idx], dr[idx], tm[idx], th[idx] = o, d, t_, h
+        sample[idx], bounce[idx], alive[idx] = s, b, a
+        work[idx] = a | (s + 1 < n_samples)
+        it += 1
+
+    st = None
+    if cap:
+        f32 = torch.float32
+        st = torch.cat([work.to(f32)[None], alive.to(f32)[None],
+                        bounce.to(f32)[None], sample.to(f32)[None], tm[None],
+                        org.T, dr.T, th.T])
+    return _pass_result(rad.T.contiguous(), st, cap=cap,
+                        pix_lanes=pix_lanes, width=width, height=height)
+
+
+render_pass_reference.calls = 0
+
+
+# ------------------------------------------------------------- the kernel
+class _Params(ctypes.Structure):
+    """Mirror of csrc/wavefront.cu::WfParams."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "n_lanes", "n_pix", "width", "n_strata", "max_depth", "n_samples",
+        "sample_start")]
+        + [("seed_mix", ctypes.c_uint), ("perlin_seed", ctypes.c_uint)]
+        + [(n, ctypes.c_int) for n in (
+            "sky_gradient", "has_noise", "checker_depth", "cap",
+            "S", "Q", "L", "M", "MS", "MQ",
+            "off_sph", "off_quad", "off_pmat", "off_light", "off_mati",
+            "off_matf", "off_tex", "off_med", "med_cols", "n_table")]
+        + [("inv_strata", ctypes.c_float), ("cam", ctypes.c_float * 22)])
+
+
+class KernelLibrary:
+    """The built kernel library: nvcc output of csrc/*.cu, cached in
+    BUILD_DIR under a hash of the sources and flags, bound with ctypes."""
+
+    def __init__(self, path: Path, build_log: str, build_seconds: float):
+        self.path = path
+        self.build_log = build_log
+        self.build_seconds = build_seconds
+        self.lib = ctypes.CDLL(str(path))
+        fn = self.lib.rt_wavefront_forward
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 6
+        self.forward = fn
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
+            return os.path.join(cand, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "are built from csrc/ at first use")
+
+
+def build_library(build_dir: Path = BUILD_DIR) -> KernelLibrary:
+    """Build (or reuse) the kernel library. Raises on any build failure."""
+    sources = sorted(_CSRC.glob("*.cu"))
+    h = hashlib.sha256()
+    for src in sources + sorted(_CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out = build_dir / h.hexdigest()[:16] / "librt_wavefront.so"
+    if out.exists():
+        return KernelLibrary(out, "(cached)", 0.0)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    # build to a temp file and rename: concurrent builders race here
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + [str(s) for s in sources],
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return KernelLibrary(out, proc.stdout + proc.stderr,
+                         time.perf_counter() - t0)
+
+
+@functools.cache
+def load_library() -> KernelLibrary:
+    """The process's one loaded kernel library, built at first use."""
+    return build_library()
+
+
+@dataclass(frozen=True)
+class KernelInputs:
+    """A scene and camera packed for the kernel: its tables in one device
+    buffer, and the scene's and camera's fields of WfParams. Packing gathers
+    on the device and reads the camera and the Perlin seed back to the
+    host, so a render packs once and hands the result to every launch."""
+    tables: torch.Tensor
+    fields: dict
+
+
+def prepare_kernel(flat: FlatScene, cam: CameraState) -> KernelInputs:
+    """Pack `flat` and `cam` for render_pass_kernel; raises for a scene
+    that is not on a CUDA device or is outside the kernel's gate."""
+    if flat.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
+                         f"{flat.device}")
+    reason = kernel_gate_reason(flat)
+    if reason is not None:
+        raise ValueError(f"scene outside the CUDA kernel's gate: {reason}")
+    tables, off, med_cols = _kernel_tables(flat)
+    cam_s = cam.scalars().to("cpu").tolist()
+    fields = dict(
+        perlin_seed=int(flat.perlin_seed.cpu()) & rng.MASK32,
+        has_noise=int(bool(flat.has_noise)),
+        checker_depth=int(flat.checker_depth),
+        S=flat.sph_center.shape[0], Q=flat.quad_corner.shape[0],
+        L=flat.n_lights, M=flat.n_mediums,
+        MS=flat.med_sph_center.shape[1], MQ=flat.med_quad_corner.shape[1],
+        off_sph=off["sph"], off_quad=off["quad"], off_pmat=off["pmat"],
+        off_light=off["light"], off_mati=off["mati"], off_matf=off["matf"],
+        off_tex=off["tex"], off_med=off["med"], med_cols=med_cols,
+        n_table=tables.numel(), cam=(ctypes.c_float * 22)(*cam_s))
+    return KernelInputs(tables, fields)
+
+
+def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
+                       sample_start, *, width: int, height: int,
+                       n_strata: int, max_depth: int, n_samples: int,
+                       sky_gradient: bool = False, cap: int = 0, carry=None,
+                       pix_lanes=None, prepared: KernelInputs | None = None):
+    """The CUDA kernel's wrapper: render_pass_reference's signature and
+    results, on a CUDA device. `prepared` is prepare_kernel(flat, cam),
+    packed here when not given. Launches on the current stream; raises if
+    the scene is outside the gate, the inputs are malformed, or the launch
+    fails. Each launch adds one to render_pass_kernel.launches."""
+    device = flat.device
+    if device.type != "cuda":
+        raise ValueError(f"render_pass_kernel needs CUDA tensors, got "
+                         f"{device}")
+    if prepared is None:
+        prepared = prepare_kernel(flat, cam)
+    n_pix = width * height
+    n_lanes = lane_count(n_pix)
+    _check_carry(carry, pix_lanes, n_lanes)
+    if n_strata * n_strata + int(sample_start) >= 1 << 24:
+        raise ValueError("sample indices must stay below 2^24")
+
+    p = _Params(
+        n_lanes=n_lanes, n_pix=n_pix, width=width, n_strata=n_strata,
+        max_depth=max_depth, n_samples=n_samples,
+        sample_start=int(sample_start), seed_mix=rng.mix_seed(seed),
+        sky_gradient=int(bool(sky_gradient)), cap=int(cap),
+        inv_strata=float(np.float32(1.0 / n_strata)), **prepared.fields)
+
+    def ptr(t):
+        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+    if pix_lanes is not None:
+        pix_lanes = pix_lanes.to(device=device, dtype=torch.int32) \
+            .contiguous()
+    if carry is not None:
+        carry = carry.to(device=device, dtype=torch.float32).contiguous()
+    rad = torch.empty(3, n_lanes, dtype=torch.float32, device=device)
+    st = (torch.empty(CARRY_ROWS, n_lanes, dtype=torch.float32,
+                      device=device) if cap else None)
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.forward(ctypes.byref(p), ptr(prepared.tables),
+                          ptr(pix_lanes),
+                          ptr(carry), ptr(rad), ptr(st),
+                          ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
+                           f"{err}")
+    render_pass_kernel.launches += 1
+    return _pass_result(rad, st, cap=cap, pix_lanes=pix_lanes, width=width,
+                        height=height)
+
+
+render_pass_kernel.launches = 0
+
+
+def pass_function(flat: FlatScene, cam: CameraState):
+    """The pass function for the scene's device: the CUDA kernel, with the
+    scene and camera packed once, for a scene on a CUDA device; the plain
+    torch version for a scene on the CPU."""
+    if flat.device.type == "cuda":
+        return functools.partial(render_pass_kernel,
+                                 prepared=prepare_kernel(flat, cam))
+    if flat.device.type == "cpu":
+        return render_pass_reference
+    raise ValueError(f"no wavefront pass for device {flat.device}")
+
+
+def render_pass(flat: FlatScene, cam: CameraState, seed, sample_start,
+                **kw):
+    """One pass through pass_function(flat, cam)."""
+    return pass_function(flat, cam)(flat, cam, seed, sample_start, **kw)
+
+
+# ------------------------------------------------------- compacted driver
+def default_caps(flat: FlatScene, n_samples: int, max_depth: int,
+                 cap: int = 0, phases: int = 2) -> tuple:
+    """The JAX package's cap schedule (wavefront_pallas.py:3726-3749),
+    carried over verbatim. It was tuned on a TPU and waits for H100
+    measurement (ROADMAP)."""
+    if cap == 0:
+        if not _use_unrolled(flat):
+            return (max(2 * n_samples, 2),) * 2
+        cap = max(int(6.5 * n_samples), max_depth)
+    if phases <= 2:
+        return (cap,)
+    return (cap,) + tuple(max(int(cap * 0.4 ** i), max_depth // 2)
+                          for i in range(1, phases - 1))
+
+
+def render_pass_compacted(flat: FlatScene, cam: CameraState, seed,
+                          sample_start, *, width: int, height: int,
+                          n_strata: int, max_depth: int, n_samples: int,
+                          sky_gradient: bool = False, cap: int = 0,
+                          phases: int = 2, caps: tuple | None = None,
+                          pass_fn=None):
+    """Capped + lane-compacted schedule: run the wavefront for caps[0]
+    iterations, sort lanes by remaining samples (unfinished lanes first,
+    finished lanes last, stable), resume the carried states under that
+    lane -> pixel permutation, and so on; an uncapped pass finishes. RNG
+    keys are pixel ids, so the permutation changes no sample stream.
+    pass_fn runs each phase (default pass_function(flat, cam); the plain
+    version may be given explicitly for a scene on the card).
+    Returns the (height, width, 3) radiance-sum image."""
+    if caps is None:
+        caps = default_caps(flat, n_samples, max_depth, cap, phases)
+    caps = tuple(int(c) for c in caps)
+    if any(c <= 0 for c in caps):
+        raise ValueError(f"caps must be positive iteration counts: {caps}")
+    if pass_fn is None:
+        pass_fn = pass_function(flat, cam)
+    common = dict(width=width, height=height, n_strata=n_strata,
+                  max_depth=max_depth, n_samples=n_samples,
+                  sky_gradient=sky_gradient)
+    if caps == ():
+        return pass_fn(flat, cam, seed, sample_start, **common)
+    n_pix = width * height
+    rad = perm = st = pix_abs = None
+    for cap_i in caps:
+        if st is None:
+            rad, st = pass_fn(flat, cam, seed, sample_start, cap=cap_i,
+                              **common)
+            n_lanes = rad.shape[1]
+            pix_abs = _identity_pixels(n_lanes, n_pix, rad.device)
+            perm = torch.arange(n_lanes, device=rad.device)
+        else:
+            r, st = pass_fn(flat, cam, seed, sample_start,
+                            pix_lanes=pix_abs[perm], carry=st, cap=cap_i,
+                            **common)
+            rad.index_add_(1, perm, r)
+        key = torch.where(st[0] > 0.5, n_samples - st[3],
+                          torch.full_like(st[3], -1.0))
+        order = torch.argsort(-key, stable=True)
+        perm = perm[order]
+        st = st[:, order]
+    r = pass_fn(flat, cam, seed, sample_start, pix_lanes=pix_abs[perm],
+                carry=st, **common)
+    rad.index_add_(1, perm, r)
+    return _image_from_lanes(rad, width, height)
+

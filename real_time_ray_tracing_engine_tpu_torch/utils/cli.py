@@ -1,0 +1,133 @@
+"""Command line: the static render (reference src/input/CLI.cpp:4-126).
+
+    python -m real_time_ray_tracing_engine_tpu_torch --scene cornell_box
+
+renders the scene at its own settings (the reference default: 600x600,
+100 spp, depth 50; CLI.hpp:11-13) on the GPU and writes
+output/<--output>.ppm. --device cpu renders on the CPU instead; without it
+a missing GPU is an error. The progressive, sharded, BVH and debug modes of
+the JAX package's CLI are not ported yet: their flags exit with a message.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+NOT_PORTED = {
+    "parallel": "-p/--parallel (sharded multi-device render)",
+    "bvh": "-b/--bvh (SAH BVH build)",
+    "debug": "-d/--debug (flat-scene dump and complexity report)",
+    "view": "--view (interactive terminal viewer)",
+    "checkpoint": "--checkpoint (progressive checkpoints)",
+    "frames": "--frames (progressive rendering)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="real_time_ray_tracing_engine_tpu_torch",
+        description="Monte-Carlo path tracer on PyTorch + CUDA")
+    p.add_argument("--camera", choices=["static", "dynamic"], default="static",
+                   help="static: render to PPM (dynamic is not ported yet)")
+    p.add_argument("--output", default="output_image",
+                   help="output file stem (written to output/<name>.ppm)")
+    p.add_argument("--scene", default="cornell_box",
+                   help="builtin scene name or scene JSON path")
+    p.add_argument("--width", type=int, default=None,
+                   help="image width (default: scene's, reference default 600)")
+    p.add_argument("--samples", type=int, default=None,
+                   help="samples per pixel (reference default 100)")
+    p.add_argument("--depth", type=int, default=None,
+                   help="max bounce depth (reference default 50)")
+    p.add_argument("--engine", choices=["auto", "cuda", "torch"],
+                   default="auto",
+                   help="compute path: the CUDA megakernel or the plain "
+                        "torch integrator (auto: the kernel on a GPU, where "
+                        "a scene outside its gate is an error; the plain "
+                        "integrator on the CPU)")
+    p.add_argument("--schedule", choices=["auto", "single", "compacted"],
+                   default="auto",
+                   help="kernel schedule: single pass or capped + "
+                        "lane-compacted (auto: compacted for >=8 samples "
+                        "per pass)")
+    p.add_argument("--caps", type=str, default=None,
+                   help="explicit compacted-schedule phase caps, e.g. "
+                        "'20,20'")
+    p.add_argument("--seed", type=int, default=0, help="RNG seed")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu must be asked for)")
+    p.add_argument("-p", "--parallel", action="store_true",
+                   help="not ported yet")
+    p.add_argument("-b", "--bvh", action="store_true", help="not ported yet")
+    p.add_argument("-d", "--debug", action="store_true",
+                   help="not ported yet")
+    p.add_argument("--view", action="store_true", help="not ported yet")
+    p.add_argument("--checkpoint", default=None, help="not ported yet")
+    p.add_argument("--frames", type=int, default=None, help="not ported yet")
+    return p
+
+
+def load_scene_arg(name: str):
+    from ..scene import builders
+    from ..scene.schema import load_scene
+    if name in builders.BUILTIN_SCENES:
+        return builders.BUILTIN_SCENES[name]()
+    if os.path.exists(name):
+        return load_scene(name)
+    raise SystemExit(
+        f"unknown scene {name!r}; builtins: "
+        f"{', '.join(sorted(builders.BUILTIN_SCENES))}")
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    asked = [msg for flag, msg in NOT_PORTED.items()
+             if getattr(args, flag) not in (False, None)]
+    if args.camera == "dynamic":
+        asked.insert(0, "--camera dynamic (progressive rendering)")
+    if asked:
+        parser.exit(2, f"{parser.prog}: error: not yet ported: "
+                       f"{'; '.join(asked)}\n")
+
+    import torch
+    from ..models.render import render, resolve_device
+    from ..utils.color import write_ppm
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        parser.exit(2, f"{parser.prog}: error: {e}\n")
+
+    scene = load_scene_arg(args.scene)
+    if args.width:
+        scene.camera.image_width = args.width
+    if args.samples:
+        scene.camera.samples_per_pixel = args.samples
+    if args.depth:
+        scene.camera.max_depth = args.depth
+    caps = (tuple(int(c) for c in args.caps.split(","))
+            if args.caps else None)
+
+    os.makedirs("output", exist_ok=True)
+    out_path = os.path.join("output", args.output + ".ppm")
+    t0 = time.time()
+    # batch size follows the schedule: auto/compacted need >= 8 samples
+    # per pass to take the compacted schedule
+    spb = 4 if args.schedule == "single" else 16
+    img = render(scene, device=device, seed=args.seed,
+                 engine=args.engine, schedule=args.schedule,
+                 samples_per_batch=spb, caps=caps,
+                 progress=lambda s, t: print(f"\r[INFO] sample {s}/{t}",
+                                             end="", file=sys.stderr))
+    print(file=sys.stderr)
+    finite = bool(torch.isfinite(img).all())
+    write_ppm(out_path, img)
+    dt = time.time() - t0
+    print(f"[INFO] wrote {out_path} in {dt:.1f}s", file=sys.stderr)
+    if not finite:
+        print("[ERROR] the image holds non-finite radiance", file=sys.stderr)
+        return 1
+    return 0

@@ -1,0 +1,140 @@
+"""The CUDA wavefront kernel on the card, against its plain torch version.
+
+These need an NVIDIA GPU and nvcc: each test skips where
+torch.cuda.is_available() is False. This file imports neither JAX nor
+tests/conftest.py's JAX setup, so it runs on a machine without JAX:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+The kernel and the plain version draw the same PCG4D streams and round
+alike (the kernel is built with --fmad=false), so the per-pixel rule of
+tests/test_pallas.py::_assert_close holds with room to spare.
+"""
+import numpy as np
+import pytest
+import torch
+
+import real_time_ray_tracing_engine_tpu_torch as pt
+from real_time_ray_tracing_engine_tpu_torch.models import camera as pcam
+from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is "
+                    "False")
+    return torch.device("cuda", 0)
+
+
+def _pass_args(name, device, width=64, spp=4, depth=8):
+    scene = pt.builders.BUILTIN_SCENES[name]()
+    scene.camera.image_width = width
+    flat = pt.compile_scene(scene, device=device)
+    cam = pcam.derive(scene.camera, device=device)
+    w, h = pcam.image_size(scene.camera)
+    n_strata = int(np.sqrt(spp))
+    kw = dict(width=w, height=h, n_strata=n_strata, max_depth=depth,
+              n_samples=spp, sky_gradient=scene.camera.sky_gradient)
+    return flat, cam, kw
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "cornell_smoke",
+                                  "simple_sphere"])
+def test_kernel_matches_plain(name, cuda_device):
+    flat, cam, kw = _pass_args(name, cuda_device)
+    before = wc.render_pass_kernel.launches
+    kern = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
+    torch.cuda.synchronize()
+    assert wc.render_pass_kernel.launches == before + 1
+    plain = wc.render_pass_reference(flat, cam, 7, 0, **kw)
+    k, p = kern.cpu().numpy(), plain.cpu().numpy()
+    assert np.isfinite(k).all()
+    diff = np.abs(k - p)
+    assert (diff > 1e-3).mean() < 0.01, diff.max()
+    assert abs(k.mean() - p.mean()) < 2e-3
+
+
+def test_kernel_carry_matches_plain(cuda_device):
+    """cap / carry / pix_lanes: the kernel's 14-row carry after a capped
+    pass is the plain version's, and a resumed pass under a permutation
+    gives the same radiance."""
+    flat, cam, kw = _pass_args("cornell_box", cuda_device)
+    rk, sk = wc.render_pass_kernel(flat, cam, 7, 3, cap=5, **kw)
+    rp, sp = wc.render_pass_reference(flat, cam, 7, 3, cap=5, **kw)
+    np.testing.assert_allclose(sk.cpu().numpy(), sp.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    perm = torch.randperm(rk.shape[1], device=cuda_device,
+                          generator=torch.Generator(device=cuda_device)
+                          .manual_seed(0))
+    pix = torch.clamp(torch.arange(rk.shape[1], device=cuda_device),
+                      max=kw["width"] * kw["height"] - 1)[perm]
+    r2k = wc.render_pass_kernel(flat, cam, 7, 3, carry=sk[:, perm],
+                                pix_lanes=pix, **kw)
+    r2p = wc.render_pass_reference(flat, cam, 7, 3, carry=sp[:, perm],
+                                   pix_lanes=pix, **kw)
+    np.testing.assert_allclose(r2k.cpu().numpy(), r2p.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "cornell_smoke"])
+def test_kernel_compacted_matches_single(name, cuda_device):
+    flat, cam, kw = _pass_args(name, cuda_device, width=40)
+    one = wc.render_pass(flat, cam, 7, 3, **kw).cpu().numpy()
+    for sched in ({"cap": 6}, {"cap": 6, "phases": 3}, {"caps": (4, 4)}):
+        two = wc.render_pass_compacted(flat, cam, 7, 3, **sched, **kw)
+        assert np.allclose(one, two.cpu().numpy(), atol=1e-5), sched
+
+
+def test_kernel_rejects_bad_inputs(cuda_device):
+    flat, cam, kw = _pass_args("cornell_box", cuda_device, width=16)
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    with pytest.raises(ValueError, match="carry"):
+        wc.render_pass_kernel(flat, cam, 0, 0, carry=torch.zeros(
+            wc.CARRY_ROWS, n_lanes + 1, device=cuda_device), **kw)
+    many = pt.Scene(objects=[pt.ConstantMedium(
+        pt.Box((i, 0, 0), (i + 1, 1, 1),
+               pt.Lambertian(pt.SolidColor((1, 1, 1)))),
+        0.1, pt.SolidColor((1, 1, 1))) for i in range(5)])
+    gated = pt.compile_scene(many, device=cuda_device)
+    with pytest.raises(ValueError, match="gate"):
+        wc.render_pass_kernel(gated, cam, 0, 0, **kw)
+
+
+def test_prepared_inputs_give_the_same_pass(cuda_device):
+    """Packing the scene once per render changes no pixel."""
+    flat, cam, kw = _pass_args("cornell_smoke", cuda_device, width=32)
+    prep = wc.prepare_kernel(flat, cam)
+    once = wc.render_pass_kernel(flat, cam, 2, 0, **kw)
+    reused = wc.render_pass_kernel(flat, cam, 2, 0, prepared=prep, **kw)
+    np.testing.assert_array_equal(reused.cpu().numpy(), once.cpu().numpy())
+
+
+def test_render_auto_outside_the_gate_raises(cuda_device):
+    """No silent plain engine on the card: a scene the kernel cannot take
+    raises under auto and renders only with engine="torch"."""
+    scene = pt.Scene(objects=[
+        pt.Sphere((3.0 * i, 0, 0), 1.0,
+                  pt.Lambertian(pt.SolidColor((1, 1, 1))))
+        for i in range(80)])
+    scene.camera.image_width = 8
+    scene.camera.samples_per_pixel = 1
+    scene.camera.max_depth = 2
+    with pytest.raises(ValueError, match="K6 vscan"):
+        pt.render(scene, device=cuda_device)
+    img = pt.render(scene, device=cuda_device, engine="torch")
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+
+
+def test_render_auto_runs_the_kernel(cuda_device):
+    scene = pt.builders.cornell_box()
+    scene.camera.image_width = 32
+    scene.camera.samples_per_pixel = 16
+    before = wc.render_pass_kernel.launches
+    calls = wc.render_pass_reference.calls
+    img = pt.render(scene, device=cuda_device)
+    assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+    assert wc.render_pass_kernel.launches > before
+    assert wc.render_pass_reference.calls == calls
