@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA device and the
-CUDA toolkit (nvcc). It builds the port's CUDA kernel from
-real_time_ray_tracing_engine_tpu_torch/csrc/, checks it against its plain
-torch version on the card, drives the port's main path (the CLI's Cornell
-box render at 600x600, 100 spp, depth 50) and checks the image against the
-reference engine's goldens. Every phase prints one JSON line; any failure
-raises and the script exits non-zero. The last lines are the kernel table,
-the card's name and power limit, and {"ok": true, "device": {...}}.
+CUDA toolkit (nvcc). It builds the port's CUDA kernels from
+real_time_ray_tracing_engine_tpu_torch/csrc/, checks each against its plain
+torch version on the card, and drives the port's two main paths: the CLI's
+Cornell box render (600x600, 100 spp, depth 50), checked against the
+reference engine's goldens, and the tex_color training step (Cornell
+1920x1080, 64 spp, depth 50, Adam), whose loss must fall. Every phase
+prints one JSON line; any failure raises and the script exits non-zero. The
+last lines are the kernel table, the card's name and power limit, and
+{"ok": true, "device": {...}}.
 
 It never imports JAX: the port stands alone on the GPU machine.
 """
@@ -28,6 +30,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "real_time_ray_tracing_engine_tpu_torch"
 KERNEL_SOURCE = f"{PKG}/csrc/wavefront.cu"
+# the JAX package's one pl.pallas_call; the forward kernel replaces its K1/K2
+# variants, the grad kernel its grad_tex weight-plane variant (K3, K5)
 TPU_KERNEL = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:3604"
 GOLDEN_DIR = ROOT / "tests" / "goldens" / "reference"
 
@@ -41,6 +45,34 @@ COMPACT_ATOL = 1e-5
 CELL, ALLCLOSE_TOL = 10, 0.04
 REF_SCENES = {"cornell_box": (36, 0.015, 0.95),
               "cornell_smoke": (36, 0.015, 0.95)}
+# dG_tex, kernel against plain and compacted against single: within 1e-4 of
+# its largest entry. The sums over lanes run in another order (per-block
+# shuffle trees and a sum of block rows against one torch sum; phases), so
+# they agree to rounding, not bit for bit.
+DG_RTOL = 1e-4
+# the training main path: Cornell at the JAX package's fwd+bwd benchmark
+# shape (bench.py:122-198), tex_color only, from the three wall rows dimmed
+TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_DEPTH = 1920, 1080, 64, 50
+TRAIN_STEPS, TRAIN_LR, TRAIN_SEED = 4, 0.02, 0
+WALL_ROWS = [0, 1, 2]     # Cornell's green, red and white texture rows
+
+# Operations of one bounce of the kernel on a Lambertian hit, counted by
+# hand from csrc/wavefront.cu (each add, multiply, divide, compare, min/max,
+# sqrt and transcendental is one; the RNG's 32-bit integer ops are counted
+# at the same rate). Ray generation (once per sample) is left out, and so is
+# everything a bounce does not need on Cornell's walls: a lower bound.
+OPS_RNG = 126             # 9 draws: 3 PCG4D blocks of 32 ops, +10 each
+OPS_HIT = 17              # dot(d, d), the hit point and normal
+OPS_SPHERE = 37           # moving center, roots, nearest-root selection
+OPS_QUAD = 59             # plane t, the inside test, range compares
+OPS_SHADE = 91            # ONB (40), cosine sample (35), pdfs and MIS
+                          # weight (10), throughput update (6)
+OPS_LIGHT_PDF = {"sphere": 55, "quad": 62}       # per light, every bounce
+OPS_LIGHT_SAMPLE = {"sphere": 100, "quad": 25}   # one light, half the time
+OPS_PLANE = 4             # grad: one weight plane's update at a scatter
+PEAK_FP32 = 67e12         # H100 SXM fp32 outside the tensor cores (with
+                          # FMA counted as two; the kernel is built
+                          # --fmad=false, so it can reach half of this)
 
 
 class SmokeFailure(RuntimeError):
@@ -163,6 +195,48 @@ def pass_args(pt, scene, dev):
     return flat, cam, kw
 
 
+def cornell_1080p(pt, spp, depth):
+    """Cornell at 1920x1080 (bench.py:132-137)."""
+    scene = builtin(pt, "cornell_box", TRAIN_W, spp, depth)
+    scene.camera.aspect_ratio = TRAIN_W / TRAIN_H
+    return scene
+
+
+def cotangent(torch, kw, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(kw["height"], kw["width"], 3, generator=gen,
+                       device=dev)
+
+
+def bounce_ops(flat, grad: bool) -> float:
+    """Operations of one Lambertian bounce on `flat` (see OPS_*)."""
+    kinds = ["sphere" if bool(x) else "quad" for x in
+             (flat.light_prim < flat.sph_center.shape[0]).tolist()]
+    ops = (OPS_RNG + OPS_HIT + OPS_SHADE
+           + OPS_SPHERE * int(flat.sph_active.sum())
+           + OPS_QUAD * int(flat.quad_active.sum())
+           + sum(OPS_LIGHT_PDF[k] for k in kinds)
+           + 0.5 * sum(OPS_LIGHT_SAMPLE[k] for k in kinds) / len(kinds))
+    if grad:
+        ops += OPS_PLANE * 3 * flat.tex_type.shape[0]
+    return float(ops)
+
+
+def bound_ms(flat, grad: bool, bounces: int) -> float:
+    """The least time the card could take for `bounces` bounces: operations
+    over the fp32 peak. Bytes are negligible beside it (a few floats per
+    lane, tables in shared memory)."""
+    return bounce_ops(flat, grad) * bounces / PEAK_FP32 * 1e3
+
+
+def counted_bounces(torch, run, n_lanes, dev) -> int:
+    """Bounces a kernel run traces, from the wrappers' iteration counter
+    (an untimed run; the counter is off in the timed ones)."""
+    iters = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    run(iters)
+    return int(iters.sum())
+
+
 def pool(img, cell):
     h, w, _ = img.shape
     hc, wc = h // cell * cell, w // cell * cell
@@ -182,6 +256,7 @@ def main() -> int:
     from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
     from real_time_ray_tracing_engine_tpu_torch.models import render as rd
     from real_time_ray_tracing_engine_tpu_torch.utils import cli
+    from real_time_ray_tracing_engine_tpu_torch.parallel import train
     check("jax" not in sys.modules, "the port imported jax")
     dev = torch.device("cuda", 0)
 
@@ -214,6 +289,63 @@ def main() -> int:
         emit("parity", scene=name, **{k: v for k, v in kw.items()
                                       if k != "sky_gradient"}, **stats)
         assert_close(name, stats)
+
+    # 3b. the grad kernel (K3) vs its plain version on the card: the image
+    # per pixel (and bit for bit the forward kernel's), dG_tex to DG_RTOL of
+    # its largest entry, and the bounces each traced. The last case is the
+    # training main path's image and depth at 4 of its 64 samples: the
+    # plain version would take minutes at 64.
+    grad_parity = [
+        ("cornell_box", builtin(pt, "cornell_box", 128, 16, 50)),
+        ("cornell_smoke", builtin(pt, "cornell_smoke", 96, 4, 16)),
+        ("cornell_box_1920x1080", cornell_1080p(pt, 4, 50))]
+    grad_err = {}
+    for name, scene in grad_parity:
+        flat, cam, kw = pass_args(pt, scene, dev)
+        g = cotangent(torch, kw, dev, 5)
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        it_k = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        it_p = torch.zeros_like(it_k)
+        img_k, dg_k = wc.render_pass_grad_kernel(flat, cam, 7, 0,
+                                                 cotangent=g, iters=it_k,
+                                                 **kw)
+        fwd = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
+        out = {}
+
+        def plain():
+            out["plain"] = wc.render_pass_grad_reference(
+                flat, cam, 7, 0, cotangent=g, iters=it_p, **kw)
+        plain_ms = cuda_ms(torch, plain, reps=1, warmup=0)
+        img_p, dg_p = out["plain"]
+        stats = per_pixel(img_k, img_p)
+        scale = float(dg_p.abs().max())
+        dg_err = float((dg_k - dg_p).abs().max())
+        vs_fwd = float((img_k - fwd).abs().max())
+        bk, bp = int(it_k.sum()), int(it_p.sum())
+        rec = {"scene": name, **{k: v for k, v in kw.items()
+                                 if k != "sky_gradient"}, **stats,
+               "dg_max_abs_err": dg_err, "dg_scale": scale,
+               "vs_forward_max_abs_err": vs_fwd, "kernel_bounces": bk,
+               "plain_bounces": bp, "plain_ms": plain_ms}
+        if name == "cornell_box":
+            def kern():
+                wc.render_pass_grad_kernel(flat, cam, 7, 0, cotangent=g,
+                                           **kw)
+            rec["kernel_ms"] = cuda_ms(torch, kern)
+            grad_err["plain_ms"] = plain_ms
+            grad_err["plain_ms_at"] = "cornell_box 128x128 spp16 d50"
+        grad_err[name] = {"image": stats["max_abs_err"], "dg": dg_err}
+        emit("grad_parity", **rec)
+        assert_close(f"{name} grad", stats)
+        check(bool(torch.isfinite(dg_k).all()), f"{name}: dG_tex not finite")
+        check(scale > 0.0, f"{name}: the plain dG_tex is all zero")
+        check(dg_err <= DG_RTOL * scale,
+              f"{name}: dG_tex differs by {dg_err} (limit {DG_RTOL} x "
+              f"{scale})")
+        check(vs_fwd <= 1e-6, f"{name}: the grad pass's image differs "
+              f"from the forward kernel's by {vs_fwd}")
+        check(abs(bk - bp) <= 1e-4 * bp,
+              f"{name}: kernel traced {bk} bounces, plain {bp}")
 
     # 4. compacted vs single pass, both on the kernel
     for name in ("cornell_box", "cornell_smoke"):
@@ -263,6 +395,60 @@ def main() -> int:
          ppm_mean_byte=float(ppm.mean()), kernel_launches=launches,
          plain_calls=plain_calls, cli_wall_s=cli_s, render_s=render_s,
          mpaths_per_s=paths / render_s / 1e6)
+
+    # 5b. the second main path: tex_color training at 1920x1080 spp64 d50
+    # through make_train_step on the kernels (forward K1/K2 compacted, grad
+    # K3 under the compacted driver K5), Adam from the wall rows dimmed to
+    # 0.7 toward the kernel's image at the true colors. Step i's loss is
+    # the loss after i updates.
+    tflat, tcam, tkw = pass_args(
+        pt, cornell_1080p(pt, TRAIN_SPP, TRAIN_DEPTH), dev)
+    tkw.pop("n_samples")
+    target = train.make_kernel_render(tflat, engine="cuda", **tkw)(
+        {"tex_color": tflat.tex_color}, tcam, TRAIN_SEED).detach()
+    tc = tflat.tex_color.clone()
+    tc[WALL_ROWS] *= 0.7
+    params = {"tex_color": tc.requires_grad_(True)}
+    step = train.make_train_step(
+        torch.optim.Adam(params.values(), lr=TRAIN_LR), flat=tflat,
+        engine="cuda", **tkw)
+    losses, step_s = [], []
+    wc.render_pass_kernel.launches = 0
+    wc.render_pass_grad_kernel.launches = 0
+    wc.render_pass_reference.calls = 0
+    wc.render_pass_grad_reference.calls = 0
+    rd._render_pass.calls = 0
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, tcam, TRAIN_SEED, target)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        check(bool(torch.isfinite(params["tex_color"].grad).all()),
+              "training: a gradient is not finite")
+    train_fwd = wc.render_pass_kernel.launches
+    train_grad = wc.render_pass_grad_kernel.launches
+    train_plain = (wc.render_pass_reference.calls
+                   + wc.render_pass_grad_reference.calls
+                   + rd._render_pass.calls)
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    train_paths = TRAIN_W * TRAIN_H * TRAIN_SPP
+    emit("train_main_path", shape=f"{TRAIN_W}x{TRAIN_H} spp{TRAIN_SPP} "
+         f"d{TRAIN_DEPTH}", fields=["tex_color"], optimizer="Adam",
+         lr=TRAIN_LR, losses=losses, step_s=step_s, median_step_s=steady,
+         fwd_bwd_mpaths_per_s=train_paths / steady / 1e6,
+         first_step_mpaths_per_s=train_paths / step_s[0] / 1e6,
+         forward_launches=train_fwd, grad_launches=train_grad,
+         plain_calls=train_plain,
+         tex_color=params["tex_color"].detach().cpu().tolist())
+    check(all(math.isfinite(x) for x in losses), "training: loss not finite")
+    check(losses[-1] < losses[0], f"training: the loss did not fall {losses}")
+    check(train_grad >= TRAIN_STEPS, "training: the grad kernel ran "
+          f"{train_grad} times in {TRAIN_STEPS} steps")
+    check(train_fwd >= TRAIN_STEPS, "training: the forward kernel ran "
+          f"{train_fwd} times in {TRAIN_STEPS} steps")
+    check(train_plain == 0, "training ran the plain torch engine")
 
     # 6. reference images (tests/test_reference_images.py's pooled rule)
     for name, (spp, mean_tol, min_rate) in REF_SCENES.items():
@@ -351,12 +537,90 @@ def main() -> int:
             assert_close("cornell_box 600x600 spp16 d50 compacted",
                          comp_stats)
 
+    # 7b. the grad kernel at the training main path's shape, 1920x1080
+    # spp64 d50: single and compacted (K5, the default grad caps), timed,
+    # and the compacted image and dG_tex held against the single pass; the
+    # forward's compacted schedule beside it, the other half of a step
+    gflat, gcam, gkw = pass_args(
+        pt, cornell_1080p(pt, TRAIN_SPP, TRAIN_DEPTH), dev)
+    gprep = wc.prepare_kernel(gflat, gcam)
+    grad_pass = functools.partial(wc.render_pass_grad_kernel,
+                                  prepared=gprep)
+    g = cotangent(torch, gkw, dev, 6)
+    out = {}
+
+    def grad_single():
+        out["single"] = grad_pass(gflat, gcam, 0, 0, cotangent=g, **gkw)
+
+    def grad_compacted():
+        out["compacted"] = wc.render_pass_grad_compacted(
+            gflat, gcam, 0, 0, cotangent=g, pass_fn=grad_pass, **gkw)
+
+    def forward_compacted():
+        wc.render_pass_compacted(
+            gflat, gcam, 0, 0, pass_fn=functools.partial(
+                wc.render_pass_kernel, prepared=gprep), **gkw)
+
+    t_gsingle = cuda_ms(torch, grad_single)
+    t_gcomp = cuda_ms(torch, grad_compacted)
+    t_fcomp = cuda_ms(torch, forward_compacted)
+    (img1, dg1), (img2, dg2) = out["single"], out["compacted"]
+    k5_img_err = float((img1 - img2).abs().max())
+    k5_scale = float(dg1.abs().max())
+    k5_dg_err = float((dg1 - dg2).abs().max())
+    n_lanes = wc.lane_count(gkw["width"] * gkw["height"])
+    g_bounces = counted_bounces(
+        torch, lambda it: grad_pass(gflat, gcam, 0, 0, cotangent=g,
+                                    iters=it, **gkw), n_lanes, dev)
+    g_bound = bound_ms(gflat, True, g_bounces)
+    emit("grad_times", card=card, shape=f"{TRAIN_W}x{TRAIN_H} spp"
+         f"{TRAIN_SPP} d{TRAIN_DEPTH}",
+         caps=list(wc.default_grad_caps(gflat, TRAIN_W, TRAIN_H, TRAIN_SPP,
+                                        TRAIN_DEPTH)),
+         single_ms=t_gsingle, compacted_ms=t_gcomp,
+         forward_compacted_ms=t_fcomp,
+         single_mpaths_per_s=train_paths / t_gsingle / 1e3,
+         compacted_mpaths_per_s=train_paths / t_gcomp / 1e3,
+         compacted_vs_single_image_max_abs_err=k5_img_err,
+         compacted_vs_single_dg_max_abs_err=k5_dg_err, dg_scale=k5_scale,
+         bounces=g_bounces, ops_per_bounce=bounce_ops(gflat, True),
+         bound_ms=g_bound)
+    check(np.allclose(img1.cpu().numpy(), img2.cpu().numpy(),
+                      atol=COMPACT_ATOL),
+          f"1920x1080 spp64 grad: compacted image differs from single by "
+          f"{k5_img_err}")
+    check(k5_dg_err <= DG_RTOL * k5_scale,
+          f"1920x1080 spp64 grad: compacted dG_tex differs by {k5_dg_err} "
+          f"(limit {DG_RTOL} x {k5_scale})")
+
+    # the forward kernel's bound at its timed shape (600x600 spp16 d50)
+    fflat, fcam, fkw = pass_args(pt, builtin(pt, "cornell_box", 600, 16, 50),
+                                 dev)
+    f_bounces = counted_bounces(
+        torch, lambda it: wc.render_pass_kernel(fflat, fcam, 0, 0, iters=it,
+                                                **fkw),
+        wc.lane_count(fkw["width"] * fkw["height"]), dev)
+    f_bound = bound_ms(fflat, False, f_bounces)
+    emit("forward_bound", shape="600x600 spp16 d50", bounces=f_bounces,
+         ops_per_bounce=bounce_ops(fflat, False), bound_ms=f_bound)
+
     print(json.dumps({"kernels": [{
         "name": "wavefront_forward_kernel", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
         "launches": launches, "max_abs_err": main_err,
-        "ms": times[16]["single_ms"], "plain_ms": times[16]["plain_ms"]}]}),
-        flush=True)
+        "ms": times[16]["single_ms"], "plain_ms": times[16]["plain_ms"],
+        "bound_ms": f_bound, "bound_by": "operations", "library_ms": None,
+        "ms_at": "cornell_box 600x600 spp16 d50"}, {
+        "name": "wavefront_grad_kernel", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+        "launches": train_grad,
+        "max_abs_err": grad_err["cornell_box_1920x1080"]["dg"],
+        "ms": t_gsingle, "plain_ms": grad_err["plain_ms"],
+        "bound_ms": g_bound, "bound_by": "operations", "library_ms": None,
+        "ms_at": f"cornell_box {TRAIN_W}x{TRAIN_H} spp{TRAIN_SPP} "
+                 f"d{TRAIN_DEPTH}",
+        "plain_ms_at": grad_err["plain_ms_at"],
+        "compacted_ms": t_gcomp}]}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

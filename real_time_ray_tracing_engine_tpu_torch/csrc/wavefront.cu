@@ -1,9 +1,13 @@
-// Persistent-lane forward path-tracing megakernel for Hopper (sm_90a).
+// Persistent-lane path-tracing megakernel for Hopper (sm_90a): the forward
+// pass and the forward-mode tex_color gradient pass, one bounce body.
 //
 // Replaces: real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py
-//   _make_kernel, unrolled-prim forward variant (K1) and its capped/resume
-//   variant (K2), both reached through the one pl.pallas_call at line 3604
-//   of _render_pass_pallas.
+//   _make_kernel, reached through the one pl.pallas_call at line 3604 of
+//   _render_pass_pallas, in three variants: the unrolled-prim forward (K1),
+//   its capped/resume variant (K2), and grad_tex=True with want_tex and
+//   NT <= 32, the weight-plane tier (K3: 865-873, 2347-2349, 2565-2603,
+//   3192-3204, 3249-3263), which the compacted grad driver runs capped and
+//   resumed (K5, 3807-3888; driver in ops/wavefront_cuda.py).
 //
 // Shape: one thread per lane (pixel), the reference engine's own
 //   static_render_kernel shape (CameraKernels.cu:240-278). Each thread loops
@@ -21,16 +25,31 @@
 //   freezes once its work is done, so its carry after `cap` iterations is
 //   the Pallas per-tile loop's, lane for lane.
 //
+// Gradient (K3): wavefront_body<true, NTMAX> is the same bounce with the
+//   weight planes Wp (3*NTMAX floats a thread, d throughput / d tex_color,
+//   reset on regeneration, appended to the carry as rows 14..14+3NT) and
+//   their cotangent sums Gp (3*NTMAX floats), both indexed by constants
+//   after unrolling. The image is the forward's, bit for bit: the same
+//   code traces the same paths. At the end Gp is reduced over the block
+//   (warp shuffles, then the 4 warps in order) into one partial row per
+//   block; the wrapper sums the rows. No float atomics, so dG_tex is the
+//   same on every run. NTMAX is 8 (Cornell: NT = 6) or 16 (the gate's
+//   MAX_TEXS).
+//
 // RNG: the PCG4D counter hash keyed per (pixel, absolute sample, mixed
 //   seed) with the tags camera 0x0CA4, bounce 0x4000000 + b and medium
 //   1000000 + b, bit-identical to utils/rng.py, so the kernel and its plain
 //   torch version draw the same numbers and compare per pixel.
 //
-// What bounds it on the card: ALU work and branch divergence in
-//   intersection and shading (lanes of a warp take different material
-//   branches and finish their paths at different times). The tables sit in
-//   shared memory, so device-memory traffic is negligible: 12 floats read
-//   and 3 (or 17) written per lane.
+// What bounds it on the card: operations. Intersection, shading, the light
+//   sample and the RNG are fp32 and integer ALU work on data in registers
+//   and shared memory, with branch divergence (lanes of a warp take
+//   different material branches and finish their paths at different
+//   times); device-memory traffic is negligible: 12 floats read and 3 (or
+//   17) written per lane, plus 3 cotangent floats and 3*NT carry floats
+//   each way in the grad pass. The grad pass adds 3*NTMAX multiply-adds
+//   per radiance event and per scatter, and Wp may spill to local memory
+//   (ptxas reports it at build).
 // What this first design does about it: nothing yet. It is the simple,
 //   correct version; speed is later work.
 //
@@ -79,7 +98,7 @@ struct WfParams {
     int n_lanes, n_pix, width, n_strata, max_depth, n_samples, sample_start;
     unsigned int seed_mix, perlin_seed;
     int sky_gradient, has_noise, checker_depth, cap;
-    int S, Q, L, M, MS, MQ;
+    int S, Q, L, M, MS, MQ, NT;
     int off_sph, off_quad, off_pmat, off_light, off_mati, off_matf, off_tex,
         off_med, med_cols, n_table;
     float inv_strata;
@@ -206,8 +225,10 @@ struct Scene {
     uint32_t perlin_seed;
 };
 
-// (ops/textures.py) descend nested checkers to a solid or noise leaf
-__device__ V3 texture_value(const Scene& sc, int row, V3 p) {
+// (ops/textures.py) descend nested checkers to a solid or noise leaf; *eff
+// gets the leaf's row, the tex_color row the color depends on, or -1 for a
+// noise leaf (textures.effective_row)
+__device__ V3 texture_value(const Scene& sc, int row, V3 p, int* eff) {
     for (int lvl = 0; lvl < sc.checker_depth; ++lvl) {
         const float* t = sc.tex + row * TEX_COLS;
         if (t[4] > 0.5f) {
@@ -223,8 +244,10 @@ __device__ V3 texture_value(const Scene& sc, int row, V3 p) {
     if (sc.has_noise && t[13] > 0.5f) {
         float turb = turbulence3(p.x, p.y, p.z, sc.perlin_seed);
         float g = 0.5f * (1.0f + sinf(t[3] * p.z + 10.0f * turb));
+        *eff = -1;
         return v3(g, g, g);
     }
+    *eff = row;
     return ld3(t);
 }
 
@@ -499,21 +522,34 @@ __device__ void gen_ray(const WfParams& P, const float* cam, uint32_t k0,
     tm = u[4];
 }
 
-extern "C" __global__ void __launch_bounds__(WF_THREADS)
-wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
-                         const int* __restrict__ pix_lanes,
-                         const float* __restrict__ carry_in,
-                         float* __restrict__ rad_out,
-                         float* __restrict__ carry_out) {
-    extern __shared__ float smem[];
-    __shared__ float cam[22];
+// the scene tables, copied in at block start (dynamic shared memory)
+extern __shared__ float wf_tables[];
+
+// One thread's lane: its samples and bounces, in registers. GRAD adds the
+// tex_color weight planes of the JAX kernel's grad_tex variant
+// (wavefront_pallas.py:2347-2349, 2392-2395, 2565-2603): Wp[3t+c] =
+// d th_c / d tex_color[t][c] rides the lane's path state (and the carry,
+// rows 14..14+3NT), and Gp[3t+c] accumulates g_c * d(radiance_c)/d tex at
+// each radiance event, g the lane's cotangent. NTMAX is the compile-time
+// bound of NT, so every plane index is a constant after unrolling.
+// `red` is the block's (WF_THREADS / 32, 3 * NTMAX) shared scratch of the
+// end-of-pass reduction (GRAD only).
+template <bool GRAD, int NTMAX>
+__device__ __forceinline__ void wavefront_body(
+        const WfParams& P, const float* __restrict__ tables,
+        const int* __restrict__ pix_lanes,
+        const float* __restrict__ carry_in, const float* __restrict__ cot,
+        float* __restrict__ rad_out, float* __restrict__ carry_out,
+        float* __restrict__ dg_out, int* __restrict__ iters_out,
+        float* smem, float* cam, float* red) {
     for (int i = threadIdx.x; i < P.n_table; i += blockDim.x)
         smem[i] = tables[i];
     if (threadIdx.x < 22) cam[threadIdx.x] = P.cam[threadIdx.x];
     __syncthreads();
 
+    // the entry points launch whole blocks of lanes only (the grad pass
+    // reduces across the block, so no thread may leave early)
     const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= P.n_lanes) return;
     const int N = P.n_lanes;
 
     Scene sc;
@@ -565,7 +601,26 @@ wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
     V3 rad = v3(0.0f, 0.0f, 0.0f);
     const V3 bg = v3(cam[19], cam[20], cam[21]);
 
-    for (int it = 0; work && (P.cap == 0 || it < P.cap); ++it) {
+    // weight planes (path state) and their cotangent sums (per pass);
+    // planes t >= NT stay 0: no hit reads their row
+    float Wp[GRAD ? 3 * NTMAX : 1];
+    float Gp[GRAD ? 3 * NTMAX : 1];
+    float gc[3] = {0.0f, 0.0f, 0.0f};
+    if constexpr (GRAD) {
+        const int n_wp = 3 * P.NT;
+#pragma unroll
+        for (int k = 0; k < 3 * NTMAX; ++k) {
+            Wp[k] = (carry_in && k < n_wp) ? carry_in[(14 + k) * N + lane]
+                                           : 0.0f;
+            Gp[k] = 0.0f;
+        }
+        gc[0] = cot[0 * N + lane];
+        gc[1] = cot[1 * N + lane];
+        gc[2] = cot[2 * N + lane];
+    }
+
+    int it = 0;
+    for (; work && (P.cap == 0 || it < P.cap); ++it) {
         // a finished path restarts on the pixel's next stratified sample
         if (!alive) {
             sample += 1;
@@ -574,6 +629,11 @@ wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
             th = v3(1.0f, 1.0f, 1.0f);
             bounce = 0;
             alive = true;
+            if constexpr (GRAD) {
+                // a fresh path starts with throughput 1: no tex dependence
+#pragma unroll
+                for (int k = 0; k < 3 * NTMAX; ++k) Wp[k] = 0.0f;
+            }
         }
         const uint32_t k1 = (uint32_t)(P.sample_start + sample);
         float u[9];
@@ -606,10 +666,19 @@ wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
             }
             rad = v3(rad.x + th.x * sky.x, rad.y + th.y * sky.y,
                      rad.z + th.z * sky.z);
+            if constexpr (GRAD) {
+                // miss: the background is tex-independent, so only the
+                // throughput's planes carry it
+                const float sk[3] = {sky.x, sky.y, sky.z};
+#pragma unroll
+                for (int k = 0; k < 3 * NTMAX; ++k)
+                    Gp[k] = Gp[k] + gc[k % 3] * Wp[k] * sk[k % 3];
+            }
         } else {
             const int mtype = (int)sc.mati[h.mat * 2 + 0];
             const int mtex = (int)sc.mati[h.mat * 2 + 1];
-            const V3 tc = texture_value(sc, mtex, h.p);
+            int eff;
+            const V3 tc = texture_value(sc, mtex, h.p, &eff);
             const bool is_light = mtype == MAT_DIFFUSE_LIGHT;
             const bool is_metal = mtype == MAT_METAL;
             const bool is_diel = mtype == MAT_DIELECTRIC;
@@ -617,6 +686,17 @@ wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
             if (is_light && h.front) {
                 rad = v3(rad.x + th.x * tc.x, rad.y + th.y * tc.y,
                          rad.z + th.z * tc.z);
+                if constexpr (GRAD) {
+                    // emission: through the throughput's planes, and
+                    // directly through the emitter's own row
+                    const float tv[3] = {tc.x, tc.y, tc.z};
+                    const float tt[3] = {th.x, th.y, th.z};
+#pragma unroll
+                    for (int k = 0; k < 3 * NTMAX; ++k)
+                        Gp[k] = Gp[k] + gc[k % 3] * (
+                            Wp[k] * tv[k % 3]
+                            + (eff == k / 3 ? tt[k % 3] : 0.0f));
+                }
             }
             if (!is_light) {
                 const V3 n = h.n;
@@ -685,6 +765,19 @@ wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
                 // a path that ends keeps its last state in the carry
                 if (alive_new) {
                     V3 at = is_diel ? v3(1.0f, 1.0f, 1.0f) : tc;
+                    if constexpr (GRAD) {
+                        // product rule through th <- th * at * factor: at
+                        // is the eff row's color except for a dielectric
+                        // (at = 1), and factor never depends on tex_color
+                        const float av[3] = {at.x, at.y, at.z};
+                        const float tt[3] = {th.x, th.y, th.z};
+                        const int row = is_diel ? -1 : eff;
+#pragma unroll
+                        for (int k = 0; k < 3 * NTMAX; ++k)
+                            Wp[k] = (Wp[k] * av[k % 3]
+                                     + (row == k / 3 ? tt[k % 3] : 0.0f))
+                                * factor;
+                    }
                     th = v3(th.x * at.x * factor, th.y * at.y * factor,
                             th.z * at.z * factor);
                     o = h.p;
@@ -700,6 +793,7 @@ wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
     rad_out[0 * N + lane] = rad.x;
     rad_out[1 * N + lane] = rad.y;
     rad_out[2 * N + lane] = rad.z;
+    if (iters_out) iters_out[lane] += it;
     if (carry_out) {
         carry_out[0 * N + lane] = work ? 1.0f : 0.0f;
         carry_out[1 * N + lane] = alive ? 1.0f : 0.0f;
@@ -715,27 +809,127 @@ wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
         carry_out[11 * N + lane] = th.x;
         carry_out[12 * N + lane] = th.y;
         carry_out[13 * N + lane] = th.z;
+        if constexpr (GRAD) {
+            const int n_wp = 3 * P.NT;
+#pragma unroll
+            for (int k = 0; k < 3 * NTMAX; ++k)
+                if (k < n_wp) carry_out[(14 + k) * N + lane] = Wp[k];
+        }
+    }
+    if constexpr (GRAD) {
+        // Gp summed over the block in a fixed order: a shuffle tree in each
+        // warp, then the warps in order; one partial row per block, summed
+        // over blocks by the wrapper (no float atomics)
+        const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+#pragma unroll
+        for (int k = 0; k < 3 * NTMAX; ++k) {
+            float v = Gp[k];
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                v += __shfl_down_sync(0xffffffffu, v, off);
+            if (wl == 0) red[warp * 3 * NTMAX + k] = v;
+        }
+        __syncthreads();
+        const int n_wp = 3 * P.NT;
+        if (threadIdx.x < n_wp) {
+            float s = 0.0f;
+            for (int w = 0; w < WF_THREADS / 32; ++w)
+                s += red[w * 3 * NTMAX + threadIdx.x];
+            dg_out[blockIdx.x * n_wp + threadIdx.x] = s;
+        }
     }
 }
 
-// Plain C entry point (bound with ctypes). Launches on `stream` and returns
-// cudaGetLastError(): a launch that is refused never runs, and only this
-// reports it.
+// The forward pass (K1, K2).
+extern "C" __global__ void __launch_bounds__(WF_THREADS)
+wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
+                         const int* __restrict__ pix_lanes,
+                         const float* __restrict__ carry_in,
+                         float* __restrict__ rad_out,
+                         float* __restrict__ carry_out,
+                         int* __restrict__ iters_out) {
+    __shared__ float cam[22];
+    wavefront_body<false, 1>(P, tables, pix_lanes, carry_in, nullptr,
+                             rad_out, carry_out, nullptr, iters_out,
+                             wf_tables, cam, nullptr);
+}
+
+// The forward pass plus the tex_color weight planes (K3; K5 under the
+// compacted driver), for NT <= NTMAX texture rows.
+template <int NTMAX>
+__global__ void __launch_bounds__(WF_THREADS)
+wavefront_grad_kernel(WfParams P, const float* __restrict__ tables,
+                      const int* __restrict__ pix_lanes,
+                      const float* __restrict__ carry_in,
+                      const float* __restrict__ cot,
+                      float* __restrict__ rad_out,
+                      float* __restrict__ carry_out,
+                      float* __restrict__ dg_out,
+                      int* __restrict__ iters_out) {
+    __shared__ float cam[22];
+    __shared__ float red[(WF_THREADS / 32) * 3 * NTMAX];
+    wavefront_body<true, NTMAX>(P, tables, pix_lanes, carry_in, cot,
+                                rad_out, carry_out, dg_out, iters_out,
+                                wf_tables, cam, red);
+}
+
+// dynamic shared memory for the scene tables, raised past the default 48 KB
+// where a scene needs it
+static cudaError_t table_smem(const void* kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// Plain C entry points (bound with ctypes). Each launches on `stream` and
+// returns cudaGetLastError(): a launch that is refused never runs, and only
+// this reports it.
 extern "C" int rt_wavefront_forward(const WfParams* params,
                                     const float* tables, const int* pix_lanes,
                                     const float* carry_in, float* rad_out,
-                                    float* carry_out, void* stream) {
+                                    float* carry_out, int* iters_out,
+                                    void* stream) {
     const WfParams P = *params;
+    if (P.n_lanes % WF_THREADS != 0) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)P.n_table * sizeof(float);
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            wavefront_forward_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    const int blocks = (P.n_lanes + WF_THREADS - 1) / WF_THREADS;
-    wavefront_forward_kernel<<<blocks, WF_THREADS, smem,
+    cudaError_t e = table_smem((const void*)wavefront_forward_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    wavefront_forward_kernel<<<P.n_lanes / WF_THREADS, WF_THREADS, smem,
                                (cudaStream_t)stream>>>(
-        P, tables, pix_lanes, carry_in, rad_out, carry_out);
+        P, tables, pix_lanes, carry_in, rad_out, carry_out, iters_out);
     return (int)cudaGetLastError();
+}
+
+template <int NTMAX>
+static int launch_grad(const WfParams& P, const float* tables,
+                       const int* pix_lanes, const float* carry_in,
+                       const float* cot, float* rad_out, float* carry_out,
+                       float* dg_out, int* iters_out, cudaStream_t stream) {
+    const size_t smem = (size_t)P.n_table * sizeof(float);
+    cudaError_t e = table_smem((const void*)wavefront_grad_kernel<NTMAX>,
+                               smem);
+    if (e != cudaSuccess) return (int)e;
+    wavefront_grad_kernel<NTMAX><<<P.n_lanes / WF_THREADS, WF_THREADS, smem,
+                                   stream>>>(
+        P, tables, pix_lanes, carry_in, cot, rad_out, carry_out, dg_out,
+        iters_out);
+    return (int)cudaGetLastError();
+}
+
+// dg_out: (n_lanes / WF_THREADS, 3 * NT) per-block partial sums
+extern "C" int rt_wavefront_grad(const WfParams* params,
+                                 const float* tables, const int* pix_lanes,
+                                 const float* carry_in, const float* cot,
+                                 float* rad_out, float* carry_out,
+                                 float* dg_out, int* iters_out,
+                                 void* stream) {
+    const WfParams P = *params;
+    if (P.n_lanes % WF_THREADS != 0 || P.NT < 1 || P.NT > 16)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (P.NT <= 8)
+        return launch_grad<8>(P, tables, pix_lanes, carry_in, cot, rad_out,
+                              carry_out, dg_out, iters_out, s);
+    return launch_grad<16>(P, tables, pix_lanes, carry_in, cot, rad_out,
+                           carry_out, dg_out, iters_out, s);
 }

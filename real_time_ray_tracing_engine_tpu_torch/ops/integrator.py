@@ -23,10 +23,11 @@ import torch
 
 from ..utils.vecmath import normalize, where3, BIG
 from ..utils import rng
-from ..scene.flat import FlatScene
+from ..scene.flat import FlatScene, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT
 from . import materials as mat_ops
 from .intersect import HitRecord, closest_hit, medium_scatter
 from .lights import light_pdf_value, light_sample
+from .textures import effective_row
 
 
 def sky_color(dr):
@@ -69,11 +70,17 @@ def medium_uniforms(scene: FlatScene, keys, bounce):
 
 
 def bounce_step(scene: FlatScene, org, dr, tm, throughput, alive, u, u_med,
-                background, sky_gradient: bool):
+                background, sky_gradient: bool, record: bool = False):
     """One estimator bounce for N rays (dr unit; u (N, N_DRAWS)).
 
     Returns (radiance increment (N, 3), org, dr, throughput, alive): rays
-    whose path ends here keep their origin, direction and throughput."""
+    whose path ends here keep their origin, direction and throughput. With
+    record=True a sixth item, the per-bounce record the tex_color gradient
+    needs, under the JAX kernel's names (wavefront_pallas.py:2565-2603):
+    miss, sb (background), emit_on, tcol (emitted color), at
+    (attenuation), eff_tex (the tex_color row the hit reads, -1 for noise),
+    is_diel, factor (MIS weight, 1 for specular), live_hit. The returned
+    alive is the guard of the throughput update."""
     rec = resolve_hit(scene, org, dr, tm, u_med)
 
     # 1. miss -> background
@@ -117,9 +124,18 @@ def bounce_step(scene: FlatScene, org, dr, tm, throughput, alive, u, u_med,
     throughput = torch.where(alive[:, None],
                              throughput * sc.attenuation * factor[:, None],
                              throughput)
-    org = where3(alive, rec.point, org)
-    dr = where3(alive, new_dir, dr)
-    return drad, org, dr, throughput, alive
+    new_org = where3(alive, rec.point, org)
+    new_dr = where3(alive, new_dir, dr)
+    if not record:
+        return drad, new_org, new_dr, throughput, alive
+    mtype = scene.mat_type[rec.mat]
+    event = dict(
+        miss=miss, sb=bg, live_hit=live_hit,
+        emit_on=live_hit & (mtype == MAT_DIFFUSE_LIGHT) & rec.front_face,
+        tcol=emit, at=sc.attenuation,
+        eff_tex=effective_row(scene, scene.mat_tex[rec.mat], rec.point),
+        is_diel=mtype == MAT_DIELECTRIC, factor=factor)
+    return drad, new_org, new_dr, throughput, alive, event
 
 
 def trace(scene: FlatScene, org, dr, tm, keys, background, *,

@@ -49,3 +49,13 @@ def texture_value(scene: FlatScene, tidx, u, v, p):
     """Color of texture rows `tidx` (N,) at surface points p (N, 3)."""
     leaf = resolve_checker(scene, tidx.to(torch.int64), p)
     return _base_value(scene, leaf, p)
+
+
+def effective_row(scene: FlatScene, tidx, p):
+    """The tex_color row that a lookup of rows `tidx` at points p reads:
+    the checker leaf, or -1 where the leaf is noise (a marble has no
+    tex_color dependence). The JAX kernel's eff_tex (texture_color)."""
+    leaf = resolve_checker(scene, tidx.to(torch.int64), p)
+    if not scene.has_noise:
+        return leaf
+    return torch.where(scene.tex_type[leaf] == TEX_NOISE, -1, leaf)

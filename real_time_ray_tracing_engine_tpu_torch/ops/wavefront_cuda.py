@@ -1,24 +1,29 @@
-"""Forward path-tracing megakernel (CUDA) and its plain torch version.
+"""Path-tracing megakernel (CUDA) and its plain torch version.
 
-Port of the JAX package's ops/wavefront_pallas.py forward path: the
-unrolled-mode Pallas kernel (K1) and its capped/resume variant plus the
-compacted driver (K2). Here both are one hand-written CUDA kernel,
-csrc/wavefront.cu, built with nvcc for sm_90a at first use and bound with
-ctypes. Beside it:
+Port of the JAX package's ops/wavefront_pallas.py unrolled-mode Pallas
+kernel in three of its variants: the forward (K1), its capped/resume
+variant under the compacted driver (K2), and the forward-mode tex_color
+gradient pass with weight planes (K3) under the compacted grad driver (K5).
+Here they are one hand-written CUDA kernel body, csrc/wavefront.cu, built
+with nvcc for sm_90a at first use and bound with ctypes. Beside it:
 
-  - `render_pass_reference`: the same lane wavefront in plain torch, built
-    from the integrator's per-bounce step (ops/integrator.py): persistent
-    lane regeneration, `cap`, `carry` and `pix_lanes`, the same 14-row carry
-    layout. The CPU tests run it; on the card only the parity checks do.
-  - `pass_function` / `render_pass`: the dispatcher. A scene on a CUDA
-    device launches the kernel (or raises), its tables packed once by
-    `prepare_kernel`; a scene on the CPU runs the plain version.
-  - `render_pass_compacted`: the capped + lane-compacted schedule, torch
-    code shared by both (stable argsort by remaining samples, index_add_).
+  - `render_pass_reference` / `render_pass_grad_reference`: the same lane
+    wavefront in plain torch, built from the integrator's per-bounce step
+    (ops/integrator.py): persistent lane regeneration, `cap`, `carry` and
+    `pix_lanes`, the same carry layout (14 rows; the grad pass appends its
+    3*NT weight planes). The CPU tests run them; on the card only the
+    parity checks do.
+  - `pass_function` / `grad_pass_function` / `render_pass`: the
+    dispatchers. A scene on a CUDA device launches the kernel (or raises),
+    its tables packed once by `prepare_kernel`; a scene on the CPU runs the
+    plain version.
+  - `render_pass_compacted` / `render_pass_grad_compacted`: the capped +
+    lane-compacted schedules, torch code shared by both versions and both
+    passes (stable argsort by remaining samples, index_add_).
 
 Lane layout: one lane per pixel, padded to a multiple of LANE_BLOCK; pad
-lanes repeat the last pixel and are cropped, and the compaction permutes
-them like any other lane.
+lanes repeat the last pixel and are cropped (their cotangent is zero), and
+the compaction permutes them like any other lane.
 """
 from __future__ import annotations
 
@@ -53,8 +58,9 @@ MAX_MEDIUMS = 4
 # what one block may hold in shared memory on Hopper (227 KB)
 MAX_SHARED_BYTES = 232_448
 
-LANE_BLOCK = 128
+LANE_BLOCK = 128  # = WF_THREADS, the kernel's block size
 CARRY_ROWS = 14   # work, alive, bounce, sample, time, o xyz, d xyz, th xyz
+# (the grad pass appends 3*NT weight-plane rows, wavefront_pallas.py:3240)
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 _CSRC = _PKG_DIR / "csrc"
@@ -201,13 +207,44 @@ def _image_from_lanes(rad, width: int, height: int) -> torch.Tensor:
     return rad[:, :width * height].T.reshape(height, width, 3)
 
 
-def _check_carry(carry, pix_lanes, n_lanes: int):
-    if carry is not None and tuple(carry.shape) != (CARRY_ROWS, n_lanes):
+def _check_carry(carry, pix_lanes, n_lanes: int, rows: int = CARRY_ROWS):
+    if carry is not None and tuple(carry.shape) != (rows, n_lanes):
         raise ValueError(f"carry has shape {tuple(carry.shape)}, expected "
-                         f"({CARRY_ROWS}, {n_lanes})")
+                         f"({rows}, {n_lanes})")
     if pix_lanes is not None and tuple(pix_lanes.shape) != (n_lanes,):
         raise ValueError(f"pix_lanes has shape {tuple(pix_lanes.shape)}, "
                          f"expected ({n_lanes},)")
+
+
+def _check_iters(iters, n_lanes: int, device):
+    if iters is not None and (tuple(iters.shape) != (n_lanes,)
+                              or iters.dtype != torch.int32
+                              or iters.device != device):
+        raise ValueError(f"iters must be an int32 ({n_lanes},) tensor on "
+                         f"{device}")
+
+
+def cotangent_lanes(cotangent, *, width: int, height: int, pix_lanes=None):
+    """The cotangent as (3, n_lanes) float32 lane planes. Under pix_lanes it
+    comes in that layout already (the compacted driver permutes it with the
+    lanes); otherwise it is the (height, width, 3) image cotangent, and the
+    pad lanes get zero: they repeat the last pixel, which must not count
+    twice (wavefront_pallas.py:3538-3542)."""
+    n_pix = width * height
+    n_lanes = lane_count(n_pix)
+    if pix_lanes is not None:
+        if tuple(cotangent.shape) != (3, n_lanes):
+            raise ValueError(f"cotangent under pix_lanes has shape "
+                             f"{tuple(cotangent.shape)}, expected "
+                             f"(3, {n_lanes})")
+        return cotangent.to(torch.float32)
+    if tuple(cotangent.shape) != (height, width, 3):
+        raise ValueError(f"cotangent has shape {tuple(cotangent.shape)}, "
+                         f"expected ({height}, {width}, 3)")
+    g = torch.zeros(3, n_lanes, dtype=torch.float32,
+                    device=cotangent.device)
+    g[:, :n_pix] = cotangent.reshape(n_pix, 3).T
+    return g
 
 
 def _pass_result(rad, st, *, cap, pix_lanes, width, height):
@@ -221,27 +258,41 @@ def _pass_result(rad, st, *, cap, pix_lanes, width, height):
     return _image_from_lanes(rad, width, height)
 
 
-# ---------------------------------------------------- plain torch version
-def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
-                          sample_start, *, width: int, height: int,
-                          n_strata: int, max_depth: int, n_samples: int,
-                          sky_gradient: bool = False, cap: int = 0,
-                          carry=None, pix_lanes=None):
-    """Sum of n_samples stratified samples per pixel by a persistent lane
-    wavefront in plain torch — the kernel's semantics, lane for lane.
+def _grad_result(rad, dg, st, *, cap, pix_lanes, width, height):
+    """The grad pass's: (radiance, dG_tex, carry) when capped, (radiance
+    planes, dG_tex) under pix_lanes, else (image, dG_tex)."""
+    if cap:
+        return rad, dg, st
+    if pix_lanes is not None:
+        return rad, dg
+    return _image_from_lanes(rad, width, height), dg
 
-    Each loop iteration advances every lane that still has work by one
-    bounce; a lane whose path ended restarts on its pixel's next sample. A
-    lane with no work left is frozen. cap > 0 stops after `cap` iterations
-    and returns (radiance (3, n_lanes), carry (14, n_lanes)); carry resumes
-    from such a state (same sample_start); pix_lanes ((n_lanes,) pixel ids)
-    replaces the identity lane layout and returns raw radiance planes.
-    Each call adds one to render_pass_reference.calls."""
-    render_pass_reference.calls += 1
+
+# ---------------------------------------------------- plain torch version
+def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
+                         sample_start, *, width, height, n_strata, max_depth,
+                         n_samples, sky_gradient, cap, carry, pix_lanes,
+                         iters, cot):
+    """The persistent lane wavefront in plain torch; with `cot` ((3,
+    n_lanes) cotangent lanes) also the tex_color weight planes of the JAX
+    kernel's grad_tex variant (wavefront_pallas.py:865-873, 2565-2603):
+
+        Wp[t, c] = d th_c / d tex_color[t, c], reset to 0 on regeneration,
+        Gp[t, c] += g_c * (Wp[t, c] * L_c + [eff == t] * th_c * emitted_c)
+            at each radiance event (background L on a miss, emission),
+        Wp[t, c] <- (Wp[t, c] * at_c + [eff == t and not dielectric]
+                     * th_c) * factor   under the throughput's guard.
+
+    Returns (radiance (3, n_lanes), carry or None, dG_tex (NT, 3) or
+    None). iters ((n_lanes,) int32), when given, gets one added per lane
+    per bounce it traces."""
     device = flat.device
     n_pix = width * height
     n_lanes = lane_count(n_pix)
-    _check_carry(carry, pix_lanes, n_lanes)
+    nt = flat.tex_type.shape[0]
+    n_wp = 3 * nt if cot is not None else 0
+    _check_carry(carry, pix_lanes, n_lanes, CARRY_ROWS + n_wp)
+    _check_iters(iters, n_lanes, device)
     pix = (_identity_pixels(n_lanes, n_pix, device) if pix_lanes is None
            else pix_lanes.to(device=device, dtype=torch.int64))
     sample_start = int(sample_start)
@@ -260,6 +311,7 @@ def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
         alive = torch.ones(n_lanes, dtype=torch.bool, device=device)
         work = alive.clone()
         bounce = torch.zeros_like(sample)
+        wp = torch.zeros(n_lanes, n_wp, dtype=torch.float32, device=device)
     else:
         carry = carry.to(device=device, dtype=torch.float32)
         work, alive = carry[0] > 0.5, carry[1] > 0.5
@@ -267,7 +319,10 @@ def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
         tm = carry[4].clone()
         org, dr, th = carry[5:8].T.clone(), carry[8:11].T.clone(), \
             carry[11:14].T.clone()
+        wp = carry[CARRY_ROWS:].T.clone()
     rad = torch.zeros(n_lanes, 3, dtype=torch.float32, device=device)
+    gp = torch.zeros(n_lanes, n_wp, dtype=torch.float32, device=device)
+    rows = torch.arange(nt, device=device)
 
     it = 0
     while cap == 0 or it < cap:
@@ -290,14 +345,36 @@ def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
         keys = rng.ray_keys(seed, p, sample_start + s)
         u = rng.bounce_uniforms(keys, b)
         u_med = medium_uniforms(flat, keys, b)
-        drad, o, d, h, a = bounce_step(flat, o, d, t_, h, a, u, u_med,
-                                       background, sky_gradient)
+        out = bounce_step(flat, o, d, t_, h, a, u, u_med, background,
+                          sky_gradient, record=n_wp > 0)
+        drad, o, d, h_new, a = out[:5]
+        if n_wp:
+            ev = out[5]
+            g = cot[:, idx].T[:, None, :]                 # (n, 1, 3)
+            th_c = h[:, None, :]                          # pre-scatter th
+            # a fresh path starts with throughput 1: no tex dependence
+            w = torch.where(regen[:, None], 0.0, wp[idx]).view(-1, nt, 3)
+            ind = (ev["eff_tex"][:, None] == rows)[:, :, None]
+            gp[idx] += (
+                torch.where(ev["miss"][:, None, None],
+                            g * w * ev["sb"][:, None, :], 0.0)
+                + torch.where(ev["emit_on"][:, None, None],
+                              g * (w * ev["tcol"][:, None, :]
+                                   + torch.where(ind, th_c, 0.0)), 0.0)
+            ).reshape(-1, n_wp)
+            w_new = (w * ev["at"][:, None, :]
+                     + torch.where(ind & ~ev["is_diel"][:, None, None],
+                                   th_c, 0.0)) * ev["factor"][:, None, None]
+            wp[idx] = torch.where(a[:, None, None], w_new,
+                                  w).reshape(-1, n_wp)
         rad[idx] += drad
         b = b + 1
         a = a & (b < max_depth)
-        org[idx], dr[idx], tm[idx], th[idx] = o, d, t_, h
+        org[idx], dr[idx], tm[idx], th[idx] = o, d, t_, h_new
         sample[idx], bounce[idx], alive[idx] = s, b, a
         work[idx] = a | (s + 1 < n_samples)
+        if iters is not None:
+            iters[idx] += 1
         it += 1
 
     st = None
@@ -305,12 +382,67 @@ def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
         f32 = torch.float32
         st = torch.cat([work.to(f32)[None], alive.to(f32)[None],
                         bounce.to(f32)[None], sample.to(f32)[None], tm[None],
-                        org.T, dr.T, th.T])
-    return _pass_result(rad.T.contiguous(), st, cap=cap,
-                        pix_lanes=pix_lanes, width=width, height=height)
+                        org.T, dr.T, th.T, wp.T])
+    dg = gp.sum(0).reshape(nt, 3) if n_wp else None
+    return rad.T.contiguous(), st, dg
+
+
+def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
+                          sample_start, *, width: int, height: int,
+                          n_strata: int, max_depth: int, n_samples: int,
+                          sky_gradient: bool = False, cap: int = 0,
+                          carry=None, pix_lanes=None, iters=None):
+    """Sum of n_samples stratified samples per pixel by a persistent lane
+    wavefront in plain torch — the kernel's semantics, lane for lane.
+
+    Each loop iteration advances every lane that still has work by one
+    bounce; a lane whose path ended restarts on its pixel's next sample. A
+    lane with no work left is frozen. cap > 0 stops after `cap` iterations
+    and returns (radiance (3, n_lanes), carry (14, n_lanes)); carry resumes
+    from such a state (same sample_start); pix_lanes ((n_lanes,) pixel ids)
+    replaces the identity lane layout and returns raw radiance planes.
+    iters, when given, counts each lane's bounces. Each call adds one to
+    render_pass_reference.calls."""
+    render_pass_reference.calls += 1
+    rad, st, _ = _wavefront_reference(
+        flat, cam, seed, sample_start, width=width, height=height,
+        n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
+        sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
+        iters=iters, cot=None)
+    return _pass_result(rad, st, cap=cap, pix_lanes=pix_lanes, width=width,
+                        height=height)
 
 
 render_pass_reference.calls = 0
+
+
+def render_pass_grad_reference(flat: FlatScene, cam: CameraState, seed,
+                               sample_start, *, width: int, height: int,
+                               n_strata: int, max_depth: int,
+                               n_samples: int, cotangent,
+                               sky_gradient: bool = False, cap: int = 0,
+                               carry=None, pix_lanes=None, iters=None):
+    """The plain version of the grad kernel (K3): render_pass_reference's
+    pass plus dG_tex = d<cotangent, radiance sum>/d tex_color (NT, 3) by
+    forward-mode weight planes. The image is the forward pass's, path for
+    path. The carry has 14 + 3*NT rows (the weight planes ride it); the
+    cotangent is (height, width, 3), or (3, n_lanes) lane planes under
+    pix_lanes (cotangent_lanes). Returns (image, dG_tex), (radiance planes,
+    dG_tex) under pix_lanes, (radiance, dG_tex, carry) when capped. Each
+    call adds one to render_pass_grad_reference.calls."""
+    render_pass_grad_reference.calls += 1
+    cot = cotangent_lanes(cotangent, width=width, height=height,
+                          pix_lanes=pix_lanes).to(flat.device)
+    rad, st, dg = _wavefront_reference(
+        flat, cam, seed, sample_start, width=width, height=height,
+        n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
+        sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
+        iters=iters, cot=cot)
+    return _grad_result(rad, dg, st, cap=cap, pix_lanes=pix_lanes,
+                        width=width, height=height)
+
+
+render_pass_grad_reference.calls = 0
 
 
 # ------------------------------------------------------------- the kernel
@@ -322,7 +454,7 @@ class _Params(ctypes.Structure):
         + [("seed_mix", ctypes.c_uint), ("perlin_seed", ctypes.c_uint)]
         + [(n, ctypes.c_int) for n in (
             "sky_gradient", "has_noise", "checker_depth", "cap",
-            "S", "Q", "L", "M", "MS", "MQ",
+            "S", "Q", "L", "M", "MS", "MQ", "NT",
             "off_sph", "off_quad", "off_pmat", "off_light", "off_mati",
             "off_matf", "off_tex", "off_med", "med_cols", "n_table")]
         + [("inv_strata", ctypes.c_float), ("cam", ctypes.c_float * 22)])
@@ -337,10 +469,17 @@ class KernelLibrary:
         self.build_log = build_log
         self.build_seconds = build_seconds
         self.lib = ctypes.CDLL(str(path))
-        fn = self.lib.rt_wavefront_forward
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_void_p] * 6
-        self.forward = fn
+        ptr = ctypes.c_void_p
+        self.forward = self.lib.rt_wavefront_forward
+        self.forward.restype = ctypes.c_int
+        # params, tables, pix_lanes, carry_in, rad_out, carry_out, iters,
+        # stream
+        self.forward.argtypes = [ctypes.POINTER(_Params)] + [ptr] * 7
+        self.grad = self.lib.rt_wavefront_grad
+        self.grad.restype = ctypes.c_int
+        # params, tables, pix_lanes, carry_in, cotangent, rad_out,
+        # carry_out, dg_out, iters, stream
+        self.grad.argtypes = [ctypes.POINTER(_Params)] + [ptr] * 9
 
 
 def _nvcc() -> str:
@@ -398,13 +537,14 @@ class KernelInputs:
     """A scene and camera packed for the kernel: its tables in one device
     buffer, and the scene's and camera's fields of WfParams. Packing gathers
     on the device and reads the camera and the Perlin seed back to the
-    host, so a render packs once and hands the result to every launch."""
+    host, so a render (or a training step) packs once and hands the result
+    to every launch."""
     tables: torch.Tensor
     fields: dict
 
 
 def prepare_kernel(flat: FlatScene, cam: CameraState) -> KernelInputs:
-    """Pack `flat` and `cam` for render_pass_kernel; raises for a scene
+    """Pack `flat` and `cam` for the kernel wrappers; raises for a scene
     that is not on a CUDA device or is outside the kernel's gate."""
     if flat.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
@@ -421,6 +561,7 @@ def prepare_kernel(flat: FlatScene, cam: CameraState) -> KernelInputs:
         S=flat.sph_center.shape[0], Q=flat.quad_corner.shape[0],
         L=flat.n_lights, M=flat.n_mediums,
         MS=flat.med_sph_center.shape[1], MQ=flat.med_quad_corner.shape[1],
+        NT=flat.tex_type.shape[0],
         off_sph=off["sph"], off_quad=off["quad"], off_pmat=off["pmat"],
         off_light=off["light"], off_mati=off["mati"], off_matf=off["matf"],
         off_tex=off["tex"], off_med=off["med"], med_cols=med_cols,
@@ -428,25 +569,24 @@ def prepare_kernel(flat: FlatScene, cam: CameraState) -> KernelInputs:
     return KernelInputs(tables, fields)
 
 
-def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
-                       sample_start, *, width: int, height: int,
-                       n_strata: int, max_depth: int, n_samples: int,
-                       sky_gradient: bool = False, cap: int = 0, carry=None,
-                       pix_lanes=None, prepared: KernelInputs | None = None):
-    """The CUDA kernel's wrapper: render_pass_reference's signature and
-    results, on a CUDA device. `prepared` is prepare_kernel(flat, cam),
-    packed here when not given. Launches on the current stream; raises if
-    the scene is outside the gate, the inputs are malformed, or the launch
-    fails. Each launch adds one to render_pass_kernel.launches."""
+def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
+            width, height, n_strata, max_depth, n_samples, sky_gradient, cap,
+            carry, pix_lanes, prepared, iters, cot):
+    """Check the inputs, launch the forward (cot None) or the grad kernel on
+    the current stream, and raise if the launch fails. Returns (radiance
+    (3, n_lanes), carry or None, dG_tex (NT, 3) or None)."""
     device = flat.device
     if device.type != "cuda":
-        raise ValueError(f"render_pass_kernel needs CUDA tensors, got "
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{device}")
     if prepared is None:
         prepared = prepare_kernel(flat, cam)
     n_pix = width * height
     n_lanes = lane_count(n_pix)
-    _check_carry(carry, pix_lanes, n_lanes)
+    nt = prepared.fields["NT"]
+    n_wp = 3 * nt if cot is not None else 0
+    _check_carry(carry, pix_lanes, n_lanes, CARRY_ROWS + n_wp)
+    _check_iters(iters, n_lanes, device)
     if n_strata * n_strata + int(sample_start) >= 1 << 24:
         raise ValueError("sample indices must stay below 2^24")
 
@@ -466,18 +606,49 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
     if carry is not None:
         carry = carry.to(device=device, dtype=torch.float32).contiguous()
     rad = torch.empty(3, n_lanes, dtype=torch.float32, device=device)
-    st = (torch.empty(CARRY_ROWS, n_lanes, dtype=torch.float32,
+    st = (torch.empty(CARRY_ROWS + n_wp, n_lanes, dtype=torch.float32,
                       device=device) if cap else None)
     lib = load_library()
+    partial = None
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.forward(ctypes.byref(p), ptr(prepared.tables),
-                          ptr(pix_lanes),
-                          ptr(carry), ptr(rad), ptr(st),
-                          ctypes.c_void_p(stream))
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device)
+                                 .cuda_stream)
+        if cot is None:
+            err = lib.forward(ctypes.byref(p), ptr(prepared.tables),
+                              ptr(pix_lanes), ptr(carry), ptr(rad), ptr(st),
+                              ptr(iters), stream)
+        else:
+            cot = cot.to(device=device, dtype=torch.float32).contiguous()
+            # one row of per-block partial sums: no float atomics, and the
+            # sum over blocks below runs in a fixed order
+            partial = torch.empty(n_lanes // LANE_BLOCK, n_wp,
+                                  dtype=torch.float32, device=device)
+            err = lib.grad(ctypes.byref(p), ptr(prepared.tables),
+                           ptr(pix_lanes), ptr(carry), ptr(cot), ptr(rad),
+                           ptr(st), ptr(partial), ptr(iters), stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
+    dg = partial.sum(0).reshape(nt, 3) if partial is not None else None
+    return rad, st, dg
+
+
+def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
+                       sample_start, *, width: int, height: int,
+                       n_strata: int, max_depth: int, n_samples: int,
+                       sky_gradient: bool = False, cap: int = 0, carry=None,
+                       pix_lanes=None, prepared: KernelInputs | None = None,
+                       iters=None):
+    """The forward kernel's wrapper: render_pass_reference's signature and
+    results, on a CUDA device. `prepared` is prepare_kernel(flat, cam),
+    packed here when not given. Launches on the current stream; raises if
+    the scene is outside the gate, the inputs are malformed, or the launch
+    fails. Each launch adds one to render_pass_kernel.launches."""
+    rad, st, _ = _launch(
+        flat, cam, seed, sample_start, width=width, height=height,
+        n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
+        sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
+        prepared=prepared, iters=iters, cot=None)
     render_pass_kernel.launches += 1
     return _pass_result(rad, st, cap=cap, pix_lanes=pix_lanes, width=width,
                         height=height)
@@ -486,16 +657,58 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
 render_pass_kernel.launches = 0
 
 
-def pass_function(flat: FlatScene, cam: CameraState):
+def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
+                            sample_start, *, width: int, height: int,
+                            n_strata: int, max_depth: int, n_samples: int,
+                            cotangent, sky_gradient: bool = False,
+                            cap: int = 0, carry=None, pix_lanes=None,
+                            prepared: KernelInputs | None = None,
+                            iters=None):
+    """The grad kernel's (K3) wrapper: render_pass_grad_reference's
+    signature and results, on a CUDA device. The kernel writes one row of
+    dG_tex partial sums per block; they are summed here. Raises as
+    render_pass_kernel does, and for a malformed cotangent. Each launch
+    adds one to render_pass_grad_kernel.launches."""
+    cot = cotangent_lanes(cotangent, width=width, height=height,
+                          pix_lanes=pix_lanes)
+    rad, st, dg = _launch(
+        flat, cam, seed, sample_start, width=width, height=height,
+        n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
+        sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
+        prepared=prepared, iters=iters, cot=cot)
+    render_pass_grad_kernel.launches += 1
+    return _grad_result(rad, dg, st, cap=cap, pix_lanes=pix_lanes,
+                        width=width, height=height)
+
+
+render_pass_grad_kernel.launches = 0
+
+
+def pass_function(flat: FlatScene, cam: CameraState,
+                  prepared: KernelInputs | None = None):
     """The pass function for the scene's device: the CUDA kernel, with the
-    scene and camera packed once, for a scene on a CUDA device; the plain
-    torch version for a scene on the CPU."""
+    scene and camera packed once (or `prepared`), for a scene on a CUDA
+    device; the plain torch version for a scene on the CPU."""
     if flat.device.type == "cuda":
-        return functools.partial(render_pass_kernel,
-                                 prepared=prepare_kernel(flat, cam))
+        return functools.partial(
+            render_pass_kernel,
+            prepared=prepared or prepare_kernel(flat, cam))
     if flat.device.type == "cpu":
         return render_pass_reference
     raise ValueError(f"no wavefront pass for device {flat.device}")
+
+
+def grad_pass_function(flat: FlatScene, cam: CameraState,
+                       prepared: KernelInputs | None = None):
+    """pass_function's counterpart for the grad pass: the grad kernel on a
+    CUDA device, its plain version on the CPU, nothing else."""
+    if flat.device.type == "cuda":
+        return functools.partial(
+            render_pass_grad_kernel,
+            prepared=prepared or prepare_kernel(flat, cam))
+    if flat.device.type == "cpu":
+        return render_pass_grad_reference
+    raise ValueError(f"no wavefront grad pass for device {flat.device}")
 
 
 def render_pass(flat: FlatScene, cam: CameraState, seed, sample_start,
@@ -504,7 +717,7 @@ def render_pass(flat: FlatScene, cam: CameraState, seed, sample_start,
     return pass_function(flat, cam)(flat, cam, seed, sample_start, **kw)
 
 
-# ------------------------------------------------------- compacted driver
+# ------------------------------------------------------- compacted drivers
 def default_caps(flat: FlatScene, n_samples: int, max_depth: int,
                  cap: int = 0, phases: int = 2) -> tuple:
     """The JAX package's cap schedule (wavefront_pallas.py:3726-3749),
@@ -520,6 +733,49 @@ def default_caps(flat: FlatScene, n_samples: int, max_depth: int,
                           for i in range(1, phases - 1))
 
 
+def default_grad_caps(flat: FlatScene, width: int, height: int,
+                      n_samples: int, max_depth: int) -> tuple:
+    """The JAX package's grad cap schedule (wavefront_pallas.py:3833-3845),
+    carried over verbatim: three short phases from a million pixels up,
+    else one 6.5 x spp cap. Tuned on a TPU; waits for H100 measurement
+    (ROADMAP)."""
+    if not _use_unrolled(flat):
+        return (max(2 * n_samples, 2),) * 2
+    if width * height >= 1_000_000:
+        return (max(2 * n_samples, max_depth),) * 3
+    return (max(int(6.5 * n_samples), max_depth),)
+
+
+def _check_caps(caps) -> tuple:
+    caps = tuple(int(c) for c in caps)
+    if any(c <= 0 for c in caps):
+        raise ValueError(f"caps must be positive iteration counts: {caps}")
+    return caps
+
+
+def _compacted_schedule(run_phase, caps: tuple, n_samples: int,
+                        n_pix: int) -> torch.Tensor:
+    """The compaction loop both drivers share. run_phase(cap, pix_lanes,
+    carry, perm) runs one phase and returns (radiance (3, n_lanes), carry
+    or None); the first phase gets pix_lanes, carry and perm None, the last
+    cap 0. Between phases the lanes are sorted by remaining samples
+    (unfinished lanes first, finished lanes last, stable), and perm maps
+    the sorted lanes to identity lanes. Returns the radiance summed into
+    identity lane order."""
+    rad, st = run_phase(caps[0], None, None, None)
+    n_lanes = rad.shape[1]
+    pix_abs = _identity_pixels(n_lanes, n_pix, rad.device)
+    perm = torch.arange(n_lanes, device=rad.device)
+    for cap_i in caps[1:] + (0,):
+        key = torch.where(st[0] > 0.5, n_samples - st[3],
+                          torch.full_like(st[3], -1.0))
+        order = torch.argsort(-key, stable=True)
+        perm = perm[order]
+        r, st = run_phase(cap_i, pix_abs[perm], st[:, order], perm)
+        rad.index_add_(1, perm, r)
+    return rad
+
+
 def render_pass_compacted(flat: FlatScene, cam: CameraState, seed,
                           sample_start, *, width: int, height: int,
                           n_strata: int, max_depth: int, n_samples: int,
@@ -527,18 +783,16 @@ def render_pass_compacted(flat: FlatScene, cam: CameraState, seed,
                           phases: int = 2, caps: tuple | None = None,
                           pass_fn=None):
     """Capped + lane-compacted schedule: run the wavefront for caps[0]
-    iterations, sort lanes by remaining samples (unfinished lanes first,
-    finished lanes last, stable), resume the carried states under that
-    lane -> pixel permutation, and so on; an uncapped pass finishes. RNG
-    keys are pixel ids, so the permutation changes no sample stream.
-    pass_fn runs each phase (default pass_function(flat, cam); the plain
-    version may be given explicitly for a scene on the card).
+    iterations, sort lanes by remaining samples, resume the carried states
+    under that lane -> pixel permutation, and so on; an uncapped pass
+    finishes. RNG keys are pixel ids, so the permutation changes no sample
+    stream. caps == () is one uncapped pass. pass_fn runs each phase
+    (default pass_function(flat, cam); the plain version may be given
+    explicitly for a scene on the card).
     Returns the (height, width, 3) radiance-sum image."""
     if caps is None:
         caps = default_caps(flat, n_samples, max_depth, cap, phases)
-    caps = tuple(int(c) for c in caps)
-    if any(c <= 0 for c in caps):
-        raise ValueError(f"caps must be positive iteration counts: {caps}")
+    caps = _check_caps(caps)
     if pass_fn is None:
         pass_fn = pass_function(flat, cam)
     common = dict(width=width, height=height, n_strata=n_strata,
@@ -546,27 +800,52 @@ def render_pass_compacted(flat: FlatScene, cam: CameraState, seed,
                   sky_gradient=sky_gradient)
     if caps == ():
         return pass_fn(flat, cam, seed, sample_start, **common)
-    n_pix = width * height
-    rad = perm = st = pix_abs = None
-    for cap_i in caps:
-        if st is None:
-            rad, st = pass_fn(flat, cam, seed, sample_start, cap=cap_i,
-                              **common)
-            n_lanes = rad.shape[1]
-            pix_abs = _identity_pixels(n_lanes, n_pix, rad.device)
-            perm = torch.arange(n_lanes, device=rad.device)
-        else:
-            r, st = pass_fn(flat, cam, seed, sample_start,
-                            pix_lanes=pix_abs[perm], carry=st, cap=cap_i,
-                            **common)
-            rad.index_add_(1, perm, r)
-        key = torch.where(st[0] > 0.5, n_samples - st[3],
-                          torch.full_like(st[3], -1.0))
-        order = torch.argsort(-key, stable=True)
-        perm = perm[order]
-        st = st[:, order]
-    r = pass_fn(flat, cam, seed, sample_start, pix_lanes=pix_abs[perm],
-                carry=st, **common)
-    rad.index_add_(1, perm, r)
+
+    def phase(cap_i, pix_lanes, carry, perm):
+        out = pass_fn(flat, cam, seed, sample_start, cap=cap_i,
+                      pix_lanes=pix_lanes, carry=carry, **common)
+        return out if cap_i else (out, None)
+
+    rad = _compacted_schedule(phase, caps, n_samples, width * height)
     return _image_from_lanes(rad, width, height)
 
+
+def render_pass_grad_compacted(flat: FlatScene, cam: CameraState, seed,
+                               sample_start, *, width: int, height: int,
+                               n_strata: int, max_depth: int,
+                               n_samples: int, cotangent,
+                               sky_gradient: bool = False,
+                               caps: tuple | None = None, pass_fn=None):
+    """The capped + lane-compacted schedule of the grad pass (K5,
+    wavefront_pallas.py:3807-3888): render_pass_compacted's phases, with
+    the weight planes riding the carry, the cotangent lanes permuted with
+    the lanes, and dG_tex (a sum over lanes, which no permutation changes)
+    summed across phases. caps default to default_grad_caps; () is one
+    uncapped grad pass. pass_fn runs each phase (default
+    grad_pass_function(flat, cam)). Returns (image, dG_tex) as the single
+    grad pass does."""
+    if caps is None:
+        caps = default_grad_caps(flat, width, height, n_samples, max_depth)
+    caps = _check_caps(caps)
+    if pass_fn is None:
+        pass_fn = grad_pass_function(flat, cam)
+    common = dict(width=width, height=height, n_strata=n_strata,
+                  max_depth=max_depth, n_samples=n_samples,
+                  sky_gradient=sky_gradient)
+    if caps == ():
+        return pass_fn(flat, cam, seed, sample_start, cotangent=cotangent,
+                       **common)
+    g0 = cotangent_lanes(cotangent, width=width, height=height)
+    dgs = []
+
+    def phase(cap_i, pix_lanes, carry, perm):
+        out = pass_fn(flat, cam, seed, sample_start, cap=cap_i,
+                      pix_lanes=pix_lanes, carry=carry,
+                      cotangent=cotangent if perm is None else g0[:, perm],
+                      **common)
+        dgs.append(out[1])
+        return out[0], (out[2] if cap_i else None)
+
+    rad = _compacted_schedule(phase, caps, n_samples, width * height)
+    return (_image_from_lanes(rad, width, height),
+            torch.stack(dgs).sum(0))

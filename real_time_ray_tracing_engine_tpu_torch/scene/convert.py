@@ -9,6 +9,9 @@ JAX one table by table:
     arrays, meta = flat_to_numpy(jax_flat)      # or this package's FlatScene
     flat = flat_from_numpy(arrays, meta, device="cpu")
     cam = camera_from_numpy(camera_to_numpy(jax_cam), device="cpu")
+    params = params_from_numpy(
+        {k: np.asarray(v) for k, v in jax_train.get_params(jax_flat).items()},
+        device="cpu")
 """
 from __future__ import annotations
 
@@ -71,3 +74,10 @@ def camera_from_numpy(arrays: dict, device) -> CameraState:
     names = [f.name for f in dataclasses.fields(CameraState)]
     return CameraState(**{n: _tensor(np.asarray(arrays[n], np.float32),
                                      device) for n in names})
+
+
+def params_from_numpy(params: dict, device) -> dict:
+    """The JAX package's trainable params (its parallel/train.get_params,
+    each array as numpy) as this package's tensors on `device`: the same
+    names, shapes and dtypes, so both packages train from one state."""
+    return {k: _tensor(np.asarray(v), device) for k, v in params.items()}

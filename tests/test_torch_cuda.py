@@ -138,3 +138,86 @@ def test_render_auto_runs_the_kernel(cuda_device):
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
     assert wc.render_pass_kernel.launches > before
     assert wc.render_pass_reference.calls == calls
+
+
+def _cotangent(kw, device, seed=0):
+    g = np.random.default_rng(seed).normal(
+        size=(kw["height"], kw["width"], 3)).astype(np.float32)
+    return torch.from_numpy(g).to(device)
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "cornell_smoke"])
+def test_grad_kernel_matches_plain(name, cuda_device):
+    """K3 against its plain version at 64 px, depth 8: the image per pixel,
+    dG_tex to 1e-4 of its largest entry (the two sum the lanes in another
+    order), the carry with its weight planes, and the bounce counts."""
+    flat, cam, kw = _pass_args(name, cuda_device)
+    g = _cotangent(kw, cuda_device)
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    it_k = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
+    it_p = torch.zeros_like(it_k)
+    before = wc.render_pass_grad_kernel.launches
+    img_k, dg_k = wc.render_pass_grad_kernel(flat, cam, 7, 0, cotangent=g,
+                                             iters=it_k, **kw)
+    torch.cuda.synchronize()
+    assert wc.render_pass_grad_kernel.launches == before + 1
+    img_p, dg_p = wc.render_pass_grad_reference(flat, cam, 7, 0,
+                                                cotangent=g, iters=it_p,
+                                                **kw)
+    fwd = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
+    np.testing.assert_array_equal(img_k.cpu().numpy(), fwd.cpu().numpy())
+    k, p = img_k.cpu().numpy(), img_p.cpu().numpy()
+    assert (np.abs(k - p) > 1e-3).mean() < 0.01
+    scale = float(dg_p.abs().max())
+    assert scale > 0.05
+    np.testing.assert_allclose(dg_k.cpu().numpy(), dg_p.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4 * scale)
+    assert int(it_k.sum()) == int(it_p.sum())
+    rk, _, sk = wc.render_pass_grad_kernel(flat, cam, 7, 0, cotangent=g,
+                                           cap=5, **kw)
+    rp, _, sp = wc.render_pass_grad_reference(flat, cam, 7, 0, cotangent=g,
+                                              cap=5, **kw)
+    assert sk.shape == (wc.CARRY_ROWS + 3 * flat.tex_type.shape[0],
+                        n_lanes)
+    np.testing.assert_allclose(sk.cpu().numpy(), sp.cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "cornell_smoke"])
+def test_grad_kernel_compacted_matches_single(name, cuda_device):
+    """K5 on the kernel: caps (12, 6) against one grad pass, at 40 px (pad
+    lanes in the permutation)."""
+    flat, cam, kw = _pass_args(name, cuda_device, width=40)
+    g = _cotangent(kw, cuda_device, 1)
+    one, dg1 = wc.render_pass_grad_kernel(flat, cam, 7, 3, cotangent=g,
+                                          **kw)
+    two, dg2 = wc.render_pass_grad_compacted(flat, cam, 7, 3, cotangent=g,
+                                             caps=(12, 6), **kw)
+    assert np.allclose(one.cpu().numpy(), two.cpu().numpy(), atol=1e-5)
+    scale = float(dg1.abs().max())
+    np.testing.assert_allclose(dg2.cpu().numpy(), dg1.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4 * scale)
+
+
+def test_train_step_runs_the_kernels(cuda_device):
+    """make_train_step on the card: the forward and grad kernels run, no
+    plain pass, and the loss falls over three Adam steps."""
+    from real_time_ray_tracing_engine_tpu_torch.parallel import train
+    flat, cam, kw = _pass_args("cornell_box", cuda_device, width=32, spp=16,
+                               depth=8)
+    kw = {k: v for k, v in kw.items() if k != "n_samples"}
+    target = train.make_kernel_render(flat, **kw)(
+        {"tex_color": flat.tex_color}, cam, 0).detach()
+    tc = flat.tex_color.clone()
+    tc[:3] *= 0.7
+    params = {"tex_color": tc.requires_grad_(True)}
+    step = train.make_train_step(torch.optim.Adam(params.values(), lr=0.02),
+                                 flat=flat, **kw)
+    grads = wc.render_pass_grad_kernel.launches
+    plain = (wc.render_pass_reference.calls
+             + wc.render_pass_grad_reference.calls)
+    losses = [float(step(params, cam, 0, target)) for _ in range(3)]
+    assert losses[-1] < losses[0], losses
+    assert wc.render_pass_grad_kernel.launches >= grads + 3
+    assert (wc.render_pass_reference.calls
+            + wc.render_pass_grad_reference.calls) == plain
