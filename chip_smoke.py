@@ -6,12 +6,13 @@
 Run from the root of a checkout, on a machine with a CUDA device and the
 CUDA toolkit (nvcc). It builds the port's CUDA kernels from
 real_time_ray_tracing_engine_tpu_torch/csrc/, checks each against its plain
-torch version on the card, and drives the port's two main paths: the CLI's
+torch version on the card, and drives the port's main paths: the CLI's
 Cornell box render (600x600, 100 spp, depth 50), checked against the
-reference engine's goldens, and the tex_color training step (Cornell
-1920x1080, 64 spp, depth 50, Adam), whose loss must fall. Every phase
-prints one JSON line; any failure raises and the script exits non-zero. The
-last lines are the kernel table, the card's name and power limit, and
+reference engine's goldens, and the training step (Cornell 1920x1080, 64
+spp, depth 50, Adam) over tex_color alone and over all five trainable
+families, whose loss must fall. Every phase prints one JSON line; any
+failure raises and the script exits non-zero. The last lines are each
+phase's seconds, the kernel table, the card's name and power limit, and
 {"ok": true, "device": {...}}.
 
 It never imports JAX: the port stands alone on the GPU machine.
@@ -31,7 +32,8 @@ ROOT = Path(__file__).resolve().parent
 PKG = "real_time_ray_tracing_engine_tpu_torch"
 KERNEL_SOURCE = f"{PKG}/csrc/wavefront.cu"
 # the JAX package's one pl.pallas_call; the forward kernel replaces its K1/K2
-# variants, the grad kernel its grad_tex weight-plane variant (K3, K5)
+# variants, the grad kernel its grad_tex weight-plane variant (K3, K5) and,
+# with hard slots, its tangent-bundle variant (K4)
 TPU_KERNEL = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:3604"
 GOLDEN_DIR = ROOT / "tests" / "goldens" / "reference"
 
@@ -55,6 +57,11 @@ DG_RTOL = 1e-4
 TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_DEPTH = 1920, 1080, 64, 50
 TRAIN_STEPS, TRAIN_LR, TRAIN_SEED = 4, 0.02, 0
 WALL_ROWS = [0, 1, 2]     # Cornell's green, red and white texture rows
+# the full-family step: Adam at TRAIN_LR for tex_color, IOR and fuzz and at
+# GEOM_LR for sphere centers and radii (Cornell's units are ~555), from the
+# dimmed walls and the glass sphere (and its light-list copy) at IOR 1.4
+# and radius 85
+GEOM_LR, START_IOR, START_RADIUS = 1.0, 1.4, 85.0
 
 # Operations of one bounce of the kernel on a Lambertian hit, counted by
 # hand from csrc/wavefront.cu (each add, multiply, divide, compare, min/max,
@@ -70,6 +77,14 @@ OPS_SHADE = 91            # ONB (40), cosine sample (35), pdfs and MIS
 OPS_LIGHT_PDF = {"sphere": 55, "quad": 62}       # per light, every bounce
 OPS_LIGHT_SAMPLE = {"sphere": 100, "quad": 25}   # one light, half the time
 OPS_PLANE = 4             # grad: one weight plane's update at a scatter
+# grad, hard slots: one dual evaluation of a Lambertian bounce's continuous
+# physics on Cornell (csrc/wavefront.cu physics<Dual>), per slot, counting
+# a dual add as 2, a dual multiply or divide as 4, a dual sqrt as 3 and a
+# dual min/max or abs as 2: the winner's hit record (quad) 140, ONB 115,
+# cosine sample 73, two clamped cosines 40, half a light sample 78 (sphere
+# 265, quad 48), both lights' pdfs 268, MIS weight and throughput 34, the
+# cotangent dot 6
+OPS_SLOT = 754
 PEAK_FP32 = 67e12         # H100 SXM fp32 outside the tensor cores (with
                           # FMA counted as two; the kernel is built
                           # --fmad=false, so it can reach half of this)
@@ -208,8 +223,9 @@ def cotangent(torch, kw, dev, seed):
                        device=dev)
 
 
-def bounce_ops(flat, grad: bool) -> float:
-    """Operations of one Lambertian bounce on `flat` (see OPS_*)."""
+def bounce_ops(flat, grad: bool, n_slots: int = 0) -> float:
+    """Operations of one Lambertian bounce on `flat`, with the weight
+    planes (grad) and n_slots hard-slot evaluations (see OPS_*)."""
     kinds = ["sphere" if bool(x) else "quad" for x in
              (flat.light_prim < flat.sph_center.shape[0]).tolist()]
     ops = (OPS_RNG + OPS_HIT + OPS_SHADE
@@ -219,14 +235,26 @@ def bounce_ops(flat, grad: bool) -> float:
            + 0.5 * sum(OPS_LIGHT_SAMPLE[k] for k in kinds) / len(kinds))
     if grad:
         ops += OPS_PLANE * 3 * flat.tex_type.shape[0]
-    return float(ops)
+    return float(ops + OPS_SLOT * n_slots)
 
 
-def bound_ms(flat, grad: bool, bounces: int) -> float:
+def bound_ms(flat, grad: bool, bounces: int, n_slots: int = 0) -> float:
     """The least time the card could take for `bounces` bounces: operations
     over the fp32 peak. Bytes are negligible beside it (a few floats per
     lane, tables in shared memory)."""
-    return bounce_ops(flat, grad) * bounces / PEAK_FP32 * 1e3
+    return bounce_ops(flat, grad, n_slots) * bounces / PEAK_FP32 * 1e3
+
+
+def family_errors(slots, got, want) -> dict:
+    """Per hard family: the largest |got - want| and the largest |want|."""
+    out = {}
+    for fam in ("fuzz", "ior", "sphc", "sphr"):
+        idx = [k for k, s in enumerate(slots) if s[0] == fam]
+        if idx:
+            out[fam] = {"max_abs_err": float((got[idx] - want[idx]).abs()
+                                             .max()),
+                        "scale": float(want[idx].abs().max())}
+    return out
 
 
 def counted_bounces(torch, run, n_lanes, dev) -> int:
@@ -259,6 +287,13 @@ def main() -> int:
     from real_time_ray_tracing_engine_tpu_torch.parallel import train
     check("jax" not in sys.modules, "the port imported jax")
     dev = torch.device("cuda", 0)
+    phase_s = {}
+    clock = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
 
     # 1. device
     card = gpu_line()
@@ -266,6 +301,7 @@ def main() -> int:
     emit("device", card=card, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
+    done("device")
 
     # 2. build the kernel library from the checkout's sources
     lib = wc.load_library()
@@ -273,6 +309,7 @@ def main() -> int:
             if "registers" in ln or "spill" in ln]
     emit("build", seconds=lib.build_seconds,
          library=os.path.relpath(lib.path, ROOT), ptxas=regs)
+    done("build")
 
     # 3. kernel vs plain torch on the card, per pixel
     parity = [("cornell_box", builtin(pt, "cornell_box", 128, 16, 50)),
@@ -289,6 +326,7 @@ def main() -> int:
         emit("parity", scene=name, **{k: v for k, v in kw.items()
                                       if k != "sky_gradient"}, **stats)
         assert_close(name, stats)
+    done("parity")
 
     # 3b. the grad kernel (K3) vs its plain version on the card: the image
     # per pixel (and bit for bit the forward kernel's), dG_tex to DG_RTOL of
@@ -306,9 +344,9 @@ def main() -> int:
         n_lanes = wc.lane_count(kw["width"] * kw["height"])
         it_k = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         it_p = torch.zeros_like(it_k)
-        img_k, dg_k = wc.render_pass_grad_kernel(flat, cam, 7, 0,
-                                                 cotangent=g, iters=it_k,
-                                                 **kw)
+        img_k, dg_k, _ = wc.render_pass_grad_kernel(flat, cam, 7, 0,
+                                                    cotangent=g, iters=it_k,
+                                                    **kw)
         fwd = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
         out = {}
 
@@ -316,7 +354,7 @@ def main() -> int:
             out["plain"] = wc.render_pass_grad_reference(
                 flat, cam, 7, 0, cotangent=g, iters=it_p, **kw)
         plain_ms = cuda_ms(torch, plain, reps=1, warmup=0)
-        img_p, dg_p = out["plain"]
+        img_p, dg_p, _ = out["plain"]
         stats = per_pixel(img_k, img_p)
         scale = float(dg_p.abs().max())
         dg_err = float((dg_k - dg_p).abs().max())
@@ -346,6 +384,76 @@ def main() -> int:
               f"from the forward kernel's by {vs_fwd}")
         check(abs(bk - bp) <= 1e-4 * bp,
               f"{name}: kernel traced {bk} bounces, plain {bp}")
+    done("grad_parity")
+
+    # 3c. the grad kernel with hard slots (K4) vs its plain version on the
+    # card: Cornell (9 slots: the glass IOR, the glass sphere and its
+    # light-list copy) and three_spheres (23: 1 fuzz, 2 IOR, 5 spheres'
+    # centers and radii). The image per pixel and the forward kernel's, the
+    # bounces, dG_hard to DG_RTOL of its largest entry per family (the sums
+    # over lanes run in another order, and the kernel's dual numbers round
+    # apart from torch.func.jvp's forward AD, formula by formula), dG_tex to
+    # DG_RTOL of the plain version's and equal to the tex-only kernel's.
+    hard_parity = [
+        ("cornell_box", builtin(pt, "cornell_box", 64, 4, 16)),
+        ("three_spheres", builtin(pt, "three_spheres", 64, 4, 8))]
+    hard_err = {}
+    for name, scene in hard_parity:
+        flat, cam, kw = pass_args(pt, scene, dev)
+        slots = wc.hard_param_slots(flat)
+        g = cotangent(torch, kw, dev, 5)
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        it_k = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        it_p = torch.zeros_like(it_k)
+        img_k, dgt_k, dgh_k = wc.render_pass_grad_kernel(
+            flat, cam, 7, 0, cotangent=g, hard_slots=slots, iters=it_k,
+            **kw)
+        _, dgt_tex, _ = wc.render_pass_grad_kernel(flat, cam, 7, 0,
+                                                   cotangent=g, **kw)
+        fwd = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
+        out = {}
+
+        def plain():
+            out["plain"] = wc.render_pass_grad_reference(
+                flat, cam, 7, 0, cotangent=g, hard_slots=slots, iters=it_p,
+                **kw)
+        plain_ms = cuda_ms(torch, plain, reps=1, warmup=0)
+        img_p, dgt_p, dgh_p = out["plain"]
+        stats = per_pixel(img_k, img_p)
+        fams = family_errors(slots, dgh_k, dgh_p)
+        tex_scale = float(dgt_p.abs().max())
+        tex_err = float((dgt_k - dgt_p).abs().max())
+        vs_tex_only = float((dgt_k - dgt_tex).abs().max())
+        vs_fwd = float((img_k - fwd).abs().max())
+        bk, bp = int(it_k.sum()), int(it_p.sum())
+        rec = {"scene": name, "slots": len(slots),
+               **{k: v for k, v in kw.items() if k != "sky_gradient"},
+               **stats, "dg_hard": fams,
+               "dg_hard_max_abs_err": float((dgh_k - dgh_p).abs().max()),
+               "dg_tex_max_abs_err": tex_err, "dg_tex_scale": tex_scale,
+               "dg_tex_vs_tex_only": vs_tex_only,
+               "vs_forward_max_abs_err": vs_fwd, "kernel_bounces": bk,
+               "plain_bounces": bp, "plain_ms": plain_ms}
+        hard_err[name] = rec
+        emit("hard_grad_parity", **rec)
+        assert_close(f"{name} hard grad", stats)
+        check(bool(torch.isfinite(dgh_k).all()),
+              f"{name}: dG_hard not finite")
+        for fam, e in fams.items():
+            check(e["scale"] > 0.0, f"{name}: plain dG_hard[{fam}] is zero")
+            check(e["max_abs_err"] <= DG_RTOL * e["scale"],
+                  f"{name}: dG_hard[{fam}] differs by {e['max_abs_err']} "
+                  f"(limit {DG_RTOL} x {e['scale']})")
+        check(tex_err <= DG_RTOL * tex_scale,
+              f"{name}: dG_tex differs by {tex_err} (limit {DG_RTOL} x "
+              f"{tex_scale})")
+        check(vs_tex_only <= DG_RTOL * tex_scale,
+              f"{name}: dG_tex with hard slots differs from the tex-only "
+              f"pass by {vs_tex_only}")
+        check(vs_fwd <= 1e-6, f"{name}: the hard grad pass's image differs "
+              f"from the forward kernel's by {vs_fwd}")
+        check(bk == bp, f"{name}: kernel traced {bk} bounces, plain {bp}")
+    done("hard_grad_parity")
 
     # 4. compacted vs single pass, both on the kernel
     for name in ("cornell_box", "cornell_smoke"):
@@ -360,6 +468,7 @@ def main() -> int:
                  max_abs_err=err)
             check(np.allclose(one, two, atol=COMPACT_ATOL),
                   f"{name} {sched}: compacted differs from single by {err}")
+    done("compacted")
 
     # 5. the main path: the CLI's default Cornell render on the kernel
     out_ppm = Path("output") / "output_image.ppm"
@@ -395,6 +504,7 @@ def main() -> int:
          ppm_mean_byte=float(ppm.mean()), kernel_launches=launches,
          plain_calls=plain_calls, cli_wall_s=cli_s, render_s=render_s,
          mpaths_per_s=paths / render_s / 1e6)
+    done("main_path")
 
     # 5b. the second main path: tex_color training at 1920x1080 spp64 d50
     # through make_train_step on the kernels (forward K1/K2 compacted, grad
@@ -449,6 +559,88 @@ def main() -> int:
     check(train_fwd >= TRAIN_STEPS, "training: the forward kernel ran "
           f"{train_fwd} times in {TRAIN_STEPS} steps")
     check(train_plain == 0, "training ran the plain torch engine")
+    done("train_main_path")
+
+    # 5c. the full-family training main path: the same shape and target,
+    # all five trainable families through make_train_step on the kernels
+    # (forward K1/K2 compacted, grad K3 + K4 under the compacted driver K5;
+    # the JAX north star, bench.py:122-198), Adam at TRAIN_LR for tex_color,
+    # IOR and fuzz and GEOM_LR for sphere geometry, from the dimmed walls
+    # and the glass sphere at START_IOR and START_RADIUS
+    slots = wc.hard_param_slots(tflat)
+    glass_mats = [sl[1] for sl in slots if sl[0] == "ior"]
+    glass_rows = [sl[1] for sl in slots if sl[0] == "sphr"]
+    fparams = {k: v.detach().clone()
+               for k, v in train.get_params(tflat).items()}
+    fparams["tex_color"][WALL_ROWS] *= 0.7
+    fparams["mat_ior"][glass_mats] = START_IOR
+    fparams["sph_radius"][glass_rows] = START_RADIUS
+    for v in fparams.values():
+        v.requires_grad_(True)
+    fstep = train.make_train_step(torch.optim.Adam([
+        {"params": [fparams["tex_color"], fparams["mat_ior"],
+                    fparams["mat_fuzz"]], "lr": TRAIN_LR},
+        {"params": [fparams["sph_center"], fparams["sph_radius"]],
+         "lr": GEOM_LR}]), flat=tflat, engine="cuda", **tkw)
+    flosses, fstep_s, first_grads = [], [], None
+    wc.render_pass_kernel.launches = 0
+    wc.render_pass_grad_kernel.launches = 0
+    wc.render_pass_grad_kernel.hard_launches = 0
+    wc.render_pass_reference.calls = 0
+    wc.render_pass_grad_reference.calls = 0
+    rd._render_pass.calls = 0
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = fstep(fparams, tcam, TRAIN_SEED, target)
+        torch.cuda.synchronize()
+        fstep_s.append(time.perf_counter() - t0)
+        flosses.append(float(loss))
+        for k, v in fparams.items():
+            check(bool(torch.isfinite(v.grad).all()),
+                  f"full-family training: the {k} gradient is not finite")
+        if first_grads is None:
+            first_grads = {
+                "mat_ior": fparams["mat_ior"].grad[glass_mats].tolist(),
+                "sph_center": fparams["sph_center"].grad[glass_rows]
+                .tolist(),
+                "sph_radius": fparams["sph_radius"].grad[glass_rows]
+                .tolist()}
+    ftrain_fwd = wc.render_pass_kernel.launches
+    ftrain_grad = wc.render_pass_grad_kernel.launches
+    ftrain_hard = wc.render_pass_grad_kernel.hard_launches
+    ftrain_plain = (wc.render_pass_reference.calls
+                    + wc.render_pass_grad_reference.calls
+                    + rd._render_pass.calls)
+    fsteady = sorted(fstep_s[1:])[len(fstep_s[1:]) // 2]
+    emit("full_train_main_path", shape=f"{TRAIN_W}x{TRAIN_H} spp{TRAIN_SPP} "
+         f"d{TRAIN_DEPTH}", fields=list(train.TRAINABLE_FIELDS),
+         slots=[list(sl) for sl in slots], optimizer="Adam",
+         lr={"tex_color, mat_ior, mat_fuzz": TRAIN_LR,
+             "sph_center, sph_radius": GEOM_LR},
+         losses=flosses, step_s=fstep_s, median_step_s=fsteady,
+         fwd_bwd_mpaths_per_s=train_paths / fsteady / 1e6,
+         first_step_mpaths_per_s=train_paths / fstep_s[0] / 1e6,
+         forward_launches=ftrain_fwd, grad_launches=ftrain_grad,
+         hard_grad_launches=ftrain_hard, plain_calls=ftrain_plain,
+         first_step_glass_grads=first_grads,
+         params={k: v.detach().cpu().tolist() for k, v in fparams.items()
+                 if k != "tex_color"})
+    check(all(math.isfinite(x) for x in flosses),
+          "full-family training: loss not finite")
+    check(flosses[-1] < flosses[0],
+          f"full-family training: the loss did not fall {flosses}")
+    check(len(glass_mats) == 1 and len(glass_rows) == 2,
+          f"Cornell's hard slots changed: {slots}")
+    for k, v in first_grads.items():
+        check(all(x != 0.0 for x in np.ravel(v)),
+              f"full-family training: a glass {k} gradient is zero: {v}")
+    check(ftrain_hard >= TRAIN_STEPS, "full-family training: the hard-slot "
+          f"grad kernel ran {ftrain_hard} times in {TRAIN_STEPS} steps")
+    check(ftrain_fwd >= TRAIN_STEPS, "full-family training: the forward "
+          f"kernel ran {ftrain_fwd} times in {TRAIN_STEPS} steps")
+    check(ftrain_plain == 0, "full-family training ran the plain engine")
+    done("full_train_main_path")
 
     # 6. reference images (tests/test_reference_images.py's pooled rule)
     for name, (spp, mean_tol, min_rate) in REF_SCENES.items():
@@ -470,6 +662,7 @@ def main() -> int:
              allclose_rate=rate, mean_tol=mean_tol, min_rate=min_rate)
         check(mean_diff < mean_tol, f"{name}: cell mean diff {mean_diff}")
         check(rate >= min_rate, f"{name}: allclose rate {rate}")
+    done("reference_images")
 
     # 7. times at the main path's shapes: Cornell 600x600, depth 50. The
     # scene is packed for the kernel once, as a render does, and the
@@ -536,6 +729,7 @@ def main() -> int:
             assert_close("cornell_box 600x600 spp16 d50", stats)
             assert_close("cornell_box 600x600 spp16 d50 compacted",
                          comp_stats)
+    done("times")
 
     # 7b. the grad kernel at the training main path's shape, 1920x1080
     # spp64 d50: single and compacted (K5, the default grad caps), timed,
@@ -564,7 +758,7 @@ def main() -> int:
     t_gsingle = cuda_ms(torch, grad_single)
     t_gcomp = cuda_ms(torch, grad_compacted)
     t_fcomp = cuda_ms(torch, forward_compacted)
-    (img1, dg1), (img2, dg2) = out["single"], out["compacted"]
+    (img1, dg1, _), (img2, dg2, _) = out["single"], out["compacted"]
     k5_img_err = float((img1 - img2).abs().max())
     k5_scale = float(dg1.abs().max())
     k5_dg_err = float((dg1 - dg2).abs().max())
@@ -592,17 +786,79 @@ def main() -> int:
     check(k5_dg_err <= DG_RTOL * k5_scale,
           f"1920x1080 spp64 grad: compacted dG_tex differs by {k5_dg_err} "
           f"(limit {DG_RTOL} x {k5_scale})")
+    done("grad_times")
 
-    # the forward kernel's bound at its timed shape (600x600 spp16 d50)
-    fflat, fcam, fkw = pass_args(pt, builtin(pt, "cornell_box", 600, 16, 50),
-                                 dev)
-    f_bounces = counted_bounces(
-        torch, lambda it: wc.render_pass_kernel(fflat, fcam, 0, 0, iters=it,
-                                                **fkw),
-        wc.lane_count(fkw["width"] * fkw["height"]), dev)
-    f_bound = bound_ms(fflat, False, f_bounces)
-    emit("forward_bound", shape="600x600 spp16 d50", bounces=f_bounces,
-         ops_per_bounce=bounce_ops(fflat, False), bound_ms=f_bound)
+    # 7c. the full-family grad kernel (K3 + K4) at the same shape, single
+    # and under K5 (the default grad caps), timed, the compacted image,
+    # dG_tex and dG_hard held against the single pass. It traces the tex
+    # grad pass's paths (3c holds the images and bounce counts equal), so
+    # its bound uses that pass's bounce count.
+    hslots = wc.hard_param_slots(gflat)
+    hprep = wc.prepare_kernel(gflat, gcam, hslots)
+    hard_pass = functools.partial(wc.render_pass_grad_kernel, prepared=hprep)
+
+    def hard_single():
+        out["hard_single"] = hard_pass(gflat, gcam, 0, 0, cotangent=g,
+                                       hard_slots=hslots, **gkw)
+
+    def hard_compacted():
+        out["hard_compacted"] = wc.render_pass_grad_compacted(
+            gflat, gcam, 0, 0, cotangent=g, hard_slots=hslots,
+            pass_fn=hard_pass, **gkw)
+
+    t_hsingle = cuda_ms(torch, hard_single)
+    t_hcomp = cuda_ms(torch, hard_compacted)
+    (himg1, ht1, hh1), (himg2, ht2, hh2) = (out["hard_single"],
+                                            out["hard_compacted"])
+    hk5 = {"image_max_abs_err": float((himg1 - himg2).abs().max()),
+           "dg_tex_max_abs_err": float((ht1 - ht2).abs().max()),
+           "dg_tex_scale": float(ht1.abs().max()),
+           "dg_hard_max_abs_err": float((hh1 - hh2).abs().max()),
+           "dg_hard_scale": float(hh1.abs().max())}
+    h_bound = bound_ms(gflat, True, g_bounces, len(hslots))
+    emit("hard_grad_times", card=card, shape=f"{TRAIN_W}x{TRAIN_H} spp"
+         f"{TRAIN_SPP} d{TRAIN_DEPTH}", slots=len(hslots),
+         single_ms=t_hsingle, compacted_ms=t_hcomp,
+         single_mpaths_per_s=train_paths / t_hsingle / 1e3,
+         compacted_mpaths_per_s=train_paths / t_hcomp / 1e3,
+         compacted_vs_single=hk5, bounces=g_bounces,
+         ops_per_bounce=bounce_ops(gflat, True, len(hslots)),
+         bound_ms=h_bound)
+    check(bool(torch.isfinite(hh1).all()) and bool(torch.isfinite(hh2).all()),
+          "1920x1080 spp64 hard grad: dG_hard not finite")
+    check(np.allclose(himg1.cpu().numpy(), himg2.cpu().numpy(),
+                      atol=COMPACT_ATOL),
+          f"1920x1080 spp64 hard grad: compacted image differs from single "
+          f"by {hk5['image_max_abs_err']}")
+    for part in ("dg_tex", "dg_hard"):
+        check(hk5[f"{part}_max_abs_err"] <= DG_RTOL * hk5[f"{part}_scale"],
+              f"1920x1080 spp64 hard grad: compacted {part} differs by "
+              f"{hk5[f'{part}_max_abs_err']} (limit {DG_RTOL} x "
+              f"{hk5[f'{part}_scale']})")
+    done("hard_grad_times")
+
+    # the forward kernel's bounds: at its timed shape (600x600 spp16 d50),
+    # at the CLI's 100 samples, and at the training shape (the grad pass's
+    # paths, 7b)
+    f_bounds = {}
+    for spp in (16, 100):
+        fflat, fcam, fkw = pass_args(
+            pt, builtin(pt, "cornell_box", 600, spp, 50), dev)
+        f_bounces = counted_bounces(
+            torch, lambda it: wc.render_pass_kernel(fflat, fcam, 0, 0,
+                                                    iters=it, **fkw),
+            wc.lane_count(fkw["width"] * fkw["height"]), dev)
+        f_bounds[spp] = bound_ms(fflat, False, f_bounces)
+        emit("forward_bound", shape=f"600x600 spp{spp} d50",
+             bounces=f_bounces, ops_per_bounce=bounce_ops(fflat, False),
+             bound_ms=f_bounds[spp])
+    emit("forward_bound", shape=f"{TRAIN_W}x{TRAIN_H} spp{TRAIN_SPP} "
+         f"d{TRAIN_DEPTH}", bounces=g_bounces,
+         ops_per_bounce=bounce_ops(gflat, False),
+         bound_ms=bound_ms(gflat, False, g_bounces))
+    f_bound = f_bounds[16]
+    done("bounds")
+    emit("phase_seconds", **phase_s)
 
     print(json.dumps({"kernels": [{
         "name": "wavefront_forward_kernel", "route": "cuda",
@@ -620,7 +876,20 @@ def main() -> int:
         "ms_at": f"cornell_box {TRAIN_W}x{TRAIN_H} spp{TRAIN_SPP} "
                  f"d{TRAIN_DEPTH}",
         "plain_ms_at": grad_err["plain_ms_at"],
-        "compacted_ms": t_gcomp}]}), flush=True)
+        "compacted_ms": t_gcomp}, {
+        "name": "wavefront_grad_kernel[hard_slots]", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+        "launches": ftrain_hard,
+        "max_abs_err": hard_err["cornell_box"]["dg_hard_max_abs_err"],
+        "ms": t_hsingle,
+        "plain_ms": hard_err["cornell_box"]["plain_ms"],
+        "bound_ms": h_bound, "bound_by": "operations", "library_ms": None,
+        "ms_at": f"cornell_box {TRAIN_W}x{TRAIN_H} spp{TRAIN_SPP} "
+                 f"d{TRAIN_DEPTH}, {len(hslots)} hard slots",
+        "plain_ms_at": "cornell_box 64x64 spp4 d16, 9 hard slots (not run "
+                       "at the kernel's shape: far too long)",
+        "max_abs_err_at": "dG_hard, cornell_box 64x64 spp4 d16",
+        "compacted_ms": t_hcomp}]}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
 // Persistent-lane path-tracing megakernel for Hopper (sm_90a): the forward
-// pass and the forward-mode tex_color gradient pass, one bounce body.
+// pass and the forward-mode gradient passes, one bounce body.
 //
 // Replaces: real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py
 //   _make_kernel, reached through the one pl.pallas_call at line 3604 of
-//   _render_pass_pallas, in three variants: the unrolled-prim forward (K1),
-//   its capped/resume variant (K2), and grad_tex=True with want_tex and
+//   _render_pass_pallas, in four variants: the unrolled-prim forward (K1),
+//   its capped/resume variant (K2), grad_tex=True with want_tex and
 //   NT <= 32, the weight-plane tier (K3: 865-873, 2347-2349, 2565-2603,
-//   3192-3204, 3249-3263), which the compacted grad driver runs capped and
-//   resumed (K5, 3807-3888; driver in ops/wavefront_cuda.py).
+//   3192-3204, 3249-3263), and the tangent-bundle tier for the hard
+//   parameters (K4: hard_slots, 875-896, 955-978, 1104-1126, 2395,
+//   2411-2542, 3197-3201, 3240-3244, 3260-3263), which the compacted grad
+//   driver runs capped and resumed (K5, 3807-3888; driver in
+//   ops/wavefront_cuda.py).
 //
 // Shape: one thread per lane (pixel), the reference engine's own
 //   static_render_kernel shape (CameraKernels.cu:240-278). Each thread loops
@@ -25,16 +28,54 @@
 //   freezes once its work is done, so its carry after `cap` iterations is
 //   the Pallas per-tile loop's, lane for lane.
 //
-// Gradient (K3): wavefront_body<true, NTMAX> is the same bounce with the
-//   weight planes Wp (3*NTMAX floats a thread, d throughput / d tex_color,
-//   reset on regeneration, appended to the carry as rows 14..14+3NT) and
-//   their cotangent sums Gp (3*NTMAX floats), both indexed by constants
-//   after unrolling. The image is the forward's, bit for bit: the same
-//   code traces the same paths. At the end Gp is reduced over the block
-//   (warp shuffles, then the 4 warps in order) into one partial row per
-//   block; the wrapper sums the rows. No float atomics, so dG_tex is the
-//   same on every run. NTMAX is 8 (Cornell: NT = 6) or 16 (the gate's
-//   MAX_TEXS).
+// One bounce is closest_select (which primitive wins, on values) and then
+//   physics<T, NTMAX>, the continuous rest of the bounce (hit record,
+//   medium preemption, texture, emission, scatter, light sample and pdf,
+//   MIS weight, throughput update), templated on its scalar type T and
+//   updating the lane's radiance and ray state in place.
+//
+// Gradient, weight planes (K3): wavefront_body<NTMAX, HARD> with NTMAX > 0
+//   carries Wp (3*NTMAX floats a thread, d throughput / d tex_color, reset
+//   on regeneration, carry rows 14..14+3NT) and their cotangent sums Gp,
+//   both indexed by constants after unrolling, so they stay in registers;
+//   physics<float, NTMAX> updates them inside the branches of the radiance
+//   events and the scatter (kept there: gathering the events into a record
+//   and updating after the bounce made this kernel 12% slower on the
+//   H100). NTMAX is 8 (Cornell: NT = 6) or 16 (the gate's MAX_TEXS).
+//
+// Gradient, tangent bundles (K4): with HARD, each of the K hard slots
+//   (metal fuzz, dielectric IOR, sphere center and radius scalars) has a
+//   9-plane tangent Dst[k] = d(o, d, th)/d theta_k. The JAX kernel
+//   jax.linearize's `physics` once per bounce and pushes every bundle
+//   through the linear map; CUDA has no linearize, so here the JVP is
+//   forward-mode dual numbers: physics<Dual> evaluates the same code with
+//   a value and one tangent per scalar, written once as operator rules
+//   (+ - * /, sqrt, pow, sin, abs, min/max with torch's tie rules). Per
+//   bounce the float pass runs once (image, discrete decisions, K3) and the
+//   dual pass once per slot k, from (o, d, th) with tangent Dst[k] and
+//   theta_k's tangent 1 injected at the table reads the slot table names:
+//   the sphere row's center or radius column, the material's fuzz or IOR
+//   column, and the columns 1-3 / 7 of every light row that copies that
+//   sphere (light_src, the JAX kernel's theta_map aliasing). Every branch
+//   (winning primitive, Schlick reflect or refract, light pick, medium
+//   preemption, the pdf > 1e-8 guard) is decided on the value parts, which
+//   are the float pass's operation for operation, so the image is the
+//   forward's bit for bit and the slots see the same paths. dG[k] +=
+//   <g, d radiance / d theta_k> at each radiance event; Dst[k] takes the
+//   dual pass's new tangents where the path goes on and is reset to 0 on
+//   regeneration (a camera ray has no theta dependence). Dst and dG live in
+//   shared memory laid out [plane][thread] (10*K floats a thread, 46 KB a
+//   block at Cornell's K = 9, 160 KB at the bound K = 32): every access is
+//   thread-consecutive (no bank conflicts), the size follows K at launch,
+//   and there is nothing to spill, where 10*K more registers a thread would
+//   not fit beside the bounce's own. The slots' planes ride the carry
+//   after the weight planes (rows 14 + 3NT + 9k + c).
+//
+// Reductions: Gp (K3) per block by a shuffle tree in each warp and then the
+//   4 warps in order; dG (K4) per block by one thread per slot summing the
+//   block's 128 lanes in order. One partial row per block (3NT tex entries,
+//   then K hard ones); the wrapper sums the rows. No float atomics, so the
+//   gradients are the same on every run.
 //
 // RNG: the PCG4D counter hash keyed per (pixel, absolute sample, mixed
 //   seed) with the tags camera 0x0CA4, bounce 0x4000000 + b and medium
@@ -46,12 +87,15 @@
 //   and shared memory, with branch divergence (lanes of a warp take
 //   different material branches and finish their paths at different
 //   times); device-memory traffic is negligible: 12 floats read and 3 (or
-//   17) written per lane, plus 3 cotangent floats and 3*NT carry floats
-//   each way in the grad pass. The grad pass adds 3*NTMAX multiply-adds
-//   per radiance event and per scatter, and Wp may spill to local memory
-//   (ptxas reports it at build).
+//   17) written per lane, plus 3 cotangent floats and (3*NT + 9*K) carry
+//   floats each way in the grad pass. The grad pass adds 3*NTMAX
+//   multiply-adds per radiance event and per scatter for K3, and for K4 one
+//   dual evaluation of the bounce's continuous physics per slot: each slot
+//   costs about two to three times a float bounce's shading arithmetic
+//   (the selection loop over primitives runs once, in the float pass).
 // What this first design does about it: nothing yet. It is the simple,
-//   correct version; speed is later work.
+//   correct version; speed is later work (a slot whose tangent is provably
+//   zero this bounce could skip its dual pass).
 //
 // Arithmetic follows the plain torch integrator (ops/intersect.py,
 //   materials.py, lights.py, textures.py) operation for operation, in the
@@ -62,8 +106,10 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <type_traits>
 
 #define WF_THREADS 128
+#define MAX_SLOTS 32    // hard slots a grad launch takes (ops/wavefront_cuda.py)
 #define BIGF 1e30f
 #define T_MINF 1e-3f
 #define PI_F 3.14159265358979323846f
@@ -92,52 +138,183 @@
 #define LIGHT_COLS 25   // is_sphere, center, cdelta, radius | quad fields
 #define TEX_COLS 14     // color, scale, is_checker, even rgb, odd rgb,
                         // even row, odd row, is_noise
+#define SLOT_COLS 3     // table (SEED_*), row, column
+#define SEED_SPH 1
+#define SEED_MATF 2
 
 // Mirrored field by field by ops/wavefront_cuda.py::_Params (ctypes).
 struct WfParams {
     int n_lanes, n_pix, width, n_strata, max_depth, n_samples, sample_start;
     unsigned int seed_mix, perlin_seed;
     int sky_gradient, has_noise, checker_depth, cap;
-    int S, Q, L, M, MS, MQ, NT;
+    int S, Q, L, M, MS, MQ, NT, K, want_tex;
     int off_sph, off_quad, off_pmat, off_light, off_mati, off_matf, off_tex,
-        off_med, med_cols, n_table;
+        off_med, off_lsrc, off_slot, med_cols, n_table;
     float inv_strata;
     float cam[22];  // center, pixel00, pixel_du, pixel_dv, defocus_u,
                     // defocus_v, defocus_on, background
 };
 
-struct V3 { float x, y, z; };
+// ------------------------------------------------------------ dual numbers
+// A value and one tangent. The tangent rules are torch's forward-mode
+// formulas (derivatives.yaml), so the kernel and the plain version's
+// torch.func.jvp differentiate alike, up to rounding.
+struct Dual { float v, t; };
+
+__device__ __forceinline__ Dual dual(float v, float t) {
+    Dual r; r.v = v; r.t = t; return r;
+}
+__device__ __forceinline__ float val(float x) { return x; }
+__device__ __forceinline__ float val(Dual x) { return x.v; }
+template <typename T> __device__ __forceinline__ T lift(float v);
+template <> __device__ __forceinline__ float lift<float>(float v) {
+    return v;
+}
+template <> __device__ __forceinline__ Dual lift<Dual>(float v) {
+    return dual(v, 0.0f);
+}
+
+__device__ __forceinline__ Dual operator-(Dual a) { return dual(-a.v, -a.t); }
+__device__ __forceinline__ Dual operator+(Dual a, Dual b) {
+    return dual(a.v + b.v, a.t + b.t);
+}
+__device__ __forceinline__ Dual operator+(Dual a, float b) {
+    return dual(a.v + b, a.t);
+}
+__device__ __forceinline__ Dual operator+(float a, Dual b) {
+    return dual(a + b.v, b.t);
+}
+__device__ __forceinline__ Dual operator-(Dual a, Dual b) {
+    return dual(a.v - b.v, a.t - b.t);
+}
+__device__ __forceinline__ Dual operator-(Dual a, float b) {
+    return dual(a.v - b, a.t);
+}
+__device__ __forceinline__ Dual operator-(float a, Dual b) {
+    return dual(a - b.v, -b.t);
+}
+__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
+    return dual(a.v * b.v, a.t * b.v + a.v * b.t);
+}
+__device__ __forceinline__ Dual operator*(Dual a, float b) {
+    return dual(a.v * b, a.t * b);
+}
+__device__ __forceinline__ Dual operator*(float a, Dual b) {
+    return dual(a * b.v, a * b.t);
+}
+// d(a/b) = (da - db * q) / b
+__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
+    float q = a.v / b.v;
+    return dual(q, (a.t - b.t * q) / b.v);
+}
+__device__ __forceinline__ Dual operator/(Dual a, float b) {
+    return dual(a.v / b, a.t / b);
+}
+__device__ __forceinline__ Dual operator/(float a, Dual b) {
+    float q = a / b.v;
+    return dual(q, (-b.t * q) / b.v);
+}
+
+__device__ __forceinline__ float ssqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ Dual ssqrt(Dual a) {
+    float r = sqrtf(a.v);
+    return dual(r, a.t / (2.0f * r));
+}
+// max / min against a constant: the tangent passes where the argument is
+// kept, ties included (torch.clamp)
+__device__ __forceinline__ float smax(float a, float c) { return fmaxf(a, c); }
+__device__ __forceinline__ Dual smax(Dual a, float c) {
+    return dual(fmaxf(a.v, c), a.v >= c ? a.t : 0.0f);
+}
+__device__ __forceinline__ float smin(float a, float c) { return fminf(a, c); }
+__device__ __forceinline__ Dual smin(Dual a, float c) {
+    return dual(fminf(a.v, c), a.v <= c ? a.t : 0.0f);
+}
+// min of two: half of each tangent on a tie (torch.minimum)
+__device__ __forceinline__ Dual smin(Dual a, Dual b) {
+    float t = a.v == b.v ? 0.5f * (a.t + b.t) : (a.v < b.v ? a.t : b.t);
+    return dual(fminf(a.v, b.v), t);
+}
+// the earlier of two on a tie (a running torch.min over a dimension)
+template <typename T>
+__device__ __forceinline__ T first_min(T a, T b) {
+    return val(b) < val(a) ? b : a;
+}
+__device__ __forceinline__ float sabs(float x) { return fabsf(x); }
+__device__ __forceinline__ Dual sabs(Dual a) {
+    return dual(fabsf(a.v), a.v > 0.0f ? a.t : (a.v < 0.0f ? -a.t : 0.0f));
+}
+__device__ __forceinline__ float ssin(float x) { return sinf(x); }
+__device__ __forceinline__ Dual ssin(Dual a) {
+    return dual(sinf(a.v), cosf(a.v) * a.t);
+}
+__device__ __forceinline__ float spow5(float x) { return powf(x, 5.0f); }
+__device__ __forceinline__ Dual spow5(Dual a) {
+    return dual(powf(a.v, 5.0f), a.t * 5.0f * powf(a.v, 4.0f));
+}
+
+// ----------------------------------------------------------------- vectors
+template <typename T> struct V3T { T x, y, z; };
+typedef V3T<float> V3;
+template <typename A, typename B> struct Pr { typedef Dual T; };
+template <> struct Pr<float, float> { typedef float T; };
 
 __device__ __forceinline__ V3 v3(float x, float y, float z) {
     V3 r; r.x = x; r.y = y; r.z = z; return r;
 }
-__device__ __forceinline__ V3 add(V3 a, V3 b) {
-    return v3(a.x + b.x, a.y + b.y, a.z + b.z);
+template <typename T>
+__device__ __forceinline__ V3T<T> lift3(V3 a) {
+    V3T<T> r; r.x = lift<T>(a.x); r.y = lift<T>(a.y); r.z = lift<T>(a.z);
+    return r;
 }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) {
-    return v3(a.x - b.x, a.y - b.y, a.z - b.z);
+template <typename A, typename B>
+__device__ __forceinline__ V3T<typename Pr<A, B>::T> add(V3T<A> a, V3T<B> b) {
+    V3T<typename Pr<A, B>::T> r;
+    r.x = a.x + b.x; r.y = a.y + b.y; r.z = a.z + b.z;
+    return r;
 }
-__device__ __forceinline__ V3 mul(V3 a, float s) {
-    return v3(a.x * s, a.y * s, a.z * s);
+template <typename A, typename B>
+__device__ __forceinline__ V3T<typename Pr<A, B>::T> sub(V3T<A> a, V3T<B> b) {
+    V3T<typename Pr<A, B>::T> r;
+    r.x = a.x - b.x; r.y = a.y - b.y; r.z = a.z - b.z;
+    return r;
 }
-__device__ __forceinline__ V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
-__device__ __forceinline__ float dot(V3 a, V3 b) {
+template <typename A, typename B>
+__device__ __forceinline__ V3T<typename Pr<A, B>::T> mul(V3T<A> a, B s) {
+    V3T<typename Pr<A, B>::T> r;
+    r.x = a.x * s; r.y = a.y * s; r.z = a.z * s;
+    return r;
+}
+template <typename T>
+__device__ __forceinline__ V3T<T> neg(V3T<T> a) {
+    V3T<T> r; r.x = -a.x; r.y = -a.y; r.z = -a.z; return r;
+}
+template <typename A, typename B>
+__device__ __forceinline__ typename Pr<A, B>::T dot(V3T<A> a, V3T<B> b) {
     return a.x * b.x + a.y * b.y + a.z * b.z;
 }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-    return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-              a.x * b.y - a.y * b.x);
+template <typename A, typename B>
+__device__ __forceinline__ V3T<typename Pr<A, B>::T> cross(V3T<A> a,
+                                                           V3T<B> b) {
+    V3T<typename Pr<A, B>::T> r;
+    r.x = a.y * b.z - a.z * b.y;
+    r.y = a.z * b.x - a.x * b.z;
+    r.z = a.x * b.y - a.y * b.x;
+    return r;
 }
 // a / max(|a|, 1e-8), as utils/vecmath.normalize
-__device__ __forceinline__ V3 normalize(V3 a) {
-    float l = fmaxf(sqrtf(dot(a, a)), 1e-8f);
-    return v3(a.x / l, a.y / l, a.z / l);
+template <typename T>
+__device__ __forceinline__ V3T<T> normalize(V3T<T> a) {
+    T l = smax(ssqrt(dot(a, a)), 1e-8f);
+    V3T<T> r; r.x = a.x / l; r.y = a.y / l; r.z = a.z / l;
+    return r;
 }
 __device__ __forceinline__ V3 ld3(const float* t) {
     return v3(t[0], t[1], t[2]);
 }
-__device__ __forceinline__ float safe_sqrt(float x) {
-    return sqrtf(fmaxf(x, 1e-12f));
+template <typename T>
+__device__ __forceinline__ T safe_sqrt(T x) {
+    return ssqrt(smax(x, 1e-12f));
 }
 
 // ----------------------------------------------------------------- RNG
@@ -169,20 +346,23 @@ __device__ __forceinline__ void draws(uint32_t k0, uint32_t k1, uint32_t k2,
 }
 
 // ------------------------------------------------------ hash Perlin noise
-__device__ float noise3(float px, float py, float pz, uint32_t seed) {
-    float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+// the lattice (floor) and the corner gradients take no tangent; the
+// fractional position does
+template <typename T>
+__device__ T noise3(T px, T py, T pz, uint32_t seed) {
+    float fx = floorf(val(px)), fy = floorf(val(py)), fz = floorf(val(pz));
     int ix = (int)fx, iy = (int)fy, iz = (int)fz;
-    float u = px - fx, v = py - fy, w = pz - fz;
-    float su = u * u * (3.0f - 2.0f * u);
-    float sv = v * v * (3.0f - 2.0f * v);
-    float sw = w * w * (3.0f - 2.0f * w);
-    float acc = 0.0f;
+    T u = px - fx, v = py - fy, w = pz - fz;
+    T su = u * u * (3.0f - 2.0f * u);
+    T sv = v * v * (3.0f - 2.0f * v);
+    T sw = w * w * (3.0f - 2.0f * w);
+    T acc = lift<T>(0.0f);
     for (int di = 0; di < 2; ++di) {
-        float wu = di ? su : 1.0f - su;
+        T wu = di ? su : 1.0f - su;
         for (int dj = 0; dj < 2; ++dj) {
-            float wv = dj ? sv : 1.0f - sv;
+            T wv = dj ? sv : 1.0f - sv;
             for (int dk = 0; dk < 2; ++dk) {
-                float ww = dk ? sw : 1.0f - sw;
+                T ww = dk ? sw : 1.0f - sw;
                 uint32_t a = (uint32_t)(ix + di), b = (uint32_t)(iy + dj),
                          c = (uint32_t)(iz + dk), d = seed;
                 pcg4d(a, b, c, d);
@@ -191,7 +371,7 @@ __device__ float noise3(float px, float py, float pz, uint32_t seed) {
                 float gz = 2.0f * to_unit(c) - 1.0f;
                 float inv = rsqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-12f));
                 gx *= inv; gy *= inv; gz *= inv;
-                float dd = gx * (u - (float)di) + gy * (v - (float)dj)
+                T dd = gx * (u - (float)di) + gy * (v - (float)dj)
                     + gz * (w - (float)dk);
                 acc = acc + (wu * wv * ww) * dd;
             }
@@ -200,13 +380,15 @@ __device__ float noise3(float px, float py, float pz, uint32_t seed) {
     return acc;
 }
 
-__device__ float turbulence3(float px, float py, float pz, uint32_t seed) {
-    float acc = 0.0f, weight = 1.0f;
+template <typename T>
+__device__ T turbulence3(T px, T py, T pz, uint32_t seed) {
+    T acc = lift<T>(0.0f);
+    float weight = 1.0f;
     for (int o = 0; o < 7; ++o) {
-        acc = acc + weight * fabsf(
+        acc = acc + weight * sabs(
             noise3(px, py, pz, seed + (uint32_t)o * 0x9E3779B9u));
         weight *= 0.5f;
-        px *= 2.0f; py *= 2.0f; pz *= 2.0f;
+        px = px * 2.0f; py = py * 2.0f; pz = pz * 2.0f;
     }
     return acc;
 }
@@ -221,46 +403,128 @@ struct Scene {
     const float* matf;
     const float* tex;
     const float* med;
+    const float* lsrc;   // per light row: its source sphere row, or -1
+    const float* slot;   // per hard slot: SEED_* table, row, column
     int S, Q, L, M, MS, MQ, med_cols, checker_depth, has_noise;
     uint32_t perlin_seed;
 };
 
+// The one hard-parameter scalar a dual pass differentiates by: the table
+// cell it perturbs (tab 0 in the float pass: no tangent anywhere).
+struct Seed { int tab, row, col; };
+
+template <typename T>
+__device__ __forceinline__ T seeded(float v, bool on);
+template <>
+__device__ __forceinline__ float seeded<float>(float v, bool) { return v; }
+template <>
+__device__ __forceinline__ Dual seeded<Dual>(float v, bool on) {
+    return dual(v, on ? 1.0f : 0.0f);
+}
+// sphere row `row`, column `col` (center 0-2, radius 6)
+template <typename T>
+__device__ __forceinline__ T rd_sph(const Scene& sc, int row, int col,
+                                    Seed s) {
+    return seeded<T>(sc.sph[row * SPH_COLS + col],
+                     s.tab == SEED_SPH && s.row == row && s.col == col);
+}
+// material m's fuzz (col 0) or IOR (col 1)
+template <typename T>
+__device__ __forceinline__ T rd_matf(const Scene& sc, int m, int col,
+                                     Seed s) {
+    return seeded<T>(sc.matf[m * 2 + col],
+                     s.tab == SEED_MATF && s.row == m && s.col == col);
+}
+// light row l's copy of its source sphere's center (cols 1-3, sphere
+// columns 0-2) or radius (col 7, sphere column 6)
+template <typename T>
+__device__ __forceinline__ T rd_light(const Scene& sc, int l, int col,
+                                      Seed s) {
+    const int src = (int)sc.lsrc[l];
+    const int scol = col == 7 ? 6 : col - 1;
+    return seeded<T>(sc.light[l * LIGHT_COLS + col],
+                     s.tab == SEED_SPH && s.row == src && s.col == scol);
+}
+
 // (ops/textures.py) descend nested checkers to a solid or noise leaf; *eff
 // gets the leaf's row, the tex_color row the color depends on, or -1 for a
-// noise leaf (textures.effective_row)
-__device__ V3 texture_value(const Scene& sc, int row, V3 p, int* eff) {
+// noise leaf (textures.effective_row). Only a marble leaf depends on p.
+template <typename T>
+__device__ V3T<T> texture_value(const Scene& sc, int row, V3T<T> p,
+                                int* eff) {
     for (int lvl = 0; lvl < sc.checker_depth; ++lvl) {
         const float* t = sc.tex + row * TEX_COLS;
         if (t[4] > 0.5f) {
             float inv = 1.0f / fmaxf(t[3], 1e-12f);
-            int fx = (int)floorf(inv * p.x);
-            int fy = (int)floorf(inv * p.y);
-            int fz = (int)floorf(inv * p.z);
+            int fx = (int)floorf(inv * val(p.x));
+            int fy = (int)floorf(inv * val(p.y));
+            int fz = (int)floorf(inv * val(p.z));
             bool even = ((fx + fy + fz) & 1) == 0;
             row = (int)(even ? t[11] : t[12]);
         }
     }
     const float* t = sc.tex + row * TEX_COLS;
     if (sc.has_noise && t[13] > 0.5f) {
-        float turb = turbulence3(p.x, p.y, p.z, sc.perlin_seed);
-        float g = 0.5f * (1.0f + sinf(t[3] * p.z + 10.0f * turb));
+        T turb = turbulence3(p.x, p.y, p.z, sc.perlin_seed);
+        T g = 0.5f * (1.0f + ssin(t[3] * p.z + 10.0f * turb));
         *eff = -1;
-        return v3(g, g, g);
+        V3T<T> r; r.x = g; r.y = g; r.z = g;
+        return r;
     }
     *eff = row;
-    return ld3(t);
+    return lift3<T>(ld3(t));
 }
 
-struct Hit {
-    bool hit, front;
-    float t;
-    V3 p, n;
-    int mat;
-};
+// (ops/intersect.py::sphere_ts) the nearest root in (T_MIN, BIG); false
+// when there is none. a = dot(d, d).
+template <typename T>
+__device__ __forceinline__ bool sphere_root(V3T<T> c, T rad, V3T<T> o,
+                                            V3T<T> d, T a, T* t) {
+    V3T<T> oc = sub(c, o);
+    T h = dot(d, oc);
+    T cc = dot(oc, oc) - rad * rad;
+    T disc = h * h - a * cc;
+    if (!(val(disc) > 0.0f)) return false;
+    T sq = safe_sqrt(disc);
+    T r0 = (h - sq) / a, r1 = (h + sq) / a;
+    bool in0 = (val(r0) > T_MINF) && (val(r0) < BIGF);
+    bool in1 = (val(r1) > T_MINF) && (val(r1) < BIGF);
+    if (!(in0 || in1)) return false;
+    *t = in0 ? r0 : r1;
+    return true;
+}
 
-// (ops/intersect.py::closest_hit) spheres then quads; a later prim wins only
-// when strictly closer, so ties go to the lowest unified prim id
-__device__ Hit closest_hit(const Scene& sc, V3 o, V3 d, float tm) {
+// (ops/intersect.py::quad_ts) plane hit + inside test; *t is the plane's
+// t, valid where this returns true. q points at corner, u, v, normal, d, w
+// (16 floats).
+template <typename T>
+__device__ __forceinline__ bool quad_hit(const float* q, V3T<T> o, V3T<T> d,
+                                         float t_min, T* t_out) {
+    T denom = d.x * q[9] + d.y * q[10] + d.z * q[11];
+    bool par = fabsf(val(denom)) < 1e-8f;
+    T odn = o.x * q[9] + o.y * q[10] + o.z * q[11];
+    T t = (q[12] - odn) / (par ? lift<T>(1.0f) : denom);
+    T plx = o.x + t * d.x - q[0];
+    T ply = o.y + t * d.y - q[1];
+    T plz = o.z + t * d.z - q[2];
+    T alpha = q[13] * (ply * q[8] - plz * q[7])
+        + q[14] * (plz * q[6] - plx * q[8])
+        + q[15] * (plx * q[7] - ply * q[6]);
+    T beta = q[13] * (q[4] * plz - q[5] * ply)
+        + q[14] * (q[5] * plx - q[3] * plz)
+        + q[15] * (q[3] * ply - q[4] * plx);
+    *t_out = t;
+    return !par && val(alpha) >= 0.0f && val(alpha) <= 1.0f
+        && val(beta) >= 0.0f && val(beta) <= 1.0f && val(t) > t_min
+        && val(t) < BIGF;
+}
+
+// (ops/intersect.py::closest_hit, the selection) spheres then quads; a
+// later prim wins only when strictly closer, so ties go to the lowest
+// unified prim id. Returns the winner (-1: miss) and its t in *t_best.
+// Selection has no tangent: the dual passes reuse it.
+__device__ int closest_select(const Scene& sc, V3 o, V3 d, float tm,
+                              float* t_best) {
     float best_t = BIGF;
     int best = -1;
     float a = dot(d, d);
@@ -269,138 +533,132 @@ __device__ Hit closest_hit(const Scene& sc, V3 o, V3 d, float tm) {
         float rad = r[6];
         if (!(r[7] > 0.5f) || !(rad > 0.0f)) continue;
         V3 c = v3(r[0] + tm * r[3], r[1] + tm * r[4], r[2] + tm * r[5]);
-        V3 oc = sub(c, o);
-        float h = dot(d, oc);
-        float cc = dot(oc, oc) - rad * rad;
-        float disc = h * h - a * cc;
-        if (!(disc > 0.0f)) continue;
-        float sq = safe_sqrt(disc);
-        float r0 = (h - sq) / a, r1 = (h + sq) / a;
-        bool in0 = (r0 > T_MINF) && (r0 < BIGF);
-        bool in1 = (r1 > T_MINF) && (r1 < BIGF);
-        if (!(in0 || in1)) continue;
-        float t = in0 ? r0 : r1;
+        float t;
+        if (!sphere_root(c, rad, o, d, a, &t)) continue;
         if (t < best_t) { best_t = t; best = s; }
     }
     for (int q = 0; q < sc.Q; ++q) {
         const float* r = sc.quad + q * QUAD_COLS;
         if (!(r[17] > 0.5f)) continue;
-        float denom = d.x * r[9] + d.y * r[10] + d.z * r[11];
-        bool par = fabsf(denom) < 1e-8f;
-        float odn = o.x * r[9] + o.y * r[10] + o.z * r[11];
-        float t = (r[12] - odn) / (par ? 1.0f : denom);
-        float plx = o.x + t * d.x - r[0];
-        float ply = o.y + t * d.y - r[1];
-        float plz = o.z + t * d.z - r[2];
-        float alpha = r[13] * (ply * r[8] - plz * r[7])
-            + r[14] * (plz * r[6] - plx * r[8])
-            + r[15] * (plx * r[7] - ply * r[6]);
-        float beta = r[13] * (r[4] * plz - r[5] * ply)
-            + r[14] * (r[5] * plx - r[3] * plz)
-            + r[15] * (r[3] * ply - r[4] * plx);
-        bool ok = !par && alpha >= 0.0f && alpha <= 1.0f && beta >= 0.0f
-            && beta <= 1.0f && t > T_MINF && t < BIGF;
+        float t;
+        bool ok = quad_hit(r, o, d, T_MINF, &t);
         if (ok && t < best_t) { best_t = t; best = sc.S + q; }
     }
-    Hit h;
-    h.hit = best_t < BIGF * 0.5f;
-    h.t = best_t;
+    *t_best = best_t;
+    return best_t < BIGF * 0.5f ? best : -1;
+}
+
+template <typename T>
+struct HitT {
+    bool hit, front;
+    T t;
+    V3T<T> p, n;
+    int mat;
+};
+
+// (ops/intersect.py::shade_prim) the winner's hit record; a dual pass
+// recomputes the winner's t from its (seeded) geometry, with the float
+// pass's operations
+template <typename T>
+__device__ HitT<T> hit_record(const Scene& sc, int best, float best_t,
+                              V3T<T> o, V3T<T> d, float tm, Seed sd) {
+    HitT<T> h;
+    h.hit = best >= 0;
+    h.t = lift<T>(BIGF);
     h.mat = 0;
     h.front = false;
-    h.p = v3(0.0f, 0.0f, 0.0f);
-    h.n = v3(1.0f, 0.0f, 0.0f);
+    h.p = lift3<T>(v3(0.0f, 0.0f, 0.0f));
+    h.n = lift3<T>(v3(1.0f, 0.0f, 0.0f));
     if (!h.hit) return h;
     h.mat = (int)sc.pmat[best];
-    h.p = add(o, mul(d, best_t));
+    T t = lift<T>(best_t);
     if (best < sc.S) {
         const float* r = sc.sph + best * SPH_COLS;
-        V3 c = v3(r[0] + tm * r[3], r[1] + tm * r[4], r[2] + tm * r[5]);
-        float rr = fmaxf(r[6], 1e-12f);
-        V3 out = sub(h.p, c);
-        out = v3(out.x / rr, out.y / rr, out.z / rr);
-        h.front = dot(d, out) < 0.0f;
+        V3T<T> c;
+        c.x = rd_sph<T>(sc, best, 0, sd) + tm * r[3];
+        c.y = rd_sph<T>(sc, best, 1, sd) + tm * r[4];
+        c.z = rd_sph<T>(sc, best, 2, sd) + tm * r[5];
+        T rad = rd_sph<T>(sc, best, 6, sd);
+        if constexpr (!std::is_same<T, float>::value)
+            sphere_root(c, rad, o, d, dot(d, d), &t);
+        h.p = add(o, mul(d, t));
+        T rr = smax(rad, 1e-12f);
+        V3T<T> out = sub(h.p, c);
+        out.x = out.x / rr; out.y = out.y / rr; out.z = out.z / rr;
+        h.front = val(dot(d, out)) < 0.0f;
         h.n = h.front ? out : neg(out);
     } else {
         const float* r = sc.quad + (best - sc.S) * QUAD_COLS;
+        if constexpr (!std::is_same<T, float>::value)
+            quad_hit(r, o, d, T_MINF, &t);
+        h.p = add(o, mul(d, t));
         V3 nn = v3(r[9], r[10], r[11]);
-        h.front = dot(d, nn) < 0.0f;
-        h.n = h.front ? nn : neg(nn);
+        h.front = val(dot(d, nn)) < 0.0f;
+        h.n = lift3<T>(h.front ? nn : neg(nn));
     }
+    h.t = t;
     return h;
-}
-
-// (ops/intersect.py::quad_ts) plane hit + inside test over the whole line;
-// BIG when missed. q points at corner, u, v, normal, d, w (16 floats).
-__device__ __forceinline__ float quad_t_any(const float* q, V3 o, V3 d,
-                                            float t_min) {
-    float denom = d.x * q[9] + d.y * q[10] + d.z * q[11];
-    bool par = fabsf(denom) < 1e-8f;
-    float odn = o.x * q[9] + o.y * q[10] + o.z * q[11];
-    float t = (q[12] - odn) / (par ? 1.0f : denom);
-    float plx = o.x + t * d.x - q[0];
-    float ply = o.y + t * d.y - q[1];
-    float plz = o.z + t * d.z - q[2];
-    float alpha = q[13] * (ply * q[8] - plz * q[7])
-        + q[14] * (plz * q[6] - plx * q[8])
-        + q[15] * (plx * q[7] - ply * q[6]);
-    float beta = q[13] * (q[4] * plz - q[5] * ply)
-        + q[14] * (q[5] * plx - q[3] * plz)
-        + q[15] * (q[3] * ply - q[4] * plx);
-    bool ok = !par && alpha >= 0.0f && alpha <= 1.0f && beta >= 0.0f
-        && beta <= 1.0f && t > t_min && t < BIGF;
-    return ok ? t : BIGF;
 }
 
 // (ops/intersect.py::medium_scatter) exponential free flight inside each
 // medium's boundary; returns the nearest scattering t (BIG if none) and the
 // medium row in *row (lowest row on ties)
-__device__ float medium_free_flight(const Scene& sc, V3 o, V3 d, float t_surf,
-                                    const float* u_med, int* row) {
-    float a = dot(d, d);
-    float raylen = sqrtf(a);
-    float t_best = BIGF;
+template <typename T>
+__device__ T medium_free_flight(const Scene& sc, V3T<T> o, V3T<T> d,
+                                T t_surf, const float* u_med, int* row) {
+    T a = dot(d, d);
+    T raylen = ssqrt(a);
+    T t_best = lift<T>(BIGF);
     *row = 0;
     for (int m = 0; m < sc.M; ++m) {
         const float* r = sc.med + m * sc.med_cols;
         // pass 1: entry = nearest crossing of the boundary union
-        float entry = BIGF;
+        T entry = lift<T>(BIGF);
         for (int pass = 0; pass < 2; ++pass) {
-            float exit_ = BIGF;
+            T exit_ = lift<T>(BIGF);
             for (int js = 0; js < sc.MS; ++js) {
                 const float* s = r + 2 + 4 * js;
                 float rad = s[3];
-                V3 oc = sub(ld3(s), o);
-                float h = dot(d, oc);
-                float cc = dot(oc, oc) - rad * rad;
-                float disc = h * h - a * cc;
-                bool ok = disc > 0.0f && rad > 0.0f;
-                float sq = safe_sqrt(disc);
-                float t0 = ok ? (h - sq) / a : BIGF;
-                float t1 = ok ? (h + sq) / a : BIGF;
+                V3T<T> oc = sub(ld3(s), o);
+                T h = dot(d, oc);
+                T cc = dot(oc, oc) - rad * rad;
+                T disc = h * h - a * cc;
+                bool ok = val(disc) > 0.0f && rad > 0.0f;
+                T sq = safe_sqrt(disc);
+                T t0 = ok ? (h - sq) / a : lift<T>(BIGF);
+                T t1 = ok ? (h + sq) / a : lift<T>(BIGF);
                 if (pass == 0) {
-                    entry = fminf(entry, fminf(t0, t1));
+                    entry = first_min(entry, first_min(t0, t1));
                 } else {
-                    if (t0 > entry + 1e-4f) exit_ = fminf(exit_, t0);
-                    if (t1 > entry + 1e-4f) exit_ = fminf(exit_, t1);
+                    if (val(t0) > val(entry) + 1e-4f)
+                        exit_ = first_min(exit_, t0);
+                    if (val(t1) > val(entry) + 1e-4f)
+                        exit_ = first_min(exit_, t1);
                 }
             }
             for (int jq = 0; jq < sc.MQ; ++jq) {
                 const float* q = r + 2 + 4 * sc.MS + 17 * jq;
-                float t = q[16] > 0.5f ? quad_t_any(q, o, d, -BIGF) : BIGF;
-                if (pass == 0) entry = fminf(entry, t);
-                else if (t > entry + 1e-4f) exit_ = fminf(exit_, t);
+                T t = lift<T>(BIGF);
+                if (q[16] > 0.5f) {
+                    T tq;
+                    if (quad_hit(q, o, d, -BIGF, &tq)) t = tq;
+                }
+                if (pass == 0) entry = first_min(entry, t);
+                else if (val(t) > val(entry) + 1e-4f)
+                    exit_ = first_min(exit_, t);
             }
             if (pass == 1) {
-                bool crossed = entry < BIGF * 0.5f && exit_ < BIGF * 0.5f;
-                float t1 = fmaxf(entry, T_MINF);
-                float t2 = fminf(exit_, t_surf);
-                bool span_ok = crossed && (t1 < t2) && r[1] > 0.5f;
+                bool crossed = val(entry) < BIGF * 0.5f
+                    && val(exit_) < BIGF * 0.5f;
+                T t1 = smax(entry, T_MINF);
+                T t2 = smin(exit_, t_surf);
+                bool span_ok = crossed && (val(t1) < val(t2)) && r[1] > 0.5f;
                 if (!span_ok) break;
-                float dist_inside = (t2 - t1) * raylen;
+                T dist_inside = (t2 - t1) * raylen;
                 float hit_dist = r[0] * logf(fmaxf(u_med[m], 1e-12f));
-                if (hit_dist < dist_inside) {
-                    float t_med = t1 + hit_dist / raylen;
-                    if (t_med < t_best) { t_best = t_med; *row = m; }
+                if (hit_dist < val(dist_inside)) {
+                    T t_med = t1 + hit_dist / raylen;
+                    if (val(t_med) < val(t_best)) { t_best = t_med; *row = m; }
                 }
             }
         }
@@ -410,17 +668,24 @@ __device__ float medium_free_flight(const Scene& sc, V3 o, V3 d, float t_surf,
 
 // orthonormal basis around w (utils/vecmath.onb_from_w): returns u, v and
 // the normalized w
-__device__ __forceinline__ void onb_from_w(V3 w_in, V3& u, V3& v, V3& w) {
+template <typename T>
+__device__ __forceinline__ void onb_from_w(V3T<T> w_in, V3T<T>& u, V3T<T>& v,
+                                           V3T<T>& w) {
     w = normalize(w_in);
-    V3 aa = fabsf(w.x) > 0.9f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+    V3 aa = fabsf(val(w.x)) > 0.9f ? v3(0.0f, 1.0f, 0.0f)
+                                   : v3(1.0f, 0.0f, 0.0f);
     v = normalize(cross(w, aa));
     u = cross(w, v);
 }
 
-__device__ __forceinline__ V3 onb_local(V3 u, V3 v, V3 w, V3 a) {
-    return v3(a.x * u.x + a.y * v.x + a.z * w.x,
-              a.x * u.y + a.y * v.y + a.z * w.y,
-              a.x * u.z + a.y * v.z + a.z * w.z);
+template <typename A, typename B>
+__device__ __forceinline__ V3T<typename Pr<A, B>::T> onb_local(
+        V3T<A> u, V3T<A> v, V3T<A> w, V3T<B> a) {
+    V3T<typename Pr<A, B>::T> r;
+    r.x = a.x * u.x + a.y * v.x + a.z * w.x;
+    r.y = a.x * u.y + a.y * v.y + a.z * w.y;
+    r.z = a.x * u.z + a.y * v.z + a.z * w.z;
+    return r;
 }
 
 __device__ __forceinline__ V3 unit_vector_from_uv(float u1, float u2) {
@@ -432,25 +697,31 @@ __device__ __forceinline__ V3 unit_vector_from_uv(float u1, float u2) {
 
 // (ops/lights.py::light_sample) unit direction toward a uniformly chosen
 // light
-__device__ V3 light_sample(const Scene& sc, V3 o, float tm, float u_sel,
-                           float u1, float u2) {
+template <typename T>
+__device__ V3T<T> light_sample(const Scene& sc, V3T<T> o, float tm,
+                               float u_sel, float u1, float u2, Seed sd) {
     int n = sc.L > 1 ? sc.L : 1;
     int l = (int)(u_sel * (float)n);
     l = l < 0 ? 0 : (l > n - 1 ? n - 1 : l);
     const float* r = sc.light + l * LIGHT_COLS;
-    V3 dir;
+    V3T<T> dir;
     if (r[0] > 0.5f) {
-        V3 c = v3(r[1] + tm * r[4], r[2] + tm * r[5], r[3] + tm * r[6]);
-        V3 to_c = sub(c, o);
-        float dist2 = fmaxf(dot(to_c, to_c), 1e-12f);
-        float rad = r[7];
-        float ratio = fminf(fmaxf(1.0f - rad * rad / dist2, 0.0f), 1.0f);
-        float z = 1.0f + u2 * (safe_sqrt(ratio) - 1.0f);
+        V3T<T> c;
+        c.x = rd_light<T>(sc, l, 1, sd) + tm * r[4];
+        c.y = rd_light<T>(sc, l, 2, sd) + tm * r[5];
+        c.z = rd_light<T>(sc, l, 3, sd) + tm * r[6];
+        V3T<T> to_c = sub(c, o);
+        T dist2 = smax(dot(to_c, to_c), 1e-12f);
+        T rad = rd_light<T>(sc, l, 7, sd);
+        T ratio = smin(smax(1.0f - rad * rad / dist2, 0.0f), 1.0f);
+        T z = 1.0f + u2 * (safe_sqrt(ratio) - 1.0f);
         float phi = TWO_PI_F * u1;
-        float s = safe_sqrt(1.0f - z * z);
-        V3 bu, bv, bw;
+        T s = safe_sqrt(1.0f - z * z);
+        V3T<T> bu, bv, bw;
         onb_from_w(to_c, bu, bv, bw);
-        dir = onb_local(bu, bv, bw, v3(cosf(phi) * s, sinf(phi) * s, z));
+        V3T<T> loc;
+        loc.x = cosf(phi) * s; loc.y = sinf(phi) * s; loc.z = z;
+        dir = onb_local(bu, bv, bw, loc);
     } else {
         V3 pt = v3(r[8] + u1 * r[11] + u2 * r[14],
                    r[9] + u1 * r[12] + u2 * r[15],
@@ -461,37 +732,43 @@ __device__ V3 light_sample(const Scene& sc, V3 o, float tm, float u_sel,
 }
 
 // (ops/lights.py::light_pdf_value) uniform-average solid-angle pdf
-__device__ float light_pdf(const Scene& sc, V3 o, V3 d, float tm) {
-    float total = 0.0f;
+template <typename T>
+__device__ T light_pdf(const Scene& sc, V3T<T> o, V3T<T> d, float tm,
+                       Seed sd) {
+    T total = lift<T>(0.0f);
     for (int l = 0; l < sc.L; ++l) {
         const float* r = sc.light + l * LIGHT_COLS;
-        float pdf = 0.0f;
+        T pdf = lift<T>(0.0f);
         if (r[0] > 0.5f) {
-            float rad = r[7];
-            V3 c = v3(r[1] + tm * r[4], r[2] + tm * r[5], r[3] + tm * r[6]);
-            V3 oc = sub(c, o);
-            float a = dot(d, d);
-            float h = dot(d, oc);
-            float dist2 = dot(oc, oc);
-            float disc = h * h - a * (dist2 - rad * rad);
-            float sq = safe_sqrt(disc);
-            float r0 = (h - sq) / a, r1 = (h + sq) / a;
-            bool hit = disc > 0.0f && rad > 0.0f
-                && ((r0 > T_MINF && r0 < BIGF) || (r1 > T_MINF && r1 < BIGF));
+            T rad = rd_light<T>(sc, l, 7, sd);
+            V3T<T> c;
+            c.x = rd_light<T>(sc, l, 1, sd) + tm * r[4];
+            c.y = rd_light<T>(sc, l, 2, sd) + tm * r[5];
+            c.z = rd_light<T>(sc, l, 3, sd) + tm * r[6];
+            V3T<T> oc = sub(c, o);
+            T a = dot(d, d);
+            T h = dot(d, oc);
+            T dist2 = dot(oc, oc);
+            T disc = h * h - a * (dist2 - rad * rad);
+            T sq = safe_sqrt(disc);
+            T r0 = (h - sq) / a, r1 = (h + sq) / a;
+            bool hit = val(disc) > 0.0f && val(rad) > 0.0f
+                && ((val(r0) > T_MINF && val(r0) < BIGF)
+                    || (val(r1) > T_MINF && val(r1) < BIGF));
             if (hit) {
-                float ratio = fminf(fmaxf(
-                    1.0f - rad * rad / fmaxf(dist2, 1e-12f), 0.0f), 1.0f);
-                float solid = TWO_PI_F * (1.0f - safe_sqrt(ratio));
-                pdf = 1.0f / fmaxf(solid, 1e-12f);
+                T ratio = smin(smax(
+                    1.0f - rad * rad / smax(dist2, 1e-12f), 0.0f), 1.0f);
+                T solid = TWO_PI_F * (1.0f - safe_sqrt(ratio));
+                pdf = 1.0f / smax(solid, 1e-12f);
             }
         } else {
-            float t = quad_t_any(r + 8, o, d, T_MINF);
-            if (t < BIGF * 0.5f) {
-                float cosine = fabsf(d.x * r[17] + d.y * r[18] + d.z * r[19]);
-                pdf = t * t / fmaxf(cosine * r[24], 1e-12f);
+            T t;
+            if (quad_hit(r + 8, o, d, T_MINF, &t) && val(t) < BIGF * 0.5f) {
+                T cosine = sabs(d.x * r[17] + d.y * r[18] + d.z * r[19]);
+                pdf = t * t / smax(cosine * r[24], 1e-12f);
             }
         }
-        total += pdf;
+        total = total + pdf;
     }
     return total / (float)(sc.L > 1 ? sc.L : 1);
 }
@@ -522,19 +799,188 @@ __device__ void gen_ray(const WfParams& P, const float* cam, uint32_t k0,
     tm = u[4];
 }
 
-// the scene tables, copied in at block start (dynamic shared memory)
+// (ops/integrator.py::bounce_step) the bounce after selection, for the
+// winner `best` (-1: no surface) at t best_t, in place: rad gets the
+// radiance increment, and o, d, th the next ray state where the path goes
+// on (a path that ends keeps its last state in the carry). Returns whether
+// it goes on. T = float is the forward bounce; T = Dual its derivative
+// along (o, d, th)'s tangent and the seeded table cell's. NTMAX > 0 (float
+// only) also updates the tex_color weight planes at the radiance events
+// and the scatter (wavefront_pallas.py:2565-2603): Wp[3t+c] = d th_c /
+// d tex_color[t][c], Gp its cotangent sums, gc the lane's cotangent.
+template <typename T, int NTMAX>
+__device__ __forceinline__ bool physics(
+        const Scene& sc, const WfParams& P, const float* cam, int best,
+        float best_t, V3T<T>& o, V3T<T>& d, V3T<T>& th, V3T<T>& rad,
+        float tm, const float* u, const float* u_med, Seed sd,
+        float (&Wp)[NTMAX > 0 ? 3 * NTMAX : 1],
+        float (&Gp)[NTMAX > 0 ? 3 * NTMAX : 1], const float (&gc)[3]) {
+    HitT<T> h = hit_record(sc, best, best_t, o, d, tm, sd);
+    if (sc.M > 0) {
+        int mrow;
+        T t_med = medium_free_flight(sc, o, d, h.hit ? h.t : lift<T>(BIGF),
+                                     u_med, &mrow);
+        if (val(t_med) < BIGF * 0.5f) {
+            h.hit = true;
+            h.t = t_med;
+            h.p = add(o, mul(d, t_med));
+            h.n = lift3<T>(v3(1.0f, 0.0f, 0.0f));
+            h.front = true;
+            h.mat = (int)sc.med[mrow * sc.med_cols + sc.med_cols - 1];
+        }
+    }
+    // the pre-scatter throughput, for the weight planes
+    const float tt[3] = {val(th.x), val(th.y), val(th.z)};
+    bool alive_new = false;
+    if (!h.hit) {
+        V3T<T> sky = lift3<T>(v3(cam[19], cam[20], cam[21]));
+        if (P.sky_gradient) {
+            T as = 0.5f * (d.y + 1.0f);
+            sky.x = (1.0f - as) + as * 0.5f;
+            sky.y = (1.0f - as) + as * 0.7f;
+            sky.z = (1.0f - as) + as * 1.0f;
+        }
+        rad.x = rad.x + th.x * sky.x;
+        rad.y = rad.y + th.y * sky.y;
+        rad.z = rad.z + th.z * sky.z;
+        if constexpr (NTMAX > 0) {
+            // miss: the background is tex-independent, so only the
+            // throughput's planes carry it
+            const float sk[3] = {val(sky.x), val(sky.y), val(sky.z)};
+#pragma unroll
+            for (int k = 0; k < 3 * NTMAX; ++k)
+                Gp[k] = Gp[k] + gc[k % 3] * Wp[k] * sk[k % 3];
+        }
+        return false;
+    }
+    const int mtype = (int)sc.mati[h.mat * 2 + 0];
+    const int mtex = (int)sc.mati[h.mat * 2 + 1];
+    int eff;
+    const V3T<T> tc = texture_value(sc, mtex, h.p, &eff);
+    const bool is_light = mtype == MAT_DIFFUSE_LIGHT;
+    const bool is_metal = mtype == MAT_METAL;
+    const bool is_diel = mtype == MAT_DIELECTRIC;
+    const bool is_iso = mtype == MAT_ISOTROPIC;
+    if (is_light && h.front) {
+        rad.x = rad.x + th.x * tc.x;
+        rad.y = rad.y + th.y * tc.y;
+        rad.z = rad.z + th.z * tc.z;
+        if constexpr (NTMAX > 0) {
+            // emission: through the throughput's planes, and directly
+            // through the emitter's own row
+            const float tv[3] = {val(tc.x), val(tc.y), val(tc.z)};
+#pragma unroll
+            for (int k = 0; k < 3 * NTMAX; ++k)
+                Gp[k] = Gp[k] + gc[k % 3] * (
+                    Wp[k] * tv[k % 3] + (eff == k / 3 ? tt[k % 3] : 0.0f));
+        }
+    }
+    if (is_light) return false;
+
+    const V3T<T> n = h.n;
+    bool scatters = true;
+    const bool skip_pdf = is_metal || is_diel;
+    V3T<T> new_dir;
+    T factor = lift<T>(1.0f);
+    bool pdf_ok = true;
+    if (is_metal) {
+        T fuzz = rd_matf<T>(sc, h.mat, 0, sd);
+        V3T<T> refl = normalize(sub(d, mul(n, 2.0f * dot(d, n))));
+        V3 jit = unit_vector_from_uv(u[D_FUZZ_U], u[D_FUZZ_V]);
+        new_dir = normalize(add(refl, mul(jit, fuzz)));
+        scatters = val(dot(new_dir, n)) > 0.0f;
+    } else if (is_diel) {
+        T ior = rd_matf<T>(sc, h.mat, 1, sd);
+        T ri = h.front ? 1.0f / ior : ior;
+        T cos_t = smin(dot(neg(d), n), 1.0f);
+        T sin_t = safe_sqrt(1.0f - cos_t * cos_t);
+        bool cannot = val(ri * sin_t) > 1.0f;
+        T r0 = (1.0f - ri) / (1.0f + ri);
+        r0 = r0 * r0;
+        T schlick = r0 + (1.0f - r0) * spow5(1.0f - cos_t);
+        if (cannot || val(schlick) > u[D_REFL]) {
+            new_dir = normalize(sub(d, mul(n, 2.0f * dot(d, n))));
+        } else {
+            V3T<T> perp = mul(add(d, mul(n, cos_t)), ri);
+            T par = -safe_sqrt(sabs(1.0f - dot(perp, perp)));
+            new_dir = normalize(add(perp, mul(n, par)));
+        }
+    } else {
+        // MIS: 0.5 * light pdf + 0.5 * material pdf
+        V3T<T> mdir;
+        if (is_iso) {
+            mdir = lift3<T>(unit_vector_from_uv(u[D_MAT_U], u[D_MAT_V]));
+        } else {
+            V3T<T> bu, bv, bw;
+            onb_from_w(n, bu, bv, bw);
+            float phm = TWO_PI_F * u[D_MAT_U];
+            float sq2 = sqrtf(fmaxf(u[D_MAT_V], 1e-12f));
+            float zc = sqrtf(fmaxf(1.0f - u[D_MAT_V], 1e-12f));
+            mdir = normalize(onb_local(
+                bu, bv, bw, v3(cosf(phm) * sq2, sinf(phm) * sq2, zc)));
+        }
+        T pdf_val;
+        V3T<T> gdir = mdir;
+        T cosv = smax(dot(gdir, n), 0.0f) / PI_F;
+        if (sc.L > 0) {
+            if (u[D_PICK] < 0.5f)
+                gdir = light_sample(sc, h.p, tm, u[D_LIGHT_SEL],
+                                    u[D_LIGHT_U], u[D_LIGHT_V], sd);
+            cosv = smax(dot(gdir, n), 0.0f) / PI_F;
+            T mpdf = is_iso ? lift<T>(INV_4PI_F) : cosv;
+            pdf_val = 0.5f * light_pdf(sc, h.p, gdir, tm, sd) + 0.5f * mpdf;
+        } else {
+            pdf_val = is_iso ? lift<T>(INV_4PI_F) : cosv;
+        }
+        T spdf = is_iso ? lift<T>(INV_4PI_F) : cosv;
+        pdf_ok = val(pdf_val) > 1e-8f;
+        factor = spdf / (pdf_ok ? pdf_val : lift<T>(1.0f));
+        new_dir = gdir;
+    }
+    alive_new = scatters && (skip_pdf || pdf_ok);
+    if (alive_new) {
+        V3T<T> at = is_diel ? lift3<T>(v3(1.0f, 1.0f, 1.0f)) : tc;
+        if constexpr (NTMAX > 0) {
+            // product rule through th <- th * at * factor: at is the eff
+            // row's color except for a dielectric (at = 1), and factor
+            // never depends on tex_color
+            const float av[3] = {val(at.x), val(at.y), val(at.z)};
+            const float f = val(factor);
+            const int row = is_diel ? -1 : eff;
+#pragma unroll
+            for (int k = 0; k < 3 * NTMAX; ++k)
+                Wp[k] = (Wp[k] * av[k % 3]
+                         + (row == k / 3 ? tt[k % 3] : 0.0f)) * f;
+        }
+        th.x = th.x * at.x * factor;
+        th.y = th.y * at.y * factor;
+        th.z = th.z * at.z * factor;
+        o = h.p;
+        d = new_dir;
+    }
+    return alive_new;
+}
+
+// the scene tables, copied in at block start, then (HARD) the tangent
+// bundles and their cotangent sums (dynamic shared memory)
 extern __shared__ float wf_tables[];
 
-// One thread's lane: its samples and bounces, in registers. GRAD adds the
-// tex_color weight planes of the JAX kernel's grad_tex variant
+// floats of the tables, padded so the tangent planes start 128-B aligned
+__host__ __device__ __forceinline__ int table_pad(int n_table) {
+    return (n_table + 31) & ~31;
+}
+
+// One thread's lane: its samples and bounces. NTMAX > 0 adds the tex_color
+// weight planes of the JAX kernel's grad_tex variant
 // (wavefront_pallas.py:2347-2349, 2392-2395, 2565-2603): Wp[3t+c] =
 // d th_c / d tex_color[t][c] rides the lane's path state (and the carry,
 // rows 14..14+3NT), and Gp[3t+c] accumulates g_c * d(radiance_c)/d tex at
 // each radiance event, g the lane's cotangent. NTMAX is the compile-time
-// bound of NT, so every plane index is a constant after unrolling.
-// `red` is the block's (WF_THREADS / 32, 3 * NTMAX) shared scratch of the
-// end-of-pass reduction (GRAD only).
-template <bool GRAD, int NTMAX>
+// bound of NT, so every plane index is a constant after unrolling. HARD
+// adds the K tangent bundles (see the top of this file). `red` is the
+// block's (WF_THREADS / 32, 3 * NTMAX) shared scratch of the end-of-pass
+// reduction (NTMAX > 0 only).
+template <int NTMAX, bool HARD>
 __device__ __forceinline__ void wavefront_body(
         const WfParams& P, const float* __restrict__ tables,
         const int* __restrict__ pix_lanes,
@@ -542,6 +988,7 @@ __device__ __forceinline__ void wavefront_body(
         float* __restrict__ rad_out, float* __restrict__ carry_out,
         float* __restrict__ dg_out, int* __restrict__ iters_out,
         float* smem, float* cam, float* red) {
+    constexpr bool GRAD = NTMAX > 0 || HARD;
     for (int i = threadIdx.x; i < P.n_table; i += blockDim.x)
         smem[i] = tables[i];
     if (threadIdx.x < 22) cam[threadIdx.x] = P.cam[threadIdx.x];
@@ -561,6 +1008,8 @@ __device__ __forceinline__ void wavefront_body(
     sc.matf = smem + P.off_matf;
     sc.tex = smem + P.off_tex;
     sc.med = smem + P.off_med;
+    sc.lsrc = smem + P.off_lsrc;
+    sc.slot = smem + P.off_slot;
     sc.S = P.S; sc.Q = P.Q; sc.L = P.L; sc.M = P.M; sc.MS = P.MS;
     sc.MQ = P.MQ; sc.med_cols = P.med_cols;
     sc.checker_depth = P.checker_depth; sc.has_noise = P.has_noise;
@@ -599,24 +1048,35 @@ __device__ __forceinline__ void wavefront_body(
         sample = 0;
     }
     V3 rad = v3(0.0f, 0.0f, 0.0f);
-    const V3 bg = v3(cam[19], cam[20], cam[21]);
+    const int n_wp = NTMAX > 0 ? 3 * P.NT : 0;
 
     // weight planes (path state) and their cotangent sums (per pass);
     // planes t >= NT stay 0: no hit reads their row
-    float Wp[GRAD ? 3 * NTMAX : 1];
-    float Gp[GRAD ? 3 * NTMAX : 1];
+    float Wp[NTMAX > 0 ? 3 * NTMAX : 1];
+    float Gp[NTMAX > 0 ? 3 * NTMAX : 1];
     float gc[3] = {0.0f, 0.0f, 0.0f};
-    if constexpr (GRAD) {
-        const int n_wp = 3 * P.NT;
+    if constexpr (NTMAX > 0) {
 #pragma unroll
         for (int k = 0; k < 3 * NTMAX; ++k) {
             Wp[k] = (carry_in && k < n_wp) ? carry_in[(14 + k) * N + lane]
                                            : 0.0f;
             Gp[k] = 0.0f;
         }
+    }
+    if constexpr (GRAD) {
         gc[0] = cot[0 * N + lane];
         gc[1] = cot[1 * N + lane];
         gc[2] = cot[2 * N + lane];
+    }
+    // tangent bundles: plane c of slot k at dst[(9k + c) * WF_THREADS], its
+    // cotangent sum at dgs[k * WF_THREADS] (this thread's column)
+    float* dst = smem + table_pad(P.n_table) + threadIdx.x;
+    float* dgs = dst + 9 * P.K * WF_THREADS;
+    if constexpr (HARD) {
+        for (int j = 0; j < 9 * P.K; ++j)
+            dst[j * WF_THREADS] = carry_in
+                ? carry_in[(14 + n_wp + j) * N + lane] : 0.0f;
+        for (int k = 0; k < P.K; ++k) dgs[k * WF_THREADS] = 0.0f;
     }
 
     int it = 0;
@@ -629,159 +1089,63 @@ __device__ __forceinline__ void wavefront_body(
             th = v3(1.0f, 1.0f, 1.0f);
             bounce = 0;
             alive = true;
-            if constexpr (GRAD) {
-                // a fresh path starts with throughput 1: no tex dependence
+            // a fresh path starts with throughput 1: no parameter
+            // dependence
+            if constexpr (NTMAX > 0) {
 #pragma unroll
                 for (int k = 0; k < 3 * NTMAX; ++k) Wp[k] = 0.0f;
+            }
+            if constexpr (HARD) {
+                for (int j = 0; j < 9 * P.K; ++j) dst[j * WF_THREADS] = 0.0f;
             }
         }
         const uint32_t k1 = (uint32_t)(P.sample_start + sample);
         float u[9];
         draws(k0, k1, k2, 0x4000000u + (uint32_t)bounce, u, 9);
-
-        Hit h = closest_hit(sc, o, d, tm);
-        if (sc.M > 0) {
-            float u_med[4];
+        float u_med[4];
+        if (sc.M > 0)
             draws(k0, k1, k2, 1000000u + (uint32_t)bounce, u_med, sc.M);
-            int mrow;
-            float t_med = medium_free_flight(sc, o, d, h.hit ? h.t : BIGF,
-                                             u_med, &mrow);
-            if (t_med < BIGF * 0.5f) {
-                h.hit = true;
-                h.t = t_med;
-                h.p = add(o, mul(d, t_med));
-                h.n = v3(1.0f, 0.0f, 0.0f);
-                h.front = true;
-                h.mat = (int)sc.med[mrow * sc.med_cols + sc.med_cols - 1];
-            }
-        }
 
-        bool alive_new = false;
-        if (!h.hit) {
-            V3 sky = bg;
-            if (P.sky_gradient) {
-                float as = 0.5f * (d.y + 1.0f);
-                sky = v3((1.0f - as) + as * 0.5f, (1.0f - as) + as * 0.7f,
-                         (1.0f - as) + as * 1.0f);
-            }
-            rad = v3(rad.x + th.x * sky.x, rad.y + th.y * sky.y,
-                     rad.z + th.z * sky.z);
-            if constexpr (GRAD) {
-                // miss: the background is tex-independent, so only the
-                // throughput's planes carry it
-                const float sk[3] = {sky.x, sky.y, sky.z};
-#pragma unroll
-                for (int k = 0; k < 3 * NTMAX; ++k)
-                    Gp[k] = Gp[k] + gc[k % 3] * Wp[k] * sk[k % 3];
-            }
-        } else {
-            const int mtype = (int)sc.mati[h.mat * 2 + 0];
-            const int mtex = (int)sc.mati[h.mat * 2 + 1];
-            int eff;
-            const V3 tc = texture_value(sc, mtex, h.p, &eff);
-            const bool is_light = mtype == MAT_DIFFUSE_LIGHT;
-            const bool is_metal = mtype == MAT_METAL;
-            const bool is_diel = mtype == MAT_DIELECTRIC;
-            const bool is_iso = mtype == MAT_ISOTROPIC;
-            if (is_light && h.front) {
-                rad = v3(rad.x + th.x * tc.x, rad.y + th.y * tc.y,
-                         rad.z + th.z * tc.z);
-                if constexpr (GRAD) {
-                    // emission: through the throughput's planes, and
-                    // directly through the emitter's own row
-                    const float tv[3] = {tc.x, tc.y, tc.z};
-                    const float tt[3] = {th.x, th.y, th.z};
-#pragma unroll
-                    for (int k = 0; k < 3 * NTMAX; ++k)
-                        Gp[k] = Gp[k] + gc[k % 3] * (
-                            Wp[k] * tv[k % 3]
-                            + (eff == k / 3 ? tt[k % 3] : 0.0f));
-                }
-            }
-            if (!is_light) {
-                const V3 n = h.n;
-                bool scatters = true;
-                bool skip_pdf = is_metal || is_diel;
-                V3 new_dir;
-                float factor = 1.0f;
-                bool pdf_ok = true;
-                if (is_metal) {
-                    float fuzz = sc.matf[h.mat * 2 + 0];
-                    V3 refl = normalize(sub(d, mul(n, 2.0f * dot(d, n))));
-                    V3 jit = unit_vector_from_uv(u[D_FUZZ_U], u[D_FUZZ_V]);
-                    new_dir = normalize(add(refl, mul(jit, fuzz)));
-                    scatters = dot(new_dir, n) > 0.0f;
-                } else if (is_diel) {
-                    float ior = sc.matf[h.mat * 2 + 1];
-                    float ri = h.front ? 1.0f / ior : ior;
-                    float cos_t = fminf(dot(neg(d), n), 1.0f);
-                    float sin_t = safe_sqrt(1.0f - cos_t * cos_t);
-                    bool cannot = ri * sin_t > 1.0f;
-                    float r0 = (1.0f - ri) / (1.0f + ri);
-                    r0 = r0 * r0;
-                    float schlick = r0 + (1.0f - r0) * powf(1.0f - cos_t, 5.0f);
-                    if (cannot || schlick > u[D_REFL]) {
-                        new_dir = normalize(sub(d, mul(n, 2.0f * dot(d, n))));
-                    } else {
-                        V3 perp = mul(add(d, mul(n, cos_t)), ri);
-                        float par = -safe_sqrt(fabsf(1.0f - dot(perp, perp)));
-                        new_dir = normalize(add(perp, mul(n, par)));
-                    }
-                } else {
-                    // MIS: 0.5 * light pdf + 0.5 * material pdf
-                    V3 mdir;
-                    if (is_iso) {
-                        mdir = unit_vector_from_uv(u[D_MAT_U], u[D_MAT_V]);
-                    } else {
-                        V3 bu, bv, bw;
-                        onb_from_w(n, bu, bv, bw);
-                        float phm = TWO_PI_F * u[D_MAT_U];
-                        float sq2 = sqrtf(fmaxf(u[D_MAT_V], 1e-12f));
-                        float zc = sqrtf(fmaxf(1.0f - u[D_MAT_V], 1e-12f));
-                        mdir = normalize(onb_local(
-                            bu, bv, bw, v3(cosf(phm) * sq2, sinf(phm) * sq2,
-                                           zc)));
-                    }
-                    float pdf_val;
-                    V3 gdir = mdir;
-                    float cosv = fmaxf(dot(gdir, n), 0.0f) / PI_F;
-                    if (sc.L > 0) {
-                        if (u[D_PICK] < 0.5f)
-                            gdir = light_sample(sc, h.p, tm, u[D_LIGHT_SEL],
-                                                u[D_LIGHT_U], u[D_LIGHT_V]);
-                        cosv = fmaxf(dot(gdir, n), 0.0f) / PI_F;
-                        float mpdf = is_iso ? INV_4PI_F : cosv;
-                        pdf_val = 0.5f * light_pdf(sc, h.p, gdir, tm)
-                            + 0.5f * mpdf;
-                    } else {
-                        pdf_val = is_iso ? INV_4PI_F : cosv;
-                    }
-                    float spdf = is_iso ? INV_4PI_F : cosv;
-                    pdf_ok = pdf_val > 1e-8f;
-                    factor = spdf / (pdf_ok ? pdf_val : 1.0f);
-                    new_dir = gdir;
-                }
-                alive_new = scatters && (skip_pdf || pdf_ok);
-                // a path that ends keeps its last state in the carry
+        float best_t;
+        const int best = closest_select(sc, o, d, tm, &best_t);
+        const V3 o0 = o, d0 = d, th0 = th;
+        const bool alive_new = physics<float, NTMAX>(
+            sc, P, cam, best, best_t, o, d, th, rad, tm, u, u_med,
+            Seed{0, 0, 0}, Wp, Gp, gc);
+        if constexpr (HARD) {
+            // one dual pass per slot: the same bounce from the same ray and
+            // selection, along slot k's tangent, so the same outcome
+            float nw[1], ng[1];
+#pragma unroll 1
+            for (int k = 0; k < P.K; ++k) {
+                float* ds = dst + 9 * k * WF_THREADS;
+                const float* sl = sc.slot + SLOT_COLS * k;
+                const Seed sd = {(int)sl[0], (int)sl[1], (int)sl[2]};
+                V3T<Dual> od, dd, td, rd;
+                od.x = dual(o0.x, ds[0 * WF_THREADS]);
+                od.y = dual(o0.y, ds[1 * WF_THREADS]);
+                od.z = dual(o0.z, ds[2 * WF_THREADS]);
+                dd.x = dual(d0.x, ds[3 * WF_THREADS]);
+                dd.y = dual(d0.y, ds[4 * WF_THREADS]);
+                dd.z = dual(d0.z, ds[5 * WF_THREADS]);
+                td.x = dual(th0.x, ds[6 * WF_THREADS]);
+                td.y = dual(th0.y, ds[7 * WF_THREADS]);
+                td.z = dual(th0.z, ds[8 * WF_THREADS]);
+                rd = lift3<Dual>(v3(0.0f, 0.0f, 0.0f));
+                physics<Dual, 0>(sc, P, cam, best, best_t, od, dd, td, rd,
+                                 tm, u, u_med, sd, nw, ng, gc);
+                dgs[k * WF_THREADS] = dgs[k * WF_THREADS]
+                    + (gc[0] * rd.x.t + gc[1] * rd.y.t + gc[2] * rd.z.t);
                 if (alive_new) {
-                    V3 at = is_diel ? v3(1.0f, 1.0f, 1.0f) : tc;
-                    if constexpr (GRAD) {
-                        // product rule through th <- th * at * factor: at
-                        // is the eff row's color except for a dielectric
-                        // (at = 1), and factor never depends on tex_color
-                        const float av[3] = {at.x, at.y, at.z};
-                        const float tt[3] = {th.x, th.y, th.z};
-                        const int row = is_diel ? -1 : eff;
-#pragma unroll
-                        for (int k = 0; k < 3 * NTMAX; ++k)
-                            Wp[k] = (Wp[k] * av[k % 3]
-                                     + (row == k / 3 ? tt[k % 3] : 0.0f))
-                                * factor;
-                    }
-                    th = v3(th.x * at.x * factor, th.y * at.y * factor,
-                            th.z * at.z * factor);
-                    o = h.p;
-                    d = new_dir;
+                    ds[0 * WF_THREADS] = od.x.t;
+                    ds[1 * WF_THREADS] = od.y.t;
+                    ds[2 * WF_THREADS] = od.z.t;
+                    ds[3 * WF_THREADS] = dd.x.t;
+                    ds[4 * WF_THREADS] = dd.y.t;
+                    ds[5 * WF_THREADS] = dd.z.t;
+                    ds[6 * WF_THREADS] = td.x.t;
+                    ds[7 * WF_THREADS] = td.y.t;
+                    ds[8 * WF_THREADS] = td.z.t;
                 }
             }
         }
@@ -809,33 +1173,50 @@ __device__ __forceinline__ void wavefront_body(
         carry_out[11 * N + lane] = th.x;
         carry_out[12 * N + lane] = th.y;
         carry_out[13 * N + lane] = th.z;
-        if constexpr (GRAD) {
-            const int n_wp = 3 * P.NT;
+        if constexpr (NTMAX > 0) {
 #pragma unroll
             for (int k = 0; k < 3 * NTMAX; ++k)
                 if (k < n_wp) carry_out[(14 + k) * N + lane] = Wp[k];
         }
+        if constexpr (HARD) {
+            for (int j = 0; j < 9 * P.K; ++j)
+                carry_out[(14 + n_wp + j) * N + lane] = dst[j * WF_THREADS];
+        }
     }
     if constexpr (GRAD) {
-        // Gp summed over the block in a fixed order: a shuffle tree in each
-        // warp, then the warps in order; one partial row per block, summed
-        // over blocks by the wrapper (no float atomics)
-        const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+        // one partial row per block: 3NT tex entries, then K hard ones,
+        // each summed in a fixed order (no float atomics)
+        const int n_row = n_wp + (HARD ? P.K : 0);
+        if constexpr (NTMAX > 0) {
+            // Gp: a shuffle tree in each warp, then the warps in order
+            const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
 #pragma unroll
-        for (int k = 0; k < 3 * NTMAX; ++k) {
-            float v = Gp[k];
+            for (int k = 0; k < 3 * NTMAX; ++k) {
+                float v = Gp[k];
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                v += __shfl_down_sync(0xffffffffu, v, off);
-            if (wl == 0) red[warp * 3 * NTMAX + k] = v;
+                for (int off = 16; off > 0; off >>= 1)
+                    v += __shfl_down_sync(0xffffffffu, v, off);
+                if (wl == 0) red[warp * 3 * NTMAX + k] = v;
+            }
         }
         __syncthreads();
-        const int n_wp = 3 * P.NT;
-        if (threadIdx.x < n_wp) {
-            float s = 0.0f;
-            for (int w = 0; w < WF_THREADS / 32; ++w)
-                s += red[w * 3 * NTMAX + threadIdx.x];
-            dg_out[blockIdx.x * n_wp + threadIdx.x] = s;
+        if constexpr (NTMAX > 0) {
+            if (threadIdx.x < n_wp) {
+                float s = 0.0f;
+                for (int w = 0; w < WF_THREADS / 32; ++w)
+                    s += red[w * 3 * NTMAX + threadIdx.x];
+                dg_out[blockIdx.x * n_row + threadIdx.x] = s;
+            }
+        }
+        if constexpr (HARD) {
+            // dG: slot k's 128 lanes in lane order
+            if (threadIdx.x < P.K) {
+                const float* col = smem + table_pad(P.n_table)
+                    + (9 * P.K + threadIdx.x) * WF_THREADS;
+                float s = 0.0f;
+                for (int i = 0; i < WF_THREADS; ++i) s += col[i];
+                dg_out[blockIdx.x * n_row + n_wp + threadIdx.x] = s;
+            }
         }
     }
 }
@@ -849,14 +1230,15 @@ wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
                          float* __restrict__ carry_out,
                          int* __restrict__ iters_out) {
     __shared__ float cam[22];
-    wavefront_body<false, 1>(P, tables, pix_lanes, carry_in, nullptr,
+    wavefront_body<0, false>(P, tables, pix_lanes, carry_in, nullptr,
                              rad_out, carry_out, nullptr, iters_out,
                              wf_tables, cam, nullptr);
 }
 
-// The forward pass plus the tex_color weight planes (K3; K5 under the
-// compacted driver), for NT <= NTMAX texture rows.
-template <int NTMAX>
+// The forward pass plus the gradient tiers: the tex_color weight planes
+// for NT <= NTMAX texture rows (K3; NTMAX 0: none) and, with HARD, the
+// tangent bundles of the hard slots (K4); K5 under the compacted driver.
+template <int NTMAX, bool HARD>
 __global__ void __launch_bounds__(WF_THREADS)
 wavefront_grad_kernel(WfParams P, const float* __restrict__ tables,
                       const int* __restrict__ pix_lanes,
@@ -867,15 +1249,15 @@ wavefront_grad_kernel(WfParams P, const float* __restrict__ tables,
                       float* __restrict__ dg_out,
                       int* __restrict__ iters_out) {
     __shared__ float cam[22];
-    __shared__ float red[(WF_THREADS / 32) * 3 * NTMAX];
-    wavefront_body<true, NTMAX>(P, tables, pix_lanes, carry_in, cot,
+    __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
+    wavefront_body<NTMAX, HARD>(P, tables, pix_lanes, carry_in, cot,
                                 rad_out, carry_out, dg_out, iters_out,
                                 wf_tables, cam, red);
 }
 
-// dynamic shared memory for the scene tables, raised past the default 48 KB
-// where a scene needs it
-static cudaError_t table_smem(const void* kernel, size_t bytes) {
+// dynamic shared memory, raised past the default 48 KB where a launch
+// needs it
+static cudaError_t set_smem(const void* kernel, size_t bytes) {
     if (bytes <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -892,7 +1274,7 @@ extern "C" int rt_wavefront_forward(const WfParams* params,
     const WfParams P = *params;
     if (P.n_lanes % WF_THREADS != 0) return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)P.n_table * sizeof(float);
-    cudaError_t e = table_smem((const void*)wavefront_forward_kernel, smem);
+    cudaError_t e = set_smem((const void*)wavefront_forward_kernel, smem);
     if (e != cudaSuccess) return (int)e;
     wavefront_forward_kernel<<<P.n_lanes / WF_THREADS, WF_THREADS, smem,
                                (cudaStream_t)stream>>>(
@@ -900,23 +1282,27 @@ extern "C" int rt_wavefront_forward(const WfParams* params,
     return (int)cudaGetLastError();
 }
 
-template <int NTMAX>
+template <int NTMAX, bool HARD>
 static int launch_grad(const WfParams& P, const float* tables,
                        const int* pix_lanes, const float* carry_in,
                        const float* cot, float* rad_out, float* carry_out,
                        float* dg_out, int* iters_out, cudaStream_t stream) {
-    const size_t smem = (size_t)P.n_table * sizeof(float);
-    cudaError_t e = table_smem((const void*)wavefront_grad_kernel<NTMAX>,
-                               smem);
+    size_t floats = HARD ? (size_t)table_pad(P.n_table)
+                               + (size_t)10 * P.K * WF_THREADS
+                         : (size_t)P.n_table;
+    const size_t smem = floats * sizeof(float);
+    cudaError_t e = set_smem(
+        (const void*)wavefront_grad_kernel<NTMAX, HARD>, smem);
     if (e != cudaSuccess) return (int)e;
-    wavefront_grad_kernel<NTMAX><<<P.n_lanes / WF_THREADS, WF_THREADS, smem,
-                                   stream>>>(
-        P, tables, pix_lanes, carry_in, cot, rad_out, carry_out, dg_out,
-        iters_out);
+    wavefront_grad_kernel<NTMAX, HARD>
+        <<<P.n_lanes / WF_THREADS, WF_THREADS, smem, stream>>>(
+            P, tables, pix_lanes, carry_in, cot, rad_out, carry_out, dg_out,
+            iters_out);
     return (int)cudaGetLastError();
 }
 
-// dg_out: (n_lanes / WF_THREADS, 3 * NT) per-block partial sums
+// dg_out: (n_lanes / WF_THREADS, 3 * NT * want_tex + K) per-block partial
+// sums
 extern "C" int rt_wavefront_grad(const WfParams* params,
                                  const float* tables, const int* pix_lanes,
                                  const float* carry_in, const float* cot,
@@ -924,12 +1310,18 @@ extern "C" int rt_wavefront_grad(const WfParams* params,
                                  float* dg_out, int* iters_out,
                                  void* stream) {
     const WfParams P = *params;
-    if (P.n_lanes % WF_THREADS != 0 || P.NT < 1 || P.NT > 16)
+    if (P.n_lanes % WF_THREADS != 0 || P.K < 0 || P.K > MAX_SLOTS
+        || (P.want_tex && (P.NT < 1 || P.NT > 16))
+        || (!P.want_tex && P.K == 0))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    if (P.NT <= 8)
-        return launch_grad<8>(P, tables, pix_lanes, carry_in, cot, rad_out,
-                              carry_out, dg_out, iters_out, s);
-    return launch_grad<16>(P, tables, pix_lanes, carry_in, cot, rad_out,
-                           carry_out, dg_out, iters_out, s);
+#define WF_GRAD_ARGS P, tables, pix_lanes, carry_in, cot, rad_out, \
+                     carry_out, dg_out, iters_out, s
+    if (P.K == 0)
+        return P.NT <= 8 ? launch_grad<8, false>(WF_GRAD_ARGS)
+                         : launch_grad<16, false>(WF_GRAD_ARGS);
+    if (!P.want_tex) return launch_grad<0, true>(WF_GRAD_ARGS);
+    return P.NT <= 8 ? launch_grad<8, true>(WF_GRAD_ARGS)
+                     : launch_grad<16, true>(WF_GRAD_ARGS);
+#undef WF_GRAD_ARGS
 }

@@ -1,17 +1,20 @@
 """Path-tracing megakernel (CUDA) and its plain torch version.
 
 Port of the JAX package's ops/wavefront_pallas.py unrolled-mode Pallas
-kernel in three of its variants: the forward (K1), its capped/resume
-variant under the compacted driver (K2), and the forward-mode tex_color
-gradient pass with weight planes (K3) under the compacted grad driver (K5).
-Here they are one hand-written CUDA kernel body, csrc/wavefront.cu, built
-with nvcc for sm_90a at first use and bound with ctypes. Beside it:
+kernel in four of its variants: the forward (K1), its capped/resume
+variant under the compacted driver (K2), and the forward-mode gradient pass
+with tex_color weight planes (K3) and hard-parameter tangent bundles (K4)
+under the compacted grad driver (K5). Here they are one hand-written CUDA
+kernel body, csrc/wavefront.cu, built with nvcc for sm_90a at first use and
+bound with ctypes. Beside it:
 
   - `render_pass_reference` / `render_pass_grad_reference`: the same lane
     wavefront in plain torch, built from the integrator's per-bounce step
     (ops/integrator.py): persistent lane regeneration, `cap`, `carry` and
     `pix_lanes`, the same carry layout (14 rows; the grad pass appends its
-    3*NT weight planes). The CPU tests run them; on the card only the
+    3*NT weight planes and 9 tangent planes per hard slot). The hard slots'
+    tangents are torch.func.jvp of the bounce step, batched over the slots
+    with torch.func.vmap. The CPU tests run them; on the card only the
     parity checks do.
   - `pass_function` / `grad_pass_function` / `render_pass`: the
     dispatchers. A scene on a CUDA device launches the kernel (or raises),
@@ -20,6 +23,9 @@ with nvcc for sm_90a at first use and bound with ctypes. Beside it:
   - `render_pass_compacted` / `render_pass_grad_compacted`: the capped +
     lane-compacted schedules, torch code shared by both versions and both
     passes (stable argsort by remaining samples, index_add_).
+  - `hard_param_slots` / `light_sphere_sources` / `hard_slots_gate_reason`:
+    the hard slots' metadata (wavefront_pallas.py:313-425), the slot table
+    the kernel reads (`_slot_table`).
 
 Lane layout: one lane per pixel, padded to a multiple of LANE_BLOCK; pad
 lanes repeat the last pixel and are cropped (their cotangent is zero), and
@@ -28,6 +34,7 @@ the compaction permutes them like any other lane.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -41,7 +48,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..scene.flat import FlatScene, TEX_CHECKER, TEX_NOISE
+from ..scene.flat import (FlatScene, MAT_DIELECTRIC, MAT_METAL, TEX_CHECKER,
+                          TEX_NOISE)
 from ..models.camera import CameraState, generate_rays
 from ..utils import rng
 from ..utils.vecmath import normalize
@@ -60,7 +68,21 @@ MAX_SHARED_BYTES = 232_448
 
 LANE_BLOCK = 128  # = WF_THREADS, the kernel's block size
 CARRY_ROWS = 14   # work, alive, bounce, sample, time, o xyz, d xyz, th xyz
-# (the grad pass appends 3*NT weight-plane rows, wavefront_pallas.py:3240)
+# (the grad pass appends 3*NT weight-plane rows, then 9 tangent-plane rows
+# per hard slot, wavefront_pallas.py:3240-3244)
+
+# the hard trainable families and their slot kinds
+# (wavefront_pallas.py:382-383)
+HARD_SLOT_FIELDS = {"fuzz": "mat_fuzz", "ior": "mat_ior",
+                    "sphc": "sph_center", "sphr": "sph_radius"}
+HARD_FIELDS = ("mat_fuzz", "mat_ior", "sph_center", "sph_radius")
+# hard slots one grad launch takes (csrc/wavefront.cu MAX_SLOTS): their
+# tangent planes and sums live in shared memory, 10 floats a slot a lane.
+# From 33 slots the training policy takes the adjoint kernels
+# (ADJOINT_MIN_SLOTS, parallel/train.py), so 32 covers the tangent tier.
+MAX_HARD_SLOTS = 32
+# the slot table's table codes (csrc/wavefront.cu SEED_*)
+_SEED_SPH, _SEED_MATF = 1, 2
 
 _PKG_DIR = Path(__file__).resolve().parents[1]
 _CSRC = _PKG_DIR / "csrc"
@@ -104,6 +126,104 @@ def kernel_gate_reason(flat: FlatScene) -> str | None:
     if n_bytes > MAX_SHARED_BYTES:
         return (f"scene tables need {n_bytes} B of shared memory, over the "
                 f"{MAX_SHARED_BYTES} B a Hopper block can hold")
+    return None
+
+
+# ------------------------------------------------------------- hard slots
+def hard_param_slots(flat: FlatScene, fields=None) -> tuple:
+    """The scalar "hard" trainable parameters, which enter through scatter
+    directions and intersection t rather than the throughput: metal fuzz,
+    dielectric IOR, the centers and radii of active spheres and of the
+    (inactive) sphere rows the light list copies
+    (wavefront_pallas.py:386-416, the same slots in the same order).
+
+    Each is ("fuzz", m) | ("ior", m) | ("sphc", p, axis) | ("sphr", p).
+    `fields` restricts them to those FlatScene field names. Reads the
+    tables back to the host."""
+    mt = flat.mat_type.cpu().numpy()
+    act = flat.sph_active.cpu().numpy().copy()
+    S = act.shape[0]
+    for p in flat.light_prim.cpu().numpy()[:flat.n_lights]:
+        if p < S:
+            act[p] = True
+    slots = []
+    for m in range(mt.shape[0]):
+        if mt[m] == MAT_METAL and (fields is None or "mat_fuzz" in fields):
+            slots.append(("fuzz", m))
+        if mt[m] == MAT_DIELECTRIC and (fields is None
+                                        or "mat_ior" in fields):
+            slots.append(("ior", m))
+    for p in range(S):
+        if act[p]:
+            if fields is None or "sph_center" in fields:
+                slots += [("sphc", p, 0), ("sphc", p, 1), ("sphc", p, 2)]
+            if fields is None or "sph_radius" in fields:
+                slots.append(("sphr", p))
+    return tuple(slots)
+
+
+def light_sphere_sources(flat: FlatScene) -> tuple:
+    """Per light row of the kernel's table: the sphere row it copies, or -1
+    for a quad light (wavefront_pallas.py:419-425). A slot of that sphere
+    also perturbs the light row's center and radius columns."""
+    S = flat.sph_center.shape[0]
+    lp = flat.light_prim.cpu().numpy()[:max(flat.n_lights, 1)]
+    return tuple(int(p) if p < S else -1 for p in lp)
+
+
+def slot_index(slot) -> tuple:
+    """(FlatScene field, index into it) of one hard slot."""
+    f = HARD_SLOT_FIELDS[slot[0]]
+    return f, (slot[1] if slot[0] != "sphc" else (slot[1], slot[2]))
+
+
+def _slot_table(hard_slots) -> torch.Tensor:
+    """(K, 3) rows of the kernel's slot table: the table (sphere or
+    material floats), row and column each slot perturbs (the JAX kernel's
+    theta_map, wavefront_pallas.py:955-978; light rows alias through
+    light_sphere_sources)."""
+    rows = []
+    for s in hard_slots:
+        if s[0] == "fuzz":
+            rows.append((_SEED_MATF, s[1], 0))
+        elif s[0] == "ior":
+            rows.append((_SEED_MATF, s[1], 1))
+        elif s[0] == "sphc":
+            rows.append((_SEED_SPH, s[1], s[2]))
+        elif s[0] == "sphr":
+            rows.append((_SEED_SPH, s[1], 6))
+        else:
+            raise ValueError(f"unknown hard slot {s!r}")
+    return torch.tensor(rows, dtype=torch.float32).reshape(-1, 3)
+
+
+def _hard_smem_bytes(flat: FlatScene, n_slots: int) -> int:
+    """Shared memory of a grad launch with n_slots tangent bundles: the
+    tables (padded as csrc/wavefront.cu::table_pad does) and 10 floats a
+    slot a lane."""
+    n_table = _table_floats(flat) + 3 * n_slots
+    return 4 * (-(-n_table // 32) * 32 + 10 * n_slots * LANE_BLOCK)
+
+
+def hard_slots_gate_reason(flat: FlatScene, n_slots: int) -> str | None:
+    """Why n_slots hard slots cannot run in the grad kernel (None = they
+    can): the scene gate, and the kernel's slot bound. On the unrolled
+    kernel, the only one ported, the JAX package has no other bound
+    (wavefront_pallas.py:313-328); its vscan bound MAX_HARD_SLOTS_VSCAN
+    waits for K6."""
+    reason = kernel_gate_reason(flat)
+    if reason is not None:
+        return reason
+    if n_slots > MAX_HARD_SLOTS:
+        return (f"{n_slots} hard slots exceed the tangent-bundle kernel's "
+                f"MAX_HARD_SLOTS={MAX_HARD_SLOTS}; from 33 slots the JAX "
+                "package trains with the adjoint kernels (K9/K10), which "
+                "are not ported")
+    n_bytes = _hard_smem_bytes(flat, n_slots)
+    if n_bytes > MAX_SHARED_BYTES:
+        return (f"{n_slots} hard slots need {n_bytes} B of shared memory "
+                f"with the tables, over the {MAX_SHARED_BYTES} B a Hopper "
+                "block can hold")
     return None
 
 
@@ -166,27 +286,32 @@ def _pack_tables(flat: FlatScene):
 
 
 def _table_floats(flat: FlatScene) -> int:
-    """Floats in the kernel's shared-memory table (see _kernel_tables)."""
+    """Floats in the kernel's shared-memory table without the slot table
+    (see _kernel_tables)."""
     S, Q = flat.sph_center.shape[0], flat.quad_corner.shape[0]
     NM, NT = flat.mat_type.shape[0], flat.tex_type.shape[0]
     MS, MQ = flat.med_sph_center.shape[1], flat.med_quad_corner.shape[1]
-    return (8 * S + 18 * Q + (S + Q) + 25 * max(flat.n_lights, 1)
+    return (8 * S + 18 * Q + (S + Q) + 26 * max(flat.n_lights, 1)
             + 4 * NM + 14 * NT
             + flat.n_mediums * (3 + 4 * MS + 17 * MQ))
 
 
-def _kernel_tables(flat: FlatScene):
+def _kernel_tables(flat: FlatScene, hard_slots=()):
     """One contiguous float32 buffer of the tables the kernel reads, and
-    the offset of each (integer columns stored as exact floats)."""
+    the offset of each (integer columns stored as exact floats): the scene,
+    the light rows' source spheres and the hard slots' table."""
     sphf, quadf, prim_mat, lightf, mati, matf, texf, medf = \
         _pack_tables(flat)
     parts = {"sph": sphf, "quad": quadf, "pmat": prim_mat,
              "light": lightf[:max(flat.n_lights, 1)], "mati": mati,
-             "matf": matf, "tex": texf, "med": medf[:flat.n_mediums]}
+             "matf": matf, "tex": texf, "med": medf[:flat.n_mediums],
+             "lsrc": torch.tensor(light_sphere_sources(flat),
+                                  dtype=torch.float32),
+             "slot": _slot_table(hard_slots)}
     offsets, off, flat_parts = {}, 0, []
     for name, t in parts.items():
         offsets[name] = off
-        t = t.to(torch.float32).reshape(-1)
+        t = t.to(device=flat.device, dtype=torch.float32).reshape(-1)
         off += t.numel()
         flat_parts.append(t)
     buf = torch.cat(flat_parts).contiguous()
@@ -258,40 +383,102 @@ def _pass_result(rad, st, *, cap, pix_lanes, width, height):
     return _image_from_lanes(rad, width, height)
 
 
-def _grad_result(rad, dg, st, *, cap, pix_lanes, width, height):
-    """The grad pass's: (radiance, dG_tex, carry) when capped, (radiance
-    planes, dG_tex) under pix_lanes, else (image, dG_tex)."""
+def _grad_result(rad, dg_tex, dg_hard, st, *, cap, pix_lanes, width,
+                 height):
+    """The grad pass's: (radiance, dG_tex, dG_hard, carry) when capped,
+    (radiance planes, dG_tex, dG_hard) under pix_lanes, else (image,
+    dG_tex, dG_hard)."""
     if cap:
-        return rad, dg, st
+        return rad, dg_tex, dg_hard, st
     if pix_lanes is not None:
-        return rad, dg
-    return _image_from_lanes(rad, width, height), dg
+        return rad, dg_tex, dg_hard
+    return _image_from_lanes(rad, width, height), dg_tex, dg_hard
+
+
+def _grad_rows(flat: FlatScene, cot, hard_slots, want_tex) -> tuple:
+    """(weight-plane rows 3*NT or 0, hard slots K) of a pass: 0 and 0 for
+    the forward (cot None). Raises for a grad pass with nothing to
+    differentiate."""
+    if cot is None:
+        return 0, 0
+    if not want_tex and not hard_slots:
+        raise ValueError("a grad pass needs want_tex or hard_slots")
+    return (3 * flat.tex_type.shape[0] if want_tex else 0), len(hard_slots)
+
+
+def _slot_tangents(flat: FlatScene, hard_slots) -> tuple:
+    """The hard slots' unit tangents of HARD_FIELDS' tables, batched over
+    the slots: slot k is 1 at its own entry and 0 elsewhere."""
+    tans = {f: torch.zeros((len(hard_slots),) + tuple(getattr(flat, f).shape),
+                           dtype=torch.float32, device=flat.device)
+            for f in HARD_FIELDS}
+    for k, slot in enumerate(hard_slots):
+        f, idx = slot_index(slot)
+        tans[f][(k,) + (idx if isinstance(idx, tuple) else (idx,))] = 1.0
+    return tuple(tans[f] for f in HARD_FIELDS)
+
+
+def _hard_tangents(flat: FlatScene, org, dr, tm, th, alive, u, u_med,
+                   background, sky_gradient, slot_tans, dst):
+    """The JAX kernel's tangent-bundle step (wavefront_pallas.py:2411-2542):
+    torch.func.jvp of one bounce (ops/integrator.py::bounce_step) as a
+    function of the hard parameter tables and the ray state (o, d, th),
+    batched over the K slots with torch.func.vmap. Slot k's tangent is its
+    unit table entry (slot_tans) and its tangent planes dst[:, k] (n, K,
+    9). The draws, alive mask and ray time are closed over, so they carry
+    no tangent: the estimator's detached-sampling derivative. Light rows
+    read the sphere tables, so a sphere's slots reach the light sample and
+    pdf too. Returns the (K, n, 3) tangents of the radiance increment and
+    of the next o, d and th."""
+    prim = tuple(getattr(flat, f).detach() for f in HARD_FIELDS) + (
+        org, dr, th)
+
+    def physics(fuzz, ior, center, radius, o, d, t):
+        sc = dataclasses.replace(flat, mat_fuzz=fuzz, mat_ior=ior,
+                                 sph_center=center, sph_radius=radius)
+        return bounce_step(sc, o, d, tm, t, alive, u, u_med, background,
+                           sky_gradient)[:4]
+
+    def push(*tangents):
+        return torch.func.jvp(physics, prim, tangents)[1]
+
+    planes = dst.permute(1, 0, 2)                       # (K, n, 9)
+    return torch.func.vmap(push)(*slot_tans, planes[..., 0:3],
+                                 planes[..., 3:6], planes[..., 6:9])
 
 
 # ---------------------------------------------------- plain torch version
 def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
                          sample_start, *, width, height, n_strata, max_depth,
                          n_samples, sky_gradient, cap, carry, pix_lanes,
-                         iters, cot):
+                         iters, cot, hard_slots=(), want_tex=True):
     """The persistent lane wavefront in plain torch; with `cot` ((3,
-    n_lanes) cotangent lanes) also the tex_color weight planes of the JAX
-    kernel's grad_tex variant (wavefront_pallas.py:865-873, 2565-2603):
+    n_lanes) cotangent lanes) also the JAX grad kernel's tiers: with
+    want_tex the tex_color weight planes (wavefront_pallas.py:865-873,
+    2565-2603),
 
         Wp[t, c] = d th_c / d tex_color[t, c], reset to 0 on regeneration,
         Gp[t, c] += g_c * (Wp[t, c] * L_c + [eff == t] * th_c * emitted_c)
             at each radiance event (background L on a miss, emission),
         Wp[t, c] <- (Wp[t, c] * at_c + [eff == t and not dielectric]
-                     * th_c) * factor   under the throughput's guard.
+                     * th_c) * factor   under the throughput's guard,
 
-    Returns (radiance (3, n_lanes), carry or None, dG_tex (NT, 3) or
-    None). iters ((n_lanes,) int32), when given, gets one added per lane
-    per bounce it traces."""
+    and for the hard slots the tangent bundles (875-896, 2395, 2411-2542):
+
+        Dst[k] = d(o, d, th) / d theta_k, reset to 0 on regeneration,
+        dG[k] += <g, d radiance increment / d theta_k> every bounce,
+        Dst[k] <- the bounce's JVP along (theta_k, Dst[k]) under the
+            throughput's guard (_hard_tangents).
+
+    Returns (radiance (3, n_lanes), carry or None, dG_tex (NT, 3) or None,
+    dG_hard (K,) or None). iters ((n_lanes,) int32), when given, gets one
+    added per lane per bounce it traces."""
     device = flat.device
     n_pix = width * height
     n_lanes = lane_count(n_pix)
     nt = flat.tex_type.shape[0]
-    n_wp = 3 * nt if cot is not None else 0
-    _check_carry(carry, pix_lanes, n_lanes, CARRY_ROWS + n_wp)
+    n_wp, K = _grad_rows(flat, cot, hard_slots, want_tex)
+    _check_carry(carry, pix_lanes, n_lanes, CARRY_ROWS + n_wp + 9 * K)
     _check_iters(iters, n_lanes, device)
     pix = (_identity_pixels(n_lanes, n_pix, device) if pix_lanes is None
            else pix_lanes.to(device=device, dtype=torch.int64))
@@ -312,6 +499,7 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         work = alive.clone()
         bounce = torch.zeros_like(sample)
         wp = torch.zeros(n_lanes, n_wp, dtype=torch.float32, device=device)
+        dst = torch.zeros(n_lanes, K, 9, dtype=torch.float32, device=device)
     else:
         carry = carry.to(device=device, dtype=torch.float32)
         work, alive = carry[0] > 0.5, carry[1] > 0.5
@@ -319,10 +507,13 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         tm = carry[4].clone()
         org, dr, th = carry[5:8].T.clone(), carry[8:11].T.clone(), \
             carry[11:14].T.clone()
-        wp = carry[CARRY_ROWS:].T.clone()
+        wp = carry[CARRY_ROWS:CARRY_ROWS + n_wp].T.clone()
+        dst = carry[CARRY_ROWS + n_wp:].T.reshape(n_lanes, K, 9).clone()
     rad = torch.zeros(n_lanes, 3, dtype=torch.float32, device=device)
     gp = torch.zeros(n_lanes, n_wp, dtype=torch.float32, device=device)
+    dgh = torch.zeros(n_lanes, K, dtype=torch.float32, device=device)
     rows = torch.arange(nt, device=device)
+    slot_tans = _slot_tangents(flat, hard_slots) if K else None
 
     it = 0
     while cap == 0 or it < cap:
@@ -347,30 +538,41 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         u_med = medium_uniforms(flat, keys, b)
         out = bounce_step(flat, o, d, t_, h, a, u, u_med, background,
                           sky_gradient, record=n_wp > 0)
-        drad, o, d, h_new, a = out[:5]
+        drad, o_new, d_new, h_new, a_new = out[:5]
+        if n_wp or K:
+            g = cot[:, idx].T                             # (n, 3)
         if n_wp:
             ev = out[5]
-            g = cot[:, idx].T[:, None, :]                 # (n, 1, 3)
+            gt3 = g[:, None, :]                           # (n, 1, 3)
             th_c = h[:, None, :]                          # pre-scatter th
             # a fresh path starts with throughput 1: no tex dependence
             w = torch.where(regen[:, None], 0.0, wp[idx]).view(-1, nt, 3)
             ind = (ev["eff_tex"][:, None] == rows)[:, :, None]
             gp[idx] += (
                 torch.where(ev["miss"][:, None, None],
-                            g * w * ev["sb"][:, None, :], 0.0)
+                            gt3 * w * ev["sb"][:, None, :], 0.0)
                 + torch.where(ev["emit_on"][:, None, None],
-                              g * (w * ev["tcol"][:, None, :]
-                                   + torch.where(ind, th_c, 0.0)), 0.0)
+                              gt3 * (w * ev["tcol"][:, None, :]
+                                     + torch.where(ind, th_c, 0.0)), 0.0)
             ).reshape(-1, n_wp)
             w_new = (w * ev["at"][:, None, :]
                      + torch.where(ind & ~ev["is_diel"][:, None, None],
                                    th_c, 0.0)) * ev["factor"][:, None, None]
-            wp[idx] = torch.where(a[:, None, None], w_new,
+            wp[idx] = torch.where(a_new[:, None, None], w_new,
                                   w).reshape(-1, n_wp)
+        if K:
+            # a fresh path starts at the camera: no parameter dependence
+            ds = torch.where(regen[:, None, None], 0.0, dst[idx])
+            t_rad, t_o, t_d, t_th = _hard_tangents(
+                flat, o, d, t_, h, a, u, u_med, background, sky_gradient,
+                slot_tans, ds)
+            dgh[idx] += (t_rad * g[None]).sum(-1).T
+            new = torch.cat([t_o, t_d, t_th], dim=-1).permute(1, 0, 2)
+            dst[idx] = torch.where(a_new[:, None, None], new, ds)
         rad[idx] += drad
         b = b + 1
-        a = a & (b < max_depth)
-        org[idx], dr[idx], tm[idx], th[idx] = o, d, t_, h_new
+        a = a_new & (b < max_depth)
+        org[idx], dr[idx], tm[idx], th[idx] = o_new, d_new, t_, h_new
         sample[idx], bounce[idx], alive[idx] = s, b, a
         work[idx] = a | (s + 1 < n_samples)
         if iters is not None:
@@ -382,9 +584,11 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         f32 = torch.float32
         st = torch.cat([work.to(f32)[None], alive.to(f32)[None],
                         bounce.to(f32)[None], sample.to(f32)[None], tm[None],
-                        org.T, dr.T, th.T, wp.T])
-    dg = gp.sum(0).reshape(nt, 3) if n_wp else None
-    return rad.T.contiguous(), st, dg
+                        org.T, dr.T, th.T, wp.T,
+                        dst.reshape(n_lanes, 9 * K).T])
+    dg_tex = gp.sum(0).reshape(nt, 3) if n_wp else None
+    dg_hard = dgh.sum(0) if cot is not None else None
+    return rad.T.contiguous(), st, dg_tex, dg_hard
 
 
 def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
@@ -404,7 +608,7 @@ def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
     iters, when given, counts each lane's bounces. Each call adds one to
     render_pass_reference.calls."""
     render_pass_reference.calls += 1
-    rad, st, _ = _wavefront_reference(
+    rad, st, _, _ = _wavefront_reference(
         flat, cam, seed, sample_start, width=width, height=height,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
@@ -420,26 +624,31 @@ def render_pass_grad_reference(flat: FlatScene, cam: CameraState, seed,
                                sample_start, *, width: int, height: int,
                                n_strata: int, max_depth: int,
                                n_samples: int, cotangent,
+                               hard_slots: tuple = (), want_tex: bool = True,
                                sky_gradient: bool = False, cap: int = 0,
                                carry=None, pix_lanes=None, iters=None):
-    """The plain version of the grad kernel (K3): render_pass_reference's
-    pass plus dG_tex = d<cotangent, radiance sum>/d tex_color (NT, 3) by
-    forward-mode weight planes. The image is the forward pass's, path for
-    path. The carry has 14 + 3*NT rows (the weight planes ride it); the
-    cotangent is (height, width, 3), or (3, n_lanes) lane planes under
-    pix_lanes (cotangent_lanes). Returns (image, dG_tex), (radiance planes,
-    dG_tex) under pix_lanes, (radiance, dG_tex, carry) when capped. Each
-    call adds one to render_pass_grad_reference.calls."""
+    """The plain version of the grad kernel (K3, K4): render_pass_reference's
+    pass plus, for g the cotangent, dG_tex = d<g, radiance sum>/d tex_color
+    (NT, 3) by forward-mode weight planes (want_tex; None without) and
+    dG_hard = d<g, radiance sum>/d theta_k (K,) for the hard slots
+    (hard_param_slots) by tangent bundles, the JVP of each bounce. The
+    image is the forward pass's, path for path. The carry has 14 + 3*NT +
+    9*K rows (the weight and tangent planes ride it); the cotangent is
+    (height, width, 3), or (3, n_lanes) lane planes under pix_lanes
+    (cotangent_lanes). Returns (image, dG_tex, dG_hard), (radiance planes,
+    dG_tex, dG_hard) under pix_lanes, (radiance, dG_tex, dG_hard, carry)
+    when capped. Each call adds one to render_pass_grad_reference.calls."""
     render_pass_grad_reference.calls += 1
     cot = cotangent_lanes(cotangent, width=width, height=height,
                           pix_lanes=pix_lanes).to(flat.device)
-    rad, st, dg = _wavefront_reference(
+    rad, st, dg_tex, dg_hard = _wavefront_reference(
         flat, cam, seed, sample_start, width=width, height=height,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
-        iters=iters, cot=cot)
-    return _grad_result(rad, dg, st, cap=cap, pix_lanes=pix_lanes,
-                        width=width, height=height)
+        iters=iters, cot=cot, hard_slots=tuple(hard_slots),
+        want_tex=want_tex)
+    return _grad_result(rad, dg_tex, dg_hard, st, cap=cap,
+                        pix_lanes=pix_lanes, width=width, height=height)
 
 
 render_pass_grad_reference.calls = 0
@@ -454,9 +663,10 @@ class _Params(ctypes.Structure):
         + [("seed_mix", ctypes.c_uint), ("perlin_seed", ctypes.c_uint)]
         + [(n, ctypes.c_int) for n in (
             "sky_gradient", "has_noise", "checker_depth", "cap",
-            "S", "Q", "L", "M", "MS", "MQ", "NT",
+            "S", "Q", "L", "M", "MS", "MQ", "NT", "K", "want_tex",
             "off_sph", "off_quad", "off_pmat", "off_light", "off_mati",
-            "off_matf", "off_tex", "off_med", "med_cols", "n_table")]
+            "off_matf", "off_tex", "off_med", "off_lsrc", "off_slot",
+            "med_cols", "n_table")]
         + [("inv_strata", ctypes.c_float), ("cam", ctypes.c_float * 22)])
 
 
@@ -535,24 +745,30 @@ def load_library() -> KernelLibrary:
 @dataclass(frozen=True)
 class KernelInputs:
     """A scene and camera packed for the kernel: its tables in one device
-    buffer, and the scene's and camera's fields of WfParams. Packing gathers
-    on the device and reads the camera and the Perlin seed back to the
-    host, so a render (or a training step) packs once and hands the result
-    to every launch."""
+    buffer (with the slot table of `hard_slots`), and the scene's and
+    camera's fields of WfParams. Packing gathers on the device and reads
+    the camera and the Perlin seed back to the host, so a render (or a
+    training step) packs once and hands the result to every launch."""
     tables: torch.Tensor
     fields: dict
+    hard_slots: tuple = ()
 
 
-def prepare_kernel(flat: FlatScene, cam: CameraState) -> KernelInputs:
-    """Pack `flat` and `cam` for the kernel wrappers; raises for a scene
-    that is not on a CUDA device or is outside the kernel's gate."""
+def prepare_kernel(flat: FlatScene, cam: CameraState,
+                   hard_slots: tuple = ()) -> KernelInputs:
+    """Pack `flat` and `cam` (and the slot table of `hard_slots`, for the
+    grad kernel) for the kernel wrappers; raises for a scene that is not on
+    a CUDA device or is outside the kernel's gate, and for slots outside
+    hard_slots_gate_reason."""
     if flat.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{flat.device}")
-    reason = kernel_gate_reason(flat)
+    hard_slots = tuple(hard_slots)
+    reason = (hard_slots_gate_reason(flat, len(hard_slots)) if hard_slots
+              else kernel_gate_reason(flat))
     if reason is not None:
         raise ValueError(f"scene outside the CUDA kernel's gate: {reason}")
-    tables, off, med_cols = _kernel_tables(flat)
+    tables, off, med_cols = _kernel_tables(flat, hard_slots)
     cam_s = cam.scalars().to("cpu").tolist()
     fields = dict(
         perlin_seed=int(flat.perlin_seed.cpu()) & rng.MASK32,
@@ -564,28 +780,35 @@ def prepare_kernel(flat: FlatScene, cam: CameraState) -> KernelInputs:
         NT=flat.tex_type.shape[0],
         off_sph=off["sph"], off_quad=off["quad"], off_pmat=off["pmat"],
         off_light=off["light"], off_mati=off["mati"], off_matf=off["matf"],
-        off_tex=off["tex"], off_med=off["med"], med_cols=med_cols,
-        n_table=tables.numel(), cam=(ctypes.c_float * 22)(*cam_s))
-    return KernelInputs(tables, fields)
+        off_tex=off["tex"], off_med=off["med"], off_lsrc=off["lsrc"],
+        off_slot=off["slot"], med_cols=med_cols, n_table=tables.numel(),
+        cam=(ctypes.c_float * 22)(*cam_s))
+    return KernelInputs(tables, fields, hard_slots)
 
 
 def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
             width, height, n_strata, max_depth, n_samples, sky_gradient, cap,
-            carry, pix_lanes, prepared, iters, cot):
+            carry, pix_lanes, prepared, iters, cot, hard_slots=(),
+            want_tex=True):
     """Check the inputs, launch the forward (cot None) or the grad kernel on
     the current stream, and raise if the launch fails. Returns (radiance
-    (3, n_lanes), carry or None, dG_tex (NT, 3) or None)."""
+    (3, n_lanes), carry or None, dG_tex (NT, 3) or None, dG_hard (K,) or
+    None)."""
     device = flat.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{device}")
+    hard_slots = tuple(hard_slots) if cot is not None else ()
     if prepared is None:
-        prepared = prepare_kernel(flat, cam)
+        prepared = prepare_kernel(flat, cam, hard_slots)
+    elif cot is not None and tuple(prepared.hard_slots) != hard_slots:
+        raise ValueError(f"prepared for hard slots {prepared.hard_slots}, "
+                         f"launched with {hard_slots}")
     n_pix = width * height
     n_lanes = lane_count(n_pix)
     nt = prepared.fields["NT"]
-    n_wp = 3 * nt if cot is not None else 0
-    _check_carry(carry, pix_lanes, n_lanes, CARRY_ROWS + n_wp)
+    n_wp, K = _grad_rows(flat, cot, hard_slots, want_tex)
+    _check_carry(carry, pix_lanes, n_lanes, CARRY_ROWS + n_wp + 9 * K)
     _check_iters(iters, n_lanes, device)
     if n_strata * n_strata + int(sample_start) >= 1 << 24:
         raise ValueError("sample indices must stay below 2^24")
@@ -594,7 +817,8 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
         n_lanes=n_lanes, n_pix=n_pix, width=width, n_strata=n_strata,
         max_depth=max_depth, n_samples=n_samples,
         sample_start=int(sample_start), seed_mix=rng.mix_seed(seed),
-        sky_gradient=int(bool(sky_gradient)), cap=int(cap),
+        sky_gradient=int(bool(sky_gradient)), cap=int(cap), K=K,
+        want_tex=int(n_wp > 0),
         inv_strata=float(np.float32(1.0 / n_strata)), **prepared.fields)
 
     def ptr(t):
@@ -606,8 +830,8 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     if carry is not None:
         carry = carry.to(device=device, dtype=torch.float32).contiguous()
     rad = torch.empty(3, n_lanes, dtype=torch.float32, device=device)
-    st = (torch.empty(CARRY_ROWS + n_wp, n_lanes, dtype=torch.float32,
-                      device=device) if cap else None)
+    st = (torch.empty(CARRY_ROWS + n_wp + 9 * K, n_lanes,
+                      dtype=torch.float32, device=device) if cap else None)
     lib = load_library()
     partial = None
     with torch.cuda.device(device):
@@ -619,9 +843,10 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
                               ptr(iters), stream)
         else:
             cot = cot.to(device=device, dtype=torch.float32).contiguous()
-            # one row of per-block partial sums: no float atomics, and the
-            # sum over blocks below runs in a fixed order
-            partial = torch.empty(n_lanes // LANE_BLOCK, n_wp,
+            # one row of per-block partial sums (3NT tex entries, then K
+            # hard ones): no float atomics, and the sum over blocks below
+            # runs in a fixed order
+            partial = torch.empty(n_lanes // LANE_BLOCK, n_wp + K,
                                   dtype=torch.float32, device=device)
             err = lib.grad(ctypes.byref(p), ptr(prepared.tables),
                            ptr(pix_lanes), ptr(carry), ptr(cot), ptr(rad),
@@ -629,8 +854,11 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
-    dg = partial.sum(0).reshape(nt, 3) if partial is not None else None
-    return rad, st, dg
+    if partial is None:
+        return rad, st, None, None
+    sums = partial.sum(0)
+    dg_tex = sums[:n_wp].reshape(nt, 3) if n_wp else None
+    return rad, st, dg_tex, sums[n_wp:]
 
 
 def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
@@ -644,7 +872,7 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
     packed here when not given. Launches on the current stream; raises if
     the scene is outside the gate, the inputs are malformed, or the launch
     fails. Each launch adds one to render_pass_kernel.launches."""
-    rad, st, _ = _launch(
+    rad, st, _, _ = _launch(
         flat, cam, seed, sample_start, width=width, height=height,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
@@ -660,28 +888,38 @@ render_pass_kernel.launches = 0
 def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
                             sample_start, *, width: int, height: int,
                             n_strata: int, max_depth: int, n_samples: int,
-                            cotangent, sky_gradient: bool = False,
-                            cap: int = 0, carry=None, pix_lanes=None,
+                            cotangent, hard_slots: tuple = (),
+                            want_tex: bool = True,
+                            sky_gradient: bool = False, cap: int = 0,
+                            carry=None, pix_lanes=None,
                             prepared: KernelInputs | None = None,
                             iters=None):
-    """The grad kernel's (K3) wrapper: render_pass_grad_reference's
-    signature and results, on a CUDA device. The kernel writes one row of
-    dG_tex partial sums per block; they are summed here. Raises as
-    render_pass_kernel does, and for a malformed cotangent. Each launch
-    adds one to render_pass_grad_kernel.launches."""
+    """The grad kernel's (K3, K4) wrapper: render_pass_grad_reference's
+    signature and results, on a CUDA device. `prepared` is
+    prepare_kernel(flat, cam, hard_slots), packed here when not given (its
+    slots must be `hard_slots`). The kernel writes one row of dG_tex and
+    dG_hard partial sums per block; they are summed here. Raises as
+    render_pass_kernel does, for a malformed cotangent, and for more than
+    MAX_HARD_SLOTS slots. Each launch adds one to
+    render_pass_grad_kernel.launches, and one with hard slots (the K4
+    instances) to render_pass_grad_kernel.hard_launches."""
     cot = cotangent_lanes(cotangent, width=width, height=height,
                           pix_lanes=pix_lanes)
-    rad, st, dg = _launch(
+    rad, st, dg_tex, dg_hard = _launch(
         flat, cam, seed, sample_start, width=width, height=height,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
-        prepared=prepared, iters=iters, cot=cot)
+        prepared=prepared, iters=iters, cot=cot, hard_slots=hard_slots,
+        want_tex=want_tex)
     render_pass_grad_kernel.launches += 1
-    return _grad_result(rad, dg, st, cap=cap, pix_lanes=pix_lanes,
-                        width=width, height=height)
+    if hard_slots:
+        render_pass_grad_kernel.hard_launches += 1
+    return _grad_result(rad, dg_tex, dg_hard, st, cap=cap,
+                        pix_lanes=pix_lanes, width=width, height=height)
 
 
 render_pass_grad_kernel.launches = 0
+render_pass_grad_kernel.hard_launches = 0
 
 
 def pass_function(flat: FlatScene, cam: CameraState,
@@ -699,13 +937,16 @@ def pass_function(flat: FlatScene, cam: CameraState,
 
 
 def grad_pass_function(flat: FlatScene, cam: CameraState,
-                       prepared: KernelInputs | None = None):
+                       prepared: KernelInputs | None = None,
+                       hard_slots: tuple = ()):
     """pass_function's counterpart for the grad pass: the grad kernel on a
-    CUDA device, its plain version on the CPU, nothing else."""
+    CUDA device, with the scene, camera and the slot table of `hard_slots`
+    packed once (or `prepared`), its plain version on the CPU, nothing
+    else. The caller passes the same hard_slots to each pass."""
     if flat.device.type == "cuda":
         return functools.partial(
             render_pass_grad_kernel,
-            prepared=prepared or prepare_kernel(flat, cam))
+            prepared=prepared or prepare_kernel(flat, cam, hard_slots))
     if flat.device.type == "cpu":
         return render_pass_grad_reference
     raise ValueError(f"no wavefront grad pass for device {flat.device}")
@@ -814,38 +1055,42 @@ def render_pass_grad_compacted(flat: FlatScene, cam: CameraState, seed,
                                sample_start, *, width: int, height: int,
                                n_strata: int, max_depth: int,
                                n_samples: int, cotangent,
+                               hard_slots: tuple = (), want_tex: bool = True,
                                sky_gradient: bool = False,
                                caps: tuple | None = None, pass_fn=None):
     """The capped + lane-compacted schedule of the grad pass (K5,
     wavefront_pallas.py:3807-3888): render_pass_compacted's phases, with
-    the weight planes riding the carry, the cotangent lanes permuted with
-    the lanes, and dG_tex (a sum over lanes, which no permutation changes)
-    summed across phases. caps default to default_grad_caps; () is one
-    uncapped grad pass. pass_fn runs each phase (default
-    grad_pass_function(flat, cam)). Returns (image, dG_tex) as the single
-    grad pass does."""
+    the weight and tangent planes riding the carry, the cotangent lanes
+    permuted with the lanes, and dG_tex and dG_hard (sums over lanes, which
+    no permutation changes) summed across phases. caps default to
+    default_grad_caps; () is one uncapped grad pass. pass_fn runs each
+    phase (default grad_pass_function(flat, cam, hard_slots=hard_slots)).
+    Returns (image, dG_tex, dG_hard) as the single grad pass does."""
     if caps is None:
         caps = default_grad_caps(flat, width, height, n_samples, max_depth)
     caps = _check_caps(caps)
     if pass_fn is None:
-        pass_fn = grad_pass_function(flat, cam)
+        pass_fn = grad_pass_function(flat, cam, hard_slots=hard_slots)
     common = dict(width=width, height=height, n_strata=n_strata,
                   max_depth=max_depth, n_samples=n_samples,
-                  sky_gradient=sky_gradient)
+                  sky_gradient=sky_gradient, hard_slots=hard_slots,
+                  want_tex=want_tex)
     if caps == ():
         return pass_fn(flat, cam, seed, sample_start, cotangent=cotangent,
                        **common)
     g0 = cotangent_lanes(cotangent, width=width, height=height)
-    dgs = []
+    dg_tex, dg_hard = [], []
 
     def phase(cap_i, pix_lanes, carry, perm):
         out = pass_fn(flat, cam, seed, sample_start, cap=cap_i,
                       pix_lanes=pix_lanes, carry=carry,
                       cotangent=cotangent if perm is None else g0[:, perm],
                       **common)
-        dgs.append(out[1])
-        return out[0], (out[2] if cap_i else None)
+        dg_tex.append(out[1])
+        dg_hard.append(out[2])
+        return out[0], (out[3] if cap_i else None)
 
     rad = _compacted_schedule(phase, caps, n_samples, width * height)
     return (_image_from_lanes(rad, width, height),
-            torch.stack(dgs).sum(0))
+            torch.stack(dg_tex).sum(0) if want_tex else None,
+            torch.stack(dg_hard).sum(0))

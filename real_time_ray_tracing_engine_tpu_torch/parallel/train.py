@@ -1,19 +1,22 @@
 """Differentiable rendering: optimize scene parameters against target images.
 
-Port of the JAX package's parallel/train.py, tex_color slice. The loss
+Port of the JAX package's parallel/train.py (one shard, no mesh). The loss
 forward renders with the forward kernel (K1, and K2 under the compacted
-schedule); its backward is the forward-mode tex_color gradient kernel (K3)
-under the compacted grad driver (K5): exact weight planes, dotted with the
-image cotangent at every radiance event (ops/wavefront_cuda.py). Sampling
-decisions use counter-based draws whose probabilities do not depend on
-tex_color, so the gradient is that of the estimator with its samples held
-fixed, as in the JAX package.
+schedule); its backward is the forward-mode gradient kernel under the
+compacted grad driver (K5) over every trainable family: tex_color
+(albedo, emission, medium tint) by exact weight planes (K3), and the hard
+families (metal fuzz, dielectric IOR, sphere centers and radii) by one
+tangent bundle per scalar slot (K4), both dotted with the image cotangent
+at every radiance event (ops/wavefront_cuda.py). Sampling decisions use
+counter-based draws whose probabilities do not depend on the parameters,
+so the gradient is that of the estimator with its samples held fixed
+(reparameterized through intersection t for geometry), as in the JAX
+package.
 
-Only tex_color (albedo, emission, medium tint) trains in this package so
-far. The other trainable families of the JAX package (metal fuzz,
-dielectric IOR, sphere centers and radii) need the tangent-bundle kernel
-(K4) or the adjoint kernels (K9/K10), which are not ported; asking for them
-raises NotImplementedError on every engine. The JAX package's pure-JAX
+The tier policy is the JAX package's (train.py:161-306): fewer than
+ADJOINT_MIN_SLOTS hard slots run the tangent bundles; from that many the
+JAX package runs the adjoint kernels (K9/K10), which are not ported, so
+such a request raises NotImplementedError. The JAX package's pure-JAX
 replay and mixed tiers are not carried over: on the card they would be
 hidden plain engines.
 
@@ -33,17 +36,19 @@ import torch
 from ..scene.flat import FlatScene
 from ..models.camera import CameraState
 from ..models.render import pick_engine
-from ..ops.wavefront_cuda import (grad_pass_function, pass_function,
+from ..ops.wavefront_cuda import (HARD_FIELDS, grad_pass_function,
+                                  hard_param_slots, pass_function,
                                   prepare_kernel, render_pass_compacted,
                                   render_pass_grad_compacted,
                                   render_pass_grad_reference,
-                                  render_pass_reference)
+                                  render_pass_reference, slot_index)
 
 # The JAX package's continuous, safely-differentiable scene parameters.
 TRAINABLE_FIELDS = ("tex_color", "mat_fuzz", "mat_ior", "sph_center",
                     "sph_radius")
-# the families whose backward kernels are not ported yet
-HARD_FIELDS = ("mat_fuzz", "mat_ior", "sph_center", "sph_radius")
+# from this many hard slots the JAX package trains with the adjoint kernels
+# (K9/K10, not ported), below it with the tangent bundles (train.py:43)
+ADJOINT_MIN_SLOTS = 33
 # a pass of at least this many samples takes the compacted schedule, as the
 # JAX make_kernel_render does (train.py:136-146)
 COMPACT_MIN_SAMPLES = 8
@@ -58,21 +63,31 @@ def set_params(flat: FlatScene, params: dict) -> FlatScene:
 
 
 def check_fields(fields) -> None:
-    """Raise unless `fields` is a set of trainable fields this package can
-    differentiate: tex_color only, so far."""
+    """Raise unless `fields` is a non-empty set of trainable fields."""
     fields = set(fields)
     unknown = fields - set(TRAINABLE_FIELDS)
     if unknown:
         raise ValueError(f"unknown trainable fields {sorted(unknown)} "
                          f"(trainable: {TRAINABLE_FIELDS})")
-    hard = fields & set(HARD_FIELDS)
-    if hard:
+    if not fields:
+        raise ValueError("no trainable field given (trainable: "
+                         f"{TRAINABLE_FIELDS})")
+
+
+def grad_slots(flat: FlatScene, fields) -> tuple:
+    """The hard slots a request for `fields` differentiates: those of the
+    requested hard families only (JAX train.py:174-175). Raises
+    NotImplementedError from ADJOINT_MIN_SLOTS slots, the adjoint tier's
+    share, whose kernels (K9/K10) are not ported."""
+    hard = set(fields) & set(HARD_FIELDS)
+    slots = hard_param_slots(flat, hard) if hard else ()
+    if len(slots) >= ADJOINT_MIN_SLOTS:
         raise NotImplementedError(
-            f"gradients of {sorted(hard)} need the tangent-bundle kernel "
-            "(K4) or the adjoint kernels (K9/K10), which are not ported to "
-            "this package yet; only tex_color trains so far")
-    if "tex_color" not in fields:
-        raise ValueError("no trainable field given: pass {'tex_color': ...}")
+            f"{len(slots)} hard slots of {sorted(hard)}: from "
+            f"{ADJOINT_MIN_SLOTS} slots the JAX package trains with the "
+            "adjoint kernels (K9/K10), which are not ported to this package "
+            "yet; request fewer hard families or train tex_color alone")
+    return slots
 
 
 @dataclass(frozen=True)
@@ -85,25 +100,63 @@ class _Plan:
     compacted: bool
 
 
-def _pass_functions(plan: _Plan, flat: FlatScene, cam: CameraState):
+@dataclass(frozen=True)
+class _Request:
+    """What one call differentiates: the param names in TRAINABLE_FIELDS
+    order and the hard slots of their families."""
+    names: tuple
+    slots: tuple
+
+    @property
+    def want_tex(self) -> bool:
+        return "tex_color" in self.names
+
+
+def _pass_functions(plan: _Plan, flat: FlatScene, cam: CameraState,
+                    slots: tuple):
     """(forward pass, grad pass) for the plan's engine; the kernels share
-    one packing of the scene (once per step)."""
+    one packing of the scene and the slot table (once per step)."""
     if plan.engine == "cuda":
-        prep = prepare_kernel(flat, cam)
+        prep = prepare_kernel(flat, cam, slots)
         return (pass_function(flat, cam, prep),
                 grad_pass_function(flat, cam, prep))
     return render_pass_reference, render_pass_grad_reference
 
 
+def _scatter_grads(req: _Request, params, dg_tex, dg_hard) -> tuple:
+    """Per requested tensor, its gradient: dG_tex for tex_color, dG_hard's
+    slots added at their entries of the hard families (JAX
+    train.py:245-252), zeros where a family has no slot."""
+    grads = {n: torch.zeros_like(p) for n, p in zip(req.names, params)}
+    if req.want_tex:
+        grads["tex_color"] = dg_tex
+    for field in set(req.names) & set(HARD_FIELDS):
+        ks, flat_idx = [], []
+        for k, slot in enumerate(req.slots):
+            f, idx = slot_index(slot)
+            if f == field:
+                ks.append(k)
+                flat_idx.append(idx if isinstance(idx, int)
+                                else idx[0] * 3 + idx[1])
+        if ks:
+            dev = grads[field].device
+            grads[field].view(-1).index_add_(
+                0, torch.tensor(flat_idx, device=dev),
+                dg_hard[torch.tensor(ks, device=dev)])
+    return tuple(grads[n] for n in req.names)
+
+
 class _KernelRender(torch.autograd.Function):
-    """tex_color -> the (height, width, 3) radiance-sum image; its backward
-    is the grad pass with the image cotangent."""
+    """The requested params -> the (height, width, 3) radiance-sum image;
+    its backward is the grad pass with the image cotangent, giving each
+    param tensor its gradient."""
 
     @staticmethod
-    def forward(ctx, tex_color, plan: _Plan, cam: CameraState, seed):
-        flat = set_params(plan.baked, {"tex_color": tex_color})
-        fwd, grad = _pass_functions(plan, flat, cam)
-        ctx.state = (plan, flat, cam, seed, grad)
+    def forward(ctx, plan: _Plan, cam: CameraState, seed, req: _Request,
+                *params):
+        flat = set_params(plan.baked, dict(zip(req.names, params)))
+        fwd, grad = _pass_functions(plan, flat, cam, req.slots)
+        ctx.state = (plan, flat, cam, seed, req, grad)
         if plan.compacted:
             return render_pass_compacted(flat, cam, seed, 0, pass_fn=fwd,
                                          **plan.common)
@@ -111,15 +164,23 @@ class _KernelRender(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        plan, flat, cam, seed, grad = ctx.state
-        g = g.to(torch.float32).contiguous()
-        if plan.compacted:
-            _, dg = render_pass_grad_compacted(flat, cam, seed, 0,
-                                               cotangent=g, pass_fn=grad,
-                                               **plan.common)
+        plan, flat, cam, seed, req, grad = ctx.state
+        params = tuple(getattr(flat, n) for n in req.names)
+        if not req.want_tex and not req.slots:
+            # nothing requested exists in this scene (fuzz without a
+            # metal): the gradient is identically zero (train.py:203-206)
+            dg_tex = dg_hard = None
         else:
-            _, dg = grad(flat, cam, seed, 0, cotangent=g, **plan.common)
-        return dg, None, None, None
+            g = g.to(torch.float32).contiguous()
+            kw = dict(cotangent=g, hard_slots=req.slots,
+                      want_tex=req.want_tex, **plan.common)
+            if plan.compacted:
+                _, dg_tex, dg_hard = render_pass_grad_compacted(
+                    flat, cam, seed, 0, pass_fn=grad, **kw)
+            else:
+                _, dg_tex, dg_hard = grad(flat, cam, seed, 0, **kw)
+        return (None, None, None, None) + _scatter_grads(req, params, dg_tex,
+                                                         dg_hard)
 
 
 def make_kernel_render(baked: FlatScene, *, width: int, height: int,
@@ -129,10 +190,12 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
     (height, width, 3) image, the radiance sum over n_strata^2 samples
     divided by their count (JAX train.py:54-323, one shard).
 
-    params is {"tex_color": (NT, 3) tensor}; the other scene tables are
-    `baked`'s. The forward is the compacted schedule at >= 8 samples, else
-    one pass; the backward is the grad pass under the same rule, with the
-    image cotangent. cam and seed get no gradient."""
+    params maps trainable field names (TRAINABLE_FIELDS) to tensors shaped
+    as `baked`'s; the other scene tables are `baked`'s. The forward is the
+    compacted schedule at >= 8 samples, else one pass; the backward is the
+    grad pass under the same rule, with the image cotangent, over the
+    requested families' slots (grad_slots, which raises from
+    ADJOINT_MIN_SLOTS). cam and seed get no gradient."""
     eng = pick_engine(baked, engine)
     total = n_strata * n_strata
     plan = _Plan(baked=baked, engine=eng,
@@ -140,15 +203,22 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
                              max_depth=max_depth, n_samples=total,
                              sky_gradient=sky_gradient),
                  compacted=total >= COMPACT_MIN_SAMPLES)
+    requests = {}       # the slots of each requested set of fields, once
 
     def render_image(params: dict, cam: CameraState, seed) -> torch.Tensor:
         check_fields(params)
-        tex = params["tex_color"]
-        if tex.shape != baked.tex_color.shape or tex.device != baked.device:
-            raise ValueError(f"tex_color must be {tuple(baked.tex_color.shape)}"
-                             f" on {baked.device}, got {tuple(tex.shape)} on "
-                             f"{tex.device}")
-        return _KernelRender.apply(tex, plan, cam, seed) / total
+        names = tuple(f for f in TRAINABLE_FIELDS if f in params)
+        if names not in requests:
+            requests[names] = _Request(names, grad_slots(baked, names))
+        for n in names:
+            want = getattr(baked, n)
+            p = params[n]
+            if p.shape != want.shape or p.device != baked.device:
+                raise ValueError(f"{n} must be {tuple(want.shape)} on "
+                                 f"{baked.device}, got {tuple(p.shape)} on "
+                                 f"{p.device}")
+        return _KernelRender.apply(plan, cam, seed, requests[names],
+                                   *(params[n] for n in names)) / total
 
     return render_image
 

@@ -157,13 +157,14 @@ def test_grad_kernel_matches_plain(name, cuda_device):
     it_k = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
     it_p = torch.zeros_like(it_k)
     before = wc.render_pass_grad_kernel.launches
-    img_k, dg_k = wc.render_pass_grad_kernel(flat, cam, 7, 0, cotangent=g,
-                                             iters=it_k, **kw)
+    img_k, dg_k, _ = wc.render_pass_grad_kernel(flat, cam, 7, 0,
+                                                cotangent=g, iters=it_k,
+                                                **kw)
     torch.cuda.synchronize()
     assert wc.render_pass_grad_kernel.launches == before + 1
-    img_p, dg_p = wc.render_pass_grad_reference(flat, cam, 7, 0,
-                                                cotangent=g, iters=it_p,
-                                                **kw)
+    img_p, dg_p, _ = wc.render_pass_grad_reference(flat, cam, 7, 0,
+                                                   cotangent=g, iters=it_p,
+                                                   **kw)
     fwd = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
     np.testing.assert_array_equal(img_k.cpu().numpy(), fwd.cpu().numpy())
     k, p = img_k.cpu().numpy(), img_p.cpu().numpy()
@@ -173,10 +174,10 @@ def test_grad_kernel_matches_plain(name, cuda_device):
     np.testing.assert_allclose(dg_k.cpu().numpy(), dg_p.cpu().numpy(),
                                rtol=1e-4, atol=1e-4 * scale)
     assert int(it_k.sum()) == int(it_p.sum())
-    rk, _, sk = wc.render_pass_grad_kernel(flat, cam, 7, 0, cotangent=g,
-                                           cap=5, **kw)
-    rp, _, sp = wc.render_pass_grad_reference(flat, cam, 7, 0, cotangent=g,
+    rk, _, _, sk = wc.render_pass_grad_kernel(flat, cam, 7, 0, cotangent=g,
                                               cap=5, **kw)
+    rp, _, _, sp = wc.render_pass_grad_reference(flat, cam, 7, 0,
+                                                 cotangent=g, cap=5, **kw)
     assert sk.shape == (wc.CARRY_ROWS + 3 * flat.tex_type.shape[0],
                         n_lanes)
     np.testing.assert_allclose(sk.cpu().numpy(), sp.cpu().numpy(),
@@ -189,10 +190,11 @@ def test_grad_kernel_compacted_matches_single(name, cuda_device):
     lanes in the permutation)."""
     flat, cam, kw = _pass_args(name, cuda_device, width=40)
     g = _cotangent(kw, cuda_device, 1)
-    one, dg1 = wc.render_pass_grad_kernel(flat, cam, 7, 3, cotangent=g,
-                                          **kw)
-    two, dg2 = wc.render_pass_grad_compacted(flat, cam, 7, 3, cotangent=g,
-                                             caps=(12, 6), **kw)
+    one, dg1, _ = wc.render_pass_grad_kernel(flat, cam, 7, 3, cotangent=g,
+                                             **kw)
+    two, dg2, _ = wc.render_pass_grad_compacted(flat, cam, 7, 3,
+                                                cotangent=g, caps=(12, 6),
+                                                **kw)
     assert np.allclose(one.cpu().numpy(), two.cpu().numpy(), atol=1e-5)
     scale = float(dg1.abs().max())
     np.testing.assert_allclose(dg2.cpu().numpy(), dg1.cpu().numpy(),
@@ -218,6 +220,112 @@ def test_train_step_runs_the_kernels(cuda_device):
              + wc.render_pass_grad_reference.calls)
     losses = [float(step(params, cam, 0, target)) for _ in range(3)]
     assert losses[-1] < losses[0], losses
+    assert wc.render_pass_grad_kernel.launches >= grads + 3
+    assert (wc.render_pass_reference.calls
+            + wc.render_pass_grad_reference.calls) == plain
+
+
+def _family_errors(slots, got, want):
+    """Per hard family: (largest |got - want|, largest |want|)."""
+    out = {}
+    for fam in ("fuzz", "ior", "sphc", "sphr"):
+        idx = [k for k, s in enumerate(slots) if s[0] == fam]
+        if idx:
+            out[fam] = (float((got[idx] - want[idx]).abs().max()),
+                        float(want[idx].abs().max()))
+    return out
+
+
+def test_hard_grad_kernel_matches_plain(cuda_device):
+    """K4 against its plain version on Cornell at 32 px, depth 8 (9 slots:
+    the glass IOR, the glass sphere and its light-list copy): the image is
+    the forward kernel's, the bounce counts are equal, dG_hard is within
+    1e-4 of its largest entry per family and dG_tex of its own (the sums
+    run in another order, and dual arithmetic rounds apart from torch's
+    forward AD), and the capped carry holds the same tangent planes."""
+    flat, cam, kw = _pass_args("cornell_box", cuda_device, width=32)
+    slots = wc.hard_param_slots(flat)
+    assert len(slots) == 9
+    g = _cotangent(kw, cuda_device, 2)
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    it_k = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
+    it_p = torch.zeros_like(it_k)
+    img_k, dgt_k, dgh_k = wc.render_pass_grad_kernel(
+        flat, cam, 7, 0, cotangent=g, hard_slots=slots, iters=it_k, **kw)
+    torch.cuda.synchronize()
+    img_p, dgt_p, dgh_p = wc.render_pass_grad_reference(
+        flat, cam, 7, 0, cotangent=g, hard_slots=slots, iters=it_p, **kw)
+    fwd = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
+    np.testing.assert_array_equal(img_k.cpu().numpy(), fwd.cpu().numpy())
+    assert int(it_k.sum()) == int(it_p.sum())
+    for fam, (err, scale) in _family_errors(slots, dgh_k, dgh_p).items():
+        assert scale > 0.0 and err <= 1e-4 * scale, (fam, err, scale)
+    scale = float(dgt_p.abs().max())
+    assert float((dgt_k - dgt_p).abs().max()) <= 1e-4 * scale
+    _, _, _, sk = wc.render_pass_grad_kernel(flat, cam, 7, 0, cotangent=g,
+                                             hard_slots=slots, cap=5, **kw)
+    _, _, _, sp = wc.render_pass_grad_reference(
+        flat, cam, 7, 0, cotangent=g, hard_slots=slots, cap=5, **kw)
+    n_wp = 3 * flat.tex_type.shape[0]
+    assert sk.shape == (wc.CARRY_ROWS + n_wp + 9 * len(slots), n_lanes)
+    np.testing.assert_allclose(sk[:wc.CARRY_ROWS].cpu().numpy(),
+                               sp[:wc.CARRY_ROWS].cpu().numpy(),
+                               rtol=1e-5, atol=1e-4)
+    dk, dp = sk[wc.CARRY_ROWS:], sp[wc.CARRY_ROWS:]
+    assert float((dk - dp).abs().max()) <= 1e-4 * float(dp.abs().max())
+
+
+def test_hard_grad_kernel_compacted_matches_single(cuda_device):
+    """Full-family K5 on the kernel: caps (12, 6) against one grad pass at
+    40 px (pad lanes in the permutation), the tangent planes riding the
+    carry."""
+    flat, cam, kw = _pass_args("cornell_box", cuda_device, width=40)
+    slots = wc.hard_param_slots(flat)
+    g = _cotangent(kw, cuda_device, 3)
+    one, t1, h1 = wc.render_pass_grad_kernel(flat, cam, 7, 3, cotangent=g,
+                                             hard_slots=slots, **kw)
+    two, t2, h2 = wc.render_pass_grad_compacted(
+        flat, cam, 7, 3, cotangent=g, hard_slots=slots, caps=(12, 6), **kw)
+    assert np.allclose(one.cpu().numpy(), two.cpu().numpy(), atol=1e-5)
+    for a, b in ((t2, t1), (h2, h1)):
+        scale = float(b.abs().max())
+        assert scale > 0.0
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+def test_full_family_train_step_runs_the_kernels(cuda_device):
+    """make_train_step over all five families on the card: only the
+    kernels run, every gradient is finite, the glass IOR and sphere get a
+    gradient, and the loss falls over three Adam steps."""
+    from real_time_ray_tracing_engine_tpu_torch.parallel import train
+    flat, cam, kw = _pass_args("cornell_box", cuda_device, width=32, spp=16,
+                               depth=8)
+    kw = {k: v for k, v in kw.items() if k != "n_samples"}
+    target = train.make_kernel_render(flat, **kw)(
+        {"tex_color": flat.tex_color}, cam, 0).detach()
+    params = {k: v.clone() for k, v in train.get_params(flat).items()}
+    params["tex_color"][:3] *= 0.7
+    params["mat_ior"][4] = 1.4
+    params["sph_radius"][:2] = 85.0
+    for p in params.values():
+        p.requires_grad_(True)
+    opt = torch.optim.Adam([
+        {"params": [params["tex_color"], params["mat_ior"],
+                    params["mat_fuzz"]], "lr": 0.02},
+        {"params": [params["sph_center"], params["sph_radius"]],
+         "lr": 1.0}])
+    step = train.make_train_step(opt, flat=flat, **kw)
+    grads = wc.render_pass_grad_kernel.launches
+    plain = (wc.render_pass_reference.calls
+             + wc.render_pass_grad_reference.calls)
+    losses = []
+    for _ in range(3):
+        losses.append(float(step(params, cam, 0, target)))
+        assert all(bool(torch.isfinite(p.grad).all())
+                   for p in params.values())
+    assert losses[-1] < losses[0], losses
+    assert float(params["mat_ior"].grad[4].abs()) > 0.0
+    assert float(params["sph_radius"].grad[:2].abs().min()) > 0.0
     assert wc.render_pass_grad_kernel.launches >= grads + 3
     assert (wc.render_pass_reference.calls
             + wc.render_pass_grad_reference.calls) == plain

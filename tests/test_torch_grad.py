@@ -99,9 +99,9 @@ def test_grad_matches_jax_replay(name):
     _, vjp = jax.vjp(replay, jf.tex_color)
     (want,) = vjp(jnp.asarray(g))
     want = np.asarray(want)
-    img, dg = wc.render_pass_grad_reference(pf, pc, seed, 0,
-                                            cotangent=torch.from_numpy(g),
-                                            **kw)
+    img, dg, _ = wc.render_pass_grad_reference(pf, pc, seed, 0,
+                                               cotangent=torch.from_numpy(g),
+                                               **kw)
     got = dg.numpy()
     assert img.shape == (h, w, 3) and got.shape == want.shape
     assert np.abs(want).max() > 0.05          # real signal
@@ -124,7 +124,8 @@ def test_grad_image_is_the_forward_image(name):
     for bit (tests/test_grad.py:226-228 holds the JAX kernel to 1e-6)."""
     _, _, pf, pc, kw = _port_args(name, width=8, depth=6)
     g = torch.from_numpy(_cotangent(kw["height"], kw["width"], 1))
-    img, _ = wc.render_pass_grad_reference(pf, pc, 9, 2, cotangent=g, **kw)
+    img, _, _ = wc.render_pass_grad_reference(pf, pc, 9, 2, cotangent=g,
+                                              **kw)
     img0 = wc.render_pass_reference(pf, pc, 9, 2, **kw)
     np.testing.assert_array_equal(img.numpy(), img0.numpy())
 
@@ -137,7 +138,8 @@ def test_grad_matches_central_differences():
     assert wc.lane_count(kw["width"] * kw["height"]) > \
         kw["width"] * kw["height"]
     g = torch.from_numpy(_cotangent(kw["height"], kw["width"], 1))
-    _, dg = wc.render_pass_grad_reference(pf, pc, 5, 0, cotangent=g, **kw)
+    _, dg, _ = wc.render_pass_grad_reference(pf, pc, 5, 0, cotangent=g,
+                                             **kw)
     tc = pf.tex_color
     eps = 1e-3
     checked = 0
@@ -169,23 +171,25 @@ def test_grad_compacted_matches_single(name):
     n_pix = kw["width"] * kw["height"]
     assert n_pix % wc.LANE_BLOCK != 0
     g = torch.from_numpy(_cotangent(kw["height"], kw["width"], 2))
-    img, dg = wc.render_pass_grad_reference(pf, pc, 7, 3, cotangent=g, **kw)
-    img2, dg2 = wc.render_pass_grad_compacted(pf, pc, 7, 3, cotangent=g,
-                                              caps=(12, 6), **kw)
+    img, dg, _ = wc.render_pass_grad_reference(pf, pc, 7, 3, cotangent=g,
+                                               **kw)
+    img2, dg2, _ = wc.render_pass_grad_compacted(pf, pc, 7, 3, cotangent=g,
+                                                 caps=(12, 6), **kw)
     np.testing.assert_allclose(img2.numpy(), img.numpy(), atol=1e-5)
     scale = float(dg.abs().max())
     assert scale > 0.05
     np.testing.assert_allclose(dg2.numpy(), dg.numpy(), rtol=1e-4,
                                atol=1e-4 * scale)
     # the capped pass really carried mid-path weight planes
-    rad, dg1, st = wc.render_pass_grad_reference(pf, pc, 7, 3, cotangent=g,
-                                                 cap=12, **kw)
+    rad, dg1, _, st = wc.render_pass_grad_reference(pf, pc, 7, 3,
+                                                    cotangent=g, cap=12,
+                                                    **kw)
     nt = pf.tex_type.shape[0]
     assert st.shape == (wc.CARRY_ROWS + 3 * nt, rad.shape[1])
     assert bool((st[wc.CARRY_ROWS:] != 0).any())
     # caps == () is one uncapped grad pass
-    img3, dg3 = wc.render_pass_grad_compacted(pf, pc, 7, 3, cotangent=g,
-                                              caps=(), **kw)
+    img3, dg3, _ = wc.render_pass_grad_compacted(pf, pc, 7, 3, cotangent=g,
+                                                 caps=(), **kw)
     np.testing.assert_array_equal(dg3.numpy(), dg.numpy())
 
 

@@ -1,11 +1,15 @@
-"""The tex_color training step of the port (parallel/train.py), on the CPU.
+"""The training step of the port (parallel/train.py), on the CPU.
 
-One make_train_step Adam step is held against the JAX package's: the loss
-and gradient of the pure-JAX replay (parallel/mesh.py::_tile_sample_render,
-jax.value_and_grad) and an optax.adam update, from the same carried-over
-parameters (scene/convert.py::params_from_numpy). Sizes and tolerances as
-tests/test_torch_grad.py. The kernels run only on a GPU
-(tests/test_torch_cuda.py, chip_smoke.py).
+One make_train_step Adam step over tex_color is held against the JAX
+package's: the loss and gradient of the pure-JAX replay
+(parallel/mesh.py::_tile_sample_render, jax.value_and_grad) and an
+optax.adam update, from the same carried-over parameters
+(scene/convert.py::params_from_numpy). Sizes and tolerances as
+tests/test_torch_grad.py. The step over all five families is in
+tests/test_torch_hard_grad.py, beside the replay comparison it shares a
+compiled replay with. Here also: the tier policy (a request of 33 or more
+hard slots raises) and a request with no slot. The kernels run only on a
+GPU (tests/test_torch_cuda.py, chip_smoke.py).
 """
 import numpy as np
 import jax
@@ -20,6 +24,7 @@ from real_time_ray_tracing_engine_tpu.parallel import train as jtrain
 from real_time_ray_tracing_engine_tpu.parallel.mesh import \
     _tile_sample_render
 import real_time_ray_tracing_engine_tpu_torch as pt
+from real_time_ray_tracing_engine_tpu_torch.models import camera as pcam
 from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
 from real_time_ray_tracing_engine_tpu_torch.parallel import train
 from real_time_ray_tracing_engine_tpu_torch.scene.convert import (
@@ -135,24 +140,62 @@ def test_render_loss_grad_and_params():
                                   pf.mat_fuzz.numpy())
 
 
+def test_hard_request_without_slots_gives_zeros():
+    """Fuzz on Cornell, which has no metal: the request has no slot, so its
+    gradient is zero and no grad pass runs (JAX train.py:203-206)."""
+    _, _, pf, pc, kw = _cornell(width=8, spp=1, depth=2)
+    assert train.grad_slots(pf, ("mat_fuzz",)) == ()
+    target = torch.zeros(kw["height"], kw["width"], 3)
+    calls = wc.render_pass_grad_reference.calls
+    loss, grads = train.render_loss_grad(pf, pc, 0, target,
+                                         fields=("mat_fuzz",), **kw)
+    assert wc.render_pass_grad_reference.calls == calls
+    assert float(loss) > 0.0 and set(grads) == {"mat_fuzz"}
+    assert grads["mat_fuzz"].shape == pf.mat_fuzz.shape
+    assert float(grads["mat_fuzz"].abs().max()) == 0.0
+
+
+def _many_slots(field):
+    """Spheres in a row with ADJOINT_MIN_SLOTS slots of `field`'s family:
+    33 metals (fuzz), 33 glasses (IOR), 11 spheres (3 center slots each)
+    or 33 spheres (radii)."""
+    mats = {"mat_fuzz": lambda i: pt.Metal((0.5, 0.5, 0.5), 0.01 * (i + 1)),
+            "mat_ior": lambda i: pt.Dielectric(1.3 + 0.01 * i)}
+    mat = mats.get(field, lambda i: pt.Lambertian(pt.SolidColor(
+        (0.5, 0.5, 0.5))))
+    n = 11 if field == "sph_center" else train.ADJOINT_MIN_SLOTS
+    return pt.compile_scene(pt.Scene(objects=[
+        pt.Sphere((3.0 * i, 0, 0), 1.0, mat(i)) for i in range(n)]))
+
+
 @pytest.mark.parametrize("field", train.HARD_FIELDS)
 def test_hard_families_raise(field, monkeypatch):
-    """Fuzz, IOR and sphere geometry need K4 or K9/K10: NotImplementedError
-    on either engine, before any pass runs (the card is faked for cuda)."""
-    _, _, pf, pc, kw = _cornell(width=8, spp=1, depth=2)
-    target = torch.zeros(kw["height"], kw["width"], 3)
-    params = {"tex_color": pf.tex_color, field: getattr(pf, field)}
-    calls = wc.render_pass_reference.calls
-    with pytest.raises(NotImplementedError, match=r"K4.*K9/K10"):
-        train.make_kernel_render(pf, engine="torch", **kw)(params, pc, 0)
-    with pytest.raises(NotImplementedError, match="K4"):
-        train.render_loss_grad(pf, pc, 0, target, fields=(field,), **kw)
+    """From ADJOINT_MIN_SLOTS hard slots the JAX package trains with the
+    adjoint kernels (K9/K10), which are not ported: NotImplementedError
+    naming them on either engine, before any pass runs (the card is faked
+    for cuda, on a scene inside the kernel's gate). Below that bound every
+    family trains (tests/test_torch_hard_grad.py)."""
+    flat = _many_slots(field)
+    assert len(wc.hard_param_slots(flat, {field})) == train.ADJOINT_MIN_SLOTS
+    cam = pcam.derive(pt.CameraConfig(aspect_ratio=1.0, image_width=8))
+    kw = dict(width=8, height=8, n_strata=1, max_depth=2)
+    target = torch.zeros(8, 8, 3)
+    params = {"tex_color": flat.tex_color, field: getattr(flat, field)}
+    calls = (wc.render_pass_reference.calls
+             + wc.render_pass_grad_reference.calls)
+    with pytest.raises(NotImplementedError, match="K9/K10"):
+        train.make_kernel_render(flat, engine="torch", **kw)(params, cam, 0)
+    with pytest.raises(NotImplementedError, match="K9/K10"):
+        train.render_loss_grad(flat, cam, 0, target, fields=(field,), **kw)
+    gated = _many_slots("sph_center")
     monkeypatch.setattr(FlatScene, "device",
                         property(lambda self: torch.device("cuda", 0)))
-    render_image = train.make_kernel_render(pf, engine="cuda", **kw)
-    with pytest.raises(NotImplementedError, match=r"K4.*K9/K10"):
-        render_image(params, pc, 0)
-    assert wc.render_pass_reference.calls == calls
+    render_image = train.make_kernel_render(gated, engine="cuda", **kw)
+    with pytest.raises(NotImplementedError, match="K9/K10"):
+        render_image({field: getattr(gated, field),
+                      "sph_center": gated.sph_center}, cam, 0)
+    assert (wc.render_pass_reference.calls
+            + wc.render_pass_grad_reference.calls) == calls
 
 
 def test_engines_follow_the_gate(monkeypatch):
