@@ -77,14 +77,20 @@ OPS_SHADE = 91            # ONB (40), cosine sample (35), pdfs and MIS
 OPS_LIGHT_PDF = {"sphere": 55, "quad": 62}       # per light, every bounce
 OPS_LIGHT_SAMPLE = {"sphere": 100, "quad": 25}   # one light, half the time
 OPS_PLANE = 4             # grad: one weight plane's update at a scatter
-# grad, hard slots: one dual evaluation of a Lambertian bounce's continuous
-# physics on Cornell (csrc/wavefront.cu physics<Dual>), per slot, counting
-# a dual add as 2, a dual multiply or divide as 4, a dual sqrt as 3 and a
-# dual min/max or abs as 2: the winner's hit record (quad) 140, ONB 115,
-# cosine sample 73, two clamped cosines 40, half a light sample 78 (sphere
-# 265, quad 48), both lights' pdfs 268, MIS weight and throughput 34, the
-# cotangent dot 6
-OPS_SLOT = 754
+# grad, hard slots: the tangent work of one slot on a Lambertian bounce off
+# Cornell's walls, beside the float bounce that computes every value once
+# (as jax.linearize does; the kernel's physics<Dual> redoes the values per
+# slot). Counted from csrc/wavefront.cu: a tangent add 1, a product or
+# quotient with a constant 1, of two duals 3, a sqrt 2, a min/max/abs 1;
+# only tangents that reach the outputs (alpha, beta and the roots are read
+# as values only), and none through the wall's normal (a table constant, so
+# the ONB and the cosine sample carry no tangent). The hit point 25; half
+# the bounces sample a light, the glass sphere's copy 158 or the quad 23
+# (45.25); then that direction's clamped cosine 7, the sampled light's pdf
+# (sphere 30, quad 27), the mixture 6 and the MIS weight 3 (22.25); the
+# throughput 12. The other lights' pdfs along a cosine-sampled direction
+# are left out, where it hits them: a lower bound.
+OPS_SLOT = 104.5
 PEAK_FP32 = 67e12         # H100 SXM fp32 outside the tensor cores (with
                           # FMA counted as two; the kernel is built
                           # --fmad=false, so it can reach half of this)
@@ -393,10 +399,13 @@ def main() -> int:
     # bounces, dG_hard to DG_RTOL of its largest entry per family (the sums
     # over lanes run in another order, and the kernel's dual numbers round
     # apart from torch.func.jvp's forward AD, formula by formula), dG_tex to
-    # DG_RTOL of the plain version's and equal to the tex-only kernel's.
+    # DG_RTOL of the plain version's and equal to the tex-only kernel's. The
+    # last case is the full-family training main path's image and depth at
+    # 4 of its 64 samples, paths of up to 50 bounces through the glass.
     hard_parity = [
         ("cornell_box", builtin(pt, "cornell_box", 64, 4, 16)),
-        ("three_spheres", builtin(pt, "three_spheres", 64, 4, 8))]
+        ("three_spheres", builtin(pt, "three_spheres", 64, 4, 8)),
+        ("cornell_box_1920x1080", cornell_1080p(pt, 4, 50))]
     hard_err = {}
     for name, scene in hard_parity:
         flat, cam, kw = pass_args(pt, scene, dev)
@@ -417,7 +426,9 @@ def main() -> int:
             out["plain"] = wc.render_pass_grad_reference(
                 flat, cam, 7, 0, cotangent=g, hard_slots=slots, iters=it_p,
                 **kw)
+        torch.cuda.reset_peak_memory_stats()
         plain_ms = cuda_ms(torch, plain, reps=1, warmup=0)
+        plain_gib = torch.cuda.max_memory_allocated() / 2**30
         img_p, dgt_p, dgh_p = out["plain"]
         stats = per_pixel(img_k, img_p)
         fams = family_errors(slots, dgh_k, dgh_p)
@@ -433,7 +444,8 @@ def main() -> int:
                "dg_tex_max_abs_err": tex_err, "dg_tex_scale": tex_scale,
                "dg_tex_vs_tex_only": vs_tex_only,
                "vs_forward_max_abs_err": vs_fwd, "kernel_bounces": bk,
-               "plain_bounces": bp, "plain_ms": plain_ms}
+               "plain_bounces": bp, "plain_ms": plain_ms,
+               "plain_peak_gib": plain_gib}
         hard_err[name] = rec
         emit("hard_grad_parity", **rec)
         assert_close(f"{name} hard grad", stats)
@@ -453,6 +465,8 @@ def main() -> int:
         check(vs_fwd <= 1e-6, f"{name}: the hard grad pass's image differs "
               f"from the forward kernel's by {vs_fwd}")
         check(bk == bp, f"{name}: kernel traced {bk} bounces, plain {bp}")
+    del out
+    torch.cuda.empty_cache()
     done("hard_grad_parity")
 
     # 4. compacted vs single pass, both on the kernel
@@ -860,6 +874,7 @@ def main() -> int:
     done("bounds")
     emit("phase_seconds", **phase_s)
 
+    hard_main = hard_err["cornell_box_1920x1080"]
     print(json.dumps({"kernels": [{
         "name": "wavefront_forward_kernel", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -880,15 +895,15 @@ def main() -> int:
         "name": "wavefront_grad_kernel[hard_slots]", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
         "launches": ftrain_hard,
-        "max_abs_err": hard_err["cornell_box"]["dg_hard_max_abs_err"],
-        "ms": t_hsingle,
-        "plain_ms": hard_err["cornell_box"]["plain_ms"],
+        "max_abs_err": hard_main["dg_hard_max_abs_err"],
+        "ms": t_hsingle, "plain_ms": hard_main["plain_ms"],
         "bound_ms": h_bound, "bound_by": "operations", "library_ms": None,
         "ms_at": f"cornell_box {TRAIN_W}x{TRAIN_H} spp{TRAIN_SPP} "
                  f"d{TRAIN_DEPTH}, {len(hslots)} hard slots",
-        "plain_ms_at": "cornell_box 64x64 spp4 d16, 9 hard slots (not run "
-                       "at the kernel's shape: far too long)",
-        "max_abs_err_at": "dG_hard, cornell_box 64x64 spp4 d16",
+        "plain_ms_at": f"cornell_box {TRAIN_W}x{TRAIN_H} spp4 d{TRAIN_DEPTH}"
+                       f", {len(hslots)} hard slots",
+        "max_abs_err_at": f"dG_hard, cornell_box {TRAIN_W}x{TRAIN_H} spp4 "
+                          f"d{TRAIN_DEPTH}",
         "compacted_ms": t_hcomp}]}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -93,9 +93,12 @@
 //   dual evaluation of the bounce's continuous physics per slot: each slot
 //   costs about two to three times a float bounce's shading arithmetic
 //   (the selection loop over primitives runs once, in the float pass).
+//   The JVP itself needs about a seventh of that: each dual pass redoes
+//   the values and pushes tangents through table constants (chip_smoke.py
+//   counts the tangent work alone for the bound).
 // What this first design does about it: nothing yet. It is the simple,
-//   correct version; speed is later work (a slot whose tangent is provably
-//   zero this bounce could skip its dual pass).
+//   correct version; speed is later work (values once per bounce; a slot
+//   whose tangent is provably zero this bounce could skip its dual pass).
 //
 // Arithmetic follows the plain torch integrator (ops/intersect.py,
 //   materials.py, lights.py, textures.py) operation for operation, in the

@@ -1,52 +1,73 @@
-"""Time the port's forward kernel (Cornell 600x600 spp16 d50, one pass), its
-tex_color grad kernel (Cornell 1920x1080 spp64 d50, single pass and the
-compacted schedule) and, where the checkout has hard slots, its
-full-family grad kernel (the same shape, single pass) on one GPU: CUDA
-events, best of 3 after one warm-up, the scene packed once outside the
-timed calls.
+#!/usr/bin/env python3
+"""Kernel times of one checkout of the PyTorch + CUDA port on one GPU.
 
-    python scripts/port_kernel_times.py ROOT
+    python3 scripts/port_kernel_times.py ROOT
 
 ROOT is the directory that holds the real_time_ray_tracing_engine_tpu_torch
-package to time (the kernels build into ROOT/build/kernels). To compare two
-checkouts on one card, unpack the other one (git archive) under a
-git-ignored directory and time both roots in one run, in turns (parent,
-change, change, parent). Prints one JSON line.
+package to time (its kernels build into ROOT/build/kernels). The scenes and
+the timer are chip_smoke.py's (CUDA events, best of 3 after one warm-up,
+the scene packed once outside the timed calls): the forward kernel at
+Cornell 600x600 spp16 d50, the tex_color grad kernel at Cornell 1920x1080
+spp64 d50 (single pass and the compacted schedule) and, where the checkout
+has hard slots, the full-family grad kernel there (single pass). Prints one
+JSON line.
+
+To compare two checkouts on one card, unpack the other one (git archive)
+under a git-ignored directory and time both roots in one run, in turns:
+parent, change, change, parent.
 """
-import functools, json, math, sys, time
-root = sys.argv[1]
-sys.path.insert(0, root)
-import torch
-import real_time_ray_tracing_engine_tpu_torch as pt
-from real_time_ray_tracing_engine_tpu_torch.models import camera as cm
-from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
+from __future__ import annotations
+
+import functools
+import json
 import os
-assert wc.__file__.startswith(os.path.abspath(root) + "/"), wc.__file__
-dev = torch.device("cuda", 0)
-def ms(fn, reps=3):
-    fn(); best = math.inf
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True); b = torch.cuda.Event(enable_timing=True)
-        a.record(); fn(); b.record(); b.synchronize(); best = min(best, a.elapsed_time(b))
-    return best
-def args(w, spp, aspect=None):
-    s = pt.builders.cornell_box(); s.camera.image_width = w
-    if aspect: s.camera.aspect_ratio = aspect
-    s.camera.samples_per_pixel = spp; s.camera.max_depth = 50
-    f = pt.compile_scene(s, device=dev); c = cm.derive(s.camera, device=dev)
-    W, H = cm.image_size(s.camera); n = cm.sqrt_spp(s.camera)
-    return f, c, dict(width=W, height=H, n_strata=n, max_depth=50, n_samples=n * n, sky_gradient=False)
-t0 = time.time(); lib = wc.load_library(); build = time.time() - t0
-f, c, kw = args(600, 16); prep = wc.prepare_kernel(f, c)
-fwd = ms(lambda: wc.render_pass_kernel(f, c, 0, 0, prepared=prep, **kw))
-f, c, kw = args(1920, 64, 1920 / 1080); prep = wc.prepare_kernel(f, c)
-g = torch.randn(kw["height"], kw["width"], 3, device=dev, generator=torch.Generator(device=dev).manual_seed(6))
-gp = functools.partial(wc.render_pass_grad_kernel, prepared=prep)
-gs = ms(lambda: gp(f, c, 0, 0, cotangent=g, **kw))
-gc = ms(lambda: wc.render_pass_grad_compacted(f, c, 0, 0, cotangent=g, pass_fn=gp, **kw))
-out = {"root": root, "build_s": build, "forward_600_spp16_ms": fwd, "grad_1080_single_ms": gs, "grad_1080_compacted_ms": gc}
-if hasattr(wc, "hard_param_slots"):
-    slots = wc.hard_param_slots(f)
-    hp = functools.partial(wc.render_pass_grad_kernel, prepared=wc.prepare_kernel(f, c, slots))
-    out["hard_grad_1080_single_ms"] = ms(lambda: hp(f, c, 0, 0, cotangent=g, hard_slots=slots, **kw))
-print(json.dumps(out), flush=True)
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402  (stdlib only at import)
+
+
+def kernel_times(root: str) -> dict:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+    import real_time_ray_tracing_engine_tpu_torch as pt
+    from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
+    cs.check(wc.__file__.startswith(root + os.sep),
+             f"timed {wc.__file__}, not the package under {root}")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    wc.load_library()
+    out = {"root": root, "build_s": time.perf_counter() - t0}
+
+    flat, cam, kw = cs.pass_args(
+        pt, cs.builtin(pt, "cornell_box", 600, 16, 50), dev)
+    fwd = functools.partial(wc.render_pass_kernel,
+                            prepared=wc.prepare_kernel(flat, cam))
+    out["forward_600_spp16_ms"] = cs.cuda_ms(
+        torch, lambda: fwd(flat, cam, 0, 0, **kw))
+
+    flat, cam, kw = cs.pass_args(
+        pt, cs.cornell_1080p(pt, cs.TRAIN_SPP, cs.TRAIN_DEPTH), dev)
+    g = cs.cotangent(torch, kw, dev, 6)
+    grad = functools.partial(wc.render_pass_grad_kernel,
+                             prepared=wc.prepare_kernel(flat, cam))
+    out["grad_1080_single_ms"] = cs.cuda_ms(
+        torch, lambda: grad(flat, cam, 0, 0, cotangent=g, **kw))
+    out["grad_1080_compacted_ms"] = cs.cuda_ms(
+        torch, lambda: wc.render_pass_grad_compacted(
+            flat, cam, 0, 0, cotangent=g, pass_fn=grad, **kw))
+    if hasattr(wc, "hard_param_slots"):
+        slots = wc.hard_param_slots(flat)
+        hard = functools.partial(wc.render_pass_grad_kernel,
+                                 prepared=wc.prepare_kernel(flat, cam, slots))
+        out["hard_grad_1080_single_ms"] = cs.cuda_ms(
+            torch, lambda: hard(flat, cam, 0, 0, cotangent=g,
+                                hard_slots=slots, **kw))
+    return out
+
+
+if __name__ == "__main__":
+    print(json.dumps(kernel_times(sys.argv[1])), flush=True)

@@ -27,9 +27,11 @@ import torch
 import real_time_ray_tracing_engine_tpu as rt
 from real_time_ray_tracing_engine_tpu.models import camera as jcam
 from real_time_ray_tracing_engine_tpu.ops import wavefront_pallas as wp
+from real_time_ray_tracing_engine_tpu.ops.integrator import trace
 from real_time_ray_tracing_engine_tpu.parallel import train as jtrain
 from real_time_ray_tracing_engine_tpu.parallel.mesh import \
     _tile_sample_render
+from real_time_ray_tracing_engine_tpu.utils import rng
 from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
 from real_time_ray_tracing_engine_tpu_torch.parallel import train
 from real_time_ray_tracing_engine_tpu_torch.scene.convert import (
@@ -151,6 +153,51 @@ def test_hard_grad_matches_jax_replay(name, width):
     assert (np.abs(want) > 1e-3).sum() >= 6      # real signal
     # as a whole, far tighter than the per-slot rule
     assert np.linalg.norm(got - want) <= 1e-3 * np.linalg.norm(want)
+
+
+def _float64(state):
+    """A copy of a port FlatScene or CameraState with float64 tables."""
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).double()
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)
+        and getattr(state, f.name).dtype == torch.float32})
+
+
+def test_fused_16px_replay_gap_is_float32_rounding():
+    """Why the fused scene is compared at 20 px: at 16 px one path parts
+    the port from the replay (sphere 0's center x slot 19% off), and
+    float64 sides with the replay. Pixel (7, 2), sample 3, leaves the red
+    sphere at a grazing angle (cosine 4.5e-4): the port's float32 |oc|^2 -
+    r^2 rounds to -8.3e-6 (float64: +1.2e-8), so it finds a far root at t =
+    2.5e-3, past T_MIN, where float64 finds none and the path escapes. The
+    witness does not rest on the port: the JAX integrator in float64 agrees
+    with the port's plain forward in float64 on every pixel, and the port's
+    float32 image parts from both at that pixel alone."""
+    jf, jc, pf, pc, kw = _args("fused", 16)
+    seed = 7
+    f32 = wc.render_pass_reference(pf, pc, seed, 0, **kw).numpy()
+    f64 = wc.render_pass_reference(_float64(pf), _float64(pc), seed, 0,
+                                   **kw).numpy()
+    with jax.enable_x64(True):
+        wide = (lambda x: jnp.asarray(x, jnp.float64)
+                if getattr(x, "dtype", None) == jnp.float32 else x)
+        jf64, jc64 = jax.tree_util.tree_map(wide, (jf, jc))
+        pix = jnp.arange(kw["width"] * kw["height"], dtype=jnp.int32)
+        ref = 0.0
+        for s in range(kw["n_samples"]):
+            sid = jnp.full(pix.shape, s, jnp.int32)
+            keys = rng.ray_keys(jnp.uint32(seed), pix, sid)
+            org, dr, tm = jcam.generate_rays(jc64, kw["width"], pix, sid,
+                                             kw["n_strata"], keys)
+            ref = ref + trace(jf64, org, dr, tm, keys, jc64.background,
+                              max_depth=kw["max_depth"], sky_gradient=False)
+        ref = np.asarray(ref).reshape(f32.shape)
+    assert ref.dtype == np.float64
+    np.testing.assert_allclose(f64, ref, rtol=0, atol=1e-6)
+    parted = np.argwhere(np.abs(f32 - ref).max(-1) > 1e-4).tolist()
+    assert parted == [[7, 2]]
+    assert f32[7, 2].max() == 0.0 and ref[7, 2, 0] > 7e-4
 
 
 def test_full_family_train_step_matches_optax_adam():
