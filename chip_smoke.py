@@ -8,12 +8,14 @@ CUDA toolkit (nvcc). It builds the port's CUDA kernels from
 real_time_ray_tracing_engine_tpu_torch/csrc/, checks each against its plain
 torch version on the card, and drives the port's main paths: the CLI's
 Cornell box render (600x600, 100 spp, depth 50), checked against the
-reference engine's goldens, and the training step (Cornell 1920x1080, 64
-spp, depth 50, Adam) over tex_color alone and over all five trainable
-families, whose loss must fall. Every phase prints one JSON line; any
-failure raises and the script exits non-zero. The last lines are each
-phase's seconds, the kernel table, the card's name and power limit, and
-{"ok": true, "device": {...}}.
+reference engine's goldens; the training step (Cornell 1920x1080, 64 spp,
+depth 50, Adam) over tex_color alone and over all five trainable families,
+whose loss must fall; and the CLI's large-scene render, bouncing_spheres at
+its own 1200x675, 100 spp, depth 50 through the chunk scan (K6), and a
+301-quad city scene file through its quad chunks (K7). Every phase prints
+one JSON line; any failure raises and the script exits non-zero. The last
+lines are each phase's seconds, the kernel table, the card's name and power
+limit, and {"ok": true, "device": {...}}.
 
 It never imports JAX: the port stands alone on the GPU machine.
 """
@@ -35,6 +37,10 @@ KERNEL_SOURCE = f"{PKG}/csrc/wavefront.cu"
 # variants, the grad kernel its grad_tex weight-plane variant (K3, K5) and,
 # with hard slots, its tangent-bundle variant (K4)
 TPU_KERNEL = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:3604"
+# the chunk scan's variants inside it: vscan_select (K6) and the quad-chunk
+# walk from qtest_rows (K7)
+TPU_VSCAN = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:1378"
+TPU_VQUAD = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:1538"
 GOLDEN_DIR = ROOT / "tests" / "goldens" / "reference"
 
 # the per-pixel rule of tests/test_pallas.py::_assert_close: the two sides
@@ -46,7 +52,13 @@ COMPACT_ATOL = 1e-5
 # pooled reference-image rule of tests/test_reference_images.py
 CELL, ALLCLOSE_TOL = 10, 0.04
 REF_SCENES = {"cornell_box": (36, 0.015, 0.95),
-              "cornell_smoke": (36, 0.015, 0.95)}
+              "cornell_smoke": (36, 0.015, 0.95),
+              "bouncing_spheres": (25, 0.015, 0.93),
+              "textured_spheres": (25, 0.020, 0.85)}
+# tests/test_reference_images.py::test_textured_marble_distributional: the
+# marble sphere's region of textured_spheres (the reference's noise tables
+# are random), its mean within MARBLE_TOL of the golden's
+MARBLE_REGION, MARBLE_TOL = (slice(8, 38), slice(88, 124)), 0.08
 # dG_tex, kernel against plain and compacted against single: within 1e-4 of
 # its largest entry. The sums over lanes run in another order (per-block
 # shuffle trees and a sum of block rows against one torch sum; phases), so
@@ -91,6 +103,11 @@ OPS_PLANE = 4             # grad: one weight plane's update at a scatter
 # throughput 12. The other lights' pdfs along a cosine-sampled direction
 # are left out, where it hits them: a lower bound.
 OPS_SLOT = 104.5
+# the chunk scan's bound counts the intersection as what these inputs need
+# at least: a binary BVH descent, the reference engine's own per-thread
+# traversal (BVHNode.cu:9-31), 2 ceil(log2 N) box tests (AABB::hit, about
+# 10 operations an axis) and 2 primitive tests. A chunk scan does more.
+OPS_BOX = 30
 PEAK_FP32 = 67e12         # H100 SXM fp32 outside the tensor cores (with
                           # FMA counted as two; the kernel is built
                           # --fmad=false, so it can reach half of this)
@@ -195,6 +212,165 @@ def nested_checker_scene(pt):
         name="nested_checker")
 
 
+# Scenes past the unrolled bounds, for the chunk scan (K6, K7). Each takes
+# the scene API module, this package's or the JAX package's (tests build
+# both from one definition); numpy is imported inside.
+def multichunk_scene(api):
+    """tests/test_pallas.py::test_vscan_multichunk_matches_oracle: 300
+    spheres in 3 Morton chunks (every 11th moving) under a sphere light."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    objs = []
+    for i in range(300):
+        c = tuple(map(float, rng.uniform(-6, 6, 3)))
+        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
+        c2 = (c[0], c[1] + 0.3, c[2]) if i % 11 == 0 else None
+        objs.append(api.Sphere(c, 0.35, api.Lambertian(api.SolidColor(albedo)),
+                               center2=c2))
+    light = api.Sphere((0, 10, 0), 2.0,
+                       api.DiffuseLight(api.SolidColor((5, 5, 5))))
+    objs.append(light)
+    return api.Scene(objects=objs, lights=[light], camera=api.CameraConfig(
+        image_width=32, aspect_ratio=1.0, samples_per_pixel=4, max_depth=3,
+        vfov=40, lookfrom=(0, 2, 14), lookat=(0, 0, 0),
+        background=(0.5, 0.6, 0.8)), name="vscan_multichunk")
+
+
+def vquad_scene(api):
+    """tests/test_pallas.py::test_vquad_chunks_match_oracle: 90 quads (past
+    MAX_QUADS_VSCAN, so in quad chunks: K7), 40 spheres and a sphere
+    light."""
+    import numpy as np
+    rng = np.random.default_rng(17)
+    objs = []
+    for _ in range(90):
+        c = rng.uniform(-5.0, 5.0, 3)
+        u = rng.uniform(0.4, 1.2, 3) * np.array([1.0, 0.0, 1.0])
+        v = rng.uniform(0.4, 1.2, 3) * np.array([0.0, 1.0, 1.0])
+        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
+        objs.append(api.Quad(tuple(map(float, c)), tuple(map(float, u)),
+                             tuple(map(float, v)),
+                             api.Lambertian(api.SolidColor(albedo))))
+    for i in range(40):
+        c = tuple(map(float, rng.uniform(-5, 5, 3)))
+        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
+        m = (api.Metal(albedo, fuzz=0.3) if i % 6 == 0
+             else api.Lambertian(api.SolidColor(albedo)))
+        objs.append(api.Sphere(c, 0.4, m))
+    light = api.Sphere((0, 9, 0), 2.0,
+                       api.DiffuseLight(api.SolidColor((5, 5, 5))))
+    objs.append(light)
+    return api.Scene(objects=objs, lights=[light], camera=api.CameraConfig(
+        image_width=40, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+        vfov=50, lookfrom=(0, 2, 12), lookat=(0, 0, 0),
+        background=(0.4, 0.5, 0.7)), name="vquad")
+
+
+def vscan_nested_checker_scene(api):
+    """tests/test_pallas.py::test_vscan_nested_checker_matches_oracle: a
+    depth-2 checker DAG over solid and Perlin-marble leaves on 78 spheres
+    and a ground quad, under a sky gradient."""
+    import numpy as np
+    inner = api.Checker(0.31, api.SolidColor((0.9, 0.1, 0.1)),
+                        api.SolidColor((0.1, 0.1, 0.9)))
+    tex = api.Checker(1.1, inner, api.Noise(3.0))
+    rng = np.random.default_rng(13)
+    objs = [api.Quad((-10, 0.513, -10), (20, 0, 0), (0, 0, 20),
+                     api.Lambertian(tex))]
+    for i in range(78):
+        c = tuple(map(float, rng.uniform(-5, 5, 2)))
+        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
+        m = api.Lambertian(tex if i % 4 == 0 else api.SolidColor(albedo))
+        objs.append(api.Sphere((c[0], 1.1, c[1]), 0.35, m))
+    return api.Scene(objects=objs, camera=api.CameraConfig(
+        aspect_ratio=1.0, image_width=32, samples_per_pixel=4, max_depth=3,
+        lookfrom=(0, 3, 9), lookat=(0, 1, 0), sky_gradient=True),
+        name="vscan_nested_checker")
+
+
+def mis_medium_scene(api):
+    """120 spheres (lambertian, metal, glass) on a ground sphere under a
+    sphere light and a quad light sampled by MIS, with a fog ball (a
+    constant medium) among them: the chunk scan beside every material, both
+    light kinds and a medium."""
+    import numpy as np
+    rng = np.random.default_rng(29)
+    objs = [api.Sphere((0, -1000, 0), 1000.0,
+                       api.Lambertian(api.SolidColor((0.5, 0.5, 0.5))))]
+    for i in range(120):
+        c = (float(rng.uniform(-6, 6)), 0.3, float(rng.uniform(-6, 6)))
+        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
+        m = (api.Metal(albedo, fuzz=0.2) if i % 5 == 0 else
+             api.Dielectric(1.5) if i % 7 == 0 else
+             api.Lambertian(api.SolidColor(albedo)))
+        objs.append(api.Sphere(c, 0.3, m))
+    objs.append(api.ConstantMedium(
+        api.Sphere((1.0, 1.2, 1.0), 1.1,
+                   api.Lambertian(api.SolidColor((1, 1, 1)))),
+        0.6, api.SolidColor((0.8, 0.8, 0.9))))
+    sun = api.Sphere((0, 7, 0), 1.5,
+                     api.DiffuseLight(api.SolidColor((6, 6, 6))))
+    panel = api.Quad((-2, 5, -5), (4, 0, 0), (0, 2, 0),
+                     api.DiffuseLight(api.SolidColor((4, 4, 4))))
+    objs += [sun, panel]
+    return api.Scene(objects=objs, lights=[sun, panel],
+                     camera=api.CameraConfig(
+                         aspect_ratio=16 / 9, image_width=64,
+                         samples_per_pixel=4, max_depth=8, vfov=40,
+                         lookfrom=(9, 4, 9), lookat=(0, 0.5, 0),
+                         background=(0.05, 0.05, 0.08)),
+                     name="vscan_mis_medium")
+
+
+def grid_scene(api, n=17):
+    """scripts/bench_large.py:46-62 (grid_scene): n^3 lambertian spheres
+    under a sky; 17^3 = 4,913, the >4,096-primitive regime."""
+    import numpy as np
+    objs = []
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        for j in range(n):
+            for k in range(n):
+                albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
+                objs.append(api.Sphere(
+                    (i * 2.0, j * 2.0, k * 2.0), 0.45,
+                    api.Lambertian(api.SolidColor(albedo))))
+    cam = api.CameraConfig(aspect_ratio=16 / 9, image_width=400,
+                           samples_per_pixel=9, max_depth=8, vfov=40,
+                           lookfrom=(n * 3.0, n * 2.2, n * 3.0),
+                           lookat=(n * 1.0, n * 1.0, n * 1.0),
+                           background=(0.7, 0.8, 1.0))
+    return api.Scene(objects=objs, lights=[], camera=cam, name="grid")
+
+
+def city_scene(api, n_boxes=50):
+    """scripts/bench_large.py:30-43 (city_scene): 6 n_boxes + 1 quads, the
+    quad-chunk regime (K7): 301 at 50 boxes."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    objs = []
+    for _ in range(n_boxes):
+        x, z = rng.uniform(-20, 20, 2)
+        hgt = float(rng.uniform(1, 6))
+        albedo = tuple(map(float, rng.uniform(0.3, 0.9, 3)))
+        objs.append(api.Box((x, 0, z), (x + 1.5, hgt, z + 1.5),
+                            api.Lambertian(api.SolidColor(albedo))))
+    objs.append(api.Quad((-40, 0, -40), (80, 0, 0), (0, 0, 80),
+                         api.Lambertian(api.SolidColor((0.5, 0.5, 0.5)))))
+    cam = api.CameraConfig(aspect_ratio=16 / 9, image_width=400,
+                           samples_per_pixel=9, max_depth=6,
+                           lookfrom=(30, 12, 30), lookat=(0, 2, 0),
+                           sky_gradient=True)
+    return api.Scene(objects=objs, camera=cam, name="city")
+
+
+def sized(scene, width, spp, depth):
+    scene.camera.image_width = width
+    scene.camera.samples_per_pixel = spp
+    scene.camera.max_depth = depth
+    return scene
+
+
 def builtin(pt, name, width, spp, depth):
     scene = pt.builders.BUILTIN_SCENES[name]()
     scene.camera.image_width = width
@@ -229,19 +405,36 @@ def cotangent(torch, kw, dev, seed):
                        device=dev)
 
 
+def light_ops(flat) -> float:
+    """Every light's pdf, and half the bounces one light's sample."""
+    kinds = ["sphere" if bool(x) else "quad" for x in
+             (flat.light_prim[:flat.n_lights]
+              < flat.sph_center.shape[0]).tolist()]
+    if not kinds:
+        return 0.0
+    return (sum(OPS_LIGHT_PDF[k] for k in kinds)
+            + 0.5 * sum(OPS_LIGHT_SAMPLE[k] for k in kinds) / len(kinds))
+
+
 def bounce_ops(flat, grad: bool, n_slots: int = 0) -> float:
     """Operations of one Lambertian bounce on `flat`, with the weight
     planes (grad) and n_slots hard-slot evaluations (see OPS_*)."""
-    kinds = ["sphere" if bool(x) else "quad" for x in
-             (flat.light_prim < flat.sph_center.shape[0]).tolist()]
     ops = (OPS_RNG + OPS_HIT + OPS_SHADE
            + OPS_SPHERE * int(flat.sph_active.sum())
-           + OPS_QUAD * int(flat.quad_active.sum())
-           + sum(OPS_LIGHT_PDF[k] for k in kinds)
-           + 0.5 * sum(OPS_LIGHT_SAMPLE[k] for k in kinds) / len(kinds))
+           + OPS_QUAD * int(flat.quad_active.sum()) + light_ops(flat))
     if grad:
         ops += OPS_PLANE * 3 * flat.tex_type.shape[0]
     return float(ops + OPS_SLOT * n_slots)
+
+
+def vscan_bounce_ops(flat) -> float:
+    """Operations of one Lambertian bounce on a large scene, its
+    intersection counted as a BVH descent (OPS_BOX): a lower bound."""
+    n_sph = int(flat.sph_active.sum())
+    n = n_sph + int(flat.quad_active.sum())
+    prim = OPS_SPHERE if n_sph else OPS_QUAD
+    return float(OPS_RNG + OPS_HIT + OPS_SHADE + light_ops(flat)
+                 + 2 * math.ceil(math.log2(max(n, 2))) * OPS_BOX + 2 * prim)
 
 
 def bound_ms(flat, grad: bool, bounces: int, n_slots: int = 0) -> float:
@@ -249,6 +442,12 @@ def bound_ms(flat, grad: bool, bounces: int, n_slots: int = 0) -> float:
     over the fp32 peak. Bytes are negligible beside it (a few floats per
     lane, tables in shared memory)."""
     return bounce_ops(flat, grad, n_slots) * bounces / PEAK_FP32 * 1e3
+
+
+def vscan_bound_ms(flat, bounces: int) -> float:
+    """bound_ms for the chunk scan's forward (vscan_bounce_ops). Bytes stay
+    negligible: the tables (under 1 MB) are read once into L2."""
+    return vscan_bounce_ops(flat) * bounces / PEAK_FP32 * 1e3
 
 
 def family_errors(slots, got, want) -> dict:
@@ -269,6 +468,35 @@ def counted_bounces(torch, run, n_lanes, dev) -> int:
     iters = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
     run(iters)
     return int(iters.sum())
+
+
+class SplitClock:
+    """Wall seconds per named step of one call: each wrapped function adds
+    the time of its calls (the card synchronised on entry and exit) to its
+    entry of `seconds`; restore() puts the originals back."""
+
+    def __init__(self, torch, targets):
+        self.seconds = {key: 0.0 for key, _, _ in targets}
+        self.saved = []
+        for key, owner, attr in targets:
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+            setattr(owner, attr, self._wrap(torch, key, fn))
+
+    def _wrap(self, torch, key, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds[key] += time.perf_counter() - t0
+        return timed
+
+    def restore(self):
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
 
 
 def pool(img, cell):
@@ -378,6 +606,15 @@ def main() -> int:
             rec["kernel_ms"] = cuda_ms(torch, kern)
             grad_err["plain_ms"] = plain_ms
             grad_err["plain_ms_at"] = "cornell_box 128x128 spp16 d50"
+
+            # the compacted grad driver (K5) over the plain version
+            def plain_compacted():
+                wc.render_pass_grad_compacted(
+                    flat, cam, 7, 0, cotangent=g,
+                    pass_fn=wc.render_pass_grad_reference, **kw)
+            rec["plain_compacted_ms"] = cuda_ms(torch, plain_compacted,
+                                                reps=1, warmup=0)
+            grad_err["plain_compacted_ms"] = rec["plain_compacted_ms"]
         grad_err[name] = {"image": stats["max_abs_err"], "dg": dg_err}
         emit("grad_parity", **rec)
         assert_close(f"{name} grad", stats)
@@ -469,6 +706,79 @@ def main() -> int:
     torch.cuda.empty_cache()
     done("hard_grad_parity")
 
+    # 3d. the chunk-scan forward (K6; K7 on the city's quad chunks) vs the
+    # plain pass on the card, which tests every primitive: per pixel (0
+    # flipped pixels expected: the selection is exact), bounce for bounce,
+    # and the chunk scan's compacted schedule against its single pass. The
+    # first case is one pass of the large-scene main path (the CLI's
+    # bouncing_spheres at 1200x675 d50 renders in passes of 16 samples, on
+    # the compacted schedule), whose compacted image is held against the
+    # plain pass too
+    vscan_parity = [
+        ("bouncing_spheres_1200x675",
+         builtin(pt, "bouncing_spheres", 1200, 16, 50)),
+        ("bouncing_spheres", builtin(pt, "bouncing_spheres", 400, 4, 50)),
+        ("grid4913", sized(grid_scene(pt), 128, 4, 8)),
+        ("city301", sized(city_scene(pt), 400, 9, 6)),
+        ("vscan_nested_checker", sized(vscan_nested_checker_scene(pt), 64,
+                                       16, 8)),
+        ("vscan_mis_medium", sized(mis_medium_scene(pt), 128, 16, 16)),
+        ("vscan_multichunk", sized(multichunk_scene(pt), 64, 16, 8)),
+        ("vquad", sized(vquad_scene(pt), 64, 16, 8))]
+    vscan_err = {}
+    wc.render_pass_kernel.launches_vscan = 0
+    wc.render_pass_kernel.launches_vquad = 0
+    for name, scene in vscan_parity:
+        flat, cam, kw = pass_args(pt, scene, dev)
+        mode = wc.kernel_mode(flat)
+        check(mode[0] == "vscan", f"{name}: kernel mode {mode}")
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        it_k = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        it_p = torch.zeros_like(it_k)
+        kern = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_k, **kw)
+        out = {}
+
+        def plain():
+            out["plain"] = wc.render_pass_reference(flat, cam, 7, 0,
+                                                    iters=it_p, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = cuda_ms(torch, plain, reps=1, warmup=0)
+        plain_gib = torch.cuda.max_memory_allocated() / 2**30
+        stats = per_pixel(kern, out["plain"])
+        flipped = int(((kern - out["plain"]).abs() > FLIP_ATOL).sum())
+        bk, bp = int(it_k.sum()), int(it_p.sum())
+        rec = {"scene": name, "vquad": mode[1], "prims": flat.n_prims,
+               **{k: v for k, v in kw.items() if k != "sky_gradient"},
+               **stats, "flipped_values": flipped, "kernel_bounces": bk,
+               "plain_bounces": bp, "plain_ms": plain_ms,
+               "plain_peak_gib": plain_gib}
+        if name.startswith("bouncing_spheres"):
+            two = wc.render_pass_compacted(flat, cam, 7, 0, **kw)
+            rec["caps"] = list(wc.default_caps(flat, kw["n_samples"],
+                                               kw["max_depth"]))
+            rec["compacted_vs_single_max_abs_err"] = float(
+                (kern - two).abs().max())
+            check(np.allclose(kern.cpu().numpy(), two.cpu().numpy(),
+                              atol=COMPACT_ATOL),
+                  f"{name}: compacted differs from single by "
+                  f"{rec['compacted_vs_single_max_abs_err']}")
+            comp = per_pixel(two, out["plain"])
+            rec["compacted_vs_plain"] = {
+                **comp, "flipped_values": int(
+                    ((two - out["plain"]).abs() > FLIP_ATOL).sum())}
+            assert_close(f"{name} vscan compacted", comp)
+        vscan_err[name] = rec
+        emit("vscan_parity", **rec)
+        assert_close(f"{name} vscan", stats)
+        check(bk == bp, f"{name}: kernel traced {bk} bounces, plain {bp}")
+    check(wc.render_pass_kernel.launches_vscan >= len(vscan_parity),
+          "the vscan parity cases did not run the chunk-scan instance")
+    check(wc.render_pass_kernel.launches_vquad >= 1,
+          "the city did not run the quad chunks")
+    del out
+    torch.cuda.empty_cache()
+    done("vscan_parity")
+
     # 4. compacted vs single pass, both on the kernel
     for name in ("cornell_box", "cornell_smoke"):
         flat, cam, kw = pass_args(pt, builtin(pt, name, 40, 4, 8), dev)
@@ -519,6 +829,89 @@ def main() -> int:
          plain_calls=plain_calls, cli_wall_s=cli_s, render_s=render_s,
          mpaths_per_s=paths / render_s / 1e6)
     done("main_path")
+
+    # 5d. the large-scene main path: the CLI at bouncing_spheres' own
+    # settings (1200x675, 100 spp, depth 50: the reference engine's final
+    # scene) through the chunk scan (K6), and the CLI on a scene file, the
+    # 301-quad city, through the quad chunks (K7). The CLI's wall time is
+    # split into its steps: the scene's build (or load), render() (of which
+    # compile_scene, the kernel's packing and the passes), the PPM's
+    # conversion to bytes, its P3 text encoding and write, and the rest
+    # (argument parsing, the finite check, messages); then a second, warm
+    # render() call of the same scene is timed on its own
+    from real_time_ray_tracing_engine_tpu_torch.utils import color
+    large = {}
+    for name, argv, shape, counter in (
+            ("bouncing_spheres", ["--scene", "bouncing_spheres",
+                                  "--output", "bouncing_spheres"],
+             (675, 1200, 3), "launches_vscan"),
+            ("city301", None, (225, 400, 3), "launches_vquad")):
+        if argv is None:
+            path = Path("output") / "city301.json"
+            path.parent.mkdir(exist_ok=True)
+            pt.save_scene(city_scene(pt), str(path))
+            argv = ["--scene", str(path), "--output", "city301"]
+        ppm_path = Path("output") / f"{argv[-1]}.ppm"
+        if ppm_path.exists():
+            ppm_path.unlink()
+        wc.render_pass_kernel.launches = 0
+        wc.render_pass_kernel.launches_vscan = 0
+        wc.render_pass_kernel.launches_vquad = 0
+        wc.render_pass_reference.calls = 0
+        rd._render_pass.calls = 0
+        split_clock = SplitClock(torch, (
+            ("scene_s", cli, "load_scene_arg"),
+            ("render_s", rd, "render"),
+            ("compile_s", rd, "compile_scene"),
+            ("pack_s", rd, "pass_function"),
+            ("write_ppm_s", color, "write_ppm"),
+            ("to_bytes_s", color, "to_bytes"),
+            ("encode_s", color, "encode_ppm_p3")))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            split_clock.restore()
+        wall = time.perf_counter() - t0
+        split = dict(split_clock.seconds)
+        split["passes_s"] = (split["render_s"] - split["compile_s"]
+                             - split["pack_s"])
+        split["file_write_s"] = (split["write_ppm_s"] - split["to_bytes_s"]
+                                 - split["encode_s"])
+        split["other_s"] = (wall - split["scene_s"] - split["render_s"]
+                            - split["write_ppm_s"])
+        count = getattr(wc.render_pass_kernel, counter)
+        all_launches = wc.render_pass_kernel.launches
+        plain_calls = wc.render_pass_reference.calls + rd._render_pass.calls
+        check(rc == 0, f"cli.main({argv}) returned {rc}")
+        ppm = pt.read_ppm(ppm_path)
+        check(ppm.shape == shape, f"{name}: PPM shape {ppm.shape}")
+        check(count > 0, f"{name}: the CLI never launched the chunk scan "
+              f"({counter} = 0)")
+        check(plain_calls == 0, f"{name}: the CLI ran the plain engine")
+        scene = (pt.builders.bouncing_spheres() if name != "city301"
+                 else city_scene(pt))
+        w, h = scene.camera.image_width, shape[0]
+        spp = scene.camera.samples_per_pixel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = pt.render(scene, device=dev, samples_per_batch=16,
+                        progress=lambda s, t: None)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(img).all()), f"{name}: image not finite")
+        paths = w * h * spp
+        large[name] = {"launches": count}
+        emit("large_main_path", scene=name, argv=argv,
+             shape=f"{w}x{h} spp{spp} d{scene.camera.max_depth}",
+             ppm=str(ppm_path), ppm_mean_byte=float(ppm.mean()),
+             kernel_launches=all_launches, **{counter: count},
+             plain_calls=plain_calls, cli_wall_s=wall,
+             cli_mpaths_per_s=paths / wall / 1e6, cli_split=split,
+             warm_render_s=warm_s, warm_mpaths_per_s=paths / warm_s / 1e6)
+    done("large_main_path")
 
     # 5b. the second main path: tex_color training at 1920x1080 spp64 d50
     # through make_train_step on the kernels (forward K1/K2 compacted, grad
@@ -672,8 +1065,15 @@ def main() -> int:
         diff = np.abs(a - b).mean(axis=-1)
         rate = float((diff < ALLCLOSE_TOL).mean())
         mean_diff = float(diff.mean())
+        rec = {}
+        if name == "textured_spheres":
+            g = float(gold[MARBLE_REGION].astype(np.float32).mean()) / 255.0
+            o = float(ours[MARBLE_REGION].astype(np.float32).mean()) / 255.0
+            rec = {"marble_golden": g, "marble_ours": o}
+            check(abs(g - o) < MARBLE_TOL, f"{name}: marble region {o} "
+                  f"against the golden's {g}")
         emit("reference_image", scene=name, spp=spp, cell_mean_diff=mean_diff,
-             allclose_rate=rate, mean_tol=mean_tol, min_rate=min_rate)
+             allclose_rate=rate, mean_tol=mean_tol, min_rate=min_rate, **rec)
         check(mean_diff < mean_tol, f"{name}: cell mean diff {mean_diff}")
         check(rate >= min_rate, f"{name}: allclose rate {rate}")
     done("reference_images")
@@ -872,6 +1272,61 @@ def main() -> int:
          bound_ms=bound_ms(gflat, False, g_bounces))
     f_bound = f_bounds[16]
     done("bounds")
+
+    # 7d. the chunk scan's times: one CLI pass of bouncing_spheres (1200x675
+    # spp16 d50) and the JAX repo's large-scene shapes
+    # (scripts/bench_large.py): bouncing 400x225 spp9 d50, the 4,913-sphere
+    # grid 400x225 spp9 d8, the 301-quad city 400x225 spp9 d6 (K7); single
+    # pass and the compacted schedule, the scene packed once, the compacted
+    # image held against the single pass, the operation bound from the
+    # run's own bounces
+    large_times = {}
+    for name, scene in (
+            ("bouncing_1200x675_spp16_d50",
+             builtin(pt, "bouncing_spheres", 1200, 16, 50)),
+            ("bouncing_400x225_spp9_d50",
+             builtin(pt, "bouncing_spheres", 400, 9, 50)),
+            ("grid4913_400x225_spp9_d8", sized(grid_scene(pt), 400, 9, 8)),
+            ("city301_400x225_spp9_d6", sized(city_scene(pt), 400, 9, 6))):
+        flat, cam, kw = pass_args(pt, scene, dev)
+        t0 = time.perf_counter()
+        prep = wc.prepare_kernel(flat, cam)
+        torch.cuda.synchronize()
+        prepare_ms = (time.perf_counter() - t0) * 1e3
+        kernel_pass = functools.partial(wc.render_pass_kernel, prepared=prep)
+        out = {}
+
+        def single():
+            out["single"] = kernel_pass(flat, cam, 0, 0, **kw)
+
+        def compacted():
+            out["compacted"] = wc.render_pass_compacted(
+                flat, cam, 0, 0, pass_fn=kernel_pass, **kw)
+
+        t_single = cuda_ms(torch, single)
+        t_comp = cuda_ms(torch, compacted)
+        err = float((out["single"] - out["compacted"]).abs().max())
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        bounces = counted_bounces(
+            torch, lambda it: kernel_pass(flat, cam, 0, 0, iters=it, **kw),
+            n_lanes, dev)
+        n = kw["width"] * kw["height"] * kw["n_samples"]
+        rec = {"single_ms": t_single, "compacted_ms": t_comp,
+               "single_mpaths_per_s": n / t_single / 1e3,
+               "compacted_mpaths_per_s": n / t_comp / 1e3,
+               "caps": list(wc.default_caps(flat, kw["n_samples"],
+                                            kw["max_depth"])),
+               "vquad": prep.vfields["Cq"] > 0, "prepare_ms": prepare_ms,
+               "compacted_vs_single_max_abs_err": err, "bounces": bounces,
+               "ops_per_bounce": vscan_bounce_ops(flat),
+               "bound_ms": vscan_bound_ms(flat, bounces)}
+        large_times[name] = rec
+        emit("large_times", card=card, shape=name, **rec)
+        check(np.allclose(out["single"].cpu().numpy(),
+                          out["compacted"].cpu().numpy(), atol=COMPACT_ATOL),
+              f"{name}: compacted differs from single by {err}")
+    del out
+    done("large_times")
     emit("phase_seconds", **phase_s)
 
     hard_main = hard_err["cornell_box_1920x1080"]
@@ -891,6 +1346,7 @@ def main() -> int:
         "ms_at": f"cornell_box {TRAIN_W}x{TRAIN_H} spp{TRAIN_SPP} "
                  f"d{TRAIN_DEPTH}",
         "plain_ms_at": grad_err["plain_ms_at"],
+        "plain_compacted_ms": grad_err["plain_compacted_ms"],
         "compacted_ms": t_gcomp}, {
         "name": "wavefront_grad_kernel[hard_slots]", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -904,7 +1360,32 @@ def main() -> int:
                        f", {len(hslots)} hard slots",
         "max_abs_err_at": f"dG_hard, cornell_box {TRAIN_W}x{TRAIN_H} spp4 "
                           f"d{TRAIN_DEPTH}",
-        "compacted_ms": t_hcomp}]}), flush=True)
+        "compacted_ms": t_hcomp}, {
+        "name": "wavefront_forward_vscan_kernel", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_VSCAN,
+        "launches": large["bouncing_spheres"]["launches"],
+        "max_abs_err": vscan_err["bouncing_spheres_1200x675"]["max_abs_err"],
+        "ms": large_times["bouncing_1200x675_spp16_d50"]["single_ms"],
+        "plain_ms": vscan_err["bouncing_spheres_1200x675"]["plain_ms"],
+        "bound_ms": large_times["bouncing_1200x675_spp16_d50"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": "bouncing_spheres 1200x675 spp16 d50",
+        "plain_ms_at": "bouncing_spheres 1200x675 spp16 d50",
+        "compacted_ms":
+            large_times["bouncing_1200x675_spp16_d50"]["compacted_ms"]}, {
+        "name": "wavefront_forward_vscan_kernel[vquad]", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_VQUAD,
+        "launches": large["city301"]["launches"],
+        "max_abs_err": vscan_err["city301"]["max_abs_err"],
+        "ms": large_times["city301_400x225_spp9_d6"]["single_ms"],
+        "plain_ms": vscan_err["city301"]["plain_ms"],
+        "bound_ms": large_times["city301_400x225_spp9_d6"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": "city301 400x225 spp9 d6",
+        "plain_ms_at": "city301 400x225 spp9 d6",
+        "compacted_ms":
+            large_times["city301_400x225_spp9_d6"]["compacted_ms"]}]}),
+        flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

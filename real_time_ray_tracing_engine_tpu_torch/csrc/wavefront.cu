@@ -10,15 +10,21 @@
 //   parameters (K4: hard_slots, 875-896, 955-978, 1104-1126, 2395,
 //   2411-2542, 3197-3201, 3240-3244, 3260-3263), which the compacted grad
 //   driver runs capped and resumed (K5, 3807-3888; driver in
-//   ops/wavefront_cuda.py).
+//   ops/wavefront_cuda.py); and, for scenes past the unrolled bounds, the
+//   chunk-scan selection of the forward (K6 vscan: _pack_vscan_tables
+//   495-620, vscan_select 1378-1533, vscan_record 1614-1752, gather_fields
+//   1046, tex_eval_dag 1903-1939; K7 vquad: _pack_vquad_tables 626-675,
+//   qtest_rows..qchunk_body 1535-1612, the merge 1714-1733), in its own
+//   instance (see "Chunk scan" below).
 //
 // Shape: one thread per lane (pixel), the reference engine's own
 //   static_render_kernel shape (CameraKernels.cu:240-278). Each thread loops
 //   over its pixel's samples and bounces in registers, regenerating a
 //   finished path onto the next stratified sample exactly as the Pallas
 //   kernel's `bounce` does (wavefront_pallas.py:2360-2391). Scene tables
-//   (a few KB inside the kernel gate) are copied into shared memory at block
-//   start; the radiance sum is written once per lane.
+//   (a few KB inside the unrolled gate) are copied into shared memory at
+//   block start (the chunk scan's instance reads them from global memory);
+//   the radiance sum is written once per lane.
 //
 // Capped / resume (K2): with cap > 0 a thread stops after `cap` loop
 //   iterations and spills a 14-row carry [work, alive, bounce, sample,
@@ -70,6 +76,35 @@
 //   and there is nothing to spill, where 10*K more registers a thread would
 //   not fit beside the bounce's own. The slots' planes ride the carry
 //   after the weight planes (rows 14 + 3NT + 9k + c).
+//
+// Chunk scan (K6, K7): wavefront_forward_vscan_kernel is the forward with
+//   closest_select_vscan in place of closest_select, for scenes of up to
+//   MAX_PRIMS_SCAN = 16,384 primitives. Spheres come in Morton-ordered
+//   chunks of 128 rows [c0, cdelta, radius, original id] with one box per
+//   chunk, swept over the motion interval and widened (ops/wavefront_cuda.py
+//   BOX_PAD) so that float32 rounding of a grazing root never puts the
+//   winner outside it; the 8 largest static spheres sit in a final block
+//   that is always tested (a ground sphere's box would cover the scene).
+//   Each thread culls each chunk against its own ray (a slab test between
+//   T_MIN and its running best t; 1/d guarded at |d| < 1e-12 as the JAX
+//   kernel does); a warp runs a chunk when any of its lanes needs it. Quads
+//   past MAX_QUADS_VSCAN = 64 take the same walk over quad chunks (K7);
+//   fewer are tested one by one. The winner is the exact float t, ties to
+//   the lower original unified id (spheres before quads): the all-primitive
+//   closest_select's and the plain torch version's winner, bit for bit,
+//   where the JAX kernel packs t and a 7-bit Morton-local id into one int32
+//   key (~2^-17 relative fuzz, 1456-1461). The winner's original id then
+//   indexes the scene's own tables, so physics<T> runs unchanged and
+//   texture_value walks nested checkers per thread (tex_eval_dag's gathers
+//   and the resolved per-prim rows are TPU workarounds). Bounded by
+//   operations, as the unrolled forward, plus memory latency: the tables
+//   (51 KB for bouncing_spheres, 530 KB for a 4,913-sphere grid) do not fit
+//   a block's shared memory, so rows, materials and textures are read from
+//   global memory (rows through the read-only path, __ldg float4; H100's
+//   50 MB L2 holds them all) and only the chunk boxes (at most 257 x 6
+//   floats) are copied into shared memory. The chunk cull bounds the
+//   sphere tests per bounce; a per-thread BVH (K12's shape) would bound them
+//   at O(log N) and is the open alternative (PERF.md).
 //
 // Reductions: Gp (K3) per block by a shuffle tree in each warp and then the
 //   4 warps in order; dG (K4) per block by one thread per slot summing the
@@ -142,6 +177,9 @@
 #define TEX_COLS 14     // color, scale, is_checker, even rgb, odd rgb,
                         // even row, odd row, is_noise
 #define SLOT_COLS 3     // table (SEED_*), row, column
+#define VCHUNK 128      // rows per chunk of the chunk scan
+#define VROW_COLS 8     // sphere chunk row: c0 xyz, cdelta xyz, radius, id
+#define QROW_COLS 20    // quad chunk row: corner, u, v, normal, d, w, id, 0 0 0
 #define SEED_SPH 1
 #define SEED_MATF 2
 
@@ -156,6 +194,14 @@ struct WfParams {
     float inv_strata;
     float cam[22];  // center, pixel00, pixel_du, pixel_dv, defocus_u,
                     // defocus_v, defocus_on, background
+};
+
+// The chunk scan's tables in the vscan buffer (ops/wavefront_cuda.py::
+// _vscan_buffer), mirrored field by field by _VsParams (ctypes): sphere
+// chunks (C_small, then a block of n_big rows), Cq quad chunks (0: quads
+// tested one by one from the scene table), and n_box floats of boxes.
+struct VsParams {
+    int C_small, n_big, Cq, off_rows, off_qrows, off_box, n_box;
 };
 
 // ------------------------------------------------------------ dual numbers
@@ -546,6 +592,122 @@ __device__ int closest_select(const Scene& sc, V3 o, V3 d, float tm,
         float t;
         bool ok = quad_hit(r, o, d, T_MINF, &t);
         if (ok && t < best_t) { best_t = t; best = sc.S + q; }
+    }
+    *t_best = best_t;
+    return best_t < BIGF * 0.5f ? best : -1;
+}
+
+// Does the ray meet box b between T_MIN and t_far? (the JAX kernel's
+// box_any slab test, per ray; an empty chunk's box is [BIG, -BIG])
+__device__ __forceinline__ bool box_reaches(const float* b, V3 o, V3 inv,
+                                            float t_far) {
+    if (b[0] > b[3]) return false;
+    const float t0x = (b[0] - o.x) * inv.x, t1x = (b[3] - o.x) * inv.x;
+    const float t0y = (b[1] - o.y) * inv.y, t1y = (b[4] - o.y) * inv.y;
+    const float t0z = (b[2] - o.z) * inv.z, t1z = (b[5] - o.z) * inv.z;
+    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                           fmaxf(fminf(t0z, t1z), T_MINF));
+    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                           fminf(fmaxf(t0z, t1z), t_far));
+    return tn <= tf;
+}
+
+// the closer of (t, id) and the running winner, ties to the lower id
+__device__ __forceinline__ void take_closer(float t, int id, float& best_t,
+                                            int& best) {
+    if (t < best_t || (t == best_t && id < best)) {
+        best_t = t;
+        best = id;
+    }
+}
+
+// n sphere rows from `rows`; a row of id -1 is inactive or padding, and in
+// a Morton chunk every row after it is too (sorted last)
+__device__ __forceinline__ void scan_spheres(const float* __restrict__ rows,
+                                             int n, bool sorted, V3 o, V3 d,
+                                             float a, float tm, float& best_t,
+                                             int& best) {
+    for (int r = 0; r < n; ++r) {
+        const float4* row = reinterpret_cast<const float4*>(
+            rows + (size_t)r * VROW_COLS);
+        const float4 A = __ldg(row), B = __ldg(row + 1);
+        if (B.w < 0.0f) {
+            if (sorted) break;
+            continue;
+        }
+        const V3 c = v3(A.x + tm * A.w, A.y + tm * B.x, A.z + tm * B.y);
+        float t;
+        if (sphere_root(c, B.z, o, d, a, &t))
+            take_closer(t, (int)B.w, best_t, best);
+    }
+}
+
+// one quad chunk's rows (K7)
+__device__ __forceinline__ void scan_quads(const float* __restrict__ rows,
+                                           V3 o, V3 d, float& best_t,
+                                           int& best) {
+    for (int r = 0; r < VCHUNK; ++r) {
+        const float4* row = reinterpret_cast<const float4*>(
+            rows + (size_t)r * QROW_COLS);
+        const float4 q0 = __ldg(row), q1 = __ldg(row + 1),
+                     q2 = __ldg(row + 2), q3 = __ldg(row + 3),
+                     q4 = __ldg(row + 4);
+        if (q4.x < 0.0f) break;
+        const float q[16] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
+                             q2.x, q2.y, q2.z, q2.w, q3.x, q3.y, q3.z, q3.w};
+        float t;
+        if (quad_hit(q, o, d, T_MINF, &t))
+            take_closer(t, (int)q4.x, best_t, best);
+    }
+}
+
+// closest_select over the chunk scan's tables (K6, K7): the big block
+// first (it often holds the ground, which tightens every later cull), then
+// each sphere chunk whose box the ray meets before its best t, then the
+// quads. The winner and its t are closest_select's over all primitives:
+// every test is the same float32 arithmetic, the culls are conservative,
+// and ties go to the lower unified id whatever the walk's order.
+// The sphere rows (C * VCHUNK, VROW_COLS) and quad rows (Cq * VCHUNK,
+// QROW_COLS) are read from global memory at V.off_rows / V.off_qrows of
+// vtab, the (widened) chunk boxes (C + Cq, 6: lo xyz, hi xyz) from `box` in
+// shared memory.
+__device__ int closest_select_vscan(const Scene& sc, const VsParams& V,
+                                   const float* __restrict__ vtab,
+                                   const float* box, V3 o, V3 d, float tm,
+                                   float* t_best) {
+    float best_t = BIGF;
+    int best = -1;
+    const float a = dot(d, d);
+    const float eps = 1e-12f;
+    const V3 inv = v3(
+        1.0f / (fabsf(d.x) < eps ? (d.x < 0.0f ? -eps : eps) : d.x),
+        1.0f / (fabsf(d.y) < eps ? (d.y < 0.0f ? -eps : eps) : d.y),
+        1.0f / (fabsf(d.z) < eps ? (d.z < 0.0f ? -eps : eps) : d.z));
+    const float* rows = vtab + V.off_rows;
+    if (V.n_big > 0)
+        scan_spheres(rows + (size_t)V.C_small * VCHUNK * VROW_COLS, V.n_big,
+                     false, o, d, a, tm, best_t, best);
+    for (int c = 0; c < V.C_small; ++c) {
+        if (box_reaches(box + 6 * c, o, inv, best_t))
+            scan_spheres(rows + (size_t)c * VCHUNK * VROW_COLS, VCHUNK, true,
+                         o, d, a, tm, best_t, best);
+    }
+    if (V.Cq > 0) {
+        const float* qrows = vtab + V.off_qrows;
+        const float* qbox = box + 6 * (V.C_small + (V.n_big > 0));
+        for (int k = 0; k < V.Cq; ++k) {
+            if (box_reaches(qbox + 6 * k, o, inv, best_t))
+                scan_quads(qrows + (size_t)k * VCHUNK * QROW_COLS, o, d,
+                           best_t, best);
+        }
+    } else {
+        for (int q = 0; q < sc.Q; ++q) {
+            const float* r = sc.quad + q * QUAD_COLS;
+            if (!(r[17] > 0.5f)) continue;
+            float t;
+            if (quad_hit(r, o, d, T_MINF, &t))
+                take_closer(t, sc.S + q, best_t, best);
+        }
     }
     *t_best = best_t;
     return best_t < BIGF * 0.5f ? best : -1;
@@ -983,17 +1145,25 @@ __host__ __device__ __forceinline__ int table_pad(int n_table) {
 // adds the K tangent bundles (see the top of this file). `red` is the
 // block's (WF_THREADS / 32, 3 * NTMAX) shared scratch of the end-of-pass
 // reduction (NTMAX > 0 only).
-template <int NTMAX, bool HARD>
+template <int NTMAX, bool HARD, bool VSCAN = false>
 __device__ __forceinline__ void wavefront_body(
         const WfParams& P, const float* __restrict__ tables,
         const int* __restrict__ pix_lanes,
         const float* __restrict__ carry_in, const float* __restrict__ cot,
         float* __restrict__ rad_out, float* __restrict__ carry_out,
         float* __restrict__ dg_out, int* __restrict__ iters_out,
-        float* smem, float* cam, float* red) {
+        float* smem, float* cam, float* red, VsParams V = VsParams(),
+        const float* __restrict__ vtab = nullptr) {
     constexpr bool GRAD = NTMAX > 0 || HARD;
-    for (int i = threadIdx.x; i < P.n_table; i += blockDim.x)
-        smem[i] = tables[i];
+    if constexpr (VSCAN) {
+        // the chunk scan reads the scene tables from global memory and
+        // keeps only the chunk boxes in shared memory
+        for (int i = threadIdx.x; i < V.n_box; i += blockDim.x)
+            smem[i] = vtab[V.off_box + i];
+    } else {
+        for (int i = threadIdx.x; i < P.n_table; i += blockDim.x)
+            smem[i] = tables[i];
+    }
     if (threadIdx.x < 22) cam[threadIdx.x] = P.cam[threadIdx.x];
     __syncthreads();
 
@@ -1003,16 +1173,17 @@ __device__ __forceinline__ void wavefront_body(
     const int N = P.n_lanes;
 
     Scene sc;
-    sc.sph = smem + P.off_sph;
-    sc.quad = smem + P.off_quad;
-    sc.pmat = smem + P.off_pmat;
-    sc.light = smem + P.off_light;
-    sc.mati = smem + P.off_mati;
-    sc.matf = smem + P.off_matf;
-    sc.tex = smem + P.off_tex;
-    sc.med = smem + P.off_med;
-    sc.lsrc = smem + P.off_lsrc;
-    sc.slot = smem + P.off_slot;
+    const float* tab = VSCAN ? tables : smem;
+    sc.sph = tab + P.off_sph;
+    sc.quad = tab + P.off_quad;
+    sc.pmat = tab + P.off_pmat;
+    sc.light = tab + P.off_light;
+    sc.mati = tab + P.off_mati;
+    sc.matf = tab + P.off_matf;
+    sc.tex = tab + P.off_tex;
+    sc.med = tab + P.off_med;
+    sc.lsrc = tab + P.off_lsrc;
+    sc.slot = tab + P.off_slot;
     sc.S = P.S; sc.Q = P.Q; sc.L = P.L; sc.M = P.M; sc.MS = P.MS;
     sc.MQ = P.MQ; sc.med_cols = P.med_cols;
     sc.checker_depth = P.checker_depth; sc.has_noise = P.has_noise;
@@ -1110,7 +1281,12 @@ __device__ __forceinline__ void wavefront_body(
             draws(k0, k1, k2, 1000000u + (uint32_t)bounce, u_med, sc.M);
 
         float best_t;
-        const int best = closest_select(sc, o, d, tm, &best_t);
+        int best;
+        if constexpr (VSCAN)
+            best = closest_select_vscan(sc, V, vtab, smem, o, d, tm,
+                                        &best_t);
+        else
+            best = closest_select(sc, o, d, tm, &best_t);
         const V3 o0 = o, d0 = d, th0 = th;
         const bool alive_new = physics<float, NTMAX>(
             sc, P, cam, best, best_t, o, d, th, rad, tm, u, u_med,
@@ -1238,6 +1414,23 @@ wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
                              wf_tables, cam, nullptr);
 }
 
+// The forward pass over the chunk scan's selection (K6 vscan; K7 vquad where
+// V.Cq > 0), under the same capped/resume carry (K2).
+extern "C" __global__ void __launch_bounds__(WF_THREADS)
+wavefront_forward_vscan_kernel(WfParams P, VsParams V,
+                               const float* __restrict__ tables,
+                               const float* __restrict__ vtab,
+                               const int* __restrict__ pix_lanes,
+                               const float* __restrict__ carry_in,
+                               float* __restrict__ rad_out,
+                               float* __restrict__ carry_out,
+                               int* __restrict__ iters_out) {
+    __shared__ float cam[22];
+    wavefront_body<0, false, true>(P, tables, pix_lanes, carry_in, nullptr,
+                                   rad_out, carry_out, nullptr, iters_out,
+                                   wf_tables, cam, nullptr, V, vtab);
+}
+
 // The forward pass plus the gradient tiers: the tex_color weight planes
 // for NT <= NTMAX texture rows (K3; NTMAX 0: none) and, with HARD, the
 // tangent bundles of the hard slots (K4); K5 under the compacted driver.
@@ -1282,6 +1475,32 @@ extern "C" int rt_wavefront_forward(const WfParams* params,
     wavefront_forward_kernel<<<P.n_lanes / WF_THREADS, WF_THREADS, smem,
                                (cudaStream_t)stream>>>(
         P, tables, pix_lanes, carry_in, rad_out, carry_out, iters_out);
+    return (int)cudaGetLastError();
+}
+
+// vtab: the chunk scan's buffer (rows, quad rows, boxes) beside the scene
+// tables, which this instance reads from global memory
+extern "C" int rt_wavefront_forward_vscan(const WfParams* params,
+                                          const VsParams* vparams,
+                                          const float* tables,
+                                          const float* vtab,
+                                          const int* pix_lanes,
+                                          const float* carry_in,
+                                          float* rad_out, float* carry_out,
+                                          int* iters_out, void* stream) {
+    const WfParams P = *params;
+    const VsParams V = *vparams;
+    if (P.n_lanes % WF_THREADS != 0 || V.C_small < 1 || V.n_big < 0
+        || V.n_big > VCHUNK || V.Cq < 0 || V.n_box < 6 * V.C_small)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)V.n_box * sizeof(float);
+    cudaError_t e = set_smem((const void*)wavefront_forward_vscan_kernel,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    wavefront_forward_vscan_kernel<<<P.n_lanes / WF_THREADS, WF_THREADS,
+                                     smem, (cudaStream_t)stream>>>(
+        P, V, tables, vtab, pix_lanes, carry_in, rad_out, carry_out,
+        iters_out);
     return (int)cudaGetLastError();
 }
 

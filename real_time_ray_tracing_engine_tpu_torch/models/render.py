@@ -5,7 +5,9 @@ StaticCamera.cpp:25-131). `render` compiles the scene, picks the engine and
 accumulates the image pass by pass:
 
   - "cuda": the forward megakernel (ops/wavefront_cuda.py), single pass or
-    capped + compacted;
+    capped + compacted: its unrolled instance for Cornell-class scenes, its
+    chunk-scan instance (K6 vscan, K7 vquad) for scenes of up to
+    MAX_PRIMS_SCAN primitives;
   - "torch": `_render_pass`, the plain torch integrator sample by sample —
     the engine for the CPU, and on the card only when asked for by name.
 
@@ -85,9 +87,11 @@ def pick_engine(flat: FlatScene, engine: str = "auto") -> str:
     (the plain integrator).
 
     On a CUDA device "auto" is the kernel, and raises, as engine="cuda"
-    does, for a scene outside kernel_gate_reason: the plain engine runs on
-    the card only when engine="torch" asks for it. On the CPU "auto" is the
-    plain engine, and engine="cuda" raises."""
+    does, for a scene outside kernel_gate_reason (more than 4 mediums or 32
+    lights; past MAX_PRIMS_SCAN primitives, which need the BVH kernels, not
+    ported): the plain engine runs on the card only when engine="torch"
+    asks for it. On the CPU "auto" is the plain engine, and engine="cuda"
+    raises."""
     on_cuda = flat.device.type == "cuda"
     if engine == "torch" or (engine == "auto" and not on_cuda):
         return "torch"

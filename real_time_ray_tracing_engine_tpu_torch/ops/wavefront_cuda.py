@@ -1,12 +1,14 @@
 """Path-tracing megakernel (CUDA) and its plain torch version.
 
-Port of the JAX package's ops/wavefront_pallas.py unrolled-mode Pallas
-kernel in four of its variants: the forward (K1), its capped/resume
-variant under the compacted driver (K2), and the forward-mode gradient pass
-with tex_color weight planes (K3) and hard-parameter tangent bundles (K4)
-under the compacted grad driver (K5). Here they are one hand-written CUDA
-kernel body, csrc/wavefront.cu, built with nvcc for sm_90a at first use and
-bound with ctypes. Beside it:
+Port of the JAX package's ops/wavefront_pallas.py Pallas kernel in six of
+its variants: the unrolled forward (K1), its capped/resume variant under
+the compacted driver (K2), the forward-mode gradient pass with tex_color
+weight planes (K3) and hard-parameter tangent bundles (K4) under the
+compacted grad driver (K5), and, for scenes past the unrolled bounds (up to
+MAX_PRIMS_SCAN primitives), the forward over the Morton chunk scan's
+selection (K6 vscan; K7 vquad, quads in chunks too). Here they are one
+hand-written CUDA kernel body, csrc/wavefront.cu, built with nvcc for
+sm_90a at first use and bound with ctypes. Beside it:
 
   - `render_pass_reference` / `render_pass_grad_reference`: the same lane
     wavefront in plain torch, built from the integrator's per-bounce step
@@ -26,6 +28,13 @@ bound with ctypes. Beside it:
   - `hard_param_slots` / `light_sphere_sources` / `hard_slots_gate_reason`:
     the hard slots' metadata (wavefront_pallas.py:313-425), the slot table
     the kernel reads (`_slot_table`).
+  - `kernel_mode` / `kernel_gate_reason` / `grad_gate_reason`: which
+    instance a scene takes, and what the forward and the grad kernels
+    accept (the grad kernels: unrolled scenes only).
+  - `pack_vscan_tables` / `vscan_select_reference`: the chunk scan's tables
+    (wavefront_pallas.py:495-675) and the plain version of its selection;
+    the plain pass (`render_pass_reference`) stays the all-primitive
+    integrator in every mode.
 
 Lane layout: one lane per pixel, padded to a multiple of LANE_BLOCK; pad
 lanes repeat the last pixel and are cropped (their cotangent is zero), and
@@ -59,12 +68,32 @@ from .integrator import bounce_step, medium_uniforms
 # _use_unrolled); SMEM_BUDGET there models the TPU's 1 MiB scalar memory and
 # has no counterpart here
 MAX_PRIMS_UNROLL = 64
+MAX_PRIMS_SCAN = 16384  # the chunk scan's bound (wavefront_pallas.py:101)
 MAX_MATS = 16
 MAX_TEXS = 16
 MAX_LIGHTS = 32
 MAX_MEDIUMS = 4
+# the exact weight-plane tier's texture bound (wavefront_pallas.py:345); past
+# it the JAX package takes the suffix-radiance tier (K8)
+MAX_GRAD_TEXS = 32
 # what one block may hold in shared memory on Hopper (227 KB)
 MAX_SHARED_BYTES = 232_448
+
+# the chunk scan (K6 vscan, K7 vquad; wavefront_pallas.py:431-451)
+VCHUNK = 128          # primitives per Morton chunk
+VSCAN_BIG = 8         # the largest static spheres, in a final uncullable block
+MAX_QUADS_VSCAN = 64  # past this many quads they move to chunks too (vquad)
+BIG = 1e30
+# Chunk boxes are widened by BOX_PAD x (1 + the largest coordinate of the
+# culled primitives' boxes) on every side before the cull. A sphere root
+# that float32 accepts on a grazing ray lies off the sphere by about
+# 3 * 2^-24 * |oc|^2 / (2 r) (the discriminant cancels to that), and the slab
+# test rounds by an ulp of t: for ray origins within the scene (|oc| up to
+# twice its largest coordinate L) the pad covers both where spheres' radii
+# exceed 4e-4 L, so the cull drops no winner the all-primitive test finds.
+BOX_PAD = 1e-3
+VROW_COLS = 8         # sphere chunk rows: c0 xyz, cdelta xyz, radius, id
+QROW_COLS = 20        # quad chunk rows: corner, u, v, normal, d, w, id, pad
 
 LANE_BLOCK = 128  # = WF_THREADS, the kernel's block size
 CARRY_ROWS = 14   # work, alive, bounce, sample, time, o xyz, d xyz, th xyz
@@ -103,30 +132,70 @@ def _use_unrolled(flat: FlatScene) -> bool:
             and flat.tex_type.shape[0] <= MAX_TEXS)
 
 
+def kernel_mode(flat: FlatScene) -> tuple:
+    """(mode, vquad): the JAX package's _kernel_modes
+    (wavefront_pallas.py:464-492) without its opt-in BVH modes (K11/K12,
+    not ported). "unrolled" for a scene inside the unrolled bounds (tables
+    in shared memory, every primitive tested); else "vscan", the Morton
+    chunk scan, with vquad True when its quads (more than MAX_QUADS_VSCAN)
+    move to chunks too."""
+    if _use_unrolled(flat):
+        return "unrolled", False
+    return "vscan", flat.quad_corner.shape[0] > MAX_QUADS_VSCAN
+
+
 def kernel_gate_reason(flat: FlatScene) -> str | None:
-    """Why this scene cannot run on the CUDA kernel (None = it can): the
-    JAX package's pallas_gate_reason plus the unrolled-mode bounds, plus the
-    shared-memory bound of the tables."""
+    """Why this scene cannot run on the forward kernel (None = it can): the
+    JAX package's pallas_gate_reason, and for the unrolled mode the
+    shared-memory bound of its tables (the chunk scan reads its tables from
+    global memory)."""
     if flat.n_mediums > MAX_MEDIUMS:
         return (f"{flat.n_mediums} constant mediums exceeds the kernel bound "
                 f"MAX_MEDIUMS={MAX_MEDIUMS}")
     if flat.n_prims == 0:
         return "empty scene (no primitives)"
+    if flat.n_prims > MAX_PRIMS_SCAN:
+        return (f"{flat.n_prims} primitives exceeds the chunk scan's bound "
+                f"MAX_PRIMS_SCAN={MAX_PRIMS_SCAN}; larger scenes need the "
+                "BVH (-b/--bvh, the kernels K11/K12), which is not ported "
+                "yet")
     if flat.n_lights > MAX_LIGHTS:
         return (f"{flat.n_lights} MIS lights exceeds the kernel bound "
                 f"MAX_LIGHTS={MAX_LIGHTS}")
-    if not _use_unrolled(flat):
-        S, Q = flat.sph_center.shape[0], flat.quad_corner.shape[0]
-        return (f"{S + Q} prims / {flat.mat_type.shape[0]} materials / "
-                f"{flat.tex_type.shape[0]} textures exceeds the kernel bounds "
-                f"({MAX_PRIMS_UNROLL} / {MAX_MATS} / {MAX_TEXS}); the "
-                "large-scene kernels (K6 vscan, K7 vquad) are not ported "
-                "yet")
-    n_bytes = 4 * _table_floats(flat)
-    if n_bytes > MAX_SHARED_BYTES:
-        return (f"scene tables need {n_bytes} B of shared memory, over the "
-                f"{MAX_SHARED_BYTES} B a Hopper block can hold")
+    if kernel_mode(flat)[0] == "unrolled":
+        n_bytes = 4 * _table_floats(flat)
+        if n_bytes > MAX_SHARED_BYTES:
+            return (f"scene tables need {n_bytes} B of shared memory, over "
+                    f"the {MAX_SHARED_BYTES} B a Hopper block can hold")
     return None
+
+
+def grad_gate_reason(flat: FlatScene, n_slots: int = 0) -> str | None:
+    """Why a grad pass (weight planes and n_slots tangent bundles) cannot
+    run on this scene (None = it can). The grad kernels hold at most 16
+    weight planes in registers and copy every table into shared memory, so
+    they take the unrolled mode only; for a vscan scene this names the
+    kernel the JAX package would run and which is not ported: K3/K4 on the
+    vscan selection (at most MAX_GRAD_TEXS textures and MAX_HARD_SLOTS
+    slots), K8 past MAX_GRAD_TEXS textures, K9/K10 past MAX_HARD_SLOTS
+    slots (wavefront_pallas.py:313-378)."""
+    reason = kernel_gate_reason(flat)
+    if reason is not None or kernel_mode(flat)[0] == "unrolled":
+        return reason
+    S, Q = flat.sph_center.shape[0], flat.quad_corner.shape[0]
+    NT = flat.tex_type.shape[0]
+    if n_slots > MAX_HARD_SLOTS:
+        missing = (f"the adjoint kernels K9/K10 ({n_slots} hard slots, over "
+                   f"{MAX_HARD_SLOTS})")
+    elif NT > MAX_GRAD_TEXS:
+        missing = (f"the suffix-radiance kernel K8 ({NT} textures, over "
+                   f"MAX_GRAD_TEXS={MAX_GRAD_TEXS})")
+    else:
+        missing = "K3/K4 on the vscan selection"
+    return (f"{S + Q} prims / {flat.mat_type.shape[0]} materials / {NT} "
+            f"textures exceeds the unrolled grad kernels' bounds "
+            f"({MAX_PRIMS_UNROLL} / {MAX_MATS} / {MAX_TEXS}); a grad pass on "
+            f"this vscan scene needs {missing}, not ported yet")
 
 
 # ------------------------------------------------------------- hard slots
@@ -207,11 +276,11 @@ def _hard_smem_bytes(flat: FlatScene, n_slots: int) -> int:
 
 def hard_slots_gate_reason(flat: FlatScene, n_slots: int) -> str | None:
     """Why n_slots hard slots cannot run in the grad kernel (None = they
-    can): the scene gate, and the kernel's slot bound. On the unrolled
-    kernel, the only one ported, the JAX package has no other bound
-    (wavefront_pallas.py:313-328); its vscan bound MAX_HARD_SLOTS_VSCAN
-    waits for K6."""
-    reason = kernel_gate_reason(flat)
+    can): grad_gate_reason, and the kernel's slot bound. On the unrolled
+    kernel the JAX package has no other bound (wavefront_pallas.py:313-328);
+    its vscan bound MAX_HARD_SLOTS_VSCAN waits for K3/K4 on the vscan
+    selection."""
+    reason = grad_gate_reason(flat, n_slots)
     if reason is not None:
         return reason
     if n_slots > MAX_HARD_SLOTS:
@@ -316,6 +385,277 @@ def _kernel_tables(flat: FlatScene, hard_slots=()):
         flat_parts.append(t)
     buf = torch.cat(flat_parts).contiguous()
     return buf, offsets, int(medf.shape[1])
+
+
+# ------------------------------------------------------ chunk-scan tables
+def _morton3(x, y, z):
+    """30-bit Morton codes of 10-bit coordinates (wavefront_pallas.py:176),
+    in int64: torch's CPU builds have no uint32 shift or add, and no step
+    here leaves 32 bits."""
+    def spread(v):
+        v = v & 0x3FF
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        return (v | (v << 2)) & 0x09249249
+    return (spread(x) << 2) | (spread(y) << 1) | spread(z)
+
+
+def _morton_codes(mid, act):
+    """Morton codes of box midpoints (n, 3) quantized over the active ones'
+    span, as the JAX packers do."""
+    wmin = torch.where(act[:, None], mid, BIG).min(0).values
+    wmax = torch.where(act[:, None], mid, -BIG).max(0).values
+    scale = 1023.0 / torch.clamp(wmax - wmin, min=1e-6)
+    q = torch.clamp((mid - wmin) * scale, 0.0, 1023.0).to(torch.int64)
+    return _morton3(q[:, 0], q[:, 1], q[:, 2])
+
+
+def _chunk_boxes(lo, hi, n_chunks: int):
+    """(n_chunks, 6) boxes [lo xyz, hi xyz] of consecutive VCHUNK-row
+    chunks; rows past lo's end count as empty (BIG / -BIG)."""
+    pad = n_chunks * VCHUNK - lo.shape[0]
+    lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=BIG)
+    hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-BIG)
+    return torch.cat([lo.reshape(n_chunks, VCHUNK, 3).min(1).values,
+                      hi.reshape(n_chunks, VCHUNK, 3).max(1).values], dim=1)
+
+
+def _chunk_rows(rows, n_chunks: int, id_col: int):
+    """rows padded with zero rows of id -1 (column id_col) to n_chunks *
+    VCHUNK."""
+    pad = n_chunks * VCHUNK - rows.shape[0]
+    out = torch.nn.functional.pad(rows, (0, 0, 0, pad))
+    out[rows.shape[0]:, id_col] = -1.0
+    return out
+
+
+@dataclass(frozen=True)
+class VscanTables:
+    """A scene's tables for the chunk scan (K6 vscan, K7 vquad), in the
+    JAX packers' order (_pack_vscan_tables, wavefront_pallas.py:495-620;
+    _pack_vquad_tables, 626-675). The JAX packers' resolved material rows
+    (primmatf) and chunk-major gather tables exist because a TPU lane
+    cannot gather by index; a CUDA thread can, so the winner's original
+    unified id (riding every row) indexes the scene's own tables.
+
+      rows (C * VCHUNK, 8): sphere rows [c0 xyz, cdelta xyz, radius, id],
+        Morton-ordered: static, then moving, then inactive (id -1), padded
+        (id -1) to C_small chunks; then the n_big largest static spheres in
+        one final block that no box culls (bouncing_spheres' r = 1000
+        ground would otherwise widen its chunk's box over the scene).
+      perm (S,): the original sphere id at each sorted position (the JAX
+        packer's permutation).
+      box (C + Cq, 6): the sphere chunks' boxes, swept over the motion
+        interval (the big block's is empty), then the quad chunks'; empty
+        boxes are [BIG, -BIG]. The cull widens them by `pad`.
+      qrows (Cq * VCHUNK, 20): with vquad (Q > MAX_QUADS_VSCAN), quad rows
+        [corner, u, v, normal, d, w, id, 0 0 0] in Morton order, inactive
+        and pad rows id -1; qperm the original quad ids. Cq = 0 tests the
+        quads one by one from `quads` (Q, 17): corner, u, v, normal, d, w,
+        active, in the scene's order.
+    Ids are unified primitive ids: spheres 0..S-1, quads S + q."""
+    rows: torch.Tensor
+    perm: torch.Tensor
+    box: torch.Tensor
+    pad: float
+    S: int
+    C_small: int
+    C_stat: int
+    n_big: int
+    qrows: torch.Tensor
+    qperm: torch.Tensor
+    Cq: int
+    quads: torch.Tensor
+
+    @property
+    def C(self) -> int:
+        return self.C_small + (1 if self.n_big else 0)
+
+
+def pack_vscan_tables(flat: FlatScene) -> VscanTables:
+    """The chunk-scan tables of a vscan scene (see VscanTables)."""
+    f32 = torch.float32
+    dev = flat.device
+    c0, cd, rad = flat.sph_center, flat.sph_cdelta, flat.sph_radius
+    S = c0.shape[0]
+    active = flat.sph_active & (rad > 0.0)
+    # motion-swept sphere boxes
+    lo = torch.minimum(c0, c0 + cd) - rad[:, None]
+    hi = torch.maximum(c0, c0 + cd) + rad[:, None]
+    moving = (cd != 0.0).any(1)
+    n_big = VSCAN_BIG if S > VCHUNK else 0
+    nas = int(flat.n_sph_active_static)
+    pick_static_bigs = nas >= n_big
+    is_big = torch.zeros(S, dtype=torch.bool, device=dev)
+    if n_big:
+        pool = (active & ~moving) if pick_static_bigs else active
+        extent = (hi - lo).max(1).values
+        order = torch.argsort(-torch.where(pool, extent, -1.0), stable=True)
+        is_big[order[:n_big]] = True
+    code = _morton_codes(0.5 * (lo + hi), active)
+    # static smalls, moving smalls, inactive rows, the bigs last
+    code = torch.where(active & moving, code | (1 << 30), code)
+    code = torch.where(active, code, 0xFFFFFFFE)
+    code = torch.where(is_big, 0xFFFFFFFF, code)
+    perm = torch.argsort(code, stable=True)
+    n_small = S - n_big
+    C_small = max(-(-n_small // VCHUNK), 1)
+    n_small_static = max(nas - n_big, 0) if pick_static_bigs else 0
+    C_stat = min(n_small_static // VCHUNK, C_small)
+    ids = torch.where(active, torch.arange(S, device=dev), -1)
+    rows = torch.cat([c0, cd, rad[:, None], ids.to(f32)[:, None]], 1)[perm]
+    rows = torch.cat([_chunk_rows(rows[:n_small], C_small, 7)]
+                     + [_chunk_rows(rows[n_small:], 1, 7)] * (n_big > 0))
+    culled = (active & ~is_big)[:, None]
+    lo_c = torch.where(culled, lo, BIG)[perm][:n_small]
+    hi_c = torch.where(culled, hi, -BIG)[perm][:n_small]
+    box = _chunk_boxes(lo_c, hi_c, C_small + (1 if n_big else 0))
+    scale = torch.where(culled, torch.maximum(lo.abs(), hi.abs()),
+                        0.0).max() if S else torch.zeros((), device=dev)
+
+    Q = flat.quad_corner.shape[0]
+    qact = flat.quad_active
+    quads = torch.cat([flat.quad_corner, flat.quad_u, flat.quad_v,
+                       flat.quad_normal, flat.quad_d[:, None], flat.quad_w,
+                       qact.to(f32)[:, None]], 1)
+    Cq = 0
+    qrows = torch.zeros(0, QROW_COLS, dtype=f32, device=dev)
+    qperm = torch.zeros(0, dtype=torch.int64, device=dev)
+    if Q > MAX_QUADS_VSCAN:
+        corner, u, v = flat.quad_corner, flat.quad_u, flat.quad_v
+        c1, c2, c3 = corner + u, corner + v, corner + u + v
+        qlo = torch.minimum(torch.minimum(corner, c1), torch.minimum(c2, c3))
+        qhi = torch.maximum(torch.maximum(corner, c1), torch.maximum(c2, c3))
+        qcode = torch.where(qact, _morton_codes(0.5 * (qlo + qhi), qact),
+                            0xFFFFFFFF)
+        qperm = torch.argsort(qcode, stable=True)
+        Cq = -(-Q // VCHUNK)
+        qids = torch.where(qact, S + torch.arange(Q, device=dev), -1)
+        qrows = _chunk_rows(torch.cat([
+            quads[:, :16], qids.to(f32)[:, None],
+            torch.zeros(Q, 3, dtype=f32, device=dev)], 1)[qperm], Cq, 16)
+        box = torch.cat([box, _chunk_boxes(
+            torch.where(qact[:, None], qlo, BIG)[qperm],
+            torch.where(qact[:, None], qhi, -BIG)[qperm], Cq)])
+        scale = torch.maximum(scale, torch.where(
+            qact[:, None], torch.maximum(qlo.abs(), qhi.abs()), 0.0).max())
+    pad = float(np.float32(BOX_PAD * (1.0 + float(scale))))
+    return VscanTables(rows=rows.contiguous(), perm=perm, box=box, pad=pad,
+                       S=S, C_small=C_small, C_stat=C_stat, n_big=n_big,
+                       qrows=qrows.contiguous(), qperm=qperm, Cq=Cq,
+                       quads=quads)
+
+
+def _padded_boxes(vt: VscanTables) -> torch.Tensor:
+    """The boxes the cull tests: each non-empty box widened by vt.pad."""
+    lo, hi = vt.box[:, :3], vt.box[:, 3:]
+    empty = (lo > hi).any(1, keepdim=True)
+    return torch.cat([torch.where(empty, lo, lo - vt.pad),
+                      torch.where(empty, hi, hi + vt.pad)], 1)
+
+
+def _vscan_buffer(vt: VscanTables):
+    """One float32 buffer of what the vscan kernel reads beside the scene
+    tables: the sphere rows, the quad rows (16-byte aligned, for float4
+    loads) and the widened boxes; and the kernel's VsParams fields."""
+    parts = [vt.rows.reshape(-1), vt.qrows.reshape(-1),
+             _padded_boxes(vt).reshape(-1)]
+    fields = dict(C_small=vt.C_small, n_big=vt.n_big, Cq=vt.Cq,
+                  off_rows=0, off_qrows=parts[0].numel(),
+                  off_box=parts[0].numel() + parts[1].numel(),
+                  n_box=parts[2].numel())
+    return torch.cat(parts).contiguous(), fields
+
+
+def _inverse_dir(d):
+    """1/d with |d| < 1e-12 taken as +-1e-12 (wavefront_pallas.py:
+    1411-1416): the slab test of a ray along a box face stays finite."""
+    eps = 1e-12
+    return 1.0 / torch.where(d.abs() < eps,
+                             torch.where(d < 0, -eps, eps), d)
+
+
+def _box_reaches(box, o, inv_d, t_far):
+    """The kernel's per-ray chunk cull: does the ray meet the (widened,
+    non-empty) box between T_MIN and t_far? box (6,), rays (n, 3)."""
+    t0 = (box[:3] - o) * inv_d
+    t1 = (box[3:] - o) * inv_d
+    tn = torch.maximum(torch.maximum(torch.minimum(t0[:, 0], t1[:, 0]),
+                                     torch.minimum(t0[:, 1], t1[:, 1])),
+                       torch.clamp(torch.minimum(t0[:, 2], t1[:, 2]),
+                                   min=1e-3))
+    tf = torch.minimum(torch.minimum(torch.maximum(t0[:, 0], t1[:, 0]),
+                                     torch.maximum(t0[:, 1], t1[:, 1])),
+                       torch.minimum(torch.maximum(t0[:, 2], t1[:, 2]),
+                                     t_far))
+    return tn <= tf
+
+
+def vscan_select_reference(vt: VscanTables, o, d, tm):
+    """The plain version of the kernel's chunk-scan selection: the same
+    walk (the big block, then each sphere chunk, then the quad chunks or
+    the quads one by one) and per-ray box cull against the running best t,
+    for rays o, d (n, 3) at times tm (n,). Returns (the winner's
+    original unified id, -1 on a miss; its t, BIG on a miss). The winner is
+    the exact closest root, ties to the lowest unified id (spheres before
+    quads), the all-primitive ops/intersect.py::closest_hit's bit for bit:
+    each primitive is tested with the same float32 operations."""
+    from .intersect import quad_ts, sphere_ts
+    n = o.shape[0]
+    dev = o.device
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    inv_d = _inverse_dir(d)
+    boxes = _padded_boxes(vt)
+    no_id = torch.iinfo(torch.int64).max
+
+    def merge(idx, ts, ids):
+        """Take, per ray idx, the lowest id among its closest roots ts
+        (len(idx), k) where that beats the running (t, id)."""
+        t = ts.min(1).values
+        i = torch.where(ts == t[:, None], ids[None, :], no_id).min(1).values
+        bt, bi = best_t[idx], best[idx]
+        take = (t < BIG * 0.5) & ((t < bt) | ((t == bt) & (i < bi)))
+        best_t[idx] = torch.where(take, t, bt)
+        best[idx] = torch.where(take, i, bi)
+
+    def spheres(idx, rows):
+        rows = rows[rows[:, 7] >= 0]
+        if idx.numel() and rows.shape[0]:
+            ones = torch.ones(rows.shape[0], dtype=torch.bool, device=dev)
+            merge(idx, sphere_ts(rows[:, 0:3], rows[:, 3:6], rows[:, 6],
+                                 ones, o[idx], d[idx], tm[idx]),
+                  rows[:, 7].to(torch.int64))
+
+    def quads(idx, rows, ids):
+        if idx.numel() and rows.shape[0]:
+            merge(idx, quad_ts(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9],
+                               rows[:, 9:12], rows[:, 12], rows[:, 13:16],
+                               rows[:, 16] > 0.5, o[idx], d[idx]), ids)
+
+    def culled(k):
+        box = boxes[k]
+        if bool(box[0] > box[3]):
+            return torch.zeros(0, dtype=torch.int64, device=dev)
+        return torch.nonzero(_box_reaches(box, o, inv_d, best_t)).squeeze(1)
+
+    if vt.n_big:
+        base = vt.C_small * VCHUNK
+        spheres(torch.arange(n, device=dev),
+                vt.rows[base:base + vt.n_big])
+    for c in range(vt.C_small):
+        spheres(culled(c), vt.rows[c * VCHUNK:(c + 1) * VCHUNK])
+    if vt.Cq:
+        for k in range(vt.Cq):
+            rows = vt.qrows[k * VCHUNK:(k + 1) * VCHUNK]
+            rows = rows[rows[:, 16] >= 0]
+            q = torch.cat([rows[:, :16], torch.ones_like(rows[:, :1])], 1)
+            quads(culled(vt.C + k), q, rows[:, 16].to(torch.int64))
+    else:
+        quads(torch.arange(n, device=dev), vt.quads,
+              vt.S + torch.arange(vt.quads.shape[0], device=dev))
+    return best, best_t
 
 
 # ------------------------------------------------------------ lane layout
@@ -670,6 +1010,13 @@ class _Params(ctypes.Structure):
         + [("inv_strata", ctypes.c_float), ("cam", ctypes.c_float * 22)])
 
 
+class _VsParams(ctypes.Structure):
+    """Mirror of csrc/wavefront.cu::VsParams."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "C_small", "n_big", "Cq", "off_rows", "off_qrows", "off_box",
+        "n_box")]
+
+
 class KernelLibrary:
     """The built kernel library: nvcc output of csrc/*.cu, cached in
     BUILD_DIR under a hash of the sources and flags, bound with ctypes."""
@@ -685,6 +1032,12 @@ class KernelLibrary:
         # params, tables, pix_lanes, carry_in, rad_out, carry_out, iters,
         # stream
         self.forward.argtypes = [ctypes.POINTER(_Params)] + [ptr] * 7
+        self.forward_vscan = self.lib.rt_wavefront_forward_vscan
+        self.forward_vscan.restype = ctypes.c_int
+        # params, vparams, tables, vtab, pix_lanes, carry_in, rad_out,
+        # carry_out, iters, stream
+        self.forward_vscan.argtypes = [ctypes.POINTER(_Params),
+                                       ctypes.POINTER(_VsParams)] + [ptr] * 8
         self.grad = self.lib.rt_wavefront_grad
         self.grad.restype = ctypes.c_int
         # params, tables, pix_lanes, carry_in, cotangent, rad_out,
@@ -746,20 +1099,26 @@ def load_library() -> KernelLibrary:
 class KernelInputs:
     """A scene and camera packed for the kernel: its tables in one device
     buffer (with the slot table of `hard_slots`), and the scene's and
-    camera's fields of WfParams. Packing gathers on the device and reads
-    the camera and the Perlin seed back to the host, so a render (or a
-    training step) packs once and hands the result to every launch."""
+    camera's fields of WfParams; for a vscan scene (`mode`) also the chunk
+    scan's buffer `vtab` and its VsParams fields `vfields` (Cq > 0: vquad).
+    Packing gathers on the device and reads the camera and the Perlin seed
+    back to the host, so a render (or a training step) packs once and hands
+    the result to every launch."""
     tables: torch.Tensor
     fields: dict
     hard_slots: tuple = ()
+    mode: str = "unrolled"
+    vtab: torch.Tensor | None = None
+    vfields: dict | None = None
 
 
 def prepare_kernel(flat: FlatScene, cam: CameraState,
                    hard_slots: tuple = ()) -> KernelInputs:
     """Pack `flat` and `cam` (and the slot table of `hard_slots`, for the
     grad kernel) for the kernel wrappers; raises for a scene that is not on
-    a CUDA device or is outside the kernel's gate, and for slots outside
-    hard_slots_gate_reason."""
+    a CUDA device or is outside the forward kernel's gate, and for slots
+    outside hard_slots_gate_reason. A grad launch on a scene outside
+    grad_gate_reason raises in _launch."""
     if flat.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{flat.device}")
@@ -783,7 +1142,11 @@ def prepare_kernel(flat: FlatScene, cam: CameraState,
         off_tex=off["tex"], off_med=off["med"], off_lsrc=off["lsrc"],
         off_slot=off["slot"], med_cols=med_cols, n_table=tables.numel(),
         cam=(ctypes.c_float * 22)(*cam_s))
-    return KernelInputs(tables, fields, hard_slots)
+    mode = kernel_mode(flat)[0]
+    if mode == "unrolled":
+        return KernelInputs(tables, fields, hard_slots)
+    vtab, vfields = _vscan_buffer(pack_vscan_tables(flat))
+    return KernelInputs(tables, fields, hard_slots, mode, vtab, vfields)
 
 
 def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
@@ -804,6 +1167,9 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     elif cot is not None and tuple(prepared.hard_slots) != hard_slots:
         raise ValueError(f"prepared for hard slots {prepared.hard_slots}, "
                          f"launched with {hard_slots}")
+    if cot is not None and prepared.mode != "unrolled":
+        raise ValueError("scene outside the CUDA kernel's gate: "
+                         f"{grad_gate_reason(flat, len(hard_slots))}")
     n_pix = width * height
     n_lanes = lane_count(n_pix)
     nt = prepared.fields["NT"]
@@ -837,7 +1203,12 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device)
                                  .cuda_stream)
-        if cot is None:
+        if cot is None and prepared.mode == "vscan":
+            err = lib.forward_vscan(
+                ctypes.byref(p), ctypes.byref(_VsParams(**prepared.vfields)),
+                ptr(prepared.tables), ptr(prepared.vtab), ptr(pix_lanes),
+                ptr(carry), ptr(rad), ptr(st), ptr(iters), stream)
+        elif cot is None:
             err = lib.forward(ctypes.byref(p), ptr(prepared.tables),
                               ptr(pix_lanes), ptr(carry), ptr(rad), ptr(st),
                               ptr(iters), stream)
@@ -869,20 +1240,31 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
                        iters=None):
     """The forward kernel's wrapper: render_pass_reference's signature and
     results, on a CUDA device. `prepared` is prepare_kernel(flat, cam),
-    packed here when not given. Launches on the current stream; raises if
-    the scene is outside the gate, the inputs are malformed, or the launch
-    fails. Each launch adds one to render_pass_kernel.launches."""
+    packed here when not given; its mode picks the instance: the unrolled
+    forward (K1) or, for a vscan scene, the chunk scan's (K6, with quad
+    chunks K7). Launches on the current stream; raises if the scene is
+    outside the gate, the inputs are malformed, or the launch fails. Each
+    launch adds one to render_pass_kernel.launches, one of the chunk scan's
+    to render_pass_kernel.launches_vscan, and one of those with quad chunks
+    to render_pass_kernel.launches_vquad."""
+    if prepared is None:
+        prepared = prepare_kernel(flat, cam)
     rad, st, _, _ = _launch(
         flat, cam, seed, sample_start, width=width, height=height,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
         prepared=prepared, iters=iters, cot=None)
     render_pass_kernel.launches += 1
+    if prepared.mode == "vscan":
+        render_pass_kernel.launches_vscan += 1
+        render_pass_kernel.launches_vquad += prepared.vfields["Cq"] > 0
     return _pass_result(rad, st, cap=cap, pix_lanes=pix_lanes, width=width,
                         height=height)
 
 
 render_pass_kernel.launches = 0
+render_pass_kernel.launches_vscan = 0
+render_pass_kernel.launches_vquad = 0
 
 
 def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
@@ -965,7 +1347,7 @@ def default_caps(flat: FlatScene, n_samples: int, max_depth: int,
     carried over verbatim. It was tuned on a TPU and waits for H100
     measurement (ROADMAP)."""
     if cap == 0:
-        if not _use_unrolled(flat):
+        if kernel_mode(flat)[0] != "unrolled":
             return (max(2 * n_samples, 2),) * 2
         cap = max(int(6.5 * n_samples), max_depth)
     if phases <= 2:
@@ -980,7 +1362,7 @@ def default_grad_caps(flat: FlatScene, width: int, height: int,
     carried over verbatim: three short phases from a million pixels up,
     else one 6.5 x spp cap. Tuned on a TPU; waits for H100 measurement
     (ROADMAP)."""
-    if not _use_unrolled(flat):
+    if kernel_mode(flat)[0] != "unrolled":
         return (max(2 * n_samples, 2),) * 2
     if width * height >= 1_000_000:
         return (max(2 * n_samples, max_depth),) * 3

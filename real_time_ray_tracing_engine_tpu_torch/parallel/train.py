@@ -24,7 +24,11 @@ Engines, as models/render.pick_engine resolves them: "cuda" runs the
 kernels (the scene on a CUDA device, inside kernel_gate_reason, or it
 raises); "torch" runs their plain torch versions, the engine for the CPU
 and, asked for by name, on the card; "auto" is "cuda" on a CUDA device and
-"torch" on the CPU.
+"torch" on the CPU. The grad kernels take the unrolled (Cornell-class)
+scenes only: on "cuda" a scene past those bounds, which the forward renders
+through the chunk scan (K6/K7), raises NotImplementedError naming the grad
+kernel it needs (grad_gate_reason: K3/K4 on the vscan selection, K8 or
+K9/K10, not ported) before any pass runs.
 """
 from __future__ import annotations
 
@@ -36,8 +40,9 @@ import torch
 from ..scene.flat import FlatScene
 from ..models.camera import CameraState
 from ..models.render import pick_engine
-from ..ops.wavefront_cuda import (HARD_FIELDS, grad_pass_function,
-                                  hard_param_slots, pass_function,
+from ..ops.wavefront_cuda import (HARD_FIELDS, grad_gate_reason,
+                                  grad_pass_function, hard_param_slots,
+                                  kernel_mode, pass_function,
                                   prepare_kernel, render_pass_compacted,
                                   render_pass_grad_compacted,
                                   render_pass_grad_reference,
@@ -195,8 +200,13 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
     compacted schedule at >= 8 samples, else one pass; the backward is the
     grad pass under the same rule, with the image cotangent, over the
     requested families' slots (grad_slots, which raises from
-    ADJOINT_MIN_SLOTS). cam and seed get no gradient."""
+    ADJOINT_MIN_SLOTS). cam and seed get no gradient. On the kernels a
+    scene outside grad_gate_reason raises NotImplementedError here."""
     eng = pick_engine(baked, engine)
+    if eng == "cuda" and kernel_mode(baked)[0] != "unrolled":
+        raise NotImplementedError(
+            f"training on the kernels: {grad_gate_reason(baked)}; "
+            "engine='torch' runs the plain versions")
     total = n_strata * n_strata
     plan = _Plan(baked=baked, engine=eng,
                  common=dict(width=width, height=height, n_strata=n_strata,

@@ -4,9 +4,14 @@
 
 renders the scene at its own settings (the reference default: 600x600,
 100 spp, depth 50; CLI.hpp:11-13) on the GPU and writes
-output/<--output>.ppm. --device cpu renders on the CPU instead; without it
-a missing GPU is an error. The progressive, sharded, BVH and debug modes of
-the JAX package's CLI are not ported yet: their flags exit with a message.
+output/<--output>.ppm. Every builtin scene renders on the GPU: the
+Cornell-class ones through the unrolled kernel, bouncing_spheres (the
+reference's final scene, 1200x675, 100 spp, depth 50) and textured_spheres
+through the chunk scan (K6); so does a scene JSON of up to 16,384
+primitives (past 64 quads through K7). --device cpu renders on the CPU
+instead; without it a missing GPU is an error. The progressive, sharded,
+BVH and debug modes of the JAX package's CLI are not ported yet: their
+flags exit with a message.
 """
 from __future__ import annotations
 

@@ -9,8 +9,9 @@ the timer are chip_smoke.py's (CUDA events, best of 3 after one warm-up,
 the scene packed once outside the timed calls): the forward kernel at
 Cornell 600x600 spp16 d50, the tex_color grad kernel at Cornell 1920x1080
 spp64 d50 (single pass and the compacted schedule) and, where the checkout
-has hard slots, the full-family grad kernel there (single pass). Prints one
-JSON line.
+has hard slots, the full-family grad kernel there (single pass); where it
+has the chunk scan, its forward at bouncing_spheres 400x225 spp9 d50 and
+the 301-quad city 400x225 spp9 d6 (single pass). Prints one JSON line.
 
 To compare two checkouts on one card, unpack the other one (git archive)
 under a git-ignored directory and time both roots in one run, in turns:
@@ -66,6 +67,17 @@ def kernel_times(root: str) -> dict:
         out["hard_grad_1080_single_ms"] = cs.cuda_ms(
             torch, lambda: hard(flat, cam, 0, 0, cotangent=g,
                                 hard_slots=slots, **kw))
+    if hasattr(wc, "pack_vscan_tables"):
+        for name, scene in (
+                ("vscan_bouncing_400_spp9", cs.builtin(
+                    pt, "bouncing_spheres", 400, 9, 50)),
+                ("vquad_city_400_spp9", cs.sized(cs.city_scene(pt), 400, 9,
+                                                 6))):
+            flat, cam, kw = cs.pass_args(pt, scene, dev)
+            fwd = functools.partial(wc.render_pass_kernel,
+                                    prepared=wc.prepare_kernel(flat, cam))
+            out[f"{name}_ms"] = cs.cuda_ms(
+                torch, lambda: fwd(flat, cam, 0, 0, **kw))
     return out
 
 

@@ -10,6 +10,9 @@ The kernel and the plain version draw the same PCG4D streams and round
 alike (the kernel is built with --fmad=false), so the per-pixel rule of
 tests/test_pallas.py::_assert_close holds with room to spare.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,9 @@ import torch
 import real_time_ray_tracing_engine_tpu_torch as pt
 from real_time_ray_tracing_engine_tpu_torch.models import camera as pcam
 from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402  (stdlib only at import)
 
 pytestmark = pytest.mark.cuda
 
@@ -114,15 +120,16 @@ def test_prepared_inputs_give_the_same_pass(cuda_device):
 
 def test_render_auto_outside_the_gate_raises(cuda_device):
     """No silent plain engine on the card: a scene the kernel cannot take
-    raises under auto and renders only with engine="torch"."""
+    (past MAX_PRIMS_SCAN primitives) raises under auto, naming the BVH
+    kernels, and renders only with engine="torch"."""
     scene = pt.Scene(objects=[
-        pt.Sphere((3.0 * i, 0, 0), 1.0,
+        pt.Sphere((3.0 * (i % 128), 3.0 * (i // 128), 0), 1.0,
                   pt.Lambertian(pt.SolidColor((1, 1, 1))))
-        for i in range(80)])
+        for i in range(wc.MAX_PRIMS_SCAN + 1)])
     scene.camera.image_width = 8
     scene.camera.samples_per_pixel = 1
     scene.camera.max_depth = 2
-    with pytest.raises(ValueError, match="K6 vscan"):
+    with pytest.raises(ValueError, match="K11/K12"):
         pt.render(scene, device=cuda_device)
     img = pt.render(scene, device=cuda_device, engine="torch")
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
@@ -329,3 +336,36 @@ def test_full_family_train_step_runs_the_kernels(cuda_device):
     assert wc.render_pass_grad_kernel.launches >= grads + 3
     assert (wc.render_pass_reference.calls
             + wc.render_pass_grad_reference.calls) == plain
+
+
+@pytest.mark.parametrize("name", ["multichunk", "vquad"])
+def test_vscan_kernel_matches_plain(name, cuda_device):
+    """The chunk-scan instance (K6; K7 on the 90-quad scene's quad chunks)
+    against the plain pass, which tests every primitive: the same pixels
+    and the same bounces, its launches counted apart."""
+    scene = (cs.multichunk_scene(pt) if name == "multichunk"
+             else cs.vquad_scene(pt))
+    flat, cam, kw = cs.pass_args(pt, cs.sized(scene, 48, 4, 8), cuda_device)
+    assert wc.kernel_mode(flat) == ("vscan", name == "vquad")
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    it_k = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
+    it_p = torch.zeros_like(it_k)
+    vscan = wc.render_pass_kernel.launches_vscan
+    vquad = wc.render_pass_kernel.launches_vquad
+    kern = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_k, **kw)
+    torch.cuda.synchronize()
+    assert wc.render_pass_kernel.launches_vscan == vscan + 1
+    assert wc.render_pass_kernel.launches_vquad == vquad + (name == "vquad")
+    plain = wc.render_pass_reference(flat, cam, 7, 0, iters=it_p, **kw)
+    k, p = kern.cpu().numpy(), plain.cpu().numpy()
+    assert np.isfinite(k).all() and k.mean() > 0.01
+    diff = np.abs(k - p)
+    assert (diff > 1e-3).mean() < 0.01, diff.max()
+    assert abs(k.mean() - p.mean()) < 2e-3
+    assert int(it_k.sum()) == int(it_p.sum())
+    # the compacted schedule and a grad pass on a vscan scene
+    two = wc.render_pass_compacted(flat, cam, 7, 0, **kw)
+    assert np.allclose(k, two.cpu().numpy(), atol=1e-5)
+    with pytest.raises(ValueError, match="vscan scene needs"):
+        wc.render_pass_grad_kernel(
+            flat, cam, 7, 0, cotangent=torch.zeros_like(kern), **kw)

@@ -123,7 +123,8 @@ def test_pack_tables_match(name):
     names = ("sphf", "quadf", "prim_mat", "lightf", "mati", "matf", "texf",
              "primmatf", "medf")
     jax_tables = dict(zip(names, wp._pack_tables(jf)))
-    # the scan-mode table waits for the port's large-scene kernel
+    # the resolved per-prim rows are a TPU gather workaround: the port's
+    # chunk scan indexes the scene tables by the winner's original id
     del jax_tables["primmatf"]
     port_tables = wc._pack_tables(pf)
     assert len(port_tables) == len(jax_tables)
@@ -152,16 +153,20 @@ def _gate_scenes(mod):
 
 
 def test_kernel_gate_reason():
-    expect_ok = [True, True, False, True, True, False]
-    for js, ps, ok in zip(_gate_scenes(rt), _gate_scenes(pt), expect_ok):
+    expect_ok = [True, True, False, True, True, True]
+    expect_grad_ok = [True, True, False, True, True, False]
+    for js, ps, ok, grad_ok in zip(_gate_scenes(rt), _gate_scenes(pt),
+                                   expect_ok, expect_grad_ok):
         jf, pf = rt.compile_scene(js), pt.compile_scene(ps)
-        # the port's kernel takes the JAX kernel's gate restricted to the
-        # unrolled mode (the vscan kernel is not ported yet)
-        jax_ok = (wp.pallas_gate_reason(jf) is None and wp._use_unrolled(
-            jf.sph_center.shape[0], jf.quad_corner.shape[0],
-            jf.mat_type.shape[0], jf.tex_type.shape[0]))
+        # the port's forward takes the JAX kernel's gate (the chunk scan
+        # past the unrolled bounds); its grad kernels take the JAX gate of
+        # the full grad kernel, restricted to the unrolled mode
         reason = wc.kernel_gate_reason(pf)
-        assert (reason is None) == jax_ok == ok, reason
+        assert (reason is None) == (wp.pallas_gate_reason(jf) is None) \
+            == ok, reason
+        reason = wc.grad_gate_reason(pf)
+        assert (reason is None) == (wp.pallas_grad_gate_reason(jf) is None) \
+            == grad_ok, reason
 
 
 def test_compile_scene_bvh_not_ported():

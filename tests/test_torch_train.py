@@ -200,10 +200,16 @@ def test_hard_families_raise(field, monkeypatch):
 
 def test_engines_follow_the_gate(monkeypatch):
     """engine="cuda" on the CPU raises; on a (faked) card a scene outside
-    the kernel's gate raises under auto, as render does."""
+    the forward kernel's gate raises under auto, as render does, and a
+    scene the forward renders through the chunk scan (past the unrolled
+    bounds) raises NotImplementedError naming the grad kernel it needs."""
     _, _, pf, pc, kw = _cornell(width=8, spp=1, depth=2)
     with pytest.raises(ValueError, match="CUDA"):
         train.make_kernel_render(pf, engine="cuda", **kw)
+    mediums = pt.compile_scene(pt.Scene(objects=[pt.ConstantMedium(
+        pt.Box((i, 0, 0), (i + 1, 1, 1),
+               pt.Lambertian(pt.SolidColor((1, 1, 1)))),
+        0.1, pt.SolidColor((1, 1, 1))) for i in range(5)]))
     spheres = pt.compile_scene(pt.Scene(objects=[
         pt.Sphere((3.0 * i, 0, 0), 1.0,
                   pt.Lambertian(pt.SolidColor((1, 1, 1))))
@@ -211,4 +217,7 @@ def test_engines_follow_the_gate(monkeypatch):
     monkeypatch.setattr(FlatScene, "device",
                         property(lambda self: torch.device("cuda", 0)))
     with pytest.raises(ValueError, match="gate"):
+        train.make_kernel_render(mediums, **kw)
+    with pytest.raises(NotImplementedError,
+                       match="K3/K4 on the vscan selection"):
         train.make_kernel_render(spheres, **kw)

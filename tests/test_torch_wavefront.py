@@ -124,10 +124,12 @@ def test_engine_cuda_raises_on_cpu():
 
 
 def test_auto_engine_on_a_gpu_follows_the_gate(monkeypatch, capsys):
-    """On a CUDA device, auto takes the kernel inside the gate and raises
-    outside it, as engine="cuda" does, naming the reason and the kernel
-    not yet ported; the plain engine runs on the card only when asked for.
-    (The scene's device is faked: only the decision runs.)"""
+    """On a CUDA device, auto takes the kernel inside the gate (the
+    unrolled instance, or the chunk scan past the unrolled bounds) and
+    raises outside it, as engine="cuda" does, naming the reason and, past
+    MAX_PRIMS_SCAN, the BVH kernels not yet ported; the plain engine runs on
+    the card only when asked for. (The scene's device is faked: only the
+    decision runs.)"""
     from real_time_ray_tracing_engine_tpu_torch.scene.flat import FlatScene
     monkeypatch.setattr(FlatScene, "device",
                         property(lambda self: torch.device("cuda", 0)))
@@ -137,11 +139,15 @@ def test_auto_engine_on_a_gpu_follows_the_gate(monkeypatch, capsys):
         pt.Box((i, 0, 0), (i + 1, 1, 1),
                pt.Lambertian(pt.SolidColor((1, 1, 1)))),
         0.1, pt.SolidColor((1, 1, 1))) for i in range(5)]))
-    spheres = pt.compile_scene(pt.Scene(objects=[
-        pt.Sphere((3.0 * i, 0, 0), 1.0,
-                  pt.Lambertian(pt.SolidColor((1, 1, 1))))
-        for i in range(80)]))
-    for outside, why in ((mediums, "MAX_MEDIUMS"), (spheres, "K6 vscan")):
+
+    def spheres(n):
+        return pt.compile_scene(pt.Scene(objects=[
+            pt.Sphere((3.0 * (i % 128), 3.0 * (i // 128), 0), 1.0,
+                      pt.Lambertian(pt.SolidColor((1, 1, 1))))
+            for i in range(n)]))
+    assert pick_engine(spheres(80), "auto") == "cuda"
+    past_scan = spheres(wc.MAX_PRIMS_SCAN + 1)
+    for outside, why in ((mediums, "MAX_MEDIUMS"), (past_scan, "K11/K12")):
         for engine in ("auto", "cuda"):
             with pytest.raises(ValueError, match="gate") as exc:
                 pick_engine(outside, engine)
