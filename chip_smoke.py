@@ -10,9 +10,14 @@ torch version on the card, and drives the port's main paths: the CLI's
 Cornell box render (600x600, 100 spp, depth 50), checked against the
 reference engine's goldens; the training step (Cornell 1920x1080, 64 spp,
 depth 50, Adam) over tex_color alone and over all five trainable families,
-whose loss must fall; and the CLI's large-scene render, bouncing_spheres at
+whose loss must fall; the CLI's large-scene render, bouncing_spheres at
 its own 1200x675, 100 spp, depth 50 through the chunk scan (K6), and a
-301-quad city scene file through its quad chunks (K7). Every phase prints
+301-quad city scene file through its quad chunks (K7); and large-scene
+training, make_train_step on bouncing_spheres at 1200x675 spp16 d50 over
+tex_color (the suffix-radiance kernel K8) and tex_color + IOR (K4v riding
+K8), with the chunk scan's weight planes (K3v, in registers and for 17 to
+32 rows in shared memory) and tangent bundles (K4v) at their full-size
+shapes on the JAX tests' scenes and a 28-row scene. Every phase prints
 one JSON line; any failure raises and the script exits non-zero. The last
 lines are each phase's seconds, the kernel table, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -41,6 +46,13 @@ TPU_KERNEL = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:3604"
 # walk from qtest_rows (K7)
 TPU_VSCAN = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:1378"
 TPU_VQUAD = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:1538"
+# the grad variants on the chunk scan's selection: the weight planes past
+# the unrolled bounds (K3v, MAX_GRAD_TEXS), the tangent bundles' post-gather
+# theta aliasing (K4v, vscan_record) and the suffix-radiance tier (K8,
+# grad_suffix)
+TPU_K3V = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:348"
+TPU_K4V = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:1614"
+TPU_K8 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:914"
 GOLDEN_DIR = ROOT / "tests" / "goldens" / "reference"
 
 # the per-pixel rule of tests/test_pallas.py::_assert_close: the two sides
@@ -53,6 +65,8 @@ COMPACT_ATOL = 1e-5
 CELL, ALLCLOSE_TOL = 10, 0.04
 REF_SCENES = {"cornell_box": (36, 0.015, 0.95),
               "cornell_smoke": (36, 0.015, 0.95),
+              "simple_sphere": (36, 0.010, 0.97),
+              "three_spheres": (36, 0.012, 0.97),
               "bouncing_spheres": (25, 0.015, 0.93),
               "textured_spheres": (25, 0.020, 0.85)}
 # tests/test_reference_images.py::test_textured_marble_distributional: the
@@ -74,6 +88,9 @@ WALL_ROWS = [0, 1, 2]     # Cornell's green, red and white texture rows
 # dimmed walls and the glass sphere (and its light-list copy) at IOR 1.4
 # and radius 85
 GEOM_LR, START_IOR, START_RADIUS = 1.0, 1.4, 85.0
+# the large-scene training main path: Adam steps on bouncing_spheres at its
+# own 1200x675 spp16 d50
+LARGE_STEPS = 4
 
 # Operations of one bounce of the kernel on a Lambertian hit, counted by
 # hand from csrc/wavefront.cu (each add, multiply, divide, compare, min/max,
@@ -108,6 +125,11 @@ OPS_SLOT = 104.5
 # traversal (BVHNode.cu:9-31), 2 ceil(log2 N) box tests (AABB::hit, about
 # 10 operations an axis) and 2 primitive tests. A chunk scan does more.
 OPS_BOX = 30
+# the suffix tier (K8): phase B replays each phase-A bounce (a second
+# vscan_bounce_ops) and routes its hit's events: per channel the suffix
+# T - P, |at| against 1e-8, the division, the emission select, the sum,
+# the cotangent product and the accumulator add (7), and the prefix add
+OPS_ROUTE = 3 * 8
 PEAK_FP32 = 67e12         # H100 SXM fp32 outside the tensor cores (with
                           # FMA counted as two; the kernel is built
                           # --fmad=false, so it can reach half of this)
@@ -362,6 +384,114 @@ def city_scene(api, n_boxes=50):
                            lookfrom=(30, 12, 30), lookat=(0, 2, 0),
                            sky_gradient=True)
     return api.Scene(objects=objs, camera=cam, name="city")
+
+
+# Scenes of the chunk scan's grad tiers (K3v, K4v, K8), from the JAX
+# package's tests of them (tests/test_grad.py); each takes the scene API
+# module, as above.
+def scan_tex_scene(api):
+    """tests/test_grad.py::test_scan_mode_fused_tex_grad_matches_kernel_fd
+    (427): 80 spheres of 4 materials (a checker among them) and a quad
+    light, 7 texture rows: the weight planes on the chunk scan (K3v)."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    mats = [api.Lambertian(api.SolidColor((.8, .3, .2))),
+            api.Lambertian(api.SolidColor((.2, .7, .4))),
+            api.Lambertian(api.Checker(0.8, api.SolidColor((.9, .9, .1)),
+                                       api.SolidColor((.1, .1, .8)))),
+            api.Metal((.9, .8, .7), 0.2)]
+    objs = [api.Sphere(tuple(map(float, rng.uniform(-4, 4, 3))), 0.35,
+                       mats[i % len(mats)]) for i in range(80)]
+    objs.append(api.Quad((-6, -6, -7), (12, 0, 0), (0, 12, 0),
+                         api.DiffuseLight(api.SolidColor((4., 4., 4.)))))
+    cam = api.CameraConfig(aspect_ratio=1.0, image_width=16,
+                           samples_per_pixel=4, max_depth=3, vfov=60,
+                           lookfrom=(0, 0, 9), lookat=(0, 0, 0),
+                           background=(0.2, 0.25, 0.3))
+    return api.Scene(objects=objs, lights=[], camera=cam, name="scan_grad")
+
+
+def vscan_slots_scene(api):
+    """tests/test_grad.py::test_vscan_hard_slots_match_kernel_fd (595): 78
+    spheres (metals, one glass, lambertians) and a sphere light; with
+    vscan_slots, one hard slot per family on the chunk scan (K4v)."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    objs = []
+    for i in range(78):
+        c = tuple(map(float, rng.uniform(-4, 4, 3)))
+        albedo = tuple(map(float, rng.uniform(0.25, 0.9, 3)))
+        m = (api.Metal(albedo, fuzz=0.25) if i % 9 == 0 else
+             api.Dielectric(1.5) if i == 4 else
+             api.Lambertian(api.SolidColor(albedo)))
+        objs.append(api.Sphere(c, 0.5, m))
+    light = api.Sphere((0, 8, 0), 2.0,
+                       api.DiffuseLight(api.SolidColor((6., 6., 6.))))
+    objs.append(light)
+    return api.Scene(objects=objs, lights=[light], camera=api.CameraConfig(
+        image_width=24, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+        vfov=45, lookfrom=(0, 2, 11), lookat=(0, 0, 0),
+        background=(0.3, 0.4, 0.6)), name="vscan_slots")
+
+
+def vscan_slots(mat_type, mat_metal: int, mat_diel: int) -> tuple:
+    """The JAX test's 4 slots of vscan_slots_scene: the first metal's fuzz,
+    the glass's IOR, sphere 7's center y and its radius."""
+    import numpy as np
+    mt = np.asarray(mat_type)
+    return (("fuzz", int(np.where(mt == mat_metal)[0][0])),
+            ("ior", int(np.where(mt == mat_diel)[0][0])),
+            ("sphc", 7, 1), ("sphr", 7))
+
+
+def rows_scene(api):
+    """79 spheres over 27 materials (24 lambertian albedos, 2 metals, a
+    glass) and a sphere light: 28 texture rows, between MAX_TEXS and
+    MAX_GRAD_TEXS, so the chunk scan's weight planes in shared memory (K3v,
+    NT 17-32)."""
+    import numpy as np
+    rng = np.random.default_rng(31)
+    mats = ([api.Lambertian(api.SolidColor(tuple(map(
+        float, rng.uniform(0.2, 0.9, 3))))) for _ in range(24)]
+        + [api.Metal(tuple(map(float, rng.uniform(0.5, 0.9, 3))), 0.2)
+           for _ in range(2)] + [api.Dielectric(1.5)])
+    objs = [api.Sphere(tuple(map(float, rng.uniform(-4, 4, 3))), 0.5,
+                       mats[i % len(mats)]) for i in range(79)]
+    light = api.Sphere((0, 8, 0), 2.0,
+                       api.DiffuseLight(api.SolidColor((6., 6., 6.))))
+    objs.append(light)
+    return api.Scene(objects=objs, lights=[light], camera=api.CameraConfig(
+        image_width=24, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+        vfov=45, lookfrom=(0, 2, 11), lookat=(0, 0, 0),
+        background=(0.3, 0.4, 0.6)), name="rows_grad")
+
+
+def suffix_scene(api):
+    """tests/test_grad.py::test_suffix_tex_grad_matches_weight_planes
+    (493): 40 spheres of their own albedos (every fifth metal) and a sphere
+    light, 41 texture rows: past MAX_GRAD_TEXS, so the suffix tier (K8)."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    objs = []
+    for i in range(40):
+        c = tuple(map(float, rng.uniform(-4, 4, 3)))
+        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
+        m = (api.Metal(albedo, fuzz=0.2) if i % 5 == 0
+             else api.Lambertian(api.SolidColor(albedo)))
+        objs.append(api.Sphere(c, 0.5, m))
+    light = api.Sphere((0, 8, 0), 2.0,
+                       api.DiffuseLight(api.SolidColor((6., 6., 6.))))
+    objs.append(light)
+    return api.Scene(objects=objs, lights=[light], camera=api.CameraConfig(
+        image_width=24, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+        vfov=45, lookfrom=(0, 2, 11), lookat=(0, 0, 0),
+        background=(0.3, 0.4, 0.6)), name="suffix_grad")
+
+
+def wide(scene, width, spp, depth):
+    """sized() at 16:9, width x width * 9/16 (1200x675 at 1200)."""
+    scene.camera.aspect_ratio = 16 / 9
+    return sized(scene, width, spp, depth)
 
 
 def sized(scene, width, spp, depth):
@@ -1327,6 +1457,351 @@ def main() -> int:
               f"{name}: compacted differs from single by {err}")
     del out
     done("large_times")
+
+    # 8. the chunk scan's grad instances (K3v weight planes, K4v tangent
+    # bundles, K8 the suffix-radiance tier) against the plain grad pass on
+    # the card, at the large-scene training path's image and depth
+    # (1200x675 d50) at 4 of its 16 samples: the grad image equal to the
+    # forward kernel's, the bounces (the suffix tier traces each sample
+    # twice: twice the forward's, and the plain pass's), dG_tex and dG_hard
+    # (per family) within DG_RTOL of their largest entries (the suffix
+    # tier's accumulators add with float atomics, in no fixed order), and
+    # the compacted schedule (K5) against the single pass. bouncing's IOR
+    # slot is taken under the sky gradient: under its own constant
+    # background no radiance depends on a direction, so every hard
+    # gradient of the scene is exactly 0 (both versions give 0).
+    large_grad = [
+        ("k8_bouncing", builtin(pt, "bouncing_spheres", 1200, 4, 50), (),
+         True, False),
+        ("k8_k4v_bouncing_ior_sky", builtin(pt, "bouncing_spheres", 1200, 4,
+                                            50), "mat_ior", True, True),
+        ("k3v_scan_tex", wide(scan_tex_scene(pt), 1200, 4, 50), (), True,
+         False),
+        ("k3v_k4v_scan_tex_fuzz_sky", wide(scan_tex_scene(pt), 1200, 4, 50),
+         "mat_fuzz", True, True),
+        ("k3v_rows28", wide(rows_scene(pt), 1200, 4, 50), (), True, False),
+        ("k3v_k4v_rows28", wide(rows_scene(pt), 1200, 4, 50),
+         "mat_fuzz,mat_ior", True, False),
+        ("k4v_vscan_slots", wide(vscan_slots_scene(pt), 1200, 4, 50),
+         "jax_test", False, False),
+        ("k8_k4v_vscan_slots", wide(vscan_slots_scene(pt), 1200, 4, 50),
+         "jax_test", True, False)]
+    from real_time_ray_tracing_engine_tpu_torch.scene.flat import (
+        MAT_DIELECTRIC, MAT_METAL)
+    lg_err = {}
+    for name, scene, slots, want_tex, sky in large_grad:
+        flat, cam, kw = pass_args(pt, scene, dev)
+        kw["sky_gradient"] = kw["sky_gradient"] or sky
+        if slots == "jax_test":
+            slots = vscan_slots(flat.mat_type.cpu(), MAT_METAL,
+                                MAT_DIELECTRIC)
+        elif slots:
+            slots = wc.hard_param_slots(flat, set(slots.split(",")))
+        form = wc.tex_form(flat, want_tex)
+        g = cotangent(torch, kw, dev, 5)
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        it_k = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        it_f = torch.zeros_like(it_k)
+        it_p = torch.zeros_like(it_k)
+        gkw = dict(cotangent=g, hard_slots=slots, want_tex=want_tex, **kw)
+        img_k, dgt_k, dgh_k = wc.render_pass_grad_kernel(flat, cam, 7, 0,
+                                                         iters=it_k, **gkw)
+        fwd = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_f, **kw)
+        img_c, dgt_c, dgh_c = wc.render_pass_grad_compacted(flat, cam, 7, 0,
+                                                            **gkw)
+        out = {}
+
+        def plain():
+            out["plain"] = wc.render_pass_grad_reference(flat, cam, 7, 0,
+                                                         iters=it_p, **gkw)
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = cuda_ms(torch, plain, reps=1, warmup=0)
+        plain_gib = torch.cuda.max_memory_allocated() / 2**30
+        img_p, dgt_p, dgh_p = out["plain"]
+        stats = per_pixel(img_k, img_p)
+        bk, bf, bp = int(it_k.sum()), int(it_f.sum()), int(it_p.sum())
+        rec = {"case": name, "form": form, "slots": [list(s) for s in slots],
+               "shape": f"{kw['width']}x{kw['height']} spp{kw['n_samples']} "
+                        f"d{kw['max_depth']}", "textures":
+               flat.tex_type.shape[0], "sky_gradient": kw["sky_gradient"],
+               **stats, "vs_forward_max_abs_err":
+               float((img_k - fwd).abs().max()),
+               "compacted_image_max_abs_err":
+               float((img_c - img_k).abs().max()), "kernel_bounces": bk,
+               "forward_bounces": bf, "plain_bounces": bp,
+               "plain_ms": plain_ms, "plain_peak_gib": plain_gib}
+        if want_tex:
+            rec["dg_tex_scale"] = float(dgt_p.abs().max())
+            rec["dg_tex_max_abs_err"] = float((dgt_k - dgt_p).abs().max())
+            rec["dg_tex_compacted_max_abs_err"] = float(
+                (dgt_c - dgt_k).abs().max())
+        if slots:
+            rec["dg_hard"] = family_errors(slots, dgh_k, dgh_p)
+            rec["dg_hard_compacted_max_abs_err"] = float(
+                (dgh_c - dgh_k).abs().max())
+        lg_err[name] = rec
+        emit("large_grad_parity", **rec)
+        assert_close(f"{name} grad", stats)
+        check(rec["vs_forward_max_abs_err"] <= 1e-6, f"{name}: the grad "
+              f"image differs from the forward kernel's by "
+              f"{rec['vs_forward_max_abs_err']}")
+        check(np.allclose(img_c.cpu().numpy(), img_k.cpu().numpy(),
+                          atol=COMPACT_ATOL),
+              f"{name}: compacted image differs from single by "
+              f"{rec['compacted_image_max_abs_err']}")
+        twice = 2 if form == "suffix" else 1
+        check(bk == bp == twice * bf, f"{name}: kernel traced {bk} "
+              f"bounces, plain {bp}, forward {bf} (x{twice})")
+        if want_tex:
+            check(rec["dg_tex_scale"] > 0.0, f"{name}: plain dG_tex is 0")
+            for key in ("dg_tex_max_abs_err", "dg_tex_compacted_max_abs_err"):
+                check(rec[key] <= DG_RTOL * rec["dg_tex_scale"],
+                      f"{name}: {key} {rec[key]} (limit {DG_RTOL} x "
+                      f"{rec['dg_tex_scale']})")
+        for fam, e in rec.get("dg_hard", {}).items():
+            check(e["scale"] > 0.0, f"{name}: plain dG_hard[{fam}] is 0")
+            check(e["max_abs_err"] <= DG_RTOL * e["scale"],
+                  f"{name}: dG_hard[{fam}] differs by {e['max_abs_err']} "
+                  f"(limit {DG_RTOL} x {e['scale']})")
+        if slots:
+            check(rec["dg_hard_compacted_max_abs_err"] <= DG_RTOL * max(
+                e["scale"] for e in rec["dg_hard"].values()),
+                f"{name}: compacted dG_hard differs by "
+                f"{rec['dg_hard_compacted_max_abs_err']}")
+    del out
+    torch.cuda.empty_cache()
+    done("large_grad_parity")
+
+    # 8b. the large-scene training main path: make_train_step on
+    # bouncing_spheres at its own 1200x675, 16 spp, depth 50 on the kernels
+    # (forward K6 under K2's compacted schedule; backward K8 under K5),
+    # LARGE_STEPS Adam steps at TRAIN_LR from the ground checker's leaves
+    # and the two textured hero spheres' rows at 0.7 toward the kernels'
+    # image at the true colors; then tex_color and the one IOR slot (K4v
+    # riding K8) under the sky gradient (see 8), from the glass at
+    # START_IOR. Each step's loss must fall, and no plain pass run.
+    bflat, bcam, bkw = pass_args(pt, builtin(pt, "bouncing_spheres", 1200, 16,
+                                             50), dev)
+    bkw.pop("n_samples")
+    S = bflat.sph_center.shape[0]
+    mtex = bflat.mat_tex[bflat.sph_mat.long()].tolist()
+    ground = mtex[0]
+    dim_rows = [int(bflat.tex_child_even[ground]),
+                int(bflat.tex_child_odd[ground]), mtex[S - 2], mtex[S - 1]]
+    large_train = {}
+    for name, fields, sky in (("tex_color", ("tex_color",), False),
+                              ("tex_color+mat_ior", ("tex_color", "mat_ior"),
+                               True)):
+        kw_ = dict(bkw, sky_gradient=sky)
+        target = train.make_kernel_render(bflat, engine="cuda", **kw_)(
+            {"tex_color": bflat.tex_color}, bcam, TRAIN_SEED).detach()
+        params = {f: getattr(bflat, f).detach().clone() for f in fields}
+        params["tex_color"][dim_rows] *= 0.7
+        ior_slots = wc.hard_param_slots(bflat, {"mat_ior"})
+        if "mat_ior" in params:
+            params["mat_ior"][[s[1] for s in ior_slots]] = START_IOR
+        for v in params.values():
+            v.requires_grad_(True)
+        step = train.make_train_step(
+            torch.optim.Adam(params.values(), lr=TRAIN_LR), flat=bflat,
+            engine="cuda", **kw_)
+        counters = ("launches", "hard_launches", "vscan_tex_launches",
+                    "vscan_hard_launches", "suffix_launches")
+        for c in counters:
+            setattr(wc.render_pass_grad_kernel, c, 0)
+        wc.render_pass_kernel.launches = 0
+        wc.render_pass_kernel.launches_vscan = 0
+        wc.render_pass_reference.calls = 0
+        wc.render_pass_grad_reference.calls = 0
+        rd._render_pass.calls = 0
+        losses, step_s, first_grads = [], [], None
+        for _ in range(LARGE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(params, bcam, TRAIN_SEED, target)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            for f, v in params.items():
+                check(bool(torch.isfinite(v.grad).all()),
+                      f"large training {name}: the {f} gradient is not "
+                      "finite")
+            if first_grads is None and "mat_ior" in params:
+                first_grads = params["mat_ior"].grad[
+                    [s[1] for s in ior_slots]].tolist()
+        launched = {c: getattr(wc.render_pass_grad_kernel, c)
+                    for c in counters}
+        launched["forward_vscan"] = wc.render_pass_kernel.launches_vscan
+        plain_calls = (wc.render_pass_reference.calls
+                       + wc.render_pass_grad_reference.calls
+                       + rd._render_pass.calls)
+        steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        paths = 1200 * 675 * 16
+        large_train[name] = {"launches": launched, "median_step_s": steady}
+        emit("large_train_main_path", fields=list(fields),
+             shape="bouncing_spheres 1200x675 spp16 d50",
+             sky_gradient=sky, dimmed_rows=dim_rows, optimizer="Adam",
+             lr=TRAIN_LR, losses=losses, step_s=step_s,
+             median_step_s=steady, median_step_ms=steady * 1e3,
+             fwd_bwd_mpaths_per_s=paths / steady / 1e6,
+             first_step_ior_grad=first_grads, **launched,
+             plain_calls=plain_calls,
+             mat_ior=(params["mat_ior"][[s[1] for s in ior_slots]].tolist()
+                      if "mat_ior" in params else None))
+        check(all(math.isfinite(x) for x in losses),
+              f"large training {name}: loss not finite")
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"large training {name}: the loss did not fall at every step "
+              f"{losses}")
+        check(launched["suffix_launches"] >= LARGE_STEPS,
+              f"large training {name}: the suffix kernel ran "
+              f"{launched['suffix_launches']} times")
+        check(launched["forward_vscan"] >= LARGE_STEPS,
+              f"large training {name}: the chunk-scan forward ran "
+              f"{launched['forward_vscan']} times")
+        if "mat_ior" in params:
+            check(launched["vscan_hard_launches"] >= LARGE_STEPS,
+                  f"large training {name}: K4v ran "
+                  f"{launched['vscan_hard_launches']} times")
+            check(all(x != 0.0 for x in first_grads),
+                  f"large training {name}: the IOR gradient is 0")
+        check(plain_calls == 0, f"large training {name} ran the plain "
+              "engine")
+    done("large_train_main_path")
+
+    # 8c. K3v's and K4v's full-size shapes, which no builtin scene has
+    # (every builtin chunk-scan scene has more than 32 texture rows): the
+    # JAX tests' 80-sphere scene at 1200x675 spp16 d50, one render_loss_grad
+    # over tex_color on the kernels (K6 forward, K3v backward, both under
+    # the compacted schedule), the same on the 28-row scene (K3v's planes
+    # in shared memory), and the 79-sphere scene's 4 slots through the
+    # compacted grad driver, one pass each
+    sflat, scam, skw = pass_args(pt, wide(scan_tex_scene(pt), 1200, 16, 50),
+                                 dev)
+    skw.pop("n_samples")
+    star = train.make_kernel_render(sflat, engine="cuda", **skw)(
+        {"tex_color": sflat.tex_color}, scam, TRAIN_SEED).detach()
+    dark = train.set_params(sflat, {"tex_color": sflat.tex_color * 0.7})
+    wc.render_pass_grad_kernel.vscan_tex_launches = 0
+    wc.render_pass_grad_kernel.vscan_hard_launches = 0
+    wc.render_pass_reference.calls = 0
+    wc.render_pass_grad_reference.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sloss, sgrads = train.render_loss_grad(dark, scam, TRAIN_SEED, star,
+                                           engine="cuda", **skw)
+    torch.cuda.synchronize()
+    k3v_s = time.perf_counter() - t0
+    k3v_launches = wc.render_pass_grad_kernel.vscan_tex_launches
+    rflat, rcam, rkw = pass_args(pt, wide(rows_scene(pt), 1200, 16, 50), dev)
+    rkw.pop("n_samples")
+    rtar = train.make_kernel_render(rflat, engine="cuda", **rkw)(
+        {"tex_color": rflat.tex_color}, rcam, TRAIN_SEED).detach()
+    wc.render_pass_grad_kernel.vscan_tex_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rloss, rgrads = train.render_loss_grad(
+        train.set_params(rflat, {"tex_color": rflat.tex_color * 0.7}), rcam,
+        TRAIN_SEED, rtar, engine="cuda", **rkw)
+    torch.cuda.synchronize()
+    rows_s = time.perf_counter() - t0
+    rows_launches = wc.render_pass_grad_kernel.vscan_tex_launches
+    vflat, vcam, vkw = pass_args(pt, wide(vscan_slots_scene(pt), 1200, 16,
+                                          50), dev)
+    vslots = vscan_slots(vflat.mat_type.cpu(), MAT_METAL, MAT_DIELECTRIC)
+    vg = cotangent(torch, vkw, dev, 6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, vdg = wc.render_pass_grad_compacted(vflat, vcam, 0, 0, cotangent=vg,
+                                              hard_slots=vslots,
+                                              want_tex=False, **vkw)
+    torch.cuda.synchronize()
+    k4v_s = time.perf_counter() - t0
+    k4v_launches = wc.render_pass_grad_kernel.vscan_hard_launches
+    plain_calls = (wc.render_pass_reference.calls
+                   + wc.render_pass_grad_reference.calls)
+    emit("large_grad_main_shapes", k3v={
+        "scene": "scan_tex 1200x675 spp16 d50", "loss": float(sloss),
+        "seconds": k3v_s, "launches": k3v_launches,
+        "dg_tex_max_abs": float(sgrads["tex_color"].abs().max())},
+        k3v_rows28={"scene": "rows (28 rows) 1200x675 spp16 d50",
+                    "loss": float(rloss), "seconds": rows_s,
+                    "launches": rows_launches, "dg_tex_max_abs":
+                    float(rgrads["tex_color"].abs().max())},
+        k4v={"scene": "vscan_slots 1200x675 spp16 d50",
+             "slots": [list(s) for s in vslots], "seconds": k4v_s,
+             "launches": k4v_launches, "dg_hard": vdg.tolist()},
+        plain_calls=plain_calls)
+    check(k3v_launches >= 1 and rows_launches >= 1 and k4v_launches >= 1,
+          f"K3v ran {k3v_launches} and {rows_launches} (28 rows), K4v "
+          f"{k4v_launches} times")
+    check(bool(torch.isfinite(rgrads["tex_color"]).all())
+          and float(rgrads["tex_color"].abs().max()) > 0.0,
+          "K3v 28-row main shape: dG_tex not finite or all zero")
+    check(bool(torch.isfinite(sgrads["tex_color"]).all())
+          and float(sgrads["tex_color"].abs().max()) > 0.0,
+          "K3v main shape: dG_tex not finite or all zero")
+    check(bool(torch.isfinite(vdg).all()) and bool((vdg != 0).all()),
+          f"K4v main shape: dG_hard {vdg.tolist()}")
+    check(plain_calls == 0, "the K3v/K4v main shapes ran a plain pass")
+    done("large_grad_main_shapes")
+
+    # 8d. the chunk scan's grad kernels' times at the main path's shape
+    # (1200x675 spp16 d50): K8 on bouncing (and with its IOR slot, K4v, under
+    # the sky gradient), K3v on the 80-sphere scene, K4v on the 79-sphere
+    # scene's 4 slots; single pass and the compacted schedule (the default
+    # grad caps), the scene packed once; bounds from the run's own bounces
+    # (the forward's: the suffix tier's phase-A bounces)
+    large_grad_times = {}
+    for name, scene, slots, want_tex, sky in (
+            ("k8", builtin(pt, "bouncing_spheres", 1200, 16, 50), (), True,
+             False),
+            ("k8_k4v_ior", builtin(pt, "bouncing_spheres", 1200, 16, 50),
+             "mat_ior", True, True),
+            ("k3v", wide(scan_tex_scene(pt), 1200, 16, 50), (), True, False),
+            ("k3v_rows28", wide(rows_scene(pt), 1200, 16, 50), (), True,
+             False),
+            ("k4v", wide(vscan_slots_scene(pt), 1200, 16, 50), "jax_test",
+             False, False)):
+        flat, cam, kw = pass_args(pt, scene, dev)
+        kw["sky_gradient"] = kw["sky_gradient"] or sky
+        if slots == "jax_test":
+            slots = vscan_slots(flat.mat_type.cpu(), MAT_METAL,
+                                MAT_DIELECTRIC)
+        elif slots:
+            slots = wc.hard_param_slots(flat, {slots})
+        prep = wc.prepare_kernel(flat, cam, slots)
+        gpass = functools.partial(wc.render_pass_grad_kernel, prepared=prep)
+        g = cotangent(torch, kw, dev, 6)
+        gkw = dict(cotangent=g, hard_slots=slots, want_tex=want_tex, **kw)
+        t_single = cuda_ms(torch, lambda: gpass(flat, cam, 0, 0, **gkw))
+        t_comp = cuda_ms(torch, lambda: wc.render_pass_grad_compacted(
+            flat, cam, 0, 0, pass_fn=gpass, **gkw))
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        bounces = counted_bounces(
+            torch, lambda it: wc.render_pass_kernel(flat, cam, 0, 0, iters=it,
+                                                    **kw), n_lanes, dev)
+        form = wc.tex_form(flat, want_tex)
+        ops = vscan_bounce_ops(flat) + OPS_SLOT * len(slots)
+        if form == "suffix":
+            ops += vscan_bounce_ops(flat) + OPS_ROUTE
+        elif form == "planes":
+            ops += OPS_PLANE * 3 * flat.tex_type.shape[0]
+        n = kw["width"] * kw["height"] * kw["n_samples"]
+        rec = {"form": form, "slots": len(slots), "single_ms": t_single,
+               "compacted_ms": t_comp,
+               "single_mpaths_per_s": n / t_single / 1e3,
+               "compacted_mpaths_per_s": n / t_comp / 1e3,
+               "caps": list(wc.default_grad_caps(
+                   flat, kw["width"], kw["height"], kw["n_samples"],
+                   kw["max_depth"])),
+               "forward_bounces": bounces, "ops_per_bounce": ops,
+               "bound_ms": ops * bounces / PEAK_FP32 * 1e3,
+               "sky_gradient": kw["sky_gradient"]}
+        large_grad_times[name] = rec
+        emit("large_grad_times", card=card, shape=f"{name} 1200x675 spp16 "
+             "d50", **rec)
+    done("large_grad_times")
     emit("phase_seconds", **phase_s)
 
     hard_main = hard_err["cornell_box_1920x1080"]
@@ -1384,7 +1859,58 @@ def main() -> int:
         "ms_at": "city301 400x225 spp9 d6",
         "plain_ms_at": "city301 400x225 spp9 d6",
         "compacted_ms":
-            large_times["city301_400x225_spp9_d6"]["compacted_ms"]}]}),
+            large_times["city301_400x225_spp9_d6"]["compacted_ms"]}, {
+        "name": "wavefront_grad_vscan_kernel[planes]", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_K3V,
+        "launches": k3v_launches,
+        "max_abs_err": lg_err["k3v_scan_tex"]["dg_tex_max_abs_err"],
+        "ms": large_grad_times["k3v"]["single_ms"],
+        "plain_ms": lg_err["k3v_scan_tex"]["plain_ms"],
+        "bound_ms": large_grad_times["k3v"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": "scan_tex (80 spheres, 7 rows) 1200x675 spp16 d50",
+        "plain_ms_at": "scan_tex 1200x675 spp4 d50",
+        "max_abs_err_at": "dG_tex, scan_tex 1200x675 spp4 d50",
+        "compacted_ms": large_grad_times["k3v"]["compacted_ms"]}, {
+        "name": "wavefront_grad_vscan_kernel[shared_planes]",
+        "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_K3V,
+        "launches": rows_launches,
+        "max_abs_err": lg_err["k3v_rows28"]["dg_tex_max_abs_err"],
+        "ms": large_grad_times["k3v_rows28"]["single_ms"],
+        "plain_ms": lg_err["k3v_rows28"]["plain_ms"],
+        "bound_ms": large_grad_times["k3v_rows28"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": "rows (79 spheres, 28 rows) 1200x675 spp16 d50",
+        "plain_ms_at": "rows 1200x675 spp4 d50",
+        "max_abs_err_at": "dG_tex, rows 1200x675 spp4 d50",
+        "compacted_ms": large_grad_times["k3v_rows28"]["compacted_ms"]}, {
+        "name": "wavefront_grad_vscan_kernel[hard_slots]", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_K4V,
+        "launches": large_train["tex_color+mat_ior"]["launches"][
+            "vscan_hard_launches"],
+        "max_abs_err": max(e["max_abs_err"] for e in lg_err[
+            "k4v_vscan_slots"]["dg_hard"].values()),
+        "ms": large_grad_times["k4v"]["single_ms"],
+        "plain_ms": lg_err["k4v_vscan_slots"]["plain_ms"],
+        "bound_ms": large_grad_times["k4v"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": "vscan_slots (79 spheres) 1200x675 spp16 d50, 4 slots",
+        "plain_ms_at": "vscan_slots 1200x675 spp4 d50, 4 slots",
+        "max_abs_err_at": "dG_hard, vscan_slots 1200x675 spp4 d50",
+        "launches_at": "bouncing_spheres tex_color + mat_ior training",
+        "compacted_ms": large_grad_times["k4v"]["compacted_ms"]}, {
+        "name": "wavefront_grad_vscan_kernel[suffix]", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_K8,
+        "launches": large_train["tex_color"]["launches"]["suffix_launches"],
+        "max_abs_err": lg_err["k8_bouncing"]["dg_tex_max_abs_err"],
+        "ms": large_grad_times["k8"]["single_ms"],
+        "plain_ms": lg_err["k8_bouncing"]["plain_ms"],
+        "bound_ms": large_grad_times["k8"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": "bouncing_spheres 1200x675 spp16 d50",
+        "plain_ms_at": "bouncing_spheres 1200x675 spp4 d50",
+        "max_abs_err_at": "dG_tex, bouncing_spheres 1200x675 spp4 d50",
+        "compacted_ms": large_grad_times["k8"]["compacted_ms"]}]}),
         flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,11 @@
 //   495-620, vscan_select 1378-1533, vscan_record 1614-1752, gather_fields
 //   1046, tex_eval_dag 1903-1939; K7 vquad: _pack_vquad_tables 626-675,
 //   qtest_rows..qchunk_body 1535-1612, the merge 1714-1733), in its own
-//   instance (see "Chunk scan" below).
+//   instance (see "Chunk scan" below); and the grad tiers over the chunk
+//   scan's selection (K3v weight planes, MAX_GRAD_TEXS 348; K4v tangent
+//   bundles, vscan_record's post-gather theta aliasing 1614-1752, gate
+//   313-342; K8 the suffix-radiance tier, grad_suffix 914-931, 2350-2375,
+//   2545-2559, 2604-2637, 3205-3262).
 //
 // Shape: one thread per lane (pixel), the reference engine's own
 //   static_render_kernel shape (CameraKernels.cu:240-278). Each thread loops
@@ -106,11 +110,42 @@
 //   sphere tests per bounce; a per-thread BVH (K12's shape) would bound them
 //   at O(log N) and is the open alternative (PERF.md).
 //
+// Chunk-scan grad (K3v, K4v): wavefront_grad_vscan_kernel is the grad
+//   kernel's tiers over closest_select_vscan. The winner's original id
+//   indexes the scene tables, so physics<T> and the slot table's aliasing
+//   (rd_sph by original row, light rows through light_src) are the unrolled
+//   kernel's: the JAX kernel's post-gather theta aliasing needs nothing
+//   more here. The tables stay in global memory, as K6 reads them; shared
+//   memory holds the chunk boxes and the tangent planes. The weight planes
+//   stay in registers for up to 16 rows (NTMAX 8 or 16); for 17 to 32 rows
+//   (96 + 96 floats a thread, which registers cannot hold beside the
+//   bounce) they live in shared memory, [plane][thread] as the tangent
+//   planes do (SPLANES: 48 KB a block at 16 rows, 96 KB at 32), where the
+//   chunk scan has room since its tables stay in global memory; their Gp
+//   sums reduce per block as dG does.
+//
+// Suffix-radiance tier (K8), for more than MAX_GRAD_TEXS texture rows,
+//   where weight planes (6 floats a row a lane) do not fit: each lane runs
+//   each sample twice from the same counter-RNG draws. Phase A traces it,
+//   owns the image and the hard slots' tangents, and sums the path's
+//   radiance T; phase B replays it bounce for bounce, sums the prefix P
+//   after each bounce, and routes g * [th at an emission + (T - P) / at at
+//   a non-dielectric hit] to the hit's eff row: what a path radiates after
+//   a hit is proportional to that hit's attenuation at, so one division
+//   gives d radiance / d at (0 where |at| <= 1e-8: a channel of albedo
+//   exactly 0 gets no scatter gradient, the JAX estimator's known limit).
+//   The routes add into a per-block 3 * NT accumulator in shared memory
+//   (5.5 KB at bouncing_spheres' 460 rows) with float atomicAdd, where the
+//   JAX kernel reduces 128-wide one-hot rows; the carry gains the phase, T
+//   and P (7 rows). The cost is about two forward passes, whatever NT is.
+//
 // Reductions: Gp (K3) per block by a shuffle tree in each warp and then the
 //   4 warps in order; dG (K4) per block by one thread per slot summing the
 //   block's 128 lanes in order. One partial row per block (3NT tex entries,
-//   then K hard ones); the wrapper sums the rows. No float atomics, so the
-//   gradients are the same on every run.
+//   then K hard ones); the wrapper sums the rows. Outside the suffix tier
+//   there are no float atomics, so those gradients are the same on every
+//   run; the suffix tier's per-block sums take its atomics' order, so its
+//   dG_tex may differ in the last bits from run to run.
 //
 // RNG: the PCG4D counter hash keyed per (pixel, absolute sample, mixed
 //   seed) with the tags camera 0x0CA4, bounce 0x4000000 + b and medium
@@ -188,7 +223,7 @@ struct WfParams {
     int n_lanes, n_pix, width, n_strata, max_depth, n_samples, sample_start;
     unsigned int seed_mix, perlin_seed;
     int sky_gradient, has_noise, checker_depth, cap;
-    int S, Q, L, M, MS, MQ, NT, K, want_tex;
+    int S, Q, L, M, MS, MQ, NT, K, want_tex, suffix;
     int off_sph, off_quad, off_pmat, off_light, off_mati, off_matf, off_tex,
         off_med, off_lsrc, off_slot, med_cols, n_table;
     float inv_strata;
@@ -572,8 +607,8 @@ __device__ __forceinline__ bool quad_hit(const float* q, V3T<T> o, V3T<T> d,
 // later prim wins only when strictly closer, so ties go to the lowest
 // unified prim id. Returns the winner (-1: miss) and its t in *t_best.
 // Selection has no tangent: the dual passes reuse it.
-__device__ int closest_select(const Scene& sc, V3 o, V3 d, float tm,
-                              float* t_best) {
+static __device__ int closest_select(const Scene& sc, V3 o, V3 d,
+                                     float tm, float* t_best) {
     float best_t = BIGF;
     int best = -1;
     float a = dot(d, d);
@@ -671,10 +706,11 @@ __device__ __forceinline__ void scan_quads(const float* __restrict__ rows,
 // QROW_COLS) are read from global memory at V.off_rows / V.off_qrows of
 // vtab, the (widened) chunk boxes (C + Cq, 6: lo xyz, hi xyz) from `box` in
 // shared memory.
-__device__ int closest_select_vscan(const Scene& sc, const VsParams& V,
-                                   const float* __restrict__ vtab,
-                                   const float* box, V3 o, V3 d, float tm,
-                                   float* t_best) {
+static __device__ int closest_select_vscan(const Scene& sc,
+                                           const VsParams& V,
+                                           const float* __restrict__ vtab,
+                                           const float* box, V3 o, V3 d,
+                                           float tm, float* t_best) {
     float best_t = BIGF;
     int best = -1;
     const float a = dot(d, d);
@@ -940,9 +976,9 @@ __device__ T light_pdf(const Scene& sc, V3T<T> o, V3T<T> d, float tm,
 
 // (models/camera.py::generate_rays) camera ray for absolute sample s_abs;
 // returns the normalized direction
-__device__ void gen_ray(const WfParams& P, const float* cam, uint32_t k0,
-                        uint32_t k2, float fi, float fj, int s_abs, V3& o,
-                        V3& d, float& tm) {
+static __device__ void gen_ray(const WfParams& P, const float* cam,
+                               uint32_t k0, uint32_t k2, float fi, float fj,
+                               int s_abs, V3& o, V3& d, float& tm) {
     float u[5];
     draws(k0, (uint32_t)s_abs, k2, 0x0CA4u, u, 5);
     float s_i = (float)(s_abs % P.n_strata);
@@ -964,6 +1000,16 @@ __device__ void gen_ray(const WfParams& P, const float* cam, uint32_t k0,
     tm = u[4];
 }
 
+// A surface or medium hit's event for the suffix-radiance tier (K8,
+// wavefront_pallas.py:2604-2637): the tex_color row the hit reads (eff, -1
+// for a marble leaf), whether it emits (a light's front face), whether it
+// is a dielectric (attenuation 1, no tex dependence) and its attenuation.
+struct SfxEv {
+    bool hit, emit, diel;
+    int eff;
+    float at[3];
+};
+
 // (ops/integrator.py::bounce_step) the bounce after selection, for the
 // winner `best` (-1: no surface) at t best_t, in place: rad gets the
 // radiance increment, and o, d, th the next ray state where the path goes
@@ -972,14 +1018,22 @@ __device__ void gen_ray(const WfParams& P, const float* cam, uint32_t k0,
 // along (o, d, th)'s tangent and the seeded table cell's. NTMAX > 0 (float
 // only) also updates the tex_color weight planes at the radiance events
 // and the scatter (wavefront_pallas.py:2565-2603): Wp[3t+c] = d th_c /
-// d tex_color[t][c], Gp its cotangent sums, gc the lane's cotangent.
+// d tex_color[t][c], Gp its cotangent sums, gc the lane's cotangent. ev
+// (float only; nullptr elsewhere) gets a hit's suffix-tier event. sw (float
+// only; nullptr elsewhere) holds the same planes in shared memory instead,
+// for 17 to 32 rows (K3v): plane k of Wp at sw[k * WF_THREADS], of Gp at
+// sw[(n_sw + k) * WF_THREADS], this thread's column, n_sw = 3 * NT; the
+// updates are the register planes', operation for operation.
 template <typename T, int NTMAX>
 __device__ __forceinline__ bool physics(
         const Scene& sc, const WfParams& P, const float* cam, int best,
         float best_t, V3T<T>& o, V3T<T>& d, V3T<T>& th, V3T<T>& rad,
         float tm, const float* u, const float* u_med, Seed sd,
         float (&Wp)[NTMAX > 0 ? 3 * NTMAX : 1],
-        float (&Gp)[NTMAX > 0 ? 3 * NTMAX : 1], const float (&gc)[3]) {
+        float (&Gp)[NTMAX > 0 ? 3 * NTMAX : 1], const float (&gc)[3],
+        SfxEv* ev = nullptr, float* sw = nullptr, int n_sw = 0) {
+    constexpr bool FLOAT = std::is_same<T, float>::value;
+    float* sg = sw + n_sw * WF_THREADS;
     HitT<T> h = hit_record(sc, best, best_t, o, d, tm, sd);
     if (sc.M > 0) {
         int mrow;
@@ -1016,6 +1070,14 @@ __device__ __forceinline__ bool physics(
             for (int k = 0; k < 3 * NTMAX; ++k)
                 Gp[k] = Gp[k] + gc[k % 3] * Wp[k] * sk[k % 3];
         }
+        if constexpr (FLOAT) {
+            if (sw) {
+                const float sk[3] = {sky.x, sky.y, sky.z};
+                for (int k = 0; k < n_sw; ++k)
+                    sg[k * WF_THREADS] = sg[k * WF_THREADS]
+                        + gc[k % 3] * sw[k * WF_THREADS] * sk[k % 3];
+            }
+        }
         return false;
     }
     const int mtype = (int)sc.mati[h.mat * 2 + 0];
@@ -1026,6 +1088,17 @@ __device__ __forceinline__ bool physics(
     const bool is_metal = mtype == MAT_METAL;
     const bool is_diel = mtype == MAT_DIELECTRIC;
     const bool is_iso = mtype == MAT_ISOTROPIC;
+    if constexpr (std::is_same<T, float>::value) {
+        if (ev) {
+            ev->hit = true;
+            ev->emit = is_light && h.front;
+            ev->diel = is_diel;
+            ev->eff = eff;
+            ev->at[0] = is_diel ? 1.0f : tc.x;
+            ev->at[1] = is_diel ? 1.0f : tc.y;
+            ev->at[2] = is_diel ? 1.0f : tc.z;
+        }
+    }
     if (is_light && h.front) {
         rad.x = rad.x + th.x * tc.x;
         rad.y = rad.y + th.y * tc.y;
@@ -1038,6 +1111,15 @@ __device__ __forceinline__ bool physics(
             for (int k = 0; k < 3 * NTMAX; ++k)
                 Gp[k] = Gp[k] + gc[k % 3] * (
                     Wp[k] * tv[k % 3] + (eff == k / 3 ? tt[k % 3] : 0.0f));
+        }
+        if constexpr (FLOAT) {
+            if (sw) {
+                const float tv[3] = {tc.x, tc.y, tc.z};
+                for (int k = 0; k < n_sw; ++k)
+                    sg[k * WF_THREADS] = sg[k * WF_THREADS] + gc[k % 3] * (
+                        sw[k * WF_THREADS] * tv[k % 3]
+                        + (eff == k / 3 ? tt[k % 3] : 0.0f));
+            }
         }
     }
     if (is_light) return false;
@@ -1117,6 +1199,15 @@ __device__ __forceinline__ bool physics(
                 Wp[k] = (Wp[k] * av[k % 3]
                          + (row == k / 3 ? tt[k % 3] : 0.0f)) * f;
         }
+        if constexpr (FLOAT) {
+            if (sw) {
+                const float av[3] = {at.x, at.y, at.z};
+                const int row = is_diel ? -1 : eff;
+                for (int k = 0; k < n_sw; ++k)
+                    sw[k * WF_THREADS] = (sw[k * WF_THREADS] * av[k % 3]
+                        + (row == k / 3 ? tt[k % 3] : 0.0f)) * factor;
+            }
+        }
         th.x = th.x * at.x * factor;
         th.y = th.y * at.y * factor;
         th.z = th.z * at.z * factor;
@@ -1142,10 +1233,18 @@ __host__ __device__ __forceinline__ int table_pad(int n_table) {
 // rows 14..14+3NT), and Gp[3t+c] accumulates g_c * d(radiance_c)/d tex at
 // each radiance event, g the lane's cotangent. NTMAX is the compile-time
 // bound of NT, so every plane index is a constant after unrolling. HARD
-// adds the K tangent bundles (see the top of this file). `red` is the
-// block's (WF_THREADS / 32, 3 * NTMAX) shared scratch of the end-of-pass
+// adds the K tangent bundles (see the top of this file). SUFFIX is the
+// suffix-radiance tier of tex_color (K8, see the top of this file). `red` is
+// the block's (WF_THREADS / 32, 3 * NTMAX) shared scratch of the end-of-pass
 // reduction (NTMAX > 0 only).
-template <int NTMAX, bool HARD, bool VSCAN = false>
+//
+// Shared memory (smem): the tables (the chunk scan: its boxes), padded to
+// plane_base; then (HARD) the tangent planes and their sums, 10 * K *
+// WF_THREADS floats; then (SUFFIX) the block's 3 * NT tex_color
+// accumulators, or (SPLANES) the weight planes Wp and Gp, 2 * 3 * NT *
+// WF_THREADS floats, for 17 to 32 rows that do not fit in registers.
+template <int NTMAX, bool HARD, bool VSCAN = false, bool SUFFIX = false,
+          bool SPLANES = false>
 __device__ __forceinline__ void wavefront_body(
         const WfParams& P, const float* __restrict__ tables,
         const int* __restrict__ pix_lanes,
@@ -1154,7 +1253,15 @@ __device__ __forceinline__ void wavefront_body(
         float* __restrict__ dg_out, int* __restrict__ iters_out,
         float* smem, float* cam, float* red, VsParams V = VsParams(),
         const float* __restrict__ vtab = nullptr) {
-    constexpr bool GRAD = NTMAX > 0 || HARD;
+    constexpr bool GRAD = NTMAX > 0 || HARD || SUFFIX || SPLANES;
+    static_assert(!SUFFIX || NTMAX == 0, "the suffix tier has no planes");
+    static_assert(!SPLANES || (NTMAX == 0 && !SUFFIX),
+                  "shared-memory planes replace the register planes");
+    const int plane_base = VSCAN ? table_pad(V.n_box) : table_pad(P.n_table);
+    float* acc = smem + plane_base + (HARD ? 10 * P.K * WF_THREADS : 0);
+    if constexpr (SUFFIX) {
+        for (int i = threadIdx.x; i < 3 * P.NT; i += blockDim.x) acc[i] = 0.0f;
+    }
     if constexpr (VSCAN) {
         // the chunk scan reads the scene tables from global memory and
         // keeps only the chunk boxes in shared memory
@@ -1222,7 +1329,30 @@ __device__ __forceinline__ void wavefront_body(
         sample = 0;
     }
     V3 rad = v3(0.0f, 0.0f, 0.0f);
-    const int n_wp = NTMAX > 0 ? 3 * P.NT : 0;
+    const int n_wp = (NTMAX > 0 || SPLANES) ? 3 * P.NT : 0;
+    // the shared-memory planes: Wp then Gp, [plane][thread] after the
+    // tangent planes (acc's place), this thread's column
+    float* sw = acc + threadIdx.x;
+    if constexpr (SPLANES) {
+        for (int k = 0; k < n_wp; ++k) {
+            sw[k * WF_THREADS] = carry_in ? carry_in[(14 + k) * N + lane]
+                                          : 0.0f;
+            sw[(n_wp + k) * WF_THREADS] = 0.0f;
+        }
+    }
+    // the suffix tier's lane state: the phase (false: A traces the sample,
+    // true: B replays it), A's path total T and B's prefix P (carry rows
+    // 14 + 9K .. 14 + 9K + 6)
+    bool phB = false;
+    V3 Tt = v3(0.0f, 0.0f, 0.0f), Pp = v3(0.0f, 0.0f, 0.0f);
+    if constexpr (SUFFIX) {
+        if (carry_in) {
+            const float* cs = carry_in + (size_t)(14 + 9 * P.K) * N + lane;
+            phB = cs[0] > 0.5f;
+            Tt = v3(cs[1 * N], cs[2 * N], cs[3 * N]);
+            Pp = v3(cs[4 * N], cs[5 * N], cs[6 * N]);
+        }
+    }
 
     // weight planes (path state) and their cotangent sums (per pass);
     // planes t >= NT stay 0: no hit reads their row
@@ -1244,7 +1374,7 @@ __device__ __forceinline__ void wavefront_body(
     }
     // tangent bundles: plane c of slot k at dst[(9k + c) * WF_THREADS], its
     // cotangent sum at dgs[k * WF_THREADS] (this thread's column)
-    float* dst = smem + table_pad(P.n_table) + threadIdx.x;
+    float* dst = smem + plane_base + threadIdx.x;
     float* dgs = dst + 9 * P.K * WF_THREADS;
     if constexpr (HARD) {
         for (int j = 0; j < 9 * P.K; ++j)
@@ -1255,9 +1385,21 @@ __device__ __forceinline__ void wavefront_body(
 
     int it = 0;
     for (; work && (P.cap == 0 || it < P.cap); ++it) {
-        // a finished path restarts on the pixel's next stratified sample
+        // a finished path restarts on the pixel's next stratified sample;
+        // in the suffix tier a finished phase-A path first replays the same
+        // sample as phase B (the counter RNG draws the same numbers), and a
+        // finished phase B moves to the next sample's phase A
         if (!alive) {
-            sample += 1;
+            if constexpr (SUFFIX) {
+                if (phB) {
+                    sample += 1;
+                    Tt = v3(0.0f, 0.0f, 0.0f);
+                }
+                phB = !phB;
+                Pp = v3(0.0f, 0.0f, 0.0f);
+            } else {
+                sample += 1;
+            }
             gen_ray(P, cam, k0, k2, fi, fj, P.sample_start + sample, o, d,
                     tm);
             th = v3(1.0f, 1.0f, 1.0f);
@@ -1268,6 +1410,9 @@ __device__ __forceinline__ void wavefront_body(
             if constexpr (NTMAX > 0) {
 #pragma unroll
                 for (int k = 0; k < 3 * NTMAX; ++k) Wp[k] = 0.0f;
+            }
+            if constexpr (SPLANES) {
+                for (int k = 0; k < n_wp; ++k) sw[k * WF_THREADS] = 0.0f;
             }
             if constexpr (HARD) {
                 for (int j = 0; j < 9 * P.K; ++j) dst[j * WF_THREADS] = 0.0f;
@@ -1288,15 +1433,51 @@ __device__ __forceinline__ void wavefront_body(
         else
             best = closest_select(sc, o, d, tm, &best_t);
         const V3 o0 = o, d0 = d, th0 = th;
+        // the suffix tier takes the bounce's radiance increment apart
+        V3 drad = v3(0.0f, 0.0f, 0.0f);
+        SfxEv ev;
+        ev.hit = false;
         const bool alive_new = physics<float, NTMAX>(
-            sc, P, cam, best, best_t, o, d, th, rad, tm, u, u_med,
-            Seed{0, 0, 0}, Wp, Gp, gc);
+            sc, P, cam, best, best_t, o, d, th, SUFFIX ? drad : rad, tm, u,
+            u_med, Seed{0, 0, 0}, Wp, Gp, gc, SUFFIX ? &ev : nullptr,
+            SPLANES ? sw : nullptr, SPLANES ? n_wp : 0);
+        if constexpr (SUFFIX) {
+            if (!phB) {
+                // phase A owns the image and the path total
+                rad = add(rad, drad);
+                Tt = add(Tt, drad);
+            } else {
+                // phase B: the prefix after this bounce's events, and the
+                // hit's events routed to its eff row: g * th at an
+                // emission, g * (T - P) / at at a non-dielectric hit (what
+                // the path radiates after it is proportional to its
+                // attenuation; 0 where |at| <= 1e-8)
+                Pp = add(Pp, drad);
+                if (ev.hit && ev.eff >= 0) {
+                    const float tv[3] = {th0.x, th0.y, th0.z};
+                    const float sf[3] = {Tt.x - Pp.x, Tt.y - Pp.y,
+                                         Tt.z - Pp.z};
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        const float e = ev.emit ? tv[c] : 0.0f;
+                        float sc_ = 0.0f;
+                        if (!ev.diel && fabsf(ev.at[c]) > 1e-8f)
+                            sc_ = sf[c] / ev.at[c];
+                        const float v = gc[c] * (e + sc_);
+                        if (v != 0.0f) atomicAdd(acc + 3 * ev.eff + c, v);
+                    }
+                }
+            }
+        }
         if constexpr (HARD) {
             // one dual pass per slot: the same bounce from the same ray and
-            // selection, along slot k's tangent, so the same outcome
+            // selection, along slot k's tangent, so the same outcome. Phase
+            // B's events repeat phase A's: the tangents count in A only
+            // (the planes stay 0 from B's regeneration on)
+            const int n_dual = (SUFFIX && phB) ? 0 : P.K;
             float nw[1], ng[1];
 #pragma unroll 1
-            for (int k = 0; k < P.K; ++k) {
+            for (int k = 0; k < n_dual; ++k) {
                 float* ds = dst + 9 * k * WF_THREADS;
                 const float* sl = sc.slot + SLOT_COLS * k;
                 const Seed sd = {(int)sl[0], (int)sl[1], (int)sl[2]};
@@ -1331,6 +1512,8 @@ __device__ __forceinline__ void wavefront_body(
         bounce += 1;
         alive = alive_new && bounce < P.max_depth;
         work = alive || (sample + 1 < P.n_samples);
+        // a finished phase-A path still owes its replay
+        if constexpr (SUFFIX) work = work || !phB;
     }
 
     rad_out[0 * N + lane] = rad.x;
@@ -1357,15 +1540,27 @@ __device__ __forceinline__ void wavefront_body(
             for (int k = 0; k < 3 * NTMAX; ++k)
                 if (k < n_wp) carry_out[(14 + k) * N + lane] = Wp[k];
         }
+        if constexpr (SPLANES) {
+            for (int k = 0; k < n_wp; ++k)
+                carry_out[(14 + k) * N + lane] = sw[k * WF_THREADS];
+        }
         if constexpr (HARD) {
             for (int j = 0; j < 9 * P.K; ++j)
                 carry_out[(14 + n_wp + j) * N + lane] = dst[j * WF_THREADS];
         }
+        if constexpr (SUFFIX) {
+            float* cs = carry_out + (size_t)(14 + 9 * P.K) * N + lane;
+            cs[0] = phB ? 1.0f : 0.0f;
+            cs[1 * N] = Tt.x; cs[2 * N] = Tt.y; cs[3 * N] = Tt.z;
+            cs[4 * N] = Pp.x; cs[5 * N] = Pp.y; cs[6 * N] = Pp.z;
+        }
     }
     if constexpr (GRAD) {
         // one partial row per block: 3NT tex entries, then K hard ones,
-        // each summed in a fixed order (no float atomics)
-        const int n_row = n_wp + (HARD ? P.K : 0);
+        // each summed in a fixed order (the suffix tier's tex entries are
+        // its shared accumulators, added to by float atomics)
+        const int n_tex = SUFFIX ? 3 * P.NT : n_wp;
+        const int n_row = n_tex + (HARD ? P.K : 0);
         if constexpr (NTMAX > 0) {
             // Gp: a shuffle tree in each warp, then the warps in order
             const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
@@ -1387,19 +1582,145 @@ __device__ __forceinline__ void wavefront_body(
                 dg_out[blockIdx.x * n_row + threadIdx.x] = s;
             }
         }
+        if constexpr (SUFFIX) {
+            for (int i = threadIdx.x; i < n_tex; i += blockDim.x)
+                dg_out[blockIdx.x * n_row + i] = acc[i];
+        }
+        if constexpr (SPLANES) {
+            // Gp: plane k's 128 lanes in lane order
+            if (threadIdx.x < n_wp) {
+                const float* col = acc + (n_wp + threadIdx.x) * WF_THREADS;
+                float s = 0.0f;
+                for (int i = 0; i < WF_THREADS; ++i) s += col[i];
+                dg_out[blockIdx.x * n_row + threadIdx.x] = s;
+            }
+        }
         if constexpr (HARD) {
             // dG: slot k's 128 lanes in lane order
             if (threadIdx.x < P.K) {
-                const float* col = smem + table_pad(P.n_table)
+                const float* col = smem + plane_base
                     + (9 * P.K + threadIdx.x) * WF_THREADS;
                 float s = 0.0f;
                 for (int i = 0; i < WF_THREADS; ++i) s += col[i];
-                dg_out[blockIdx.x * n_row + n_wp + threadIdx.x] = s;
+                dg_out[blockIdx.x * n_row + n_tex + threadIdx.x] = s;
             }
         }
     }
 }
 
+// The library is built from this file in parts, each part a translation
+// unit of its own, compiled in parallel and linked into one shared library
+// (ops/wavefront_cuda.py::build_library): WF_PART 0 holds the forward
+// instances, the unrolled grad instances and every C entry point; 1 the
+// chunk scan's weight-plane grad instances for at most 16 rows (K3v, with
+// K4v); 2 its hard-slot-only and suffix instances (K4v, K8); 3 its
+// shared-memory weight planes for 17 to 32 rows (K3v, with K4v). Without
+// WF_PART the file holds all of them.
+#ifndef WF_PART
+#define WF_PART -1
+#endif
+#define WF_IN_PART(p) (WF_PART < 0 || WF_PART == (p))
+
+// dynamic shared memory, raised past the default 48 KB where a launch
+// needs it
+static cudaError_t set_smem(const void* kernel, size_t bytes) {
+    if (bytes <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The pointers of one grad launch.
+struct GradArgs {
+    const float* tables;
+    const float* vtab;
+    const int* pix_lanes;
+    const float* carry_in;
+    const float* cot;
+    float* rad_out;
+    float* carry_out;
+    float* dg_out;
+    int* iters_out;
+};
+
+// the chunk scan's grad launchers (parts 1 and 2)
+int launch_vgrad_planes(const WfParams& P, const VsParams& V,
+                        const GradArgs& A, cudaStream_t stream);
+int launch_vgrad_other(const WfParams& P, const VsParams& V,
+                       const GradArgs& A, cudaStream_t stream);
+int launch_vgrad_splanes(const WfParams& P, const VsParams& V,
+                         const GradArgs& A, cudaStream_t stream);
+
+// The chunk scan's grad passes (K3v weight planes, K4v tangent bundles,
+// K8 the suffix-radiance tier, each with the carry of K5): the unrolled
+// grad kernel's tiers over closest_select_vscan. The winner's original id
+// indexes the scene tables (global memory), so physics<T> and the slot
+// table's aliasing are the unrolled kernel's; shared memory holds the
+// chunk boxes, the tangent planes and the suffix accumulators or (SPLANES,
+// 17 to 32 rows) the weight planes.
+template <int NTMAX, bool HARD, bool SUFFIX, bool SPLANES = false>
+__global__ void __launch_bounds__(WF_THREADS)
+wavefront_grad_vscan_kernel(WfParams P, VsParams V, GradArgs A) {
+    __shared__ float cam[22];
+    __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
+    wavefront_body<NTMAX, HARD, true, SUFFIX, SPLANES>(
+        P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out, A.carry_out,
+        A.dg_out, A.iters_out, wf_tables, cam, red, V, A.vtab);
+}
+
+template <int NTMAX, bool HARD, bool SUFFIX, bool SPLANES = false>
+static int launch_grad_vscan(const WfParams& P, const VsParams& V,
+                             const GradArgs& A, cudaStream_t stream) {
+    const size_t floats = (size_t)table_pad(V.n_box)
+        + (HARD ? (size_t)10 * P.K * WF_THREADS : 0)
+        + (SUFFIX ? (size_t)3 * P.NT : 0)
+        + (SPLANES ? (size_t)6 * P.NT * WF_THREADS : 0);
+    const size_t smem = floats * sizeof(float);
+    cudaError_t e = set_smem(
+        (const void*)
+            wavefront_grad_vscan_kernel<NTMAX, HARD, SUFFIX, SPLANES>,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    wavefront_grad_vscan_kernel<NTMAX, HARD, SUFFIX, SPLANES>
+        <<<P.n_lanes / WF_THREADS, WF_THREADS, smem, stream>>>(P, V, A);
+    return (int)cudaGetLastError();
+}
+
+#if WF_IN_PART(1)
+// weight planes for NT <= 16, with or without tangent bundles
+int launch_vgrad_planes(const WfParams& P, const VsParams& V,
+                        const GradArgs& A, cudaStream_t stream) {
+    if (P.K == 0)
+        return P.NT <= 8 ? launch_grad_vscan<8, false, false>(P, V, A, stream)
+                         : launch_grad_vscan<16, false, false>(P, V, A,
+                                                               stream);
+    return P.NT <= 8 ? launch_grad_vscan<8, true, false>(P, V, A, stream)
+                     : launch_grad_vscan<16, true, false>(P, V, A, stream);
+}
+#endif
+
+#if WF_IN_PART(2)
+// tangent bundles alone, or the suffix tier with or without them
+int launch_vgrad_other(const WfParams& P, const VsParams& V,
+                       const GradArgs& A, cudaStream_t stream) {
+    if (!P.suffix) return launch_grad_vscan<0, true, false>(P, V, A, stream);
+    return P.K == 0 ? launch_grad_vscan<0, false, true>(P, V, A, stream)
+                    : launch_grad_vscan<0, true, true>(P, V, A, stream);
+}
+#endif
+
+#if WF_IN_PART(3)
+// weight planes for 17 to 32 rows, in shared memory, with or without
+// tangent bundles
+int launch_vgrad_splanes(const WfParams& P, const VsParams& V,
+                         const GradArgs& A, cudaStream_t stream) {
+    return P.K == 0 ? launch_grad_vscan<0, false, false, true>(P, V, A,
+                                                               stream)
+                    : launch_grad_vscan<0, true, false, true>(P, V, A,
+                                                              stream);
+}
+#endif
+
+#if WF_IN_PART(0)
 // The forward pass (K1, K2).
 extern "C" __global__ void __launch_bounds__(WF_THREADS)
 wavefront_forward_kernel(WfParams P, const float* __restrict__ tables,
@@ -1449,14 +1770,6 @@ wavefront_grad_kernel(WfParams P, const float* __restrict__ tables,
     wavefront_body<NTMAX, HARD>(P, tables, pix_lanes, carry_in, cot,
                                 rad_out, carry_out, dg_out, iters_out,
                                 wf_tables, cam, red);
-}
-
-// dynamic shared memory, raised past the default 48 KB where a launch
-// needs it
-static cudaError_t set_smem(const void* kernel, size_t bytes) {
-    if (bytes <= 48 * 1024) return cudaSuccess;
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 // Plain C entry points (bound with ctypes). Each launches on `stream` and
@@ -1547,3 +1860,34 @@ extern "C" int rt_wavefront_grad(const WfParams* params,
                      : launch_grad<16, true>(WF_GRAD_ARGS);
 #undef WF_GRAD_ARGS
 }
+
+// The chunk scan's grad passes: dg_out as rt_wavefront_grad's; P.suffix
+// selects the suffix tier (3 * NT accumulator entries in place of the
+// weight planes' 3 * NT, and its 7 carry rows after the tangent planes).
+extern "C" int rt_wavefront_grad_vscan(const WfParams* params,
+                                       const VsParams* vparams,
+                                       const float* tables,
+                                       const float* vtab,
+                                       const int* pix_lanes,
+                                       const float* carry_in,
+                                       const float* cot, float* rad_out,
+                                       float* carry_out, float* dg_out,
+                                       int* iters_out, void* stream) {
+    const WfParams P = *params;
+    const VsParams V = *vparams;
+    if (P.n_lanes % WF_THREADS != 0 || V.C_small < 1 || V.n_big < 0
+        || V.n_big > VCHUNK || V.Cq < 0 || V.n_box < 6 * V.C_small
+        || P.K < 0 || P.K > MAX_SLOTS
+        || (P.suffix && (!P.want_tex || P.NT < 1))
+        || (!P.suffix && P.want_tex && (P.NT < 1 || P.NT > 32))
+        || (!P.want_tex && P.K == 0))
+        return (int)cudaErrorInvalidValue;
+    const GradArgs A = {tables, vtab, pix_lanes, carry_in, cot, rad_out,
+                        carry_out, dg_out, iters_out};
+    cudaStream_t s = (cudaStream_t)stream;
+    if (P.want_tex && !P.suffix)
+        return P.NT <= 16 ? launch_vgrad_planes(P, V, A, s)
+                          : launch_vgrad_splanes(P, V, A, s);
+    return launch_vgrad_other(P, V, A, s);
+}
+#endif  // WF_IN_PART(0)

@@ -1,23 +1,25 @@
 """Path-tracing megakernel (CUDA) and its plain torch version.
 
-Port of the JAX package's ops/wavefront_pallas.py Pallas kernel in six of
-its variants: the unrolled forward (K1), its capped/resume variant under
-the compacted driver (K2), the forward-mode gradient pass with tex_color
+Port of the JAX package's ops/wavefront_pallas.py Pallas kernel in its
+variants: the unrolled forward (K1), its capped/resume variant under the
+compacted driver (K2), the forward-mode gradient pass with tex_color
 weight planes (K3) and hard-parameter tangent bundles (K4) under the
 compacted grad driver (K5), and, for scenes past the unrolled bounds (up to
 MAX_PRIMS_SCAN primitives), the forward over the Morton chunk scan's
-selection (K6 vscan; K7 vquad, quads in chunks too). Here they are one
-hand-written CUDA kernel body, csrc/wavefront.cu, built with nvcc for
-sm_90a at first use and bound with ctypes. Beside it:
+selection (K6 vscan; K7 vquad, quads in chunks too) and the grad pass over
+it (K3v weight planes, K4v tangent bundles, and past MAX_GRAD_TEXS texture
+rows the suffix-radiance tier K8). Here they are one hand-written CUDA
+kernel body, csrc/wavefront.cu, built with nvcc for sm_90a at first use
+(its parts in parallel) and bound with ctypes. Beside it:
 
   - `render_pass_reference` / `render_pass_grad_reference`: the same lane
     wavefront in plain torch, built from the integrator's per-bounce step
     (ops/integrator.py): persistent lane regeneration, `cap`, `carry` and
     `pix_lanes`, the same carry layout (14 rows; the grad pass appends its
-    3*NT weight planes and 9 tangent planes per hard slot). The hard slots'
-    tangents are torch.func.jvp of the bounce step, batched over the slots
-    with torch.func.vmap. The CPU tests run them; on the card only the
-    parity checks do.
+    3*NT weight planes, 9 tangent planes per hard slot and the suffix
+    tier's 7 rows). The hard slots' tangents are torch.func.jvp of the
+    bounce step, batched over the slots with torch.func.vmap. The CPU tests
+    run them; on the card only the parity checks do.
   - `pass_function` / `grad_pass_function` / `render_pass`: the
     dispatchers. A scene on a CUDA device launches the kernel (or raises),
     its tables packed once by `prepare_kernel`; a scene on the CPU runs the
@@ -28,9 +30,9 @@ sm_90a at first use and bound with ctypes. Beside it:
   - `hard_param_slots` / `light_sphere_sources` / `hard_slots_gate_reason`:
     the hard slots' metadata (wavefront_pallas.py:313-425), the slot table
     the kernel reads (`_slot_table`).
-  - `kernel_mode` / `kernel_gate_reason` / `grad_gate_reason`: which
-    instance a scene takes, and what the forward and the grad kernels
-    accept (the grad kernels: unrolled scenes only).
+  - `kernel_mode` / `kernel_gate_reason` / `grad_gate_reason` /
+    `tex_form`: which instance a scene takes, what the forward and the grad
+    kernels accept, and which tex_color tier a grad pass runs.
   - `pack_vscan_tables` / `vscan_select_reference`: the chunk scan's tables
     (wavefront_pallas.py:495-675) and the plain version of its selection;
     the plain pass (`render_pass_reference`) stays the all-primitive
@@ -98,7 +100,9 @@ QROW_COLS = 20        # quad chunk rows: corner, u, v, normal, d, w, id, pad
 LANE_BLOCK = 128  # = WF_THREADS, the kernel's block size
 CARRY_ROWS = 14   # work, alive, bounce, sample, time, o xyz, d xyz, th xyz
 # (the grad pass appends 3*NT weight-plane rows, then 9 tangent-plane rows
-# per hard slot, wavefront_pallas.py:3240-3244)
+# per hard slot, then the suffix tier's SUFFIX_ROWS: phase, T xyz, P xyz;
+# wavefront_pallas.py:3240-3249)
+SUFFIX_ROWS = 7
 
 # the hard trainable families and their slot kinds
 # (wavefront_pallas.py:382-383)
@@ -120,8 +124,11 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
 # torch version does op by op (with contraction, 3.4% of Cornell 128^2
 # spp16 d50 pixels flipped a branch, over the 1% parity rule)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# csrc/wavefront.cu is compiled once per part (-DWF_PART=p), the parts in
+# parallel, and the objects linked into one library (the file's comment
+# above its kernels says which instances each part holds)
+WF_PARTS = (0, 1, 2, 3)
 
 
 # ------------------------------------------------------------------- gate
@@ -170,32 +177,44 @@ def kernel_gate_reason(flat: FlatScene) -> str | None:
     return None
 
 
-def grad_gate_reason(flat: FlatScene, n_slots: int = 0) -> str | None:
-    """Why a grad pass (weight planes and n_slots tangent bundles) cannot
-    run on this scene (None = it can). The grad kernels hold at most 16
-    weight planes in registers and copy every table into shared memory, so
-    they take the unrolled mode only; for a vscan scene this names the
-    kernel the JAX package would run and which is not ported: K3/K4 on the
-    vscan selection (at most MAX_GRAD_TEXS textures and MAX_HARD_SLOTS
-    slots), K8 past MAX_GRAD_TEXS textures, K9/K10 past MAX_HARD_SLOTS
-    slots (wavefront_pallas.py:313-378)."""
+def tex_form(flat: FlatScene, want_tex: bool = True,
+             force_planes: bool = False) -> str | None:
+    """The tex_color gradient's tier, the JAX package's rule
+    (wavefront_pallas.py:914-931): exact weight planes ("planes") for at
+    most MAX_GRAD_TEXS texture rows, else the suffix-radiance estimator
+    ("suffix", K8), whose cost does not grow with the rows; None without
+    want_tex. force_planes takes the weight planes at any row count (the
+    plain version's oracle for the suffix form)."""
+    if not want_tex:
+        return None
+    if flat.tex_type.shape[0] > MAX_GRAD_TEXS and not force_planes:
+        return "suffix"
+    return "planes"
+
+
+def grad_gate_reason(flat: FlatScene, n_slots: int = 0,
+                     want_tex: bool = True) -> str | None:
+    """Why a grad pass (tex_color if want_tex, and n_slots tangent bundles)
+    cannot run on the grad kernels (None = it can): the forward's gate; at
+    most MAX_HARD_SLOTS slots (past them the JAX package trains with the
+    adjoint kernels K9/K10, not ported); and the launch's shared memory
+    (grad_smem_bytes), which the chunk scan's weight planes for 17 to
+    MAX_GRAD_TEXS rows share with the tangent planes."""
     reason = kernel_gate_reason(flat)
-    if reason is not None or kernel_mode(flat)[0] == "unrolled":
+    if reason is not None:
         return reason
-    S, Q = flat.sph_center.shape[0], flat.quad_corner.shape[0]
     NT = flat.tex_type.shape[0]
     if n_slots > MAX_HARD_SLOTS:
-        missing = (f"the adjoint kernels K9/K10 ({n_slots} hard slots, over "
-                   f"{MAX_HARD_SLOTS})")
-    elif NT > MAX_GRAD_TEXS:
-        missing = (f"the suffix-radiance kernel K8 ({NT} textures, over "
-                   f"MAX_GRAD_TEXS={MAX_GRAD_TEXS})")
-    else:
-        missing = "K3/K4 on the vscan selection"
-    return (f"{S + Q} prims / {flat.mat_type.shape[0]} materials / {NT} "
-            f"textures exceeds the unrolled grad kernels' bounds "
-            f"({MAX_PRIMS_UNROLL} / {MAX_MATS} / {MAX_TEXS}); a grad pass on "
-            f"this vscan scene needs {missing}, not ported yet")
+        return (f"{n_slots} hard slots exceed the tangent-bundle kernel's "
+                f"MAX_HARD_SLOTS={MAX_HARD_SLOTS}; from 33 slots the JAX "
+                "package trains with the adjoint kernels (K9/K10), which "
+                "are not ported")
+    n_bytes = grad_smem_bytes(flat, n_slots, want_tex)
+    if n_bytes > MAX_SHARED_BYTES:
+        return (f"a grad pass with {n_slots} hard slots and {NT} texture "
+                f"rows needs {n_bytes} B of shared memory, over the "
+                f"{MAX_SHARED_BYTES} B a Hopper block can hold")
+    return None
 
 
 # ------------------------------------------------------------- hard slots
@@ -266,34 +285,42 @@ def _slot_table(hard_slots) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.float32).reshape(-1, 3)
 
 
-def _hard_smem_bytes(flat: FlatScene, n_slots: int) -> int:
-    """Shared memory of a grad launch with n_slots tangent bundles: the
-    tables (padded as csrc/wavefront.cu::table_pad does) and 10 floats a
-    slot a lane."""
-    n_table = _table_floats(flat) + 3 * n_slots
-    return 4 * (-(-n_table // 32) * 32 + 10 * n_slots * LANE_BLOCK)
+def _vscan_box_floats(flat: FlatScene) -> int:
+    """Floats of the chunk boxes a chunk-scan launch copies into shared
+    memory: pack_vscan_tables' box rows, 6 floats each."""
+    S, Q = flat.sph_center.shape[0], flat.quad_corner.shape[0]
+    n_big = VSCAN_BIG if S > VCHUNK else 0
+    C_small = max(-(-(S - n_big) // VCHUNK), 1)
+    Cq = -(-Q // VCHUNK) if Q > MAX_QUADS_VSCAN else 0
+    return 6 * (C_small + (1 if n_big else 0) + Cq)
+
+
+def grad_smem_bytes(flat: FlatScene, n_slots: int,
+                    want_tex: bool = True) -> int:
+    """Shared memory of a grad launch (csrc/wavefront.cu, wavefront_body):
+    the tables (the unrolled mode, with the slot table) or the chunk boxes
+    (the chunk scan, whose tables stay in global memory), padded as
+    table_pad does; 10 floats a hard slot a lane; the suffix tier's 3 * NT
+    accumulators; on the chunk scan, weight planes for more than MAX_TEXS
+    rows, 6 floats a row a lane (Wp and its cotangent sums Gp)."""
+    NT = flat.tex_type.shape[0]
+    vscan = kernel_mode(flat)[0] == "vscan"
+    n = _vscan_box_floats(flat) if vscan else (_table_floats(flat)
+                                               + 3 * n_slots)
+    n = -(-n // 32) * 32 + 10 * n_slots * LANE_BLOCK
+    form = tex_form(flat, want_tex)
+    if form == "suffix":
+        n += 3 * NT
+    elif form == "planes" and vscan and NT > MAX_TEXS:
+        n += 6 * NT * LANE_BLOCK
+    return 4 * n
 
 
 def hard_slots_gate_reason(flat: FlatScene, n_slots: int) -> str | None:
     """Why n_slots hard slots cannot run in the grad kernel (None = they
-    can): grad_gate_reason, and the kernel's slot bound. On the unrolled
-    kernel the JAX package has no other bound (wavefront_pallas.py:313-328);
-    its vscan bound MAX_HARD_SLOTS_VSCAN waits for K3/K4 on the vscan
-    selection."""
-    reason = grad_gate_reason(flat, n_slots)
-    if reason is not None:
-        return reason
-    if n_slots > MAX_HARD_SLOTS:
-        return (f"{n_slots} hard slots exceed the tangent-bundle kernel's "
-                f"MAX_HARD_SLOTS={MAX_HARD_SLOTS}; from 33 slots the JAX "
-                "package trains with the adjoint kernels (K9/K10), which "
-                "are not ported")
-    n_bytes = _hard_smem_bytes(flat, n_slots)
-    if n_bytes > MAX_SHARED_BYTES:
-        return (f"{n_slots} hard slots need {n_bytes} B of shared memory "
-                f"with the tables, over the {MAX_SHARED_BYTES} B a Hopper "
-                "block can hold")
-    return None
+    can): grad_gate_reason without tex_color (the suffix tier's
+    accumulators are counted where want_tex is known, at the launch)."""
+    return grad_gate_reason(flat, n_slots, want_tex=False)
 
 
 # ----------------------------------------------------------------- tables
@@ -735,15 +762,23 @@ def _grad_result(rad, dg_tex, dg_hard, st, *, cap, pix_lanes, width,
     return _image_from_lanes(rad, width, height), dg_tex, dg_hard
 
 
-def _grad_rows(flat: FlatScene, cot, hard_slots, want_tex) -> tuple:
-    """(weight-plane rows 3*NT or 0, hard slots K) of a pass: 0 and 0 for
-    the forward (cot None). Raises for a grad pass with nothing to
-    differentiate."""
+def _grad_layout(flat: FlatScene, cot, hard_slots, want_tex,
+                 force_planes: bool = False) -> tuple:
+    """(weight-plane rows 3*NT or 0, hard slots K, suffix tier) of a pass:
+    0, 0, False for the forward (cot None). Its carry has CARRY_ROWS +
+    3*NT (weight planes) + 9*K + SUFFIX_ROWS (suffix tier) rows. Raises for
+    a grad pass with nothing to differentiate."""
     if cot is None:
-        return 0, 0
+        return 0, 0, False
     if not want_tex and not hard_slots:
         raise ValueError("a grad pass needs want_tex or hard_slots")
-    return (3 * flat.tex_type.shape[0] if want_tex else 0), len(hard_slots)
+    form = tex_form(flat, want_tex, force_planes)
+    n_wp = 3 * flat.tex_type.shape[0] if form == "planes" else 0
+    return n_wp, len(hard_slots), form == "suffix"
+
+
+def _carry_rows(n_wp: int, K: int, suffix: bool) -> int:
+    return CARRY_ROWS + n_wp + 9 * K + (SUFFIX_ROWS if suffix else 0)
 
 
 def _slot_tangents(flat: FlatScene, hard_slots) -> tuple:
@@ -791,7 +826,8 @@ def _hard_tangents(flat: FlatScene, org, dr, tm, th, alive, u, u_med,
 def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
                          sample_start, *, width, height, n_strata, max_depth,
                          n_samples, sky_gradient, cap, carry, pix_lanes,
-                         iters, cot, hard_slots=(), want_tex=True):
+                         iters, cot, hard_slots=(), want_tex=True,
+                         force_planes=False):
     """The persistent lane wavefront in plain torch; with `cot` ((3,
     n_lanes) cotangent lanes) also the JAX grad kernel's tiers: with
     want_tex the tex_color weight planes (wavefront_pallas.py:865-873,
@@ -803,7 +839,19 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         Wp[t, c] <- (Wp[t, c] * at_c + [eff == t and not dielectric]
                      * th_c) * factor   under the throughput's guard,
 
-    and for the hard slots the tangent bundles (875-896, 2395, 2411-2542):
+    or, past MAX_GRAD_TEXS rows (tex_form), the suffix-radiance tier
+    (914-931, 2361-2375, 2545-2559, 2604-2637): each sample runs twice from
+    the same draws, phase A tracing it (the image, its path total T) and
+    phase B replaying it (its prefix P after each bounce), and at each
+    phase-B hit on row t = eff_tex
+
+        dG_tex[t, c] += g_c * ([emits] * th_c
+                               + [not dielectric] * (T_c - P_c) / at_c),
+
+    the scatter term 0 where |at_c| <= 1e-8 (so a channel of albedo exactly
+    0 gets no scatter gradient: the estimator's known limit); and for the
+    hard slots the tangent bundles (875-896, 2395, 2411-2542), in phase A
+    only under the suffix tier:
 
         Dst[k] = d(o, d, th) / d theta_k, reset to 0 on regeneration,
         dG[k] += <g, d radiance increment / d theta_k> every bounce,
@@ -817,8 +865,9 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
     n_pix = width * height
     n_lanes = lane_count(n_pix)
     nt = flat.tex_type.shape[0]
-    n_wp, K = _grad_rows(flat, cot, hard_slots, want_tex)
-    _check_carry(carry, pix_lanes, n_lanes, CARRY_ROWS + n_wp + 9 * K)
+    n_wp, K, suffix = _grad_layout(flat, cot, hard_slots, want_tex,
+                                   force_planes)
+    _check_carry(carry, pix_lanes, n_lanes, _carry_rows(n_wp, K, suffix))
     _check_iters(iters, n_lanes, device)
     pix = (_identity_pixels(n_lanes, n_pix, device) if pix_lanes is None
            else pix_lanes.to(device=device, dtype=torch.int64))
@@ -840,6 +889,9 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         bounce = torch.zeros_like(sample)
         wp = torch.zeros(n_lanes, n_wp, dtype=torch.float32, device=device)
         dst = torch.zeros(n_lanes, K, 9, dtype=torch.float32, device=device)
+        phb = torch.zeros(n_lanes, dtype=torch.bool, device=device)
+        tot = torch.zeros(n_lanes, 3, dtype=torch.float32, device=device)
+        pre = torch.zeros_like(tot)
     else:
         carry = carry.to(device=device, dtype=torch.float32)
         work, alive = carry[0] > 0.5, carry[1] > 0.5
@@ -848,10 +900,15 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         org, dr, th = carry[5:8].T.clone(), carry[8:11].T.clone(), \
             carry[11:14].T.clone()
         wp = carry[CARRY_ROWS:CARRY_ROWS + n_wp].T.clone()
-        dst = carry[CARRY_ROWS + n_wp:].T.reshape(n_lanes, K, 9).clone()
+        sb = CARRY_ROWS + n_wp + 9 * K
+        dst = carry[CARRY_ROWS + n_wp:sb].T.reshape(n_lanes, K, 9).clone()
+        phb = carry[sb] > 0.5 if suffix else torch.zeros_like(work)
+        tot = carry[sb + 1:sb + 4].T.clone() if suffix else None
+        pre = carry[sb + 4:sb + 7].T.clone() if suffix else None
     rad = torch.zeros(n_lanes, 3, dtype=torch.float32, device=device)
     gp = torch.zeros(n_lanes, n_wp, dtype=torch.float32, device=device)
     dgh = torch.zeros(n_lanes, K, dtype=torch.float32, device=device)
+    acc = torch.zeros(nt, 3, dtype=torch.float32, device=device)
     rows = torch.arange(nt, device=device)
     slot_tans = _slot_tangents(flat, hard_slots) if K else None
 
@@ -862,9 +919,19 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
             break
         p, s, b, a = pix[idx], sample[idx], bounce[idx], alive[idx]
         o, d, t_, h = org[idx], dr[idx], tm[idx], th[idx]
-        # a finished path restarts on the pixel's next stratified sample
+        # a finished path restarts on the pixel's next stratified sample;
+        # under the suffix tier a finished phase A first replays its sample
+        # as phase B, and a finished phase B moves on to the next sample
         regen = ~a
-        s = torch.where(regen, s + 1, s)
+        if suffix:
+            ph = phb[idx]
+            to_a = regen & ph
+            s = torch.where(to_a, s + 1, s)
+            ph = torch.where(regen, ~ph, ph)
+            t_tot = torch.where(to_a[:, None], 0.0, tot[idx])
+            t_pre = torch.where(regen[:, None], 0.0, pre[idx])
+        else:
+            s = torch.where(regen, s + 1, s)
         go, gd, gt = camera(p, s)
         o = torch.where(regen[:, None], go, o)
         d = torch.where(regen[:, None], gd, d)
@@ -877,10 +944,29 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         u = rng.bounce_uniforms(keys, b)
         u_med = medium_uniforms(flat, keys, b)
         out = bounce_step(flat, o, d, t_, h, a, u, u_med, background,
-                          sky_gradient, record=n_wp > 0)
+                          sky_gradient, record=n_wp > 0 or suffix)
         drad, o_new, d_new, h_new, a_new = out[:5]
-        if n_wp or K:
+        if n_wp or K or suffix:
             g = cot[:, idx].T                             # (n, 3)
+        if suffix:
+            # phase A owns the image and the path total T, phase B the
+            # prefix P after this bounce; B routes its hit's events
+            in_a = ~ph
+            t_tot = t_tot + torch.where(in_a[:, None], drad, 0.0)
+            t_pre = t_pre + torch.where(in_a[:, None], 0.0, drad)
+            drad = torch.where(in_a[:, None], drad, 0.0)
+            ev = out[5]
+            emit_b = ev["emit_on"] & ph
+            scat_b = ev["live_hit"] & ~ev["is_diel"] & ph
+            at = ev["at"]
+            ok = at.abs() > 1e-8
+            div = torch.where(ok, (t_tot - t_pre) / torch.where(ok, at, 1.0),
+                              0.0)
+            val = g * (torch.where(emit_b[:, None], h, 0.0)
+                       + torch.where(scat_b[:, None], div, 0.0))
+            sel = (emit_b | scat_b) & (ev["eff_tex"] >= 0)
+            acc.index_add_(0, ev["eff_tex"][sel], val[sel])
+            tot[idx], pre[idx], phb[idx] = t_tot, t_pre, ph
         if n_wp:
             ev = out[5]
             gt3 = g[:, None, :]                           # (n, 1, 3)
@@ -903,18 +989,27 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         if K:
             # a fresh path starts at the camera: no parameter dependence
             ds = torch.where(regen[:, None, None], 0.0, dst[idx])
-            t_rad, t_o, t_d, t_th = _hard_tangents(
-                flat, o, d, t_, h, a, u, u_med, background, sky_gradient,
-                slot_tans, ds)
-            dgh[idx] += (t_rad * g[None]).sum(-1).T
-            new = torch.cat([t_o, t_d, t_th], dim=-1).permute(1, 0, 2)
-            dst[idx] = torch.where(a_new[:, None, None], new, ds)
+            # under the suffix tier phase B repeats phase A's events: the
+            # tangents run in phase A only (B's planes stay 0)
+            j = torch.nonzero(~ph).squeeze(1) if suffix else slice(None)
+            if not suffix or j.numel():
+                t_rad, t_o, t_d, t_th = _hard_tangents(
+                    flat, o[j], d[j], t_[j], h[j], a[j], u[j],
+                    None if u_med is None else u_med[j], background,
+                    sky_gradient, slot_tans, ds[j])
+                dgh[idx[j]] += (t_rad * g[j][None]).sum(-1).T
+                new = torch.cat([t_o, t_d, t_th], dim=-1).permute(1, 0, 2)
+                ds[j] = torch.where(a_new[j][:, None, None], new, ds[j])
+            dst[idx] = ds
         rad[idx] += drad
         b = b + 1
         a = a_new & (b < max_depth)
         org[idx], dr[idx], tm[idx], th[idx] = o_new, d_new, t_, h_new
         sample[idx], bounce[idx], alive[idx] = s, b, a
         work[idx] = a | (s + 1 < n_samples)
+        if suffix:
+            # a finished phase-A path still owes its replay
+            work[idx] |= ~ph
         if iters is not None:
             iters[idx] += 1
         it += 1
@@ -925,8 +1020,10 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         st = torch.cat([work.to(f32)[None], alive.to(f32)[None],
                         bounce.to(f32)[None], sample.to(f32)[None], tm[None],
                         org.T, dr.T, th.T, wp.T,
-                        dst.reshape(n_lanes, 9 * K).T])
-    dg_tex = gp.sum(0).reshape(nt, 3) if n_wp else None
+                        dst.reshape(n_lanes, 9 * K).T]
+                       + ([phb.to(f32)[None], tot.T, pre.T] if suffix
+                          else []))
+    dg_tex = acc if suffix else (gp.sum(0).reshape(nt, 3) if n_wp else None)
     dg_hard = dgh.sum(0) if cot is not None else None
     return rad.T.contiguous(), st, dg_tex, dg_hard
 
@@ -966,14 +1063,20 @@ def render_pass_grad_reference(flat: FlatScene, cam: CameraState, seed,
                                n_samples: int, cotangent,
                                hard_slots: tuple = (), want_tex: bool = True,
                                sky_gradient: bool = False, cap: int = 0,
-                               carry=None, pix_lanes=None, iters=None):
-    """The plain version of the grad kernel (K3, K4): render_pass_reference's
-    pass plus, for g the cotangent, dG_tex = d<g, radiance sum>/d tex_color
-    (NT, 3) by forward-mode weight planes (want_tex; None without) and
-    dG_hard = d<g, radiance sum>/d theta_k (K,) for the hard slots
-    (hard_param_slots) by tangent bundles, the JVP of each bounce. The
-    image is the forward pass's, path for path. The carry has 14 + 3*NT +
-    9*K rows (the weight and tangent planes ride it); the cotangent is
+                               carry=None, pix_lanes=None, iters=None,
+                               force_planes: bool = False):
+    """The plain version of the grad kernel (K3, K4, K8 and their
+    chunk-scan instances: the plain pass tests every primitive in every
+    mode): render_pass_reference's pass plus, for g the cotangent, dG_tex =
+    d<g, radiance sum>/d tex_color (NT, 3) by forward-mode weight planes or,
+    past MAX_GRAD_TEXS rows, the suffix-radiance tier (tex_form;
+    force_planes takes the weight planes at any count) (want_tex; None
+    without) and dG_hard = d<g, radiance sum>/d theta_k (K,) for the hard
+    slots (hard_param_slots) by tangent bundles, the JVP of each bounce.
+    The image is the forward pass's, path for path (the suffix tier traces
+    each sample twice: iters counts both phases). The carry has 14 + 3*NT +
+    9*K (+ SUFFIX_ROWS) rows (the weight and tangent planes and the suffix
+    state ride it); the cotangent is
     (height, width, 3), or (3, n_lanes) lane planes under pix_lanes
     (cotangent_lanes). Returns (image, dG_tex, dG_hard), (radiance planes,
     dG_tex, dG_hard) under pix_lanes, (radiance, dG_tex, dG_hard, carry)
@@ -986,7 +1089,7 @@ def render_pass_grad_reference(flat: FlatScene, cam: CameraState, seed,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
         iters=iters, cot=cot, hard_slots=tuple(hard_slots),
-        want_tex=want_tex)
+        want_tex=want_tex, force_planes=force_planes)
     return _grad_result(rad, dg_tex, dg_hard, st, cap=cap,
                         pix_lanes=pix_lanes, width=width, height=height)
 
@@ -1003,7 +1106,7 @@ class _Params(ctypes.Structure):
         + [("seed_mix", ctypes.c_uint), ("perlin_seed", ctypes.c_uint)]
         + [(n, ctypes.c_int) for n in (
             "sky_gradient", "has_noise", "checker_depth", "cap",
-            "S", "Q", "L", "M", "MS", "MQ", "NT", "K", "want_tex",
+            "S", "Q", "L", "M", "MS", "MQ", "NT", "K", "want_tex", "suffix",
             "off_sph", "off_quad", "off_pmat", "off_light", "off_mati",
             "off_matf", "off_tex", "off_med", "off_lsrc", "off_slot",
             "med_cols", "n_table")]
@@ -1043,6 +1146,12 @@ class KernelLibrary:
         # params, tables, pix_lanes, carry_in, cotangent, rad_out,
         # carry_out, dg_out, iters, stream
         self.grad.argtypes = [ctypes.POINTER(_Params)] + [ptr] * 9
+        self.grad_vscan = self.lib.rt_wavefront_grad_vscan
+        self.grad_vscan.restype = ctypes.c_int
+        # params, vparams, tables, vtab, pix_lanes, carry_in, cotangent,
+        # rad_out, carry_out, dg_out, iters, stream
+        self.grad_vscan.argtypes = [ctypes.POINTER(_Params),
+                                    ctypes.POINTER(_VsParams)] + [ptr] * 10
 
 
 def _nvcc() -> str:
@@ -1059,34 +1168,49 @@ def _nvcc() -> str:
 
 
 def build_library(build_dir: Path = BUILD_DIR) -> KernelLibrary:
-    """Build (or reuse) the kernel library. Raises on any build failure."""
-    sources = sorted(_CSRC.glob("*.cu"))
+    """Build (or reuse) the kernel library: each part of csrc/wavefront.cu
+    compiled by its own nvcc, all started together, then linked. Raises on
+    any build failure."""
+    source = _CSRC / "wavefront.cu"
     h = hashlib.sha256()
-    for src in sources + sorted(_CSRC.glob("*.cuh")):
+    for src in sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + [str(p) for p in WF_PARTS]).encode())
     out = build_dir / h.hexdigest()[:16] / "librt_wavefront.so"
     if out.exists():
         return KernelLibrary(out, "(cached)", 0.0)
     out.parent.mkdir(parents=True, exist_ok=True)
-    # build to a temp file and rename: concurrent builders race here
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + [str(s) for s in sources],
-            capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return KernelLibrary(out, proc.stdout + proc.stderr,
-                         time.perf_counter() - t0)
+    # build into a temporary directory and rename: concurrent builders race
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"wavefront_{p}.o") for p in WF_PARTS]
+        procs = [subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + [f"-DWF_PART={p}", "-c", "-o", obj,
+                                   str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p, obj in zip(WF_PARTS, objs)]
+        try:
+            logs = [proc.communicate(timeout=600)[0] for proc in procs]
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        log = "\n".join(logs)
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError(f"nvcc failed ({[q.returncode for q in procs]})"
+                               f":\n{log}")
+        lib = os.path.join(tmp, out.name)
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", lib] + objs, capture_output=True, text=True, timeout=600)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(lib, out)
+    return KernelLibrary(out, log, time.perf_counter() - t0)
 
 
 @functools.cache
@@ -1167,14 +1291,17 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     elif cot is not None and tuple(prepared.hard_slots) != hard_slots:
         raise ValueError(f"prepared for hard slots {prepared.hard_slots}, "
                          f"launched with {hard_slots}")
-    if cot is not None and prepared.mode != "unrolled":
-        raise ValueError("scene outside the CUDA kernel's gate: "
-                         f"{grad_gate_reason(flat, len(hard_slots))}")
+    if cot is not None:
+        reason = grad_gate_reason(flat, len(hard_slots), want_tex)
+        if reason is not None:
+            raise ValueError(f"scene outside the CUDA grad kernel's gate: "
+                             f"{reason}")
     n_pix = width * height
     n_lanes = lane_count(n_pix)
     nt = prepared.fields["NT"]
-    n_wp, K = _grad_rows(flat, cot, hard_slots, want_tex)
-    _check_carry(carry, pix_lanes, n_lanes, CARRY_ROWS + n_wp + 9 * K)
+    n_wp, K, suffix = _grad_layout(flat, cot, hard_slots, want_tex)
+    n_rows = _carry_rows(n_wp, K, suffix)
+    _check_carry(carry, pix_lanes, n_lanes, n_rows)
     _check_iters(iters, n_lanes, device)
     if n_strata * n_strata + int(sample_start) >= 1 << 24:
         raise ValueError("sample indices must stay below 2^24")
@@ -1184,7 +1311,8 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
         max_depth=max_depth, n_samples=n_samples,
         sample_start=int(sample_start), seed_mix=rng.mix_seed(seed),
         sky_gradient=int(bool(sky_gradient)), cap=int(cap), K=K,
-        want_tex=int(n_wp > 0),
+        want_tex=int(bool(want_tex) and cot is not None),
+        suffix=int(suffix),
         inv_strata=float(np.float32(1.0 / n_strata)), **prepared.fields)
 
     def ptr(t):
@@ -1196,8 +1324,8 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     if carry is not None:
         carry = carry.to(device=device, dtype=torch.float32).contiguous()
     rad = torch.empty(3, n_lanes, dtype=torch.float32, device=device)
-    st = (torch.empty(CARRY_ROWS + n_wp + 9 * K, n_lanes,
-                      dtype=torch.float32, device=device) if cap else None)
+    st = (torch.empty(n_rows, n_lanes, dtype=torch.float32, device=device)
+          if cap else None)
     lib = load_library()
     partial = None
     with torch.cuda.device(device):
@@ -1215,21 +1343,30 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
         else:
             cot = cot.to(device=device, dtype=torch.float32).contiguous()
             # one row of per-block partial sums (3NT tex entries, then K
-            # hard ones): no float atomics, and the sum over blocks below
-            # runs in a fixed order
-            partial = torch.empty(n_lanes // LANE_BLOCK, n_wp + K,
+            # hard ones), summed over the blocks below in a fixed order
+            n_tex = 3 * nt if p.want_tex else 0
+            partial = torch.empty(n_lanes // LANE_BLOCK, n_tex + K,
                                   dtype=torch.float32, device=device)
-            err = lib.grad(ctypes.byref(p), ptr(prepared.tables),
-                           ptr(pix_lanes), ptr(carry), ptr(cot), ptr(rad),
-                           ptr(st), ptr(partial), ptr(iters), stream)
+            if prepared.mode == "vscan":
+                err = lib.grad_vscan(
+                    ctypes.byref(p),
+                    ctypes.byref(_VsParams(**prepared.vfields)),
+                    ptr(prepared.tables), ptr(prepared.vtab),
+                    ptr(pix_lanes), ptr(carry), ptr(cot), ptr(rad),
+                    ptr(st), ptr(partial), ptr(iters), stream)
+            else:
+                err = lib.grad(ctypes.byref(p), ptr(prepared.tables),
+                               ptr(pix_lanes), ptr(carry), ptr(cot),
+                               ptr(rad), ptr(st), ptr(partial), ptr(iters),
+                               stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")
     if partial is None:
         return rad, st, None, None
     sums = partial.sum(0)
-    dg_tex = sums[:n_wp].reshape(nt, 3) if n_wp else None
-    return rad, st, dg_tex, sums[n_wp:]
+    dg_tex = sums[:n_tex].reshape(nt, 3) if n_tex else None
+    return rad, st, dg_tex, sums[n_tex:]
 
 
 def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
@@ -1276,15 +1413,19 @@ def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
                             carry=None, pix_lanes=None,
                             prepared: KernelInputs | None = None,
                             iters=None):
-    """The grad kernel's (K3, K4) wrapper: render_pass_grad_reference's
-    signature and results, on a CUDA device. `prepared` is
-    prepare_kernel(flat, cam, hard_slots), packed here when not given (its
-    slots must be `hard_slots`). The kernel writes one row of dG_tex and
-    dG_hard partial sums per block; they are summed here. Raises as
-    render_pass_kernel does, for a malformed cotangent, and for more than
-    MAX_HARD_SLOTS slots. Each launch adds one to
-    render_pass_grad_kernel.launches, and one with hard slots (the K4
-    instances) to render_pass_grad_kernel.hard_launches."""
+    """The grad kernel's (K3, K4, K8) wrapper: render_pass_grad_reference's
+    signature and results (the tier by tex_form), on a CUDA device.
+    `prepared` is prepare_kernel(flat, cam, hard_slots), packed here when
+    not given (its slots must be `hard_slots`); its mode picks the unrolled
+    instances or the chunk scan's (K3v, K4v, K8). The kernel writes one row
+    of dG_tex and dG_hard partial sums per block; they are summed here.
+    Raises as render_pass_kernel does, for a malformed cotangent, and for a
+    pass outside grad_gate_reason. Each launch adds one to
+    render_pass_grad_kernel.launches; one with hard slots (the K4
+    instances) to .hard_launches; one on the chunk scan's selection with
+    weight planes (K3v) to .vscan_tex_launches and one with hard slots
+    (K4v) to .vscan_hard_launches; one of the suffix tier (K8) to
+    .suffix_launches."""
     cot = cotangent_lanes(cotangent, width=width, height=height,
                           pix_lanes=pix_lanes)
     rad, st, dg_tex, dg_hard = _launch(
@@ -1294,14 +1435,22 @@ def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
         prepared=prepared, iters=iters, cot=cot, hard_slots=hard_slots,
         want_tex=want_tex)
     render_pass_grad_kernel.launches += 1
+    form = tex_form(flat, want_tex)
     if hard_slots:
         render_pass_grad_kernel.hard_launches += 1
+    if kernel_mode(flat)[0] == "vscan":
+        render_pass_grad_kernel.vscan_tex_launches += form == "planes"
+        render_pass_grad_kernel.vscan_hard_launches += bool(hard_slots)
+    render_pass_grad_kernel.suffix_launches += form == "suffix"
     return _grad_result(rad, dg_tex, dg_hard, st, cap=cap,
                         pix_lanes=pix_lanes, width=width, height=height)
 
 
 render_pass_grad_kernel.launches = 0
 render_pass_grad_kernel.hard_launches = 0
+render_pass_grad_kernel.vscan_tex_launches = 0
+render_pass_grad_kernel.vscan_hard_launches = 0
+render_pass_grad_kernel.suffix_launches = 0
 
 
 def pass_function(flat: FlatScene, cam: CameraState,

@@ -1,13 +1,18 @@
 """Differentiable rendering: optimize scene parameters against target images.
 
 Port of the JAX package's parallel/train.py (one shard, no mesh). The loss
-forward renders with the forward kernel (K1, and K2 under the compacted
-schedule); its backward is the forward-mode gradient kernel under the
-compacted grad driver (K5) over every trainable family: tex_color
-(albedo, emission, medium tint) by exact weight planes (K3), and the hard
-families (metal fuzz, dielectric IOR, sphere centers and radii) by one
-tangent bundle per scalar slot (K4), both dotted with the image cotangent
-at every radiance event (ops/wavefront_cuda.py). Sampling decisions use
+forward renders with the forward kernel (K1, or the chunk scan's K6/K7 past
+the unrolled bounds; K2 under the compacted schedule); its backward is the
+forward-mode gradient kernel under the compacted grad driver (K5) over
+every trainable family: tex_color (albedo, emission, medium tint) by exact
+weight planes (K3; K3v on the chunk scan's selection) for at most
+MAX_GRAD_TEXS texture rows, past them by the suffix-radiance estimator
+(K8, which replays each sample once more; a channel whose albedo is
+exactly 0 gets no scatter gradient, announced once when a render is
+built), and the hard families (metal fuzz, dielectric IOR, sphere centers
+and radii) by one tangent bundle per scalar slot (K4; K4v), all dotted with
+the image cotangent at every radiance event (ops/wavefront_cuda.py,
+tex_form). Sampling decisions use
 counter-based draws whose probabilities do not depend on the parameters,
 so the gradient is that of the estimator with its samples held fixed
 (reparameterized through intersection t for geometry), as in the JAX
@@ -22,13 +27,13 @@ hidden plain engines.
 
 Engines, as models/render.pick_engine resolves them: "cuda" runs the
 kernels (the scene on a CUDA device, inside kernel_gate_reason, or it
-raises); "torch" runs their plain torch versions, the engine for the CPU
-and, asked for by name, on the card; "auto" is "cuda" on a CUDA device and
-"torch" on the CPU. The grad kernels take the unrolled (Cornell-class)
-scenes only: on "cuda" a scene past those bounds, which the forward renders
-through the chunk scan (K6/K7), raises NotImplementedError naming the grad
-kernel it needs (grad_gate_reason: K3/K4 on the vscan selection, K8 or
-K9/K10, not ported) before any pass runs.
+raises); "torch" runs their plain torch versions (the same tiers), the
+engine for the CPU and, asked for by name, on the card; "auto" is "cuda" on
+a CUDA device and "torch" on the CPU. On "cuda" a request the grad kernels
+cannot serve (grad_gate_reason: a launch past a block's shared memory,
+where the tangent planes and, for 17 to MAX_GRAD_TEXS texture rows on the
+chunk scan, the weight planes live) raises NotImplementedError naming what
+is missing before any pass runs; there is no plain fallback.
 """
 from __future__ import annotations
 
@@ -40,13 +45,14 @@ import torch
 from ..scene.flat import FlatScene
 from ..models.camera import CameraState
 from ..models.render import pick_engine
-from ..ops.wavefront_cuda import (HARD_FIELDS, grad_gate_reason,
-                                  grad_pass_function, hard_param_slots,
-                                  kernel_mode, pass_function,
+from ..ops.wavefront_cuda import (HARD_FIELDS, MAX_GRAD_TEXS,
+                                  grad_gate_reason, grad_pass_function,
+                                  hard_param_slots, pass_function,
                                   prepare_kernel, render_pass_compacted,
                                   render_pass_grad_compacted,
                                   render_pass_grad_reference,
-                                  render_pass_reference, slot_index)
+                                  render_pass_reference, slot_index,
+                                  tex_form)
 
 # The JAX package's continuous, safely-differentiable scene parameters.
 TRAINABLE_FIELDS = ("tex_color", "mat_fuzz", "mat_ior", "sph_center",
@@ -201,12 +207,17 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
     grad pass under the same rule, with the image cotangent, over the
     requested families' slots (grad_slots, which raises from
     ADJOINT_MIN_SLOTS). cam and seed get no gradient. On the kernels a
-    scene outside grad_gate_reason raises NotImplementedError here."""
+    request outside grad_gate_reason raises NotImplementedError at its
+    first call, before any pass."""
     eng = pick_engine(baked, engine)
-    if eng == "cuda" and kernel_mode(baked)[0] != "unrolled":
-        raise NotImplementedError(
-            f"training on the kernels: {grad_gate_reason(baked)}; "
-            "engine='torch' runs the plain versions")
+    if tex_form(baked) == "suffix":
+        # the JAX package's build-time notice (train.py:112-123)
+        print(f"[INFO] tex_color backward: {baked.tex_color.shape[0]} "
+              f"texture rows > MAX_GRAD_TEXS={MAX_GRAD_TEXS} selects the "
+              "suffix-radiance estimator — exact, except channels with "
+              "albedo exactly 0 report a 0 scatter-gradient (one-sided "
+              "boundary); nudge dark initializations by epsilon if "
+              "training from black", flush=True)
     total = n_strata * n_strata
     plan = _Plan(baked=baked, engine=eng,
                  common=dict(width=width, height=height, n_strata=n_strata,
@@ -219,7 +230,14 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
         check_fields(params)
         names = tuple(f for f in TRAINABLE_FIELDS if f in params)
         if names not in requests:
-            requests[names] = _Request(names, grad_slots(baked, names))
+            req = _Request(names, grad_slots(baked, names))
+            reason = (grad_gate_reason(baked, len(req.slots), req.want_tex)
+                      if eng == "cuda" else None)
+            if reason is not None:
+                raise NotImplementedError(
+                    f"training {list(names)} on the kernels: {reason}; "
+                    "engine='torch' runs the plain versions")
+            requests[names] = req
         for n in names:
             want = getattr(baked, n)
             p = params[n]

@@ -26,12 +26,33 @@ def to_bytes(img) -> np.ndarray:
     return (256.0 * torch.clamp(g, 0.0, 0.999)).to(torch.uint8).cpu().numpy()
 
 
+# the decimal digits of each byte value, left-aligned in 3 columns, and
+# their count
+_DIGITS = np.zeros((256, 3), np.uint8)
+_N_DIGITS = np.zeros(256, np.int64)
+for _v in range(256):
+    _d = str(_v).encode()
+    _DIGITS[_v, :len(_d)] = np.frombuffer(_d, np.uint8)
+    _N_DIGITS[_v] = len(_d)
+
+
 def encode_ppm_p3(b: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 -> P3 file bytes."""
+    """(H, W, 3) uint8 -> P3 file bytes: "r g b" per pixel, one pixel a
+    line. Vectorised: every value's digits and its separator (a space, or a
+    newline after blue) are scattered into one byte buffer at the offsets
+    of a cumulative sum of their lengths."""
     h, w, _ = b.shape
-    rows = b.reshape(-1, 3).astype(str)
-    body = "\n".join(" ".join(r) for r in rows) + "\n"
-    return f"P3\n{w} {h}\n255\n".encode() + body.encode()
+    vals = np.ascontiguousarray(b, np.uint8).reshape(-1)
+    n_dig = _N_DIGITS[vals]
+    start = np.cumsum(n_dig + 1) - (n_dig + 1)
+    body = np.empty(int(n_dig.sum()) + vals.size, np.uint8)
+    for k in range(3):
+        has = n_dig > k
+        body[start[has] + k] = _DIGITS[vals[has], k]
+    sep = np.full(vals.size, ord(" "), np.uint8)
+    sep[2::3] = ord("\n")
+    body[start + n_dig] = sep
+    return f"P3\n{w} {h}\n255\n".encode() + body.tobytes()
 
 
 def write_ppm(path, img):

@@ -20,6 +20,7 @@ import torch
 import real_time_ray_tracing_engine_tpu_torch as pt
 from real_time_ray_tracing_engine_tpu_torch.models import camera as pcam
 from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
+from real_time_ray_tracing_engine_tpu_torch.parallel import train
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402  (stdlib only at import)
@@ -363,9 +364,118 @@ def test_vscan_kernel_matches_plain(name, cuda_device):
     assert (diff > 1e-3).mean() < 0.01, diff.max()
     assert abs(k.mean() - p.mean()) < 2e-3
     assert int(it_k.sum()) == int(it_p.sum())
-    # the compacted schedule and a grad pass on a vscan scene
+    # the compacted schedule, and a grad pass on the chunk scan's instance
     two = wc.render_pass_compacted(flat, cam, 7, 0, **kw)
     assert np.allclose(k, two.cpu().numpy(), atol=1e-5)
-    with pytest.raises(ValueError, match="vscan scene needs"):
-        wc.render_pass_grad_kernel(
-            flat, cam, 7, 0, cotangent=torch.zeros_like(kern), **kw)
+    before = wc.render_pass_grad_kernel.launches
+    img, _, _ = wc.render_pass_grad_kernel(
+        flat, cam, 7, 0, cotangent=torch.zeros_like(kern), **kw)
+    assert wc.render_pass_grad_kernel.launches == before + 1
+    np.testing.assert_array_equal(img.cpu().numpy(), k)
+
+
+def _large_grad_case(name, device):
+    """(flat, cam, kw, slots, want_tex) of the chunk scan's grad cases:
+    weight planes (K3v), in shared memory for 28 rows (K3v, NT 17-32) and
+    with the metals' fuzz and the glass's IOR, one slot per hard family
+    alone (K4v), the suffix tier (K8), and K4v riding K8."""
+    from real_time_ray_tracing_engine_tpu_torch.scene.flat import (
+        MAT_DIELECTRIC, MAT_METAL)
+    build = {"planes": cs.scan_tex_scene, "planes28": cs.rows_scene,
+             "planes28_hard": cs.rows_scene, "hard": cs.vscan_slots_scene,
+             "suffix": cs.suffix_scene,
+             "suffix_hard": cs.vscan_slots_scene}[name]
+    flat, cam, kw = cs.pass_args(pt, cs.sized(build(pt), 48, 4, 8), device)
+    slots = (cs.vscan_slots(flat.mat_type.cpu(), MAT_METAL, MAT_DIELECTRIC)
+             if name in ("hard", "suffix_hard") else ())
+    if name == "planes28_hard":
+        slots = wc.hard_param_slots(flat, {"mat_fuzz", "mat_ior"})
+    return flat, cam, kw, slots, name != "hard"
+
+
+@pytest.mark.parametrize("name", ["planes", "planes28", "planes28_hard",
+                                  "hard", "suffix", "suffix_hard"])
+def test_large_grad_kernels_match_plain(name, cuda_device):
+    """The chunk scan's grad instances (K3v, K4v, K8) against the plain
+    grad pass: the forward kernel's image, the bounces (the suffix tier
+    traces each sample twice), dG_tex and dG_hard within 1e-4 of their
+    largest entries (the suffix tier adds with float atomics), and the
+    compacted schedule (K5) against the single pass."""
+    flat, cam, kw, slots, want_tex = _large_grad_case(name, cuda_device)
+    assert wc.kernel_mode(flat)[0] == "vscan"
+    form = wc.tex_form(flat, want_tex)
+    assert form == ("planes" if name.startswith("planes") else
+                    None if name == "hard" else "suffix")
+    g = cs.cotangent(torch, kw, cuda_device, 5)
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    it_k = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
+    it_f = torch.zeros_like(it_k)
+    it_p = torch.zeros_like(it_k)
+    suffix = wc.render_pass_grad_kernel.suffix_launches
+    img, dgt, dgh = wc.render_pass_grad_kernel(
+        flat, cam, 7, 0, cotangent=g, hard_slots=slots, want_tex=want_tex,
+        iters=it_k, **kw)
+    fwd = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_f, **kw)
+    torch.cuda.synchronize()
+    assert wc.render_pass_grad_kernel.suffix_launches == suffix + (
+        form == "suffix")
+    _, dgt_p, dgh_p = wc.render_pass_grad_reference(
+        flat, cam, 7, 0, cotangent=g, hard_slots=slots, want_tex=want_tex,
+        iters=it_p, **kw)
+    np.testing.assert_array_equal(img.cpu().numpy(), fwd.cpu().numpy())
+    assert int(it_k.sum()) == int(it_p.sum()) == (
+        2 if form == "suffix" else 1) * int(it_f.sum())
+    if want_tex:
+        scale = float(dgt_p.abs().max())
+        assert scale > 0.0
+        assert float((dgt - dgt_p).abs().max()) <= 1e-4 * scale
+    else:
+        assert dgt is None
+    if slots:
+        fams = cs.family_errors(slots, dgh, dgh_p)
+        for fam, e in fams.items():
+            assert e["scale"] > 0.0, fam
+            assert e["max_abs_err"] <= 1e-4 * e["scale"], (fam, e)
+    img2, dgt2, dgh2 = wc.render_pass_grad_compacted(
+        flat, cam, 7, 0, cotangent=g, hard_slots=slots, want_tex=want_tex,
+        **kw)
+    assert np.allclose(img2.cpu().numpy(), img.cpu().numpy(), atol=1e-5)
+    if want_tex:
+        assert float((dgt2 - dgt).abs().max()) <= 1e-4 * scale
+    if slots:
+        assert float((dgh2 - dgh).abs().max()) <= 1e-4 * float(
+            dgh.abs().max())
+
+
+def test_large_scene_train_step_runs_the_kernels(cuda_device):
+    """make_train_step on bouncing_spheres (460 texture rows) on the card:
+    tex_color alone (K8 under K5) and with its IOR slot (K4v riding K8),
+    under the sky gradient so that the IOR has a gradient; the loss falls
+    and no plain pass runs."""
+    scene = cs.builtin(pt, "bouncing_spheres", 64, 16, 8)
+    flat, cam, kw = cs.pass_args(pt, scene, cuda_device)
+    kw.pop("n_samples")
+    kw["sky_gradient"] = True
+    target = train.make_kernel_render(flat, **kw)(
+        {"tex_color": flat.tex_color}, cam, 0).detach()
+    plain = (wc.render_pass_reference.calls
+             + wc.render_pass_grad_reference.calls)
+    for fields in (("tex_color",), ("tex_color", "mat_ior")):
+        params = {f: getattr(flat, f).detach().clone() for f in fields}
+        params["tex_color"][:4] *= 0.7
+        if "mat_ior" in params:
+            (slot,) = wc.hard_param_slots(flat, {"mat_ior"})
+            params["mat_ior"][slot[1]] = 1.4
+        for v in params.values():
+            v.requires_grad_(True)
+        step = train.make_train_step(torch.optim.Adam(params.values(),
+                                                      lr=0.02),
+                                     flat=flat, **kw)
+        suffix = wc.render_pass_grad_kernel.suffix_launches
+        losses = [float(step(params, cam, 0, target)) for _ in range(3)]
+        assert losses[2] < losses[1] < losses[0], (fields, losses)
+        assert wc.render_pass_grad_kernel.suffix_launches > suffix
+        for v in params.values():
+            assert bool(torch.isfinite(v.grad).all())
+    assert (wc.render_pass_reference.calls
+            + wc.render_pass_grad_reference.calls) == plain

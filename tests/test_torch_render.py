@@ -12,7 +12,7 @@ import real_time_ray_tracing_engine_tpu_torch as pt
 from real_time_ray_tracing_engine_tpu.utils.color import \
     to_bytes as jax_to_bytes
 from real_time_ray_tracing_engine_tpu_torch.models import camera as pcam
-from real_time_ray_tracing_engine_tpu_torch.utils import cli
+from real_time_ray_tracing_engine_tpu_torch.utils import cli, color
 
 from test_pallas import _assert_close as assert_close
 
@@ -73,6 +73,28 @@ def test_cli_writes_the_jax_ppm_bytes(tmp_path):
                                   np.asarray(b))
     w, h = pcam.image_size(_small(pt).camera)
     assert written.startswith(f"P3\n{w} {h}\n255\n".encode())
+
+
+def _join_p3(b):
+    """The P3 encoding as a string join per pixel: the port's encoder
+    before it was vectorised, and the JAX package's fallback."""
+    h, w, _ = b.shape
+    rows = b.reshape(-1, 3).astype(str)
+    body = "\n".join(" ".join(r) for r in rows) + "\n"
+    return f"P3\n{w} {h}\n255\n".encode() + body.encode()
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 3), (1, 1, 3), (1, 7, 3),
+                                   (5, 1, 3), (3, 85, 3)])
+def test_encode_ppm_p3_matches_the_join(shape):
+    """The vectorised P3 encoder writes the join's bytes: every value 0-255
+    (1, 2 and 3 digits) in order and shuffled, and odd shapes (1x1, 1xW,
+    Hx1)."""
+    n = int(np.prod(shape))
+    vals = np.arange(n) % 256
+    for b in (vals, np.random.default_rng(n).permutation(vals)):
+        b = b.astype(np.uint8).reshape(shape)
+        assert color.encode_ppm_p3(b) == _join_p3(b)
 
 
 @pytest.mark.parametrize("flags", [["-p"], ["-b"], ["-d"],

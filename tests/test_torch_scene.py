@@ -154,19 +154,22 @@ def _gate_scenes(mod):
 
 def test_kernel_gate_reason():
     expect_ok = [True, True, False, True, True, True]
-    expect_grad_ok = [True, True, False, True, True, False]
+    expect_grad_ok = [True, True, False, True, True, True]
     for js, ps, ok, grad_ok in zip(_gate_scenes(rt), _gate_scenes(pt),
                                    expect_ok, expect_grad_ok):
         jf, pf = rt.compile_scene(js), pt.compile_scene(ps)
         # the port's forward takes the JAX kernel's gate (the chunk scan
-        # past the unrolled bounds); its grad kernels take the JAX gate of
-        # the full grad kernel, restricted to the unrolled mode
+        # past the unrolled bounds); its tex_color grad kernels take the
+        # JAX gate of the full grad kernel on unrolled scenes and of its
+        # scan-mode tex_color backward past them
         reason = wc.kernel_gate_reason(pf)
         assert (reason is None) == (wp.pallas_gate_reason(jf) is None) \
             == ok, reason
         reason = wc.grad_gate_reason(pf)
-        assert (reason is None) == (wp.pallas_grad_gate_reason(jf) is None) \
-            == grad_ok, reason
+        jax_reason = (wp.pallas_grad_gate_reason(jf)
+                      if wc.kernel_mode(pf)[0] == "unrolled"
+                      else wp.pallas_scan_grad_gate_reason(jf))
+        assert (reason is None) == (jax_reason is None) == grad_ok, reason
 
 
 def test_compile_scene_bvh_not_ported():

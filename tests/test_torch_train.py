@@ -200,9 +200,12 @@ def test_hard_families_raise(field, monkeypatch):
 
 def test_engines_follow_the_gate(monkeypatch):
     """engine="cuda" on the CPU raises; on a (faked) card a scene outside
-    the forward kernel's gate raises under auto, as render does, and a
-    scene the forward renders through the chunk scan (past the unrolled
-    bounds) raises NotImplementedError naming the grad kernel it needs."""
+    the forward kernel's gate raises under auto, as render does; a scene
+    the forward renders through the chunk scan (past the unrolled bounds)
+    builds, and a request its grad kernels cannot serve (31 texture rows'
+    weight planes beside 30 tangent bundles, past a block's shared memory)
+    raises NotImplementedError naming it at the first call, before any
+    pass."""
     _, _, pf, pc, kw = _cornell(width=8, spp=1, depth=2)
     with pytest.raises(ValueError, match="CUDA"):
         train.make_kernel_render(pf, engine="cuda", **kw)
@@ -212,12 +215,14 @@ def test_engines_follow_the_gate(monkeypatch):
         0.1, pt.SolidColor((1, 1, 1))) for i in range(5)]))
     spheres = pt.compile_scene(pt.Scene(objects=[
         pt.Sphere((3.0 * i, 0, 0), 1.0,
-                  pt.Lambertian(pt.SolidColor((1, 1, 1))))
+                  pt.Metal((0.5, 0.4 + 0.01 * i, 0.5), 0.3) if i < 30
+                  else pt.Lambertian(pt.SolidColor((1, 1, 1))))
         for i in range(80)]))
     monkeypatch.setattr(FlatScene, "device",
                         property(lambda self: torch.device("cuda", 0)))
     with pytest.raises(ValueError, match="gate"):
         train.make_kernel_render(mediums, **kw)
-    with pytest.raises(NotImplementedError,
-                       match="K3/K4 on the vscan selection"):
-        train.make_kernel_render(spheres, **kw)
+    render = train.make_kernel_render(spheres, **kw)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        render({"tex_color": spheres.tex_color,
+                "mat_fuzz": spheres.mat_fuzz}, pc, 0)

@@ -284,8 +284,9 @@ def test_plain_pass_matches_jax(name):
 
 def test_gates():
     """The forward gate admits every scene up to MAX_PRIMS_SCAN and names
-    the BVH (-b, K11/K12) past it; the grad gates keep the unrolled bounds
-    and name the missing kernel for a vscan scene."""
+    the BVH (-b, K11/K12) past it; the grad gates admit the chunk scan's
+    tiers (K3v, K4v, K8) and name the adjoint kernels (K9/K10) past
+    MAX_HARD_SLOTS slots."""
     admitted = [pt.builders.bouncing_spheres(), pt.builders.textured_spheres(),
                 cs.grid_scene(pt), cs.city_scene(pt)]
     for scene in admitted:
@@ -303,38 +304,50 @@ def test_gates():
     assert "MAX_PRIMS_SCAN" in reason and "-b" in reason \
         and "K11/K12" in reason
     bouncing = pt.compile_scene(pt.builders.bouncing_spheres())
-    assert "K8" in wc.grad_gate_reason(bouncing)
+    assert wc.grad_gate_reason(bouncing) is None
+    assert wc.tex_form(bouncing) == "suffix"
     slots = wc.hard_param_slots(bouncing)
     assert len(slots) > wc.MAX_HARD_SLOTS
     assert "K9/K10" in wc.hard_slots_gate_reason(bouncing, len(slots))
     small = pt.compile_scene(pt.Scene(objects=[
         pt.Sphere((3.0 * i, 0, 0), 1.0, lam) for i in range(80)]))
-    assert "K3/K4 on the vscan selection" in wc.grad_gate_reason(small)
-    assert "K3/K4 on the vscan selection" in wc.hard_slots_gate_reason(
-        small, 4)
+    assert wc.grad_gate_reason(small) is None
+    assert wc.tex_form(small) == "planes"
+    assert wc.hard_slots_gate_reason(small, 4) is None
     cornell = pt.compile_scene(pt.builders.cornell_box())
     assert wc.grad_gate_reason(cornell) is None
     assert wc.default_caps(bouncing, 16, 50) == (32, 32)
 
 
 def test_vscan_training_on_the_kernels_raises(monkeypatch):
-    """make_train_step on a vscan scene, on the (faked) card, raises
-    NotImplementedError naming the missing grad kernel before any pass;
-    the plain engine still trains it."""
+    """Training bouncing_spheres on the (faked) card: tex_color (the suffix
+    tier, K8) and tex_color with its one IOR slot (K4v riding K8) pass the
+    request's gate and reach the kernels' render, while mat_fuzz (72
+    slots) raises NotImplementedError naming the adjoint kernels K9/K10
+    before any pass; the plain engine still trains it."""
     scene = pt.builders.bouncing_spheres()
     flat = pt.compile_scene(scene)
     kw = dict(width=8, height=5, n_strata=1, max_depth=2)
     calls = (wc.render_pass_reference.calls
              + wc.render_pass_grad_reference.calls)
+    cam = pcam.derive(scene.camera)
+    applied = []
     with monkeypatch.context() as m:
         m.setattr(FlatScene, "device",
                   property(lambda self: torch.device("cuda", 0)))
-        with pytest.raises(NotImplementedError, match="K8"):
-            train.make_train_step(torch.optim.Adam([flat.tex_color]),
-                                  flat=flat, **kw)
+        render = train.make_kernel_render(flat, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(train._KernelRender, "apply",
+                  lambda *a: applied.append(a[3]) or torch.zeros(5, 8, 3))
+        render({"tex_color": flat.tex_color}, cam, 0)
+        render({"tex_color": flat.tex_color, "mat_ior": flat.mat_ior},
+               cam, 0)
+        with pytest.raises(NotImplementedError, match="K9/K10"):
+            render({"mat_fuzz": flat.mat_fuzz}, cam, 0)
+    assert [(r.names, len(r.slots)) for r in applied] == [
+        (("tex_color",), 0), (("tex_color", "mat_ior"), 1)]
     assert (wc.render_pass_reference.calls
             + wc.render_pass_grad_reference.calls) == calls
-    cam = pcam.derive(scene.camera)
     p = {"tex_color": flat.tex_color.clone().requires_grad_(True)}
     step = train.make_train_step(torch.optim.Adam(p.values(), lr=0.01),
                                  flat=flat, engine="torch", **kw)
