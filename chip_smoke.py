@@ -17,7 +17,12 @@ training, make_train_step on bouncing_spheres at 1200x675 spp16 d50 over
 tex_color (the suffix-radiance kernel K8) and tex_color + IOR (K4v riding
 K8), with the chunk scan's weight planes (K3v, in registers and for 17 to
 32 rows in shared memory) and tangent bundles (K4v) at their full-size
-shapes on the JAX tests' scenes and a 28-row scene. Every phase prints
+shapes on the JAX tests' scenes and a 28-row scene; and full-family
+training at scale, make_train_step over all five families of
+bouncing_spheres (2,013 hard slots) through the adjoint backward (K9), at
+the JAX bench line's 400x225 spp9 d50 and at 1200x675 spp16 d50 under the
+sky gradient, with K9 held against its plain version on five scenes and
+against the forward-mode kernels (K4v, K8, K4, K3). Every phase prints
 one JSON line; any failure raises and the script exits non-zero. The last
 lines are each phase's seconds, the kernel table, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -53,6 +58,9 @@ TPU_VQUAD = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:1538"
 TPU_K3V = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:348"
 TPU_K4V = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:1614"
 TPU_K8 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:914"
+# the adjoint backward's per-sample sweep (K9: grad_adjoint, 2664-2957,
+# 3094-3217)
+TPU_K9 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:2664"
 GOLDEN_DIR = ROOT / "tests" / "goldens" / "reference"
 
 # the per-pixel rule of tests/test_pallas.py::_assert_close: the two sides
@@ -78,6 +86,16 @@ MARBLE_REGION, MARBLE_TOL = (slice(8, 38), slice(88, 124)), 0.08
 # shuffle trees and a sum of block rows against one torch sum; phases), so
 # they agree to rounding, not bit for bit.
 DG_RTOL = 1e-4
+# the adjoint (K9) against its plain version at the large-scene training
+# shape, bouncing_spheres 1200x675 spp16 d50: there single lanes carry
+# derivatives several times a family's largest entry through near-tangent
+# roots (a grazing hit on the radius-1000 ground, where the root formula's
+# two terms agree to 1e-4; a path that grazes a metal sphere), and every
+# two float32 routes part on such a lane by about 1e-4 of its own size: the
+# forward-mode kernel (K4v) and the plain version by 2.8e-4 of fuzz's
+# largest entry. The phase prints that gap beside K9's on the entries that
+# part most (PERF.md §6)
+ADJ_MAIN_RTOL = 3e-4
 # the training main path: Cornell at the JAX package's fwd+bwd benchmark
 # shape (bench.py:122-198), tex_color only, from the three wall rows dimmed
 TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_DEPTH = 1920, 1080, 64, 50
@@ -91,6 +109,15 @@ GEOM_LR, START_IOR, START_RADIUS = 1.0, 1.4, 85.0
 # the large-scene training main path: Adam steps on bouncing_spheres at its
 # own 1200x675 spp16 d50
 LARGE_STEPS = 4
+# the adjoint's training main path (K9): all five families of
+# bouncing_spheres, Adam at TRAIN_LR for tex_color, IOR and fuzz and at
+# ADJ_GEOM_LR for the 485 spheres' centers and radii: Adam moves every
+# parameter with a nonzero gradient by about its rate, whatever the
+# gradient's size, so at TRAIN_LR every sphere would move 0.02 a step (a
+# tenth of a small sphere's radius) and the loss rise
+# (scripts/adjoint_conditioning.py runs both rates, on the kernel and on
+# its plain version)
+ADJ_GEOM_LR = 1e-4
 
 # Operations of one bounce of the kernel on a Lambertian hit, counted by
 # hand from csrc/wavefront.cu (each add, multiply, divide, compare, min/max,
@@ -130,6 +157,15 @@ OPS_BOX = 30
 # T - P, |at| against 1e-8, the division, the emission select, the sum,
 # the cotangent product and the accumulator add (7), and the prefix add
 OPS_ROUTE = 3 * 8
+# the adjoint (K9): phase F is a forward bounce (vscan_bounce_ops); phase R
+# draws the bounce's numbers again (OPS_RNG) and pushes the cotangents back
+# through what the bounce differentiates, the winner's root, its hit
+# record, the shading and the light pdf and sample, at two operations for
+# each forward one (a product's adjoint is two products), and adds the
+# parameter rows' cotangents (OPS_ADJ_ROWS: tex_color 3, the winner
+# sphere's 4, a fuzz or IOR, with their routing). The second phase's
+# selection is left out: the winner is stored in phase F, not re-derived.
+OPS_ADJ_ROWS = 16
 PEAK_FP32 = 67e12         # H100 SXM fp32 outside the tensor cores (with
                           # FMA counted as two; the kernel is built
                           # --fmad=false, so it can reach half of this)
@@ -578,6 +614,66 @@ def vscan_bound_ms(flat, bounces: int) -> float:
     """bound_ms for the chunk scan's forward (vscan_bounce_ops). Bytes stay
     negligible: the tables (under 1 MB) are read once into L2."""
     return vscan_bounce_ops(flat) * bounces / PEAK_FP32 * 1e3
+
+
+def adjoint_bounce_ops(flat) -> float:
+    """Operations of one bounce of the adjoint (K9) on a large scene, phase
+    F and phase R (see OPS_ADJ_ROWS): a lower bound."""
+    shade = OPS_HIT + OPS_SHADE + light_ops(flat) + OPS_SPHERE
+    return vscan_bounce_ops(flat) + OPS_RNG + 2 * shade + OPS_ADJ_ROWS
+
+
+def adjoint_errors(got, want) -> dict:
+    """Per family of the adjoint's grads: the largest |got - want| and the
+    largest |want|."""
+    return {f: {"max_abs_err": float((got[f] - want[f]).abs().max()),
+                "scale": float(want[f].abs().max())} for f in want}
+
+
+def adjoint_training_start(torch, train, wc, flat, cam, kw, engine):
+    """The adjoint's 1200x675 training start on bouncing_spheres under the
+    sky gradient: (params, target), the target the render at the true
+    parameters, the params (all five families, requiring grad) the glass
+    at START_IOR, the three large spheres' centers moved by 3% of their
+    radius and their radii grown 3%, and large-scene training's rows (the
+    ground checker's leaves and the two last spheres' colors) at 0.7."""
+    target = train.make_kernel_render(flat, engine=engine, **kw)(
+        {"tex_color": flat.tex_color}, cam, TRAIN_SEED).detach()
+    params = {k: v.detach().clone() for k, v in train.get_params(flat).items()}
+    S = flat.sph_center.shape[0]
+    mtex = flat.mat_tex[flat.sph_mat.long()].tolist()
+    rows = [int(flat.tex_child_even[mtex[0]]),
+            int(flat.tex_child_odd[mtex[0]]), mtex[S - 2], mtex[S - 1]]
+    params["tex_color"][rows] *= 0.7
+    params["mat_ior"][[s[1] for s in wc.hard_param_slots(
+        flat, {"mat_ior"})]] = START_IOR
+    hero = torch.argsort(flat.sph_radius, descending=True)[1:4]
+    params["sph_center"][hero] += 0.03 * flat.sph_radius[hero][:, None] * \
+        torch.tensor([1.0, 0.0, -1.0], device=flat.device)
+    params["sph_radius"][hero] *= 1.03
+    for v in params.values():
+        v.requires_grad_(True)
+    return params, target
+
+
+def adjoint_optimizer(torch, params, geom_lr):
+    """Adam over all five families: TRAIN_LR for tex_color, IOR and fuzz,
+    geom_lr for the sphere centers and radii."""
+    return torch.optim.Adam([
+        {"params": [params["tex_color"], params["mat_ior"],
+                    params["mat_fuzz"]], "lr": TRAIN_LR},
+        {"params": [params["sph_center"], params["sph_radius"]],
+         "lr": geom_lr}])
+
+
+def ptxas_of(log: str, kernel: str) -> list:
+    """The ptxas lines (stack and spills, registers) of one kernel in a
+    build log."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if f"Function properties for {kernel}" in ln:
+            return [x.strip() for x in lines[i + 1:i + 3]]
+    return []
 
 
 def family_errors(slots, got, want) -> dict:
@@ -1802,6 +1898,271 @@ def main() -> int:
         emit("large_grad_times", card=card, shape=f"{name} 1200x675 spp16 "
              "d50", **rec)
     done("large_grad_times")
+
+    # 9. the adjoint (K9) against its plain version on the card: bouncing
+    # at the main path's two shapes, 400x225 spp9 d50 and 1200x675 spp16
+    # d50, under the sky gradient (the flat sky gives every hard family an
+    # exact 0), the 79-sphere scene (metals, a glass and a sphere
+    # light: the light rows' routing), Cornell (quads, a sphere light; the
+    # forward runs it unrolled, the adjoint on the chunk scan),
+    # cornell_smoke (mediums) and the city (quad chunks). The image equal to
+    # the chunk-scan forward's (K6) within 1e-5, phase F's bounces equal to
+    # the forward's, each family within DG_RTOL of its largest entry (the
+    # two sum in other orders; ADJ_MAIN_RTOL at 1200x675), the plain pass's
+    # time and peak memory
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    adjoint_cases = [
+        ("bouncing_sky", builtin(pt, "bouncing_spheres", 400, 9, 50), True,
+         DG_RTOL),
+        ("bouncing_sky_1200x675", builtin(pt, "bouncing_spheres", 1200, 16,
+                                          50), True, ADJ_MAIN_RTOL),
+        ("vscan_slots", sized(vscan_slots_scene(pt), 192, 4, 16), False,
+         DG_RTOL),
+        ("cornell_box", builtin(pt, "cornell_box", 128, 4, 16), False,
+         DG_RTOL),
+        ("cornell_smoke", builtin(pt, "cornell_smoke", 96, 4, 16), False,
+         DG_RTOL),
+        ("city301", sized(city_scene(pt), 200, 4, 6), False, DG_RTOL)]
+    adj_err = {}
+    for name, scene, sky, rtol in adjoint_cases:
+        flat, cam, kw = pass_args(pt, scene, dev)
+        kw["sky_gradient"] = kw["sky_gradient"] or sky
+        g = cotangent(torch, kw, dev, 5)
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        it_k = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        it_f = torch.zeros_like(it_k)
+        it_p = torch.zeros_like(it_k)
+        img_k, gr_k = ac.render_pass_adjoint_kernel(flat, cam, 7, 0,
+                                                    cotangent=g, iters=it_k,
+                                                    **kw)
+        prep = wc.prepare_kernel(flat, cam, chunk_scan=True)
+        fwd = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_f,
+                                    prepared=prep, **kw)
+        out = {}
+
+        def plain():
+            out["plain"] = ac.render_pass_adjoint_reference(
+                flat, cam, 7, 0, cotangent=g, iters=it_p, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = cuda_ms(torch, plain, reps=1, warmup=0)
+        plain_gib = torch.cuda.max_memory_allocated() / 2**30
+        img_p, gr_p = out["plain"]
+        fams = adjoint_errors(gr_k, gr_p)
+        bk, bf, bp = int(it_k.sum()), int(it_f.sum()), int(it_p.sum())
+        rec = {"scene": name, "shape": f"{kw['width']}x{kw['height']} spp"
+               f"{kw['n_samples']} d{kw['max_depth']}",
+               "sky_gradient": kw["sky_gradient"],
+               "vs_forward_max_abs_err": float((img_k - fwd).abs().max()),
+               **per_pixel(img_k, img_p), "families": fams,
+               "kernel_bounces": bk, "forward_bounces": bf,
+               "plain_bounces": bp, "plain_ms": plain_ms,
+               "plain_peak_gib": plain_gib, "rtol": rtol}
+        if rtol != DG_RTOL:
+            # the two float32 references on K9's worst entries: the plain
+            # version against the forward-mode kernel (K4v), up to 8 a
+            # hard family
+            worst, hard = [], set(wc.hard_param_slots(flat))
+            for fam in ("mat_fuzz", "mat_ior", "sph_center", "sph_radius"):
+                gap = (gr_k[fam] - gr_p[fam]).abs().reshape(-1)
+                for e in torch.argsort(gap, descending=True)[:8].tolist():
+                    slot = {"mat_fuzz": ("fuzz", e), "mat_ior": ("ior", e),
+                            "sph_radius": ("sphr", e),
+                            "sph_center": ("sphc", e // 3, e % 3)}[fam]
+                    if gap[e] > 0.0 and slot in hard:
+                        worst.append(slot)
+            _, _, k4v = wc.render_pass_grad_kernel(
+                flat, cam, 7, 0, cotangent=g, hard_slots=tuple(worst),
+                want_tex=False, **kw)
+            rec["worst_entries"] = []
+            for slot, v in zip(worst, k4v.tolist()):
+                fam, i = wc.slot_index(slot)
+                rec["worst_entries"].append({
+                    "slot": list(slot), "k9": float(gr_k[fam][i]),
+                    "plain": float(gr_p[fam][i]), "k4v": v,
+                    "family_scale": fams[fam]["scale"]})
+        adj_err[name] = rec
+        emit("adjoint_parity", **rec)
+        check(rec["vs_forward_max_abs_err"] <= 1e-5, f"{name}: the adjoint's "
+              f"image differs from the forward's by "
+              f"{rec['vs_forward_max_abs_err']}")
+        assert_close(f"{name} adjoint", rec)
+        check(bk == bf == bp, f"{name}: the adjoint traced {bk} bounces, the "
+              f"forward {bf}, the plain adjoint {bp}")
+        check(fams["tex_color"]["scale"] > 0.0, f"{name}: tex_color's "
+              "gradient is 0")
+        for fam, e in fams.items():
+            check(bool(torch.isfinite(gr_k[fam]).all()),
+                  f"{name}: the adjoint's {fam} is not finite")
+            check(e["max_abs_err"] <= rtol * e["scale"],
+                  f"{name}: the adjoint's {fam} differs by "
+                  f"{e['max_abs_err']} (limit {rtol} x {e['scale']})")
+    for name in ("bouncing_sky", "bouncing_sky_1200x675"):
+        check(adj_err[name]["families"]["sph_center"]["scale"] > 0.0,
+              f"{name}: no sphere gradient")
+    del out
+    torch.cuda.empty_cache()
+    done("adjoint_parity")
+
+    # 9b. two differentiation mechanisms on the card (the JAX package's own
+    # check, tests/test_grad.py:804-882): K9 against the forward-mode
+    # kernels on the same estimator, at rtol 1e-3, atol 1e-4 x the largest
+    # entry: on the 79-sphere scene at 1200x675 spp4 d50 its 4 slots
+    # against K4v and its tex_color against K8 (more than 32 rows); on
+    # Cornell at 600x600 spp4 d50 its 9 slots against K4 and its tex_color
+    # against K3, paths that graze the inside of the glass sphere for 45
+    # bounces included (scripts/adjoint_conditioning.py)
+    for name, scene, slots in (
+            ("vscan_slots_1200x675", wide(vscan_slots_scene(pt), 1200, 4, 50),
+             "jax_test"),
+            ("cornell_box_600x600_d50", builtin(pt, "cornell_box", 600, 4, 50),
+             "all")):
+        flat, cam, kw = pass_args(pt, scene, dev)
+        slots = (vscan_slots(flat.mat_type.cpu(), MAT_METAL, MAT_DIELECTRIC)
+                 if slots == "jax_test" else wc.hard_param_slots(flat))
+        g = cotangent(torch, kw, dev, 6)
+        _, gr = ac.render_pass_adjoint_kernel(flat, cam, 7, 0, cotangent=g,
+                                              **kw)
+        _, dgt, dgh = wc.render_pass_grad_kernel(
+            flat, cam, 7, 0, cotangent=g, hard_slots=slots, **kw)
+        got = torch.stack([gr[wc.slot_index(s)[0]][wc.slot_index(s)[1]]
+                           for s in slots])
+        emit("adjoint_vs_forward_mode", scene=name,
+             tex_form=wc.tex_form(flat), slots=[list(s) for s in slots],
+             adjoint_slots=got.tolist(), forward_mode_slots=dgh.tolist(),
+             tex_max_abs_err=float((gr["tex_color"] - dgt).abs().max()),
+             tex_scale=float(dgt.abs().max()))
+        for what, a, b in (("slots", got, dgh),
+                           ("tex_color", gr["tex_color"], dgt)):
+            scale = float(b.abs().max())
+            bad = (a - b).abs() > 1e-3 * b.abs() + 1e-4 * scale
+            check(scale > 0.0 and not bool(bad.any()),
+                  f"{name}: the adjoint's {what} differs from the "
+                  f"forward-mode kernels' beyond rtol 1e-3, atol 1e-4 x "
+                  f"{scale}")
+    done("adjoint_vs_forward_mode")
+
+    # 9c. the adjoint's times: bouncing at the JAX bench line's 400x225 spp9
+    # d50 (flat sky) and at its own training shape 1200x675 spp16 d50 (sky
+    # gradient), the scene packed once; bounces from the run's own counter;
+    # the operation bound (adjoint_bounce_ops); ptxas
+    adj_times = {}
+    for name, width, spp, sky in (("bouncing_400x225_spp9_d50", 400, 9,
+                                   False),
+                                  ("bouncing_1200x675_spp16_d50", 1200, 16,
+                                   True)):
+        flat, cam, kw = pass_args(
+            pt, builtin(pt, "bouncing_spheres", width, spp, 50), dev)
+        kw["sky_gradient"] = sky
+        prep = wc.prepare_kernel(flat, cam, chunk_scan=True)
+        g = cotangent(torch, kw, dev, 6)
+        apass = functools.partial(ac.render_pass_adjoint_kernel, cotangent=g,
+                                  prepared=prep, **kw)
+        t_k = cuda_ms(torch, lambda: apass(flat, cam, 0, 0))
+        bounces = counted_bounces(
+            torch, lambda it: apass(flat, cam, 0, 0, iters=it),
+            wc.lane_count(kw["width"] * kw["height"]), dev)
+        ops = adjoint_bounce_ops(flat)
+        n = kw["width"] * kw["height"] * kw["n_samples"]
+        rec = {"ms": t_k, "mpaths_per_s": n / t_k / 1e3, "bounces": bounces,
+               "ops_per_bounce": ops,
+               "bound_ms": ops * bounces / PEAK_FP32 * 1e3,
+               "sky_gradient": sky}
+        adj_times[name] = rec
+        emit("adjoint_times", card=card, shape=name, **rec)
+    adj_ptxas = ptxas_of(lib.build_log, "wavefront_adjoint_kernel")
+    emit("adjoint_build", ptxas=adj_ptxas,
+         plain_ms={n: adj_err[n]["plain_ms"]
+                   for n in ("bouncing_sky", "bouncing_sky_1200x675")},
+         library_ms=None)
+    check(len(adj_ptxas) == 2, "no ptxas lines for the adjoint kernel")
+    done("adjoint_times")
+
+    # 9d. the adjoint's training main path: make_train_step over all five
+    # families of bouncing_spheres (2,013 hard slots: the adjoint) on the
+    # kernels, forward K6 under K2's compacted schedule, backward K9. First
+    # the JAX package's bench line (bench.py:201-249): 400x225, 9 spp,
+    # depth 50, flat sky, a zero target, train.get_params(flat), Adam at
+    # TRAIN_LR; then the scene's own 1200x675 spp16 d50 under the sky
+    # gradient from adjoint_training_start, Adam at TRAIN_LR (geometry at
+    # ADJ_GEOM_LR). The loss must fall at every step and no plain pass
+    # run.
+    wc.render_pass_kernel.launches = 0
+    wc.render_pass_grad_kernel.launches = 0
+    ac.render_pass_adjoint_kernel.launches = 0
+    wc.render_pass_reference.calls = 0
+    wc.render_pass_grad_reference.calls = 0
+    ac.render_pass_adjoint_reference.calls = 0
+    rd._render_pass.calls = 0
+    adj_train = {}
+    for name, width, spp, sky in (
+            ("bouncing_400x225_spp9_d50_fwd_bwd_full_params_adjoint_2013_"
+             "slots", 400, 9, False),
+            ("bouncing_1200x675_spp16_d50_sky_full_params_adjoint", 1200, 16,
+             True)):
+        aflat, acam, akw = pass_args(
+            pt, builtin(pt, "bouncing_spheres", width, spp, 50), dev)
+        akw.pop("n_samples")
+        akw["sky_gradient"] = sky
+        if sky:
+            params, target = adjoint_training_start(
+                torch, train, wc, aflat, acam, akw, "cuda")
+            opt = adjoint_optimizer(torch, params, ADJ_GEOM_LR)
+        else:
+            params = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in train.get_params(aflat).items()}
+            target = torch.zeros(akw["height"], akw["width"], 3, device=dev)
+            opt = torch.optim.Adam(params.values(), lr=TRAIN_LR)
+        slots = wc.hard_param_slots(aflat)
+        step = train.make_train_step(opt, flat=aflat, engine="cuda", **akw)
+        launches = ac.render_pass_adjoint_kernel.launches
+        losses, step_s = [], []
+        for _ in range(LARGE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(params, acam, TRAIN_SEED, target)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            for f, v in params.items():
+                check(bool(torch.isfinite(v.grad).all()),
+                      f"adjoint training {name}: the {f} gradient is not "
+                      "finite")
+        steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        paths = akw["width"] * akw["height"] * spp
+        rec = {"slots": len(slots), "sky_gradient": sky,
+               "lr": ({"tex_color, mat_ior, mat_fuzz": TRAIN_LR,
+                       "sph_center, sph_radius": ADJ_GEOM_LR}
+                      if sky else TRAIN_LR),
+               "losses": losses, "step_s": step_s, "median_step_s": steady,
+               "median_step_ms": steady * 1e3,
+               "fwd_bwd_mpaths_per_s": paths / steady / 1e6,
+               "adjoint_launches": ac.render_pass_adjoint_kernel.launches
+               - launches}
+        adj_train[name] = rec
+        emit("adjoint_train_main_path", card=card, metric=name, **rec)
+        check(len(slots) == 2013, f"bouncing's hard slots: {len(slots)}")
+        check(rec["adjoint_launches"] == LARGE_STEPS,
+              f"adjoint training {name}: K9 ran {rec['adjoint_launches']} "
+              f"times in {LARGE_STEPS} steps")
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"adjoint training {name}: the loss did not fall at every "
+              f"step {losses}")
+    adj_launches = ac.render_pass_adjoint_kernel.launches
+    adj_fwd = wc.render_pass_kernel.launches
+    adj_plain = (wc.render_pass_reference.calls
+                 + wc.render_pass_grad_reference.calls
+                 + ac.render_pass_adjoint_reference.calls
+                 + rd._render_pass.calls)
+    emit("adjoint_train_counts", adjoint_launches=adj_launches,
+         forward_launches=adj_fwd,
+         grad_launches=wc.render_pass_grad_kernel.launches,
+         plain_calls=adj_plain)
+    check(adj_fwd >= 2 * LARGE_STEPS, f"adjoint training: the forward kernel "
+          f"ran {adj_fwd} times")
+    check(wc.render_pass_grad_kernel.launches == 0,
+          "adjoint training ran a forward-mode grad pass")
+    check(adj_plain == 0, "adjoint training ran a plain pass")
+    done("adjoint_train_main_path")
     emit("phase_seconds", **phase_s)
 
     hard_main = hard_err["cornell_box_1920x1080"]
@@ -1910,7 +2271,22 @@ def main() -> int:
         "ms_at": "bouncing_spheres 1200x675 spp16 d50",
         "plain_ms_at": "bouncing_spheres 1200x675 spp4 d50",
         "max_abs_err_at": "dG_tex, bouncing_spheres 1200x675 spp4 d50",
-        "compacted_ms": large_grad_times["k8"]["compacted_ms"]}]}),
+        "compacted_ms": large_grad_times["k8"]["compacted_ms"]}, {
+        "name": "wavefront_adjoint_kernel", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_K9,
+        "launches": adj_launches,
+        "max_abs_err": max(e["max_abs_err"] for e in adj_err[
+            "bouncing_sky_1200x675"]["families"].values()),
+        "ms": adj_times["bouncing_1200x675_spp16_d50"]["ms"],
+        "plain_ms": adj_err["bouncing_sky_1200x675"]["plain_ms"],
+        "bound_ms": adj_times["bouncing_1200x675_spp16_d50"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": "bouncing_spheres 1200x675 spp16 d50, sky gradient",
+        "plain_ms_at": "bouncing_spheres 1200x675 spp16 d50, sky gradient",
+        "max_abs_err_at": "the largest family's, bouncing_spheres 1200x675 "
+                          "spp16 d50",
+        "launches_at": "adjoint_train_main_path (2 x 4 steps)",
+        "ptxas": adj_ptxas}]}),
         flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,9 @@
 //   scan's selection (K3v weight planes, MAX_GRAD_TEXS 348; K4v tangent
 //   bundles, vscan_record's post-gather theta aliasing 1614-1752, gate
 //   313-342; K8 the suffix-radiance tier, grad_suffix 914-931, 2350-2375,
-//   2545-2559, 2604-2637, 3205-3262).
+//   2545-2559, 2604-2637, 3205-3262); and the adjoint backward over every
+//   trainable family (K9, grad_adjoint's per-sample sweep, 2664-2957,
+//   3094-3217; see "adjoint (K9)" below).
 //
 // Shape: one thread per lane (pixel), the reference engine's own
 //   static_render_kernel shape (CameraKernels.cu:240-278). Each thread loops
@@ -183,6 +185,7 @@
 
 #define WF_THREADS 128
 #define MAX_SLOTS 32    // hard slots a grad launch takes (ops/wavefront_cuda.py)
+#define MAX_LIGHTS 32   // light rows a scene may have (ops/wavefront_cuda.py)
 #define BIGF 1e30f
 #define T_MINF 1e-3f
 #define PI_F 3.14159265358979323846f
@@ -494,8 +497,15 @@ struct Scene {
 };
 
 // The one hard-parameter scalar a dual pass differentiates by: the table
-// cell it perturbs (tab 0 in the float pass: no tangent anywhere).
-struct Seed { int tab, row, col; };
+// cell it perturbs (tab 0 in the float pass: no tangent anywhere). With
+// t_tan set (the adjoint, K9), the winner's t is split off: hit_record
+// writes the tangent its root gives t to *t_tan and goes on with tangent
+// t_seed instead.
+struct Seed {
+    int tab, row, col;
+    float t_seed = 0.0f;
+    float* t_tan = nullptr;
+};
 
 template <typename T>
 __device__ __forceinline__ T seeded(float v, bool on);
@@ -757,6 +767,15 @@ struct HitT {
     int mat;
 };
 
+// the adjoint's split of the winner's t (Seed::t_tan)
+__device__ __forceinline__ void split_t(const Seed&, float*) {}
+__device__ __forceinline__ void split_t(const Seed& sd, Dual* t) {
+    if (sd.t_tan) {
+        *sd.t_tan = t->t;
+        t->t = sd.t_seed;
+    }
+}
+
 // (ops/intersect.py::shade_prim) the winner's hit record; a dual pass
 // recomputes the winner's t from its (seeded) geometry, with the float
 // pass's operations
@@ -782,6 +801,7 @@ __device__ HitT<T> hit_record(const Scene& sc, int best, float best_t,
         T rad = rd_sph<T>(sc, best, 6, sd);
         if constexpr (!std::is_same<T, float>::value)
             sphere_root(c, rad, o, d, dot(d, d), &t);
+        split_t(sd, &t);
         h.p = add(o, mul(d, t));
         T rr = smax(rad, 1e-12f);
         V3T<T> out = sub(h.p, c);
@@ -792,6 +812,7 @@ __device__ HitT<T> hit_record(const Scene& sc, int best, float best_t,
         const float* r = sc.quad + (best - sc.S) * QUAD_COLS;
         if constexpr (!std::is_same<T, float>::value)
             quad_hit(r, o, d, T_MINF, &t);
+        split_t(sd, &t);
         h.p = add(o, mul(d, t));
         V3 nn = v3(r[9], r[10], r[11]);
         h.front = val(dot(d, nn)) < 0.0f;
@@ -1008,6 +1029,10 @@ struct SfxEv {
     bool hit, emit, diel;
     int eff;
     float at[3];
+    // the adjoint (K9) reads these too: the hit's material row (after a
+    // medium's override) and the scatter's MIS weight (1 for specular)
+    int mat;
+    float factor;
 };
 
 // (ops/integrator.py::bounce_step) the bounce after selection, for the
@@ -1091,6 +1116,8 @@ __device__ __forceinline__ bool physics(
     if constexpr (std::is_same<T, float>::value) {
         if (ev) {
             ev->hit = true;
+            ev->mat = h.mat;
+            ev->factor = 1.0f;
             ev->emit = is_light && h.front;
             ev->diel = is_diel;
             ev->eff = eff;
@@ -1207,6 +1234,9 @@ __device__ __forceinline__ bool physics(
                     sw[k * WF_THREADS] = (sw[k * WF_THREADS] * av[k % 3]
                         + (row == k / 3 ? tt[k % 3] : 0.0f)) * factor;
             }
+        }
+        if constexpr (FLOAT) {
+            if (ev) ev->factor = factor;
         }
         th.x = th.x * at.x * factor;
         th.y = th.y * at.y * factor;
@@ -1611,11 +1641,12 @@ __device__ __forceinline__ void wavefront_body(
 // The library is built from this file in parts, each part a translation
 // unit of its own, compiled in parallel and linked into one shared library
 // (ops/wavefront_cuda.py::build_library): WF_PART 0 holds the forward
-// instances, the unrolled grad instances and every C entry point; 1 the
+// instances, the unrolled grad instances and the other C entry points; 1 the
 // chunk scan's weight-plane grad instances for at most 16 rows (K3v, with
 // K4v); 2 its hard-slot-only and suffix instances (K4v, K8); 3 its
-// shared-memory weight planes for 17 to 32 rows (K3v, with K4v). Without
-// WF_PART the file holds all of them.
+// shared-memory weight planes for 17 to 32 rows (K3v, with K4v); 4 the
+// adjoint (K9) and its C entry point. Without WF_PART the file holds all of
+// them.
 #ifndef WF_PART
 #define WF_PART -1
 #endif
@@ -1719,6 +1750,346 @@ int launch_vgrad_splanes(const WfParams& P, const VsParams& V,
                                                               stream);
 }
 #endif
+
+#if WF_IN_PART(4)
+// ------------------------------------------------------------ adjoint (K9)
+// The adjoint (reverse-mode) backward, the JAX kernel's grad_adjoint
+// per-sample sweep (wavefront_pallas.py: sample_body 3094-3209, adj_ctx
+// 2693-2755, adj_record 2757-2840, adj_step 2842-2892, scatter_rows and
+// apply_vjp 2894-2956; wrapper 3350-3357, 3532-3547, 3600-3626): the image
+// and d<g, radiance sum>/d theta for every trainable family at once
+// (tex_color, sphere centers and radii, metal fuzz, dielectric IOR), at a
+// cost that does not grow with the number of parameters. It always runs on
+// the chunk scan's selection (closest_select_vscan), Cornell-class scenes
+// included, in one uncapped pass.
+//
+// Shape: one thread per lane, as every other instance. Per sample, phase F
+//   traces the path with the forward's arithmetic (so the image is the
+//   forward kernel's, bounce for bounce) and stores, for each bounce, the
+//   ray state it started from (o, d, th), the selection (winner, t) and the
+//   bounce's discrete context (material row, eff row, flags, MIS weight):
+//   ADJ_STORE floats a bounce in global scratch, [bounce][field][lane].
+//   Phase R walks the stored bounces backward with the state cotangent lam
+//   = d<g, L>/d(o, d, th) of what follows (0 after the last bounce).
+// Per bounce, (g, lam) dotted with the columns of the bounce's Jacobian
+//   (radiance increment, o', d', th' over its inputs): each column one
+//   physics<Dual> pass, the dual bounce of the tangent-bundle tier (K4),
+//   from the stored selection, so every branch is phase F's. The columns:
+//   the 9 state values (their dots are the new lam); the winner sphere's
+//   center and radius (a medium's span reads its t too); the hit
+//   material's fuzz (metal) or IOR (dielectric); and at an MIS bounce the
+//   center and radius of each sphere a light row copies (rd_light aliases
+//   the light's columns to that sphere's, as the JAX kernel's
+//   adj_light_slots route them), each sphere once. tex_color enters a
+//   bounce as a factor (emission th * c, attenuation th * c * factor), so
+//   its two products are written out: g * th at an emission and lam_th *
+//   (th * factor) at a non-dielectric scatter, to the hit's eff row (a
+//   marble leaf, eff -1, takes none), what a dual pass would give.
+// The winner's t is split off, as a reverse sweep orders it: one more dual
+//   pass along t alone gives lam_t = (g, lam) . d(...)/dt, and each column
+//   is (g, lam) . d(...)/dx at fixed t plus lam_t * dt/dx, dt/dx the
+//   tangent the winner's root gives t in that column's pass (Seed::t_tan).
+//   A near-tangent root (a grazing ray, a ray that grazes the sphere it
+//   leaves) makes dt/dx huge; taken whole, a column carries that size
+//   through the rest of the bounce before lam's sum cancels it, and its
+//   float rounding does not cancel with it (on a lane that grazes inside
+//   Cornell's glass sphere 45 times, the whole columns part from the
+//   forward-mode tangents by 0.14%, the split ones by 0.01%, as autograd's
+//   reverse pass does).
+// Why columns and not a hand-written reverse of the bounce: the dual bounce
+//   is the code the tangent bundles already run and hold against
+//   torch.func.jvp and the JAX replay, so the backward differentiates
+//   exactly the forward's operations with no second copy of the physics to
+//   keep in step; the price is 1 + 9 + 4 (+ 1) (+ 4 a light sphere) dual
+//   passes a bounce where a reverse sweep costs about three float bounces
+//   (PERF.md).
+// The where-NaN trap of the JAX adjoint (_sqrt0, 190-197) does not arise:
+//   forward mode pushes tangents only through the branch a bounce takes, so
+//   an untaken branch contributes nothing, not 0 * inf.
+// Accumulators: 3 * NT tex_color, then 4 * S sphere (center xyz, radius),
+//   then 2 * NM material (fuzz, IOR) doubles in the block's shared memory,
+//   added to by double atomicAdd and flushed by atomicAdd into one global
+//   double row at the block's end (or, past a block's shared memory, added
+//   straight into it). A row sums every path's float contributions (13 M
+//   paths at bouncing_spheres' 1200x675 spp16) into a few entries, where
+//   float running sums would round off about 1e-4 of the largest; in double
+//   only the order of the sums differs between runs, below float's last
+//   bit.
+// What bounds it: operations, as the other instances: two selections' worth
+//   of chunk scan per bounce (phase F; phase R reads the stored winner),
+//   one float bounce and the dual passes. The scratch traffic (2 x 60 B a
+//   bounce) is small beside them.
+#define ADJ_STORE 15   // o xyz, d xyz, th xyz, winner, t, material, eff,
+                       // flags, MIS weight
+#define ADJ_HIT 1
+#define ADJ_EMIT 2
+#define ADJ_DIEL 4
+#define ADJ_METAL 8
+#define ADJ_MIS 16
+#define ADJ_SCAT 32    // the bounce updated the throughput (alive_new)
+
+// The pointers and sizes of one adjoint launch.
+struct AdjArgs {
+    const float* tables;
+    const float* vtab;
+    const float* cot;
+    float* rad_out;
+    double* acc_out;   // 3NT + 4S + 2NM doubles, zeroed by the caller
+    float* store;      // max_depth * ADJ_STORE * n_lanes floats
+    int* iters_out;
+    int NM;
+    int shared_acc;    // the accumulators fit the block's shared memory
+};
+
+// (g, lam) . one column of the bounce's Jacobian: the bounce from (o0, d0,
+// th0) along the state's unit tangent j (0-8: o xyz, d xyz, th xyz; -1:
+// none) and the table cell sd
+static __device__ __forceinline__ float adj_column(
+        const Scene& sc, const WfParams& P, const float* cam, int best,
+        float best_t, V3 o0, V3 d0, V3 th0, float tm, const float* u,
+        const float* u_med, const float (&gc)[3], const float* lam, int j,
+        Seed sd, float t_seed, float* t_tan) {
+    V3T<Dual> od, dd, td, rd;
+    od.x = dual(o0.x, j == 0 ? 1.0f : 0.0f);
+    od.y = dual(o0.y, j == 1 ? 1.0f : 0.0f);
+    od.z = dual(o0.z, j == 2 ? 1.0f : 0.0f);
+    dd.x = dual(d0.x, j == 3 ? 1.0f : 0.0f);
+    dd.y = dual(d0.y, j == 4 ? 1.0f : 0.0f);
+    dd.z = dual(d0.z, j == 5 ? 1.0f : 0.0f);
+    td.x = dual(th0.x, j == 6 ? 1.0f : 0.0f);
+    td.y = dual(th0.y, j == 7 ? 1.0f : 0.0f);
+    td.z = dual(th0.z, j == 8 ? 1.0f : 0.0f);
+    rd = lift3<Dual>(v3(0.0f, 0.0f, 0.0f));
+    float nw[1], ng[1];
+    sd.t_seed = t_seed;
+    sd.t_tan = t_tan;
+    physics<Dual, 0>(sc, P, cam, best, best_t, od, dd, td, rd, tm, u, u_med,
+                     sd, nw, ng, gc);
+    return gc[0] * rd.x.t + gc[1] * rd.y.t + gc[2] * rd.z.t
+        + lam[0] * od.x.t + lam[1] * od.y.t + lam[2] * od.z.t
+        + lam[3] * dd.x.t + lam[4] * dd.y.t + lam[5] * dd.z.t
+        + lam[6] * td.x.t + lam[7] * td.y.t + lam[8] * td.z.t;
+}
+
+extern "C" __global__ void __launch_bounds__(WF_THREADS)
+wavefront_adjoint_kernel(WfParams P, VsParams V, AdjArgs A) {
+    __shared__ float cam[22];
+    const int n_acc = 3 * P.NT + 4 * P.S + 2 * A.NM;
+    double* acc_s = reinterpret_cast<double*>(wf_tables
+                                              + table_pad(V.n_box));
+    double* acc = A.shared_acc ? acc_s : A.acc_out;
+    for (int i = threadIdx.x; i < V.n_box; i += blockDim.x)
+        wf_tables[i] = A.vtab[V.off_box + i];
+    if (A.shared_acc) {
+        for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc_s[i] = 0.0;
+    }
+    if (threadIdx.x < 22) cam[threadIdx.x] = P.cam[threadIdx.x];
+    __syncthreads();
+
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    const int N = P.n_lanes;
+    Scene sc;
+    const float* tab = A.tables;
+    sc.sph = tab + P.off_sph;
+    sc.quad = tab + P.off_quad;
+    sc.pmat = tab + P.off_pmat;
+    sc.light = tab + P.off_light;
+    sc.mati = tab + P.off_mati;
+    sc.matf = tab + P.off_matf;
+    sc.tex = tab + P.off_tex;
+    sc.med = tab + P.off_med;
+    sc.lsrc = tab + P.off_lsrc;
+    sc.slot = tab + P.off_slot;
+    sc.S = P.S; sc.Q = P.Q; sc.L = P.L; sc.M = P.M; sc.MS = P.MS;
+    sc.MQ = P.MQ; sc.med_cols = P.med_cols;
+    sc.checker_depth = P.checker_depth; sc.has_noise = P.has_noise;
+    sc.perlin_seed = P.perlin_seed;
+    const int t_base = 3 * P.NT, m_base = 3 * P.NT + 4 * P.S;
+
+    // pad lanes repeat the last pixel (their cotangent is 0)
+    const int pix = lane < P.n_pix ? lane : P.n_pix - 1;
+    const uint32_t k0 = (uint32_t)pix;
+    const uint32_t k2 = P.seed_mix;
+    const float fi = (float)(pix % P.width);
+    const float fj = (float)(pix / P.width);
+    const float gc[3] = {A.cot[0 * N + lane], A.cot[1 * N + lane],
+                         A.cot[2 * N + lane]};
+    float* store = A.store + lane;
+    const size_t sb = (size_t)ADJ_STORE * N;   // one bounce's floats
+
+    V3 rad = v3(0.0f, 0.0f, 0.0f);
+    int it = 0;
+    for (int s = 0; s < P.n_samples; ++s) {
+        const uint32_t k1 = (uint32_t)(P.sample_start + s);
+        V3 o, d, th;
+        float tm;
+        gen_ray(P, cam, k0, k2, fi, fj, P.sample_start + s, o, d, tm);
+        th = v3(1.0f, 1.0f, 1.0f);
+        // ---- phase F: the forward path, each bounce's inputs stored
+        int n_used = 0;
+        for (int b = 0; b < P.max_depth; ++b) {
+            float u[9], u_med[4];
+            draws(k0, k1, k2, 0x4000000u + (uint32_t)b, u, 9);
+            if (sc.M > 0) draws(k0, k1, k2, 1000000u + (uint32_t)b, u_med,
+                                sc.M);
+            float best_t;
+            const int best = closest_select_vscan(sc, V, A.vtab, wf_tables,
+                                                  o, d, tm, &best_t);
+            float* st = store + (size_t)b * sb;
+            st[0 * N] = o.x; st[1 * N] = o.y; st[2 * N] = o.z;
+            st[3 * N] = d.x; st[4 * N] = d.y; st[5 * N] = d.z;
+            st[6 * N] = th.x; st[7 * N] = th.y; st[8 * N] = th.z;
+            SfxEv ev;
+            ev.hit = false;
+            float nw[1], ng[1];
+            const bool alive_new = physics<float, 0>(
+                sc, P, cam, best, best_t, o, d, th, rad, tm, u, u_med,
+                Seed{0, 0, 0}, nw, ng, gc, &ev);
+            int flags = 0, mat = 0, eff = -1;
+            if (ev.hit) {
+                mat = ev.mat;
+                eff = ev.eff;
+                const int mtype = (int)sc.mati[mat * 2];
+                flags = ADJ_HIT | (ev.emit ? ADJ_EMIT : 0)
+                    | (ev.diel ? ADJ_DIEL : 0)
+                    | (mtype == MAT_METAL ? ADJ_METAL : 0)
+                    | (mtype != MAT_METAL && mtype != MAT_DIELECTRIC
+                       && mtype != MAT_DIFFUSE_LIGHT ? ADJ_MIS : 0);
+            }
+            if (alive_new) flags |= ADJ_SCAT;
+            st[9 * N] = (float)best;
+            st[10 * N] = best_t;
+            st[11 * N] = (float)mat;
+            st[12 * N] = (float)eff;
+            st[13 * N] = (float)flags;
+            st[14 * N] = ev.hit ? ev.factor : 1.0f;
+            ++it;
+            n_used = b + 1;
+            if (!alive_new) break;
+        }
+        // ---- phase R: the bounces backward, lam chained from 0
+        float lam[9], nl[9];
+        for (int c = 0; c < 9; ++c) lam[c] = 0.0f;
+        for (int b = n_used - 1; b >= 0; --b) {
+            const float* st = store + (size_t)b * sb;
+            const V3 o0 = v3(st[0 * N], st[1 * N], st[2 * N]);
+            const V3 d0 = v3(st[3 * N], st[4 * N], st[5 * N]);
+            const V3 th0 = v3(st[6 * N], st[7 * N], st[8 * N]);
+            const int best = (int)st[9 * N];
+            const float best_t = st[10 * N];
+            const int mat = (int)st[11 * N];
+            const int eff = (int)st[12 * N];
+            const int flags = (int)st[13 * N];
+            const float factor = st[14 * N];
+            float u[9], u_med[4];
+            draws(k0, k1, k2, 0x4000000u + (uint32_t)b, u, 9);
+            if (sc.M > 0) draws(k0, k1, k2, 1000000u + (uint32_t)b, u_med,
+                                sc.M);
+            // tex_color: the emission's and the attenuation's products
+            if ((flags & ADJ_HIT) && eff >= 0) {
+                const float tv[3] = {th0.x, th0.y, th0.z};
+                for (int c = 0; c < 3; ++c) {
+                    float v = 0.0f;
+                    if (flags & ADJ_EMIT) v = gc[c] * tv[c];
+                    if ((flags & ADJ_SCAT) && !(flags & ADJ_DIEL))
+                        v = v + lam[6 + c] * (tv[c] * factor);
+                    if (v != 0.0f) atomicAdd(acc + 3 * eff + c, (double)v);
+                }
+            }
+            // the sphere rows this bounce reads: the winner, then at an MIS
+            // bounce the light rows' source spheres, each once
+            int rows[MAX_LIGHTS + 1];
+            int n_rows = 0;
+            if (best >= 0 && best < sc.S) rows[n_rows++] = best;
+            if ((flags & ADJ_MIS) && sc.L > 0) {
+                for (int l = 0; l < sc.L; ++l) {
+                    const int src = (int)sc.lsrc[l];
+                    bool seen = src < 0;
+                    for (int k = 0; k < n_rows && !seen; ++k)
+                        seen = rows[k] == src;
+                    if (!seen) rows[n_rows++] = src;
+                }
+            }
+            const int has_mf = (flags & ADJ_HIT)
+                && (flags & (ADJ_METAL | ADJ_DIEL)) ? 1 : 0;
+            const int n_cols = 9 + 4 * n_rows + has_mf;
+            // lam_t: the cotangent of the winner's t (0 on a miss)
+            float dt_unused = 0.0f;
+            const float lam_t = best >= 0
+                ? adj_column(sc, P, cam, best, best_t, o0, d0, th0, tm, u,
+                             u_med, gc, lam, -1, Seed{0, 0, 0}, 1.0f,
+                             &dt_unused)
+                : 0.0f;
+#pragma unroll 1
+            for (int c = 0; c < n_cols; ++c) {
+                int j = -1, target = -1;
+                Seed sd = {0, 0, 0};
+                if (c < 9) {
+                    j = c;
+                } else if (c < 9 + 4 * n_rows) {
+                    const int row = rows[(c - 9) >> 2], k = (c - 9) & 3;
+                    sd = Seed{SEED_SPH, row, k < 3 ? k : 6};
+                    target = t_base + 4 * row + k;
+                } else {
+                    const int col = (flags & ADJ_METAL) ? 0 : 1;
+                    sd = Seed{SEED_MATF, mat, col};
+                    target = m_base + 2 * mat + col;
+                }
+                float t_x = 0.0f;
+                const float v = adj_column(sc, P, cam, best, best_t, o0, d0,
+                                           th0, tm, u, u_med, gc, lam, j,
+                                           sd, 0.0f, &t_x)
+                    + lam_t * t_x;
+                if (c < 9) nl[c] = v;
+                else if (v != 0.0f) atomicAdd(acc + target, (double)v);
+            }
+            for (int c = 0; c < 9; ++c) lam[c] = nl[c];
+        }
+    }
+    A.rad_out[0 * N + lane] = rad.x;
+    A.rad_out[1 * N + lane] = rad.y;
+    A.rad_out[2 * N + lane] = rad.z;
+    if (A.iters_out) A.iters_out[lane] += it;
+    if (A.shared_acc) {
+        __syncthreads();
+        for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
+            const double v = acc_s[i];
+            if (v != 0.0) atomicAdd(A.acc_out + i, v);
+        }
+    }
+}
+
+// rad_out (3, n_lanes); acc_out (3NT + 4S + 2NM doubles) zeroed; store
+// (max_depth * ADJ_STORE * n_lanes) scratch; NM material rows
+extern "C" int rt_wavefront_adjoint(const WfParams* params,
+                                    const VsParams* vparams,
+                                    const float* tables, const float* vtab,
+                                    const float* cot, float* rad_out,
+                                    double* acc_out, float* store,
+                                    int* iters_out, int NM, void* stream) {
+    const WfParams P = *params;
+    const VsParams V = *vparams;
+    if (P.n_lanes % WF_THREADS != 0 || V.C_small < 1 || V.n_big < 0
+        || V.n_big > VCHUNK || V.Cq < 0 || V.n_box < 6 * V.C_small
+        || NM < 1 || P.NT < 1 || P.L > MAX_LIGHTS || P.max_depth < 1)
+        return (int)cudaErrorInvalidValue;
+    const size_t n_acc = (size_t)3 * P.NT + (size_t)4 * P.S + (size_t)2 * NM;
+    const size_t boxes = (size_t)table_pad(V.n_box);
+    // the accumulators go to shared memory where they fit beside the boxes
+    // (the static cam row and a margin aside)
+    const bool shared_acc = boxes * sizeof(float) + n_acc * sizeof(double)
+        <= (size_t)(226 * 1024);
+    const size_t smem = boxes * sizeof(float)
+        + (shared_acc ? n_acc * sizeof(double) : 0);
+    cudaError_t e = set_smem((const void*)wavefront_adjoint_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const AdjArgs A = {tables, vtab, cot, rad_out, acc_out, store, iters_out,
+                       NM, shared_acc ? 1 : 0};
+    wavefront_adjoint_kernel<<<P.n_lanes / WF_THREADS, WF_THREADS, smem,
+                               (cudaStream_t)stream>>>(P, V, A);
+    return (int)cudaGetLastError();
+}
+#endif  // WF_IN_PART(4)
 
 #if WF_IN_PART(0)
 // The forward pass (K1, K2).

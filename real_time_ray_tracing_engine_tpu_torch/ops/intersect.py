@@ -82,11 +82,19 @@ def sphere_shade(center, cdelta, radius, org, dr, tm, t):
     """Geometry at parameter t for gathered sphere params (all (N, ...))."""
     p = org + t[:, None] * dr
     c_t = center + tm[:, None] * cdelta
-    outward = (p - c_t) / torch.clamp(radius, min=1e-12)[:, None]
+    # a row of radius <= 0 (padding, or the clamped index of a lane that no
+    # sphere won) is never a winner; it divides by 1 so that the discarded
+    # branch stays finite under reverse mode (ops/adjoint_cuda.py)
+    safe_r = torch.where(radius > 0.0, radius, 1.0)
+    outward = (p - c_t) / torch.clamp(safe_r, min=1e-12)[:, None]
     front = dot(dr, outward) < 0.0
     n = torch.where(front[:, None], outward, -outward)
-    theta = torch.arccos(torch.clamp(-outward[:, 1], -1.0, 1.0))
-    phi = torch.atan2(-outward[:, 2], outward[:, 0]) + math.pi
+    # u, v take no derivative: no texture of this package reads them, and
+    # arccos and atan2 have infinite slopes at the poles, where the adjoint
+    # (ops/adjoint_cuda.py) would multiply its zero cotangent by them
+    w = outward.detach()
+    theta = torch.arccos(torch.clamp(-w[:, 1], -1.0, 1.0))
+    phi = torch.atan2(-w[:, 2], w[:, 0]) + math.pi
     return p, n, front, phi / (2.0 * math.pi), theta / math.pi
 
 

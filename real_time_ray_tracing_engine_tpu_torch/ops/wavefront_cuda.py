@@ -38,6 +38,10 @@ kernel body, csrc/wavefront.cu, built with nvcc for sm_90a at first use
     the plain pass (`render_pass_reference`) stays the all-primitive
     integrator in every mode.
 
+The adjoint backward (K9) has a module of its own, ops/adjoint_cuda.py; its
+instance is part 4 of csrc/wavefront.cu and its ctypes binding
+KernelLibrary.adjoint.
+
 Lane layout: one lane per pixel, padded to a multiple of LANE_BLOCK; pad
 lanes repeat the last pixel and are cropped (their cotangent is zero), and
 the compaction permutes them like any other lane.
@@ -111,8 +115,8 @@ HARD_SLOT_FIELDS = {"fuzz": "mat_fuzz", "ior": "mat_ior",
 HARD_FIELDS = ("mat_fuzz", "mat_ior", "sph_center", "sph_radius")
 # hard slots one grad launch takes (csrc/wavefront.cu MAX_SLOTS): their
 # tangent planes and sums live in shared memory, 10 floats a slot a lane.
-# From 33 slots the training policy takes the adjoint kernels
-# (ADJOINT_MIN_SLOTS, parallel/train.py), so 32 covers the tangent tier.
+# From 33 slots the training policy takes the adjoint (K9,
+# ADJOINT_MIN_SLOTS, parallel/train.py), so 32 covers the tangent tier.
 MAX_HARD_SLOTS = 32
 # the slot table's table codes (csrc/wavefront.cu SEED_*)
 _SEED_SPH, _SEED_MATF = 1, 2
@@ -127,8 +131,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # csrc/wavefront.cu is compiled once per part (-DWF_PART=p), the parts in
 # parallel, and the objects linked into one library (the file's comment
-# above its kernels says which instances each part holds)
-WF_PARTS = (0, 1, 2, 3)
+# above its kernels says which instances each part holds; 4 is the adjoint,
+# K9, ops/adjoint_cuda.py)
+WF_PARTS = (0, 1, 2, 3, 4)
 
 
 # ------------------------------------------------------------------- gate
@@ -196,19 +201,18 @@ def grad_gate_reason(flat: FlatScene, n_slots: int = 0,
                      want_tex: bool = True) -> str | None:
     """Why a grad pass (tex_color if want_tex, and n_slots tangent bundles)
     cannot run on the grad kernels (None = it can): the forward's gate; at
-    most MAX_HARD_SLOTS slots (past them the JAX package trains with the
-    adjoint kernels K9/K10, not ported); and the launch's shared memory
-    (grad_smem_bytes), which the chunk scan's weight planes for 17 to
-    MAX_GRAD_TEXS rows share with the tangent planes."""
+    most MAX_HARD_SLOTS slots (past them training takes the adjoint, K9,
+    as the JAX package takes its adjoint kernels K9/K10); and the launch's
+    shared memory (grad_smem_bytes), which the chunk scan's weight planes
+    for 17 to MAX_GRAD_TEXS rows share with the tangent planes."""
     reason = kernel_gate_reason(flat)
     if reason is not None:
         return reason
     NT = flat.tex_type.shape[0]
     if n_slots > MAX_HARD_SLOTS:
         return (f"{n_slots} hard slots exceed the tangent-bundle kernel's "
-                f"MAX_HARD_SLOTS={MAX_HARD_SLOTS}; from 33 slots the JAX "
-                "package trains with the adjoint kernels (K9/K10), which "
-                "are not ported")
+                f"MAX_HARD_SLOTS={MAX_HARD_SLOTS}; from 33 slots training "
+                "takes the adjoint backward (K9/K10; ops/adjoint_cuda.py)")
     n_bytes = grad_smem_bytes(flat, n_slots, want_tex)
     if n_bytes > MAX_SHARED_BYTES:
         return (f"a grad pass with {n_slots} hard slots and {NT} texture "
@@ -1152,6 +1156,13 @@ class KernelLibrary:
         # rad_out, carry_out, dg_out, iters, stream
         self.grad_vscan.argtypes = [ctypes.POINTER(_Params),
                                     ctypes.POINTER(_VsParams)] + [ptr] * 10
+        self.adjoint = self.lib.rt_wavefront_adjoint
+        self.adjoint.restype = ctypes.c_int
+        # params, vparams, tables, vtab, cotangent, rad_out, acc_out, store,
+        # iters, NM, stream
+        self.adjoint.argtypes = ([ctypes.POINTER(_Params),
+                                  ctypes.POINTER(_VsParams)] + [ptr] * 7
+                                 + [ctypes.c_int, ptr])
 
 
 def _nvcc() -> str:
@@ -1237,12 +1248,15 @@ class KernelInputs:
 
 
 def prepare_kernel(flat: FlatScene, cam: CameraState,
-                   hard_slots: tuple = ()) -> KernelInputs:
+                   hard_slots: tuple = (),
+                   chunk_scan: bool = False) -> KernelInputs:
     """Pack `flat` and `cam` (and the slot table of `hard_slots`, for the
     grad kernel) for the kernel wrappers; raises for a scene that is not on
     a CUDA device or is outside the forward kernel's gate, and for slots
     outside hard_slots_gate_reason. A grad launch on a scene outside
-    grad_gate_reason raises in _launch."""
+    grad_gate_reason raises in _launch. chunk_scan packs the chunk scan's
+    tables whatever the scene's mode (the adjoint, K9, always runs on
+    them)."""
     if flat.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{flat.device}")
@@ -1266,7 +1280,7 @@ def prepare_kernel(flat: FlatScene, cam: CameraState,
         off_tex=off["tex"], off_med=off["med"], off_lsrc=off["lsrc"],
         off_slot=off["slot"], med_cols=med_cols, n_table=tables.numel(),
         cam=(ctypes.c_float * 22)(*cam_s))
-    mode = kernel_mode(flat)[0]
+    mode = "vscan" if chunk_scan else kernel_mode(flat)[0]
     if mode == "unrolled":
         return KernelInputs(tables, fields, hard_slots)
     vtab, vfields = _vscan_buffer(pack_vscan_tables(flat))

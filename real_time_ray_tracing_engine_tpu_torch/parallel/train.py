@@ -12,28 +12,36 @@ exactly 0 gets no scatter gradient, announced once when a render is
 built), and the hard families (metal fuzz, dielectric IOR, sphere centers
 and radii) by one tangent bundle per scalar slot (K4; K4v), all dotted with
 the image cotangent at every radiance event (ops/wavefront_cuda.py,
-tex_form). Sampling decisions use
+tex_form); or, from ADJOINT_MIN_SLOTS hard slots, by the adjoint backward
+over every family at once (K9, ops/adjoint_cuda.py). Sampling decisions use
 counter-based draws whose probabilities do not depend on the parameters,
 so the gradient is that of the estimator with its samples held fixed
 (reparameterized through intersection t for geometry), as in the JAX
 package.
 
-The tier policy is the JAX package's (train.py:161-306): fewer than
-ADJOINT_MIN_SLOTS hard slots run the tangent bundles; from that many the
-JAX package runs the adjoint kernels (K9/K10), which are not ported, so
-such a request raises NotImplementedError. The JAX package's pure-JAX
-replay and mixed tiers are not carried over: on the card they would be
-hidden plain engines.
+The tier policy is the JAX package's (train.py:160-216, `use_adjoint`): a
+request with hard slots takes the adjoint (K9) when it has
+ADJOINT_MIN_SLOTS slots or more, or when the forward-mode kernels cannot
+serve a scene inside their gate (grad_gate_reason on a scene
+kernel_gate_reason admits); every other request takes the forward-mode
+tiers as before, so a scene outside the kernels' gate, which only the
+plain engine renders, keeps the plain tangent bundles under
+ADJOINT_MIN_SLOTS. The adjoint returns every family's gradient, and each
+requested tensor takes its own. The JAX package picks its segmented
+adjoint sweep (K10) past depth 12; until K10 is ported the per-sample sweep
+(K9) runs at every depth, with the same gradients. The JAX package's
+pure-JAX replay and mixed tiers are not carried over: on the card they
+would be hidden plain engines.
 
 Engines, as models/render.pick_engine resolves them: "cuda" runs the
 kernels (the scene on a CUDA device, inside kernel_gate_reason, or it
 raises); "torch" runs their plain torch versions (the same tiers), the
-engine for the CPU and, asked for by name, on the card; "auto" is "cuda" on
-a CUDA device and "torch" on the CPU. On "cuda" a request the grad kernels
-cannot serve (grad_gate_reason: a launch past a block's shared memory,
-where the tangent planes and, for 17 to MAX_GRAD_TEXS texture rows on the
-chunk scan, the weight planes live) raises NotImplementedError naming what
-is missing before any pass runs; there is no plain fallback.
+engine for the CPU and, asked for by name, on the card, where it launches
+no kernel (the adjoint's plain version included); "auto" is "cuda" on a
+CUDA device and "torch" on the CPU. Both engines take the same tier for a
+request. On "cuda" a request no kernel can serve (tex_color alone past a
+block's shared memory) raises NotImplementedError naming what is missing
+before any pass runs; there is no plain fallback.
 """
 from __future__ import annotations
 
@@ -45,9 +53,12 @@ import torch
 from ..scene.flat import FlatScene
 from ..models.camera import CameraState
 from ..models.render import pick_engine
+from ..ops.adjoint_cuda import (adjoint_pass_function,
+                                render_pass_adjoint_reference)
 from ..ops.wavefront_cuda import (HARD_FIELDS, MAX_GRAD_TEXS,
                                   grad_gate_reason, grad_pass_function,
-                                  hard_param_slots, pass_function,
+                                  hard_param_slots, kernel_gate_reason,
+                                  pass_function,
                                   prepare_kernel, render_pass_compacted,
                                   render_pass_grad_compacted,
                                   render_pass_grad_reference,
@@ -57,8 +68,8 @@ from ..ops.wavefront_cuda import (HARD_FIELDS, MAX_GRAD_TEXS,
 # The JAX package's continuous, safely-differentiable scene parameters.
 TRAINABLE_FIELDS = ("tex_color", "mat_fuzz", "mat_ior", "sph_center",
                     "sph_radius")
-# from this many hard slots the JAX package trains with the adjoint kernels
-# (K9/K10, not ported), below it with the tangent bundles (train.py:43)
+# from this many hard slots training takes the adjoint (K9), below it the
+# tangent bundles (JAX train.py:43)
 ADJOINT_MIN_SLOTS = 33
 # a pass of at least this many samples takes the compacted schedule, as the
 # JAX make_kernel_render does (train.py:136-146)
@@ -87,18 +98,22 @@ def check_fields(fields) -> None:
 
 def grad_slots(flat: FlatScene, fields) -> tuple:
     """The hard slots a request for `fields` differentiates: those of the
-    requested hard families only (JAX train.py:174-175). Raises
-    NotImplementedError from ADJOINT_MIN_SLOTS slots, the adjoint tier's
-    share, whose kernels (K9/K10) are not ported."""
+    requested hard families only (JAX train.py:174-175)."""
     hard = set(fields) & set(HARD_FIELDS)
-    slots = hard_param_slots(flat, hard) if hard else ()
-    if len(slots) >= ADJOINT_MIN_SLOTS:
-        raise NotImplementedError(
-            f"{len(slots)} hard slots of {sorted(hard)}: from "
-            f"{ADJOINT_MIN_SLOTS} slots the JAX package trains with the "
-            "adjoint kernels (K9/K10), which are not ported to this package "
-            "yet; request fewer hard families or train tex_color alone")
-    return slots
+    return hard_param_slots(flat, hard) if hard else ()
+
+
+def use_adjoint(flat: FlatScene, slots: tuple, want_tex: bool) -> bool:
+    """Whether a request takes the adjoint backward (JAX train.py:196-199):
+    it has hard slots, and either ADJOINT_MIN_SLOTS of them or a pass the
+    forward-mode kernels cannot serve on a scene inside their gate
+    (grad_gate_reason). A scene outside the forward kernel's gate
+    (kernel_gate_reason, which is the adjoint kernel's too) is no reason:
+    only the plain engine renders it, and its tangent bundles serve it."""
+    return bool(slots) and (
+        len(slots) >= ADJOINT_MIN_SLOTS
+        or (kernel_gate_reason(flat) is None
+            and grad_gate_reason(flat, len(slots), want_tex) is not None))
 
 
 @dataclass(frozen=True)
@@ -114,9 +129,11 @@ class _Plan:
 @dataclass(frozen=True)
 class _Request:
     """What one call differentiates: the param names in TRAINABLE_FIELDS
-    order and the hard slots of their families."""
+    order, the hard slots of their families and whether the adjoint
+    backward serves it."""
     names: tuple
     slots: tuple
+    adjoint: bool = False
 
     @property
     def want_tex(self) -> bool:
@@ -124,13 +141,22 @@ class _Request:
 
 
 def _pass_functions(plan: _Plan, flat: FlatScene, cam: CameraState,
-                    slots: tuple):
-    """(forward pass, grad pass) for the plan's engine; the kernels share
-    one packing of the scene and the slot table (once per step)."""
+                    req: _Request):
+    """(forward pass, backward pass) for the plan's engine: the grad pass,
+    or the adjoint pass for an adjoint request. The kernels share one
+    packing of the scene and the slot table (once per step); the adjoint
+    runs on the chunk scan's tables, packed once more for a scene the
+    forward runs unrolled."""
     if plan.engine == "cuda":
-        prep = prepare_kernel(flat, cam, slots)
+        if req.adjoint:
+            prep = prepare_kernel(flat, cam)
+            return (pass_function(flat, cam, prep),
+                    adjoint_pass_function(flat, cam, prep))
+        prep = prepare_kernel(flat, cam, req.slots)
         return (pass_function(flat, cam, prep),
                 grad_pass_function(flat, cam, prep))
+    if req.adjoint:
+        return render_pass_reference, render_pass_adjoint_reference
     return render_pass_reference, render_pass_grad_reference
 
 
@@ -166,7 +192,7 @@ class _KernelRender(torch.autograd.Function):
     def forward(ctx, plan: _Plan, cam: CameraState, seed, req: _Request,
                 *params):
         flat = set_params(plan.baked, dict(zip(req.names, params)))
-        fwd, grad = _pass_functions(plan, flat, cam, req.slots)
+        fwd, grad = _pass_functions(plan, flat, cam, req)
         ctx.state = (plan, flat, cam, seed, req, grad)
         if plan.compacted:
             return render_pass_compacted(flat, cam, seed, 0, pass_fn=fwd,
@@ -177,6 +203,14 @@ class _KernelRender(torch.autograd.Function):
     def backward(ctx, g):
         plan, flat, cam, seed, req, grad = ctx.state
         params = tuple(getattr(flat, n) for n in req.names)
+        if req.adjoint:
+            # every family at once; each requested tensor takes its own
+            # (JAX train.py:207-216)
+            _, grads = grad(flat, cam, seed, 0,
+                            cotangent=g.to(torch.float32).contiguous(),
+                            **plan.common)
+            return (None, None, None, None) + tuple(grads[n]
+                                                    for n in req.names)
         if not req.want_tex and not req.slots:
             # nothing requested exists in this scene (fuzz without a
             # metal): the gradient is identically zero (train.py:203-206)
@@ -203,12 +237,12 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
 
     params maps trainable field names (TRAINABLE_FIELDS) to tensors shaped
     as `baked`'s; the other scene tables are `baked`'s. The forward is the
-    compacted schedule at >= 8 samples, else one pass; the backward is the
-    grad pass under the same rule, with the image cotangent, over the
-    requested families' slots (grad_slots, which raises from
-    ADJOINT_MIN_SLOTS). cam and seed get no gradient. On the kernels a
-    request outside grad_gate_reason raises NotImplementedError at its
-    first call, before any pass."""
+    compacted schedule at >= 8 samples, else one pass; the backward, with
+    the image cotangent, is the grad pass under the same rule over the
+    requested families' slots (grad_slots), or for a request use_adjoint
+    picks the adjoint pass (one uncapped pass, K9). cam and seed get no
+    gradient. On the kernels a request none of them can serve raises
+    NotImplementedError at its first call, before any pass."""
     eng = pick_engine(baked, engine)
     if tex_form(baked) == "suffix":
         # the JAX package's build-time notice (train.py:112-123)
@@ -230,9 +264,12 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
         check_fields(params)
         names = tuple(f for f in TRAINABLE_FIELDS if f in params)
         if names not in requests:
-            req = _Request(names, grad_slots(baked, names))
-            reason = (grad_gate_reason(baked, len(req.slots), req.want_tex)
-                      if eng == "cuda" else None)
+            slots = grad_slots(baked, names)
+            want_tex = "tex_color" in names
+            req = _Request(names, slots, use_adjoint(baked, slots, want_tex))
+            # the adjoint's gate is the forward's, which pick_engine held
+            reason = (grad_gate_reason(baked, len(slots), want_tex)
+                      if eng == "cuda" and not req.adjoint else None)
             if reason is not None:
                 raise NotImplementedError(
                     f"training {list(names)} on the kernels: {reason}; "

@@ -11,7 +11,10 @@ Cornell 600x600 spp16 d50, the tex_color grad kernel at Cornell 1920x1080
 spp64 d50 (single pass and the compacted schedule) and, where the checkout
 has hard slots, the full-family grad kernel there (single pass); where it
 has the chunk scan, its forward at bouncing_spheres 400x225 spp9 d50 and
-the 301-quad city 400x225 spp9 d6 (single pass). Prints one JSON line.
+the 301-quad city 400x225 spp9 d6 (single pass); where it has the
+suffix-radiance tier, that grad kernel (K8) at bouncing_spheres 1200x675
+spp16 d50 (single pass); where it has the adjoint, K9 there under the sky
+gradient. Prints one JSON line.
 
 To compare two checkouts on one card, unpack the other one (git archive)
 under a git-ignored directory and time both roots in one run, in turns:
@@ -78,6 +81,26 @@ def kernel_times(root: str) -> dict:
                                     prepared=wc.prepare_kernel(flat, cam))
             out[f"{name}_ms"] = cs.cuda_ms(
                 torch, lambda: fwd(flat, cam, 0, 0, **kw))
+    if hasattr(wc, "tex_form"):
+        flat, cam, kw = cs.pass_args(
+            pt, cs.builtin(pt, "bouncing_spheres", 1200, 16, 50), dev)
+        g = cs.cotangent(torch, kw, dev, 6)
+        grad = functools.partial(wc.render_pass_grad_kernel,
+                                 prepared=wc.prepare_kernel(flat, cam))
+        out["suffix_bouncing_1200_spp16_ms"] = cs.cuda_ms(
+            torch, lambda: grad(flat, cam, 0, 0, cotangent=g, **kw))
+        try:
+            from real_time_ray_tracing_engine_tpu_torch.ops import \
+                adjoint_cuda as ac
+        except ImportError:
+            ac = None
+        if ac is not None:
+            kw["sky_gradient"] = True
+            adj = functools.partial(
+                ac.render_pass_adjoint_kernel,
+                prepared=wc.prepare_kernel(flat, cam, chunk_scan=True))
+            out["adjoint_bouncing_1200_spp16_sky_ms"] = cs.cuda_ms(
+                torch, lambda: adj(flat, cam, 0, 0, cotangent=g, **kw))
     return out
 
 

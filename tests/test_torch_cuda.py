@@ -479,3 +479,161 @@ def test_large_scene_train_step_runs_the_kernels(cuda_device):
             assert bool(torch.isfinite(v.grad).all())
     assert (wc.render_pass_reference.calls
             + wc.render_pass_grad_reference.calls) == plain
+
+
+def _adjoint_case(name, device):
+    """(flat, cam, kw) of the adjoint's cases: Cornell (quads and a sphere
+    light, which the forward runs unrolled and the adjoint on the chunk
+    scan), the 79-sphere scene (metals, a glass, a sphere light),
+    cornell_smoke (mediums), the city (quad chunks) and bouncing_spheres
+    under the sky gradient. bouncing is at 128 px: at 64 px its one IOR
+    entry (2.0) is a sum of terms a hundred times larger that cancel, and
+    K9, its plain version, K4v and K4v's plain version spread over 6e-4
+    of it; at 128 px it is 142."""
+    scene = {"cornell": lambda: cs.builtin(pt, "cornell_box", 48, 4, 8),
+             "slots": lambda: cs.sized(cs.vscan_slots_scene(pt), 48, 4, 8),
+             "smoke": lambda: cs.builtin(pt, "cornell_smoke", 48, 4, 8),
+             "city": lambda: cs.sized(cs.city_scene(pt), 64, 4, 6),
+             "bouncing": lambda: cs.builtin(pt, "bouncing_spheres", 128,
+                                            4, 16)}[name]()
+    flat, cam, kw = cs.pass_args(pt, scene, device)
+    kw["sky_gradient"] = kw["sky_gradient"] or name == "bouncing"
+    return flat, cam, kw
+
+
+@pytest.mark.parametrize("name", ["cornell", "slots", "smoke", "city",
+                                  "bouncing"])
+def test_adjoint_kernel_matches_plain(name, cuda_device):
+    """The adjoint kernel (K9) against its plain version: the image is the
+    forward kernel's bit for bit, the bounces are equal, and each family
+    is within 1e-4 of its largest entry (the two sum in other orders)."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    flat, cam, kw = _adjoint_case(name, cuda_device)
+    g = cs.cotangent(torch, kw, cuda_device, 5)
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    it_k = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
+    it_f = torch.zeros_like(it_k)
+    it_p = torch.zeros_like(it_k)
+    before = ac.render_pass_adjoint_kernel.launches
+    img, grads = ac.render_pass_adjoint_kernel(flat, cam, 7, 0, cotangent=g,
+                                               iters=it_k, **kw)
+    fwd = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_f, **kw)
+    torch.cuda.synchronize()
+    assert ac.render_pass_adjoint_kernel.launches == before + 1
+    _, grads_p = ac.render_pass_adjoint_reference(flat, cam, 7, 0,
+                                                  cotangent=g, iters=it_p,
+                                                  **kw)
+    np.testing.assert_array_equal(img.cpu().numpy(), fwd.cpu().numpy())
+    assert int(it_k.sum()) == int(it_p.sum()) == int(it_f.sum())
+    for f in ac.ADJOINT_FIELDS:
+        scale = float(grads_p[f].abs().max())
+        assert bool(torch.isfinite(grads[f]).all()), f
+        assert float((grads[f] - grads_p[f]).abs().max()) <= 1e-4 * scale, f
+    assert float(grads_p["tex_color"].abs().max()) > 0.0
+
+
+def test_adjoint_kernel_matches_forward_mode_kernels(cuda_device):
+    """Two differentiation mechanisms on the card (tests/test_grad.py:804):
+    K9's entries for the 79-sphere scene's 4 slots against K4v's dG_hard,
+    its tex_color against K8's (the scene has more than 32 rows), at rtol
+    1e-3, atol 1e-4 x the largest entry."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    from real_time_ray_tracing_engine_tpu_torch.scene.flat import (
+        MAT_DIELECTRIC, MAT_METAL)
+    flat, cam, kw = _adjoint_case("slots", cuda_device)
+    slots = cs.vscan_slots(flat.mat_type.cpu(), MAT_METAL, MAT_DIELECTRIC)
+    assert wc.tex_form(flat) == "suffix"
+    g = cs.cotangent(torch, kw, cuda_device, 6)
+    _, grads = ac.render_pass_adjoint_kernel(flat, cam, 7, 0, cotangent=g,
+                                             **kw)
+    _, dgt, dgh = wc.render_pass_grad_kernel(flat, cam, 7, 0, cotangent=g,
+                                             hard_slots=slots, **kw)
+    got = torch.stack([grads[wc.slot_index(s)[0]][wc.slot_index(s)[1]]
+                       for s in slots])
+    torch.testing.assert_close(got, dgh, rtol=1e-3,
+                               atol=1e-4 * float(dgh.abs().max()))
+    torch.testing.assert_close(grads["tex_color"], dgt, rtol=1e-3,
+                               atol=1e-4 * float(dgt.abs().max()))
+    assert float(dgh.abs().min()) > 0.0
+
+
+def test_full_family_bouncing_step_runs_the_adjoint(cuda_device):
+    """make_train_step over all five families of bouncing_spheres (2,013
+    hard slots) on the card: the forward kernel (K6) and the adjoint (K9),
+    no plain pass; the loss falls (Adam at 0.02, the geometry at
+    chip_smoke.ADJ_GEOM_LR) and every gradient is finite."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    flat, cam, kw = cs.pass_args(
+        pt, cs.builtin(pt, "bouncing_spheres", 96, 4, 16), cuda_device)
+    kw.pop("n_samples")
+    kw["sky_gradient"] = True
+    target = train.make_kernel_render(flat, **kw)(
+        {"tex_color": flat.tex_color}, cam, 0).detach()
+    params = {k: v.detach().clone()
+              for k, v in train.get_params(flat).items()}
+    params["tex_color"][:4] *= 0.7
+    (slot,) = wc.hard_param_slots(flat, {"mat_ior"})
+    params["mat_ior"][slot[1]] = 1.4
+    for v in params.values():
+        v.requires_grad_(True)
+    step = train.make_train_step(torch.optim.Adam([
+        {"params": [params["tex_color"], params["mat_ior"],
+                    params["mat_fuzz"]], "lr": 0.02},
+        {"params": [params["sph_center"], params["sph_radius"]],
+         "lr": cs.ADJ_GEOM_LR}]), flat=flat, **kw)
+    plain = (wc.render_pass_reference.calls
+             + wc.render_pass_grad_reference.calls
+             + ac.render_pass_adjoint_reference.calls)
+    launches = ac.render_pass_adjoint_kernel.launches
+    losses = [float(step(params, cam, 0, target)) for _ in range(3)]
+    assert losses[2] < losses[1] < losses[0], losses
+    assert ac.render_pass_adjoint_kernel.launches == launches + 3
+    for f, v in params.items():
+        assert bool(torch.isfinite(v.grad).all()), f
+    assert (wc.render_pass_reference.calls
+            + wc.render_pass_grad_reference.calls
+            + ac.render_pass_adjoint_reference.calls) == plain
+
+
+def test_plain_engine_on_the_card_launches_no_kernel(cuda_device):
+    """engine="torch" on the card: a full-family bouncing step (the adjoint
+    tier) runs the adjoint's plain version, and a 5-medium scene outside
+    the kernels' gate with a few hard slots the plain tangent bundles; no
+    kernel launches."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    mediums = pt.compile_scene(pt.Scene(objects=[pt.ConstantMedium(
+        pt.Box((i, 0, 0), (i + 1, 1, 1),
+               pt.Lambertian(pt.SolidColor((1, 1, 1)))),
+        0.1, pt.SolidColor((1, 1, 1))) for i in range(5)] + [
+        pt.Sphere((2.5, 0.5, -2), 0.5, pt.Dielectric(1.5)),
+        pt.Sphere((0.5, 0.5, -2), 0.5, pt.Metal((0.8, 0.8, 0.8), 0.2))]),
+        device=cuda_device)
+    mcam = pcam.derive(pt.CameraConfig(aspect_ratio=1.0, image_width=8,
+                                       lookfrom=(1.5, 1.5, 1),
+                                       lookat=(1.5, 0.5, -2), vfov=60),
+                       device=cuda_device)
+    bflat, bcam, bkw = cs.pass_args(
+        pt, cs.builtin(pt, "bouncing_spheres", 32, 4, 8), cuda_device)
+    bkw.pop("n_samples")
+    bkw["sky_gradient"] = True
+    launches = (wc.render_pass_kernel.launches
+                + wc.render_pass_grad_kernel.launches
+                + ac.render_pass_adjoint_kernel.launches)
+    for flat, cam, kw, plain in (
+            (mediums, mcam, dict(width=8, height=8, n_strata=1, max_depth=3,
+                                 sky_gradient=True),
+             wc.render_pass_grad_reference),
+            (bflat, bcam, bkw, ac.render_pass_adjoint_reference)):
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in train.get_params(flat).items()}
+        step = train.make_train_step(torch.optim.Adam(params.values(),
+                                                      lr=0.02),
+                                     flat=flat, engine="torch", **kw)
+        calls = plain.calls
+        target = torch.zeros(kw["height"], kw["width"], 3,
+                             device=cuda_device)
+        assert bool(torch.isfinite(step(params, cam, 0, target)))
+        assert plain.calls == calls + 1
+    assert (wc.render_pass_kernel.launches
+            + wc.render_pass_grad_kernel.launches
+            + ac.render_pass_adjoint_kernel.launches) == launches

@@ -315,9 +315,11 @@ def test_large_grad_gates(capsys):
 
 def test_requests_the_kernels_cannot_serve_raise(monkeypatch):
     """On the (faked) card, a request past a block's shared memory (31
-    texture rows' weight planes beside 30 tangent bundles) raises
-    NotImplementedError at its first call, before any pass; tex_color alone
-    (K3v's planes for 17 to 32 rows) and the fuzz slots alone do not."""
+    texture rows' weight planes beside 30 tangent bundles), which raised
+    NotImplementedError before the adjoint was ported, takes the adjoint
+    (K9) at its first call, before any pass; tex_color alone (K3v's planes
+    for 17 to 32 rows) and the fuzz slots alone keep the forward-mode
+    tiers."""
     flat = _metals_scene()
     cam = pcam.derive(pt.CameraConfig(image_width=8))
     applied = []
@@ -329,11 +331,11 @@ def test_requests_the_kernels_cannot_serve_raise(monkeypatch):
     monkeypatch.setattr(train._KernelRender, "apply",
                         lambda *a: applied.append(a[3])
                         or torch.zeros(5, 8, 3))
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        render({"tex_color": flat.tex_color, "mat_fuzz": flat.mat_fuzz},
-               cam, 0)
-    assert applied == []
+    assert "shared memory" in wc.grad_gate_reason(flat, 30)
+    render({"tex_color": flat.tex_color, "mat_fuzz": flat.mat_fuzz},
+           cam, 0)
     render({"tex_color": flat.tex_color}, cam, 0)
     render({"mat_fuzz": flat.mat_fuzz}, cam, 0)
-    assert [(r.names, len(r.slots)) for r in applied] == [
-        (("tex_color",), 0), (("mat_fuzz",), 30)]
+    assert [(r.names, len(r.slots), r.adjoint) for r in applied] == [
+        (("tex_color", "mat_fuzz"), 30, True), (("tex_color",), 0, False),
+        (("mat_fuzz",), 30, False)]

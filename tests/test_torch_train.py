@@ -8,8 +8,8 @@ optax.adam update, from the same carried-over parameters
 tests/test_torch_grad.py. The step over all five families is in
 tests/test_torch_hard_grad.py, beside the replay comparison it shares a
 compiled replay with. Here also: the tier policy (a request of 33 or more
-hard slots raises) and a request with no slot. The kernels run only on a
-GPU (tests/test_torch_cuda.py, chip_smoke.py).
+hard slots takes the adjoint, K9) and a request with no slot. The kernels
+run only on a GPU (tests/test_torch_cuda.py, chip_smoke.py).
 """
 import numpy as np
 import jax
@@ -170,32 +170,50 @@ def _many_slots(field):
 
 @pytest.mark.parametrize("field", train.HARD_FIELDS)
 def test_hard_families_raise(field, monkeypatch):
-    """From ADJOINT_MIN_SLOTS hard slots the JAX package trains with the
-    adjoint kernels (K9/K10), which are not ported: NotImplementedError
-    naming them on either engine, before any pass runs (the card is faked
-    for cuda, on a scene inside the kernel's gate). Below that bound every
-    family trains (tests/test_torch_hard_grad.py)."""
+    """From ADJOINT_MIN_SLOTS hard slots a request takes the adjoint
+    backward (K9), as the JAX package's does, on either engine: the plain
+    engine trains it through the plain adjoint (one adjoint pass, no grad
+    pass, a finite gradient of the family's shape), and on the (faked) card
+    it reaches the kernels' render marked for the adjoint, without the
+    NotImplementedError the port raised before K9. Below that bound every
+    family takes the tangent bundles (tests/test_torch_hard_grad.py)."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
     flat = _many_slots(field)
-    assert len(wc.hard_param_slots(flat, {field})) == train.ADJOINT_MIN_SLOTS
+    slots = wc.hard_param_slots(flat, {field})
+    assert len(slots) == train.ADJOINT_MIN_SLOTS
+    assert train.use_adjoint(flat, slots, False)
+    assert not train.use_adjoint(flat, slots[:-1], False)
     cam = pcam.derive(pt.CameraConfig(aspect_ratio=1.0, image_width=8))
     kw = dict(width=8, height=8, n_strata=1, max_depth=2)
     target = torch.zeros(8, 8, 3)
-    params = {"tex_color": flat.tex_color, field: getattr(flat, field)}
-    calls = (wc.render_pass_reference.calls
-             + wc.render_pass_grad_reference.calls)
-    with pytest.raises(NotImplementedError, match="K9/K10"):
-        train.make_kernel_render(flat, engine="torch", **kw)(params, cam, 0)
-    with pytest.raises(NotImplementedError, match="K9/K10"):
-        train.render_loss_grad(flat, cam, 0, target, fields=(field,), **kw)
+    grad_calls = wc.render_pass_grad_reference.calls
+    adj_calls = ac.render_pass_adjoint_reference.calls
+    loss, grads = train.render_loss_grad(flat, cam, 0, target,
+                                         fields=(field,), **kw)
+    assert ac.render_pass_adjoint_reference.calls == adj_calls + 1
+    assert wc.render_pass_grad_reference.calls == grad_calls
+    assert bool(torch.isfinite(loss))
+    assert grads[field].shape == getattr(flat, field).shape
+    assert bool(torch.isfinite(grads[field]).all())
     gated = _many_slots("sph_center")
-    monkeypatch.setattr(FlatScene, "device",
-                        property(lambda self: torch.device("cuda", 0)))
-    render_image = train.make_kernel_render(gated, engine="cuda", **kw)
-    with pytest.raises(NotImplementedError, match="K9/K10"):
-        render_image({field: getattr(gated, field),
-                      "sph_center": gated.sph_center}, cam, 0)
+    applied = []
+    with monkeypatch.context() as m:
+        m.setattr(FlatScene, "device",
+                  property(lambda self: torch.device("cuda", 0)))
+        render_image = train.make_kernel_render(gated, engine="cuda", **kw)
+    monkeypatch.setattr(train._KernelRender, "apply",
+                        lambda *a: applied.append(a[3])
+                        or torch.zeros(8, 8, 3))
+    calls = (wc.render_pass_reference.calls
+             + wc.render_pass_grad_reference.calls
+             + ac.render_pass_adjoint_reference.calls)
+    render_image({field: getattr(gated, field),
+                  "sph_center": gated.sph_center}, cam, 0)
+    assert [r.adjoint for r in applied] == [True]
+    assert len(applied[0].slots) >= train.ADJOINT_MIN_SLOTS
     assert (wc.render_pass_reference.calls
-            + wc.render_pass_grad_reference.calls) == calls
+            + wc.render_pass_grad_reference.calls
+            + ac.render_pass_adjoint_reference.calls) == calls
 
 
 def test_engines_follow_the_gate(monkeypatch):
@@ -204,8 +222,8 @@ def test_engines_follow_the_gate(monkeypatch):
     the forward renders through the chunk scan (past the unrolled bounds)
     builds, and a request its grad kernels cannot serve (31 texture rows'
     weight planes beside 30 tangent bundles, past a block's shared memory)
-    raises NotImplementedError naming it at the first call, before any
-    pass."""
+    takes the adjoint (K9) at its first call, before any pass, where it
+    raised NotImplementedError before K9."""
     _, _, pf, pc, kw = _cornell(width=8, spp=1, depth=2)
     with pytest.raises(ValueError, match="CUDA"):
         train.make_kernel_render(pf, engine="cuda", **kw)
@@ -218,11 +236,75 @@ def test_engines_follow_the_gate(monkeypatch):
                   pt.Metal((0.5, 0.4 + 0.01 * i, 0.5), 0.3) if i < 30
                   else pt.Lambertian(pt.SolidColor((1, 1, 1))))
         for i in range(80)]))
-    monkeypatch.setattr(FlatScene, "device",
-                        property(lambda self: torch.device("cuda", 0)))
-    with pytest.raises(ValueError, match="gate"):
-        train.make_kernel_render(mediums, **kw)
-    render = train.make_kernel_render(spheres, **kw)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        render({"tex_color": spheres.tex_color,
-                "mat_fuzz": spheres.mat_fuzz}, pc, 0)
+    with monkeypatch.context() as m:
+        m.setattr(FlatScene, "device",
+                  property(lambda self: torch.device("cuda", 0)))
+        with pytest.raises(ValueError, match="gate"):
+            train.make_kernel_render(mediums, **kw)
+        render = train.make_kernel_render(spheres, **kw)
+    assert "shared memory" in wc.grad_gate_reason(spheres, 30, True)
+    applied = []
+    monkeypatch.setattr(train._KernelRender, "apply",
+                        lambda *a: applied.append(a[3])
+                        or torch.zeros(8, 8, 3))
+    render({"tex_color": spheres.tex_color,
+            "mat_fuzz": spheres.mat_fuzz}, pc, 0)
+    assert [(len(r.slots), r.adjoint) for r in applied] == [(30, True)]
+
+
+def test_plain_engine_on_the_card_stays_plain(monkeypatch):
+    """engine="torch" on a (faked) card launches no kernel: a scene outside
+    the kernels' gate (5 mediums) with a few hard slots keeps the plain
+    tangent bundles (the refused forward gate is no reason for the
+    adjoint, whose gate it is too), and an adjoint request of that plain
+    engine gets the adjoint's plain version, not the kernel; on the CPU
+    the same request trains through the plain tangent bundles."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    flat = pt.compile_scene(pt.Scene(objects=[pt.ConstantMedium(
+        pt.Box((i, 0, 0), (i + 1, 1, 1),
+               pt.Lambertian(pt.SolidColor((1, 1, 1)))),
+        0.1, pt.SolidColor((1, 1, 1))) for i in range(5)] + [
+        pt.Sphere((2.5, 0.5, -2), 0.5, pt.Dielectric(1.5)),
+        pt.Sphere((0.5, 0.5, -2), 0.5, pt.Metal((0.8, 0.8, 0.8), 0.2))]))
+    assert wc.kernel_gate_reason(flat) is not None
+    fields = ("tex_color", "mat_ior", "mat_fuzz", "sph_radius")
+    slots = train.grad_slots(flat, fields)
+    assert 0 < len(slots) < train.ADJOINT_MIN_SLOTS
+    assert not train.use_adjoint(flat, slots, True)
+    cam = pcam.derive(pt.CameraConfig(aspect_ratio=1.0, image_width=8,
+                                      lookfrom=(1.5, 1.5, 1),
+                                      lookat=(1.5, 0.5, -2), vfov=60))
+    kw = dict(width=8, height=8, n_strata=1, max_depth=3, sky_gradient=True)
+    applied = []
+    with monkeypatch.context() as m:
+        m.setattr(FlatScene, "device",
+                  property(lambda self: torch.device("cuda", 0)))
+        render = train.make_kernel_render(flat, engine="torch", **kw)
+    with monkeypatch.context() as m:
+        m.setattr(train._KernelRender, "apply",
+                  lambda *a: applied.append(a[:4]) or torch.zeros(8, 8, 3))
+        render({f: getattr(flat, f) for f in fields}, cam, 0)
+    (plan, _, _, req), = applied
+    assert plan.engine == "torch" and not req.adjoint
+    with monkeypatch.context() as m:
+        m.setattr(FlatScene, "device",
+                  property(lambda self: torch.device("cuda", 0)))
+        for r, back in ((req, wc.render_pass_grad_reference),
+                        (train._Request(req.names, req.slots, True),
+                         ac.render_pass_adjoint_reference)):
+            assert train._pass_functions(plan, flat, cam, r) == (
+                wc.render_pass_reference, back)
+    params = {f: getattr(flat, f).clone().requires_grad_(True)
+              for f in fields}
+    step = train.make_train_step(torch.optim.Adam(params.values(), lr=LR),
+                                 flat=flat, engine="torch", **kw)
+    calls = (wc.render_pass_grad_reference.calls,
+             ac.render_pass_adjoint_reference.calls)
+    loss = step(params, cam, 0, torch.zeros(8, 8, 3))
+    assert (wc.render_pass_grad_reference.calls,
+            ac.render_pass_adjoint_reference.calls) == (calls[0] + 1,
+                                                        calls[1])
+    assert bool(torch.isfinite(loss))
+    for f, v in params.items():
+        assert bool(torch.isfinite(v.grad).all()), f
+    assert float(params["mat_ior"].grad.abs().max()) > 0.0

@@ -322,9 +322,10 @@ def test_gates():
 def test_vscan_training_on_the_kernels_raises(monkeypatch):
     """Training bouncing_spheres on the (faked) card: tex_color (the suffix
     tier, K8) and tex_color with its one IOR slot (K4v riding K8) pass the
-    request's gate and reach the kernels' render, while mat_fuzz (72
-    slots) raises NotImplementedError naming the adjoint kernels K9/K10
-    before any pass; the plain engine still trains it."""
+    request's gate and reach the kernels' render, and so does mat_fuzz (72
+    slots), marked for the adjoint (K9), where it raised
+    NotImplementedError naming K9/K10 before K9; no pass runs. The plain
+    engine still trains tex_color."""
     scene = pt.builders.bouncing_spheres()
     flat = pt.compile_scene(scene)
     kw = dict(width=8, height=5, n_strata=1, max_depth=2)
@@ -342,10 +343,10 @@ def test_vscan_training_on_the_kernels_raises(monkeypatch):
         render({"tex_color": flat.tex_color}, cam, 0)
         render({"tex_color": flat.tex_color, "mat_ior": flat.mat_ior},
                cam, 0)
-        with pytest.raises(NotImplementedError, match="K9/K10"):
-            render({"mat_fuzz": flat.mat_fuzz}, cam, 0)
-    assert [(r.names, len(r.slots)) for r in applied] == [
-        (("tex_color",), 0), (("tex_color", "mat_ior"), 1)]
+        render({"mat_fuzz": flat.mat_fuzz}, cam, 0)
+    assert [(r.names, len(r.slots), r.adjoint) for r in applied] == [
+        (("tex_color",), 0, False), (("tex_color", "mat_ior"), 1, False),
+        (("mat_fuzz",), 72, True)]
     assert (wc.render_pass_reference.calls
             + wc.render_pass_grad_reference.calls) == calls
     p = {"tex_color": flat.tex_color.clone().requires_grad_(True)}
