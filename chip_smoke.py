@@ -22,7 +22,11 @@ training at scale, make_train_step over all five families of
 bouncing_spheres (2,013 hard slots) through the adjoint backward (K9), at
 the JAX bench line's 400x225 spp9 d50 and at 1200x675 spp16 d50 under the
 sky gradient, with K9 held against its plain version on five scenes and
-against the forward-mode kernels (K4v, K8, K4, K3). Every phase prints
+against the forward-mode kernels (K4v, K8, K4, K3); and the same training
+through the adjoint's segmented-regeneration sweep (K10, adjoint_seg=8, the
+JAX package's sweep past depth 12), with K10 held against its plain
+version on seven cases and against K9 at both shapes, and K9 and K10 timed
+in turns at both shapes and on the 4,913-sphere grid. Every phase prints
 one JSON line; any failure raises and the script exits non-zero. The last
 lines are each phase's seconds, the kernel table, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -61,6 +65,8 @@ TPU_K8 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:914"
 # the adjoint backward's per-sample sweep (K9: grad_adjoint, 2664-2957,
 # 3094-3217)
 TPU_K9 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:2664"
+# its segmented-regeneration sweep (K10: adj_seg, 2958-3092)
+TPU_K10 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:2958"
 GOLDEN_DIR = ROOT / "tests" / "goldens" / "reference"
 
 # the per-pixel rule of tests/test_pallas.py::_assert_close: the two sides
@@ -118,6 +124,16 @@ LARGE_STEPS = 4
 # (scripts/adjoint_conditioning.py runs both rates, on the kernel and on
 # its plain version)
 ADJ_GEOM_LR = 1e-4
+# the segmented adjoint (K10) on the main path: the JAX package's SEG past
+# depth 12 (parallel/train.py:100-110)
+ADJ_SEG = 8
+# K10 against K9: each lane runs K9's arithmetic in K9's order, so the
+# images and bounces are equal and each family sums the same float
+# contributions in double in another order: within 1e-6 of its largest
+# entry. The images are equal bit for bit (the phases print whether they
+# are); the gate is 1e-6
+SEG_VS_K9_RTOL = 1e-6
+SEG_IMAGE_ATOL = 1e-6
 
 # Operations of one bounce of the kernel on a Lambertian hit, counted by
 # hand from csrc/wavefront.cu (each add, multiply, divide, compare, min/max,
@@ -468,6 +484,29 @@ def vscan_slots_scene(api):
         image_width=24, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
         vfov=45, lookfrom=(0, 2, 11), lookat=(0, 0, 0),
         background=(0.3, 0.4, 0.6)), name="vscan_slots")
+
+
+def adjoint_seg_scene(api):
+    """tests/test_grad.py::test_adjoint_segmented_matches_per_sample (1181):
+    78 spheres (a metal every ninth, a glass, the rest lambertian) and a
+    sphere light, 10 px, spp4, d4."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    objs = []
+    for i in range(78):
+        c = tuple(map(float, rng.uniform(-4, 4, 3)))
+        albedo = tuple(map(float, rng.uniform(0.25, 0.9, 3)))
+        mat = (api.Metal(albedo, fuzz=0.25) if i % 9 == 0 else
+               api.Dielectric(1.5) if i == 4 else
+               api.Lambertian(api.SolidColor(albedo)))
+        objs.append(api.Sphere(c, 0.5, mat))
+    light = api.Sphere((0, 8, 0), 2.0,
+                       api.DiffuseLight(api.SolidColor((6., 6., 6.))))
+    objs.append(light)
+    return api.Scene(objects=objs, lights=[light], camera=api.CameraConfig(
+        image_width=10, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+        vfov=45, lookfrom=(0, 2, 11), lookat=(0, 0, 0),
+        background=(0.3, 0.4, 0.6)))
 
 
 def vscan_slots(mat_type, mat_metal: int, mat_diel: int) -> tuple:
@@ -1981,6 +2020,9 @@ def main() -> int:
                     "plain": float(gr_p[fam][i]), "k4v": v,
                     "family_scale": fams[fam]["scale"]})
         adj_err[name] = rec
+        if name == "bouncing_sky_1200x675":
+            # kept for K10 at the same shape and inputs (adjoint_seg_parity)
+            main_plain = {"image": img_p, "grads": gr_p, "bounces": bp}
         emit("adjoint_parity", **rec)
         check(rec["vs_forward_max_abs_err"] <= 1e-5, f"{name}: the adjoint's "
               f"image differs from the forward's by "
@@ -2163,6 +2205,269 @@ def main() -> int:
           "adjoint training ran a forward-mode grad pass")
     check(adj_plain == 0, "adjoint training ran a plain pass")
     done("adjoint_train_main_path")
+
+    # 10. the segmented adjoint (K10) against its plain version on the card:
+    # tests/test_grad.py:1181's scene at SEG 6 and SEG 1, K9's four small
+    # parity scenes at their K9 sizes (SEG 8), and the bench line's
+    # bouncing 400x225 spp9 d50 under the sky gradient (SEG 8, every family
+    # within DG_RTOL of its largest entry, K9's gate at that shape): the
+    # image equal to the chunk-scan forward's, sweep 1's bounces equal to
+    # the forward's and the plain version's. Then K10 against K9 at both
+    # main shapes (400x225 spp9 d50 and 1200x675 spp16 d50, sky gradient):
+    # images and bounces equal, each family within SEG_VS_K9_RTOL; at
+    # 1200x675 K10 also against the plain version itself, adjoint_parity's
+    # plain result on the same inputs, under K9's rule there (the image's
+    # _assert_close statistics, equal bounces, each family within
+    # ADJ_MAIN_RTOL of its largest entry)
+    seg_cases = [
+        ("adjoint_seg_scene_seg6", sized(adjoint_seg_scene(pt), 10, 4, 4), 6,
+         False),
+        ("adjoint_seg_scene_seg1", sized(adjoint_seg_scene(pt), 10, 4, 4), 1,
+         False),
+        ("vscan_slots", sized(vscan_slots_scene(pt), 192, 4, 16), ADJ_SEG,
+         False),
+        ("cornell_box", builtin(pt, "cornell_box", 128, 4, 16), ADJ_SEG,
+         False),
+        ("cornell_smoke", builtin(pt, "cornell_smoke", 96, 4, 16), ADJ_SEG,
+         False),
+        ("city301", sized(city_scene(pt), 200, 4, 6), ADJ_SEG, False),
+        ("bouncing_sky", builtin(pt, "bouncing_spheres", 400, 9, 50), ADJ_SEG,
+         True)]
+    seg_err = {}
+    for name, scene, seg, sky in seg_cases:
+        flat, cam, kw = pass_args(pt, scene, dev)
+        kw["sky_gradient"] = kw["sky_gradient"] or sky
+        g = cotangent(torch, kw, dev, 5)
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        it_k = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        it_f = torch.zeros_like(it_k)
+        it_p = torch.zeros_like(it_k)
+        img_k, gr_k = ac.render_pass_adjoint_kernel(
+            flat, cam, 7, 0, cotangent=g, iters=it_k, seg=seg, **kw)
+        fwd = wc.render_pass_kernel(
+            flat, cam, 7, 0, iters=it_f,
+            prepared=wc.prepare_kernel(flat, cam, chunk_scan=True), **kw)
+        out = {}
+
+        def plain():
+            out["plain"] = ac.render_pass_adjoint_seg_reference(
+                flat, cam, 7, 0, cotangent=g, iters=it_p, seg=seg, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = cuda_ms(torch, plain, reps=1, warmup=0)
+        plain_gib = torch.cuda.max_memory_allocated() / 2**30
+        img_p, gr_p = out["plain"]
+        fams = adjoint_errors(gr_k, gr_p)
+        bk, bf, bp = int(it_k.sum()), int(it_f.sum()), int(it_p.sum())
+        rec = {"scene": name, "seg": seg,
+               "shape": f"{kw['width']}x{kw['height']} spp{kw['n_samples']} "
+                        f"d{kw['max_depth']}",
+               "sky_gradient": kw["sky_gradient"],
+               "vs_forward_max_abs_err": float((img_k - fwd).abs().max()),
+               "vs_forward_equal": bool(torch.equal(img_k, fwd)),
+               **per_pixel(img_k, img_p), "families": fams,
+               "kernel_bounces": bk, "forward_bounces": bf,
+               "plain_bounces": bp, "plain_ms": plain_ms,
+               "plain_peak_gib": plain_gib, "rtol": DG_RTOL}
+        seg_err[name] = rec
+        emit("adjoint_seg_parity", **rec)
+        check(rec["vs_forward_max_abs_err"] <= SEG_IMAGE_ATOL,
+              f"{name}: K10's image differs from the forward's by "
+              f"{rec['vs_forward_max_abs_err']}")
+        assert_close(f"{name} K10", rec)
+        check(bk == bf == bp, f"{name}: K10 traced {bk} bounces, the forward "
+              f"{bf}, its plain version {bp}")
+        check(fams["tex_color"]["scale"] > 0.0, f"{name}: tex_color's "
+              "gradient is 0")
+        for fam, e in fams.items():
+            check(bool(torch.isfinite(gr_k[fam]).all()),
+                  f"{name}: K10's {fam} is not finite")
+            check(e["max_abs_err"] <= DG_RTOL * e["scale"],
+                  f"{name}: K10's {fam} differs from its plain version by "
+                  f"{e['max_abs_err']} (limit {DG_RTOL} x {e['scale']})")
+    check(seg_err["bouncing_sky"]["families"]["sph_center"]["scale"] > 0.0,
+          "bouncing_sky: no sphere gradient under K10")
+    del out
+    torch.cuda.empty_cache()
+    seg_vs_k9 = {}
+    for name, width, spp in (("bouncing_sky", 400, 9),
+                             ("bouncing_sky_1200x675", 1200, 16)):
+        flat, cam, kw = pass_args(
+            pt, builtin(pt, "bouncing_spheres", width, spp, 50), dev)
+        kw["sky_gradient"] = True
+        g = cotangent(torch, kw, dev, 5)
+        prep = wc.prepare_kernel(flat, cam, chunk_scan=True)
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        it9 = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        it10 = torch.zeros_like(it9)
+        img9, gr9 = ac.render_pass_adjoint_kernel(
+            flat, cam, 7, 0, cotangent=g, iters=it9, prepared=prep, **kw)
+        img10, gr10 = ac.render_pass_adjoint_kernel(
+            flat, cam, 7, 0, cotangent=g, iters=it10, prepared=prep,
+            seg=ADJ_SEG, **kw)
+        fams = adjoint_errors(gr10, gr9)
+        rec = {"scene": name, "seg": ADJ_SEG,
+               "shape": f"{kw['width']}x{kw['height']} spp{kw['n_samples']} "
+                        f"d{kw['max_depth']}",
+               "images_equal": bool(torch.equal(img9, img10)),
+               "image_max_abs_err": float((img9 - img10).abs().max()),
+               "k9_bounces": int(it9.sum()), "k10_bounces": int(it10.sum()),
+               "families": fams, "rtol": SEG_VS_K9_RTOL}
+        if name == "bouncing_sky_1200x675":
+            vs = adjoint_errors(gr10, main_plain["grads"])
+            rec["vs_plain"] = {**per_pixel(img10, main_plain["image"]),
+                               "families": vs,
+                               "plain_bounces": main_plain["bounces"],
+                               "rtol": ADJ_MAIN_RTOL}
+            assert_close(f"{name} K10 against the plain version",
+                         rec["vs_plain"])
+            check(rec["k10_bounces"] == main_plain["bounces"],
+                  f"{name}: K10 traced {rec['k10_bounces']} bounces, the "
+                  f"plain version {main_plain['bounces']}")
+            for fam, e in vs.items():
+                check(e["max_abs_err"] <= ADJ_MAIN_RTOL * e["scale"],
+                      f"{name}: K10's {fam} differs from the plain version "
+                      f"by {e['max_abs_err']} (limit {ADJ_MAIN_RTOL} x "
+                      f"{e['scale']})")
+        seg_vs_k9[name] = rec
+        emit("adjoint_seg_vs_k9", **rec)
+        check(rec["image_max_abs_err"] <= SEG_IMAGE_ATOL,
+              f"{name}: K10's image differs from K9's by "
+              f"{rec['image_max_abs_err']}")
+        check(rec["k9_bounces"] == rec["k10_bounces"], f"{name}: K9 traced "
+              f"{rec['k9_bounces']} bounces, K10 {rec['k10_bounces']}")
+        for fam, e in fams.items():
+            check(e["max_abs_err"] <= SEG_VS_K9_RTOL * e["scale"],
+                  f"{name}: K10's {fam} differs from K9's by "
+                  f"{e['max_abs_err']} (limit {SEG_VS_K9_RTOL} x "
+                  f"{e['scale']})")
+    done("adjoint_seg_parity")
+
+    # 10b. K9 and K10 (SEG 8) on the card, each by CUDA events, best of 3
+    # after one warm-up, in turns: bouncing at the JAX bench line's 400x225
+    # spp9 d50 (flat sky, every family), at 1200x675 spp16 d50 (sky
+    # gradient) and the 4,913-sphere grid at 400x225 spp9 d8, the JAX
+    # package's own comparison points (parallel/train.py:100-110); each
+    # kernel's operation bound from the run's own bounces, Mpaths/s
+    seg_times = {}
+    for name, scene, sky in (
+            ("bouncing_400x225_spp9_d50",
+             builtin(pt, "bouncing_spheres", 400, 9, 50), False),
+            ("bouncing_1200x675_spp16_d50",
+             builtin(pt, "bouncing_spheres", 1200, 16, 50), True),
+            ("grid4913_400x225_spp9_d8", sized(grid_scene(pt), 400, 9, 8),
+             False)):
+        flat, cam, kw = pass_args(pt, scene, dev)
+        kw["sky_gradient"] = kw["sky_gradient"] or sky
+        prep = wc.prepare_kernel(flat, cam, chunk_scan=True)
+        g = cotangent(torch, kw, dev, 6)
+        k9 = functools.partial(ac.render_pass_adjoint_kernel, cotangent=g,
+                               prepared=prep, **kw)
+        k10 = functools.partial(k9, seg=ADJ_SEG)
+        t9 = cuda_ms(torch, lambda: k9(flat, cam, 0, 0))
+        t10 = cuda_ms(torch, lambda: k10(flat, cam, 0, 0))
+        bounces = counted_bounces(
+            torch, lambda it: k10(flat, cam, 0, 0, iters=it),
+            wc.lane_count(kw["width"] * kw["height"]), dev)
+        n = kw["width"] * kw["height"] * kw["n_samples"]
+        rec = {"k9_ms": t9, "k10_ms": t10, "k10_over_k9": t10 / t9,
+               "k9_mpaths_per_s": n / t9 / 1e3,
+               "k10_mpaths_per_s": n / t10 / 1e3, "bounces": bounces,
+               "k9_bound_ms": adjoint_bounce_ops(flat) * bounces
+               / PEAK_FP32 * 1e3,
+               # K10 computes K9's function: the same bound (its re-run
+               # of each segment is K10's own overhead, not the function's)
+               "k10_bound_ms": adjoint_bounce_ops(flat) * bounces
+               / PEAK_FP32 * 1e3,
+               "sky_gradient": kw["sky_gradient"], "seg": ADJ_SEG,
+               "default_sweep": ac.adjoint_sweep()}
+        seg_times[name] = rec
+        emit("adjoint_seg_times", card=card, shape=name, **rec)
+    seg_ptxas = ptxas_of(lib.build_log, "wavefront_adjoint_seg_kernel")
+    emit("adjoint_seg_build", ptxas=seg_ptxas,
+         plain_ms=seg_err["bouncing_sky"]["plain_ms"], library_ms=None)
+    check(len(seg_ptxas) == 2, "no ptxas lines for the segmented adjoint")
+    done("adjoint_seg_times")
+
+    # 10c. the segmented adjoint's training main path: make_train_step over
+    # all five families of bouncing_spheres with adjoint_seg=ADJ_SEG, the
+    # two setups of 9d (the bench line's 400x225 spp9 d50 under the flat sky
+    # from a zero target; 1200x675 spp16 d50 under the sky gradient from
+    # adjoint_training_start, the geometry at ADJ_GEOM_LR): the loss falls
+    # at every step, K10 runs once a step and K9, the forward-mode grad
+    # kernels and every plain version never
+    seg_train = {}
+    for name, width, spp, sky in (
+            ("bouncing_400x225_spp9_d50_fwd_bwd_full_params_adjoint_seg8",
+             400, 9, False),
+            ("bouncing_1200x675_spp16_d50_sky_full_params_adjoint_seg8", 1200,
+             16, True)):
+        aflat, acam, akw = pass_args(
+            pt, builtin(pt, "bouncing_spheres", width, spp, 50), dev)
+        akw.pop("n_samples")
+        akw["sky_gradient"] = sky
+        if sky:
+            params, target = adjoint_training_start(
+                torch, train, wc, aflat, acam, akw, "cuda")
+            opt = adjoint_optimizer(torch, params, ADJ_GEOM_LR)
+        else:
+            params = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in train.get_params(aflat).items()}
+            target = torch.zeros(akw["height"], akw["width"], 3, device=dev)
+            opt = torch.optim.Adam(params.values(), lr=TRAIN_LR)
+        step = train.make_train_step(opt, flat=aflat, engine="cuda",
+                                     adjoint_seg=ADJ_SEG, **akw)
+        wc.render_pass_kernel.launches = 0
+        wc.render_pass_grad_kernel.launches = 0
+        ac.render_pass_adjoint_kernel.launches = 0
+        ac.render_pass_adjoint_kernel.seg_launches = 0
+        wc.render_pass_reference.calls = 0
+        wc.render_pass_grad_reference.calls = 0
+        ac.render_pass_adjoint_reference.calls = 0
+        ac.render_pass_adjoint_seg_reference.calls = 0
+        rd._render_pass.calls = 0
+        losses, step_s = [], []
+        for _ in range(LARGE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(params, acam, TRAIN_SEED, target)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+            for f, v in params.items():
+                check(bool(torch.isfinite(v.grad).all()),
+                      f"K10 training {name}: the {f} gradient is not finite")
+        counts = {
+            "k10_launches": ac.render_pass_adjoint_kernel.seg_launches,
+            "k9_launches": ac.render_pass_adjoint_kernel.launches,
+            "forward_launches": wc.render_pass_kernel.launches,
+            "grad_launches": wc.render_pass_grad_kernel.launches,
+            "plain_calls": (wc.render_pass_reference.calls
+                            + wc.render_pass_grad_reference.calls
+                            + ac.render_pass_adjoint_reference.calls
+                            + ac.render_pass_adjoint_seg_reference.calls
+                            + rd._render_pass.calls)}
+        steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        paths = akw["width"] * akw["height"] * spp
+        rec = {"sky_gradient": sky, "seg": ADJ_SEG, "losses": losses,
+               "step_s": step_s, "median_step_ms": steady * 1e3,
+               "fwd_bwd_mpaths_per_s": paths / steady / 1e6, **counts}
+        seg_train[name] = rec
+        emit("adjoint_seg_train_main_path", card=card, metric=name, **rec)
+        check(counts["k10_launches"] == LARGE_STEPS,
+              f"K10 training {name}: K10 ran {counts['k10_launches']} times "
+              f"in {LARGE_STEPS} steps")
+        check(counts["k9_launches"] == 0 and counts["grad_launches"] == 0
+              and counts["plain_calls"] == 0,
+              f"K10 training {name}: K9, a forward-mode grad pass or a plain "
+              f"pass ran ({counts})")
+        check(counts["forward_launches"] >= LARGE_STEPS,
+              f"K10 training {name}: the forward kernel ran "
+              f"{counts['forward_launches']} times")
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"K10 training {name}: the loss did not fall at every step "
+              f"{losses}")
+    seg_launches = sum(r["k10_launches"] for r in seg_train.values())
+    done("adjoint_seg_train_main_path")
     emit("phase_seconds", **phase_s)
 
     hard_main = hard_err["cornell_box_1920x1080"]
@@ -2286,7 +2591,26 @@ def main() -> int:
         "max_abs_err_at": "the largest family's, bouncing_spheres 1200x675 "
                           "spp16 d50",
         "launches_at": "adjoint_train_main_path (2 x 4 steps)",
-        "ptxas": adj_ptxas}]}),
+        "ptxas": adj_ptxas}, {
+        "name": "wavefront_adjoint_seg_kernel", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_K10,
+        "launches": seg_launches,
+        "max_abs_err": max(e["max_abs_err"] for e in seg_vs_k9[
+            "bouncing_sky_1200x675"]["vs_plain"]["families"].values()),
+        "ms": seg_times["bouncing_1200x675_spp16_d50"]["k10_ms"],
+        "plain_ms": seg_err["bouncing_sky"]["plain_ms"],
+        "bound_ms": seg_times["bouncing_1200x675_spp16_d50"]["k10_bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": f"bouncing_spheres 1200x675 spp16 d50, sky gradient, SEG "
+                 f"{ADJ_SEG}",
+        "plain_ms_at": f"bouncing_spheres 400x225 spp9 d50, sky gradient, "
+                       f"SEG {ADJ_SEG}",
+        "max_abs_err_at": "the largest family's against the plain "
+                          "(per-sample) version, bouncing_spheres 1200x675 "
+                          "spp16 d50",
+        "launches_at": "adjoint_seg_train_main_path (2 x 4 steps)",
+        "ms_400x225": seg_times["bouncing_400x225_spp9_d50"]["k10_ms"],
+        "ptxas": seg_ptxas}]}),
         flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

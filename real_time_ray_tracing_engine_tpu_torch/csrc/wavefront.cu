@@ -21,7 +21,8 @@
 //   313-342; K8 the suffix-radiance tier, grad_suffix 914-931, 2350-2375,
 //   2545-2559, 2604-2637, 3205-3262); and the adjoint backward over every
 //   trainable family (K9, grad_adjoint's per-sample sweep, 2664-2957,
-//   3094-3217; see "adjoint (K9)" below).
+//   3094-3217; K10, its segmented-regeneration sweep, 2958-3092; see
+//   "adjoint (K9, K10)" below).
 //
 // Shape: one thread per lane (pixel), the reference engine's own
 //   static_render_kernel shape (CameraKernels.cu:240-278). Each thread loops
@@ -1645,8 +1646,9 @@ __device__ __forceinline__ void wavefront_body(
 // chunk scan's weight-plane grad instances for at most 16 rows (K3v, with
 // K4v); 2 its hard-slot-only and suffix instances (K4v, K8); 3 its
 // shared-memory weight planes for 17 to 32 rows (K3v, with K4v); 4 the
-// adjoint (K9) and its C entry point. Without WF_PART the file holds all of
-// them.
+// adjoint's per-sample sweep (K9) and its C entry point; 5 its
+// segmented-regeneration sweep (K10) and its C entry point. Without WF_PART
+// the file holds all of them.
 #ifndef WF_PART
 #define WF_PART -1
 #endif
@@ -1751,32 +1753,40 @@ int launch_vgrad_splanes(const WfParams& P, const VsParams& V,
 }
 #endif
 
-#if WF_IN_PART(4)
-// ------------------------------------------------------------ adjoint (K9)
+#if WF_IN_PART(4) || WF_IN_PART(5)
+// ------------------------------------------------------- adjoint (K9, K10)
 // The adjoint (reverse-mode) backward, the JAX kernel's grad_adjoint
-// per-sample sweep (wavefront_pallas.py: sample_body 3094-3209, adj_ctx
-// 2693-2755, adj_record 2757-2840, adj_step 2842-2892, scatter_rows and
-// apply_vjp 2894-2956; wrapper 3350-3357, 3532-3547, 3600-3626): the image
-// and d<g, radiance sum>/d theta for every trainable family at once
-// (tex_color, sphere centers and radii, metal fuzz, dielectric IOR), at a
-// cost that does not grow with the number of parameters. It always runs on
-// the chunk scan's selection (closest_select_vscan), Cornell-class scenes
-// included, in one uncapped pass.
+// (wavefront_pallas.py: adj_ctx 2693-2755, adj_record 2757-2840, adj_step
+// 2842-2892, scatter_rows and apply_vjp 2894-2956; wrapper 3350-3357,
+// 3532-3547, 3594-3626): the image and d<g, radiance sum>/d theta for every
+// trainable family at once (tex_color, sphere centers and radii, metal
+// fuzz, dielectric IOR), at a cost that does not grow with the number of
+// parameters. It always runs on the chunk scan's selection
+// (closest_select_vscan), Cornell-class scenes included, in one uncapped
+// pass. Two sweeps, one bounce forward (adj_forward_bounce) and one bounce
+// backward (adj_reverse_bounce) shared between them:
+//   K9, the per-sample sweep (sample_body 3094-3209), part 4: per sample,
+//   phase F traces the path and stores each bounce's record, phase R walks
+//   the records backward;
+//   K10, the segmented-regeneration sweep (adj_seg, 2958-3092), part 5:
+//   the regenerating wavefront with a snapshot every SEG iterations, then
+//   the segments last to first, each re-run from its snapshot storing its
+//   records and reversed (see wavefront_adjoint_seg_kernel).
 //
-// Shape: one thread per lane, as every other instance. Per sample, phase F
-//   traces the path with the forward's arithmetic (so the image is the
-//   forward kernel's, bounce for bounce) and stores, for each bounce, the
-//   ray state it started from (o, d, th), the selection (winner, t) and the
-//   bounce's discrete context (material row, eff row, flags, MIS weight):
-//   ADJ_STORE floats a bounce in global scratch, [bounce][field][lane].
-//   Phase R walks the stored bounces backward with the state cotangent lam
-//   = d<g, L>/d(o, d, th) of what follows (0 after the last bounce).
+// Shape: one thread per lane, as every other instance. The forward bounce
+//   is the forward kernel's arithmetic (so the image is the forward
+//   kernel's, bounce for bounce) and stores, for each bounce, the ray state
+//   it started from (o, d, th), the selection (winner, t) and the bounce's
+//   discrete context (material row, eff row, flags, MIS weight): ADJ_STORE
+//   floats a bounce in global scratch, [bounce][field][lane]. The reverse
+//   walks the stored bounces backward with the state cotangent lam =
+//   d<g, L>/d(o, d, th) of what follows (0 after a path's last bounce).
 // Per bounce, (g, lam) dotted with the columns of the bounce's Jacobian
 //   (radiance increment, o', d', th' over its inputs): each column one
 //   physics<Dual> pass, the dual bounce of the tangent-bundle tier (K4),
-//   from the stored selection, so every branch is phase F's. The columns:
-//   the 9 state values (their dots are the new lam); the winner sphere's
-//   center and radius (a medium's span reads its t too); the hit
+//   from the stored selection, so every branch is the forward's. The
+//   columns: the 9 state values (their dots are the new lam); the winner
+//   sphere's center and radius (a medium's span reads its t too); the hit
 //   material's fuzz (metal) or IOR (dielectric); and at an MIS bounce the
 //   center and radius of each sphere a light row copies (rd_light aliases
 //   the light's columns to that sphere's, as the JAX kernel's
@@ -1815,10 +1825,10 @@ int launch_vgrad_splanes(const WfParams& P, const VsParams& V,
 //   float running sums would round off about 1e-4 of the largest; in double
 //   only the order of the sums differs between runs, below float's last
 //   bit.
-// What bounds it: operations, as the other instances: two selections' worth
-//   of chunk scan per bounce (phase F; phase R reads the stored winner),
-//   one float bounce and the dual passes. The scratch traffic (2 x 60 B a
-//   bounce) is small beside them.
+// What bounds it: operations, as the other instances: the chunk scan once
+//   per bounce (K10: twice, the re-run), one float bounce (K10: two) and
+//   the dual passes. The scratch traffic (2 x 60 B a bounce; K10 adds 16 B
+//   of record and 52 B of snapshot a SEG bounces) is small beside them.
 #define ADJ_STORE 15   // o xyz, d xyz, th xyz, winner, t, material, eff,
                        // flags, MIS weight
 #define ADJ_HIT 1
@@ -1835,7 +1845,8 @@ struct AdjArgs {
     const float* cot;
     float* rad_out;
     double* acc_out;   // 3NT + 4S + 2NM doubles, zeroed by the caller
-    float* store;      // max_depth * ADJ_STORE * n_lanes floats
+    float* store;      // K9: max_depth * ADJ_STORE * n_lanes floats; K10:
+                       // seg * ADJ_REC * n_lanes
     int* iters_out;
     int NM;
     int shared_acc;    // the accumulators fit the block's shared memory
@@ -1871,13 +1882,14 @@ static __device__ __forceinline__ float adj_column(
         + lam[6] * td.x.t + lam[7] * td.y.t + lam[8] * td.z.t;
 }
 
-extern "C" __global__ void __launch_bounds__(WF_THREADS)
-wavefront_adjoint_kernel(WfParams P, VsParams V, AdjArgs A) {
-    __shared__ float cam[22];
-    const int n_acc = 3 * P.NT + 4 * P.S + 2 * A.NM;
+// A block's start: the chunk scan's boxes into shared memory, the shared
+// accumulators zeroed, the camera row; returns the accumulator row the
+// block adds into (shared, or the global row past a block's shared memory)
+static __device__ __forceinline__ double* adj_block_start(
+        const VsParams& V, const AdjArgs& A, int n_acc, const WfParams& P,
+        float* cam) {
     double* acc_s = reinterpret_cast<double*>(wf_tables
                                               + table_pad(V.n_box));
-    double* acc = A.shared_acc ? acc_s : A.acc_out;
     for (int i = threadIdx.x; i < V.n_box; i += blockDim.x)
         wf_tables[i] = A.vtab[V.off_box + i];
     if (A.shared_acc) {
@@ -1885,11 +1897,25 @@ wavefront_adjoint_kernel(WfParams P, VsParams V, AdjArgs A) {
     }
     if (threadIdx.x < 22) cam[threadIdx.x] = P.cam[threadIdx.x];
     __syncthreads();
+    return A.shared_acc ? acc_s : A.acc_out;
+}
 
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    const int N = P.n_lanes;
+// A block's end: the shared accumulators added into the global row
+static __device__ __forceinline__ void adj_block_flush(const AdjArgs& A,
+                                                       const double* acc,
+                                                       int n_acc) {
+    if (A.shared_acc) {
+        __syncthreads();
+        for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
+            const double v = acc[i];
+            if (v != 0.0) atomicAdd(A.acc_out + i, v);
+        }
+    }
+}
+
+static __device__ __forceinline__ Scene adj_scene(const WfParams& P,
+                                                  const float* tab) {
     Scene sc;
-    const float* tab = A.tables;
     sc.sph = tab + P.off_sph;
     sc.quad = tab + P.off_quad;
     sc.pmat = tab + P.off_pmat;
@@ -1904,7 +1930,177 @@ wavefront_adjoint_kernel(WfParams P, VsParams V, AdjArgs A) {
     sc.MQ = P.MQ; sc.med_cols = P.med_cols;
     sc.checker_depth = P.checker_depth; sc.has_noise = P.has_noise;
     sc.perlin_seed = P.perlin_seed;
+    return sc;
+}
+
+// One bounce forward (K9's phase F, K10's sweeps): bounce b of sample k1's
+// path from (o, d, th) at ray time tm, the draws, the chunk scan's
+// selection and the float bounce (physics<float>: rad gets the radiance
+// increment, o, d, th the next ray state); with STORE its record, the
+// first ADJ_STORE fields at st (stride N). Returns whether the path goes on
+// (the bounce updated the throughput).
+template <bool STORE>
+static __device__ __forceinline__ bool adj_forward_bounce(
+        const Scene& sc, const WfParams& P, const VsParams& V,
+        const float* vtab, const float* cam, uint32_t k0, uint32_t k1,
+        uint32_t k2, int b, V3& o, V3& d, V3& th, V3& rad, float tm,
+        const float (&gc)[3], float* st, int N) {
+    float u[9], u_med[4];
+    draws(k0, k1, k2, 0x4000000u + (uint32_t)b, u, 9);
+    if (sc.M > 0) draws(k0, k1, k2, 1000000u + (uint32_t)b, u_med, sc.M);
+    float best_t;
+    const int best = closest_select_vscan(sc, V, vtab, wf_tables, o, d, tm,
+                                          &best_t);
+    if (STORE) {
+        st[0 * N] = o.x; st[1 * N] = o.y; st[2 * N] = o.z;
+        st[3 * N] = d.x; st[4 * N] = d.y; st[5 * N] = d.z;
+        st[6 * N] = th.x; st[7 * N] = th.y; st[8 * N] = th.z;
+    }
+    SfxEv ev;
+    ev.hit = false;
+    float nw[1], ng[1];
+    const bool alive_new = physics<float, 0>(
+        sc, P, cam, best, best_t, o, d, th, rad, tm, u, u_med,
+        Seed{0, 0, 0}, nw, ng, gc, &ev);
+    if (STORE) {
+        int flags = 0, mat = 0, eff = -1;
+        if (ev.hit) {
+            mat = ev.mat;
+            eff = ev.eff;
+            const int mtype = (int)sc.mati[mat * 2];
+            flags = ADJ_HIT | (ev.emit ? ADJ_EMIT : 0)
+                | (ev.diel ? ADJ_DIEL : 0)
+                | (mtype == MAT_METAL ? ADJ_METAL : 0)
+                | (mtype != MAT_METAL && mtype != MAT_DIELECTRIC
+                   && mtype != MAT_DIFFUSE_LIGHT ? ADJ_MIS : 0);
+        }
+        if (alive_new) flags |= ADJ_SCAT;
+        st[9 * N] = (float)best;
+        st[10 * N] = best_t;
+        st[11 * N] = (float)mat;
+        st[12 * N] = (float)eff;
+        st[13 * N] = (float)flags;
+        st[14 * N] = ev.hit ? ev.factor : 1.0f;
+    }
+    return alive_new;
+}
+
+// One bounce backward (K9's phase R, K10's sweep 2): the bounce whose
+// record is at st (stride N), bounce b of sample k1 at ray time tm. Adds
+// (g, lam) . d(radiance increment, o', d', th')/d theta into the
+// accumulators, lam the cotangent of the state the bounce left, and
+// replaces lam by (g, lam) . d(...)/d(o, d, th), the cotangent of the
+// state it started from.
+static __device__ __forceinline__ void adj_reverse_bounce(
+        const Scene& sc, const WfParams& P, const float* cam, uint32_t k0,
+        uint32_t k1, uint32_t k2, int b, float tm, const float (&gc)[3],
+        const float* st, int N, float (&lam)[9], double* acc) {
     const int t_base = 3 * P.NT, m_base = 3 * P.NT + 4 * P.S;
+    const V3 o0 = v3(st[0 * N], st[1 * N], st[2 * N]);
+    const V3 d0 = v3(st[3 * N], st[4 * N], st[5 * N]);
+    const V3 th0 = v3(st[6 * N], st[7 * N], st[8 * N]);
+    const int best = (int)st[9 * N];
+    const float best_t = st[10 * N];
+    const int mat = (int)st[11 * N];
+    const int eff = (int)st[12 * N];
+    const int flags = (int)st[13 * N];
+    const float factor = st[14 * N];
+    float u[9], u_med[4];
+    draws(k0, k1, k2, 0x4000000u + (uint32_t)b, u, 9);
+    if (sc.M > 0) draws(k0, k1, k2, 1000000u + (uint32_t)b, u_med, sc.M);
+    // tex_color: the emission's and the attenuation's products
+    if ((flags & ADJ_HIT) && eff >= 0) {
+        const float tv[3] = {th0.x, th0.y, th0.z};
+        for (int c = 0; c < 3; ++c) {
+            float v = 0.0f;
+            if (flags & ADJ_EMIT) v = gc[c] * tv[c];
+            if ((flags & ADJ_SCAT) && !(flags & ADJ_DIEL))
+                v = v + lam[6 + c] * (tv[c] * factor);
+            if (v != 0.0f) atomicAdd(acc + 3 * eff + c, (double)v);
+        }
+    }
+    // the sphere rows this bounce reads: the winner, then at an MIS
+    // bounce the light rows' source spheres, each once
+    int rows[MAX_LIGHTS + 1];
+    int n_rows = 0;
+    if (best >= 0 && best < sc.S) rows[n_rows++] = best;
+    if ((flags & ADJ_MIS) && sc.L > 0) {
+        for (int l = 0; l < sc.L; ++l) {
+            const int src = (int)sc.lsrc[l];
+            bool seen = src < 0;
+            for (int k = 0; k < n_rows && !seen; ++k)
+                seen = rows[k] == src;
+            if (!seen) rows[n_rows++] = src;
+        }
+    }
+    const int has_mf = (flags & ADJ_HIT)
+        && (flags & (ADJ_METAL | ADJ_DIEL)) ? 1 : 0;
+    const int n_cols = 9 + 4 * n_rows + has_mf;
+    // lam_t: the cotangent of the winner's t (0 on a miss)
+    float dt_unused = 0.0f;
+    const float lam_t = best >= 0
+        ? adj_column(sc, P, cam, best, best_t, o0, d0, th0, tm, u,
+                     u_med, gc, lam, -1, Seed{0, 0, 0}, 1.0f,
+                     &dt_unused)
+        : 0.0f;
+    float nl[9];
+#pragma unroll 1
+    for (int c = 0; c < n_cols; ++c) {
+        int j = -1, target = -1;
+        Seed sd = {0, 0, 0};
+        if (c < 9) {
+            j = c;
+        } else if (c < 9 + 4 * n_rows) {
+            const int row = rows[(c - 9) >> 2], k = (c - 9) & 3;
+            sd = Seed{SEED_SPH, row, k < 3 ? k : 6};
+            target = t_base + 4 * row + k;
+        } else {
+            const int col = (flags & ADJ_METAL) ? 0 : 1;
+            sd = Seed{SEED_MATF, mat, col};
+            target = m_base + 2 * mat + col;
+        }
+        float t_x = 0.0f;
+        const float v = adj_column(sc, P, cam, best, best_t, o0, d0,
+                                   th0, tm, u, u_med, gc, lam, j,
+                                   sd, 0.0f, &t_x)
+            + lam_t * t_x;
+        if (c < 9) nl[c] = v;
+        else if (v != 0.0f) atomicAdd(acc + target, (double)v);
+    }
+    for (int c = 0; c < 9; ++c) lam[c] = nl[c];
+}
+// The dynamic shared memory of an adjoint launch: the chunk scan's boxes,
+// and the accumulators where they fit beside them (the static cam row and
+// a margin aside; shared_acc says whether they do). 0 for inputs the
+// kernels do not take.
+static size_t adj_smem(const WfParams& P, const VsParams& V, int NM,
+                       bool& shared_acc) {
+    shared_acc = false;
+    if (P.n_lanes % WF_THREADS != 0 || V.C_small < 1 || V.n_big < 0
+        || V.n_big > VCHUNK || V.Cq < 0 || V.n_box < 6 * V.C_small
+        || NM < 1 || P.NT < 1 || P.L > MAX_LIGHTS || P.max_depth < 1)
+        return 0;
+    const size_t n_acc = (size_t)3 * P.NT + (size_t)4 * P.S + (size_t)2 * NM;
+    const size_t boxes = (size_t)table_pad(V.n_box);
+    shared_acc = boxes * sizeof(float) + n_acc * sizeof(double)
+        <= (size_t)(226 * 1024);
+    return boxes * sizeof(float) + (shared_acc ? n_acc * sizeof(double) : 0);
+}
+#endif  // WF_IN_PART(4) || WF_IN_PART(5)
+
+#if WF_IN_PART(4)
+// K9, the per-sample sweep: per sample, phase F runs the path forward
+// storing each bounce's record (store: [bounce][field][lane]), phase R
+// reverses them with lam chained from 0.
+extern "C" __global__ void __launch_bounds__(WF_THREADS)
+wavefront_adjoint_kernel(WfParams P, VsParams V, AdjArgs A) {
+    __shared__ float cam[22];
+    const int n_acc = 3 * P.NT + 4 * P.S + 2 * A.NM;
+    double* acc = adj_block_start(V, A, n_acc, P, cam);
+
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    const int N = P.n_lanes;
+    const Scene sc = adj_scene(P, A.tables);
 
     // pad lanes repeat the last pixel (their cotangent is 0)
     const int pix = lane < P.n_pix ? lane : P.n_pix - 1;
@@ -1925,138 +2121,28 @@ wavefront_adjoint_kernel(WfParams P, VsParams V, AdjArgs A) {
         float tm;
         gen_ray(P, cam, k0, k2, fi, fj, P.sample_start + s, o, d, tm);
         th = v3(1.0f, 1.0f, 1.0f);
-        // ---- phase F: the forward path, each bounce's inputs stored
+        // ---- phase F: the forward path, each bounce's record stored
         int n_used = 0;
         for (int b = 0; b < P.max_depth; ++b) {
-            float u[9], u_med[4];
-            draws(k0, k1, k2, 0x4000000u + (uint32_t)b, u, 9);
-            if (sc.M > 0) draws(k0, k1, k2, 1000000u + (uint32_t)b, u_med,
-                                sc.M);
-            float best_t;
-            const int best = closest_select_vscan(sc, V, A.vtab, wf_tables,
-                                                  o, d, tm, &best_t);
-            float* st = store + (size_t)b * sb;
-            st[0 * N] = o.x; st[1 * N] = o.y; st[2 * N] = o.z;
-            st[3 * N] = d.x; st[4 * N] = d.y; st[5 * N] = d.z;
-            st[6 * N] = th.x; st[7 * N] = th.y; st[8 * N] = th.z;
-            SfxEv ev;
-            ev.hit = false;
-            float nw[1], ng[1];
-            const bool alive_new = physics<float, 0>(
-                sc, P, cam, best, best_t, o, d, th, rad, tm, u, u_med,
-                Seed{0, 0, 0}, nw, ng, gc, &ev);
-            int flags = 0, mat = 0, eff = -1;
-            if (ev.hit) {
-                mat = ev.mat;
-                eff = ev.eff;
-                const int mtype = (int)sc.mati[mat * 2];
-                flags = ADJ_HIT | (ev.emit ? ADJ_EMIT : 0)
-                    | (ev.diel ? ADJ_DIEL : 0)
-                    | (mtype == MAT_METAL ? ADJ_METAL : 0)
-                    | (mtype != MAT_METAL && mtype != MAT_DIELECTRIC
-                       && mtype != MAT_DIFFUSE_LIGHT ? ADJ_MIS : 0);
-            }
-            if (alive_new) flags |= ADJ_SCAT;
-            st[9 * N] = (float)best;
-            st[10 * N] = best_t;
-            st[11 * N] = (float)mat;
-            st[12 * N] = (float)eff;
-            st[13 * N] = (float)flags;
-            st[14 * N] = ev.hit ? ev.factor : 1.0f;
+            const bool alive_new = adj_forward_bounce<true>(
+                sc, P, V, A.vtab, cam, k0, k1, k2, b, o, d, th, rad, tm, gc,
+                store + (size_t)b * sb, N);
             ++it;
             n_used = b + 1;
             if (!alive_new) break;
         }
         // ---- phase R: the bounces backward, lam chained from 0
-        float lam[9], nl[9];
+        float lam[9];
         for (int c = 0; c < 9; ++c) lam[c] = 0.0f;
-        for (int b = n_used - 1; b >= 0; --b) {
-            const float* st = store + (size_t)b * sb;
-            const V3 o0 = v3(st[0 * N], st[1 * N], st[2 * N]);
-            const V3 d0 = v3(st[3 * N], st[4 * N], st[5 * N]);
-            const V3 th0 = v3(st[6 * N], st[7 * N], st[8 * N]);
-            const int best = (int)st[9 * N];
-            const float best_t = st[10 * N];
-            const int mat = (int)st[11 * N];
-            const int eff = (int)st[12 * N];
-            const int flags = (int)st[13 * N];
-            const float factor = st[14 * N];
-            float u[9], u_med[4];
-            draws(k0, k1, k2, 0x4000000u + (uint32_t)b, u, 9);
-            if (sc.M > 0) draws(k0, k1, k2, 1000000u + (uint32_t)b, u_med,
-                                sc.M);
-            // tex_color: the emission's and the attenuation's products
-            if ((flags & ADJ_HIT) && eff >= 0) {
-                const float tv[3] = {th0.x, th0.y, th0.z};
-                for (int c = 0; c < 3; ++c) {
-                    float v = 0.0f;
-                    if (flags & ADJ_EMIT) v = gc[c] * tv[c];
-                    if ((flags & ADJ_SCAT) && !(flags & ADJ_DIEL))
-                        v = v + lam[6 + c] * (tv[c] * factor);
-                    if (v != 0.0f) atomicAdd(acc + 3 * eff + c, (double)v);
-                }
-            }
-            // the sphere rows this bounce reads: the winner, then at an MIS
-            // bounce the light rows' source spheres, each once
-            int rows[MAX_LIGHTS + 1];
-            int n_rows = 0;
-            if (best >= 0 && best < sc.S) rows[n_rows++] = best;
-            if ((flags & ADJ_MIS) && sc.L > 0) {
-                for (int l = 0; l < sc.L; ++l) {
-                    const int src = (int)sc.lsrc[l];
-                    bool seen = src < 0;
-                    for (int k = 0; k < n_rows && !seen; ++k)
-                        seen = rows[k] == src;
-                    if (!seen) rows[n_rows++] = src;
-                }
-            }
-            const int has_mf = (flags & ADJ_HIT)
-                && (flags & (ADJ_METAL | ADJ_DIEL)) ? 1 : 0;
-            const int n_cols = 9 + 4 * n_rows + has_mf;
-            // lam_t: the cotangent of the winner's t (0 on a miss)
-            float dt_unused = 0.0f;
-            const float lam_t = best >= 0
-                ? adj_column(sc, P, cam, best, best_t, o0, d0, th0, tm, u,
-                             u_med, gc, lam, -1, Seed{0, 0, 0}, 1.0f,
-                             &dt_unused)
-                : 0.0f;
-#pragma unroll 1
-            for (int c = 0; c < n_cols; ++c) {
-                int j = -1, target = -1;
-                Seed sd = {0, 0, 0};
-                if (c < 9) {
-                    j = c;
-                } else if (c < 9 + 4 * n_rows) {
-                    const int row = rows[(c - 9) >> 2], k = (c - 9) & 3;
-                    sd = Seed{SEED_SPH, row, k < 3 ? k : 6};
-                    target = t_base + 4 * row + k;
-                } else {
-                    const int col = (flags & ADJ_METAL) ? 0 : 1;
-                    sd = Seed{SEED_MATF, mat, col};
-                    target = m_base + 2 * mat + col;
-                }
-                float t_x = 0.0f;
-                const float v = adj_column(sc, P, cam, best, best_t, o0, d0,
-                                           th0, tm, u, u_med, gc, lam, j,
-                                           sd, 0.0f, &t_x)
-                    + lam_t * t_x;
-                if (c < 9) nl[c] = v;
-                else if (v != 0.0f) atomicAdd(acc + target, (double)v);
-            }
-            for (int c = 0; c < 9; ++c) lam[c] = nl[c];
-        }
+        for (int b = n_used - 1; b >= 0; --b)
+            adj_reverse_bounce(sc, P, cam, k0, k1, k2, b, tm, gc,
+                               store + (size_t)b * sb, N, lam, acc);
     }
     A.rad_out[0 * N + lane] = rad.x;
     A.rad_out[1 * N + lane] = rad.y;
     A.rad_out[2 * N + lane] = rad.z;
     if (A.iters_out) A.iters_out[lane] += it;
-    if (A.shared_acc) {
-        __syncthreads();
-        for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
-            const double v = acc_s[i];
-            if (v != 0.0) atomicAdd(A.acc_out + i, v);
-        }
-    }
+    adj_block_flush(A, acc, n_acc);
 }
 
 // rad_out (3, n_lanes); acc_out (3NT + 4S + 2NM doubles) zeroed; store
@@ -2069,18 +2155,9 @@ extern "C" int rt_wavefront_adjoint(const WfParams* params,
                                     int* iters_out, int NM, void* stream) {
     const WfParams P = *params;
     const VsParams V = *vparams;
-    if (P.n_lanes % WF_THREADS != 0 || V.C_small < 1 || V.n_big < 0
-        || V.n_big > VCHUNK || V.Cq < 0 || V.n_box < 6 * V.C_small
-        || NM < 1 || P.NT < 1 || P.L > MAX_LIGHTS || P.max_depth < 1)
-        return (int)cudaErrorInvalidValue;
-    const size_t n_acc = (size_t)3 * P.NT + (size_t)4 * P.S + (size_t)2 * NM;
-    const size_t boxes = (size_t)table_pad(V.n_box);
-    // the accumulators go to shared memory where they fit beside the boxes
-    // (the static cam row and a margin aside)
-    const bool shared_acc = boxes * sizeof(float) + n_acc * sizeof(double)
-        <= (size_t)(226 * 1024);
-    const size_t smem = boxes * sizeof(float)
-        + (shared_acc ? n_acc * sizeof(double) : 0);
+    bool shared_acc;
+    const size_t smem = adj_smem(P, V, NM, shared_acc);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
     cudaError_t e = set_smem((const void*)wavefront_adjoint_kernel, smem);
     if (e != cudaSuccess) return (int)e;
     const AdjArgs A = {tables, vtab, cot, rad_out, acc_out, store, iters_out,
@@ -2090,6 +2167,213 @@ extern "C" int rt_wavefront_adjoint(const WfParams* params,
     return (int)cudaGetLastError();
 }
 #endif  // WF_IN_PART(4)
+
+#if WF_IN_PART(5)
+// K10, the segmented-regeneration sweep (wavefront_pallas.py: adj_seg,
+// awf_advance 2973-3019, sweep 1 s1_cond/s1_body 3021-3048, sweep 2
+// rev_one/s2_body 3050-3092; scratch 3594-3599). The JAX kernel's reason
+// for it is the TPU's lock-step tile: the per-sample sweep pays, per
+// sample, the tile's longest path forward and again backward. On this card
+// the counterpart of the tile is the warp: under K9 a warp's 32 lanes are
+// in different phases (one still tracing its sample, another reversing
+// it) and the warp pays the longest phase F of its lanes and then the
+// longest phase R, sample by sample. K10 keeps a warp in one phase at a
+// time:
+//   Sweep 1 runs the regenerating wavefront to the end (adj_advance: a lane
+//   whose path ended takes its pixel's next sample's camera ray, then every
+//   live lane runs one bounce), accumulating the image, and every SEG
+//   iterations stores a snapshot of the lane state (ADJ_SNAP floats: o, d,
+//   th, alive, bounce, sample, time; [segment][field][lane]). It loops
+//   while any lane of the warp has work left (__any_sync), so a warp's
+//   segment count is uniform; a lane whose samples are done takes masked
+//   no-op iterations, as the JAX tile's finished lanes do.
+//   Sweep 2 takes the warp's segments last to first: it restores the
+//   segment's snapshot, re-runs its SEG iterations storing each bounce's
+//   record (ADJ_REC floats: K9's ADJ_STORE, then whether the lane
+//   regenerated, the bounce, -1 for a no-op, the absolute sample and the
+//   ray time; [iteration][field][lane]), and reverses them with K9's
+//   backward bounce, lam carried across segment boundaries and set to 0
+//   after an iteration whose lane regenerated (the cotangent of a fresh
+//   camera ray's state with respect to the last path's is 0).
+// Each lane runs K9's arithmetic in K9's order: the image and the bounces
+//   (iters: sweep 1's) are K9's bit for bit, and each bounce adds K9's float
+//   contributions to the double accumulators, in another order. The price
+//   is one more forward bounce a bounce (the re-run) and the snapshots.
+#define ADJ_REC (ADJ_STORE + 4)   // + regen, bounce, sample, time
+#define ADJ_SNAP 13               // o xyz, d xyz, th xyz, alive, bounce,
+                                  // sample (local), time
+
+struct AdjSegArgs {
+    AdjArgs a;         // store: seg * ADJ_REC * n_lanes floats
+    float* snap;       // nseg_max * ADJ_SNAP * n_lanes floats
+    int seg, nseg_max;
+};
+
+// A lane of the regenerating sweep: its ray, whether its path is alive,
+// the path's bounce and the lane's local sample.
+struct AdjLane {
+    V3 o, d, th;
+    float tm;
+    int b, s;
+    bool alive;
+};
+
+// One iteration of the regenerating sweep (awf_advance): a lane whose path
+// ended and that has samples left takes the next sample's camera ray; a
+// live lane then runs one bounce (adj_forward_bounce), rad getting its
+// radiance. With REC its record goes to rec (stride N). Returns whether it
+// ran a bounce.
+template <bool REC>
+static __device__ __forceinline__ bool adj_advance(
+        const Scene& sc, const WfParams& P, const VsParams& V,
+        const float* vtab, const float* cam, uint32_t k0, uint32_t k2,
+        float fi, float fj, const float (&gc)[3], AdjLane& L, V3& rad,
+        float* rec, int N) {
+    const bool regen = !L.alive && L.s + 1 < P.n_samples;
+    if (regen) {
+        ++L.s;
+        gen_ray(P, cam, k0, k2, fi, fj, P.sample_start + L.s, L.o, L.d,
+                L.tm);
+        L.th = v3(1.0f, 1.0f, 1.0f);
+        L.b = 0;
+        L.alive = true;
+    }
+    if (!L.alive) {
+        if (REC) rec[(ADJ_STORE + 1) * N] = -1.0f;
+        return false;
+    }
+    const int s_abs = P.sample_start + L.s;
+    if (REC) {
+        rec[(ADJ_STORE + 0) * N] = regen ? 1.0f : 0.0f;
+        rec[(ADJ_STORE + 1) * N] = (float)L.b;
+        rec[(ADJ_STORE + 2) * N] = (float)s_abs;
+        rec[(ADJ_STORE + 3) * N] = L.tm;
+    }
+    const bool alive_new = adj_forward_bounce<REC>(
+        sc, P, V, vtab, cam, k0, (uint32_t)s_abs, k2, L.b, L.o, L.d, L.th,
+        rad, L.tm, gc, rec, N);
+    L.alive = alive_new && L.b + 1 < P.max_depth;
+    ++L.b;
+    return true;
+}
+
+extern "C" __global__ void __launch_bounds__(WF_THREADS)
+wavefront_adjoint_seg_kernel(WfParams P, VsParams V, AdjSegArgs G) {
+    const AdjArgs& A = G.a;
+    __shared__ float cam[22];
+    const int n_acc = 3 * P.NT + 4 * P.S + 2 * A.NM;
+    double* acc = adj_block_start(V, A, n_acc, P, cam);
+
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    const int N = P.n_lanes;
+    const Scene sc = adj_scene(P, A.tables);
+
+    // pad lanes repeat the last pixel (their cotangent is 0)
+    const int pix = lane < P.n_pix ? lane : P.n_pix - 1;
+    const uint32_t k0 = (uint32_t)pix;
+    const uint32_t k2 = P.seed_mix;
+    const float fi = (float)(pix % P.width);
+    const float fj = (float)(pix / P.width);
+    const float gc[3] = {A.cot[0 * N + lane], A.cot[1 * N + lane],
+                         A.cot[2 * N + lane]};
+    float* snap = G.snap + lane;
+    float* recs = A.store + lane;
+    const size_t ss = (size_t)ADJ_SNAP * N;    // one snapshot's floats
+    const size_t rs = (size_t)ADJ_REC * N;     // one record's floats
+
+    AdjLane L;
+    gen_ray(P, cam, k0, k2, fi, fj, P.sample_start, L.o, L.d, L.tm);
+    L.th = v3(1.0f, 1.0f, 1.0f);
+    L.b = 0;
+    L.s = 0;
+    L.alive = true;
+
+    // ---- sweep 1: the regenerating forward, a snapshot every SEG
+    // iterations, while a lane of the warp has work left
+    V3 rad = v3(0.0f, 0.0f, 0.0f);
+    int it = 0, nseg = 0;
+    while (nseg < G.nseg_max
+           && __any_sync(0xffffffffu, L.alive || L.s + 1 < P.n_samples)) {
+        float* sn = snap + (size_t)nseg * ss;
+        sn[0 * N] = L.o.x; sn[1 * N] = L.o.y; sn[2 * N] = L.o.z;
+        sn[3 * N] = L.d.x; sn[4 * N] = L.d.y; sn[5 * N] = L.d.z;
+        sn[6 * N] = L.th.x; sn[7 * N] = L.th.y; sn[8 * N] = L.th.z;
+        sn[9 * N] = L.alive ? 1.0f : 0.0f;
+        sn[10 * N] = (float)L.b;
+        sn[11 * N] = (float)L.s;
+        sn[12 * N] = L.tm;
+        for (int i = 0; i < G.seg; ++i)
+            if (adj_advance<false>(sc, P, V, A.vtab, cam, k0, k2, fi, fj, gc,
+                                   L, rad, nullptr, N))
+                ++it;
+        ++nseg;
+    }
+    A.rad_out[0 * N + lane] = rad.x;
+    A.rad_out[1 * N + lane] = rad.y;
+    A.rad_out[2 * N + lane] = rad.z;
+    if (A.iters_out) A.iters_out[lane] += it;
+
+    // ---- sweep 2: the warp's segments last to first, each re-run from its
+    // snapshot storing its records, then reversed; lam carries across
+    // segments and is cut where a lane regenerated
+    float lam[9];
+    for (int c = 0; c < 9; ++c) lam[c] = 0.0f;
+    for (int k = nseg - 1; k >= 0; --k) {
+        const float* sn = snap + (size_t)k * ss;
+        L.o = v3(sn[0 * N], sn[1 * N], sn[2 * N]);
+        L.d = v3(sn[3 * N], sn[4 * N], sn[5 * N]);
+        L.th = v3(sn[6 * N], sn[7 * N], sn[8 * N]);
+        L.alive = sn[9 * N] != 0.0f;
+        L.b = (int)sn[10 * N];
+        L.s = (int)sn[11 * N];
+        L.tm = sn[12 * N];
+        V3 rerun = v3(0.0f, 0.0f, 0.0f);
+        for (int i = 0; i < G.seg; ++i)
+            adj_advance<true>(sc, P, V, A.vtab, cam, k0, k2, fi, fj, gc, L,
+                              rerun, recs + (size_t)i * rs, N);
+        for (int i = G.seg - 1; i >= 0; --i) {
+            const float* r = recs + (size_t)i * rs;
+            const int b = (int)r[(ADJ_STORE + 1) * N];
+            if (b < 0) continue;
+            adj_reverse_bounce(sc, P, cam, k0, (uint32_t)r[(ADJ_STORE + 2) * N],
+                               k2, b, r[(ADJ_STORE + 3) * N], gc, r, N, lam,
+                               acc);
+            if (r[ADJ_STORE * N] != 0.0f) {
+                for (int c = 0; c < 9; ++c) lam[c] = 0.0f;
+            }
+        }
+    }
+    adj_block_flush(A, acc, n_acc);
+}
+
+// rt_wavefront_adjoint's arguments, with store (seg * ADJ_REC * n_lanes)
+// and snap (nseg_max * ADJ_SNAP * n_lanes) scratch and the sweep's SEG and
+// snapshot bound (nseg_max >= ceil(n_samples * max_depth / seg))
+extern "C" int rt_wavefront_adjoint_seg(const WfParams* params,
+                                        const VsParams* vparams,
+                                        const float* tables,
+                                        const float* vtab, const float* cot,
+                                        float* rad_out, double* acc_out,
+                                        float* store, float* snap,
+                                        int* iters_out, int NM, int seg,
+                                        int nseg_max, void* stream) {
+    const WfParams P = *params;
+    const VsParams V = *vparams;
+    bool shared_acc;
+    const size_t smem = adj_smem(P, V, NM, shared_acc);
+    if (smem == 0 || seg < 1
+        || (long long)nseg_max * seg < (long long)P.n_samples * P.max_depth)
+        return (int)cudaErrorInvalidValue;
+    cudaError_t e = set_smem((const void*)wavefront_adjoint_seg_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const AdjSegArgs G = {{tables, vtab, cot, rad_out, acc_out, store,
+                           iters_out, NM, shared_acc ? 1 : 0},
+                          snap, seg, nseg_max};
+    wavefront_adjoint_seg_kernel<<<P.n_lanes / WF_THREADS, WF_THREADS, smem,
+                                   (cudaStream_t)stream>>>(P, V, G);
+    return (int)cudaGetLastError();
+}
+#endif  // WF_IN_PART(5)
 
 #if WF_IN_PART(0)
 // The forward pass (K1, K2).

@@ -1,41 +1,53 @@
-"""The adjoint (reverse-mode) backward (K9) and its plain torch version.
+"""The adjoint (reverse-mode) backward (K9, K10) and its plain torch versions.
 
-Port of the JAX package's grad_adjoint per-sample sweep
-(ops/wavefront_pallas.py: sample_body 3094-3209, adj_ctx 2693-2755,
-adj_record 2757-2840, adj_step 2842-2892, scatter_rows and apply_vjp
-2894-2956; the wrapper 3350-3357, 3532-3547, 3600-3626): one pass that
-returns the radiance-sum image and d<g, radiance sum>/d theta for every
-trainable family at once, the grads dict of the JAX package's keys
+Port of the JAX package's grad_adjoint (ops/wavefront_pallas.py: adj_ctx
+2693-2755, adj_record 2757-2840, adj_step 2842-2892, scatter_rows and
+apply_vjp 2894-2956; the wrapper 3350-3357, 3532-3547, 3594-3626): one pass
+that returns the radiance-sum image and d<g, radiance sum>/d theta for
+every trainable family at once, the grads dict of the JAX package's keys
 (ADJOINT_FIELDS), at a cost that does not grow with the number of
 parameters. Training takes it from ADJOINT_MIN_SLOTS hard slots, or where
 the forward-mode tiers cannot serve a request (parallel/train.py).
 
-Per lane and sample, phase F traces the path forward and keeps each
-bounce's inputs (the ray state o, d, th and the discrete context: the
-winner of the selection, the material and texture rows, the branch taken);
-phase R walks the bounces backward, chaining the state cotangent
-lam = d<g, L>/d(o, d, th) of what follows from 0, and at each bounce adds
-(g, lam) . d(radiance increment, o', d', th')/d(theta) into the parameter
-accumulators and takes (g, lam) . d(...)/d(o, d, th) as the next lam. The
-discrete context is held fixed: the estimator's detached-sampling
-derivative, reparameterized through the winner's t, as every grad tier of
-the port.
+Per lane and sample, the forward traces the path and keeps each bounce's
+inputs (the ray state o, d, th and the discrete context: the winner of the
+selection, the material and texture rows, the branch taken); the reverse
+walks the bounces backward, chaining the state cotangent lam = d<g, L>/d(o,
+d, th) of what follows from 0, and at each bounce adds (g, lam) .
+d(radiance increment, o', d', th')/d(theta) into the parameter accumulators
+and takes (g, lam) . d(...)/d(o, d, th) as the next lam. The discrete
+context is held fixed: the estimator's detached-sampling derivative,
+reparameterized through the winner's t, as every grad tier of the port.
 
-  - `render_pass_adjoint_kernel`: the CUDA kernel (csrc/wavefront.cu part 4,
-    wavefront_adjoint_kernel), always on the chunk scan's tables
+Two sweeps order those bounces (adjoint_sweep picks one):
+  - the per-sample sweep (K9, sample_body 3094-3209): per sample, the path
+    forward, then its bounces backward;
+  - the segmented-regeneration sweep (K10, adj_seg 2958-3092): each lane
+    runs its samples in one regenerating wavefront to the end, keeping a
+    snapshot of its state every SEG iterations (sweep 1, the image), then
+    takes the segments last to first, re-running each from its snapshot
+    and reversing its bounces, lam carried across segments and cut to 0
+    where a lane regenerated (sweep 2). The same bounces and the same VJPs:
+    the same image and gradients, summed in another order.
+
+  - `render_pass_adjoint_kernel`: the CUDA kernels (csrc/wavefront.cu part
+    4, wavefront_adjoint_kernel, K9; part 5, wavefront_adjoint_seg_kernel,
+    K10, with `seg`), always on the chunk scan's tables
     (prepare_kernel(..., chunk_scan=True)), Cornell-class scenes included,
-    one uncapped pass; its bounce store in device scratch (ADJ_STORE floats
-    a bounce a lane), its accumulators doubles in a block's shared memory
-    with atomics, rounded to float32 at the end (only the order of the
-    double sums differs between runs).
-  - `render_pass_adjoint_reference`: the plain version, the same per-sample
-    F/R sweep over every lane at once on the port's plain integrator (the
-    all-primitive selection of ops/intersect.py); each bounce's VJP is
+    one uncapped pass; their scratch in device memory (K9: ADJ_STORE floats
+    a bounce a lane; K10: seg_scratch), their accumulators doubles in a
+    block's shared memory with atomics, rounded to float32 at the end (only
+    the order of the double sums differs between runs).
+  - `render_pass_adjoint_reference` / `render_pass_adjoint_seg_reference`:
+    the plain versions of the two sweeps over every lane at once on the
+    port's plain integrator (the all-primitive selection of
+    ops/intersect.py); each bounce's VJP (_bounce_vjp, shared) is
     torch.autograd.grad of ops/integrator.py::bounce_step as a function of
-    (o, d, th) and the trainable tables, so its memory stays at one
+    (o, d, th) and the trainable tables, so the memory stays at one
     bounce's graph.
-  - `adjoint_pass_function`: the kernel for a scene on a CUDA device, the
-    plain version on the CPU; `adjoint_gate_reason`: what the kernel takes.
+  - `adjoint_sweep`: the sweep of a request; `adjoint_pass_function`: the
+    kernel for a scene on a CUDA device, the plain version on the CPU;
+    `adjoint_gate_reason`: what the kernels take.
 
 Accumulator layout (one row, `adjoint_layout`; double in the kernel): 3*NT
 tex_color, then 4*S sphere (center xyz, radius), then 2*NM material (fuzz,
@@ -65,6 +77,12 @@ ADJOINT_FIELDS = ("tex_color", "sph_center", "sph_radius", "mat_fuzz",
 # ADJ_STORE): o xyz, d xyz, th xyz, winner, t, material, eff, flags, MIS
 # weight
 ADJ_STORE = 15
+# the segmented sweep's (K10) floats per lane: a record, ADJ_STORE and the
+# regeneration flag, bounce, absolute sample and ray time; a snapshot, o, d,
+# th, alive, bounce, local sample and ray time (csrc/wavefront.cu ADJ_REC,
+# ADJ_SNAP)
+ADJ_REC = ADJ_STORE + 4
+ADJ_SNAP = 13
 
 
 def adjoint_gate_reason(flat: FlatScene) -> str | None:
@@ -73,6 +91,24 @@ def adjoint_gate_reason(flat: FlatScene) -> str | None:
     (366-378) is its base gate. The adjoint always runs on the chunk scan,
     whose tables stay in global memory, and has no slot bound."""
     return wc.kernel_gate_reason(flat)
+
+
+def adjoint_sweep(adjoint_seg: int | None = None) -> int:
+    """The adjoint sweep a pass takes: 0 the per-sample sweep (K9), n > 0
+    the segmented-regeneration sweep at SEG = n (K10), at any depth (the
+    JAX package's RTX_ADJOINT_SEG, as an argument); a negative value
+    raises. None is the port's default, the per-sample sweep. The JAX
+    package takes SEG 8 past depth 12 (parallel/train.py:100-110), a
+    choice for the TPU's lock-step tiles; on the H100, K10 at SEG 8 is
+    slower than K9 at both of bouncing_spheres' d50 shapes and on the
+    4,913-sphere grid at d8 (PERF.md §5-6), so the default is K9 at every
+    depth."""
+    if adjoint_seg is None:
+        return 0
+    if int(adjoint_seg) != adjoint_seg or adjoint_seg < 0:
+        raise ValueError(f"adjoint_seg must be None, 0 (the per-sample "
+                         f"sweep) or a positive SEG, got {adjoint_seg!r}")
+    return int(adjoint_seg)
 
 
 def adjoint_layout(flat: FlatScene) -> tuple:
@@ -96,29 +132,37 @@ def grads_from_row(flat: FlatScene, row: torch.Tensor) -> dict:
 
 
 # ---------------------------------------------------- plain torch version
-def render_pass_adjoint_reference(flat: FlatScene, cam: CameraState, seed,
-                                  sample_start, *, width: int, height: int,
-                                  n_strata: int, max_depth: int,
-                                  n_samples: int, cotangent,
-                                  sky_gradient: bool = False, iters=None):
-    """The plain version of the adjoint kernel: (image, grads) with image
-    the (height, width, 3) radiance sum of n_samples samples a pixel (the
-    forward pass's) and grads the dict of d<g, image>/d table for each of
-    ADJOINT_FIELDS, g the (height, width, 3) cotangent.
+def _bounce_vjp(flat: FlatScene, tables: dict, o, d, th, tm, live, u, u_med,
+                g, lam, background, sky_gradient: bool):
+    """The VJP of one bounce over its lanes: torch.autograd.grad of
+    bounce_step as a function of (o, d, th) and the trainable tables (the
+    draws, the ray time and the selection's outcome held fixed) at the
+    cotangents (g, lam) of (radiance increment, o', d', th'). Returns (the
+    cotangent (n, 9) of (o, d, th), {field: the tables' gradient or
+    None})."""
+    state = [x.detach().requires_grad_(True) for x in (o, d, th)]
+    params = {f: t.detach().requires_grad_(True) for f, t in tables.items()}
+    with torch.enable_grad():
+        out = bounce_step(dataclasses.replace(flat, **params), state[0],
+                          state[1], tm, state[2], live, u, u_med, background,
+                          sky_gradient)[:4]
+    got = torch.autograd.grad(out, state + list(params.values()),
+                              (g, lam[:, 0:3], lam[:, 3:6], lam[:, 6:9]),
+                              allow_unused=True)
+    return torch.cat(got[:3], dim=1), dict(zip(params, got[3:]))
 
-    Per sample, over every lane at once: phase F runs bounce_step without
-    a graph and keeps each bounce's live lanes, ray state and draws; phase
-    R walks them backward, and at each bounce torch.autograd.grad of
-    bounce_step (a function of o, d, th and the trainable tables; the
-    draws, the ray time and the selection's outcome held fixed) takes the
-    cotangents (g, lam) of (radiance increment, o', d', th') to the
-    parameter gradients and the next lam. Light rows read the sphere
-    tables, so a light sphere's cotangents land in its rows. iters, when
-    given, counts each lane's phase-F bounces. The lanes' radiance,
-    cotangents and gradients take the dtype of the scene's tables (float32;
-    float64 tables give a float64 reference past the camera's float32
-    rays). Each call adds one to render_pass_adjoint_reference.calls."""
-    render_pass_adjoint_reference.calls += 1
+
+def _add_grads(grads: dict, got: dict) -> None:
+    for f, gr in got.items():
+        if gr is not None:
+            grads[f] += gr
+
+
+def _adjoint_setup(flat: FlatScene, cotangent, width: int, height: int,
+                   iters):
+    """What both plain sweeps start from: (n_lanes, the lanes' pixels, the
+    cotangent lanes (n_lanes, 3), the trainable tables, zero grads, zero
+    radiance (n_lanes, 3)), in the dtype of the scene's tables."""
     device = flat.device
     n_pix = width * height
     n_lanes = wc.lane_count(n_pix)
@@ -127,11 +171,41 @@ def render_pass_adjoint_reference(flat: FlatScene, cam: CameraState, seed,
     g = wc.cotangent_lanes(cotangent, width=width, height=height).to(
         device=device, dtype=dt).T                           # (n_lanes, 3)
     pix = wc._identity_pixels(n_lanes, n_pix, device)
-    sample_start = int(sample_start)
-    background = cam.background
     tables = {f: getattr(flat, f).detach() for f in ADJOINT_FIELDS}
     grads = {f: torch.zeros_like(t) for f, t in tables.items()}
     rad = torch.zeros(n_lanes, 3, dtype=dt, device=device)
+    return n_lanes, pix, g, tables, grads, rad
+
+
+def render_pass_adjoint_reference(flat: FlatScene, cam: CameraState, seed,
+                                  sample_start, *, width: int, height: int,
+                                  n_strata: int, max_depth: int,
+                                  n_samples: int, cotangent,
+                                  sky_gradient: bool = False, iters=None):
+    """The plain version of the adjoint kernel's per-sample sweep (K9):
+    (image, grads) with image the (height, width, 3) radiance sum of
+    n_samples samples a pixel (the forward pass's) and grads the dict of
+    d<g, image>/d table for each of ADJOINT_FIELDS, g the (height, width,
+    3) cotangent.
+
+    Per sample, over every lane at once: phase F runs bounce_step without
+    a graph and keeps each bounce's live lanes, ray state and draws; phase
+    R walks them backward, and at each bounce the bounce's VJP
+    (_bounce_vjp) takes the cotangents (g, lam) of (radiance increment, o',
+    d', th') to the parameter gradients and the next lam. Light rows read
+    the sphere tables, so a light sphere's cotangents land in its rows.
+    iters, when given, counts each lane's phase-F bounces. The lanes'
+    radiance, cotangents and gradients take the dtype of the scene's tables
+    (float32; float64 tables give a float64 reference past the camera's
+    float32 rays). Each call adds one to
+    render_pass_adjoint_reference.calls."""
+    render_pass_adjoint_reference.calls += 1
+    device = flat.device
+    n_lanes, pix, g, tables, grads, rad = _adjoint_setup(
+        flat, cotangent, width, height, iters)
+    dt = rad.dtype
+    sample_start = int(sample_start)
+    background = cam.background
     for s in range(n_samples):
         keys = rng.ray_keys(seed, pix, sample_start + s)
         org, dr, tm = generate_rays(cam, width, pix, sample_start + s,
@@ -161,26 +235,132 @@ def render_pass_adjoint_reference(flat: FlatScene, cam: CameraState, seed,
         # phase R: the bounces backward, lam from 0
         lam = torch.zeros(n_lanes, 9, dtype=dt, device=device)
         for idx, o, d, th, t_, live, u, u_med in reversed(tape):
-            state = [x.detach().requires_grad_(True) for x in (o, d, th)]
-            params = {f: t.detach().requires_grad_(True)
-                      for f, t in tables.items()}
-            with torch.enable_grad():
-                out = bounce_step(dataclasses.replace(flat, **params),
-                                  state[0], state[1], t_, state[2], live, u,
-                                  u_med, background, sky_gradient)[:4]
-            lam_b = lam[idx]
-            got = torch.autograd.grad(
-                out, state + list(params.values()),
-                (g[idx], lam_b[:, 0:3], lam_b[:, 3:6], lam_b[:, 6:9]),
-                allow_unused=True)
-            lam[idx] = torch.cat(got[:3], dim=1)
-            for f, gr in zip(params, got[3:]):
-                if gr is not None:
-                    grads[f] += gr
+            lam[idx], got = _bounce_vjp(flat, tables, o, d, th, t_, live, u,
+                                        u_med, g[idx], lam[idx], background,
+                                        sky_gradient)
+            _add_grads(grads, got)
     return wc._image_from_lanes(rad.T, width, height), grads
 
 
 render_pass_adjoint_reference.calls = 0
+
+
+def seg_scratch(n_lanes: int, n_samples: int, max_depth: int,
+                seg: int) -> tuple:
+    """(snapshot bound NSEG_MAX, record floats, snapshot floats) of the
+    segmented sweep (K10; wavefront_pallas.py:3594-3599): NSEG_MAX =
+    ceil(n_samples * max_depth / seg) + 1 snapshots of ADJ_SNAP floats a
+    lane, and seg records of ADJ_REC floats a lane."""
+    nseg_max = -(-(n_samples * max_depth) // seg) + 1
+    return (nseg_max, seg * ADJ_REC * n_lanes,
+            nseg_max * ADJ_SNAP * n_lanes)
+
+
+def render_pass_adjoint_seg_reference(flat: FlatScene, cam: CameraState,
+                                      seed, sample_start, *, width: int,
+                                      height: int, n_strata: int,
+                                      max_depth: int, n_samples: int,
+                                      cotangent, seg: int,
+                                      sky_gradient: bool = False,
+                                      iters=None):
+    """The plain version of the adjoint kernel's segmented-regeneration
+    sweep (K10, wavefront_pallas.py 2958-3092): render_pass_adjoint_
+    reference's arguments and results, by another orchestration of the same
+    bounces, over every lane at once.
+
+    Each lane runs its pixel's samples in turn in one regenerating
+    wavefront (`advance`: a lane whose path ended and that has samples left
+    takes the next sample's camera ray; every live lane runs one
+    bounce_step at its own bounce and sample). Sweep 1 runs it to the end,
+    accumulating the image and keeping a snapshot of the lane state every
+    `seg` iterations while any lane has work left (at most NSEG_MAX,
+    seg_scratch). Sweep 2 takes the snapshots last to first: it re-runs
+    the segment's `seg` iterations keeping each iteration's live lanes,
+    state, draws and regeneration flags, then reverses them with the
+    per-sample sweep's bounce VJP (_bounce_vjp), lam carried across
+    segments and set to 0 where a lane regenerated. iters, when given,
+    counts sweep 1's bounces. Each call adds one to
+    render_pass_adjoint_seg_reference.calls."""
+    render_pass_adjoint_seg_reference.calls += 1
+    if seg < 1:
+        raise ValueError(f"seg must be positive, got {seg}")
+    device = flat.device
+    n_lanes, pix, g, tables, grads, rad = _adjoint_setup(
+        flat, cotangent, width, height, iters)
+    dt = rad.dtype
+    sample_start = int(sample_start)
+    background = cam.background
+    nseg_max = seg_scratch(n_lanes, n_samples, max_depth, seg)[0]
+
+    def camera(lanes, s):
+        s_abs = sample_start + s
+        keys = rng.ray_keys(seed, pix[lanes], s_abs)
+        org, dr, tm = generate_rays(cam, width, pix[lanes], s_abs, n_strata,
+                                    keys)
+        return org.to(dt), normalize(dr).to(dt), tm
+
+    def advance(st, tape=None):
+        o, d, th, tm, alive, b, s = st
+        # new tensors: the snapshots hold the old ones
+        o, d, th, tm, b = o.clone(), d.clone(), th.clone(), tm.clone(), \
+            b.clone()
+        regen = ~alive & (s + 1 < n_samples)
+        s = s + regen.long()
+        r = regen.nonzero()[:, 0]
+        if r.numel():
+            o[r], d[r], tm[r] = camera(r, s[r])
+            th[r] = 1.0
+            b[r] = 0
+        alive = alive | regen
+        idx = alive.nonzero()[:, 0]
+        if idx.numel() == 0:
+            return o, d, th, tm, alive, b + 1, s
+        keys = rng.ray_keys(seed, pix[idx], sample_start + s[idx])
+        u = rng.bounce_uniforms(keys, b[idx])
+        u_med = medium_uniforms(flat, keys, b[idx])
+        live = torch.ones(idx.numel(), dtype=torch.bool, device=device)
+        if tape is not None:
+            tape.append((idx, o[idx], d[idx], th[idx], tm[idx], live, u,
+                         u_med, regen[idx]))
+        elif iters is not None:
+            iters[idx] += 1
+        with torch.no_grad():
+            drad, o[idx], d[idx], th[idx], go_on = bounce_step(
+                flat, o[idx], d[idx], tm[idx], th[idx], live, u, u_med,
+                background, sky_gradient)
+        if tape is None:
+            rad[idx] += drad
+        alive = torch.zeros_like(alive)
+        alive[idx] = go_on & (b[idx] + 1 < max_depth)
+        return o, d, th, tm, alive, b + 1, s
+
+    # sweep 1: the regenerating forward, a snapshot every seg iterations
+    zeros = torch.zeros(n_lanes, dtype=torch.long, device=device)
+    o, d, tm = camera(torch.arange(n_lanes, device=device), zeros)
+    st = (o, d, torch.ones_like(o), tm,
+          torch.ones(n_lanes, dtype=torch.bool, device=device), zeros, zeros)
+    snaps = []
+    while len(snaps) < nseg_max and bool(
+            (st[4] | (st[6] + 1 < n_samples)).any()):
+        snaps.append(st)
+        for _ in range(seg):
+            st = advance(st)
+    # sweep 2: the segments last to first, re-run, then reversed
+    lam = torch.zeros(n_lanes, 9, dtype=dt, device=device)
+    for st in reversed(snaps):
+        tape = []
+        for _ in range(seg):
+            st = advance(st, tape)
+        for idx, o, d, th, t_, live, u, u_med, regen in reversed(tape):
+            lam_b, got = _bounce_vjp(flat, tables, o, d, th, t_, live, u,
+                                     u_med, g[idx], lam[idx], background,
+                                     sky_gradient)
+            lam[idx] = torch.where(regen[:, None], 0.0, lam_b)
+            _add_grads(grads, got)
+    return wc._image_from_lanes(rad.T, width, height), grads
+
+
+render_pass_adjoint_seg_reference.calls = 0
 
 
 # ------------------------------------------------------------- the kernel
@@ -189,13 +369,17 @@ def render_pass_adjoint_kernel(flat: FlatScene, cam: CameraState, seed,
                                n_strata: int, max_depth: int, n_samples: int,
                                cotangent, sky_gradient: bool = False,
                                prepared: wc.KernelInputs | None = None,
-                               iters=None):
-    """The adjoint kernel's (K9) wrapper: render_pass_adjoint_reference's
-    signature and results, on a CUDA device. `prepared` is
-    prepare_kernel(flat, cam, chunk_scan=True), packed here when not given.
-    Launches on the current stream; raises if the scene is outside
-    adjoint_gate_reason, the inputs are malformed, or the launch fails.
-    Each launch adds one to render_pass_adjoint_kernel.launches."""
+                               iters=None, seg: int = 0):
+    """The adjoint kernel's wrapper: render_pass_adjoint_reference's
+    signature and results, on a CUDA device; seg = 0 launches the
+    per-sample sweep (K9), seg > 0 the segmented-regeneration sweep with
+    SEG = seg (K10, render_pass_adjoint_seg_reference's results).
+    `prepared` is prepare_kernel(flat, cam, chunk_scan=True), packed here
+    when not given. Launches on the current stream; raises, before the
+    launch, if the scene is outside adjoint_gate_reason, the inputs are
+    malformed or the sweep's scratch does not fit the device's free memory,
+    and after it if the launch fails. Each launch adds one to
+    render_pass_adjoint_kernel.launches (K9) or .seg_launches (K10)."""
     device = flat.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
@@ -214,9 +398,27 @@ def render_pass_adjoint_kernel(flat: FlatScene, cam: CameraState, seed,
         raise ValueError("sample indices must stay below 2^24")
     if max_depth < 1 or n_samples < 1:
         raise ValueError("max_depth and n_samples must be positive")
+    if seg < 0:
+        raise ValueError(f"seg must be 0 (K9) or positive (K10), got {seg}")
     cot = wc.cotangent_lanes(cotangent, width=width, height=height).to(
         device=device, dtype=torch.float32).contiguous()
     NT, S, NM = adjoint_layout(flat)
+    if seg:
+        nseg_max, n_rec, n_snap = seg_scratch(n_lanes, n_samples, max_depth,
+                                              seg)
+    else:
+        n_rec, n_snap = max_depth * ADJ_STORE * n_lanes, 0
+    need = 4 * (n_rec + n_snap)
+    # what the device has free, and what torch's allocator holds unused
+    free = (torch.cuda.mem_get_info(device)[0]
+            + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+    if need > free:
+        raise RuntimeError(
+            f"the adjoint's scratch ({need / 2**30:.2f} GiB: "
+            f"{'K10 SEG ' + str(seg) if seg else 'K9'}, {n_lanes} lanes, "
+            f"{n_samples} samples, depth {max_depth}) exceeds the device's "
+            f"{free / 2**30:.2f} GiB free")
     p = wc._Params(
         n_lanes=n_lanes, n_pix=n_pix, width=width, n_strata=n_strata,
         max_depth=max_depth, n_samples=n_samples,
@@ -227,41 +429,63 @@ def render_pass_adjoint_kernel(flat: FlatScene, cam: CameraState, seed,
     rad = torch.empty(3, n_lanes, dtype=torch.float32, device=device)
     acc = torch.zeros(3 * NT + 4 * S + 2 * NM, dtype=torch.float64,
                       device=device)
-    store = torch.empty(max_depth * ADJ_STORE * n_lanes, dtype=torch.float32,
-                        device=device)
+    store = torch.empty(n_rec, dtype=torch.float32, device=device)
+    snap = torch.empty(n_snap, dtype=torch.float32, device=device)
 
     def ptr(t):
         return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
     lib = wc.load_library()
+    vp = wc._VsParams(**prepared.vfields)
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device)
                                  .cuda_stream)
-        err = lib.adjoint(ctypes.byref(p),
-                          ctypes.byref(wc._VsParams(**prepared.vfields)),
-                          ptr(prepared.tables), ptr(prepared.vtab), ptr(cot),
-                          ptr(rad), ptr(acc), ptr(store), ptr(iters), NM,
-                          stream)
+        if seg:
+            err = lib.adjoint_seg(ctypes.byref(p), ctypes.byref(vp),
+                                  ptr(prepared.tables), ptr(prepared.vtab),
+                                  ptr(cot), ptr(rad), ptr(acc), ptr(store),
+                                  ptr(snap), ptr(iters), NM, seg, nseg_max,
+                                  stream)
+        else:
+            err = lib.adjoint(ctypes.byref(p), ctypes.byref(vp),
+                              ptr(prepared.tables), ptr(prepared.vtab),
+                              ptr(cot), ptr(rad), ptr(acc), ptr(store),
+                              ptr(iters), NM, stream)
     if err != 0:
-        raise RuntimeError(f"adjoint kernel launch failed: CUDA error {err}")
-    render_pass_adjoint_kernel.launches += 1
+        raise RuntimeError(f"adjoint kernel ({'K10' if seg else 'K9'}) "
+                           f"launch failed: CUDA error {err}")
+    if seg:
+        render_pass_adjoint_kernel.seg_launches += 1
+    else:
+        render_pass_adjoint_kernel.launches += 1
     return (wc._image_from_lanes(rad, width, height),
             grads_from_row(flat, acc.to(torch.float32)))
 
 
 render_pass_adjoint_kernel.launches = 0
+render_pass_adjoint_kernel.seg_launches = 0
 
 
 def adjoint_pass_function(flat: FlatScene, cam: CameraState,
-                          prepared: wc.KernelInputs | None = None):
-    """The adjoint pass for the scene's device: the kernel, with the scene
-    packed once on the chunk scan's tables (or `prepared`), for a scene on a
-    CUDA device; the plain version for a scene on the CPU."""
+                          prepared: wc.KernelInputs | None = None,
+                          seg: int = 0):
+    """The adjoint pass of sweep `seg` (adjoint_sweep: 0 the per-sample
+    sweep, n > 0 the segmented one at SEG = n) for the scene's device: the
+    kernel, with the scene packed once on the chunk scan's tables (or
+    `prepared`), for a scene on a CUDA device; the plain version for a
+    scene on the CPU."""
     if flat.device.type == "cuda":
         if prepared is None or prepared.mode != "vscan":
             prepared = wc.prepare_kernel(flat, cam, chunk_scan=True)
         return functools.partial(render_pass_adjoint_kernel,
-                                 prepared=prepared)
+                                 prepared=prepared, seg=seg)
     if flat.device.type == "cpu":
-        return render_pass_adjoint_reference
+        return plain_adjoint_pass(seg)
     raise ValueError(f"no adjoint pass for device {flat.device}")
+
+
+def plain_adjoint_pass(seg: int = 0):
+    """The plain version of sweep `seg`, on any device."""
+    if seg:
+        return functools.partial(render_pass_adjoint_seg_reference, seg=seg)
+    return render_pass_adjoint_reference

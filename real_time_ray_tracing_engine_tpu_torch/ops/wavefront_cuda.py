@@ -38,9 +38,9 @@ kernel body, csrc/wavefront.cu, built with nvcc for sm_90a at first use
     the plain pass (`render_pass_reference`) stays the all-primitive
     integrator in every mode.
 
-The adjoint backward (K9) has a module of its own, ops/adjoint_cuda.py; its
-instance is part 4 of csrc/wavefront.cu and its ctypes binding
-KernelLibrary.adjoint.
+The adjoint backward (K9, K10) has a module of its own, ops/adjoint_cuda.py;
+its sweeps are parts 4 (K9) and 5 (K10) of csrc/wavefront.cu and their
+ctypes bindings KernelLibrary.adjoint and KernelLibrary.adjoint_seg.
 
 Lane layout: one lane per pixel, padded to a multiple of LANE_BLOCK; pad
 lanes repeat the last pixel and are cropped (their cotangent is zero), and
@@ -131,9 +131,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # csrc/wavefront.cu is compiled once per part (-DWF_PART=p), the parts in
 # parallel, and the objects linked into one library (the file's comment
-# above its kernels says which instances each part holds; 4 is the adjoint,
-# K9, ops/adjoint_cuda.py)
-WF_PARTS = (0, 1, 2, 3, 4)
+# above its kernels says which instances each part holds; 4 and 5 are the
+# adjoint's sweeps, K9 and K10, ops/adjoint_cuda.py)
+WF_PARTS = (0, 1, 2, 3, 4, 5)
 
 
 # ------------------------------------------------------------------- gate
@@ -1163,6 +1163,13 @@ class KernelLibrary:
         self.adjoint.argtypes = ([ctypes.POINTER(_Params),
                                   ctypes.POINTER(_VsParams)] + [ptr] * 7
                                  + [ctypes.c_int, ptr])
+        self.adjoint_seg = self.lib.rt_wavefront_adjoint_seg
+        self.adjoint_seg.restype = ctypes.c_int
+        # params, vparams, tables, vtab, cotangent, rad_out, acc_out,
+        # records, snapshots, iters, NM, seg, nseg_max, stream
+        self.adjoint_seg.argtypes = ([ctypes.POINTER(_Params),
+                                      ctypes.POINTER(_VsParams)] + [ptr] * 8
+                                     + [ctypes.c_int] * 3 + [ptr])
 
 
 def _nvcc() -> str:
@@ -1255,7 +1262,7 @@ def prepare_kernel(flat: FlatScene, cam: CameraState,
     a CUDA device or is outside the forward kernel's gate, and for slots
     outside hard_slots_gate_reason. A grad launch on a scene outside
     grad_gate_reason raises in _launch. chunk_scan packs the chunk scan's
-    tables whatever the scene's mode (the adjoint, K9, always runs on
+    tables whatever the scene's mode (the adjoint, K9/K10, always runs on
     them)."""
     if flat.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "

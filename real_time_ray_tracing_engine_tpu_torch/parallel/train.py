@@ -13,31 +13,32 @@ built), and the hard families (metal fuzz, dielectric IOR, sphere centers
 and radii) by one tangent bundle per scalar slot (K4; K4v), all dotted with
 the image cotangent at every radiance event (ops/wavefront_cuda.py,
 tex_form); or, from ADJOINT_MIN_SLOTS hard slots, by the adjoint backward
-over every family at once (K9, ops/adjoint_cuda.py). Sampling decisions use
-counter-based draws whose probabilities do not depend on the parameters,
-so the gradient is that of the estimator with its samples held fixed
-(reparameterized through intersection t for geometry), as in the JAX
+over every family at once (K9 or K10, ops/adjoint_cuda.py). Sampling
+decisions use counter-based draws whose probabilities do not depend on the
+parameters, so the gradient is that of the estimator with its samples held
+fixed (reparameterized through intersection t for geometry), as in the JAX
 package.
 
 The tier policy is the JAX package's (train.py:160-216, `use_adjoint`): a
-request with hard slots takes the adjoint (K9) when it has
+request with hard slots takes the adjoint (K9/K10) when it has
 ADJOINT_MIN_SLOTS slots or more, or when the forward-mode kernels cannot
 serve a scene inside their gate (grad_gate_reason on a scene
 kernel_gate_reason admits); every other request takes the forward-mode
 tiers as before, so a scene outside the kernels' gate, which only the
 plain engine renders, keeps the plain tangent bundles under
 ADJOINT_MIN_SLOTS. The adjoint returns every family's gradient, and each
-requested tensor takes its own. The JAX package picks its segmented
-adjoint sweep (K10) past depth 12; until K10 is ported the per-sample sweep
-(K9) runs at every depth, with the same gradients. The JAX package's
-pure-JAX replay and mixed tiers are not carried over: on the card they
-would be hidden plain engines.
+requested tensor takes its own. Its sweep is `adjoint_seg`
+(ops/adjoint_cuda.py::adjoint_sweep: None the port's default, 0 the
+per-sample sweep K9, n > 0 the segmented-regeneration sweep K10 at SEG =
+n; the JAX package's RTX_ADJOINT_SEG), the same gradients by either.
+The JAX package's pure-JAX replay and mixed tiers are not carried over:
+on the card they would be hidden plain engines.
 
 Engines, as models/render.pick_engine resolves them: "cuda" runs the
 kernels (the scene on a CUDA device, inside kernel_gate_reason, or it
-raises); "torch" runs their plain torch versions (the same tiers), the
-engine for the CPU and, asked for by name, on the card, where it launches
-no kernel (the adjoint's plain version included); "auto" is "cuda" on a
+raises); "torch" runs their plain torch versions (the same tiers and
+sweep), the engine for the CPU and, asked for by name, on the card, where
+it launches no kernel (the adjoint's plain versions included); "auto" is "cuda" on a
 CUDA device and "torch" on the CPU. Both engines take the same tier for a
 request. On "cuda" a request no kernel can serve (tex_color alone past a
 block's shared memory) raises NotImplementedError naming what is missing
@@ -53,8 +54,8 @@ import torch
 from ..scene.flat import FlatScene
 from ..models.camera import CameraState
 from ..models.render import pick_engine
-from ..ops.adjoint_cuda import (adjoint_pass_function,
-                                render_pass_adjoint_reference)
+from ..ops.adjoint_cuda import (adjoint_pass_function, adjoint_sweep,
+                                plain_adjoint_pass)
 from ..ops.wavefront_cuda import (HARD_FIELDS, MAX_GRAD_TEXS,
                                   grad_gate_reason, grad_pass_function,
                                   hard_param_slots, kernel_gate_reason,
@@ -68,7 +69,7 @@ from ..ops.wavefront_cuda import (HARD_FIELDS, MAX_GRAD_TEXS,
 # The JAX package's continuous, safely-differentiable scene parameters.
 TRAINABLE_FIELDS = ("tex_color", "mat_fuzz", "mat_ior", "sph_center",
                     "sph_radius")
-# from this many hard slots training takes the adjoint (K9), below it the
+# from this many hard slots training takes the adjoint (K9/K10), below it the
 # tangent bundles (JAX train.py:43)
 ADJOINT_MIN_SLOTS = 33
 # a pass of at least this many samples takes the compacted schedule, as the
@@ -124,6 +125,7 @@ class _Plan:
     common: dict         # width, height, n_strata, max_depth, n_samples,
                          # sky_gradient
     compacted: bool
+    adjoint_seg: int = 0  # an adjoint request's sweep (adjoint_sweep)
 
 
 @dataclass(frozen=True)
@@ -146,17 +148,18 @@ def _pass_functions(plan: _Plan, flat: FlatScene, cam: CameraState,
     or the adjoint pass for an adjoint request. The kernels share one
     packing of the scene and the slot table (once per step); the adjoint
     runs on the chunk scan's tables, packed once more for a scene the
-    forward runs unrolled."""
+    forward runs unrolled. The adjoint takes the plan's sweep."""
     if plan.engine == "cuda":
         if req.adjoint:
             prep = prepare_kernel(flat, cam)
             return (pass_function(flat, cam, prep),
-                    adjoint_pass_function(flat, cam, prep))
+                    adjoint_pass_function(flat, cam, prep,
+                                          seg=plan.adjoint_seg))
         prep = prepare_kernel(flat, cam, req.slots)
         return (pass_function(flat, cam, prep),
                 grad_pass_function(flat, cam, prep))
     if req.adjoint:
-        return render_pass_reference, render_pass_adjoint_reference
+        return render_pass_reference, plain_adjoint_pass(plan.adjoint_seg)
     return render_pass_reference, render_pass_grad_reference
 
 
@@ -230,7 +233,8 @@ class _KernelRender(torch.autograd.Function):
 
 def make_kernel_render(baked: FlatScene, *, width: int, height: int,
                        n_strata: int, max_depth: int,
-                       sky_gradient: bool = False, engine: str = "auto"):
+                       sky_gradient: bool = False, engine: str = "auto",
+                       adjoint_seg: int | None = None):
     """Differentiable render at kernel speed: (params, cam, seed) -> the
     (height, width, 3) image, the radiance sum over n_strata^2 samples
     divided by their count (JAX train.py:54-323, one shard).
@@ -240,9 +244,11 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
     compacted schedule at >= 8 samples, else one pass; the backward, with
     the image cotangent, is the grad pass under the same rule over the
     requested families' slots (grad_slots), or for a request use_adjoint
-    picks the adjoint pass (one uncapped pass, K9). cam and seed get no
-    gradient. On the kernels a request none of them can serve raises
-    NotImplementedError at its first call, before any pass."""
+    picks the adjoint pass (one uncapped pass of the sweep
+    adjoint_sweep(adjoint_seg) gives: K9, or K10 at SEG > 0; a negative
+    adjoint_seg raises here). cam and seed get no gradient. On the kernels
+    a request none of them can serve raises NotImplementedError at its
+    first call, before any pass."""
     eng = pick_engine(baked, engine)
     if tex_form(baked) == "suffix":
         # the JAX package's build-time notice (train.py:112-123)
@@ -257,7 +263,8 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
                  common=dict(width=width, height=height, n_strata=n_strata,
                              max_depth=max_depth, n_samples=total,
                              sky_gradient=sky_gradient),
-                 compacted=total >= COMPACT_MIN_SAMPLES)
+                 compacted=total >= COMPACT_MIN_SAMPLES,
+                 adjoint_seg=adjoint_sweep(adjoint_seg))
     requests = {}       # the slots of each requested set of fields, once
 
     def render_image(params: dict, cam: CameraState, seed) -> torch.Tensor:
@@ -290,17 +297,19 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
 
 def make_train_step(optimizer: torch.optim.Optimizer, *, flat: FlatScene,
                     width: int, height: int, n_strata: int, max_depth: int,
-                    sky_gradient: bool = False, engine: str = "auto"):
+                    sky_gradient: bool = False, engine: str = "auto",
+                    adjoint_seg: int | None = None):
     """One optimizer step: params -> rendered image -> L2 loss -> update
     (JAX train.py:326-377, with a torch.optim optimizer in place of optax).
 
     `optimizer` holds the tensors of `params`; `flat` gives every other
-    table. Returns step(params, cam, seed, target) -> loss (a detached
-    scalar, the loss before the update); the step updates params in
-    place."""
+    table; adjoint_seg the adjoint's sweep (make_kernel_render). Returns
+    step(params, cam, seed, target) -> loss (a detached scalar, the loss
+    before the update); the step updates params in place."""
     render_image = make_kernel_render(
         flat, width=width, height=height, n_strata=n_strata,
-        max_depth=max_depth, sky_gradient=sky_gradient, engine=engine)
+        max_depth=max_depth, sky_gradient=sky_gradient, engine=engine,
+        adjoint_seg=adjoint_seg)
 
     def step(params: dict, cam: CameraState, seed, target) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -316,15 +325,17 @@ def make_train_step(optimizer: torch.optim.Optimizer, *, flat: FlatScene,
 def render_loss_grad(flat: FlatScene, cam: CameraState, seed, target, *,
                      width: int, height: int, n_strata: int, max_depth: int,
                      sky_gradient: bool = False,
-                     fields: tuple = ("tex_color",), engine: str = "auto"):
+                     fields: tuple = ("tex_color",), engine: str = "auto",
+                     adjoint_seg: int | None = None):
     """One-shot L2 loss and parameter gradients (no optimizer state):
-    (loss, {field: gradient})."""
+    (loss, {field: gradient}); adjoint_seg as make_kernel_render's."""
     check_fields(fields)
     params = {f: getattr(flat, f).detach().clone().requires_grad_(True)
               for f in fields}
     render_image = make_kernel_render(
         flat, width=width, height=height, n_strata=n_strata,
-        max_depth=max_depth, sky_gradient=sky_gradient, engine=engine)
+        max_depth=max_depth, sky_gradient=sky_gradient, engine=engine,
+        adjoint_seg=adjoint_seg)
     loss = torch.mean((render_image(params, cam, seed) - target) ** 2)
     grads = torch.autograd.grad(loss, list(params.values()))
     return loss.detach(), dict(zip(params, grads))

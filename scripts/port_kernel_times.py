@@ -14,7 +14,9 @@ has the chunk scan, its forward at bouncing_spheres 400x225 spp9 d50 and
 the 301-quad city 400x225 spp9 d6 (single pass); where it has the
 suffix-radiance tier, that grad kernel (K8) at bouncing_spheres 1200x675
 spp16 d50 (single pass); where it has the adjoint, K9 there under the sky
-gradient. Prints one JSON line.
+gradient and at 400x225 spp9 d50 under the flat sky (the JAX bench line's
+shape); where it has the segmented adjoint, K10 (SEG 8) at both. Prints
+one JSON line.
 
 To compare two checkouts on one card, unpack the other one (git archive)
 under a git-ignored directory and time both roots in one run, in turns:
@@ -96,12 +98,29 @@ def kernel_times(root: str) -> dict:
             ac = None
         if ac is not None:
             kw["sky_gradient"] = True
-            adj = functools.partial(
-                ac.render_pass_adjoint_kernel,
-                prepared=wc.prepare_kernel(flat, cam, chunk_scan=True))
-            out["adjoint_bouncing_1200_spp16_sky_ms"] = cs.cuda_ms(
-                torch, lambda: adj(flat, cam, 0, 0, cotangent=g, **kw))
+            # K9 and, where the checkout has it, K10 at SEG 8
+            sweeps = ((("adjoint", {}), ("adjoint_seg8", {"seg": 8}))
+                      if hasattr(ac, "adjoint_sweep")
+                      else (("adjoint", {}),))
+            for shape, (flat, cam, kw, g) in (
+                    ("bouncing_1200_spp16_sky", (flat, cam, kw, g)),
+                    ("bouncing_400_spp9", _bouncing_400(torch, pt, dev))):
+                prep = wc.prepare_kernel(flat, cam, chunk_scan=True)
+                for name, extra in sweeps:
+                    adj = functools.partial(ac.render_pass_adjoint_kernel,
+                                            prepared=prep, **extra)
+                    out[f"{name}_{shape}_ms"] = cs.cuda_ms(
+                        torch, lambda: adj(flat, cam, 0, 0, cotangent=g,
+                                           **kw))
     return out
+
+
+def _bouncing_400(torch, pt, dev):
+    """(flat, cam, kw, cotangent) of bouncing_spheres at the JAX bench
+    line's 400x225 spp9 d50, flat sky."""
+    flat, cam, kw = cs.pass_args(
+        pt, cs.builtin(pt, "bouncing_spheres", 400, 9, 50), dev)
+    return flat, cam, kw, cs.cotangent(torch, kw, dev, 6)
 
 
 if __name__ == "__main__":

@@ -532,6 +532,64 @@ def test_adjoint_kernel_matches_plain(name, cuda_device):
     assert float(grads_p["tex_color"].abs().max()) > 0.0
 
 
+@pytest.mark.parametrize("name, seg", [("cornell", 3), ("slots", 6),
+                                       ("smoke", 1)])
+def test_seg_adjoint_kernel_matches_plain(name, seg, cuda_device):
+    """The segmented adjoint kernel (K10) against its plain version: the
+    image is the forward kernel's bit for bit, the bounces (sweep 1's) are
+    equal, and each family is within 1e-4 of its largest entry."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    flat, cam, kw = _adjoint_case(name, cuda_device)
+    g = cs.cotangent(torch, kw, cuda_device, 5)
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    it_k = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
+    it_f = torch.zeros_like(it_k)
+    it_p = torch.zeros_like(it_k)
+    before = (ac.render_pass_adjoint_kernel.launches,
+              ac.render_pass_adjoint_kernel.seg_launches)
+    img, grads = ac.render_pass_adjoint_kernel(flat, cam, 7, 0, cotangent=g,
+                                               iters=it_k, seg=seg, **kw)
+    fwd = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_f, **kw)
+    torch.cuda.synchronize()
+    assert (ac.render_pass_adjoint_kernel.launches,
+            ac.render_pass_adjoint_kernel.seg_launches) == (before[0],
+                                                            before[1] + 1)
+    _, grads_p = ac.render_pass_adjoint_seg_reference(
+        flat, cam, 7, 0, cotangent=g, iters=it_p, seg=seg, **kw)
+    np.testing.assert_array_equal(img.cpu().numpy(), fwd.cpu().numpy())
+    assert int(it_k.sum()) == int(it_p.sum()) == int(it_f.sum())
+    for f in ac.ADJOINT_FIELDS:
+        scale = float(grads_p[f].abs().max())
+        assert bool(torch.isfinite(grads[f]).all()), f
+        assert float((grads[f] - grads_p[f]).abs().max()) <= 1e-4 * scale, f
+    assert float(grads_p["tex_color"].abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("seg", [1, 8])
+def test_seg_adjoint_kernel_equals_per_sample_kernel(seg, cuda_device):
+    """K10 against K9 on bouncing_spheres under the sky gradient: each lane
+    runs K9's arithmetic in K9's order, so the images are equal bit for bit,
+    the bounces are equal, and each family agrees within 1e-6 of its
+    largest entry (the double accumulators sum in another order)."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    flat, cam, kw = _adjoint_case("bouncing", cuda_device)
+    g = cs.cotangent(torch, kw, cuda_device, 5)
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    it9 = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
+    it10 = torch.zeros_like(it9)
+    img9, gr9 = ac.render_pass_adjoint_kernel(flat, cam, 7, 0, cotangent=g,
+                                              iters=it9, **kw)
+    img10, gr10 = ac.render_pass_adjoint_kernel(flat, cam, 7, 0,
+                                                cotangent=g, iters=it10,
+                                                seg=seg, **kw)
+    assert torch.equal(img9, img10)
+    assert torch.equal(it9, it10)
+    for f in ac.ADJOINT_FIELDS:
+        scale = float(gr9[f].abs().max())
+        assert float((gr10[f] - gr9[f]).abs().max()) <= 1e-6 * scale, f
+    assert float(gr9["sph_center"].abs().max()) > 0.0
+
+
 def test_adjoint_kernel_matches_forward_mode_kernels(cuda_device):
     """Two differentiation mechanisms on the card (tests/test_grad.py:804):
     K9's entries for the 79-sphere scene's 4 slots against K4v's dG_hard,
