@@ -26,7 +26,13 @@ against the forward-mode kernels (K4v, K8, K4, K3); and the same training
 through the adjoint's segmented-regeneration sweep (K10, adjoint_seg=8, the
 JAX package's sweep past depth 12), with K10 held against its plain
 version on seven cases and against K9 at both shapes, and K9 and K10 timed
-in turns at both shapes and on the 4,913-sphere grid. Every phase prints
+in turns at both shapes and on the 4,913-sphere grid; and the SAH BVH (-b)
+with its opt-in walks, K11 (the stack BVH) and K12 (the lane BVH): held
+against the plain pass and the chunk scan on four scenes up to a
+32,768-sphere grid and timed beside the chunk scan, the CLI's -b on
+bouncing_spheres at 1200x675 spp100 d50 and on the grid's scene file in
+the three modes, tex_color training through each walk and a full-family
+step on a stack-mode scene (the adjoint). Every phase prints
 one JSON line; any failure raises and the script exits non-zero. The last
 lines are each phase's seconds, the kernel table, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -35,6 +41,8 @@ It never imports JAX: the port stands alone on the GPU machine.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -67,6 +75,11 @@ TPU_K8 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:914"
 TPU_K9 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:2664"
 # its segmented-regeneration sweep (K10: adj_seg, 2958-3092)
 TPU_K10 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:2958"
+# the opt-in BVH walks: closest_hit_scan's shared-stack bvh_mode branch
+# (K11: 1200, 1272-1360, tables 3392-3400) and the per-lane skip-link walk
+# (K12: closest_hit_lane 1755-1873, _pack_lane_tables 703-750)
+TPU_K11 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:1272"
+TPU_K12 = "real_time_ray_tracing_engine_tpu/ops/wavefront_pallas.py:1755"
 GOLDEN_DIR = ROOT / "tests" / "goldens" / "reference"
 
 # the per-pixel rule of tests/test_pallas.py::_assert_close: the two sides
@@ -417,6 +430,59 @@ def grid_scene(api, n=17):
     return api.Scene(objects=objs, lights=[], camera=cam, name="grid")
 
 
+def bvh_mixed_scene(api):
+    """tests/test_pallas.py::test_bvh_mode_matches_oracle (132): 60 spheres
+    (every fourth metal) and 45 quads in mixed BVH leaves under a sphere
+    light, 48 px, spp4, d4: the stack BVH's (K11) leaves of both kinds."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    objs = []
+    for i in range(60):
+        c = tuple(map(float, rng.uniform(-5, 5, 3)))
+        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
+        m = (api.Lambertian(api.SolidColor(albedo)) if i % 4
+             else api.Metal(albedo, fuzz=0.3))
+        objs.append(api.Sphere(c, 0.45, m))
+    for i in range(45):
+        c = rng.uniform(-5.0, 5.0, 3)
+        u = rng.uniform(0.4, 1.3, 3) * np.array([1.0, 0.0, 1.0])
+        v = rng.uniform(0.4, 1.3, 3) * np.array([0.0, 1.0, 1.0])
+        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
+        objs.append(api.Quad(tuple(map(float, c)), tuple(map(float, u)),
+                             tuple(map(float, v)),
+                             api.Lambertian(api.SolidColor(albedo))))
+    light = api.Sphere((0, 9, 0), 2.0,
+                       api.DiffuseLight(api.SolidColor((5, 5, 5))))
+    objs.append(light)
+    return api.Scene(objects=objs, lights=[light], camera=api.CameraConfig(
+        image_width=48, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+        vfov=45, lookfrom=(0, 2, 12), lookat=(0, 0, 0),
+        background=(0.4, 0.5, 0.7)), name="bvh_mixed")
+
+
+def bvh_sphere_scene(api):
+    """tests/test_pallas.py::test_lane_bvh_mode_matches_oracle (211): 90
+    spheres (every third metal, every seventh moving) under a sphere light,
+    48 px, spp4, d4: the lane BVH's (K12) all-sphere case with movers."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    objs = []
+    for i in range(90):
+        c = tuple(map(float, rng.uniform(-5, 5, 3)))
+        albedo = tuple(map(float, rng.uniform(0.2, 0.9, 3)))
+        m = (api.Lambertian(api.SolidColor(albedo)) if i % 3
+             else api.Metal(albedo, fuzz=0.2))
+        c2 = (c[0], c[1] + 0.3, c[2]) if i % 7 == 0 else None
+        objs.append(api.Sphere(c, 0.45, m, center2=c2))
+    light = api.Sphere((0, 9, 0), 2.0,
+                       api.DiffuseLight(api.SolidColor((5, 5, 5))))
+    objs.append(light)
+    return api.Scene(objects=objs, lights=[light], camera=api.CameraConfig(
+        image_width=48, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+        vfov=45, lookfrom=(0, 2, 12), lookat=(0, 0, 0),
+        background=(0.4, 0.5, 0.7)), name="bvh_spheres")
+
+
 def city_scene(api, n_boxes=50):
     """scripts/bench_large.py:30-43 (city_scene): 6 n_boxes + 1 quads, the
     quad-chunk regime (K7): 301 at 50 boxes."""
@@ -584,11 +650,11 @@ def builtin(pt, name, width, spp, depth):
     return scene
 
 
-def pass_args(pt, scene, dev):
+def pass_args(pt, scene, dev, use_bvh=False):
     """(flat, cam, kw) for one whole-image pass of every stratum."""
     from real_time_ray_tracing_engine_tpu_torch.models import camera as cm
     cfg = scene.camera
-    flat = pt.compile_scene(scene, device=dev)
+    flat = pt.compile_scene(scene, use_bvh=use_bvh, device=dev)
     cam = cm.derive(cfg, device=dev)
     w, h = cm.image_size(cfg)
     n_strata = cm.sqrt_spp(cfg)
@@ -705,14 +771,36 @@ def adjoint_optimizer(torch, params, geom_lr):
          "lr": geom_lr}])
 
 
-def ptxas_of(log: str, kernel: str) -> list:
-    """The ptxas lines (stack and spills, registers) of one kernel in a
-    build log."""
+def ptxas_table(log: str) -> dict:
+    """Per kernel of an nvcc build log (-Xptxas -v): its registers, stack
+    frame and spill stores, as ptxas prints them."""
     lines = log.splitlines()
-    for i, ln in enumerate(lines):
-        if f"Function properties for {kernel}" in ln:
-            return [x.strip() for x in lines[i + 1:i + 3]]
-    return []
+    out = {}
+    for i, ln in enumerate(lines[:-2]):
+        if "Function properties for " in ln:
+            name = ln.split("Function properties for ")[-1].strip()
+            regs = lines[i + 2].split("Used ")[-1].split(",")[0]
+            out[name] = f"{regs}; {lines[i + 1].strip()}"
+    return out
+
+
+@contextlib.contextmanager
+def kernel_mode_env(mode: str):
+    """The kernel-mode knobs (ops/wavefront_cuda.py::kernel_env) set for
+    `mode` while the block runs: "stack" RTX_BVH_STACK=1 (K11), "lane"
+    RTX_LANE_BVH=1 (K12), "vscan" neither (the JAX rule's default)."""
+    keys = ("RTX_BVH_STACK", "RTX_LANE_BVH")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ["RTX_BVH_STACK"] = "1" if mode == "stack" else "0"
+    os.environ["RTX_LANE_BVH"] = "1" if mode == "lane" else "0"
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def family_errors(slots, got, want) -> dict:
@@ -990,7 +1078,7 @@ def main() -> int:
         ("vscan_mis_medium", sized(mis_medium_scene(pt), 128, 16, 16)),
         ("vscan_multichunk", sized(multichunk_scene(pt), 64, 16, 8)),
         ("vquad", sized(vquad_scene(pt), 64, 16, 8))]
-    vscan_err = {}
+    vscan_err, kept_plain = {}, {}
     wc.render_pass_kernel.launches_vscan = 0
     wc.render_pass_kernel.launches_vquad = 0
     for name, scene in vscan_parity:
@@ -1033,6 +1121,10 @@ def main() -> int:
                     ((two - out["plain"]).abs() > FLIP_ATOL).sum())}
             assert_close(f"{name} vscan compacted", comp)
         vscan_err[name] = rec
+        if name.startswith("bouncing_spheres"):
+            # bvh_parity holds the BVH walks against these plain passes:
+            # the plain version selects over every primitive in every mode
+            kept_plain[name] = (out["plain"], bp)
         emit("vscan_parity", **rec)
         assert_close(f"{name} vscan", stats)
         check(bk == bp, f"{name}: kernel traced {bk} bounces, plain {bp}")
@@ -1674,8 +1766,35 @@ def main() -> int:
             rec["dg_hard"] = family_errors(slots, dgh_k, dgh_p)
             rec["dg_hard_compacted_max_abs_err"] = float(
                 (dgh_c - dgh_k).abs().max())
+        # the BVH walks' grad instances (K11, K12) on the same inputs, the
+        # scene compiled with -b: the same plain version (it selects over
+        # every primitive in every mode), the forward's image and bounces
+        bvh_modes = {"k8_bouncing": ("stack", "lane"),
+                     "k3v_scan_tex": ("stack",),
+                     "k3v_rows28": ("stack", "lane")}.get(name, ())
+        if bvh_modes:
+            bflat = pt.compile_scene(scene, use_bvh=True, device=dev)
+            rec["bvh"] = {}
+        for mode in bvh_modes:
+            with kernel_mode_env(mode):
+                check(wc.kernel_mode(bflat)[0] == mode, f"{name}: {mode}")
+                it_b = torch.zeros_like(it_k)
+                img_b, dgt_b, _ = wc.render_pass_grad_kernel(
+                    bflat, cam, 7, 0, iters=it_b, **gkw)
+            rec["bvh"][mode] = {
+                "vs_forward_max_abs_err": float((img_b - fwd).abs().max()),
+                "dg_tex_max_abs_err": float((dgt_b - dgt_p).abs().max()),
+                "kernel_bounces": int(it_b.sum())}
         lg_err[name] = rec
         emit("large_grad_parity", **rec)
+        for mode, r in rec.get("bvh", {}).items():
+            check(r["vs_forward_max_abs_err"] <= 1e-6 and r["kernel_bounces"]
+                  == bk, f"{name} {mode}: the BVH grad instance's image or "
+                  f"bounces differ from the chunk scan's: {r}")
+            check(r["dg_tex_max_abs_err"] <= DG_RTOL * rec["dg_tex_scale"],
+                  f"{name} {mode}: dG_tex differs from the plain version's "
+                  f"by {r['dg_tex_max_abs_err']} (limit {DG_RTOL} x "
+                  f"{rec['dg_tex_scale']})")
         assert_close(f"{name} grad", stats)
         check(rec["vs_forward_max_abs_err"] <= 1e-6, f"{name}: the grad "
               f"image differs from the forward kernel's by "
@@ -1933,6 +2052,24 @@ def main() -> int:
                "forward_bounces": bounces, "ops_per_bounce": ops,
                "bound_ms": ops * bounces / PEAK_FP32 * 1e3,
                "sky_gradient": kw["sky_gradient"]}
+        # the BVH walks' grad instances (K11, K12) at the same shape, the
+        # scene compiled with -b: the same work, the same bound
+        bvh_modes = {"k8": ("stack", "lane"), "k3v": ("stack",),
+                     "k3v_rows28": ("stack", "lane")}.get(name, ())
+        if bvh_modes:
+            bflat = pt.compile_scene(scene, use_bvh=True, device=dev)
+            rec["bvh"] = {}
+        for mode in bvh_modes:
+            with kernel_mode_env(mode):
+                bpass = functools.partial(
+                    wc.render_pass_grad_kernel,
+                    prepared=wc.prepare_kernel(bflat, cam))
+                rec["bvh"][mode] = {
+                    "single_ms": cuda_ms(torch, lambda: bpass(
+                        bflat, cam, 0, 0, **gkw)),
+                    "compacted_ms": cuda_ms(
+                        torch, lambda: wc.render_pass_grad_compacted(
+                            bflat, cam, 0, 0, pass_fn=bpass, **gkw))}
         large_grad_times[name] = rec
         emit("large_grad_times", card=card, shape=f"{name} 1200x675 spp16 "
              "d50", **rec)
@@ -2111,12 +2248,12 @@ def main() -> int:
                "sky_gradient": sky}
         adj_times[name] = rec
         emit("adjoint_times", card=card, shape=name, **rec)
-    adj_ptxas = ptxas_of(lib.build_log, "wavefront_adjoint_kernel")
+    adj_ptxas = ptxas_table(lib.build_log).get("wavefront_adjoint_kernel")
     emit("adjoint_build", ptxas=adj_ptxas,
          plain_ms={n: adj_err[n]["plain_ms"]
                    for n in ("bouncing_sky", "bouncing_sky_1200x675")},
          library_ms=None)
-    check(len(adj_ptxas) == 2, "no ptxas lines for the adjoint kernel")
+    check(adj_ptxas is not None, "no ptxas lines for the adjoint kernel")
     done("adjoint_times")
 
     # 9d. the adjoint's training main path: make_train_step over all five
@@ -2382,10 +2519,11 @@ def main() -> int:
                "default_sweep": ac.adjoint_sweep()}
         seg_times[name] = rec
         emit("adjoint_seg_times", card=card, shape=name, **rec)
-    seg_ptxas = ptxas_of(lib.build_log, "wavefront_adjoint_seg_kernel")
+    seg_ptxas = ptxas_table(lib.build_log).get(
+        "wavefront_adjoint_seg_kernel")
     emit("adjoint_seg_build", ptxas=seg_ptxas,
          plain_ms=seg_err["bouncing_sky"]["plain_ms"], library_ms=None)
-    check(len(seg_ptxas) == 2, "no ptxas lines for the segmented adjoint")
+    check(seg_ptxas is not None, "no ptxas lines for the segmented adjoint")
     done("adjoint_seg_times")
 
     # 10c. the segmented adjoint's training main path: make_train_step over
@@ -2468,6 +2606,348 @@ def main() -> int:
               f"{losses}")
     seg_launches = sum(r["k10_launches"] for r in seg_train.values())
     done("adjoint_seg_train_main_path")
+    # 11. the SAH BVH (ops/bvh.py, -b) and the BVH walks (K11 the stack
+    # BVH, K12 the lane BVH), opt-in as in the JAX package: RTX_BVH_STACK=1,
+    # RTX_LANE_BVH=1 (kernel_mode_env). The build: the walks' instances'
+    # ptxas lines, the builder that ran, and the BVH build's seconds on
+    # bouncing_spheres and the 32,768-sphere grid (scripts/bench_large.py's
+    # grid_scene(32), the >16k regime)
+    from real_time_ray_tracing_engine_tpu_torch.ops import bvh as pbvh
+    t0 = time.perf_counter()
+    native = pbvh._native_library()
+    builder_s = time.perf_counter() - t0
+    bvh_build = {}
+    for name, scene in (("bouncing_spheres", pt.builders.bouncing_spheres()),
+                        ("grid32768", grid_scene(pt, 32))):
+        flat = pt.compile_scene(scene)
+        t0 = time.perf_counter()
+        flat = pbvh.build_bvh(flat)
+        bvh_build[name] = {
+            "build_s": time.perf_counter() - t0, "prims": flat.n_prims,
+            "nodes": flat.bvh_left.shape[0],
+            "depth": pbvh.tree_depth(flat.bvh_left.numpy(),
+                                     flat.bvh_right.numpy(),
+                                     flat.bvh_leaf.numpy())}
+    bvh_ptxas = {k: v for k, v in ptxas_table(lib.build_log).items()
+                 if "bvh" in k}
+    emit("bvh_build", builder="C++ (csrc/bvh_builder.cpp)" if native
+         else "numpy", builder_compile_s=builder_s, scenes=bvh_build,
+         ptxas=bvh_ptxas)
+    check(native is not None, "the C++ BVH builder did not build")
+    check(len(bvh_ptxas) == 10, f"K11/K12 instances: {sorted(bvh_ptxas)}")
+    done("bvh_build")
+
+    # 11b. the walks against the plain pass (every primitive) and the chunk
+    # scan (K6) on the same -b scene: the JAX tests' mixed sphere / quad
+    # scene (K11) and sphere scene with movers (both), one pass of the -b
+    # main path (the CLI's bouncing_spheres at 1200x675 renders in spp16 d50
+    # passes on the compacted schedule) and bouncing_spheres at 400x225
+    # spp4 d50 (both the plain passes of 3d), and the 32,768-sphere grid at
+    # scripts/bench_large.py's bigcheck shape (120 wide, spp4, d4); images
+    # per pixel (0 flipped values expected: the winners are exact), bounce
+    # for bounce, and the compacted schedule against the single pass and
+    # the plain pass
+    bvh_cases = [
+        ("bvh_mixed", bvh_mixed_scene(pt), ("vscan", "stack")),
+        ("bvh_spheres", bvh_sphere_scene(pt), ("vscan", "stack", "lane")),
+        ("bouncing_spheres_1200x675",
+         builtin(pt, "bouncing_spheres", 1200, 16, 50),
+         ("vscan", "stack", "lane")),
+        ("bouncing_spheres", builtin(pt, "bouncing_spheres", 400, 4, 50),
+         ("vscan", "stack", "lane")),
+        ("grid32768", sized(grid_scene(pt, 32), 120, 4, 4),
+         ("vscan", "stack", "lane"))]
+    bvh_err = {}
+    for name, scene, modes in bvh_cases:
+        flat, cam, kw = pass_args(pt, scene, dev, use_bvh=True)
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        if name in kept_plain:
+            plain, bp = kept_plain.pop(name)
+            plain_ms = vscan_err[name]["plain_ms"]
+        else:
+            it_p = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+            out = {}
+
+            def run_plain():
+                out["plain"] = wc.render_pass_reference(flat, cam, 7, 0,
+                                                        iters=it_p, **kw)
+            plain_ms = cuda_ms(torch, run_plain, reps=1, warmup=0)
+            plain, bp = out.pop("plain"), int(it_p.sum())
+        rec = {"scene": name, "prims": flat.n_prims,
+               **{k: v for k, v in kw.items() if k != "sky_gradient"},
+               "plain_bounces": bp, "plain_ms": plain_ms}
+        images = {}
+        for mode in modes:
+            with kernel_mode_env(mode):
+                check(wc.kernel_mode(flat)[0] == mode, f"{name}: {mode}")
+                prep = wc.prepare_kernel(flat, cam)
+                kpass = functools.partial(wc.render_pass_kernel,
+                                          prepared=prep)
+                it_k = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+                kern = kpass(flat, cam, 7, 0, iters=it_k, **kw)
+                comp = wc.render_pass_compacted(flat, cam, 7, 0,
+                                                pass_fn=kpass, **kw)
+            images[mode] = kern
+            stats = per_pixel(kern, plain)
+            rec[mode] = {
+                **stats, "flipped_values": int(
+                    ((kern - plain).abs() > FLIP_ATOL).sum()),
+                "differing_values": int((kern != plain).sum()),
+                "vs_vscan_differing_values": int(
+                    (kern != images["vscan"]).sum()),
+                "kernel_bounces": int(it_k.sum()),
+                "compacted_vs_single_max_abs_err": float(
+                    (kern - comp).abs().max()),
+                "compacted_vs_plain": {
+                    **per_pixel(comp, plain), "flipped_values": int(
+                        ((comp - plain).abs() > FLIP_ATOL).sum())}}
+            del kern, comp
+        bvh_err[name] = rec
+        emit("bvh_parity", **rec)
+        for mode in modes:
+            r = rec[mode]
+            assert_close(f"{name} {mode}", r)
+            assert_close(f"{name} {mode} compacted", r["compacted_vs_plain"])
+            check(r["kernel_bounces"] == bp, f"{name} {mode}: the kernel "
+                  f"traced {r['kernel_bounces']} bounces, plain {bp}")
+            check(r["compacted_vs_single_max_abs_err"] <= COMPACT_ATOL,
+                  f"{name} {mode}: compacted differs from single by "
+                  f"{r['compacted_vs_single_max_abs_err']}")
+    del images, plain
+    torch.cuda.empty_cache()
+    done("bvh_parity")
+
+    # 11c. the walks' times beside the chunk scan's on the same -b scene:
+    # bouncing_spheres 1200x675 spp16 d50 (the CLI's pass), the 301-quad
+    # city 400x225 spp9 d6 (K7; no K12: quads), the 4,913- and
+    # 32,768-sphere grids 400x225 spp9 d8; single pass and the compacted
+    # schedule, the scene packed once, each image held against the chunk
+    # scan's (the same winners: equal images and bounces), the operation
+    # bound from the run's own bounces (vscan_bounce_ops: a BVH descent)
+    bvh_times = {}
+    for name, scene, modes in (
+            ("bouncing_1200x675_spp16_d50",
+             builtin(pt, "bouncing_spheres", 1200, 16, 50),
+             ("vscan", "stack", "lane")),
+            ("city301_400x225_spp9_d6", sized(city_scene(pt), 400, 9, 6),
+             ("vscan", "stack")),
+            ("grid4913_400x225_spp9_d8", sized(grid_scene(pt), 400, 9, 8),
+             ("vscan", "stack", "lane")),
+            ("grid32768_400x225_spp9_d8", sized(grid_scene(pt, 32), 400, 9,
+                                                8),
+             ("vscan", "stack", "lane"))):
+        flat, cam, kw = pass_args(pt, scene, dev, use_bvh=True)
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        n = kw["width"] * kw["height"] * kw["n_samples"]
+        rec, first = {}, {}
+        for mode in modes:
+            with kernel_mode_env(mode):
+                kpass = functools.partial(
+                    wc.render_pass_kernel,
+                    prepared=wc.prepare_kernel(flat, cam))
+                out = {}
+
+                def single():
+                    out["single"] = kpass(flat, cam, 0, 0, **kw)
+
+                def compacted():
+                    out["compacted"] = wc.render_pass_compacted(
+                        flat, cam, 0, 0, pass_fn=kpass, **kw)
+                t_single = cuda_ms(torch, single)
+                t_comp = cuda_ms(torch, compacted)
+                bounces = counted_bounces(
+                    torch, lambda it: kpass(flat, cam, 0, 0, iters=it, **kw),
+                    n_lanes, dev)
+            first.setdefault("image", out["single"])
+            first.setdefault("bounces", bounces)
+            rec[mode] = {
+                "single_ms": t_single, "compacted_ms": t_comp,
+                "single_mpaths_per_s": n / t_single / 1e3,
+                "compacted_mpaths_per_s": n / t_comp / 1e3,
+                "bounces": bounces, "bound_ms": vscan_bound_ms(flat, bounces),
+                "vs_vscan_differing_values": int(
+                    (out["single"] != first["image"]).sum()),
+                "vs_vscan_max_abs_err": float(
+                    (out["single"] - first["image"]).abs().max()),
+                "compacted_vs_single_max_abs_err": float(
+                    (out["single"] - out["compacted"]).abs().max())}
+            rec[mode]["vs_vscan_stats"] = per_pixel(out["single"],
+                                                    first["image"])
+        for mode in modes[1:]:
+            rec[mode]["speedup_vs_vscan"] = (rec["vscan"]["single_ms"]
+                                             / rec[mode]["single_ms"])
+        bvh_times[name] = rec
+        emit("bvh_times", card=card, shape=name,
+             ops_per_bounce=vscan_bounce_ops(flat), **rec)
+        for mode in modes:
+            assert_close(f"{name} {mode} vs vscan",
+                         rec[mode]["vs_vscan_stats"])
+            check(rec[mode]["bounces"] == first["bounces"],
+                  f"{name} {mode}: {rec[mode]['bounces']} bounces, the chunk "
+                  f"scan {first['bounces']}")
+            check(rec[mode]["compacted_vs_single_max_abs_err"]
+                  <= COMPACT_ATOL, f"{name} {mode}: compacted differs from "
+                  f"single by {rec[mode]['compacted_vs_single_max_abs_err']}")
+    del out, first
+    torch.cuda.empty_cache()
+    done("bvh_times")
+
+    # 11d. the BVH main path: the CLI with -b on bouncing_spheres at its own
+    # 1200x675 spp100 d50 and on the 32,768-sphere grid as a scene file at
+    # its bench shape (400x225 spp9 d8), each in the three modes: the chunk
+    # scan by default, K11 under RTX_BVH_STACK=1, K12 under RTX_LANE_BVH=1.
+    # Each run's launch counts (zeroed just before it) show the kernel that
+    # ran and no plain pass; every mode writes the same PPM
+    grid_path = Path("output") / "grid32768.json"
+    grid_path.parent.mkdir(exist_ok=True)
+    pt.save_scene(grid_scene(pt, 32), str(grid_path))
+    bvh_main = {}
+    for name, argv0, shape in (
+            ("bouncing_spheres", ["--scene", "bouncing_spheres"],
+             (675, 1200, 3)),
+            ("grid32768", ["--scene", str(grid_path)], (225, 400, 3))):
+        ppms = {}
+        for mode in ("vscan", "stack", "lane"):
+            argv = argv0 + ["-b", "--output", f"bvh_{name}_{mode}"]
+            ppm_path = Path("output") / f"bvh_{name}_{mode}.ppm"
+            if ppm_path.exists():
+                ppm_path.unlink()
+            counters = ("launches", "launches_vscan", "launches_stack",
+                        "launches_lane")
+            for c in counters:
+                setattr(wc.render_pass_kernel, c, 0)
+            wc.render_pass_reference.calls = 0
+            rd._render_pass.calls = 0
+            with kernel_mode_env(mode):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = cli.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            counts = {c: getattr(wc.render_pass_kernel, c) for c in counters}
+            plain_calls = (wc.render_pass_reference.calls
+                           + rd._render_pass.calls)
+            check(rc == 0, f"cli.main({argv}) returned {rc}")
+            ppms[mode] = ppm_path.read_bytes()
+            ppm = pt.read_ppm(ppm_path)
+            check(ppm.shape == shape, f"{name} {mode}: PPM shape {ppm.shape}")
+            check(counts[f"launches_{mode}"] > 0
+                  and counts[f"launches_{mode}"] == counts["launches"],
+                  f"{name} {mode}: launches {counts}")
+            check(plain_calls == 0, f"{name} {mode}: the CLI ran the plain "
+                  "engine")
+            h, w, _ = shape
+            paths = w * h * (100 if name == "bouncing_spheres" else 9)
+            bvh_main[(name, mode)] = counts[f"launches_{mode}"]
+            emit("bvh_main_path", scene=name, mode=mode, argv=argv,
+                 ppm=str(ppm_path), ppm_mean_byte=float(ppm.mean()),
+                 **counts, plain_calls=plain_calls, cli_wall_s=wall,
+                 cli_mpaths_per_s=paths / wall / 1e6)
+        check(ppms["stack"] == ppms["vscan"] and ppms["lane"] == ppms["vscan"],
+              f"{name}: the three modes wrote different PPMs")
+    done("bvh_main_path")
+
+    # 11e. the BVH training main path: make_train_step over tex_color on
+    # bouncing_spheres -b at 1200x675 spp16 d50 (large training's start and
+    # target), LARGE_STEPS Adam steps under K11 and under K12: forward and
+    # the suffix tier (K8's) on the walk's selection; the loss falls at
+    # every step, the walk's grad launches counted, no plain pass. The
+    # first step's gradient, by render_loss_grad, equals K8's on the chunk
+    # scan (same paths; the suffix tier's float atomics add in any order):
+    # within 1e-5 of its largest entry. Then one step over all five
+    # families on the stack-mode scene at 400x225 spp9 d50 from the dimmed
+    # rows: the hard slots take the adjoint (K9, on the chunk scan's
+    # tables), the forward K11
+    bflat, bcam, bkw = pass_args(pt, builtin(pt, "bouncing_spheres", 1200, 16,
+                                             50), dev, use_bvh=True)
+    bkw.pop("n_samples")
+    target = train.make_kernel_render(bflat, engine="cuda", **bkw)(
+        {"tex_color": bflat.tex_color}, bcam, TRAIN_SEED).detach()
+    start = bflat.tex_color.detach().clone()
+    start[dim_rows] *= 0.7
+    ref_grad = None
+    bvh_train = {}
+    for mode in ("vscan", "stack", "lane"):
+        with kernel_mode_env(mode):
+            _, g0 = train.render_loss_grad(
+                dataclasses.replace(bflat, tex_color=start), bcam,
+                TRAIN_SEED, target, engine="cuda", **bkw)
+            if mode == "vscan":
+                ref_grad = g0["tex_color"]
+                continue
+            params = {"tex_color": start.clone().requires_grad_(True)}
+            step = train.make_train_step(
+                torch.optim.Adam(params.values(), lr=TRAIN_LR), flat=bflat,
+                engine="cuda", **bkw)
+            for c in ("launches", "stack_launches", "lane_launches",
+                      "suffix_launches", "vscan_tex_launches"):
+                setattr(wc.render_pass_grad_kernel, c, 0)
+            for c in ("launches", "launches_vscan", "launches_stack",
+                      "launches_lane"):
+                setattr(wc.render_pass_kernel, c, 0)
+            wc.render_pass_reference.calls = 0
+            wc.render_pass_grad_reference.calls = 0
+            losses, step_s = [], []
+            for _ in range(LARGE_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(params, bcam, TRAIN_SEED, target)))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+        launched = {
+            "forward": getattr(wc.render_pass_kernel, f"launches_{mode}"),
+            "forward_vscan": wc.render_pass_kernel.launches_vscan,
+            "grad": getattr(wc.render_pass_grad_kernel, f"{mode}_launches"),
+            "suffix": wc.render_pass_grad_kernel.suffix_launches,
+            "plain_calls": wc.render_pass_reference.calls
+            + wc.render_pass_grad_reference.calls}
+        steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+        scale = float(ref_grad.abs().max())
+        err = float((g0["tex_color"] - ref_grad).abs().max())
+        bvh_train[mode] = {"launches": launched, "median_step_s": steady}
+        emit("bvh_train_main_path", mode=mode,
+             shape="bouncing_spheres -b 1200x675 spp16 d50", losses=losses,
+             step_s=step_s, median_step_ms=steady * 1e3,
+             fwd_bwd_mpaths_per_s=1200 * 675 * 16 / steady / 1e6,
+             grad_vs_k8_max_abs_err=err, grad_scale=scale, **launched)
+        check(all(b < a for a, b in zip(losses, losses[1:])),
+              f"BVH training {mode}: the loss did not fall at every step "
+              f"{losses}")
+        check(launched["grad"] >= LARGE_STEPS and launched["suffix"]
+              == launched["grad"] and launched["forward"] >= LARGE_STEPS
+              and launched["forward_vscan"] == 0
+              and launched["plain_calls"] == 0,
+              f"BVH training {mode}: launches {launched}")
+        check(err <= 1e-5 * scale, f"BVH training {mode}: the gradient "
+              f"differs from K8's on the chunk scan by {err} (limit 1e-5 x "
+              f"{scale})")
+    fflat, fcam, fkw = pass_args(pt, builtin(pt, "bouncing_spheres", 400, 9,
+                                             50), dev, use_bvh=True)
+    fkw.pop("n_samples")
+    with kernel_mode_env("stack"):
+        ftarget = train.make_kernel_render(fflat, engine="cuda", **fkw)(
+            {"tex_color": fflat.tex_color}, fcam, TRAIN_SEED).detach()
+        params = {k: v.detach().clone()
+                  for k, v in train.get_params(fflat).items()}
+        params["tex_color"][dim_rows] *= 0.7
+        for v in params.values():
+            v.requires_grad_(True)
+        step = train.make_train_step(adjoint_optimizer(
+            torch, params, ADJ_GEOM_LR), flat=fflat, engine="cuda", **fkw)
+        adj0 = ac.render_pass_adjoint_kernel.launches
+        grad0 = wc.render_pass_grad_kernel.launches
+        fwd0 = wc.render_pass_kernel.launches_stack
+        loss = float(step(params, fcam, TRAIN_SEED, ftarget))
+    full = {"adjoint": ac.render_pass_adjoint_kernel.launches - adj0,
+            "grad": wc.render_pass_grad_kernel.launches - grad0,
+            "forward_stack": wc.render_pass_kernel.launches_stack - fwd0}
+    emit("bvh_full_family_step", shape="bouncing_spheres -b 400x225 spp9 d50",
+         mode="stack", loss=loss, **full)
+    check(full["adjoint"] == 1 and full["grad"] == 0
+          and full["forward_stack"] >= 1 and math.isfinite(loss)
+          and loss > 0.0,
+          f"BVH full-family step: {full}, {loss}")
+    done("bvh_train_main_path")
     emit("phase_seconds", **phase_s)
 
     hard_main = hard_err["cornell_box_1920x1080"]
@@ -2610,7 +3090,47 @@ def main() -> int:
                           "spp16 d50",
         "launches_at": "adjoint_seg_train_main_path (2 x 4 steps)",
         "ms_400x225": seg_times["bouncing_400x225_spp9_d50"]["k10_ms"],
-        "ptxas": seg_ptxas}]}),
+        "ptxas": seg_ptxas}] + [{
+        "name": f"wavefront_forward_bvh_kernel[{mode}]", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": tpu,
+        "launches": bvh_main[("bouncing_spheres", mode)],
+        "max_abs_err": max(
+            bvh_err["bouncing_spheres_1200x675"][mode]["max_abs_err"],
+            bvh_err["bouncing_spheres_1200x675"][mode]["compacted_vs_plain"][
+                "max_abs_err"]),
+        "ms": bvh_times["bouncing_1200x675_spp16_d50"][mode]["single_ms"],
+        "plain_ms": bvh_err["bouncing_spheres_1200x675"]["plain_ms"],
+        "bound_ms": bvh_times["bouncing_1200x675_spp16_d50"][mode][
+            "bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": "bouncing_spheres -b 1200x675 spp16 d50",
+        "plain_ms_at": "bouncing_spheres 1200x675 spp16 d50",
+        "max_abs_err_at": "bouncing_spheres -b 1200x675 spp16 d50, single "
+                          "and compacted, against the plain pass",
+        "launches_at": "bvh_main_path, the CLI's bouncing_spheres -b",
+        "compacted_ms":
+            bvh_times["bouncing_1200x675_spp16_d50"][mode]["compacted_ms"],
+        "ptxas": {k: v for k, v in bvh_ptxas.items()
+                  if "forward" in k and f"ILi{sel}E" in k}}
+        for mode, tpu, sel in (("stack", TPU_K11, 2), ("lane", TPU_K12, 3))]
+        + [{
+        "name": f"wavefront_grad_bvh_kernel[{mode}]", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": tpu,
+        "launches": bvh_train[mode]["launches"]["grad"],
+        "max_abs_err": lg_err["k8_bouncing"]["bvh"][mode][
+            "dg_tex_max_abs_err"],
+        "ms": large_grad_times["k8"]["bvh"][mode]["single_ms"],
+        "plain_ms": lg_err["k8_bouncing"]["plain_ms"],
+        "bound_ms": large_grad_times["k8"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": "bouncing_spheres -b 1200x675 spp16 d50, the suffix tier",
+        "plain_ms_at": "bouncing_spheres 1200x675 spp4 d50",
+        "max_abs_err_at": "dG_tex, bouncing_spheres -b 1200x675 spp4 d50",
+        "launches_at": "bvh_train_main_path (4 steps)",
+        "compacted_ms": large_grad_times["k8"]["bvh"][mode]["compacted_ms"],
+        "ptxas": {k: v for k, v in bvh_ptxas.items()
+                  if "grad" in k and f"ILi{sel}E" in k}}
+        for mode, tpu, sel in (("stack", TPU_K11, 2), ("lane", TPU_K12, 3))]}),
         flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

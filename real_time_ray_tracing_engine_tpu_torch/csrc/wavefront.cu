@@ -22,7 +22,10 @@
 //   2545-2559, 2604-2637, 3205-3262); and the adjoint backward over every
 //   trainable family (K9, grad_adjoint's per-sample sweep, 2664-2957,
 //   3094-3217; K10, its segmented-regeneration sweep, 2958-3092; see
-//   "adjoint (K9, K10)" below).
+//   "adjoint (K9, K10)" below); and the opt-in BVH walks of a use_bvh scene
+//   (K11, the stack BVH: closest_hit_scan's bvh_mode branch, 1200,
+//   1272-1360, tables 3392-3400; K12, the lane BVH: _pack_lane_tables
+//   703-750, closest_hit_lane 1755-1873; see "BVH walks" below).
 //
 // Shape: one thread per lane (pixel), the reference engine's own
 //   static_render_kernel shape (CameraKernels.cu:240-278). Each thread loops
@@ -110,8 +113,47 @@
 //   global memory (rows through the read-only path, __ldg float4; H100's
 //   50 MB L2 holds them all) and only the chunk boxes (at most 257 x 6
 //   floats) are copied into shared memory. The chunk cull bounds the
-//   sphere tests per bounce; a per-thread BVH (K12's shape) would bound them
-//   at O(log N) and is the open alternative (PERF.md).
+//   sphere tests per bounce; a per-thread BVH walk (K11, K12 below) bounds
+//   them at O(log N) on well-split scenes.
+//
+// BVH walks (K11, K12): the forward and the tex_color grad tiers with a
+//   BVH walk in place of the selection, for a scene compiled with use_bvh
+//   (ops/bvh.py, the reference's SAH tree) that opts in (RTX_BVH_STACK=1,
+//   RTX_LANE_BVH=1; ops/wavefront_cuda.py::kernel_mode), of any size. The
+//   TPU kernels shared one stack per 128-lane tile and descended into a
+//   node when any lane's ray met its box (K11), or walked per lane through
+//   128-lane gathers that cost O(table / 128) a fetch (K12), because a TPU
+//   lane cannot gather on its own. A CUDA thread can: here one thread walks
+//   its own ray, the reference engine's shape (BVHNode.cu:9-31,
+//   BVHNode.cpp:385-446). K11 (closest_select_stack) keeps a stack of
+//   STACK_DEPTH node ids in local memory (ops/bvh.py checks the tree's depth
+//   against it when it builds and packs), pops a node, culls it by its box
+//   against its ray and its best t, tests a leaf's spheres and then its
+//   quads (the leaves are segregated spheres first), or pushes an inner
+//   node's children, the near one (by its own ray's sign on the split axis)
+//   on top. K12 (closest_select_lane) walks the skip links without a stack:
+//   where the ray meets a node's box it tests the node's spheres (a leaf's;
+//   an inner node has none) and takes the hit link (an inner node's left
+//   child, a leaf's continuation), elsewhere the miss link; spheres only.
+//   Node rows (12 floats: the box, widened as the chunk boxes are, then the
+//   links) and the leaves' sphere and quad rows, in leaf order, are read
+//   from global memory through the read-only path, as K6 reads its rows.
+//   Each primitive is tested with closest_select's float operations
+//   (sphere_root, quad_hit), the culls are conservative, and take_closer
+//   gives ties to the lower original id: the winner and its t are the
+//   all-primitive selection's bit for bit, so physics<T> runs unchanged on
+//   the winner's original id and the images and bounces equal K6's. Bound
+//   by operations and by the latency of the dependent node and primitive
+//   fetches (each pop waits for its row); the design keeps a node in three
+//   16-byte loads, tests a box before fetching the rest of its row, and
+//   leaves the tables to the L2 (50 MB holds every scene here: the
+//   32,768-sphere grid's node and sphere rows are 2.0 MB). No ray packets,
+//   treelets or node compression yet: a simple walk that is right comes
+//   first (on an NVIDIA H100 80GB HBM3 at 700 W it takes 1/3 to 1/23 of
+//   K6's time all the same, PERF.md). The grad
+//   instances take tex_color only (weight planes in registers up to 16
+//   rows, in shared memory for 17-32, the suffix tier past them); hard
+//   slots on such a scene take the adjoint, as in the JAX package.
 //
 // Chunk-scan grad (K3v, K4v): wavefront_grad_vscan_kernel is the grad
 //   kernel's tiers over closest_select_vscan. The winner's original id
@@ -242,6 +284,25 @@ struct WfParams {
 struct VsParams {
     int C_small, n_big, Cq, off_rows, off_qrows, off_box, n_box;
 };
+
+// A BVH walk's tables in the bvh buffer (ops/wavefront_cuda.py::
+// _bvh_buffer), mirrored field by field by _BvParams (ctypes): n_nodes node
+// rows of 12 floats, three float4s [box lo xyz, hi xyz (widened), then the
+// mode's links: the stack walk's leaf flag, split axis, left child | first
+// sphere row, right child | sphere count, 0 | first quad row, 0 | quad
+// count; the lane walk's hit link, miss link, first sphere row, sphere
+// count], then the leaves' sphere rows (VROW_COLS) and quad rows
+// (QROW_COLS) in leaf order.
+struct BvParams {
+    int n_nodes, n_srows, n_qrows, off_nodes, off_srows, off_qrows;
+};
+#define STACK_DEPTH 64  // ops/bvh.py STACK_DEPTH (the reference's, BVHNode.cpp:398)
+
+// the selection a bounce takes (ops/wavefront_cuda.py::kernel_mode)
+#define SEL_UNROLLED 0  // every primitive, tables in shared memory (K1-K5)
+#define SEL_VSCAN 1     // the chunk scan (K6, K7 and their grad tiers)
+#define SEL_STACK 2     // the stack BVH (K11)
+#define SEL_LANE 3      // the lane BVH (K12)
 
 // ------------------------------------------------------------ dual numbers
 // A value and one tangent. The tangent rules are torch's forward-mode
@@ -643,6 +704,14 @@ static __device__ int closest_select(const Scene& sc, V3 o, V3 d,
     return best_t < BIGF * 0.5f ? best : -1;
 }
 
+// 1/d with |d| < 1e-12 taken as +-1e-12 (the JAX kernels' slab-test guard)
+__device__ __forceinline__ V3 inverse_dir(V3 d) {
+    const float eps = 1e-12f;
+    return v3(1.0f / (fabsf(d.x) < eps ? (d.x < 0.0f ? -eps : eps) : d.x),
+              1.0f / (fabsf(d.y) < eps ? (d.y < 0.0f ? -eps : eps) : d.y),
+              1.0f / (fabsf(d.z) < eps ? (d.z < 0.0f ? -eps : eps) : d.z));
+}
+
 // Does the ray meet box b between T_MIN and t_far? (the JAX kernel's
 // box_any slab test, per ray; an empty chunk's box is [BIG, -BIG])
 __device__ __forceinline__ bool box_reaches(const float* b, V3 o, V3 inv,
@@ -688,11 +757,12 @@ __device__ __forceinline__ void scan_spheres(const float* __restrict__ rows,
     }
 }
 
-// one quad chunk's rows (K7)
+// n quad rows: a quad chunk's (K7; sorted, a row of id -1 ends it) or a
+// BVH leaf's (K11)
 __device__ __forceinline__ void scan_quads(const float* __restrict__ rows,
-                                           V3 o, V3 d, float& best_t,
+                                           int n, V3 o, V3 d, float& best_t,
                                            int& best) {
-    for (int r = 0; r < VCHUNK; ++r) {
+    for (int r = 0; r < n; ++r) {
         const float4* row = reinterpret_cast<const float4*>(
             rows + (size_t)r * QROW_COLS);
         const float4 q0 = __ldg(row), q1 = __ldg(row + 1),
@@ -725,11 +795,7 @@ static __device__ int closest_select_vscan(const Scene& sc,
     float best_t = BIGF;
     int best = -1;
     const float a = dot(d, d);
-    const float eps = 1e-12f;
-    const V3 inv = v3(
-        1.0f / (fabsf(d.x) < eps ? (d.x < 0.0f ? -eps : eps) : d.x),
-        1.0f / (fabsf(d.y) < eps ? (d.y < 0.0f ? -eps : eps) : d.y),
-        1.0f / (fabsf(d.z) < eps ? (d.z < 0.0f ? -eps : eps) : d.z));
+    const V3 inv = inverse_dir(d);
     const float* rows = vtab + V.off_rows;
     if (V.n_big > 0)
         scan_spheres(rows + (size_t)V.C_small * VCHUNK * VROW_COLS, V.n_big,
@@ -744,8 +810,8 @@ static __device__ int closest_select_vscan(const Scene& sc,
         const float* qbox = box + 6 * (V.C_small + (V.n_big > 0));
         for (int k = 0; k < V.Cq; ++k) {
             if (box_reaches(qbox + 6 * k, o, inv, best_t))
-                scan_quads(qrows + (size_t)k * VCHUNK * QROW_COLS, o, d,
-                           best_t, best);
+                scan_quads(qrows + (size_t)k * VCHUNK * QROW_COLS, VCHUNK, o,
+                           d, best_t, best);
         }
     } else {
         for (int q = 0; q < sc.Q; ++q) {
@@ -754,6 +820,92 @@ static __device__ int closest_select_vscan(const Scene& sc,
             float t;
             if (quad_hit(r, o, d, T_MINF, &t))
                 take_closer(t, sc.S + q, best_t, best);
+        }
+    }
+    *t_best = best_t;
+    return best_t < BIGF * 0.5f ? best : -1;
+}
+
+// node `node`'s row of a BVH walk: its widened box in b[6] (the first two
+// of its three float4s); the links' float4 is fetched once the box is met
+__device__ __forceinline__ void bvh_node_box(const float4* __restrict__ nodes,
+                                             int node, float* b, float4* n1) {
+    const float4 n0 = __ldg(nodes + 3 * node);
+    *n1 = __ldg(nodes + 3 * node + 1);
+    b[0] = n0.x; b[1] = n0.y; b[2] = n0.z;
+    b[3] = n0.w; b[4] = n1->x; b[5] = n1->y;
+}
+
+// closest_select over the stack BVH (K11): one thread walks its ray's
+// stack; a popped node whose widened box the ray meets before its best t is
+// a leaf (its spheres, then its quads) or an inner node (both children
+// pushed, the near one by the ray's sign on the split axis on top). The
+// winner and its t are closest_select's over all primitives (the same
+// tests, conservative culls, ties to the lower original id).
+static __device__ int closest_select_stack(const BvParams& B,
+                                           const float* __restrict__ btab,
+                                           V3 o, V3 d, float tm,
+                                           float* t_best) {
+    float best_t = BIGF;
+    int best = -1;
+    const float a = dot(d, d);
+    const V3 inv = inverse_dir(d);
+    const float4* nodes = reinterpret_cast<const float4*>(btab + B.off_nodes);
+    const float* srows = btab + B.off_srows;
+    const float* qrows = btab + B.off_qrows;
+    int stack[STACK_DEPTH];
+    int sp = 0;
+    stack[sp++] = 0;
+    while (sp > 0) {
+        const int node = stack[--sp];
+        float b[6];
+        float4 n1;
+        bvh_node_box(nodes, node, b, &n1);
+        if (!box_reaches(b, o, inv, best_t)) continue;
+        const float4 n2 = __ldg(nodes + 3 * node + 2);
+        if (n1.z > 0.5f) {
+            scan_spheres(srows + (size_t)(int)n2.x * VROW_COLS, (int)n2.y,
+                         false, o, d, a, tm, best_t, best);
+            scan_quads(qrows + (size_t)(int)n2.z * QROW_COLS, (int)n2.w, o,
+                       d, best_t, best);
+        } else {
+            const int axis = (int)n1.w;
+            const float da = axis == 0 ? d.x : (axis == 1 ? d.y : d.z);
+            const int left = (int)n2.x, right = (int)n2.y;
+            stack[sp++] = da >= 0.0f ? right : left;
+            stack[sp++] = da >= 0.0f ? left : right;
+        }
+    }
+    *t_best = best_t;
+    return best_t < BIGF * 0.5f ? best : -1;
+}
+
+// closest_select over the lane BVH (K12, spheres only): one thread follows
+// its ray along the skip links, the hit link where the ray meets the node's
+// widened box before its best t (after the node's spheres: a leaf's; an
+// inner node has none), the miss link elsewhere, until the links end.
+static __device__ int closest_select_lane(const BvParams& B,
+                                          const float* __restrict__ btab,
+                                          V3 o, V3 d, float tm,
+                                          float* t_best) {
+    float best_t = BIGF;
+    int best = -1;
+    const float a = dot(d, d);
+    const V3 inv = inverse_dir(d);
+    const float4* nodes = reinterpret_cast<const float4*>(btab + B.off_nodes);
+    const float* srows = btab + B.off_srows;
+    int node = 0;
+    while (node < B.n_nodes) {
+        float b[6];
+        float4 n1;
+        bvh_node_box(nodes, node, b, &n1);
+        if (box_reaches(b, o, inv, best_t)) {
+            const float4 n2 = __ldg(nodes + 3 * node + 2);
+            scan_spheres(srows + (size_t)(int)n2.x * VROW_COLS, (int)n2.y,
+                         false, o, d, a, tm, best_t, best);
+            node = (int)n1.z;
+        } else {
+            node = (int)n1.w;
         }
     }
     *t_best = best_t;
@@ -1264,17 +1416,19 @@ __host__ __device__ __forceinline__ int table_pad(int n_table) {
 // rows 14..14+3NT), and Gp[3t+c] accumulates g_c * d(radiance_c)/d tex at
 // each radiance event, g the lane's cotangent. NTMAX is the compile-time
 // bound of NT, so every plane index is a constant after unrolling. HARD
-// adds the K tangent bundles (see the top of this file). SUFFIX is the
-// suffix-radiance tier of tex_color (K8, see the top of this file). `red` is
-// the block's (WF_THREADS / 32, 3 * NTMAX) shared scratch of the end-of-pass
-// reduction (NTMAX > 0 only).
+// adds the K tangent bundles (see the top of this file). SEL is the
+// selection (SEL_*: every primitive, the chunk scan, a BVH walk). SUFFIX is
+// the suffix-radiance tier of tex_color (K8, see the top of this file).
+// `red` is the block's (WF_THREADS / 32, 3 * NTMAX) shared scratch of the
+// end-of-pass reduction (NTMAX > 0 only). V and vtab are the chunk scan's
+// tables, B and vtab a BVH walk's.
 //
-// Shared memory (smem): the tables (the chunk scan: its boxes), padded to
-// plane_base; then (HARD) the tangent planes and their sums, 10 * K *
-// WF_THREADS floats; then (SUFFIX) the block's 3 * NT tex_color
-// accumulators, or (SPLANES) the weight planes Wp and Gp, 2 * 3 * NT *
-// WF_THREADS floats, for 17 to 32 rows that do not fit in registers.
-template <int NTMAX, bool HARD, bool VSCAN = false, bool SUFFIX = false,
+// Shared memory (smem): the tables (the chunk scan: its boxes; a BVH walk:
+// nothing), padded to plane_base; then (HARD) the tangent planes and their
+// sums, 10 * K * WF_THREADS floats; then (SUFFIX) the block's 3 * NT
+// tex_color accumulators, or (SPLANES) the weight planes Wp and Gp, 2 * 3 *
+// NT * WF_THREADS floats, for 17 to 32 rows that do not fit in registers.
+template <int NTMAX, bool HARD, int SEL = SEL_UNROLLED, bool SUFFIX = false,
           bool SPLANES = false>
 __device__ __forceinline__ void wavefront_body(
         const WfParams& P, const float* __restrict__ tables,
@@ -1283,22 +1437,25 @@ __device__ __forceinline__ void wavefront_body(
         float* __restrict__ rad_out, float* __restrict__ carry_out,
         float* __restrict__ dg_out, int* __restrict__ iters_out,
         float* smem, float* cam, float* red, VsParams V = VsParams(),
-        const float* __restrict__ vtab = nullptr) {
+        const float* __restrict__ vtab = nullptr, BvParams B = BvParams()) {
     constexpr bool GRAD = NTMAX > 0 || HARD || SUFFIX || SPLANES;
     static_assert(!SUFFIX || NTMAX == 0, "the suffix tier has no planes");
     static_assert(!SPLANES || (NTMAX == 0 && !SUFFIX),
                   "shared-memory planes replace the register planes");
-    const int plane_base = VSCAN ? table_pad(V.n_box) : table_pad(P.n_table);
+    static_assert(!HARD || SEL == SEL_UNROLLED || SEL == SEL_VSCAN,
+                  "the BVH walks carry no tangent bundles");
+    const int plane_base = SEL == SEL_VSCAN ? table_pad(V.n_box)
+        : (SEL == SEL_UNROLLED ? table_pad(P.n_table) : 0);
     float* acc = smem + plane_base + (HARD ? 10 * P.K * WF_THREADS : 0);
     if constexpr (SUFFIX) {
         for (int i = threadIdx.x; i < 3 * P.NT; i += blockDim.x) acc[i] = 0.0f;
     }
-    if constexpr (VSCAN) {
+    if constexpr (SEL == SEL_VSCAN) {
         // the chunk scan reads the scene tables from global memory and
         // keeps only the chunk boxes in shared memory
         for (int i = threadIdx.x; i < V.n_box; i += blockDim.x)
             smem[i] = vtab[V.off_box + i];
-    } else {
+    } else if constexpr (SEL == SEL_UNROLLED) {
         for (int i = threadIdx.x; i < P.n_table; i += blockDim.x)
             smem[i] = tables[i];
     }
@@ -1311,7 +1468,7 @@ __device__ __forceinline__ void wavefront_body(
     const int N = P.n_lanes;
 
     Scene sc;
-    const float* tab = VSCAN ? tables : smem;
+    const float* tab = SEL == SEL_UNROLLED ? smem : tables;
     sc.sph = tab + P.off_sph;
     sc.quad = tab + P.off_quad;
     sc.pmat = tab + P.off_pmat;
@@ -1458,9 +1615,13 @@ __device__ __forceinline__ void wavefront_body(
 
         float best_t;
         int best;
-        if constexpr (VSCAN)
+        if constexpr (SEL == SEL_VSCAN)
             best = closest_select_vscan(sc, V, vtab, smem, o, d, tm,
                                         &best_t);
+        else if constexpr (SEL == SEL_STACK)
+            best = closest_select_stack(B, vtab, o, d, tm, &best_t);
+        else if constexpr (SEL == SEL_LANE)
+            best = closest_select_lane(B, vtab, o, d, tm, &best_t);
         else
             best = closest_select(sc, o, d, tm, &best_t);
         const V3 o0 = o, d0 = d, th0 = th;
@@ -1647,8 +1808,9 @@ __device__ __forceinline__ void wavefront_body(
 // K4v); 2 its hard-slot-only and suffix instances (K4v, K8); 3 its
 // shared-memory weight planes for 17 to 32 rows (K3v, with K4v); 4 the
 // adjoint's per-sample sweep (K9) and its C entry point; 5 its
-// segmented-regeneration sweep (K10) and its C entry point. Without WF_PART
-// the file holds all of them.
+// segmented-regeneration sweep (K10) and its C entry point; 6 the stack BVH's
+// forward and tex_color grad instances (K11) and their C entry point; 7 the
+// lane BVH's (K12). Without WF_PART the file holds all of them.
 #ifndef WF_PART
 #define WF_PART -1
 #endif
@@ -1662,7 +1824,7 @@ static cudaError_t set_smem(const void* kernel, size_t bytes) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The pointers of one grad launch.
+// The pointers of one grad launch (or one BVH walk's, forward or grad).
 struct GradArgs {
     const float* tables;
     const float* vtab;
@@ -1695,7 +1857,7 @@ __global__ void __launch_bounds__(WF_THREADS)
 wavefront_grad_vscan_kernel(WfParams P, VsParams V, GradArgs A) {
     __shared__ float cam[22];
     __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
-    wavefront_body<NTMAX, HARD, true, SUFFIX, SPLANES>(
+    wavefront_body<NTMAX, HARD, SEL_VSCAN, SUFFIX, SPLANES>(
         P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out, A.carry_out,
         A.dg_out, A.iters_out, wf_tables, cam, red, V, A.vtab);
 }
@@ -1751,6 +1913,90 @@ int launch_vgrad_splanes(const WfParams& P, const VsParams& V,
                     : launch_grad_vscan<0, true, false, true>(P, V, A,
                                                               stream);
 }
+#endif
+
+#if WF_IN_PART(6) || WF_IN_PART(7)
+// ------------------------------------------------------ BVH walks (K11, K12)
+// The forward (K2's carry included) and the tex_color grad tiers with the
+// selection a BVH walk (SEL_STACK, K11; SEL_LANE, K12): weight planes in
+// registers for up to 16 rows, in shared memory for 17 to 32, the suffix
+// tier past them; no tangent bundles (hard slots on such a scene take the
+// adjoint, on the chunk scan). A.vtab is the walk's buffer (BvParams).
+template <int SEL>
+__global__ void __launch_bounds__(WF_THREADS)
+wavefront_forward_bvh_kernel(WfParams P, BvParams B, GradArgs A) {
+    __shared__ float cam[22];
+    wavefront_body<0, false, SEL>(P, A.tables, A.pix_lanes, A.carry_in,
+                                  nullptr, A.rad_out, A.carry_out, nullptr,
+                                  A.iters_out, wf_tables, cam, nullptr,
+                                  VsParams(), A.vtab, B);
+}
+
+template <int SEL, int NTMAX, bool SUFFIX, bool SPLANES>
+__global__ void __launch_bounds__(WF_THREADS)
+wavefront_grad_bvh_kernel(WfParams P, BvParams B, GradArgs A) {
+    __shared__ float cam[22];
+    __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
+    wavefront_body<NTMAX, false, SEL, SUFFIX, SPLANES>(
+        P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out, A.carry_out,
+        A.dg_out, A.iters_out, wf_tables, cam, red, VsParams(), A.vtab, B);
+}
+
+template <int SEL, int NTMAX, bool SUFFIX, bool SPLANES>
+static int launch_grad_bvh(const WfParams& P, const BvParams& B,
+                           const GradArgs& A, cudaStream_t stream) {
+    const size_t smem = sizeof(float)
+        * ((SUFFIX ? (size_t)3 * P.NT : 0)
+           + (SPLANES ? (size_t)6 * P.NT * WF_THREADS : 0));
+    cudaError_t e = set_smem(
+        (const void*)wavefront_grad_bvh_kernel<SEL, NTMAX, SUFFIX, SPLANES>,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+    wavefront_grad_bvh_kernel<SEL, NTMAX, SUFFIX, SPLANES>
+        <<<P.n_lanes / WF_THREADS, WF_THREADS, smem, stream>>>(P, B, A);
+    return (int)cudaGetLastError();
+}
+
+// A.cot null: the forward; else the tex_color grad tier of P (dg_out as
+// rt_wavefront_grad's, 3 * NT entries a block)
+template <int SEL>
+static int launch_bvh(const WfParams& P, const BvParams& B,
+                      const GradArgs& A, cudaStream_t stream) {
+    if (P.n_lanes % WF_THREADS != 0 || B.n_nodes < 1 || B.n_srows < 0
+        || B.n_qrows < 0 || (SEL == SEL_LANE && B.n_qrows != 0) || P.K != 0
+        || (A.cot && (!P.want_tex || P.NT < 1
+                      || (!P.suffix && P.NT > 32))))
+        return (int)cudaErrorInvalidValue;
+    if (!A.cot) {
+        wavefront_forward_bvh_kernel<SEL>
+            <<<P.n_lanes / WF_THREADS, WF_THREADS, 0, stream>>>(P, B, A);
+        return (int)cudaGetLastError();
+    }
+    if (P.suffix) return launch_grad_bvh<SEL, 0, true, false>(P, B, A, stream);
+    if (P.NT > 16)
+        return launch_grad_bvh<SEL, 0, false, true>(P, B, A, stream);
+    return P.NT <= 8 ? launch_grad_bvh<SEL, 8, false, false>(P, B, A, stream)
+                     : launch_grad_bvh<SEL, 16, false, false>(P, B, A,
+                                                              stream);
+}
+
+#define WF_BVH_ENTRY(name, SEL)                                              \
+    extern "C" int name(const WfParams* params, const BvParams* bparams,    \
+                        const float* tables, const float* btab,             \
+                        const int* pix_lanes, const float* carry_in,        \
+                        const float* cot, float* rad_out, float* carry_out, \
+                        float* dg_out, int* iters_out, void* stream) {      \
+        const GradArgs A = {tables, btab, pix_lanes, carry_in, cot,         \
+                            rad_out, carry_out, dg_out, iters_out};         \
+        return launch_bvh<SEL>(*params, *bparams, A, (cudaStream_t)stream); \
+    }
+#endif  // WF_IN_PART(6) || WF_IN_PART(7)
+
+#if WF_IN_PART(6)
+WF_BVH_ENTRY(rt_wavefront_bvh_stack, SEL_STACK)
+#endif
+#if WF_IN_PART(7)
+WF_BVH_ENTRY(rt_wavefront_bvh_lane, SEL_LANE)
 #endif
 
 #if WF_IN_PART(4) || WF_IN_PART(5)
@@ -2402,9 +2648,10 @@ wavefront_forward_vscan_kernel(WfParams P, VsParams V,
                                float* __restrict__ carry_out,
                                int* __restrict__ iters_out) {
     __shared__ float cam[22];
-    wavefront_body<0, false, true>(P, tables, pix_lanes, carry_in, nullptr,
-                                   rad_out, carry_out, nullptr, iters_out,
-                                   wf_tables, cam, nullptr, V, vtab);
+    wavefront_body<0, false, SEL_VSCAN>(P, tables, pix_lanes, carry_in,
+                                        nullptr, rad_out, carry_out, nullptr,
+                                        iters_out, wf_tables, cam, nullptr, V,
+                                        vtab);
 }
 
 // The forward pass plus the gradient tiers: the tex_color weight planes

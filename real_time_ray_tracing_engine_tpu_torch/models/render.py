@@ -6,8 +6,11 @@ accumulates the image pass by pass:
 
   - "cuda": the forward megakernel (ops/wavefront_cuda.py), single pass or
     capped + compacted: its unrolled instance for Cornell-class scenes, its
-    chunk-scan instance (K6 vscan, K7 vquad) for scenes of up to
-    MAX_PRIMS_SCAN primitives;
+    chunk-scan instance (K6 vscan, K7 vquad) for larger ones (past
+    MAX_PRIMS_SCAN primitives on a scene compiled with use_bvh), and on a
+    use_bvh scene that opts in, the BVH walks (RTX_BVH_STACK=1: K11;
+    RTX_LANE_BVH=1: K12, spheres only); the mode (kernel_mode) is read when
+    the render packs the scene, once for all its passes;
   - "torch": `_render_pass`, the plain torch integrator sample by sample —
     the engine for the CPU, and on the card only when asked for by name.
 
@@ -88,10 +91,10 @@ def pick_engine(flat: FlatScene, engine: str = "auto") -> str:
 
     On a CUDA device "auto" is the kernel, and raises, as engine="cuda"
     does, for a scene outside kernel_gate_reason (more than 4 mediums or 32
-    lights; past MAX_PRIMS_SCAN primitives, which need the BVH kernels, not
-    ported): the plain engine runs on the card only when engine="torch"
-    asks for it. On the CPU "auto" is the plain engine, and engine="cuda"
-    raises."""
+    lights; past MAX_PRIMS_SCAN primitives without use_bvh, -b): the plain
+    engine runs on the card only when engine="torch" asks for it. On the
+    CPU "auto" is the plain engine (on a use_bvh scene through the BVH
+    oracle, ops/bvh.py::closest_hit_bvh), and engine="cuda" raises."""
     on_cuda = flat.device.type == "cuda"
     if engine == "torch" or (engine == "auto" and not on_cuda):
         return "torch"

@@ -33,18 +33,20 @@ Two sweeps order those bounces (adjoint_sweep picks one):
   - `render_pass_adjoint_kernel`: the CUDA kernels (csrc/wavefront.cu part
     4, wavefront_adjoint_kernel, K9; part 5, wavefront_adjoint_seg_kernel,
     K10, with `seg`), always on the chunk scan's tables
-    (prepare_kernel(..., chunk_scan=True)), Cornell-class scenes included,
-    one uncapped pass; their scratch in device memory (K9: ADJ_STORE floats
-    a bounce a lane; K10: seg_scratch), their accumulators doubles in a
-    block's shared memory with atomics, rounded to float32 at the end (only
-    the order of the double sums differs between runs).
+    (prepare_kernel(..., chunk_scan=True)), Cornell-class scenes and the
+    scenes that kernel_mode puts in a BVH mode included (the JAX package
+    forces the same, wavefront_pallas.py:3353-3356), one uncapped pass;
+    their scratch in device memory (K9: ADJ_STORE floats a bounce a lane;
+    K10: seg_scratch), their accumulators doubles in a block's shared
+    memory with atomics, rounded to float32 at the end (only the order of
+    the double sums differs between runs).
   - `render_pass_adjoint_reference` / `render_pass_adjoint_seg_reference`:
     the plain versions of the two sweeps over every lane at once on the
     port's plain integrator (the all-primitive selection of
-    ops/intersect.py); each bounce's VJP (_bounce_vjp, shared) is
-    torch.autograd.grad of ops/integrator.py::bounce_step as a function of
-    (o, d, th) and the trainable tables, so the memory stays at one
-    bounce's graph.
+    ops/intersect.py, in every kernel mode); each bounce's VJP
+    (_bounce_vjp, shared) is torch.autograd.grad of
+    ops/integrator.py::bounce_step as a function of (o, d, th) and the
+    trainable tables, so the memory stays at one bounce's graph.
   - `adjoint_sweep`: the sweep of a request; `adjoint_pass_function`: the
     kernel for a scene on a CUDA device, the plain version on the CPU;
     `adjoint_gate_reason`: what the kernels take.
@@ -200,6 +202,7 @@ def render_pass_adjoint_reference(flat: FlatScene, cam: CameraState, seed,
     float32 rays). Each call adds one to
     render_pass_adjoint_reference.calls."""
     render_pass_adjoint_reference.calls += 1
+    flat = wc.all_primitive(flat)
     device = flat.device
     n_lanes, pix, g, tables, grads, rad = _adjoint_setup(
         flat, cotangent, width, height, iters)
@@ -284,6 +287,7 @@ def render_pass_adjoint_seg_reference(flat: FlatScene, cam: CameraState,
     render_pass_adjoint_seg_reference.calls += 1
     if seg < 1:
         raise ValueError(f"seg must be positive, got {seg}")
+    flat = wc.all_primitive(flat)
     device = flat.device
     n_lanes, pix, g, tables, grads, rad = _adjoint_setup(
         flat, cotangent, width, height, iters)

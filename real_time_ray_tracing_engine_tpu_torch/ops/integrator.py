@@ -25,6 +25,7 @@ from ..utils.vecmath import normalize, where3, BIG
 from ..utils import rng
 from ..scene.flat import FlatScene, MAT_DIELECTRIC, MAT_DIFFUSE_LIGHT
 from . import materials as mat_ops
+from .bvh import closest_hit_bvh
 from .intersect import HitRecord, closest_hit, medium_scatter
 from .lights import light_pdf_value, light_sample
 from .textures import effective_row
@@ -38,8 +39,12 @@ def sky_color(dr):
 
 
 def resolve_hit(scene: FlatScene, org, dr, tm, u_med) -> HitRecord:
-    """Closest surface hit, then let mediums preempt it."""
-    rec = closest_hit(scene, org, dr, tm)
+    """Closest surface hit (through the BVH on a use_bvh scene, as the JAX
+    package's _resolve_hit), then let mediums preempt it."""
+    if scene.use_bvh:
+        rec = closest_hit_bvh(scene, org, dr, tm)
+    else:
+        rec = closest_hit(scene, org, dr, tm)
     if scene.n_mediums == 0:
         return rec
     t_surf = torch.where(rec.hit, rec.t, BIG)

@@ -35,27 +35,30 @@ class HitRecord:
 
 # --------------------------------------------------------------- spheres
 def _sphere_quadratic(center, cdelta, radius, org, dr, tm):
-    """h, c, a for the sphere quadratic: (N, S) / (N, 1) planes."""
-    tmn = tm[:, None]
-    cx = center[None, :, 0] + tmn * cdelta[None, :, 0]
-    cy = center[None, :, 1] + tmn * cdelta[None, :, 1]
-    cz = center[None, :, 2] + tmn * cdelta[None, :, 2]
-    ocx = cx - org[:, 0:1]
-    ocy = cy - org[:, 1:2]
-    ocz = cz - org[:, 2:3]
-    a = dot(dr, dr)[:, None]
-    h = dr[:, 0:1] * ocx + dr[:, 1:2] * ocy + dr[:, 2:3] * ocz
+    """h, c, a for the sphere quadratic, elementwise over sphere terms
+    (center, cdelta (..., 3), radius) and ray terms (org, dr (..., 3), tm)
+    that broadcast together."""
+    cx = center[..., 0] + tm * cdelta[..., 0]
+    cy = center[..., 1] + tm * cdelta[..., 1]
+    cz = center[..., 2] + tm * cdelta[..., 2]
+    ocx = cx - org[..., 0]
+    ocy = cy - org[..., 1]
+    ocz = cz - org[..., 2]
+    a = dot(dr, dr)
+    h = dr[..., 0] * ocx + dr[..., 1] * ocy + dr[..., 2] * ocz
     c = (ocx * ocx + ocy * ocy + ocz * ocz
-         - (radius * radius)[None, :])
+         - radius * radius)
     return h, c, a
 
 
-def sphere_ts(center, cdelta, radius, active, org, dr, tm, t_min=T_MIN,
-              t_max=BIG):
-    """Nearest valid quadratic root per (ray, sphere); (N, S), BIG = miss."""
+def sphere_roots(center, cdelta, radius, active, org, dr, tm, t_min=T_MIN,
+                 t_max=BIG):
+    """The nearest valid quadratic root (BIG = miss), elementwise over
+    sphere and ray terms that broadcast together: sphere_ts's (N, S) table,
+    or one sphere a ray (the BVH walks' plain selections)."""
     h, c, a = _sphere_quadratic(center, cdelta, radius, org, dr, tm)
     disc = h * h - a * c
-    ok = (disc > 0.0) & active[None, :] & (radius > 0.0)[None, :]
+    ok = (disc > 0.0) & active & (radius > 0.0)
     sq = safe_sqrt(disc)
     r0 = (h - sq) / a
     r1 = (h + sq) / a
@@ -65,12 +68,21 @@ def sphere_ts(center, cdelta, radius, active, org, dr, tm, t_min=T_MIN,
     return torch.where(ok & (in0 | in1), t, BIG)
 
 
+def sphere_ts(center, cdelta, radius, active, org, dr, tm, t_min=T_MIN,
+              t_max=BIG):
+    """Nearest valid quadratic root per (ray, sphere); (N, S), BIG = miss."""
+    return sphere_roots(center[None], cdelta[None], radius[None],
+                        active[None], org[:, None], dr[:, None], tm[:, None],
+                        t_min, t_max)
+
+
 def sphere_both_ts(center, radius, org, dr, tm, cdelta=None):
     """Both roots over (-inf, inf) for medium boundary crossings
     (ConstantMedium.cpp:36-43). Returns (t0, t1), each (N, S)."""
     if cdelta is None:
         cdelta = torch.zeros_like(center)
-    h, c, a = _sphere_quadratic(center, cdelta, radius, org, dr, tm)
+    h, c, a = _sphere_quadratic(center[None], cdelta[None], radius[None],
+                                org[:, None], dr[:, None], tm[:, None])
     disc = h * h - a * c
     ok = (disc > 0.0) & (radius > 0.0)[None, :]
     sq = safe_sqrt(disc)
@@ -99,20 +111,23 @@ def sphere_shade(center, cdelta, radius, org, dr, tm, t):
 
 
 # ----------------------------------------------------------------- quads
-def quad_ts(corner, u, v, normal, d, w, active, org, dr, t_min=T_MIN,
-            t_max=BIG, eps=1e-8):
-    """Plane-equation hit + parallelogram inside test; (N, Q), BIG = miss."""
-    nxq, nyq, nzq = normal[None, :, 0], normal[None, :, 1], normal[None, :, 2]
-    denom = dr[:, 0:1] * nxq + dr[:, 1:2] * nyq + dr[:, 2:3] * nzq
+def quad_hits(corner, u, v, normal, d, w, active, org, dr, t_min=T_MIN,
+              t_max=BIG, eps=1e-8):
+    """Plane-equation hit + parallelogram inside test (BIG = miss),
+    elementwise over quad terms (corner, u, v, normal, w (..., 3), d,
+    active) and ray terms (org, dr (..., 3)) that broadcast together:
+    quad_ts's (N, Q) table, or one quad a ray."""
+    nxq, nyq, nzq = normal[..., 0], normal[..., 1], normal[..., 2]
+    denom = dr[..., 0] * nxq + dr[..., 1] * nyq + dr[..., 2] * nzq
     parallel = torch.abs(denom) < eps
-    o_dot_n = org[:, 0:1] * nxq + org[:, 1:2] * nyq + org[:, 2:3] * nzq
-    t = (d[None, :] - o_dot_n) / torch.where(parallel, 1.0, denom)
-    plx = org[:, 0:1] + t * dr[:, 0:1] - corner[None, :, 0]
-    ply = org[:, 1:2] + t * dr[:, 1:2] - corner[None, :, 1]
-    plz = org[:, 2:3] + t * dr[:, 2:3] - corner[None, :, 2]
-    vxq, vyq, vzq = v[None, :, 0], v[None, :, 1], v[None, :, 2]
-    uxq, uyq, uzq = u[None, :, 0], u[None, :, 1], u[None, :, 2]
-    wxq, wyq, wzq = w[None, :, 0], w[None, :, 1], w[None, :, 2]
+    o_dot_n = org[..., 0] * nxq + org[..., 1] * nyq + org[..., 2] * nzq
+    t = (d - o_dot_n) / torch.where(parallel, 1.0, denom)
+    plx = org[..., 0] + t * dr[..., 0] - corner[..., 0]
+    ply = org[..., 1] + t * dr[..., 1] - corner[..., 1]
+    plz = org[..., 2] + t * dr[..., 2] - corner[..., 2]
+    vxq, vyq, vzq = v[..., 0], v[..., 1], v[..., 2]
+    uxq, uyq, uzq = u[..., 0], u[..., 1], u[..., 2]
+    wxq, wyq, wzq = w[..., 0], w[..., 1], w[..., 2]
     # alpha = w . (planar x v); beta = w . (u x planar)
     alpha = (wxq * (ply * vzq - plz * vyq)
              + wyq * (plz * vxq - plx * vzq)
@@ -122,8 +137,16 @@ def quad_ts(corner, u, v, normal, d, w, active, org, dr, t_min=T_MIN,
             + wzq * (uxq * ply - uyq * plx))
     inside = ((alpha >= 0.0) & (alpha <= 1.0) & (beta >= 0.0)
               & (beta <= 1.0))
-    ok = (~parallel) & inside & (t > t_min) & (t < t_max) & active[None, :]
+    ok = (~parallel) & inside & (t > t_min) & (t < t_max) & active
     return torch.where(ok, t, BIG)
+
+
+def quad_ts(corner, u, v, normal, d, w, active, org, dr, t_min=T_MIN,
+            t_max=BIG, eps=1e-8):
+    """Plane-equation hit + parallelogram inside test; (N, Q), BIG = miss."""
+    return quad_hits(corner[None], u[None], v[None], normal[None], d[None],
+                     w[None], active[None], org[:, None], dr[:, None], t_min,
+                     t_max, eps)
 
 
 def quad_shade(corner, u, v, normal, w, org, dr, t):

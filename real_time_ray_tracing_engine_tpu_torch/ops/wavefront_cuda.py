@@ -8,9 +8,13 @@ compacted grad driver (K5), and, for scenes past the unrolled bounds (up to
 MAX_PRIMS_SCAN primitives), the forward over the Morton chunk scan's
 selection (K6 vscan; K7 vquad, quads in chunks too) and the grad pass over
 it (K3v weight planes, K4v tangent bundles, and past MAX_GRAD_TEXS texture
-rows the suffix-radiance tier K8). Here they are one hand-written CUDA
-kernel body, csrc/wavefront.cu, built with nvcc for sm_90a at first use
-(its parts in parallel) and bound with ctypes. Beside it:
+rows the suffix-radiance tier K8); and, on a scene compiled with use_bvh
+that opts in (RTX_BVH_STACK=1, RTX_LANE_BVH=1), the forward and the
+tex_color grad tiers over a BVH walk (K11 the stack BVH, K12 the lane BVH,
+spheres only), scenes past MAX_PRIMS_SCAN included. Here they are one
+hand-written CUDA kernel body, csrc/wavefront.cu, built with nvcc for
+sm_90a at first use (its parts in parallel) and bound with ctypes. Beside
+it:
 
   - `render_pass_reference` / `render_pass_grad_reference`: the same lane
     wavefront in plain torch, built from the integrator's per-bounce step
@@ -35,8 +39,12 @@ kernel body, csrc/wavefront.cu, built with nvcc for sm_90a at first use
     kernels accept, and which tex_color tier a grad pass runs.
   - `pack_vscan_tables` / `vscan_select_reference`: the chunk scan's tables
     (wavefront_pallas.py:495-675) and the plain version of its selection;
-    the plain pass (`render_pass_reference`) stays the all-primitive
-    integrator in every mode.
+    `pack_bvh_tables` / `bvh_stack_select_reference` /
+    `bvh_lane_select_reference`: the BVH modes' tables (the stack walk's
+    tables at 3392-3400, the lane walk's _pack_lane_tables 703-750) and the
+    plain versions of their selections. The plain pass
+    (`render_pass_reference`) stays the all-primitive integrator in every
+    mode (`all_primitive`).
 
 The adjoint backward (K9, K10) has a module of its own, ops/adjoint_cuda.py;
 its sweeps are parts 4 (K9) and 5 (K10) of csrc/wavefront.cu and their
@@ -68,6 +76,8 @@ from ..scene.flat import (FlatScene, MAT_DIELECTRIC, MAT_METAL, TEX_CHECKER,
 from ..models.camera import CameraState, generate_rays
 from ..utils import rng
 from ..utils.vecmath import normalize
+from . import intersect
+from .bvh import MAX_LEAF, STACK_DEPTH, check_depth
 from .integrator import bounce_step, medium_uniforms
 
 # gate bounds, as the JAX package's wavefront_pallas.py (MAX_* constants and
@@ -101,6 +111,14 @@ BOX_PAD = 1e-3
 VROW_COLS = 8         # sphere chunk rows: c0 xyz, cdelta xyz, radius, id
 QROW_COLS = 20        # quad chunk rows: corner, u, v, normal, d, w, id, pad
 
+# the BVH modes (K11 stack, K12 lane; wavefront_pallas.py:464-492). The lane
+# walk's node and primitive bound (LANE_BVH_MAX, 685): ids ride as exact
+# float32 integers
+BVH_MODES = ("stack", "lane")
+LANE_BVH_MAX = 1 << 22
+BVH_NODE_COLS = 12    # node rows: box lo xyz, hi xyz (widened), the links
+# (csrc/wavefront.cu BvParams; pack_bvh_tables says what each column holds)
+
 LANE_BLOCK = 128  # = WF_THREADS, the kernel's block size
 CARRY_ROWS = 14   # work, alive, bounce, sample, time, o xyz, d xyz, th xyz
 # (the grad pass appends 3*NT weight-plane rows, then 9 tangent-plane rows
@@ -132,8 +150,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # csrc/wavefront.cu is compiled once per part (-DWF_PART=p), the parts in
 # parallel, and the objects linked into one library (the file's comment
 # above its kernels says which instances each part holds; 4 and 5 are the
-# adjoint's sweeps, K9 and K10, ops/adjoint_cuda.py)
-WF_PARTS = (0, 1, 2, 3, 4, 5)
+# adjoint's sweeps, K9 and K10, ops/adjoint_cuda.py; 6 and 7 the BVH walks,
+# K11 and K12)
+WF_PARTS = (0, 1, 2, 3, 4, 5, 6, 7)
 
 
 # ------------------------------------------------------------------- gate
@@ -144,33 +163,61 @@ def _use_unrolled(flat: FlatScene) -> bool:
             and flat.tex_type.shape[0] <= MAX_TEXS)
 
 
-def kernel_mode(flat: FlatScene) -> tuple:
+def kernel_env() -> tuple:
+    """The kernel-mode knobs (RTX_LANE_BVH, RTX_BVH_STACK), read from the
+    environment when a scene is packed (prepare_kernel), not at launch: the
+    JAX package's _kernel_env (wavefront_pallas.py:454-461), which threads
+    them through as a static argument so that a changed setting cannot
+    silently reuse a kernel built under the old one. Its RTX_LANE_GATHER
+    and RTX_VSCAN_CULL pick among TPU code shapes (a gather by take or by
+    a one-hot product; a chunk cull by branch or by mask) that have no
+    counterpart here and are not read."""
+    return (os.environ.get("RTX_LANE_BVH", "0"),
+            os.environ.get("RTX_BVH_STACK", "0"))
+
+
+def kernel_mode(flat: FlatScene, env: tuple | None = None) -> tuple:
     """(mode, vquad): the JAX package's _kernel_modes
-    (wavefront_pallas.py:464-492) without its opt-in BVH modes (K11/K12,
-    not ported). "unrolled" for a scene inside the unrolled bounds (tables
-    in shared memory, every primitive tested); else "vscan", the Morton
-    chunk scan, with vquad True when its quads (more than MAX_QUADS_VSCAN)
-    move to chunks too."""
+    (wavefront_pallas.py:464-492) under env (kernel_env() when None).
+    "unrolled" for a scene inside the unrolled bounds (tables in shared
+    memory, every primitive tested); on a scene compiled with use_bvh,
+    "lane" (K12) under RTX_LANE_BVH=1 when it has no quads and at most
+    LANE_BVH_MAX nodes and primitives, else "stack" (K11) under
+    RTX_BVH_STACK=1; else "vscan", the Morton chunk scan, with vquad True
+    when its quads (more than MAX_QUADS_VSCAN) move to chunks too. The BVH
+    modes are opt-in, as in the JAX package: the chunk scan is the default
+    on every other scene, use_bvh or not."""
+    lane_bvh, bvh_stack = kernel_env() if env is None else env
     if _use_unrolled(flat):
         return "unrolled", False
+    if (lane_bvh == "1" and flat.use_bvh and flat.n_quads == 0
+            and flat.bvh_bbox_min.shape[0] <= LANE_BVH_MAX
+            and flat.bvh_prims.shape[0] <= LANE_BVH_MAX):
+        return "lane", False
+    if bvh_stack == "1" and flat.use_bvh:
+        return "stack", False
     return "vscan", flat.quad_corner.shape[0] > MAX_QUADS_VSCAN
 
 
 def kernel_gate_reason(flat: FlatScene) -> str | None:
     """Why this scene cannot run on the forward kernel (None = it can): the
     JAX package's pallas_gate_reason, and for the unrolled mode the
-    shared-memory bound of its tables (the chunk scan reads its tables from
-    global memory)."""
+    shared-memory bound of its tables (the other modes read their tables
+    from global memory). A scene compiled with use_bvh passes
+    MAX_PRIMS_SCAN, as in the JAX gate. The JAX gate also refuses a scene
+    whose tables overflow the TPU's scalar memory (SMEM_BUDGET), the stack
+    BVH's node tables among them; no such budget exists here, so the stack
+    mode (K11) also runs where the TPU refused it."""
     if flat.n_mediums > MAX_MEDIUMS:
         return (f"{flat.n_mediums} constant mediums exceeds the kernel bound "
                 f"MAX_MEDIUMS={MAX_MEDIUMS}")
     if flat.n_prims == 0:
         return "empty scene (no primitives)"
-    if flat.n_prims > MAX_PRIMS_SCAN:
+    if not flat.use_bvh and flat.n_prims > MAX_PRIMS_SCAN:
         return (f"{flat.n_prims} primitives exceeds the chunk scan's bound "
-                f"MAX_PRIMS_SCAN={MAX_PRIMS_SCAN}; larger scenes need the "
-                "BVH (-b/--bvh, the kernels K11/K12), which is not ported "
-                "yet")
+                f"MAX_PRIMS_SCAN={MAX_PRIMS_SCAN}; compile with use_bvh "
+                "(-b/--bvh), which lifts it (the chunk scan by default, the "
+                "BVH kernels K11/K12 on opt-in)")
     if flat.n_lights > MAX_LIGHTS:
         return (f"{flat.n_lights} MIS lights exceeds the kernel bound "
                 f"MAX_LIGHTS={MAX_LIGHTS}")
@@ -204,10 +251,13 @@ def grad_gate_reason(flat: FlatScene, n_slots: int = 0,
     most MAX_HARD_SLOTS slots (past them training takes the adjoint, K9,
     as the JAX package takes its adjoint kernels K9/K10); and the launch's
     shared memory (grad_smem_bytes), which the chunk scan's weight planes
-    for 17 to MAX_GRAD_TEXS rows share with the tangent planes."""
+    for 17 to MAX_GRAD_TEXS rows share with the tangent planes. The BVH
+    modes take no hard slot (hard_slots_gate_reason)."""
     reason = kernel_gate_reason(flat)
     if reason is not None:
         return reason
+    if n_slots and kernel_mode(flat)[0] in BVH_MODES:
+        return _BVH_SLOTS_REASON
     NT = flat.tex_type.shape[0]
     if n_slots > MAX_HARD_SLOTS:
         return (f"{n_slots} hard slots exceed the tangent-bundle kernel's "
@@ -302,28 +352,39 @@ def _vscan_box_floats(flat: FlatScene) -> int:
 def grad_smem_bytes(flat: FlatScene, n_slots: int,
                     want_tex: bool = True) -> int:
     """Shared memory of a grad launch (csrc/wavefront.cu, wavefront_body):
-    the tables (the unrolled mode, with the slot table) or the chunk boxes
-    (the chunk scan, whose tables stay in global memory), padded as
-    table_pad does; 10 floats a hard slot a lane; the suffix tier's 3 * NT
-    accumulators; on the chunk scan, weight planes for more than MAX_TEXS
-    rows, 6 floats a row a lane (Wp and its cotangent sums Gp)."""
+    the tables (the unrolled mode, with the slot table), the chunk boxes
+    (the chunk scan, whose tables stay in global memory) or nothing (the
+    BVH modes), padded as table_pad does; 10 floats a hard slot a lane; the
+    suffix tier's 3 * NT accumulators; past the unrolled mode, weight planes
+    for more than MAX_TEXS rows, 6 floats a row a lane (Wp and its
+    cotangent sums Gp)."""
     NT = flat.tex_type.shape[0]
-    vscan = kernel_mode(flat)[0] == "vscan"
-    n = _vscan_box_floats(flat) if vscan else (_table_floats(flat)
-                                               + 3 * n_slots)
+    mode = kernel_mode(flat)[0]
+    n = {"unrolled": _table_floats(flat) + 3 * n_slots,
+         "vscan": _vscan_box_floats(flat)}.get(mode, 0)
     n = -(-n // 32) * 32 + 10 * n_slots * LANE_BLOCK
     form = tex_form(flat, want_tex)
     if form == "suffix":
         n += 3 * NT
-    elif form == "planes" and vscan and NT > MAX_TEXS:
+    elif form == "planes" and mode != "unrolled" and NT > MAX_TEXS:
         n += 6 * NT * LANE_BLOCK
     return 4 * n
+
+
+# the JAX package's reason (pallas_hard_slots_gate_reason,
+# wavefront_pallas.py:313-342): its stack and lane walks are
+# lax.while_loops, which jax.linearize cannot take; the BVH instances here
+# carry no tangent bundles either, and a request with hard slots on such a
+# scene takes the adjoint (parallel/train.py), which runs on the chunk scan
+_BVH_SLOTS_REASON = ("hard-parameter slots need the unrolled or vscan kernel "
+                     "(stack/lane traversal loops are not linearizable)")
 
 
 def hard_slots_gate_reason(flat: FlatScene, n_slots: int) -> str | None:
     """Why n_slots hard slots cannot run in the grad kernel (None = they
     can): grad_gate_reason without tex_color (the suffix tier's
-    accumulators are counted where want_tex is known, at the launch)."""
+    accumulators are counted where want_tex is known, at the launch); in
+    the BVH modes none can, as in the JAX package."""
     return grad_gate_reason(flat, n_slots, want_tex=False)
 
 
@@ -504,26 +565,38 @@ class VscanTables:
         return self.C_small + (1 if self.n_big else 0)
 
 
+def _sphere_boxes(flat: FlatScene):
+    """The spheres as the chunk scan sees them: (active (a radius > 0),
+    motion-swept boxes lo and hi, moving, is_big: the VSCAN_BIG spheres of
+    the largest extent, static ones where the scene has enough, which the
+    chunk scan never culls (none at VCHUNK spheres or fewer))."""
+    c0, cd, rad = flat.sph_center, flat.sph_cdelta, flat.sph_radius
+    S = c0.shape[0]
+    active = flat.sph_active & (rad > 0.0)
+    lo = torch.minimum(c0, c0 + cd) - rad[:, None]
+    hi = torch.maximum(c0, c0 + cd) + rad[:, None]
+    moving = (cd != 0.0).any(1)
+    n_big = VSCAN_BIG if S > VCHUNK else 0
+    is_big = torch.zeros(S, dtype=torch.bool, device=flat.device)
+    if n_big:
+        static_bigs = int(flat.n_sph_active_static) >= n_big
+        pool = (active & ~moving) if static_bigs else active
+        extent = (hi - lo).max(1).values
+        order = torch.argsort(-torch.where(pool, extent, -1.0), stable=True)
+        is_big[order[:n_big]] = True
+    return active, lo, hi, moving, is_big
+
+
 def pack_vscan_tables(flat: FlatScene) -> VscanTables:
     """The chunk-scan tables of a vscan scene (see VscanTables)."""
     f32 = torch.float32
     dev = flat.device
     c0, cd, rad = flat.sph_center, flat.sph_cdelta, flat.sph_radius
     S = c0.shape[0]
-    active = flat.sph_active & (rad > 0.0)
-    # motion-swept sphere boxes
-    lo = torch.minimum(c0, c0 + cd) - rad[:, None]
-    hi = torch.maximum(c0, c0 + cd) + rad[:, None]
-    moving = (cd != 0.0).any(1)
+    active, lo, hi, moving, is_big = _sphere_boxes(flat)
     n_big = VSCAN_BIG if S > VCHUNK else 0
     nas = int(flat.n_sph_active_static)
     pick_static_bigs = nas >= n_big
-    is_big = torch.zeros(S, dtype=torch.bool, device=dev)
-    if n_big:
-        pool = (active & ~moving) if pick_static_bigs else active
-        extent = (hi - lo).max(1).values
-        order = torch.argsort(-torch.where(pool, extent, -1.0), stable=True)
-        is_big[order[:n_big]] = True
     code = _morton_codes(0.5 * (lo + hi), active)
     # static smalls, moving smalls, inactive rows, the bigs last
     code = torch.where(active & moving, code | (1 << 30), code)
@@ -608,10 +681,11 @@ def _inverse_dir(d):
 
 
 def _box_reaches(box, o, inv_d, t_far):
-    """The kernel's per-ray chunk cull: does the ray meet the (widened,
-    non-empty) box between T_MIN and t_far? box (6,), rays (n, 3)."""
-    t0 = (box[:3] - o) * inv_d
-    t1 = (box[3:] - o) * inv_d
+    """The kernel's per-ray box cull (box_reaches): does the ray meet the
+    (widened, non-empty) box between T_MIN and t_far? box (6,) or one a
+    ray (n, 6), rays (n, 3)."""
+    t0 = (box[..., :3] - o) * inv_d
+    t1 = (box[..., 3:] - o) * inv_d
     tn = torch.maximum(torch.maximum(torch.minimum(t0[:, 0], t1[:, 0]),
                                      torch.minimum(t0[:, 1], t1[:, 1])),
                        torch.clamp(torch.minimum(t0[:, 2], t1[:, 2]),
@@ -686,6 +760,260 @@ def vscan_select_reference(vt: VscanTables, o, d, tm):
     else:
         quads(torch.arange(n, device=dev), vt.quads,
               vt.S + torch.arange(vt.quads.shape[0], device=dev))
+    return best, best_t
+
+
+# ------------------------------------------------------------- BVH tables
+@dataclass(frozen=True)
+class BvhTables:
+    """A use_bvh scene's tables for a BVH walk (K11 stack, K12 lane), from
+    its flat.bvh_* fields (ops/bvh.py). The JAX kernels' scalar-memory node
+    tables (wavefront_pallas.py:3392-3400) and 128-lane chunk-major gather
+    tables (_pack_lane_tables, 703-750) are TPU layouts; here a thread
+    reads its own rows from global memory.
+
+      box (B, 6): the node boxes [lo xyz, hi xyz] (flat.bvh_bbox_*); the
+        walk tests each widened by its `pad` (B,) on every side
+        (bvh_box_pad), so that no grazing root the all-primitive test
+        accepts falls outside its leaf's ancestors.
+      link (B, 6): per node, for the stack walk: [leaf (1 or 0), split
+        axis, left child | first sphere row, right child | sphere count,
+        0 | first quad row, 0 | quad count]; for the lane walk: [hit link,
+        miss link, first sphere row, sphere count (0 at an inner node)],
+        the skip links of flat.bvh_hit / bvh_miss (B = done), two 0s.
+      srows (NS, 8): the leaves' sphere rows in leaf order [c0 xyz, cdelta
+        xyz, radius, original id]; id -1 for a radius <= 0 (never a
+        winner, as in the all-primitive test).
+      qrows (NQ, 20): the stack walk's leaf quads in leaf order [corner, u,
+        v, normal, d, w, original unified id, 0 0 0] (none in the lane
+        walk, which takes spheres only).
+    A leaf's spheres come first in flat.bvh_prims (_segregate_leaves), so
+    each leaf is one run of sphere rows and one run of quad rows."""
+    mode: str
+    box: torch.Tensor
+    link: torch.Tensor
+    pad: torch.Tensor
+    srows: torch.Tensor
+    qrows: torch.Tensor
+
+
+def bvh_box_pad(flat: FlatScene) -> torch.Tensor:
+    """The BVH walks' box widening, (B,) per node: BOX_PAD x (1 + the
+    larger of the chunk scan's scale and the node's own largest |coordinate|).
+    The chunk scan's scale is the largest |coordinate| of the boxes it culls
+    (every active sphere but its VSCAN_BIG big ones), here with every active
+    quad, since the BVH culls every quad. The BVH culls the big spheres too:
+    a node's own coordinate bounds that of every primitive under it, so each
+    primitive's ancestors are widened at least by the BOX_PAD bound at its
+    own scale (a ground sphere of radius 1e6 widens the few nodes above it
+    by 2e3), and by no less than the chunk scan widens its boxes."""
+    active, lo, hi, _, is_big = _sphere_boxes(flat)
+    culled = (active & ~is_big)[:, None]
+    scale = torch.where(culled, torch.maximum(lo.abs(), hi.abs()),
+                        0.0).amax() if lo.shape[0] else 0.0
+    qact = flat.quad_active
+    if bool(qact.any()):
+        corner, u, v = flat.quad_corner, flat.quad_u, flat.quad_v
+        pts = torch.stack([corner, corner + u, corner + v, corner + u + v])
+        scale = max(scale, pts.abs().amax(dim=(0, 2))[qact].max())
+    n_lo, n_hi = flat.bvh_bbox_min, flat.bvh_bbox_max
+    # an empty node (the tree of a scene without primitives) keeps its box
+    node = torch.where((n_lo <= n_hi).all(1),
+                       torch.maximum(n_lo.abs(), n_hi.abs()).amax(1), 0.0)
+    node = torch.clamp(node.double(), min=float(scale))
+    return (BOX_PAD * (1.0 + node)).to(torch.float32)
+
+
+def pack_bvh_tables(flat: FlatScene, mode: str) -> BvhTables:
+    """The tables of a BVH walk, mode "stack" (K11) or "lane" (K12; a
+    scene without quads), of a scene compiled with use_bvh (see
+    BvhTables). Raises for another mode or scene, and for a tree deeper
+    than the stack walk's STACK_DEPTH allows (ops/bvh.py::check_depth)."""
+    if mode not in BVH_MODES:
+        raise ValueError(f"unknown BVH mode {mode!r} ({BVH_MODES})")
+    if not flat.use_bvh:
+        raise ValueError("the BVH walks need a scene compiled with use_bvh")
+    f32 = torch.float32
+    dev = flat.device
+    S = flat.sph_center.shape[0]
+    left = flat.bvh_left.to(torch.int64)
+    right = flat.bvh_right.to(torch.int64)
+    leaf = flat.bvh_leaf
+    check_depth(left.cpu().numpy(), right.cpu().numpy(), leaf.cpu().numpy())
+    prims = flat.bvh_prims.to(torch.int64)
+    B = left.shape[0]
+    if B >= 1 << 24 or prims.shape[0] >= 1 << 24:
+        raise ValueError(f"{B} nodes / {prims.shape[0]} primitives: the "
+                         "node rows hold ids as exact float32 integers")
+    # the leaves' runs cover the prim list, but for the one-entry list of
+    # a tree without prims
+    real = torch.full(prims.shape, bool(torch.where(leaf, right, 0).sum()),
+                      device=dev)
+    is_sph = real & (prims < S)
+    is_quad = real & (prims >= S)
+    # a leaf at offset o: its spheres start at the spheres before o
+    sph_before = torch.cumsum(is_sph.to(torch.int64), 0) - is_sph.to(
+        torch.int64)
+    quad_before = torch.cumsum(is_quad.to(torch.int64), 0) - is_quad.to(
+        torch.int64)
+    leaf_off = torch.clamp(torch.where(leaf, left, 0), max=prims.shape[0] - 1)
+    nsph = torch.where(leaf, flat.bvh_leaf_sph.to(torch.int64), 0)
+    s_off = torch.where(leaf, sph_before[leaf_off], 0)
+    q_off = torch.where(leaf, quad_before[leaf_off], 0)
+    nq = torch.where(leaf, right - nsph, 0)
+    zero = torch.zeros_like(left)
+    if mode == "stack":
+        link = torch.stack([leaf.to(torch.int64),
+                            flat.bvh_axis.to(torch.int64),
+                            torch.where(leaf, s_off, left),
+                            torch.where(leaf, nsph, right), q_off, nq], 1)
+    else:
+        if bool(is_quad.any()):
+            raise ValueError("the lane BVH (K12) takes spheres only")
+        link = torch.stack([flat.bvh_hit.to(torch.int64),
+                            flat.bvh_miss.to(torch.int64), s_off, nsph,
+                            zero, zero], 1)
+    sid = prims[is_sph]
+    rad = flat.sph_radius[sid]
+    srows = torch.cat([flat.sph_center[sid], flat.sph_cdelta[sid],
+                       rad[:, None],
+                       torch.where(rad > 0.0, sid, -1).to(f32)[:, None]], 1)
+    qid = prims[is_quad] - S
+    qrows = torch.cat([flat.quad_corner[qid], flat.quad_u[qid],
+                       flat.quad_v[qid], flat.quad_normal[qid],
+                       flat.quad_d[qid][:, None], flat.quad_w[qid],
+                       (qid + S).to(f32)[:, None],
+                       torch.zeros(qid.shape[0], 3, dtype=f32, device=dev)],
+                      1)
+    box = torch.cat([flat.bvh_bbox_min, flat.bvh_bbox_max], 1).to(f32)
+    return BvhTables(mode=mode, box=box, link=link.to(f32),
+                     pad=bvh_box_pad(flat), srows=srows.contiguous(),
+                     qrows=qrows.contiguous())
+
+
+def _bvh_nodes(bt: BvhTables) -> torch.Tensor:
+    """(B, BVH_NODE_COLS) node rows: the widened box, then the links."""
+    pad = bt.pad[:, None]
+    return torch.cat([bt.box[:, :3] - pad, bt.box[:, 3:] + pad, bt.link], 1)
+
+
+def _bvh_buffer(bt: BvhTables):
+    """One float32 buffer of what a BVH walk reads beside the scene tables:
+    the node rows, the sphere rows and the quad rows (each 16-byte aligned,
+    for float4 loads); and the kernel's BvParams fields."""
+    parts = [_bvh_nodes(bt).reshape(-1), bt.srows.reshape(-1),
+             bt.qrows.reshape(-1)]
+    fields = dict(n_nodes=bt.box.shape[0], n_srows=bt.srows.shape[0],
+                  n_qrows=bt.qrows.shape[0], off_nodes=0,
+                  off_srows=parts[0].numel(),
+                  off_qrows=parts[0].numel() + parts[1].numel())
+    return torch.cat(parts).contiguous(), fields
+
+
+def _take_closer(t, ids, sel, best_t, best):
+    """take_closer per ray where sel: the closer of (t, id) and the running
+    winner, ties to the lower id."""
+    take = sel & (t < BIG * 0.5) & ((t < best_t)
+                                     | ((t == best_t) & (ids < best)))
+    return torch.where(take, t, best_t), torch.where(take, ids, best)
+
+
+def _leaf_tests(bt, idx, s_off, n_s, q_off, n_q, o, d, tm, best_t, best):
+    """The rays idx test their leaves' sphere rows [s_off, s_off + n_s) and
+    quad rows [q_off, q_off + n_q) (at most MAX_LEAF of each), as the
+    kernel's scan_spheres / scan_quads do, with ops/intersect.py's float32
+    operations in its order (the all-primitive test's), one row a ray."""
+    bt_, bi = best_t[idx], best[idx]
+    oi, di, ti = o[idx], d[idx], tm[idx]
+    for k in range(MAX_LEAF):
+        sel = k < n_s
+        if bool(sel.any()) and bt.srows.shape[0]:
+            r = bt.srows[torch.clamp(s_off + k, max=bt.srows.shape[0] - 1)]
+            real = r[:, 7] >= 0
+            t = intersect.sphere_roots(r[:, 0:3], r[:, 3:6], r[:, 6], real,
+                                       oi, di, ti)
+            bt_, bi = _take_closer(t, r[:, 7].to(torch.int64), sel & real,
+                                   bt_, bi)
+        sel = k < n_q
+        if bool(sel.any()) and bt.qrows.shape[0]:
+            r = bt.qrows[torch.clamp(q_off + k, max=bt.qrows.shape[0] - 1)]
+            t = intersect.quad_hits(r[:, 0:3], r[:, 3:6], r[:, 6:9],
+                                    r[:, 9:12], r[:, 12], r[:, 13:16], sel,
+                                    oi, di)
+            bt_, bi = _take_closer(t, r[:, 16].to(torch.int64), sel, bt_, bi)
+    best_t[idx], best[idx] = bt_, bi
+
+
+def bvh_stack_select_reference(bt: BvhTables, o, d, tm):
+    """The plain version of the stack BVH's selection (K11): each ray pops
+    a node, culls it by its widened box against [T_MIN, its best t], tests
+    a leaf's spheres then quads, or pushes an inner node's children, the
+    near one (by the ray's sign on the split axis) on top; for rays o, d
+    (n, 3) at times tm (n,). Returns (the winner's original unified id, -1
+    on a miss; its t, BIG on a miss): the all-primitive closest_hit's, bit
+    for bit (vscan_select_reference's rule)."""
+    n = o.shape[0]
+    dev = o.device
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    inv_d = _inverse_dir(d)
+    nodes = _bvh_nodes(bt)
+    link = bt.link.to(torch.int64)
+    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    sp = torch.ones(n, dtype=torch.int64, device=dev)
+    while bool((sp > 0).any()):
+        live = torch.nonzero(sp > 0).squeeze(1)
+        sp[live] -= 1
+        node = stack[live, sp[live]]
+        go = _box_reaches(nodes[node, :6], o[live], inv_d[live],
+                          best_t[live])
+        lk = link[node]
+        is_leaf = go & (lk[:, 0] == 1)
+        if bool(is_leaf.any()):
+            j = is_leaf.nonzero().squeeze(1)
+            _leaf_tests(bt, live[j], lk[j, 2], lk[j, 3], lk[j, 4], lk[j, 5],
+                        o, d, tm, best_t, best)
+        inner = go & (lk[:, 0] == 0)
+        if bool(inner.any()):
+            j = inner.nonzero().squeeze(1)
+            r = live[j]
+            ax = lk[j, 1]
+            pos = d[r].gather(1, ax[:, None])[:, 0] >= 0.0
+            near = torch.where(pos, lk[j, 2], lk[j, 3])
+            far = torch.where(pos, lk[j, 3], lk[j, 2])
+            stack[r, sp[r]] = far
+            stack[r, sp[r] + 1] = near
+            sp[r] += 2
+    return best, best_t
+
+
+def bvh_lane_select_reference(bt: BvhTables, o, d, tm):
+    """The plain version of the lane BVH's selection (K12): each ray walks
+    the skip links from the root, taking the hit link where its widened box
+    meets [T_MIN, the ray's best t] (testing a leaf's spheres there) and
+    the miss link elsewhere, until the links end; the results as
+    bvh_stack_select_reference's."""
+    n = o.shape[0]
+    dev = o.device
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    inv_d = _inverse_dir(d)
+    nodes = _bvh_nodes(bt)
+    link = bt.link.to(torch.int64)
+    B = nodes.shape[0]
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    while bool((node < B).any()):
+        live = torch.nonzero(node < B).squeeze(1)
+        nd = node[live]
+        go = _box_reaches(nodes[nd, :6], o[live], inv_d[live], best_t[live])
+        lk = link[nd]
+        leafy = go & (lk[:, 3] > 0)
+        if bool(leafy.any()):
+            j = leafy.nonzero().squeeze(1)
+            zero = torch.zeros_like(j)
+            _leaf_tests(bt, live[j], lk[j, 2], lk[j, 3], zero, zero, o, d,
+                        tm, best_t, best)
+        node[live] = torch.where(go, lk[:, 0], lk[:, 1])
     return best, best_t
 
 
@@ -827,6 +1155,17 @@ def _hard_tangents(flat: FlatScene, org, dr, tm, th, alive, u, u_med,
 
 
 # ---------------------------------------------------- plain torch version
+def all_primitive(flat: FlatScene) -> FlatScene:
+    """The scene as the kernels' plain versions see it: every bounce
+    selects over all primitives (ops/intersect.py::closest_hit), whatever
+    the kernel mode. On a use_bvh scene the plain engine
+    (models/render.py::_render_pass) takes the BVH oracle instead
+    (ops/integrator.py::resolve_hit), as the JAX package's does; every
+    kernel's selection is the all-primitive one bit for bit, so that is
+    what they are held against."""
+    return dataclasses.replace(flat, use_bvh=False) if flat.use_bvh else flat
+
+
 def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
                          sample_start, *, width, height, n_strata, max_depth,
                          n_samples, sky_gradient, cap, carry, pix_lanes,
@@ -865,6 +1204,7 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
     Returns (radiance (3, n_lanes), carry or None, dG_tex (NT, 3) or None,
     dG_hard (K,) or None). iters ((n_lanes,) int32), when given, gets one
     added per lane per bounce it traces."""
+    flat = all_primitive(flat)
     device = flat.device
     n_pix = width * height
     n_lanes = lane_count(n_pix)
@@ -1124,6 +1464,13 @@ class _VsParams(ctypes.Structure):
         "n_box")]
 
 
+class _BvParams(ctypes.Structure):
+    """Mirror of csrc/wavefront.cu::BvParams."""
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "n_nodes", "n_srows", "n_qrows", "off_nodes", "off_srows",
+        "off_qrows")]
+
+
 class KernelLibrary:
     """The built kernel library: nvcc output of csrc/*.cu, cached in
     BUILD_DIR under a hash of the sources and flags, bound with ctypes."""
@@ -1170,6 +1517,15 @@ class KernelLibrary:
         self.adjoint_seg.argtypes = ([ctypes.POINTER(_Params),
                                       ctypes.POINTER(_VsParams)] + [ptr] * 8
                                      + [ctypes.c_int] * 3 + [ptr])
+        # the BVH walks, forward (cot null) and tex_color grad: params,
+        # bparams, tables, btab, pix_lanes, carry_in, cot, rad_out,
+        # carry_out, dg_out, iters, stream
+        self.bvh = {"stack": self.lib.rt_wavefront_bvh_stack,
+                    "lane": self.lib.rt_wavefront_bvh_lane}
+        for fn in self.bvh.values():
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.POINTER(_Params),
+                           ctypes.POINTER(_BvParams)] + [ptr] * 10
 
 
 def _nvcc() -> str:
@@ -1242,16 +1598,21 @@ class KernelInputs:
     """A scene and camera packed for the kernel: its tables in one device
     buffer (with the slot table of `hard_slots`), and the scene's and
     camera's fields of WfParams; for a vscan scene (`mode`) also the chunk
-    scan's buffer `vtab` and its VsParams fields `vfields` (Cq > 0: vquad).
-    Packing gathers on the device and reads the camera and the Perlin seed
-    back to the host, so a render (or a training step) packs once and hands
-    the result to every launch."""
+    scan's buffer `vtab` and its VsParams fields `vfields` (Cq > 0: vquad);
+    for a BVH mode ("stack", "lane") the walk's buffer `btab` and its
+    BvParams fields `bfields`. `env` is the kernel_env() the mode was
+    chosen under. Packing gathers on the device and reads the camera and
+    the Perlin seed back to the host, so a render (or a training step)
+    packs once and hands the result to every launch."""
     tables: torch.Tensor
     fields: dict
     hard_slots: tuple = ()
     mode: str = "unrolled"
     vtab: torch.Tensor | None = None
     vfields: dict | None = None
+    btab: torch.Tensor | None = None
+    bfields: dict | None = None
+    env: tuple = ("0", "0")
 
 
 def prepare_kernel(flat: FlatScene, cam: CameraState,
@@ -1261,9 +1622,10 @@ def prepare_kernel(flat: FlatScene, cam: CameraState,
     grad kernel) for the kernel wrappers; raises for a scene that is not on
     a CUDA device or is outside the forward kernel's gate, and for slots
     outside hard_slots_gate_reason. A grad launch on a scene outside
-    grad_gate_reason raises in _launch. chunk_scan packs the chunk scan's
-    tables whatever the scene's mode (the adjoint, K9/K10, always runs on
-    them)."""
+    grad_gate_reason raises in _launch. The mode is kernel_mode's under the
+    environment now (kernel_env), fixed in the packing; chunk_scan packs
+    the chunk scan's tables whatever the scene's mode (the adjoint, K9/K10,
+    always runs on them)."""
     if flat.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
                          f"{flat.device}")
@@ -1287,11 +1649,17 @@ def prepare_kernel(flat: FlatScene, cam: CameraState,
         off_tex=off["tex"], off_med=off["med"], off_lsrc=off["lsrc"],
         off_slot=off["slot"], med_cols=med_cols, n_table=tables.numel(),
         cam=(ctypes.c_float * 22)(*cam_s))
-    mode = "vscan" if chunk_scan else kernel_mode(flat)[0]
+    env = kernel_env()
+    mode = "vscan" if chunk_scan else kernel_mode(flat, env)[0]
     if mode == "unrolled":
-        return KernelInputs(tables, fields, hard_slots)
+        return KernelInputs(tables, fields, hard_slots, env=env)
+    if mode in BVH_MODES:
+        btab, bfields = _bvh_buffer(pack_bvh_tables(flat, mode))
+        return KernelInputs(tables, fields, hard_slots, mode, btab=btab,
+                            bfields=bfields, env=env)
     vtab, vfields = _vscan_buffer(pack_vscan_tables(flat))
-    return KernelInputs(tables, fields, hard_slots, mode, vtab, vfields)
+    return KernelInputs(tables, fields, hard_slots, mode, vtab, vfields,
+                        env=env)
 
 
 def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
@@ -1312,6 +1680,13 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     elif cot is not None and tuple(prepared.hard_slots) != hard_slots:
         raise ValueError(f"prepared for hard slots {prepared.hard_slots}, "
                          f"launched with {hard_slots}")
+    if kernel_mode(flat)[0] != kernel_mode(flat, prepared.env)[0]:
+        # the JAX package's round-3 lesson behind _kernel_env: a packing
+        # made under one mode is never launched where another is asked for
+        raise ValueError(
+            f"packed under RTX_LANE_BVH, RTX_BVH_STACK = {prepared.env} "
+            f"({prepared.mode}), launched under {kernel_env()} "
+            f"({kernel_mode(flat)[0]}): pack again (prepare_kernel)")
     if cot is not None:
         reason = grad_gate_reason(flat, len(hard_slots), want_tex)
         if reason is not None:
@@ -1352,7 +1727,18 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device)
                                  .cuda_stream)
-        if cot is None and prepared.mode == "vscan":
+        if prepared.mode in BVH_MODES:
+            if cot is not None:
+                cot = cot.to(device=device, dtype=torch.float32).contiguous()
+                n_tex = 3 * nt
+                partial = torch.empty(n_lanes // LANE_BLOCK, n_tex,
+                                      dtype=torch.float32, device=device)
+            err = lib.bvh[prepared.mode](
+                ctypes.byref(p), ctypes.byref(_BvParams(**prepared.bfields)),
+                ptr(prepared.tables), ptr(prepared.btab), ptr(pix_lanes),
+                ptr(carry), ptr(cot), ptr(rad), ptr(st), ptr(partial),
+                ptr(iters), stream)
+        elif cot is None and prepared.mode == "vscan":
             err = lib.forward_vscan(
                 ctypes.byref(p), ctypes.byref(_VsParams(**prepared.vfields)),
                 ptr(prepared.tables), ptr(prepared.vtab), ptr(pix_lanes),
@@ -1399,12 +1785,15 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
     """The forward kernel's wrapper: render_pass_reference's signature and
     results, on a CUDA device. `prepared` is prepare_kernel(flat, cam),
     packed here when not given; its mode picks the instance: the unrolled
-    forward (K1) or, for a vscan scene, the chunk scan's (K6, with quad
-    chunks K7). Launches on the current stream; raises if the scene is
-    outside the gate, the inputs are malformed, or the launch fails. Each
-    launch adds one to render_pass_kernel.launches, one of the chunk scan's
-    to render_pass_kernel.launches_vscan, and one of those with quad chunks
-    to render_pass_kernel.launches_vquad."""
+    forward (K1), for a vscan scene the chunk scan's (K6, with quad chunks
+    K7), for a BVH mode the stack walk's (K11) or the lane walk's (K12).
+    Launches on the current stream; raises if the scene is outside the
+    gate, the inputs are malformed, the packing's mode is not the one
+    kernel_mode gives now, or the launch fails. Each launch adds one to
+    render_pass_kernel.launches, one of the chunk scan's to
+    render_pass_kernel.launches_vscan, one of those with quad chunks to
+    render_pass_kernel.launches_vquad, one of the stack walk's to
+    .launches_stack and one of the lane walk's to .launches_lane."""
     if prepared is None:
         prepared = prepare_kernel(flat, cam)
     rad, st, _, _ = _launch(
@@ -1416,6 +1805,8 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
     if prepared.mode == "vscan":
         render_pass_kernel.launches_vscan += 1
         render_pass_kernel.launches_vquad += prepared.vfields["Cq"] > 0
+    render_pass_kernel.launches_stack += prepared.mode == "stack"
+    render_pass_kernel.launches_lane += prepared.mode == "lane"
     return _pass_result(rad, st, cap=cap, pix_lanes=pix_lanes, width=width,
                         height=height)
 
@@ -1423,6 +1814,8 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
 render_pass_kernel.launches = 0
 render_pass_kernel.launches_vscan = 0
 render_pass_kernel.launches_vquad = 0
+render_pass_kernel.launches_stack = 0
+render_pass_kernel.launches_lane = 0
 
 
 def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
@@ -1438,17 +1831,21 @@ def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
     signature and results (the tier by tex_form), on a CUDA device.
     `prepared` is prepare_kernel(flat, cam, hard_slots), packed here when
     not given (its slots must be `hard_slots`); its mode picks the unrolled
-    instances or the chunk scan's (K3v, K4v, K8). The kernel writes one row
-    of dG_tex and dG_hard partial sums per block; they are summed here.
-    Raises as render_pass_kernel does, for a malformed cotangent, and for a
-    pass outside grad_gate_reason. Each launch adds one to
+    instances, the chunk scan's (K3v, K4v, K8) or a BVH walk's (K11, K12:
+    tex_color only, weight planes or the suffix tier). The kernel writes
+    one row of dG_tex and dG_hard partial sums per block; they are summed
+    here. Raises as render_pass_kernel does, for a malformed cotangent,
+    and for a pass outside grad_gate_reason. Each launch adds one to
     render_pass_grad_kernel.launches; one with hard slots (the K4
     instances) to .hard_launches; one on the chunk scan's selection with
     weight planes (K3v) to .vscan_tex_launches and one with hard slots
-    (K4v) to .vscan_hard_launches; one of the suffix tier (K8) to
-    .suffix_launches."""
+    (K4v) to .vscan_hard_launches; one of the suffix tier (K8, on any
+    selection) to .suffix_launches; one on the stack walk to
+    .stack_launches and one on the lane walk to .lane_launches."""
     cot = cotangent_lanes(cotangent, width=width, height=height,
                           pix_lanes=pix_lanes)
+    if prepared is None:
+        prepared = prepare_kernel(flat, cam, hard_slots)
     rad, st, dg_tex, dg_hard = _launch(
         flat, cam, seed, sample_start, width=width, height=height,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
@@ -1459,10 +1856,12 @@ def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
     form = tex_form(flat, want_tex)
     if hard_slots:
         render_pass_grad_kernel.hard_launches += 1
-    if kernel_mode(flat)[0] == "vscan":
+    if prepared.mode == "vscan":
         render_pass_grad_kernel.vscan_tex_launches += form == "planes"
         render_pass_grad_kernel.vscan_hard_launches += bool(hard_slots)
     render_pass_grad_kernel.suffix_launches += form == "suffix"
+    render_pass_grad_kernel.stack_launches += prepared.mode == "stack"
+    render_pass_grad_kernel.lane_launches += prepared.mode == "lane"
     return _grad_result(rad, dg_tex, dg_hard, st, cap=cap,
                         pix_lanes=pix_lanes, width=width, height=height)
 
@@ -1472,6 +1871,8 @@ render_pass_grad_kernel.hard_launches = 0
 render_pass_grad_kernel.vscan_tex_launches = 0
 render_pass_grad_kernel.vscan_hard_launches = 0
 render_pass_grad_kernel.suffix_launches = 0
+render_pass_grad_kernel.stack_launches = 0
+render_pass_grad_kernel.lane_launches = 0
 
 
 def pass_function(flat: FlatScene, cam: CameraState,

@@ -2,10 +2,12 @@
 
 Port of the JAX package's parallel/train.py (one shard, no mesh). The loss
 forward renders with the forward kernel (K1, or the chunk scan's K6/K7 past
-the unrolled bounds; K2 under the compacted schedule); its backward is the
+the unrolled bounds, or on a use_bvh scene that opts in the BVH walk's K11
+or K12; K2 under the compacted schedule); its backward is the
 forward-mode gradient kernel under the compacted grad driver (K5) over
 every trainable family: tex_color (albedo, emission, medium tint) by exact
-weight planes (K3; K3v on the chunk scan's selection) for at most
+weight planes (K3; K3v on the chunk scan's selection, and on a BVH walk's)
+for at most
 MAX_GRAD_TEXS texture rows, past them by the suffix-radiance estimator
 (K8, which replays each sample once more; a channel whose albedo is
 exactly 0 gets no scatter gradient, announced once when a render is
@@ -108,7 +110,10 @@ def use_adjoint(flat: FlatScene, slots: tuple, want_tex: bool) -> bool:
     """Whether a request takes the adjoint backward (JAX train.py:196-199):
     it has hard slots, and either ADJOINT_MIN_SLOTS of them or a pass the
     forward-mode kernels cannot serve on a scene inside their gate
-    (grad_gate_reason). A scene outside the forward kernel's gate
+    (grad_gate_reason; in the BVH modes, K11 and K12, any hard slot, since
+    their walks carry no tangent bundles, as in the JAX package: tex_color
+    alone keeps their grad instances, weight planes or the suffix tier). A
+    scene outside the forward kernel's gate
     (kernel_gate_reason, which is the adjoint kernel's too) is no reason:
     only the plain engine renders it, and its tangent bundles serve it."""
     return bool(slots) and (

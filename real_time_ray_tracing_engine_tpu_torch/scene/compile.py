@@ -201,14 +201,9 @@ def _bool(x):
 
 def compile_scene(scene: S.Scene, use_bvh: bool = False,
                   device="cpu") -> FlatScene:
-    """Compile `scene` into FlatScene tables on `device`.
-
-    use_bvh=True needs the SAH BVH build (the JAX package's ops/bvh.py),
-    which is not ported yet (ROADMAP queue 1): it raises."""
-    if use_bvh:
-        raise NotImplementedError(
-            "use_bvh=True: the BVH build (ops/bvh.py) is not ported yet "
-            "(ROADMAP queue 1, item 1)")
+    """Compile `scene` into FlatScene tables on `device`; use_bvh=True also
+    builds the SAH BVH over the active primitives (ops/bvh.py::build_bvh),
+    as the JAX package's compile_scene does."""
     tab = _Tables()
     I, z = np.eye(3), np.zeros(3)
 
@@ -348,6 +343,9 @@ def compile_scene(scene: S.Scene, use_bvh: bool = False,
         tex_struct=tuple((int(t["type"]), int(t["even"]), int(t["odd"]))
                          for t in tab.tex_rows),
     )
+    if use_bvh:
+        from ..ops.bvh import build_bvh
+        flat = build_bvh(flat)
     return flat.to(device)
 
 

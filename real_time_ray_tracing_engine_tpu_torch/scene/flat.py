@@ -84,8 +84,8 @@ class FlatScene:
     # --- hash-noise seed (utils/perlin.py derives lattice gradients from it)
     perlin_seed: torch.Tensor     # () uint32
 
-    # --- flat BVH over unified prims (a 1-node dummy: the BVH build is not
-    # ported yet, see scene/compile.py)
+    # --- flat BVH over unified prims (ops/bvh.py::build_bvh; a one-node
+    # dummy unless compiled with use_bvh)
     bvh_bbox_min: torch.Tensor    # (B, 3)
     bvh_bbox_max: torch.Tensor    # (B, 3)
     bvh_left: torch.Tensor        # (B,) int32

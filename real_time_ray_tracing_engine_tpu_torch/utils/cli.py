@@ -8,10 +8,15 @@ output/<--output>.ppm. Every builtin scene renders on the GPU: the
 Cornell-class ones through the unrolled kernel, bouncing_spheres (the
 reference's final scene, 1200x675, 100 spp, depth 50) and textured_spheres
 through the chunk scan (K6); so does a scene JSON of up to 16,384
-primitives (past 64 quads through K7). --device cpu renders on the CPU
-instead; without it a missing GPU is an error. The progressive, sharded,
-BVH and debug modes of the JAX package's CLI are not ported yet: their
-flags exit with a message.
+primitives (past 64 quads through K7). -b/--bvh compiles the scene with
+the SAH BVH (the reference's -b), which lifts that bound; the kernel a -b
+render takes is the JAX package's choice: the chunk scan by default,
+RTX_BVH_STACK=1 the stack BVH walk (K11), RTX_LANE_BVH=1 the lane BVH walk
+(K12; scenes without quads, else the stack walk or the chunk scan).
+--device cpu renders on the CPU instead (a -b render through the BVH
+oracle); without it a missing GPU is an error. The progressive, sharded
+and debug modes of the JAX package's CLI are not ported yet: their flags
+exit with a message.
 """
 from __future__ import annotations
 
@@ -22,7 +27,6 @@ import time
 
 NOT_PORTED = {
     "parallel": "-p/--parallel (sharded multi-device render)",
-    "bvh": "-b/--bvh (SAH BVH build)",
     "debug": "-d/--debug (flat-scene dump and complexity report)",
     "view": "--view (interactive terminal viewer)",
     "checkpoint": "--checkpoint (progressive checkpoints)",
@@ -65,7 +69,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default cuda; cpu must be asked for)")
     p.add_argument("-p", "--parallel", action="store_true",
                    help="not ported yet")
-    p.add_argument("-b", "--bvh", action="store_true", help="not ported yet")
+    p.add_argument("-b", "--bvh", action="store_true",
+                   help="build the SAH BVH (traversed by the stack or lane "
+                        "BVH kernel under RTX_BVH_STACK=1 / RTX_LANE_BVH=1, "
+                        "else by the chunk scan)")
     p.add_argument("-d", "--debug", action="store_true",
                    help="not ported yet")
     p.add_argument("--view", action="store_true", help="not ported yet")
@@ -122,7 +129,7 @@ def main(argv=None) -> int:
     # batch size follows the schedule: auto/compacted need >= 8 samples
     # per pass to take the compacted schedule
     spb = 4 if args.schedule == "single" else 16
-    img = render(scene, device=device, seed=args.seed,
+    img = render(scene, device=device, seed=args.seed, use_bvh=args.bvh,
                  engine=args.engine, schedule=args.schedule,
                  samples_per_batch=spb, caps=caps,
                  progress=lambda s, t: print(f"\r[INFO] sample {s}/{t}",

@@ -15,8 +15,11 @@ the 301-quad city 400x225 spp9 d6 (single pass); where it has the
 suffix-radiance tier, that grad kernel (K8) at bouncing_spheres 1200x675
 spp16 d50 (single pass); where it has the adjoint, K9 there under the sky
 gradient and at 400x225 spp9 d50 under the flat sky (the JAX bench line's
-shape); where it has the segmented adjoint, K10 (SEG 8) at both. Prints
-one JSON line.
+shape); where it has the segmented adjoint, K10 (SEG 8) at both; where it
+has the BVH walks, K11 (RTX_BVH_STACK=1) and K12 (RTX_LANE_BVH=1) on
+bouncing_spheres -b at 400x225 spp9 d50 and K11 on the city -b (single
+pass). With the times it prints each kernel's ptxas registers, stack and
+spills from the library's build. Prints one JSON line.
 
 To compare two checkouts on one card, unpack the other one (git archive)
 under a git-ignored directory and time both roots in one run, in turns:
@@ -45,8 +48,9 @@ def kernel_times(root: str) -> dict:
              f"timed {wc.__file__}, not the package under {root}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    wc.load_library()
-    out = {"root": root, "build_s": time.perf_counter() - t0}
+    lib = wc.load_library()
+    out = {"root": root, "build_s": time.perf_counter() - t0,
+           "ptxas": cs.ptxas_table(lib.build_log)}
 
     flat, cam, kw = cs.pass_args(
         pt, cs.builtin(pt, "cornell_box", 600, 16, 50), dev)
@@ -112,6 +116,20 @@ def kernel_times(root: str) -> dict:
                     out[f"{name}_{shape}_ms"] = cs.cuda_ms(
                         torch, lambda: adj(flat, cam, 0, 0, cotangent=g,
                                            **kw))
+    if hasattr(wc, "pack_bvh_tables"):
+        for name, scene, modes in (
+                ("bouncing_400_spp9", cs.builtin(
+                    pt, "bouncing_spheres", 400, 9, 50), ("stack", "lane")),
+                ("city_400_spp9", cs.sized(cs.city_scene(pt), 400, 9, 6),
+                 ("stack",))):
+            flat, cam, kw = cs.pass_args(pt, scene, dev, use_bvh=True)
+            for mode in modes:
+                with cs.kernel_mode_env(mode):
+                    fwd = functools.partial(
+                        wc.render_pass_kernel,
+                        prepared=wc.prepare_kernel(flat, cam))
+                    out[f"bvh_{mode}_{name}_ms"] = cs.cuda_ms(
+                        torch, lambda: fwd(flat, cam, 0, 0, **kw))
     return out
 
 

@@ -695,3 +695,110 @@ def test_plain_engine_on_the_card_launches_no_kernel(cuda_device):
     assert (wc.render_pass_kernel.launches
             + wc.render_pass_grad_kernel.launches
             + ac.render_pass_adjoint_kernel.launches) == launches
+
+
+def _bvh_env(monkeypatch, mode):
+    monkeypatch.setenv("RTX_BVH_STACK", "1" if mode == "stack" else "0")
+    monkeypatch.setenv("RTX_LANE_BVH", "1" if mode == "lane" else "0")
+
+
+@pytest.mark.parametrize("mode, name", [("stack", "mixed"),
+                                        ("lane", "spheres"),
+                                        ("stack", "rows")])
+def test_bvh_kernels_match_plain(mode, name, cuda_device, monkeypatch):
+    """The BVH walks (K11 on mixed sphere / quad leaves, K12 on spheres
+    with movers) against the plain pass, which tests every primitive: the
+    same pixels and bounces as the chunk scan (K6) and the plain pass,
+    the compacted schedule, and the tex_color grad instance (weight planes
+    in registers; for the 28-row scene in shared memory) against the plain
+    grad pass, with the forward's image; launches counted per mode."""
+    scene = {"mixed": cs.bvh_mixed_scene, "spheres": cs.bvh_sphere_scene,
+             "rows": cs.rows_scene}[name](pt)
+    flat, cam, kw = cs.pass_args(pt, cs.sized(scene, 48, 4, 8), cuda_device,
+                                 use_bvh=True)
+    _bvh_env(monkeypatch, mode)
+    assert wc.kernel_mode(flat)[0] == mode
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    it_k = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
+    it_p = torch.zeros_like(it_k)
+    counter = f"launches_{mode}"
+    before = getattr(wc.render_pass_kernel, counter)
+    kern = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_k, **kw)
+    torch.cuda.synchronize()
+    assert getattr(wc.render_pass_kernel, counter) == before + 1
+    plain = wc.render_pass_reference(flat, cam, 7, 0, iters=it_p, **kw)
+    k, p = kern.cpu().numpy(), plain.cpu().numpy()
+    assert np.isfinite(k).all() and k.mean() > 0.01
+    diff = np.abs(k - p)
+    assert (diff > 1e-3).mean() < 0.01, diff.max()
+    assert abs(k.mean() - p.mean()) < 2e-3
+    assert int(it_k.sum()) == int(it_p.sum())
+    monkeypatch.setenv("RTX_BVH_STACK", "0")
+    monkeypatch.setenv("RTX_LANE_BVH", "0")
+    k6 = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
+    np.testing.assert_array_equal(k6.cpu().numpy(), k)
+    _bvh_env(monkeypatch, mode)
+    two = wc.render_pass_compacted(flat, cam, 7, 0, **kw)
+    assert np.allclose(k, two.cpu().numpy(), atol=1e-5)
+    g = cs.cotangent(torch, kw, cuda_device, 5)
+    grads = getattr(wc.render_pass_grad_kernel, f"{mode}_launches")
+    img, dg_k, _ = wc.render_pass_grad_kernel(flat, cam, 7, 0, cotangent=g,
+                                              **kw)
+    assert getattr(wc.render_pass_grad_kernel, f"{mode}_launches") == \
+        grads + 1
+    np.testing.assert_array_equal(img.cpu().numpy(), k)
+    _, dg_p, _ = wc.render_pass_grad_reference(flat, cam, 7, 0, cotangent=g,
+                                               **kw)
+    scale = float(dg_p.abs().max())
+    assert scale > 0.0
+    assert float((dg_k - dg_p).abs().max()) <= cs.DG_RTOL * scale
+
+
+def test_bvh_mode_is_fixed_when_packed(cuda_device, monkeypatch):
+    """A packing made under one mode is not launched under another: the
+    wrapper raises when the knobs changed since prepare_kernel."""
+    flat, cam, kw = cs.pass_args(pt, cs.sized(cs.bvh_sphere_scene(pt), 16,
+                                              1, 2), cuda_device,
+                                 use_bvh=True)
+    _bvh_env(monkeypatch, "lane")
+    prep = wc.prepare_kernel(flat, cam)
+    assert prep.mode == "lane"
+    monkeypatch.setenv("RTX_LANE_BVH", "0")
+    with pytest.raises(ValueError, match="pack again"):
+        wc.render_pass_kernel(flat, cam, 0, 0, prepared=prep, **kw)
+    wc.render_pass_kernel(flat, cam, 0, 0, **kw)   # a new packing: vscan
+
+
+def test_bvh_train_step_runs_the_kernels(cuda_device, monkeypatch):
+    """Training on a lane-mode scene: tex_color takes K12's grad instance
+    and the loss falls; a hard family takes the adjoint (K9) on the chunk
+    scan's tables, not a BVH grad instance; no plain pass runs."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    flat, cam, kw = cs.pass_args(pt, cs.sized(cs.bvh_sphere_scene(pt), 32,
+                                              4, 6), cuda_device,
+                                 use_bvh=True)
+    _bvh_env(monkeypatch, "lane")
+    kw.pop("n_samples")
+    target = train.make_kernel_render(flat, **kw)(
+        {"tex_color": flat.tex_color}, cam, 0).detach()
+    tc = flat.tex_color.clone()
+    tc[:4] *= 0.7
+    params = {"tex_color": tc.requires_grad_(True)}
+    step = train.make_train_step(torch.optim.Adam(params.values(), lr=0.02),
+                                 flat=flat, **kw)
+    lane = wc.render_pass_grad_kernel.lane_launches
+    plain = (wc.render_pass_reference.calls
+             + wc.render_pass_grad_reference.calls)
+    losses = [float(step(params, cam, 0, target)) for _ in range(3)]
+    assert losses[2] < losses[0], losses
+    assert wc.render_pass_grad_kernel.lane_launches == lane + 3
+    adj = ac.render_pass_adjoint_kernel.launches
+    lane = wc.render_pass_grad_kernel.lane_launches
+    radius = {"sph_radius": flat.sph_radius.clone().requires_grad_(True)}
+    step = train.make_train_step(torch.optim.Adam(radius.values(), lr=1e-3),
+                                 flat=flat, **kw)
+    assert bool(torch.isfinite(step(radius, cam, 0, target)))
+    assert ac.render_pass_adjoint_kernel.launches == adj + 1
+    assert wc.render_pass_grad_kernel.lane_launches == lane
+    assert (wc.render_pass_reference.calls
+            + wc.render_pass_grad_reference.calls) == plain

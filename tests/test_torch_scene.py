@@ -173,5 +173,13 @@ def test_kernel_gate_reason():
 
 
 def test_compile_scene_bvh_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.compile_scene(pt.builders.cornell_box(), use_bvh=True)
+    """use_bvh=True, which raised before the BVH build was ported, now
+    builds the tree (tests/test_torch_bvh.py holds it against the JAX
+    package's) and changes no other table."""
+    flat = pt.compile_scene(pt.builders.cornell_box())
+    bvh = pt.compile_scene(pt.builders.cornell_box(), use_bvh=True)
+    assert bvh.use_bvh and not flat.use_bvh
+    assert bvh.bvh_left.shape[0] > 1
+    for name in flat.tensor_fields():
+        if not name.startswith("bvh_"):
+            assert torch.equal(getattr(flat, name), getattr(bvh, name)), name
