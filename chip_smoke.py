@@ -47,6 +47,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -728,6 +729,165 @@ def adjoint_bounce_ops(flat) -> float:
     return vscan_bounce_ops(flat) + OPS_RNG + 2 * shade + OPS_ADJ_ROWS
 
 
+# The reverse bounce's branches (adjoint_bounce_probe): per branch a scene,
+# its sky, and rays aimed at the branch from seeded numpy draws; the lanes
+# whose plain bounce takes the branch (probe_labels) are held against
+# _bounce_vjp. Each case: (branch, scene name, sky_gradient, origin, aim
+# point and jitter of the aim, aim offset from the sphere's silhouette for
+# the grazing rays).
+PROBE_LANES = 96
+PROBE_USE = 24            # lanes of a branch held against the plain VJP
+# the kernel's reverse bounce against torch autograd of the bounce, per
+# branch: the largest difference over its lanes' entries (the state's
+# cotangent and every accumulator entry) within PROBE_RTOL of the largest
+# entry (two float32 reverses of the same operations in other orders; on
+# the CPU the same C++ differs from torch by at most 3.8e-5 of a lane's
+# largest entry, on the sphere-light scene's ground sphere of radius 1000)
+PROBE_RTOL = 1e-4
+PROBE_CASES = (
+    ("miss_flat_sky", "simple_sphere", False, (0, 2, 0), (0, 10, 0), 6.0),
+    ("miss_sky_gradient", "simple_sphere", True, (0, 2, 0), (0, 10, 0),
+     6.0),
+    ("emission", "cornell_box", False, (278, 278, 278), (278, 554, 279),
+     50.0),
+    ("mis_sphere_light", "materials", False, (0, 3, 5), (0, 0, 2.3), 0.6),
+    ("mis_quad_light", "cornell_box", False, (278, 400, 100),
+     (130, 0, 420), 80.0),
+    ("isotropic_medium", "cornell_smoke", False, (183, 82, -300),
+     (183, 82, 169), 40.0),
+    ("metal", "materials", False, (8, 1.2, 3), (4, 1, 0), 0.3),
+    ("dielectric_reflect", "materials", False, None, None, 0.0),
+    ("dielectric_refract", "materials", False, (0, 1, 5), (0, 1, 0), 0.2),
+    ("noise_texture", "nested_checker", True, (0, 2, 6), (0, 0.513, 1),
+     3.0),
+    ("grazing_sphere", "simple_sphere", True, (0, 0, 1), None, 0.0),
+)
+
+
+def probe_scene(pt, name):
+    if name == "materials":
+        return materials_scene(pt)
+    if name == "nested_checker":
+        return nested_checker_scene(pt)
+    return pt.builders.BUILTIN_SCENES[name]()
+
+
+def probe_rays(torch, case, dev, n=PROBE_LANES, seed=3):
+    """(o, d, th, tm, pix, sample, bounce) of one probe case's n lanes."""
+    import numpy as np
+    name, _, _, org, aim, jit = case
+    g = np.random.default_rng(seed)
+    if name == "dielectric_reflect":
+        # inside materials' glass sphere (center (0, 1, 0), radius 1), 0.9
+        # from the center, across: the surface is met at sin 0.9 > 1/1.5,
+        # total internal reflection
+        ang = g.uniform(0, 2 * np.pi, n)
+        side = np.stack([np.cos(ang), np.zeros(n), np.sin(ang)], 1)
+        o = np.array([0.0, 1.0, 0.0]) + 0.9 * side \
+            + g.normal(0, 0.01, (n, 3))
+        d = np.cross(side, [0.0, 1.0, 0.0]) + g.normal(0, 0.05, (n, 3))
+    elif name == "grazing_sphere":
+        # past simple_sphere's ball (center (0, 0, -1), radius 0.5), aimed
+        # 1e-4 to 1e-2 of a radius inside its silhouette
+        ang = g.uniform(0, 2 * np.pi, n)
+        side = np.stack([np.cos(ang), np.sin(ang), np.zeros(n)], 1)
+        eps = 10.0 ** g.uniform(-4, -2, n)
+        o = np.tile(np.asarray(org, float), (n, 1))
+        target = np.array([0.0, 0.0, -1.0]) + 0.5 * (1 - eps)[:, None] * side
+        d = target - o
+    else:
+        o = np.tile(np.asarray(org, float), (n, 1))
+        d = np.asarray(aim, float) + g.uniform(-jit, jit, (n, 3)) - o
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    th = g.uniform(0.2, 1.0, (n, 3))
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    i64 = lambda a: torch.tensor(a, dtype=torch.int64, device=dev)
+    return (f32(o), f32(d), f32(th), f32(g.uniform(0, 1, n)),
+            i64(np.arange(n)), i64(g.integers(0, 16, n)),
+            i64(g.integers(0, 3, n)))
+
+
+def probe_labels(torch, flat, o, d, th, tm, pix, sample, bounce, seed,
+                 sky_gradient, background):
+    """Each lane's branch under the plain bounce (the probe's names;
+    "lambertian_mis" for a lambertian hit, "other" elsewhere)."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import integrator as ig
+    from real_time_ray_tracing_engine_tpu_torch.ops import textures as tx
+    from real_time_ray_tracing_engine_tpu_torch.utils import rng
+    from real_time_ray_tracing_engine_tpu_torch.scene import flat as fl
+    keys = rng.ray_keys(seed, pix, sample)
+    u = rng.bounce_uniforms(keys, bounce)
+    u_med = ig.medium_uniforms(flat, keys, bounce)
+    with torch.no_grad():
+        rec = ig.resolve_hit(flat, o, d, tm, u_med)
+        _, _, d2, _, alive = ig.bounce_step(flat, o, d, tm, th,
+                                            torch.ones_like(rec.hit), u,
+                                            u_med, background, sky_gradient)
+        mt = flat.mat_type[rec.mat]
+        eff = tx.effective_row(flat, flat.mat_tex[rec.mat], rec.point)
+        cos_in = (d * rec.normal).sum(1)
+        cos_out = (d2 * rec.normal).sum(1)
+    out = []
+    for i in range(o.shape[0]):
+        if not bool(rec.hit[i]):
+            lab = "miss"
+        elif int(mt[i]) == fl.MAT_DIFFUSE_LIGHT:
+            lab = "emission" if bool(rec.front_face[i]) else "other"
+        elif not bool(alive[i]):
+            lab = "other"
+        elif int(mt[i]) == fl.MAT_ISOTROPIC:
+            lab = "isotropic_medium"
+        elif int(mt[i]) == fl.MAT_METAL:
+            lab = "metal"
+        elif int(mt[i]) == fl.MAT_DIELECTRIC:
+            lab = ("dielectric_refract"
+                   if float(cos_in[i]) * float(cos_out[i]) > 0.0
+                   else "dielectric_reflect")
+        elif int(eff[i]) < 0:
+            lab = "noise_texture"
+        else:
+            lab = "lambertian_mis"
+        out.append(lab)
+    return out
+
+
+def probe_run(torch, pt, ac, case, dev, pass_fn, seed=7):
+    """(lanes used, their labels, lam_in, rows) of one probe case through
+    pass_fn (ac.adjoint_bounce_probe or its plain version): the case's rays
+    on the card, the lanes of its branch (at most PROBE_USE), seeded
+    cotangents."""
+    import numpy as np
+    from real_time_ray_tracing_engine_tpu_torch.models import camera as cm
+    scene = probe_scene(pt, case[1])
+    flat = pt.compile_scene(scene, device=dev)
+    cam = cm.derive(scene.camera, device=dev)
+    o, d, th, tm, pix, sample, bounce = probe_rays(torch, case, dev)
+    labels = probe_labels(torch, flat, o, d, th, tm, pix, sample, bounce,
+                          seed, case[2], cam.background)
+    idx = torch.tensor([i for i, lab in enumerate(labels)
+                        if lab == probe_wanted(case)][:PROBE_USE],
+                       device=dev)
+    gen = np.random.default_rng(11)
+    g = torch.tensor(gen.standard_normal((idx.numel(), 3)),
+                     dtype=torch.float32, device=dev)
+    lam = torch.tensor(gen.standard_normal((idx.numel(), 9)),
+                       dtype=torch.float32, device=dev)
+    lam_in, rows = pass_fn(flat, cam, o[idx], d[idx], th[idx], tm[idx],
+                           pix[idx], sample[idx], bounce[idx], g, lam,
+                           seed=seed, sky_gradient=case[2])[:2]
+    return idx, lam_in, rows
+
+
+def probe_wanted(case) -> str:
+    """The label a case's lanes are held at (probe_labels')."""
+    name = case[0]
+    if name.startswith("miss"):
+        return "miss"
+    if name.startswith("mis_") or name == "grazing_sphere":
+        return "lambertian_mis"
+    return name
+
+
 def adjoint_errors(got, want) -> dict:
     """Per family of the adjoint's grads: the largest |got - want| and the
     largest |want|."""
@@ -782,6 +942,13 @@ def ptxas_table(log: str) -> dict:
             regs = lines[i + 2].split("Used ")[-1].split(",")[0]
             out[name] = f"{regs}; {lines[i + 1].strip()}"
     return out
+
+
+def ptxas_hard(log: str, kernel: str) -> dict:
+    """ptxas_table's entries of a grad kernel's instances with tangent
+    bundles (its second template argument, HARD, true)."""
+    pat = re.compile(rf"\d{{2}}{kernel}ILi\d+ELb1E")
+    return {k: v for k, v in ptxas_table(log).items() if pat.search(k)}
 
 
 @contextlib.contextmanager
@@ -1606,6 +1773,24 @@ def main() -> int:
               f"1920x1080 spp64 hard grad: compacted {part} differs by "
               f"{hk5[f'{part}_max_abs_err']} (limit {DG_RTOL} x "
               f"{hk5[f'{part}_scale']})")
+    # K9 at the same shape, beside K4: the every-family adjoint against the
+    # tangent bundles on 9 slots (the JAX tier rule takes the bundles below
+    # 33 slots, a TPU choice; this is the H100's measurement for the PR that
+    # decides the rule), the scene packed on the chunk scan's tables
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    k9prep = wc.prepare_kernel(gflat, gcam, chunk_scan=True)
+    k9pass = functools.partial(ac.render_pass_adjoint_kernel, cotangent=g,
+                               prepared=k9prep, **gkw)
+    t_k9c = cuda_ms(torch, lambda: k9pass(gflat, gcam, 0, 0))
+    k9c_bounces = counted_bounces(
+        torch, lambda it: k9pass(gflat, gcam, 0, 0, iters=it),
+        wc.lane_count(TRAIN_W * TRAIN_H), dev)
+    emit("hard_grad_times_k9", card=card, shape=f"cornell_box {TRAIN_W}x"
+         f"{TRAIN_H} spp{TRAIN_SPP} d{TRAIN_DEPTH}", k9_ms=t_k9c,
+         k4_ms=t_hsingle, k4_slots=len(hslots), k9_bounces=k9c_bounces,
+         k9_bound_ms=adjoint_bounce_ops(gflat) * k9c_bounces / PEAK_FP32
+         * 1e3)
+    del k9prep
     done("hard_grad_times")
 
     # the forward kernel's bounds: at its timed shape (600x600 spp16 d50),
@@ -2219,6 +2404,36 @@ def main() -> int:
                   f"forward-mode kernels' beyond rtol 1e-3, atol 1e-4 x "
                   f"{scale}")
     done("adjoint_vs_forward_mode")
+
+    # 9b'. the reverse bounce alone (adj_reverse_bounce, the hand-written
+    # VJP that K9 and K10 run) against torch autograd of the bounce, per
+    # lane, on each branch of PROBE_CASES: a miss under the flat sky and the
+    # sky gradient, an emission, lambertian MIS with a sphere light and with
+    # a quad light, isotropic inside a medium, metal, dielectric reflection
+    # and refraction, a marble (noise) texture, a grazing sphere root. The
+    # largest difference of each branch within PROBE_RTOL of its largest
+    # entry.
+    probe = {}
+    for case in PROBE_CASES:
+        idx, lam_k, rows_k = probe_run(torch, pt, ac, case, dev,
+                                       ac.adjoint_bounce_probe)
+        _, lam_p, rows_p = probe_run(torch, pt, ac, case, dev,
+                                     ac.adjoint_bounce_probe_reference)
+        got = torch.cat([lam_k.double(), rows_k], 1)
+        want = torch.cat([lam_p.double(), rows_p], 1)
+        rec = {"lanes": int(idx.numel()),
+               "max_abs_err": float((got - want).abs().max()),
+               "scale": float(want.abs().max())}
+        probe[case[0]] = rec
+        emit("adjoint_bounce_probe", branch=case[0], scene=case[1],
+             sky_gradient=case[2], rtol=PROBE_RTOL, **rec)
+        check(rec["lanes"] >= 8, f"probe {case[0]}: {rec['lanes']} lanes")
+        check(rec["scale"] > 0.0 and bool(torch.isfinite(got).all()),
+              f"probe {case[0]}: no finite nonzero cotangent")
+        check(rec["max_abs_err"] <= PROBE_RTOL * rec["scale"],
+              f"probe {case[0]}: the reverse bounce differs by "
+              f"{rec['max_abs_err']} (limit {PROBE_RTOL} x {rec['scale']})")
+    done("adjoint_bounce_probe")
 
     # 9c. the adjoint's times: bouncing at the JAX bench line's 400x225 spp9
     # d50 (flat sky) and at its own training shape 1200x675 spp16 d50 (sky
@@ -2981,7 +3196,8 @@ def main() -> int:
                        f", {len(hslots)} hard slots",
         "max_abs_err_at": f"dG_hard, cornell_box {TRAIN_W}x{TRAIN_H} spp4 "
                           f"d{TRAIN_DEPTH}",
-        "compacted_ms": t_hcomp}, {
+        "compacted_ms": t_hcomp,
+        "ptxas": ptxas_hard(lib.build_log, "wavefront_grad_kernel")}, {
         "name": "wavefront_forward_vscan_kernel", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_VSCAN,
         "launches": large["bouncing_spheres"]["launches"],
@@ -3044,7 +3260,8 @@ def main() -> int:
         "plain_ms_at": "vscan_slots 1200x675 spp4 d50, 4 slots",
         "max_abs_err_at": "dG_hard, vscan_slots 1200x675 spp4 d50",
         "launches_at": "bouncing_spheres tex_color + mat_ior training",
-        "compacted_ms": large_grad_times["k4v"]["compacted_ms"]}, {
+        "compacted_ms": large_grad_times["k4v"]["compacted_ms"],
+        "ptxas": ptxas_hard(lib.build_log, "wavefront_grad_vscan_kernel")}, {
         "name": "wavefront_grad_vscan_kernel[suffix]", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K8,
         "launches": large_train["tex_color"]["launches"]["suffix_launches"],

@@ -64,28 +64,39 @@
 //   9-plane tangent Dst[k] = d(o, d, th)/d theta_k. The JAX kernel
 //   jax.linearize's `physics` once per bounce and pushes every bundle
 //   through the linear map; CUDA has no linearize, so here the JVP is
-//   forward-mode dual numbers: physics<Dual> evaluates the same code with
-//   a value and one tangent per scalar, written once as operator rules
+//   forward-mode dual numbers: physics<DualN<W>> evaluates the same code
+//   with a value and W tangents per scalar, written once as operator rules
 //   (+ - * /, sqrt, pow, sin, abs, min/max with torch's tie rules). Per
-//   bounce the float pass runs once (image, discrete decisions, K3) and the
-//   dual pass once per slot k, from (o, d, th) with tangent Dst[k] and
-//   theta_k's tangent 1 injected at the table reads the slot table names:
-//   the sphere row's center or radius column, the material's fuzz or IOR
+//   bounce the float pass runs once (image, discrete decisions, K3), then
+//   one dual pass per slot group: up to HARD_W consecutive slots of one
+//   sphere row, or of the material table, from (o, d, th) with tangent i
+//   the group's slot i's Dst and
+//   theta's tangent 1 injected at the table reads its slot names: the
+//   sphere row's center or radius column, the material's fuzz or IOR
 //   column, and the columns 1-3 / 7 of every light row that copies that
-//   sphere (light_src, the JAX kernel's theta_map aliasing). Every branch
-//   (winning primitive, Schlick reflect or refract, light pick, medium
-//   preemption, the pdf > 1e-8 guard) is decided on the value parts, which
-//   are the float pass's operation for operation, so the image is the
-//   forward's bit for bit and the slots see the same paths. dG[k] +=
-//   <g, d radiance / d theta_k> at each radiance event; Dst[k] takes the
-//   dual pass's new tangents where the path goes on and is reset to 0 on
-//   regeneration (a camera ray has no theta dependence). Dst and dG live in
-//   shared memory laid out [plane][thread] (10*K floats a thread, 46 KB a
-//   block at Cornell's K = 9, 160 KB at the bound K = 32): every access is
-//   thread-consecutive (no bank conflicts), the size follows K at launch,
-//   and there is nothing to spill, where 10*K more registers a thread would
-//   not fit beside the bounce's own. The slots' planes ride the carry
-//   after the weight planes (rows 14 + 3NT + 9k + c).
+//   sphere (light_src, the JAX kernel's theta_map aliasing). The value is
+//   computed once a group and every branch (winning primitive, Schlick
+//   reflect or refract, light pick, medium preemption, the pdf > 1e-8
+//   guard) decided on it; the values are the float pass's operation for
+//   operation, so the image is the forward's bit for bit and the slots see
+//   the same paths, and each tangent is computed by the operations the
+//   one-slot pass used (--fmad=false), so dG and the planes are that
+//   design's bit for bit. dG[k] += <g, d radiance / d theta_k> at each
+//   radiance event; Dst[k] takes the pass's new tangents where the path
+//   goes on and is reset to 0 on regeneration (a camera ray has no theta
+//   dependence). A slot whose planes are zero on a lane and whose cells
+//   the bounce does not read gets exactly zero tangents there, so a group
+//   runs in a warp only where a lane holds a nonzero plane of one of its
+//   slots (a bitmask a lane, set where a pass writes a nonzero tangent) or
+//   its bounce reads one of their cells (__ballot_sync); elsewhere its
+//   planes and sums stay as they are. Dst and dG live in shared memory laid
+//   out [plane][thread] (10*K floats a thread, 46 KB a block at Cornell's
+//   K = 9, 160 KB at the bound K = 32): every access is thread-consecutive
+//   (no bank conflicts), the size follows K at launch; a group's 9*W planes
+//   are read into registers at the start of its pass and written back at
+//   its end. The slot table's cells sit in shared memory as keys
+//   (slot_key, K ints). The slots' planes ride the carry after the weight
+//   planes (rows 14 + 3NT + 9k + c).
 //
 // Chunk scan (K6, K7): wavefront_forward_vscan_kernel is the forward with
 //   closest_select_vscan in place of closest_select, for scenes of up to
@@ -204,16 +215,16 @@
 //   times); device-memory traffic is negligible: 12 floats read and 3 (or
 //   17) written per lane, plus 3 cotangent floats and (3*NT + 9*K) carry
 //   floats each way in the grad pass. The grad pass adds 3*NTMAX
-//   multiply-adds per radiance event and per scatter for K3, and for K4 one
-//   dual evaluation of the bounce's continuous physics per slot: each slot
-//   costs about two to three times a float bounce's shading arithmetic
-//   (the selection loop over primitives runs once, in the float pass).
-//   The JVP itself needs about a seventh of that: each dual pass redoes
-//   the values and pushes tangents through table constants (chip_smoke.py
-//   counts the tangent work alone for the bound).
-// What this first design does about it: nothing yet. It is the simple,
-//   correct version; speed is later work (values once per bounce; a slot
-//   whose tangent is provably zero this bounce could skip its dual pass).
+//   multiply-adds per radiance event and per scatter for K3, and for K4 the
+//   dual passes: the tangent work is about a seventh of a dual bounce
+//   (chip_smoke.py counts it alone for the bound), the values the rest.
+// What the design does about it: K4 skips a slot group in a warp where its
+//   tangents are exactly zero, and can compute the values once a group
+//   (HARD_W; the values were 56% of the one-slot passes on Cornell's 9
+//   slots at 1920x1080 on an NVIDIA H100 80GB HBM3 at 700 W, but wider
+//   passes measured slower, PERF.md); K9 and K10 take the bounce's
+//   Jacobian by a hand-written reverse (physics_vjp) in place of one dual
+//   pass per column.
 //
 // Arithmetic follows the plain torch integrator (ops/intersect.py,
 //   materials.py, lights.py, textures.py) operation for operation, in the
@@ -305,84 +316,133 @@ struct BvParams {
 #define SEL_LANE 3      // the lane BVH (K12)
 
 // ------------------------------------------------------------ dual numbers
-// A value and one tangent. The tangent rules are torch's forward-mode
-// formulas (derivatives.yaml), so the kernel and the plain version's
-// torch.func.jvp differentiate alike, up to rounding.
-struct Dual { float v, t; };
+// A value and W tangents: K4's slot groups push W hard slots' tangents
+// through one value pass. Each tangent follows torch's forward-mode formula
+// (derivatives.yaml) on its own, the rule of the one-tangent dual,
+// so the kernel and the plain version's torch.func.jvp differentiate alike
+// up to rounding; with --fmad=false every tangent is computed by the same
+// operations in the same order whatever W is, so a group of W slots gives
+// the W one-slot passes' tangents bit for bit.
+template <int W> struct DualN { float v; float t[W]; };
 
-__device__ __forceinline__ Dual dual(float v, float t) {
-    Dual r; r.v = v; r.t = t; return r;
-}
+// the tangent count of a scalar type (0: float)
+template <typename T> struct NTan { static constexpr int W = 0; };
+template <int N> struct NTan<DualN<N>> { static constexpr int W = N; };
+
 __device__ __forceinline__ float val(float x) { return x; }
-__device__ __forceinline__ float val(Dual x) { return x.v; }
-template <typename T> __device__ __forceinline__ T lift(float v);
-template <> __device__ __forceinline__ float lift<float>(float v) {
-    return v;
-}
-template <> __device__ __forceinline__ Dual lift<Dual>(float v) {
-    return dual(v, 0.0f);
-}
+template <int W>
+__device__ __forceinline__ float val(const DualN<W>& x) { return x.v; }
 
-__device__ __forceinline__ Dual operator-(Dual a) { return dual(-a.v, -a.t); }
-__device__ __forceinline__ Dual operator+(Dual a, Dual b) {
-    return dual(a.v + b.v, a.t + b.t);
+template <typename T> struct Lift {
+    static __device__ __forceinline__ T f(float v) { return v; }
+};
+template <int W> struct Lift<DualN<W>> {
+    static __device__ __forceinline__ DualN<W> f(float v) {
+        DualN<W> r;
+        r.v = v;
+#pragma unroll
+        for (int i = 0; i < W; ++i) r.t[i] = 0.0f;
+        return r;
+    }
+};
+template <typename T>
+__device__ __forceinline__ T lift(float v) { return Lift<T>::f(v); }
+
+// the value expr_v and tangent i's expr_t of an operation's result
+#define DN_OP(expr_v, expr_t)                          \
+    DualN<W> res_;                                     \
+    res_.v = (expr_v);                                 \
+    _Pragma("unroll")                                  \
+    for (int i = 0; i < W; ++i) res_.t[i] = (expr_t); \
+    return res_;
+
+template <int W>
+__device__ __forceinline__ DualN<W> operator-(const DualN<W>& a) {
+    DN_OP(-a.v, -a.t[i])
 }
-__device__ __forceinline__ Dual operator+(Dual a, float b) {
-    return dual(a.v + b, a.t);
+template <int W>
+__device__ __forceinline__ DualN<W> operator+(const DualN<W>& a,
+                                              const DualN<W>& b) {
+    DN_OP(a.v + b.v, a.t[i] + b.t[i])
 }
-__device__ __forceinline__ Dual operator+(float a, Dual b) {
-    return dual(a + b.v, b.t);
+template <int W>
+__device__ __forceinline__ DualN<W> operator+(const DualN<W>& a, float b) {
+    DN_OP(a.v + b, a.t[i])
 }
-__device__ __forceinline__ Dual operator-(Dual a, Dual b) {
-    return dual(a.v - b.v, a.t - b.t);
+template <int W>
+__device__ __forceinline__ DualN<W> operator+(float a, const DualN<W>& b) {
+    DN_OP(a + b.v, b.t[i])
 }
-__device__ __forceinline__ Dual operator-(Dual a, float b) {
-    return dual(a.v - b, a.t);
+template <int W>
+__device__ __forceinline__ DualN<W> operator-(const DualN<W>& a,
+                                              const DualN<W>& b) {
+    DN_OP(a.v - b.v, a.t[i] - b.t[i])
 }
-__device__ __forceinline__ Dual operator-(float a, Dual b) {
-    return dual(a - b.v, -b.t);
+template <int W>
+__device__ __forceinline__ DualN<W> operator-(const DualN<W>& a, float b) {
+    DN_OP(a.v - b, a.t[i])
 }
-__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
-    return dual(a.v * b.v, a.t * b.v + a.v * b.t);
+template <int W>
+__device__ __forceinline__ DualN<W> operator-(float a, const DualN<W>& b) {
+    DN_OP(a - b.v, -b.t[i])
 }
-__device__ __forceinline__ Dual operator*(Dual a, float b) {
-    return dual(a.v * b, a.t * b);
+template <int W>
+__device__ __forceinline__ DualN<W> operator*(const DualN<W>& a,
+                                              const DualN<W>& b) {
+    DN_OP(a.v * b.v, a.t[i] * b.v + a.v * b.t[i])
 }
-__device__ __forceinline__ Dual operator*(float a, Dual b) {
-    return dual(a * b.v, a * b.t);
+template <int W>
+__device__ __forceinline__ DualN<W> operator*(const DualN<W>& a, float b) {
+    DN_OP(a.v * b, a.t[i] * b)
+}
+template <int W>
+__device__ __forceinline__ DualN<W> operator*(float a, const DualN<W>& b) {
+    DN_OP(a * b.v, a * b.t[i])
 }
 // d(a/b) = (da - db * q) / b
-__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
-    float q = a.v / b.v;
-    return dual(q, (a.t - b.t * q) / b.v);
+template <int W>
+__device__ __forceinline__ DualN<W> operator/(const DualN<W>& a,
+                                              const DualN<W>& b) {
+    const float q = a.v / b.v;
+    DN_OP(q, (a.t[i] - b.t[i] * q) / b.v)
 }
-__device__ __forceinline__ Dual operator/(Dual a, float b) {
-    return dual(a.v / b, a.t / b);
+template <int W>
+__device__ __forceinline__ DualN<W> operator/(const DualN<W>& a, float b) {
+    DN_OP(a.v / b, a.t[i] / b)
 }
-__device__ __forceinline__ Dual operator/(float a, Dual b) {
-    float q = a / b.v;
-    return dual(q, (-b.t * q) / b.v);
+template <int W>
+__device__ __forceinline__ DualN<W> operator/(float a, const DualN<W>& b) {
+    const float q = a / b.v;
+    DN_OP(q, (-b.t[i] * q) / b.v)
 }
 
 __device__ __forceinline__ float ssqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ Dual ssqrt(Dual a) {
-    float r = sqrtf(a.v);
-    return dual(r, a.t / (2.0f * r));
+template <int W>
+__device__ __forceinline__ DualN<W> ssqrt(const DualN<W>& a) {
+    const float r = sqrtf(a.v);
+    DN_OP(r, a.t[i] / (2.0f * r))
 }
 // max / min against a constant: the tangent passes where the argument is
 // kept, ties included (torch.clamp)
 __device__ __forceinline__ float smax(float a, float c) { return fmaxf(a, c); }
-__device__ __forceinline__ Dual smax(Dual a, float c) {
-    return dual(fmaxf(a.v, c), a.v >= c ? a.t : 0.0f);
+template <int W>
+__device__ __forceinline__ DualN<W> smax(const DualN<W>& a, float c) {
+    const bool keep = a.v >= c;
+    DN_OP(fmaxf(a.v, c), keep ? a.t[i] : 0.0f)
 }
 __device__ __forceinline__ float smin(float a, float c) { return fminf(a, c); }
-__device__ __forceinline__ Dual smin(Dual a, float c) {
-    return dual(fminf(a.v, c), a.v <= c ? a.t : 0.0f);
+template <int W>
+__device__ __forceinline__ DualN<W> smin(const DualN<W>& a, float c) {
+    const bool keep = a.v <= c;
+    DN_OP(fminf(a.v, c), keep ? a.t[i] : 0.0f)
 }
 // min of two: half of each tangent on a tie (torch.minimum)
-__device__ __forceinline__ Dual smin(Dual a, Dual b) {
-    float t = a.v == b.v ? 0.5f * (a.t + b.t) : (a.v < b.v ? a.t : b.t);
-    return dual(fminf(a.v, b.v), t);
+template <int W>
+__device__ __forceinline__ DualN<W> smin(const DualN<W>& a,
+                                         const DualN<W>& b) {
+    const bool tie = a.v == b.v, lt = a.v < b.v;
+    DN_OP(fminf(a.v, b.v),
+          tie ? 0.5f * (a.t[i] + b.t[i]) : (lt ? a.t[i] : b.t[i]))
 }
 // the earlier of two on a tie (a running torch.min over a dimension)
 template <typename T>
@@ -390,23 +450,34 @@ __device__ __forceinline__ T first_min(T a, T b) {
     return val(b) < val(a) ? b : a;
 }
 __device__ __forceinline__ float sabs(float x) { return fabsf(x); }
-__device__ __forceinline__ Dual sabs(Dual a) {
-    return dual(fabsf(a.v), a.v > 0.0f ? a.t : (a.v < 0.0f ? -a.t : 0.0f));
+template <int W>
+__device__ __forceinline__ DualN<W> sabs(const DualN<W>& a) {
+    const bool pos = a.v > 0.0f, neg_ = a.v < 0.0f;
+    DN_OP(fabsf(a.v), pos ? a.t[i] : (neg_ ? -a.t[i] : 0.0f))
 }
 __device__ __forceinline__ float ssin(float x) { return sinf(x); }
-__device__ __forceinline__ Dual ssin(Dual a) {
-    return dual(sinf(a.v), cosf(a.v) * a.t);
+template <int W>
+__device__ __forceinline__ DualN<W> ssin(const DualN<W>& a) {
+    const float c = cosf(a.v);
+    DN_OP(sinf(a.v), c * a.t[i])
 }
 __device__ __forceinline__ float spow5(float x) { return powf(x, 5.0f); }
-__device__ __forceinline__ Dual spow5(Dual a) {
-    return dual(powf(a.v, 5.0f), a.t * 5.0f * powf(a.v, 4.0f));
+template <int W>
+__device__ __forceinline__ DualN<W> spow5(const DualN<W>& a) {
+    const float p4 = powf(a.v, 4.0f);
+    DN_OP(powf(a.v, 5.0f), a.t[i] * 5.0f * p4)
 }
+#undef DN_OP
 
 // ----------------------------------------------------------------- vectors
 template <typename T> struct V3T { T x, y, z; };
 typedef V3T<float> V3;
-template <typename A, typename B> struct Pr { typedef Dual T; };
+// the scalar type of an operation on an A and a B
+template <typename A, typename B> struct Pr;
 template <> struct Pr<float, float> { typedef float T; };
+template <int W> struct Pr<DualN<W>, float> { typedef DualN<W> T; };
+template <int W> struct Pr<float, DualN<W>> { typedef DualN<W> T; };
+template <int W> struct Pr<DualN<W>, DualN<W>> { typedef DualN<W> T; };
 
 __device__ __forceinline__ V3 v3(float x, float y, float z) {
     V3 r; r.x = x; r.y = y; r.z = z; return r;
@@ -558,48 +629,58 @@ struct Scene {
     uint32_t perlin_seed;
 };
 
-// The one hard-parameter scalar a dual pass differentiates by: the table
-// cell it perturbs (tab 0 in the float pass: no tangent anywhere). With
-// t_tan set (the adjoint, K9), the winner's t is split off: hit_record
-// writes the tangent its root gives t to *t_tan and goes on with tangent
-// t_seed instead.
-struct Seed {
-    int tab, row, col;
-    float t_seed = 0.0f;
-    float* t_tan = nullptr;
-};
-
-template <typename T>
-__device__ __forceinline__ T seeded(float v, bool on);
-template <>
-__device__ __forceinline__ float seeded<float>(float v, bool) { return v; }
-template <>
-__device__ __forceinline__ Dual seeded<Dual>(float v, bool on) {
-    return dual(v, on ? 1.0f : 0.0f);
+// A table cell a hard slot names, as one int: its table (SEED_*), row and
+// column (the slot table's row, ops/wavefront_cuda.py::_slot_table)
+__host__ __device__ __forceinline__ int slot_key(int tab, int row, int col) {
+    return (row << 5) | (col << 2) | tab;
 }
+__device__ __forceinline__ int slot_tab(int key) { return key & 3; }
+__device__ __forceinline__ int slot_row(int key) { return key >> 5; }
+
+// The hard slots a dual pass differentiates by, one a tangent: tangent i
+// is 1 at the table cell key[i] (slot_key; -1: none) and 0 elsewhere. The
+// float pass has none.
+template <int W> struct Seeds { int key[W > 0 ? W : 1]; };
+template <typename T> using SeedsOf = Seeds<NTan<T>::W>;
+
+template <typename T> struct Seeded {
+    static __device__ __forceinline__ T f(float v, const Seeds<0>&, int) {
+        return v;
+    }
+};
+template <int W> struct Seeded<DualN<W>> {
+    static __device__ __forceinline__ DualN<W> f(float v, const Seeds<W>& s,
+                                                 int key) {
+        DualN<W> r;
+        r.v = v;
+#pragma unroll
+        for (int i = 0; i < W; ++i) r.t[i] = s.key[i] == key ? 1.0f : 0.0f;
+        return r;
+    }
+};
 // sphere row `row`, column `col` (center 0-2, radius 6)
 template <typename T>
 __device__ __forceinline__ T rd_sph(const Scene& sc, int row, int col,
-                                    Seed s) {
-    return seeded<T>(sc.sph[row * SPH_COLS + col],
-                     s.tab == SEED_SPH && s.row == row && s.col == col);
+                                    const SeedsOf<T>& s) {
+    return Seeded<T>::f(sc.sph[row * SPH_COLS + col], s,
+                        slot_key(SEED_SPH, row, col));
 }
 // material m's fuzz (col 0) or IOR (col 1)
 template <typename T>
 __device__ __forceinline__ T rd_matf(const Scene& sc, int m, int col,
-                                     Seed s) {
-    return seeded<T>(sc.matf[m * 2 + col],
-                     s.tab == SEED_MATF && s.row == m && s.col == col);
+                                     const SeedsOf<T>& s) {
+    return Seeded<T>::f(sc.matf[m * 2 + col], s,
+                        slot_key(SEED_MATF, m, col));
 }
 // light row l's copy of its source sphere's center (cols 1-3, sphere
 // columns 0-2) or radius (col 7, sphere column 6)
 template <typename T>
 __device__ __forceinline__ T rd_light(const Scene& sc, int l, int col,
-                                      Seed s) {
+                                      const SeedsOf<T>& s) {
     const int src = (int)sc.lsrc[l];
     const int scol = col == 7 ? 6 : col - 1;
-    return seeded<T>(sc.light[l * LIGHT_COLS + col],
-                     s.tab == SEED_SPH && s.row == src && s.col == scol);
+    return Seeded<T>::f(sc.light[l * LIGHT_COLS + col], s,
+                        slot_key(SEED_SPH, src, scol));
 }
 
 // (ops/textures.py) descend nested checkers to a solid or noise leaf; *eff
@@ -920,21 +1001,13 @@ struct HitT {
     int mat;
 };
 
-// the adjoint's split of the winner's t (Seed::t_tan)
-__device__ __forceinline__ void split_t(const Seed&, float*) {}
-__device__ __forceinline__ void split_t(const Seed& sd, Dual* t) {
-    if (sd.t_tan) {
-        *sd.t_tan = t->t;
-        t->t = sd.t_seed;
-    }
-}
-
 // (ops/intersect.py::shade_prim) the winner's hit record; a dual pass
 // recomputes the winner's t from its (seeded) geometry, with the float
 // pass's operations
 template <typename T>
 __device__ HitT<T> hit_record(const Scene& sc, int best, float best_t,
-                              V3T<T> o, V3T<T> d, float tm, Seed sd) {
+                              V3T<T> o, V3T<T> d, float tm,
+                              const SeedsOf<T>& sd) {
     HitT<T> h;
     h.hit = best >= 0;
     h.t = lift<T>(BIGF);
@@ -954,7 +1027,6 @@ __device__ HitT<T> hit_record(const Scene& sc, int best, float best_t,
         T rad = rd_sph<T>(sc, best, 6, sd);
         if constexpr (!std::is_same<T, float>::value)
             sphere_root(c, rad, o, d, dot(d, d), &t);
-        split_t(sd, &t);
         h.p = add(o, mul(d, t));
         T rr = smax(rad, 1e-12f);
         V3T<T> out = sub(h.p, c);
@@ -965,7 +1037,6 @@ __device__ HitT<T> hit_record(const Scene& sc, int best, float best_t,
         const float* r = sc.quad + (best - sc.S) * QUAD_COLS;
         if constexpr (!std::is_same<T, float>::value)
             quad_hit(r, o, d, T_MINF, &t);
-        split_t(sd, &t);
         h.p = add(o, mul(d, t));
         V3 nn = v3(r[9], r[10], r[11]);
         h.front = val(dot(d, nn)) < 0.0f;
@@ -1074,7 +1145,8 @@ __device__ __forceinline__ V3 unit_vector_from_uv(float u1, float u2) {
 // light
 template <typename T>
 __device__ V3T<T> light_sample(const Scene& sc, V3T<T> o, float tm,
-                               float u_sel, float u1, float u2, Seed sd) {
+                               float u_sel, float u1, float u2,
+                               const SeedsOf<T>& sd) {
     int n = sc.L > 1 ? sc.L : 1;
     int l = (int)(u_sel * (float)n);
     l = l < 0 ? 0 : (l > n - 1 ? n - 1 : l);
@@ -1109,7 +1181,7 @@ __device__ V3T<T> light_sample(const Scene& sc, V3T<T> o, float tm,
 // (ops/lights.py::light_pdf_value) uniform-average solid-angle pdf
 template <typename T>
 __device__ T light_pdf(const Scene& sc, V3T<T> o, V3T<T> d, float tm,
-                       Seed sd) {
+                       const SeedsOf<T>& sd) {
     T total = lift<T>(0.0f);
     for (int l = 0; l < sc.L; ++l) {
         const float* r = sc.light + l * LIGHT_COLS;
@@ -1192,8 +1264,9 @@ struct SfxEv {
 // winner `best` (-1: no surface) at t best_t, in place: rad gets the
 // radiance increment, and o, d, th the next ray state where the path goes
 // on (a path that ends keeps its last state in the carry). Returns whether
-// it goes on. T = float is the forward bounce; T = Dual its derivative
-// along (o, d, th)'s tangent and the seeded table cell's. NTMAX > 0 (float
+// it goes on. T = float is the forward bounce; T = DualN<W> its
+// derivatives along (o, d, th)'s W tangents and the seeded table cells'
+// (sd: one a tangent). NTMAX > 0 (float
 // only) also updates the tex_color weight planes at the radiance events
 // and the scatter (wavefront_pallas.py:2565-2603): Wp[3t+c] = d th_c /
 // d tex_color[t][c], Gp its cotangent sums, gc the lane's cotangent. ev
@@ -1206,7 +1279,7 @@ template <typename T, int NTMAX>
 __device__ __forceinline__ bool physics(
         const Scene& sc, const WfParams& P, const float* cam, int best,
         float best_t, V3T<T>& o, V3T<T>& d, V3T<T>& th, V3T<T>& rad,
-        float tm, const float* u, const float* u_med, Seed sd,
+        float tm, const float* u, const float* u_med, const SeedsOf<T>& sd,
         float (&Wp)[NTMAX > 0 ? 3 * NTMAX : 1],
         float (&Gp)[NTMAX > 0 ? 3 * NTMAX : 1], const float (&gc)[3],
         SfxEv* ev = nullptr, float* sw = nullptr, int n_sw = 0) {
@@ -1409,6 +1482,82 @@ __host__ __device__ __forceinline__ int table_pad(int n_table) {
     return (n_table + 31) & ~31;
 }
 
+// K4's slot groups: HARD_W hard slots a dual pass (DualN<HARD_W>). A group
+// is a run of consecutive slots of one sphere row (center xyz, radius) or
+// of the material table (fuzz and IOR slots), at most HARD_W long;
+// ops/wavefront_cuda.py lists a sphere's 4 slots together and the material
+// slots together. The width is measured (scripts/port_profile.py; the
+// times in PERF.md, an NVIDIA H100 80GB HBM3 at 700 W): on Cornell's 9
+// slots at 1920x1080 spp64 d50 widths 2 and 4 are slower than 1, with or
+// without spills (the wider pass's registers cost more than the shared
+// values save), so one slot a pass; the groups and the skip stay.
+#define HARD_W 1 
+
+// One dual pass over the n <= W slots k0.. of a group: the bounce from (o0,
+// d0, th0) with the float pass's selection and draws, so the float pass's
+// branches, its tangents the slots' planes (dst, [plane][thread]) and
+// theta's unit tangent seeded at each slot's cell. Adds each slot's <g, d
+// radiance> to its sum (dgs) and, where the path goes on, writes its new
+// planes and sets its bit of nzm where one of them is nonzero (clears it
+// where all are). Not inlined: the pass gets the register file to itself
+// (the caller's live state, the weight planes among it, is saved around
+// the call), so a grad instance fits in 168 registers, three blocks an SM;
+// inlined, Cornell's K4 takes 207, two blocks an SM, and measured slower
+// (scripts/port_profile.py, PERF.md).
+template <int W>
+__device__ __noinline__ void hard_group(
+        const Scene& sc, const WfParams& P, const float* cam, int best,
+        float best_t, V3 o0, V3 d0, V3 th0, float tm, const float* u,
+        const float* u_med, const float (&gc)[3], bool alive_new,
+        float* dst, float* dgs, const int* skey, int k0, int n,
+        uint32_t& nzm) {
+    Seeds<W> sd;
+    V3T<DualN<W>> od = lift3<DualN<W>>(o0), dd = lift3<DualN<W>>(d0),
+                  td = lift3<DualN<W>>(th0),
+                  rd = lift3<DualN<W>>(v3(0.0f, 0.0f, 0.0f));
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+        sd.key[i] = -1;
+        if (i < n) {
+            const float* ds = dst + 9 * (k0 + i) * WF_THREADS;
+            sd.key[i] = skey[k0 + i];
+            od.x.t[i] = ds[0 * WF_THREADS];
+            od.y.t[i] = ds[1 * WF_THREADS];
+            od.z.t[i] = ds[2 * WF_THREADS];
+            dd.x.t[i] = ds[3 * WF_THREADS];
+            dd.y.t[i] = ds[4 * WF_THREADS];
+            dd.z.t[i] = ds[5 * WF_THREADS];
+            td.x.t[i] = ds[6 * WF_THREADS];
+            td.y.t[i] = ds[7 * WF_THREADS];
+            td.z.t[i] = ds[8 * WF_THREADS];
+        }
+    }
+    float nw[1], ng[1];
+    physics<DualN<W>, 0>(sc, P, cam, best, best_t, od, dd, td, rd, tm, u,
+                         u_med, sd, nw, ng, gc);
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+        if (i < n) {
+            const int k = k0 + i;
+            dgs[k * WF_THREADS] = dgs[k * WF_THREADS]
+                + (gc[0] * rd.x.t[i] + gc[1] * rd.y.t[i] + gc[2] * rd.z.t[i]);
+            if (alive_new) {
+                float* ds = dst + 9 * k * WF_THREADS;
+                const float pl[9] = {od.x.t[i], od.y.t[i], od.z.t[i],
+                                     dd.x.t[i], dd.y.t[i], dd.z.t[i],
+                                     td.x.t[i], td.y.t[i], td.z.t[i]};
+                bool nz = false;
+#pragma unroll
+                for (int c = 0; c < 9; ++c) {
+                    ds[c * WF_THREADS] = pl[c];
+                    nz = nz || pl[c] != 0.0f;
+                }
+                nzm = nz ? (nzm | (1u << k)) : (nzm & ~(1u << k));
+            }
+        }
+    }
+}
+
 // One thread's lane: its samples and bounces. NTMAX > 0 adds the tex_color
 // weight planes of the JAX kernel's grad_tex variant
 // (wavefront_pallas.py:2347-2349, 2392-2395, 2565-2603): Wp[3t+c] =
@@ -1437,7 +1586,8 @@ __device__ __forceinline__ void wavefront_body(
         float* __restrict__ rad_out, float* __restrict__ carry_out,
         float* __restrict__ dg_out, int* __restrict__ iters_out,
         float* smem, float* cam, float* red, VsParams V = VsParams(),
-        const float* __restrict__ vtab = nullptr, BvParams B = BvParams()) {
+        const float* __restrict__ vtab = nullptr, BvParams B = BvParams(),
+        int* skey = nullptr) {
     constexpr bool GRAD = NTMAX > 0 || HARD || SUFFIX || SPLANES;
     static_assert(!SUFFIX || NTMAX == 0, "the suffix tier has no planes");
     static_assert(!SPLANES || (NTMAX == 0 && !SUFFIX),
@@ -1460,6 +1610,13 @@ __device__ __forceinline__ void wavefront_body(
             smem[i] = tables[i];
     }
     if (threadIdx.x < 22) cam[threadIdx.x] = P.cam[threadIdx.x];
+    if constexpr (HARD) {
+        // the slot table's cells as keys (slot_key), K ints in shared memory
+        for (int k = threadIdx.x; k < P.K; k += blockDim.x) {
+            const float* sl = tables + P.off_slot + SLOT_COLS * k;
+            skey[k] = slot_key((int)sl[0], (int)sl[1], (int)sl[2]);
+        }
+    }
     __syncthreads();
 
     // the entry points launch whole blocks of lanes only (the grad pass
@@ -1564,11 +1721,36 @@ __device__ __forceinline__ void wavefront_body(
     // cotangent sum at dgs[k * WF_THREADS] (this thread's column)
     float* dst = smem + plane_base + threadIdx.x;
     float* dgs = dst + 9 * P.K * WF_THREADS;
+    // the slot groups (a bit where a group starts), the slots whose sphere
+    // a light row copies (read at every MIS bounce), and the slots whose
+    // planes hold a nonzero value on this lane (a slot with zero planes
+    // that a bounce does not read gets exactly zero tangents there: the
+    // warp-wide skip)
+    uint32_t gstart = 0u, lsm = 0u, nzm = 0u;
     if constexpr (HARD) {
         for (int j = 0; j < 9 * P.K; ++j)
             dst[j * WF_THREADS] = carry_in
                 ? carry_in[(14 + n_wp + j) * N + lane] : 0.0f;
         for (int k = 0; k < P.K; ++k) dgs[k * WF_THREADS] = 0.0f;
+        int prev = -2, run = 0;
+        for (int k = 0; k < P.K; ++k) {
+            const int key = skey[k];
+            const int grp = slot_tab(key) == SEED_SPH ? slot_row(key) : -1;
+            if (grp != prev || run == HARD_W) {
+                gstart |= 1u << k;
+                run = 0;
+            }
+            ++run;
+            prev = grp;
+            if (slot_tab(key) == SEED_SPH) {
+                for (int l = 0; l < sc.L; ++l)
+                    if ((int)sc.lsrc[l] == slot_row(key)) lsm |= 1u << k;
+            }
+            bool nz = false;
+            for (int c = 0; c < 9; ++c)
+                nz = nz || dst[(9 * k + c) * WF_THREADS] != 0.0f;
+            if (nz) nzm |= 1u << k;
+        }
     }
 
     int it = 0;
@@ -1604,6 +1786,7 @@ __device__ __forceinline__ void wavefront_body(
             }
             if constexpr (HARD) {
                 for (int j = 0; j < 9 * P.K; ++j) dst[j * WF_THREADS] = 0.0f;
+                nzm = 0u;
             }
         }
         const uint32_t k1 = (uint32_t)(P.sample_start + sample);
@@ -1631,7 +1814,7 @@ __device__ __forceinline__ void wavefront_body(
         ev.hit = false;
         const bool alive_new = physics<float, NTMAX>(
             sc, P, cam, best, best_t, o, d, th, SUFFIX ? drad : rad, tm, u,
-            u_med, Seed{0, 0, 0}, Wp, Gp, gc, SUFFIX ? &ev : nullptr,
+            u_med, Seeds<0>{}, Wp, Gp, gc, (SUFFIX || HARD) ? &ev : nullptr,
             SPLANES ? sw : nullptr, SPLANES ? n_wp : 0);
         if constexpr (SUFFIX) {
             if (!phB) {
@@ -1662,42 +1845,48 @@ __device__ __forceinline__ void wavefront_body(
             }
         }
         if constexpr (HARD) {
-            // one dual pass per slot: the same bounce from the same ray and
-            // selection, along slot k's tangent, so the same outcome. Phase
-            // B's events repeat phase A's: the tangents count in A only
-            // (the planes stay 0 from B's regeneration on)
-            const int n_dual = (SUFFIX && phB) ? 0 : P.K;
-            float nw[1], ng[1];
+            // the slot groups' dual passes, from the same ray and selection
+            // along the slots' tangents, so the same outcome. Phase B's
+            // events repeat phase A's: the tangents count in A only (the
+            // planes stay 0 from B's regeneration on). A group runs in a
+            // warp where a lane holds a nonzero plane of one of its slots
+            // or its bounce reads one of their cells (physics' seeded
+            // reads: the winner's sphere row in hit_record, the hit
+            // material's fuzz or IOR, and at an MIS bounce every light
+            // row's source sphere); elsewhere its tangents are exactly
+            // zero, its planes and sums stay as they are.
+            if (!(SUFFIX && phB)) {
+                uint32_t need = nzm;
+                if (ev.hit) {
+                    const int mt = (int)sc.mati[ev.mat * 2];
+                    if (mt != MAT_METAL && mt != MAT_DIELECTRIC
+                        && mt != MAT_DIFFUSE_LIGHT && sc.L > 0)
+                        need |= lsm;
+                    const int mkey = mt == MAT_METAL
+                        ? slot_key(SEED_MATF, ev.mat, 0)
+                        : (mt == MAT_DIELECTRIC
+                           ? slot_key(SEED_MATF, ev.mat, 1) : -1);
+                    for (int k = 0; k < P.K; ++k)
+                        if (skey[k] == mkey) need |= 1u << k;
+                }
+                if (best >= 0 && best < sc.S) {
+                    for (int k = 0; k < P.K; ++k)
+                        if (slot_tab(skey[k]) == SEED_SPH
+                            && slot_row(skey[k]) == best)
+                            need |= 1u << k;
+                }
 #pragma unroll 1
-            for (int k = 0; k < n_dual; ++k) {
-                float* ds = dst + 9 * k * WF_THREADS;
-                const float* sl = sc.slot + SLOT_COLS * k;
-                const Seed sd = {(int)sl[0], (int)sl[1], (int)sl[2]};
-                V3T<Dual> od, dd, td, rd;
-                od.x = dual(o0.x, ds[0 * WF_THREADS]);
-                od.y = dual(o0.y, ds[1 * WF_THREADS]);
-                od.z = dual(o0.z, ds[2 * WF_THREADS]);
-                dd.x = dual(d0.x, ds[3 * WF_THREADS]);
-                dd.y = dual(d0.y, ds[4 * WF_THREADS]);
-                dd.z = dual(d0.z, ds[5 * WF_THREADS]);
-                td.x = dual(th0.x, ds[6 * WF_THREADS]);
-                td.y = dual(th0.y, ds[7 * WF_THREADS]);
-                td.z = dual(th0.z, ds[8 * WF_THREADS]);
-                rd = lift3<Dual>(v3(0.0f, 0.0f, 0.0f));
-                physics<Dual, 0>(sc, P, cam, best, best_t, od, dd, td, rd,
-                                 tm, u, u_med, sd, nw, ng, gc);
-                dgs[k * WF_THREADS] = dgs[k * WF_THREADS]
-                    + (gc[0] * rd.x.t + gc[1] * rd.y.t + gc[2] * rd.z.t);
-                if (alive_new) {
-                    ds[0 * WF_THREADS] = od.x.t;
-                    ds[1 * WF_THREADS] = od.y.t;
-                    ds[2 * WF_THREADS] = od.z.t;
-                    ds[3 * WF_THREADS] = dd.x.t;
-                    ds[4 * WF_THREADS] = dd.y.t;
-                    ds[5 * WF_THREADS] = dd.z.t;
-                    ds[6 * WF_THREADS] = td.x.t;
-                    ds[7 * WF_THREADS] = td.y.t;
-                    ds[8 * WF_THREADS] = td.z.t;
+                for (int k = 0; k < P.K;) {
+                    int e = k + 1;
+                    while (e < P.K && !((gstart >> e) & 1u)) ++e;
+                    const uint32_t gm = ((1u << (e - k)) - 1u) << k;
+                    const bool run = __ballot_sync(
+                        __activemask(), (need & gm) != 0u) != 0u;
+                    if (run)
+                        hard_group<HARD_W>(sc, P, cam, best, best_t, o0, d0,
+                                           th0, tm, u, u_med, gc, alive_new,
+                                           dst, dgs, skey, k, e - k, nzm);
+                    k = e;
                 }
             }
         }
@@ -1857,9 +2046,18 @@ __global__ void __launch_bounds__(WF_THREADS)
 wavefront_grad_vscan_kernel(WfParams P, VsParams V, GradArgs A) {
     __shared__ float cam[22];
     __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
-    wavefront_body<NTMAX, HARD, SEL_VSCAN, SUFFIX, SPLANES>(
-        P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out, A.carry_out,
-        A.dg_out, A.iters_out, wf_tables, cam, red, V, A.vtab);
+    if constexpr (HARD) {
+        __shared__ int skey[MAX_SLOTS];
+        wavefront_body<NTMAX, HARD, SEL_VSCAN, SUFFIX, SPLANES>(
+            P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out,
+            A.carry_out, A.dg_out, A.iters_out, wf_tables, cam, red, V,
+            A.vtab, BvParams(), skey);
+    } else {
+        wavefront_body<NTMAX, HARD, SEL_VSCAN, SUFFIX, SPLANES>(
+            P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out,
+            A.carry_out, A.dg_out, A.iters_out, wf_tables, cam, red, V,
+            A.vtab);
+    }
 }
 
 template <int NTMAX, bool HARD, bool SUFFIX, bool SPLANES = false>
@@ -2027,41 +2225,36 @@ WF_BVH_ENTRY(rt_wavefront_bvh_lane, SEL_LANE)
 //   floats a bounce in global scratch, [bounce][field][lane]. The reverse
 //   walks the stored bounces backward with the state cotangent lam =
 //   d<g, L>/d(o, d, th) of what follows (0 after a path's last bounce).
-// Per bounce, (g, lam) dotted with the columns of the bounce's Jacobian
-//   (radiance increment, o', d', th' over its inputs): each column one
-//   physics<Dual> pass, the dual bounce of the tangent-bundle tier (K4),
-//   from the stored selection, so every branch is the forward's. The
-//   columns: the 9 state values (their dots are the new lam); the winner
-//   sphere's center and radius (a medium's span reads its t too); the hit
-//   material's fuzz (metal) or IOR (dielectric); and at an MIS bounce the
+// Per bounce, (g, lam) . J, J the bounce's Jacobian (radiance increment,
+//   o', d', th' over its inputs), by a hand-written reverse of the bounce
+//   (physics_vjp): it re-runs the float bounce from the stored record with
+//   physics<float>'s operations, so it takes the forward's branches, and
+//   walks the bounce's stages backward from the cotangents (g, lam): the
+//   throughput update, the scatter (metal fuzz; the dielectric's
+//   reflection or refraction; the MIS weight, the light pdf over every
+//   light and the light's cone or area sample, the ONB), the emission or
+//   the sky, a marble texture's position gradient, the hit point and
+//   normal, a medium's free flight, and the winner's root. The winner's t
+//   gathers every use before it passes back through the root (autograd's
+//   order, which the column design imitated with an extra pass along t: a
+//   near-tangent root makes dt/dx huge, and taken whole in a column its
+//   size runs through the rest of the bounce before cancelling). Each
+//   stage's reverse follows the forward-mode rules' tie conventions,
+//   torch's backward's, and reverses only the branch the forward took, so
+//   no 0 * inf arises (the JAX adjoint's _sqrt0 trap, 190-197). Its table
+//   cotangents go to the winner sphere's center and radius, the hit
+//   material's fuzz (metal) or IOR (dielectric) and, at an MIS bounce, the
 //   center and radius of each sphere a light row copies (rd_light aliases
 //   the light's columns to that sphere's, as the JAX kernel's
-//   adj_light_slots route them), each sphere once. tex_color enters a
-//   bounce as a factor (emission th * c, attenuation th * c * factor), so
-//   its two products are written out: g * th at an emission and lam_th *
-//   (th * factor) at a non-dielectric scatter, to the hit's eff row (a
-//   marble leaf, eff -1, takes none), what a dual pass would give.
-// The winner's t is split off, as a reverse sweep orders it: one more dual
-//   pass along t alone gives lam_t = (g, lam) . d(...)/dt, and each column
-//   is (g, lam) . d(...)/dx at fixed t plus lam_t * dt/dx, dt/dx the
-//   tangent the winner's root gives t in that column's pass (Seed::t_tan).
-//   A near-tangent root (a grazing ray, a ray that grazes the sphere it
-//   leaves) makes dt/dx huge; taken whole, a column carries that size
-//   through the rest of the bounce before lam's sum cancels it, and its
-//   float rounding does not cancel with it (on a lane that grazes inside
-//   Cornell's glass sphere 45 times, the whole columns part from the
-//   forward-mode tangents by 0.14%, the split ones by 0.01%, as autograd's
-//   reverse pass does).
-// Why columns and not a hand-written reverse of the bounce: the dual bounce
-//   is the code the tangent bundles already run and hold against
-//   torch.func.jvp and the JAX replay, so the backward differentiates
-//   exactly the forward's operations with no second copy of the physics to
-//   keep in step; the price is 1 + 9 + 4 (+ 1) (+ 4 a light sphere) dual
-//   passes a bounce where a reverse sweep costs about three float bounces
-//   (PERF.md).
-// The where-NaN trap of the JAX adjoint (_sqrt0, 190-197) does not arise:
-//   forward mode pushes tangents only through the branch a bounce takes, so
-//   an untaken branch contributes nothing, not 0 * inf.
+//   adj_light_slots route them). tex_color enters a bounce as a factor
+//   (emission th * c, attenuation th * c * factor), so its two products
+//   are written out: g * th at an emission and lam_th * (th * factor) at a
+//   non-dielectric scatter, to the hit's eff row (a marble leaf, eff -1,
+//   takes none). The kernel first took (g, lam) . J by columns, one
+//   physics<Dual> pass each (1 + 9 + 4 (+ 1) (+ 4 a light sphere) a
+//   bounce), to keep no second copy of the physics; the reverse costs
+//   about three float bounces, and chip_smoke.py's adjoint_bounce_probe
+//   holds it against torch autograd of the bounce on every branch.
 // Accumulators: 3 * NT tex_color, then 4 * S sphere (center xyz, radius),
 //   then 2 * NM material (fuzz, IOR) doubles in the block's shared memory,
 //   added to by double atomicAdd and flushed by atomicAdd into one global
@@ -2073,8 +2266,12 @@ WF_BVH_ENTRY(rt_wavefront_bvh_lane, SEL_LANE)
 //   bit.
 // What bounds it: operations, as the other instances: the chunk scan once
 //   per bounce (K10: twice, the re-run), one float bounce (K10: two) and
-//   the dual passes. The scratch traffic (2 x 60 B a bounce; K10 adds 16 B
-//   of record and 52 B of snapshot a SEG bounces) is small beside them.
+//   the reverse (a float bounce again and its reverse); and the shared
+//   accumulators' double atomics, a compare-and-swap loop each (more than
+//   half of K9's time at bouncing 1200x675 spp16 d50 on an NVIDIA H100
+//   80GB HBM3 at 700 W, PERF.md; in the global row they take as long). The
+//   scratch traffic (2 x 60 B a bounce; K10 adds 16 B of record and
+//   52 B of snapshot a SEG bounces) is small beside them.
 #define ADJ_STORE 15   // o xyz, d xyz, th xyz, winner, t, material, eff,
                        // flags, MIS weight
 #define ADJ_HIT 1
@@ -2098,34 +2295,673 @@ struct AdjArgs {
     int shared_acc;    // the accumulators fit the block's shared memory
 };
 
-// (g, lam) . one column of the bounce's Jacobian: the bounce from (o0, d0,
-// th0) along the state's unit tangent j (0-8: o xyz, d xyz, th xyz; -1:
-// none) and the table cell sd
-static __device__ __forceinline__ float adj_column(
+// ------------------------------------------ the bounce's reverse (K9, K10)
+// Cotangent helpers. Each takes a forward operation's inputs, recomputes
+// what it needs with physics<float>'s operations, and adds its inputs'
+// cotangents from its output's. Each reverses only the branch the forward
+// took, with the forward-mode rules' tie conventions, torch's backward's
+// (smax / smin pass the cotangent where the argument is kept, ties
+// included; sabs gives 0 at 0; the clamp in safe_sqrt passes where x >=
+// 1e-12): a branch not taken contributes nothing, so no 0 * inf arises
+// (the JAX adjoint's _sqrt0 trap, wavefront_pallas.py:190-197).
+
+// v into the double accumulator entry i (exact zeros add nothing)
+__device__ __forceinline__ void adj_add(double* acc, int i, float v) {
+    if (v != 0.0f) atomicAdd(acc + i, (double)v);
+}
+
+__device__ __forceinline__ V3 axpy(V3 y, V3 x, float a) {
+    return add(y, mul(x, a));
+}
+
+// r = a / smax(|a|, 1e-8) (normalize): a's cotangent from r's
+__device__ __forceinline__ V3 normalize_vjp(V3 a, V3 rb) {
+    const float l0 = sqrtf(dot(a, a));
+    const float l = fmaxf(l0, 1e-8f);
+    V3 ab = v3(rb.x / l, rb.y / l, rb.z / l);
+    const float lb = -(rb.x * (a.x / l) + rb.y * (a.y / l)
+                       + rb.z * (a.z / l)) / l;
+    if (l0 >= 1e-8f) ab = axpy(ab, a, 2.0f * (lb / (2.0f * l0)));
+    return ab;
+}
+
+// onb_from_w(w_in) -> (u, v, w): w_in's cotangent from u's, v's and w's
+__device__ __forceinline__ V3 onb_from_w_vjp(V3 w_in, V3 ub, V3 vb,
+                                             V3 wb) {
+    const V3 w = normalize(w_in);
+    const V3 aa = fabsf(w.x) > 0.9f ? v3(0.0f, 1.0f, 0.0f)
+                                    : v3(1.0f, 0.0f, 0.0f);
+    const V3 c0 = cross(w, aa);
+    const V3 v = normalize(c0);
+    // u = w x v
+    wb = add(wb, cross(v, ub));
+    vb = add(vb, cross(ub, w));
+    // v = normalize(c0), c0 = w x aa
+    wb = add(wb, cross(aa, normalize_vjp(c0, vb)));
+    return normalize_vjp(w_in, wb);
+}
+
+// onb_local(u, v, w, a) = a.x u + a.y v + a.z w, a constant: the basis'
+// cotangents
+__device__ __forceinline__ void onb_local_vjp(V3 a, V3 rb, V3& ub, V3& vb,
+                                              V3& wb) {
+    ub = mul(rb, a.x);
+    vb = mul(rb, a.y);
+    wb = mul(rb, a.z);
+}
+
+// The root t = (h - sq) / a (r1 false) or (h + sq) / a (r1) of the sphere
+// (c, rad) along (o, d): h = d . (c - o), a = d . d, sq = safe_sqrt(h h -
+// a (|c - o|^2 - rad^2)). Adds tb's share to the cotangents of c, rad, o,
+// d. The reverse runs in double on the forward's float values: its terms
+// nearly cancel where the root does (h and sq agree to 1e-4 on the
+// radius-1000 ground; on a grazing root, far from a small sphere, the
+// origin's and the direction's terms), and float rounding of each term
+// would come out magnified by that agreement (the float32 references part
+// from each other by such rounding alone: chip_smoke.py, ADJ_MAIN_RTOL).
+__device__ __forceinline__ void root_vjp(V3 c, float rad, V3 o, V3 d,
+                                         bool r1, float tb, V3& cb,
+                                         float& radb, V3& ob, V3& db) {
+    const V3 oc = sub(c, o);
+    const float a = dot(d, d), h = dot(d, oc);
+    const float cc = dot(oc, oc) - rad * rad;
+    const float disc = h * h - a * cc;
+    const float sq = sqrtf(fmaxf(disc, 1e-12f));
+    const float num = r1 ? h + sq : h - sq;
+    const double A = a, H = h, CC = cc, TB = tb;
+    const double nb = TB / A;
+    double ab = -TB * ((double)num / A) / A;
+    double hb = nb;
+    const double discb = disc >= 1e-12f
+        ? (r1 ? nb : -nb) / (2.0 * (double)sq) : 0.0;
+    hb += 2.0 * H * discb;
+    ab -= CC * discb;
+    const double ccb = -A * discb;
+    const double ocx = oc.x, ocy = oc.y, ocz = oc.z;
+    const double dx = d.x, dy = d.y, dz = d.z;
+    const double gx = 2.0 * ocx * ccb + dx * hb;
+    const double gy = 2.0 * ocy * ccb + dy * hb;
+    const double gz = 2.0 * ocz * ccb + dz * hb;
+    radb += (float)(-2.0 * (double)rad * ccb);
+    db = add(db, v3((float)(ocx * hb + 2.0 * dx * ab),
+                    (float)(ocy * hb + 2.0 * dy * ab),
+                    (float)(ocz * hb + 2.0 * dz * ab)));
+    cb = add(cb, v3((float)gx, (float)gy, (float)gz));
+    ob = sub(ob, v3((float)gx, (float)gy, (float)gz));
+}
+
+// a quad's plane t = (q[12] - o . N) / (d . N) (q: corner, u, v, normal,
+// d, w): tb back to o and d
+__device__ __forceinline__ void quad_t_vjp(const float* q, V3 o, V3 d,
+                                           float tb, V3& ob, V3& db) {
+    const V3 nn = v3(q[9], q[10], q[11]);
+    const float denom = dot(d, nn);
+    const float t = (q[12] - dot(o, nn)) / denom;
+    ob = axpy(ob, nn, -(tb / denom));
+    db = axpy(db, nn, -(tb * t) / denom);
+}
+
+// noise3's value, and its gradient in p (the fractional position's; the
+// lattice takes none) in *g
+static __device__ float noise3_grad(float px, float py, float pz, uint32_t seed,
+                             V3* g) {
+    const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+    const int ix = (int)fx, iy = (int)fy, iz = (int)fz;
+    const float u = px - fx, v = py - fy, w = pz - fz;
+    const float su = u * u * (3.0f - 2.0f * u);
+    const float sv = v * v * (3.0f - 2.0f * v);
+    const float sw = w * w * (3.0f - 2.0f * w);
+    // d su / du = 2u (3 - 2u) - 2 u^2
+    const float du = 2.0f * u * (3.0f - 2.0f * u) - 2.0f * (u * u);
+    const float dv = 2.0f * v * (3.0f - 2.0f * v) - 2.0f * (v * v);
+    const float dw = 2.0f * w * (3.0f - 2.0f * w) - 2.0f * (w * w);
+    float acc = 0.0f, gx_ = 0.0f, gy_ = 0.0f, gz_ = 0.0f;
+    for (int di = 0; di < 2; ++di) {
+        const float wu = di ? su : 1.0f - su, wu1 = di ? du : -du;
+        for (int dj = 0; dj < 2; ++dj) {
+            const float wv = dj ? sv : 1.0f - sv, wv1 = dj ? dv : -dv;
+            for (int dk = 0; dk < 2; ++dk) {
+                const float ww = dk ? sw : 1.0f - sw, ww1 = dk ? dw : -dw;
+                uint32_t a = (uint32_t)(ix + di), b = (uint32_t)(iy + dj),
+                         c = (uint32_t)(iz + dk), d = seed;
+                pcg4d(a, b, c, d);
+                float gx = 2.0f * to_unit(a) - 1.0f;
+                float gy = 2.0f * to_unit(b) - 1.0f;
+                float gz = 2.0f * to_unit(c) - 1.0f;
+                const float inv = rsqrtf(fmaxf(gx * gx + gy * gy + gz * gz,
+                                               1e-12f));
+                gx *= inv; gy *= inv; gz *= inv;
+                const float dd = gx * (u - (float)di) + gy * (v - (float)dj)
+                    + gz * (w - (float)dk);
+                const float wt = wu * wv * ww;
+                acc = acc + wt * dd;
+                gx_ += wu1 * wv * ww * dd + wt * gx;
+                gy_ += wu * wv1 * ww * dd + wt * gy;
+                gz_ += wu * wv * ww1 * dd + wt * gz;
+            }
+        }
+    }
+    *g = v3(gx_, gy_, gz_);
+    return acc;
+}
+
+// texture_value's position cotangent at a marble leaf (the checkers above
+// it are piecewise constant): 0.5 (1 + sin(scale p.z + 10 turbulence(p)))
+// in every channel, tcb the color's cotangent
+static __device__ V3 texture_vjp(const Scene& sc, int row, V3 p, V3 tcb) {
+    for (int lvl = 0; lvl < sc.checker_depth; ++lvl) {
+        const float* t = sc.tex + row * TEX_COLS;
+        if (t[4] > 0.5f) {
+            float inv = 1.0f / fmaxf(t[3], 1e-12f);
+            int fx = (int)floorf(inv * p.x);
+            int fy = (int)floorf(inv * p.y);
+            int fz = (int)floorf(inv * p.z);
+            bool even = ((fx + fy + fz) & 1) == 0;
+            row = (int)(even ? t[11] : t[12]);
+        }
+    }
+    const float scale = sc.tex[row * TEX_COLS + 3];
+    const float turb = turbulence3(p.x, p.y, p.z, sc.perlin_seed);
+    const float argb = 0.5f * cosf(scale * p.z + 10.0f * turb)
+        * (tcb.x + tcb.y + tcb.z);
+    V3 pb = v3(0.0f, 0.0f, scale * argb);
+    // turbulence: sum_o 0.5^o |noise3(2^o p)|
+    const float turbb = 10.0f * argb;
+    float px = p.x, py = p.y, pz = p.z, weight = 1.0f, s = 1.0f;
+    for (int o = 0; o < 7; ++o) {
+        V3 g;
+        const float n = noise3_grad(px, py, pz,
+                                    sc.perlin_seed + (uint32_t)o * 0x9E3779B9u,
+                                    &g);
+        const float nb = weight * (n > 0.0f ? turbb
+                                            : (n < 0.0f ? -turbb : 0.0f));
+        pb = axpy(pb, g, nb * s);
+        weight *= 0.5f;
+        s *= 2.0f;
+        px = px * 2.0f; py = py * 2.0f; pz = pz * 2.0f;
+    }
+    return pb;
+}
+
+// medium_free_flight<float>'s scattering t back to o and d (tb its
+// cotangent): t = smax(entry, T_MIN) + hit_dist / |d| of the medium that
+// won, entry the first of its boundary crossings (a sphere's root or a
+// quad's plane t, first_min's order); the span's end t_surf only decides
+// whether it scatters
+static __device__ void medium_vjp(const Scene& sc, V3 o, V3 d, float t_surf,
+                           const float* u_med, float tb, V3& ob, V3& db) {
+    const float a = dot(d, d);
+    const float raylen = sqrtf(a);
+    float t_best = BIGF, b_entry = 0.0f, b_hd = 0.0f;
+    int b_m = -1, b_id = -1;
+    for (int m = 0; m < sc.M; ++m) {
+        const float* r = sc.med + m * sc.med_cols;
+        // pass 1: entry = nearest crossing of the boundary union; id: 2js
+        // (+1 the far root) of a sphere, 2MS + jq of a quad
+        float entry = BIGF, exit_ = BIGF;
+        int id = -1;
+        for (int pass = 0; pass < 2; ++pass) {
+            for (int js = 0; js < sc.MS; ++js) {
+                const float* s = r + 2 + 4 * js;
+                float rad = s[3];
+                V3 oc = sub(ld3(s), o);
+                float h = dot(d, oc);
+                float cc = dot(oc, oc) - rad * rad;
+                float disc = h * h - a * cc;
+                bool ok = disc > 0.0f && rad > 0.0f;
+                float sq = safe_sqrt(disc);
+                float t0 = ok ? (h - sq) / a : BIGF;
+                float t1 = ok ? (h + sq) / a : BIGF;
+                if (pass == 0) {
+                    const bool far = t1 < t0;
+                    const float tn = far ? t1 : t0;
+                    if (tn < entry) {
+                        entry = tn;
+                        id = 2 * js + (far ? 1 : 0);
+                    }
+                } else {
+                    if (t0 > entry + 1e-4f) exit_ = first_min(exit_, t0);
+                    if (t1 > entry + 1e-4f) exit_ = first_min(exit_, t1);
+                }
+            }
+            for (int jq = 0; jq < sc.MQ; ++jq) {
+                const float* q = r + 2 + 4 * sc.MS + 17 * jq;
+                float t = BIGF;
+                if (q[16] > 0.5f) {
+                    float tq;
+                    if (quad_hit(q, o, d, -BIGF, &tq)) t = tq;
+                }
+                if (pass == 0) {
+                    if (t < entry) {
+                        entry = t;
+                        id = 2 * sc.MS + jq;
+                    }
+                } else if (t > entry + 1e-4f) {
+                    exit_ = first_min(exit_, t);
+                }
+            }
+            if (pass == 1) {
+                bool crossed = entry < BIGF * 0.5f && exit_ < BIGF * 0.5f;
+                float t1 = fmaxf(entry, T_MINF);
+                float t2 = fminf(exit_, t_surf);
+                bool span_ok = crossed && (t1 < t2) && r[1] > 0.5f;
+                if (!span_ok) break;
+                float dist_inside = (t2 - t1) * raylen;
+                float hit_dist = r[0] * logf(fmaxf(u_med[m], 1e-12f));
+                if (hit_dist < dist_inside) {
+                    float t_med = t1 + hit_dist / raylen;
+                    if (t_med < t_best) {
+                        t_best = t_med;
+                        b_m = m;
+                        b_entry = entry;
+                        b_id = id;
+                        b_hd = hit_dist;
+                    }
+                }
+            }
+        }
+    }
+    if (b_m < 0) return;
+    // t = t1 + hit_dist / raylen, t1 = smax(entry, T_MIN), raylen = |d|
+    const float rlb = -(tb * (b_hd / raylen)) / raylen;
+    db = axpy(db, d, 2.0f * (rlb / (2.0f * raylen)));
+    const float eb = b_entry >= T_MINF ? tb : 0.0f;
+    const float* r = sc.med + b_m * sc.med_cols;
+    if (b_id < 2 * sc.MS) {
+        const float* s = r + 2 + 4 * (b_id >> 1);
+        V3 cb = v3(0.0f, 0.0f, 0.0f);
+        float radb = 0.0f;
+        root_vjp(ld3(s), s[3], o, d, (b_id & 1) != 0, eb, cb, radb, ob, db);
+    } else {
+        quad_t_vjp(r + 2 + 4 * sc.MS + 17 * (b_id - 2 * sc.MS), o, d, eb,
+                   ob, db);
+    }
+}
+
+// light_pdf<float>(o, d)'s cotangent totb back to o and d, and each sphere
+// light's center and radius cotangents into its source sphere's rows (the
+// light rows copy that sphere, rd_light)
+static __device__ void light_pdf_vjp(const Scene& sc, V3 o, V3 d, float tm,
+                              float totb, V3& ob, V3& db, double* acc,
+                              int t_base) {
+    const float pb = totb / (float)(sc.L > 1 ? sc.L : 1);
+    for (int l = 0; l < sc.L; ++l) {
+        const float* r = sc.light + l * LIGHT_COLS;
+        if (r[0] > 0.5f) {
+            const float rad = r[7];
+            const V3 c = v3(r[1] + tm * r[4], r[2] + tm * r[5],
+                            r[3] + tm * r[6]);
+            const V3 oc = sub(c, o);
+            const float a = dot(d, d), h = dot(d, oc), dist2 = dot(oc, oc);
+            const float disc = h * h - a * (dist2 - rad * rad);
+            const float sq = safe_sqrt(disc);
+            const float r0 = (h - sq) / a, r1 = (h + sq) / a;
+            const bool hit = disc > 0.0f && rad > 0.0f
+                && ((r0 > T_MINF && r0 < BIGF) || (r1 > T_MINF && r1 < BIGF));
+            if (!hit) continue;
+            // pdf = 1 / smax(2 pi (1 - safe_sqrt(ratio)), 1e-12), ratio =
+            // smin(smax(1 - rad^2 / smax(dist2, 1e-12), 0), 1)
+            const float dm = fmaxf(dist2, 1e-12f);
+            const float w = 1.0f - rad * rad / dm;
+            const float ratio = fminf(fmaxf(w, 0.0f), 1.0f);
+            const float sr = sqrtf(fmaxf(ratio, 1e-12f));
+            const float solid = TWO_PI_F * (1.0f - sr);
+            const float sm = fmaxf(solid, 1e-12f);
+            const float pdf = 1.0f / sm;
+            const float solidb = solid >= 1e-12f ? -(pb * pdf) / sm : 0.0f;
+            const float srb = -TWO_PI_F * solidb;
+            const float ratiob = ratio >= 1e-12f ? srb / (2.0f * sr) : 0.0f;
+            const float wb = (w >= 0.0f && fmaxf(w, 0.0f) <= 1.0f)
+                ? ratiob : 0.0f;
+            const float rrb = -wb / dm;
+            const float dmb = wb * (rad * rad / dm) / dm;
+            const float d2b = dist2 >= 1e-12f ? dmb : 0.0f;
+            const V3 ocb = mul(oc, 2.0f * d2b);
+            ob = sub(ob, ocb);
+            const int src = (int)sc.lsrc[l];
+            if (src >= 0) {
+                adj_add(acc, t_base + 4 * src + 0, ocb.x);
+                adj_add(acc, t_base + 4 * src + 1, ocb.y);
+                adj_add(acc, t_base + 4 * src + 2, ocb.z);
+                adj_add(acc, t_base + 4 * src + 3, 2.0f * rad * rrb);
+            }
+        } else {
+            float t;
+            if (quad_hit(r + 8, o, d, T_MINF, &t) && t < BIGF * 0.5f) {
+                // pdf = t^2 / smax(|d . N| area, 1e-12)
+                const V3 nn = v3(r[17], r[18], r[19]);
+                const float craw = dot(d, nn);
+                const float cosine = fabsf(craw);
+                const float den = fmaxf(cosine * r[24], 1e-12f);
+                const float pdf = t * t / den;
+                const float numb = pb / den;
+                const float denb = -(pb * pdf) / den;
+                const float cb = cosine * r[24] >= 1e-12f ? denb * r[24]
+                                                          : 0.0f;
+                const float crb = craw > 0.0f ? cb
+                                              : (craw < 0.0f ? -cb : 0.0f);
+                db = axpy(db, nn, crb);
+                quad_t_vjp(r + 8, o, d, 2.0f * t * numb, ob, db);
+            }
+        }
+    }
+}
+
+// light_sample<float>(o)'s direction cotangent outb back to o, and the
+// picked sphere light's center and radius cotangents into its source
+// sphere's rows
+static __device__ void light_sample_vjp(const Scene& sc, V3 o, float tm,
+                                 float u_sel, float u1, float u2, V3 outb,
+                                 V3& ob, double* acc, int t_base) {
+    int n = sc.L > 1 ? sc.L : 1;
+    int l = (int)(u_sel * (float)n);
+    l = l < 0 ? 0 : (l > n - 1 ? n - 1 : l);
+    const float* r = sc.light + l * LIGHT_COLS;
+    if (r[0] > 0.5f) {
+        const V3 c = v3(r[1] + tm * r[4], r[2] + tm * r[5], r[3] + tm * r[6]);
+        const V3 to_c = sub(c, o);
+        const float dd2 = dot(to_c, to_c);
+        const float dist2 = fmaxf(dd2, 1e-12f);
+        const float rad = r[7];
+        const float w = 1.0f - rad * rad / dist2;
+        const float ratio = fminf(fmaxf(w, 0.0f), 1.0f);
+        const float sr = sqrtf(fmaxf(ratio, 1e-12f));
+        const float z = 1.0f + u2 * (sr - 1.0f);
+        const float phi = TWO_PI_F * u1;
+        const float y = 1.0f - z * z;
+        const float s = sqrtf(fmaxf(y, 1e-12f));
+        V3 bu, bv, bw;
+        onb_from_w(to_c, bu, bv, bw);
+        const V3 loc = v3(cosf(phi) * s, sinf(phi) * s, z);
+        const V3 dirb = normalize_vjp(onb_local(bu, bv, bw, loc), outb);
+        V3 ub, vb, wb;
+        onb_local_vjp(loc, dirb, ub, vb, wb);
+        const float sb = cosf(phi) * dot(dirb, bu) + sinf(phi) * dot(dirb, bv);
+        float zb = dot(dirb, bw);
+        const float yb = y >= 1e-12f ? sb / (2.0f * s) : 0.0f;
+        zb -= 2.0f * z * yb;
+        const float srb = u2 * zb;
+        const float ratiob = ratio >= 1e-12f ? srb / (2.0f * sr) : 0.0f;
+        const float wb2 = (w >= 0.0f && fmaxf(w, 0.0f) <= 1.0f) ? ratiob
+                                                                 : 0.0f;
+        const float rrb = -wb2 / dist2;
+        const float d2b = wb2 * (rad * rad / dist2) / dist2;
+        const float dd2b = dd2 >= 1e-12f ? d2b : 0.0f;
+        const V3 tcb = add(mul(to_c, 2.0f * dd2b),
+                           onb_from_w_vjp(to_c, ub, vb, wb));
+        ob = sub(ob, tcb);
+        const int src = (int)sc.lsrc[l];
+        if (src >= 0) {
+            adj_add(acc, t_base + 4 * src + 0, tcb.x);
+            adj_add(acc, t_base + 4 * src + 1, tcb.y);
+            adj_add(acc, t_base + 4 * src + 2, tcb.z);
+            adj_add(acc, t_base + 4 * src + 3, 2.0f * rad * rrb);
+        }
+    } else {
+        const V3 pt = v3(r[8] + u1 * r[11] + u2 * r[14],
+                         r[9] + u1 * r[12] + u2 * r[15],
+                         r[10] + u1 * r[13] + u2 * r[16]);
+        ob = sub(ob, normalize_vjp(sub(pt, o), outb));
+    }
+}
+
+// v - n (2 v . n), the mirror direction before normalize: v's and n's
+// cotangents from its own
+__device__ __forceinline__ void reflect_vjp(V3 v, V3 n, V3 rb, V3& vb,
+                                            V3& nb) {
+    const float s2 = 2.0f * dot(v, n);
+    vb = add(vb, rb);
+    nb = axpy(nb, rb, -s2);
+    const float db2 = 2.0f * -dot(rb, n);
+    vb = axpy(vb, n, db2);
+    nb = axpy(nb, v, db2);
+}
+
+// The hand-written reverse of physics<float, 0> (K9, K10): the bounce from
+// (o, d, th) with the stored selection (winner best at best_t), the draws
+// u and u_med, whether it went on (scat) and its throughput factor. It
+// re-runs the float bounce's operations, so it takes the forward's
+// branches, and walks the bounce backward from the cotangents (gc of the
+// radiance increment; lam of o', d', th'): the throughput update, the
+// scatter (metal fuzz, the dielectric's reflection or refraction, the MIS
+// direction with its light sample, light pdf and weight), the emission or
+// the sky, a marble texture's position gradient, the hit point and normal,
+// a medium's free flight, and the winner's root. The winner's t gathers
+// every use before it passes back through the root (autograd's order). The
+// table cotangents go into acc: the winner sphere's and every read light's
+// source sphere's center and radius at t_base + 4 row, the hit material's
+// fuzz or IOR at m_base + 2 row (tex_color is the caller's). lam becomes
+// the cotangent of (o, d, th).
+static __device__ void physics_vjp(
         const Scene& sc, const WfParams& P, const float* cam, int best,
-        float best_t, V3 o0, V3 d0, V3 th0, float tm, const float* u,
-        const float* u_med, const float (&gc)[3], const float* lam, int j,
-        Seed sd, float t_seed, float* t_tan) {
-    V3T<Dual> od, dd, td, rd;
-    od.x = dual(o0.x, j == 0 ? 1.0f : 0.0f);
-    od.y = dual(o0.y, j == 1 ? 1.0f : 0.0f);
-    od.z = dual(o0.z, j == 2 ? 1.0f : 0.0f);
-    dd.x = dual(d0.x, j == 3 ? 1.0f : 0.0f);
-    dd.y = dual(d0.y, j == 4 ? 1.0f : 0.0f);
-    dd.z = dual(d0.z, j == 5 ? 1.0f : 0.0f);
-    td.x = dual(th0.x, j == 6 ? 1.0f : 0.0f);
-    td.y = dual(th0.y, j == 7 ? 1.0f : 0.0f);
-    td.z = dual(th0.z, j == 8 ? 1.0f : 0.0f);
-    rd = lift3<Dual>(v3(0.0f, 0.0f, 0.0f));
-    float nw[1], ng[1];
-    sd.t_seed = t_seed;
-    sd.t_tan = t_tan;
-    physics<Dual, 0>(sc, P, cam, best, best_t, od, dd, td, rd, tm, u, u_med,
-                     sd, nw, ng, gc);
-    return gc[0] * rd.x.t + gc[1] * rd.y.t + gc[2] * rd.z.t
-        + lam[0] * od.x.t + lam[1] * od.y.t + lam[2] * od.z.t
-        + lam[3] * dd.x.t + lam[4] * dd.y.t + lam[5] * dd.z.t
-        + lam[6] * td.x.t + lam[7] * td.y.t + lam[8] * td.z.t;
+        float best_t, V3 o, V3 d, V3 th, float tm, const float* u,
+        const float* u_med, const float (&gc)[3], bool scat, float factor,
+        float (&lam)[9], double* acc, int t_base, int m_base) {
+    const V3 zero = v3(0.0f, 0.0f, 0.0f);
+    const V3 lo = v3(lam[0], lam[1], lam[2]);
+    const V3 ld = v3(lam[3], lam[4], lam[5]);
+    const V3 lt = v3(lam[6], lam[7], lam[8]);
+    // a path that ends here keeps its state: it passes through
+    V3 ob = scat ? zero : lo, db = scat ? zero : ld, thb = scat ? zero : lt;
+    // ---- forward: the hit record, and a medium's preemption
+    HitT<float> h = hit_record(sc, best, best_t, o, d, tm, Seeds<0>{});
+    const float t_surf = h.hit ? h.t : BIGF;
+    bool med = false;
+    if (sc.M > 0) {
+        int mrow;
+        const float t_med = medium_free_flight(sc, o, d, t_surf, u_med,
+                                               &mrow);
+        if (t_med < BIGF * 0.5f) {
+            med = true;
+            h.hit = true;
+            h.t = t_med;
+            h.p = add(o, mul(d, t_med));
+            h.n = v3(1.0f, 0.0f, 0.0f);
+            h.front = true;
+            h.mat = (int)sc.med[mrow * sc.med_cols + sc.med_cols - 1];
+        }
+    }
+    const float gv[3] = {gc[0], gc[1], gc[2]};
+    if (!h.hit) {
+        // rad += th * sky
+        float sky[3] = {cam[19], cam[20], cam[21]};
+        const float k[3] = {0.5f, 0.7f, 1.0f};
+        float asb = 0.0f;
+        const float as = 0.5f * (d.y + 1.0f);
+        const float tv[3] = {th.x, th.y, th.z};
+        for (int c = 0; c < 3; ++c) {
+            if (P.sky_gradient) {
+                sky[c] = (1.0f - as) + as * k[c];
+                asb += gv[c] * tv[c] * (k[c] - 1.0f);
+            }
+        }
+        thb = add(thb, v3(gv[0] * sky[0], gv[1] * sky[1], gv[2] * sky[2]));
+        if (P.sky_gradient) db.y += 0.5f * asb;
+        lam[0] = ob.x; lam[1] = ob.y; lam[2] = ob.z;
+        lam[3] = db.x; lam[4] = db.y; lam[5] = db.z;
+        lam[6] = thb.x; lam[7] = thb.y; lam[8] = thb.z;
+        return;
+    }
+    const int mtype = (int)sc.mati[h.mat * 2 + 0];
+    const int mtex = (int)sc.mati[h.mat * 2 + 1];
+    int eff;
+    const V3 tc = texture_value(sc, mtex, h.p, &eff);
+    const bool is_light = mtype == MAT_DIFFUSE_LIGHT;
+    const bool is_metal = mtype == MAT_METAL;
+    const bool is_diel = mtype == MAT_DIELECTRIC;
+    const bool is_iso = mtype == MAT_ISOTROPIC;
+    const V3 n = h.n, p = h.p;
+    V3 tcb = zero, pb = zero, nb = zero;
+    if (is_light && h.front) {
+        // rad += th * tc
+        thb = add(thb, v3(gv[0] * tc.x, gv[1] * tc.y, gv[2] * tc.z));
+        tcb = v3(gv[0] * th.x, gv[1] * th.y, gv[2] * th.z);
+    }
+    if (!is_light && scat) {
+        // th' = (th * at) * factor, o' = p, d' = the new direction
+        const V3 at = is_diel ? v3(1.0f, 1.0f, 1.0f) : tc;
+        const V3 tab = mul(lt, factor);
+        thb = add(thb, v3(tab.x * at.x, tab.y * at.y, tab.z * at.z));
+        if (!is_diel)
+            tcb = add(tcb, v3(tab.x * th.x, tab.y * th.y, tab.z * th.z));
+        const float factorb = lt.x * (th.x * at.x) + lt.y * (th.y * at.y)
+            + lt.z * (th.z * at.z);
+        pb = add(pb, lo);
+        const V3 ndb = ld;
+        if (is_metal) {
+            // normalize(normalize(reflect) + jit fuzz)
+            const float fuzz = sc.matf[h.mat * 2 + 0];
+            const float s2 = 2.0f * dot(d, n);
+            const V3 r0v = sub(d, mul(n, s2));
+            const V3 jit = unit_vector_from_uv(u[D_FUZZ_U], u[D_FUZZ_V]);
+            const V3 m0 = add(normalize(r0v), mul(jit, fuzz));
+            const V3 m0b = normalize_vjp(m0, ndb);
+            adj_add(acc, m_base + 2 * h.mat + 0, dot(jit, m0b));
+            reflect_vjp(d, n, normalize_vjp(r0v, m0b), db, nb);
+        } else if (is_diel) {
+            const float ior = sc.matf[h.mat * 2 + 1];
+            const float ri = h.front ? 1.0f / ior : ior;
+            const float x = dot(neg(d), n);
+            const float cos_t = fminf(x, 1.0f);
+            const float sin_t = safe_sqrt(1.0f - cos_t * cos_t);
+            const bool cannot = ri * sin_t > 1.0f;
+            float r0 = (1.0f - ri) / (1.0f + ri);
+            r0 = r0 * r0;
+            const float schlick = r0 + (1.0f - r0) * spow5(1.0f - cos_t);
+            if (cannot || schlick > u[D_REFL]) {
+                const V3 r0v = sub(d, mul(n, 2.0f * dot(d, n)));
+                reflect_vjp(d, n, normalize_vjp(r0v, ndb), db, nb);
+            } else {
+                // perp = (d + n cos_t) ri; par = -safe_sqrt(|1 - perp .
+                // perp|); normalize(perp + n par)
+                const V3 e = add(d, mul(n, cos_t));
+                const V3 perp = mul(e, ri);
+                const float z = 1.0f - dot(perp, perp);
+                const float y = fabsf(z);
+                const float ss = sqrtf(fmaxf(y, 1e-12f));
+                const float par = -ss;
+                const V3 mb = normalize_vjp(add(perp, mul(n, par)), ndb);
+                nb = axpy(nb, mb, par);
+                const float yb = y >= 1e-12f ? -dot(mb, n) / (2.0f * ss)
+                                             : 0.0f;
+                const float zb = z > 0.0f ? yb : (z < 0.0f ? -yb : 0.0f);
+                const V3 perpb = axpy(mb, perp, -2.0f * zb);
+                const V3 eb = mul(perpb, ri);
+                const float rib = dot(perpb, e);
+                db = add(db, eb);
+                nb = axpy(nb, eb, cos_t);
+                const float xb = x <= 1.0f ? dot(eb, n) : 0.0f;
+                db = axpy(db, n, -xb);
+                nb = axpy(nb, neg(d), xb);
+                adj_add(acc, m_base + 2 * h.mat + 1,
+                        h.front ? -(rib * (1.0f / ior)) / ior : rib);
+            }
+        } else {
+            // MIS: the material's direction (or a light's, half the time),
+            // factor = spdf / (0.5 light pdf + 0.5 material pdf)
+            V3 bu, bv, bw, mloc = zero, mdir;
+            if (is_iso) {
+                mdir = unit_vector_from_uv(u[D_MAT_U], u[D_MAT_V]);
+            } else {
+                onb_from_w(n, bu, bv, bw);
+                float phm = TWO_PI_F * u[D_MAT_U];
+                float sq2 = sqrtf(fmaxf(u[D_MAT_V], 1e-12f));
+                float zc = sqrtf(fmaxf(1.0f - u[D_MAT_V], 1e-12f));
+                mloc = v3(cosf(phm) * sq2, sinf(phm) * sq2, zc);
+                mdir = normalize(onb_local(bu, bv, bw, mloc));
+            }
+            const bool picked = sc.L > 0 && u[D_PICK] < 0.5f;
+            const V3 gdir = picked
+                ? light_sample(sc, p, tm, u[D_LIGHT_SEL], u[D_LIGHT_U],
+                               u[D_LIGHT_V], Seeds<0>{})
+                : mdir;
+            const float cr = dot(gdir, n);
+            const float cosv = fmaxf(cr, 0.0f) / PI_F;
+            float pdf_val;
+            if (sc.L > 0) {
+                const float mpdf = is_iso ? INV_4PI_F : cosv;
+                pdf_val = 0.5f * light_pdf(sc, p, gdir, tm, Seeds<0>{})
+                    + 0.5f * mpdf;
+            } else {
+                pdf_val = is_iso ? INV_4PI_F : cosv;
+            }
+            const float spdf = is_iso ? INV_4PI_F : cosv;
+            const float fq = spdf / pdf_val;
+            const float spdfb = factorb / pdf_val;
+            const float pdfb = -(factorb * fq) / pdf_val;
+            float cosvb = is_iso ? 0.0f : spdfb, lpb = 0.0f;
+            if (sc.L > 0) {
+                lpb = 0.5f * pdfb;
+                if (!is_iso) cosvb += 0.5f * pdfb;
+            } else if (!is_iso) {
+                cosvb += pdfb;
+            }
+            V3 gdb = ndb;
+            const float crb = cr >= 0.0f ? cosvb / PI_F : 0.0f;
+            gdb = axpy(gdb, n, crb);
+            nb = axpy(nb, gdir, crb);
+            if (sc.L > 0)
+                light_pdf_vjp(sc, p, gdir, tm, lpb, pb, gdb, acc, t_base);
+            if (picked) {
+                light_sample_vjp(sc, p, tm, u[D_LIGHT_SEL], u[D_LIGHT_U],
+                                 u[D_LIGHT_V], gdb, pb, acc, t_base);
+            } else if (!is_iso) {
+                const V3 dirb = normalize_vjp(onb_local(bu, bv, bw, mloc),
+                                              gdb);
+                V3 ub, vb, wb;
+                onb_local_vjp(mloc, dirb, ub, vb, wb);
+                nb = add(nb, onb_from_w_vjp(n, ub, vb, wb));
+            }
+        }
+    }
+    // ---- a marble leaf's position gradient (checkers are piecewise
+    // constant, a solid color has none)
+    if (eff < 0 && (tcb.x != 0.0f || tcb.y != 0.0f || tcb.z != 0.0f))
+        pb = add(pb, texture_vjp(sc, mtex, p, tcb));
+    // ---- the hit point and normal back to o, d, the winner's t and its
+    // geometry
+    if (med) {
+        // p = o + d t_med; the normal is constant
+        ob = add(ob, pb);
+        db = axpy(db, pb, h.t);
+        medium_vjp(sc, o, d, t_surf, u_med, dot(pb, d), ob, db);
+    } else if (best < sc.S) {
+        // p = o + d t; n = +-(p - c) / smax(rad, 1e-12)
+        const float* r = sc.sph + best * SPH_COLS;
+        const V3 c = v3(r[0] + tm * r[3], r[1] + tm * r[4], r[2] + tm * r[5]);
+        const float rad = r[6];
+        const float rr = fmaxf(rad, 1e-12f);
+        const V3 out = v3((p.x - c.x) / rr, (p.y - c.y) / rr,
+                          (p.z - c.z) / rr);
+        const V3 outb = h.front ? nb : neg(nb);
+        pb = axpy(pb, outb, 1.0f / rr);
+        V3 cb = mul(outb, -1.0f / rr);
+        const float rrb = -(outb.x * out.x / rr + outb.y * out.y / rr
+                            + outb.z * out.z / rr);
+        float radb = rad >= 1e-12f ? rrb : 0.0f;
+        ob = add(ob, pb);
+        db = axpy(db, pb, best_t);
+        // the root sphere_root took: the near one where it lies in range
+        const V3 oc = sub(c, o);
+        const float a = dot(d, d), hh = dot(d, oc);
+        const float disc = hh * hh - a * (dot(oc, oc) - rad * rad);
+        const float r0 = (hh - safe_sqrt(disc)) / a;
+        const bool far = !(r0 > T_MINF && r0 < BIGF);
+        root_vjp(c, rad, o, d, far, dot(pb, d), cb, radb, ob, db);
+        adj_add(acc, t_base + 4 * best + 0, cb.x);
+        adj_add(acc, t_base + 4 * best + 1, cb.y);
+        adj_add(acc, t_base + 4 * best + 2, cb.z);
+        adj_add(acc, t_base + 4 * best + 3, radb);
+    } else {
+        // p = o + d t, t the quad's plane t; the normal is constant
+        ob = add(ob, pb);
+        db = axpy(db, pb, best_t);
+        quad_t_vjp(sc.quad + (best - sc.S) * QUAD_COLS, o, d, dot(pb, d),
+                   ob, db);
+    }
+    lam[0] = ob.x; lam[1] = ob.y; lam[2] = ob.z;
+    lam[3] = db.x; lam[4] = db.y; lam[5] = db.z;
+    lam[6] = thb.x; lam[7] = thb.y; lam[8] = thb.z;
 }
 
 // A block's start: the chunk scan's boxes into shared memory, the shared
@@ -2206,8 +3042,8 @@ static __device__ __forceinline__ bool adj_forward_bounce(
     ev.hit = false;
     float nw[1], ng[1];
     const bool alive_new = physics<float, 0>(
-        sc, P, cam, best, best_t, o, d, th, rad, tm, u, u_med,
-        Seed{0, 0, 0}, nw, ng, gc, &ev);
+        sc, P, cam, best, best_t, o, d, th, rad, tm, u, u_med, Seeds<0>{},
+        nw, ng, gc, &ev);
     if (STORE) {
         int flags = 0, mat = 0, eff = -1;
         if (ev.hit) {
@@ -2262,59 +3098,13 @@ static __device__ __forceinline__ void adj_reverse_bounce(
             if (flags & ADJ_EMIT) v = gc[c] * tv[c];
             if ((flags & ADJ_SCAT) && !(flags & ADJ_DIEL))
                 v = v + lam[6 + c] * (tv[c] * factor);
-            if (v != 0.0f) atomicAdd(acc + 3 * eff + c, (double)v);
+            adj_add(acc, 3 * eff + c, v);
         }
     }
-    // the sphere rows this bounce reads: the winner, then at an MIS
-    // bounce the light rows' source spheres, each once
-    int rows[MAX_LIGHTS + 1];
-    int n_rows = 0;
-    if (best >= 0 && best < sc.S) rows[n_rows++] = best;
-    if ((flags & ADJ_MIS) && sc.L > 0) {
-        for (int l = 0; l < sc.L; ++l) {
-            const int src = (int)sc.lsrc[l];
-            bool seen = src < 0;
-            for (int k = 0; k < n_rows && !seen; ++k)
-                seen = rows[k] == src;
-            if (!seen) rows[n_rows++] = src;
-        }
-    }
-    const int has_mf = (flags & ADJ_HIT)
-        && (flags & (ADJ_METAL | ADJ_DIEL)) ? 1 : 0;
-    const int n_cols = 9 + 4 * n_rows + has_mf;
-    // lam_t: the cotangent of the winner's t (0 on a miss)
-    float dt_unused = 0.0f;
-    const float lam_t = best >= 0
-        ? adj_column(sc, P, cam, best, best_t, o0, d0, th0, tm, u,
-                     u_med, gc, lam, -1, Seed{0, 0, 0}, 1.0f,
-                     &dt_unused)
-        : 0.0f;
-    float nl[9];
-#pragma unroll 1
-    for (int c = 0; c < n_cols; ++c) {
-        int j = -1, target = -1;
-        Seed sd = {0, 0, 0};
-        if (c < 9) {
-            j = c;
-        } else if (c < 9 + 4 * n_rows) {
-            const int row = rows[(c - 9) >> 2], k = (c - 9) & 3;
-            sd = Seed{SEED_SPH, row, k < 3 ? k : 6};
-            target = t_base + 4 * row + k;
-        } else {
-            const int col = (flags & ADJ_METAL) ? 0 : 1;
-            sd = Seed{SEED_MATF, mat, col};
-            target = m_base + 2 * mat + col;
-        }
-        float t_x = 0.0f;
-        const float v = adj_column(sc, P, cam, best, best_t, o0, d0,
-                                   th0, tm, u, u_med, gc, lam, j,
-                                   sd, 0.0f, &t_x)
-            + lam_t * t_x;
-        if (c < 9) nl[c] = v;
-        else if (v != 0.0f) atomicAdd(acc + target, (double)v);
-    }
-    for (int c = 0; c < 9; ++c) lam[c] = nl[c];
+    physics_vjp(sc, P, cam, best, best_t, o0, d0, th0, tm, u, u_med, gc,
+                (flags & ADJ_SCAT) != 0, factor, lam, acc, t_base, m_base);
 }
+
 // The dynamic shared memory of an adjoint launch: the chunk scan's boxes,
 // and the accumulators where they fit beside them (the static cam row and
 // a margin aside; shared_acc says whether they do). 0 for inputs the
@@ -2410,6 +3200,74 @@ extern "C" int rt_wavefront_adjoint(const WfParams* params,
                        NM, shared_acc ? 1 : 0};
     wavefront_adjoint_kernel<<<P.n_lanes / WF_THREADS, WF_THREADS, smem,
                                (cudaStream_t)stream>>>(P, V, A);
+    return (int)cudaGetLastError();
+}
+
+// The reverse bounce alone (chip_smoke.py's adjoint_bounce_probe, the GPU
+// tests): per lane, one bounce from a given state (o, d, th, ray time:
+// state rows 0-9) as bounce b of sample k1 of pixel k0 (keys rows 0-2),
+// through adj_forward_bounce (the chunk scan's selection and the float
+// bounce, its record stored), then adj_reverse_bounce at the cotangents g
+// (A.cot) and lam (lam_io rows 0-8, replaced by the cotangent of the
+// state); each lane's table cotangents go to its own accumulator row
+// (A.acc_out + lane * n_acc, zeroed by the caller).
+extern "C" __global__ void __launch_bounds__(WF_THREADS)
+adjoint_probe_kernel(WfParams P, VsParams V, AdjArgs A,
+                     const float* __restrict__ state,
+                     const int* __restrict__ keys, float* lam_io) {
+    __shared__ float cam[22];
+    const int n_acc = 3 * P.NT + 4 * P.S + 2 * A.NM;
+    adj_block_start(V, A, n_acc, P, cam);
+    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    const int N = P.n_lanes;
+    const Scene sc = adj_scene(P, A.tables);
+    const float gc[3] = {A.cot[0 * N + lane], A.cot[1 * N + lane],
+                         A.cot[2 * N + lane]};
+    V3 o = v3(state[0 * N + lane], state[1 * N + lane], state[2 * N + lane]);
+    V3 d = v3(state[3 * N + lane], state[4 * N + lane], state[5 * N + lane]);
+    V3 th = v3(state[6 * N + lane], state[7 * N + lane],
+               state[8 * N + lane]);
+    const float tm = state[9 * N + lane];
+    const uint32_t k0 = (uint32_t)keys[0 * N + lane];
+    const uint32_t k1 = (uint32_t)keys[1 * N + lane];
+    const int b = keys[2 * N + lane];
+    V3 rad = v3(0.0f, 0.0f, 0.0f);
+    adj_forward_bounce<true>(sc, P, V, A.vtab, cam, k0, k1, P.seed_mix, b, o,
+                             d, th, rad, tm, gc, A.store + lane, N);
+    float lam[9];
+    for (int c = 0; c < 9; ++c) lam[c] = lam_io[c * N + lane];
+    adj_reverse_bounce(sc, P, cam, k0, k1, P.seed_mix, b, tm, gc,
+                       A.store + lane, N, lam,
+                       A.acc_out + (size_t)lane * n_acc);
+    for (int c = 0; c < 9; ++c) lam_io[c * N + lane] = lam[c];
+    A.rad_out[0 * N + lane] = rad.x;
+    A.rad_out[1 * N + lane] = rad.y;
+    A.rad_out[2 * N + lane] = rad.z;
+}
+
+// state (10, n_lanes), keys (3, n_lanes) int, cot (3, n_lanes), lam_io (9,
+// n_lanes), rad_out (3, n_lanes), acc_out (n_lanes, 3NT + 4S + 2NM
+// doubles) zeroed, store (ADJ_STORE * n_lanes): the records
+extern "C" int rt_adjoint_bounce_probe(const WfParams* params,
+                                       const VsParams* vparams,
+                                       const float* tables, const float* vtab,
+                                       const float* state, const int* keys,
+                                       const float* cot, float* lam_io,
+                                       float* rad_out, double* acc_out,
+                                       float* store, int NM, void* stream) {
+    const WfParams P = *params;
+    const VsParams V = *vparams;
+    bool shared_acc;
+    if (adj_smem(P, V, NM, shared_acc) == 0)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)table_pad(V.n_box) * sizeof(float);
+    cudaError_t e = set_smem((const void*)adjoint_probe_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const AdjArgs A = {tables, vtab, cot, rad_out, acc_out, store, nullptr,
+                       NM, 0};
+    adjoint_probe_kernel<<<P.n_lanes / WF_THREADS, WF_THREADS, smem,
+                           (cudaStream_t)stream>>>(P, V, A, state, keys,
+                                                   lam_io);
     return (int)cudaGetLastError();
 }
 #endif  // WF_IN_PART(4)
@@ -2669,9 +3527,17 @@ wavefront_grad_kernel(WfParams P, const float* __restrict__ tables,
                       int* __restrict__ iters_out) {
     __shared__ float cam[22];
     __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
-    wavefront_body<NTMAX, HARD>(P, tables, pix_lanes, carry_in, cot,
-                                rad_out, carry_out, dg_out, iters_out,
-                                wf_tables, cam, red);
+    if constexpr (HARD) {
+        __shared__ int skey[MAX_SLOTS];
+        wavefront_body<NTMAX, HARD>(P, tables, pix_lanes, carry_in, cot,
+                                    rad_out, carry_out, dg_out, iters_out,
+                                    wf_tables, cam, red, VsParams(), nullptr,
+                                    BvParams(), skey);
+    } else {
+        wavefront_body<NTMAX, HARD>(P, tables, pix_lanes, carry_in, cot,
+                                    rad_out, carry_out, dg_out, iters_out,
+                                    wf_tables, cam, red);
+    }
 }
 
 // Plain C entry points (bound with ctypes). Each launches on `stream` and

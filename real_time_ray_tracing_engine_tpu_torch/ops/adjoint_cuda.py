@@ -101,10 +101,12 @@ def adjoint_sweep(adjoint_seg: int | None = None) -> int:
     JAX package's RTX_ADJOINT_SEG, as an argument); a negative value
     raises. None is the port's default, the per-sample sweep. The JAX
     package takes SEG 8 past depth 12 (parallel/train.py:100-110), a
-    choice for the TPU's lock-step tiles; on the H100, K10 at SEG 8 is
-    slower than K9 at both of bouncing_spheres' d50 shapes and on the
-    4,913-sphere grid at d8 (PERF.md §5-6), so the default is K9 at every
-    depth."""
+    choice for the TPU's lock-step tiles. On the H100 K10 at SEG 8 was
+    slower than K9 while both reversed a bounce by dual columns; with the
+    hand-written reverse bounce it is faster than K9 at both of
+    bouncing_spheres' d50 shapes (PERF.md §5-6). The default stays K9 at
+    every depth until the change that re-decides the sweep rule (ROADMAP,
+    queue 2)."""
     if adjoint_seg is None:
         return 0
     if int(adjoint_seg) != adjoint_seg or adjoint_seg < 0:
@@ -468,6 +470,119 @@ def render_pass_adjoint_kernel(flat: FlatScene, cam: CameraState, seed,
 
 render_pass_adjoint_kernel.launches = 0
 render_pass_adjoint_kernel.seg_launches = 0
+
+
+# ------------------------------------------------- the reverse bounce alone
+def _probe_inputs(flat: FlatScene, o, d, th, tm, pix, sample, bounce):
+    n = o.shape[0]
+    if not (d.shape == th.shape == o.shape == (n, 3)
+            and tm.shape == pix.shape == sample.shape == bounce.shape
+            == (n,)):
+        raise ValueError("the probe takes o, d, th (n, 3) and tm, pix, "
+                         "sample, bounce (n,)")
+
+
+def row_from_grads(flat: FlatScene, grads: dict) -> torch.Tensor:
+    """The accumulator row (adjoint_layout) of a grads dict, float64: the
+    inverse of grads_from_row; a family of None is zero."""
+    NT, S, NM = adjoint_layout(flat)
+    dev = flat.device
+
+    def fam(f, shape):
+        g = grads.get(f)
+        return (torch.zeros(shape, dtype=torch.float64, device=dev)
+                if g is None else g.detach().to(torch.float64))
+    sph = torch.cat([fam("sph_center", (S, 3)),
+                     fam("sph_radius", (S,))[:, None]], dim=1)
+    mat = torch.stack([fam("mat_fuzz", (NM,)), fam("mat_ior", (NM,))], 1)
+    return torch.cat([fam("tex_color", (NT, 3)).reshape(-1), sph.reshape(-1),
+                      mat.reshape(-1)])
+
+
+def adjoint_bounce_probe_reference(flat: FlatScene, cam: CameraState, o, d,
+                                   th, tm, pix, sample, bounce, g, lam, *,
+                                   seed, sky_gradient: bool = False):
+    """The plain version of adjoint_bounce_probe: per lane, _bounce_vjp of
+    the one bounce from (o, d, th) at ray time tm with the draws of bounce
+    `bounce` of sample `sample` of pixel `pix` (the all-primitive
+    selection), at the cotangents g (n, 3) and lam (n, 9). Returns (the
+    cotangent (n, 9) of (o, d, th), the lanes' accumulator rows (n, 3NT +
+    4S + 2NM) float64), one autograd call a lane."""
+    _probe_inputs(flat, o, d, th, tm, pix, sample, bounce)
+    flat = wc.all_primitive(flat)
+    tables = {f: getattr(flat, f).detach() for f in ADJOINT_FIELDS}
+    keys = rng.ray_keys(seed, pix, sample)
+    lam_out, rows = [], []
+    for i in range(o.shape[0]):
+        k = keys[i:i + 1]
+        u = rng.bounce_uniforms(k, bounce[i:i + 1])
+        u_med = medium_uniforms(flat, k, bounce[i:i + 1])
+        live = torch.ones(1, dtype=torch.bool, device=flat.device)
+        li, got = _bounce_vjp(flat, tables, o[i:i + 1], d[i:i + 1],
+                              th[i:i + 1], tm[i:i + 1], live, u, u_med,
+                              g[i:i + 1], lam[i:i + 1], cam.background,
+                              sky_gradient)
+        lam_out.append(li[0])
+        rows.append(row_from_grads(flat, got))
+    return torch.stack(lam_out), torch.stack(rows)
+
+
+def adjoint_bounce_probe(flat: FlatScene, cam: CameraState, o, d, th, tm,
+                         pix, sample, bounce, g, lam, *, seed,
+                         sky_gradient: bool = False,
+                         prepared: wc.KernelInputs | None = None):
+    """The adjoint kernels' reverse bounce alone on the card
+    (csrc/wavefront.cu adjoint_probe_kernel, part 4): per lane, the one
+    bounce of adjoint_bounce_probe_reference through adj_forward_bounce
+    (the chunk scan's selection and the float bounce, its record stored)
+    and adj_reverse_bounce. Returns (the cotangent (n, 9) of (o, d, th),
+    the lanes' accumulator rows (n, 3NT + 4S + 2NM) float64, the records
+    (n, ADJ_STORE): o, d, th, winner, t, material, eff, flags, MIS weight).
+    Each launch adds one to adjoint_bounce_probe.launches."""
+    device = flat.device
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+    _probe_inputs(flat, o, d, th, tm, pix, sample, bounce)
+    if prepared is None:
+        prepared = wc.prepare_kernel(flat, cam, chunk_scan=True)
+    n = o.shape[0]
+    N = wc.lane_count(n)
+    NT, S, NM = adjoint_layout(flat)
+
+    def lanes(x, rows, dtype):
+        out = torch.zeros(rows, N, dtype=dtype, device=device)
+        out[:, :n] = x.T.to(dtype)
+        return out.contiguous()
+    state = lanes(torch.cat([o, d, th, tm[:, None]], 1), 10, torch.float32)
+    keys = lanes(torch.stack([pix, sample, bounce], 1), 3, torch.int32)
+    cot = lanes(g, 3, torch.float32)
+    lam_io = lanes(lam, 9, torch.float32)
+    rad = torch.empty(3, N, dtype=torch.float32, device=device)
+    acc = torch.zeros(N, 3 * NT + 4 * S + 2 * NM, dtype=torch.float64,
+                      device=device)
+    store = torch.empty(ADJ_STORE, N, dtype=torch.float32, device=device)
+    p = wc._Params(
+        n_lanes=N, n_pix=n, width=n, n_strata=1, max_depth=1, n_samples=1,
+        sample_start=0, seed_mix=rng.mix_seed(seed),
+        sky_gradient=int(bool(sky_gradient)), cap=0, K=0, want_tex=0,
+        suffix=0, inv_strata=1.0, **prepared.fields)
+    vp = wc._VsParams(**prepared.vfields)
+    lib = wc.load_library()
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device)
+                                 .cuda_stream)
+        err = lib.adjoint_probe(
+            ctypes.byref(p), ctypes.byref(vp),
+            *[ctypes.c_void_p(t.data_ptr()) for t in (
+                prepared.tables, prepared.vtab, state, keys, cot, lam_io,
+                rad, acc, store)], NM, stream)
+    if err != 0:
+        raise RuntimeError(f"adjoint probe launch failed: CUDA error {err}")
+    adjoint_bounce_probe.launches += 1
+    return lam_io[:, :n].T, acc[:n], store[:, :n].T
+
+
+adjoint_bounce_probe.launches = 0
 
 
 def adjoint_pass_function(flat: FlatScene, cam: CameraState,

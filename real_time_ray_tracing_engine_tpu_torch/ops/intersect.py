@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..utils.vecmath import dot, cross, safe_sqrt, T_MIN, BIG
+from ..utils.vecmath import dot, cross, safe_sqrt, sqrt, T_MIN, BIG
 from ..scene.flat import FlatScene
 
 
@@ -219,7 +219,7 @@ def medium_scatter(scene: FlatScene, org, dr, tm, t_surf, u_med,
     u_med: (N, M) uniforms, one per medium per bounce.
     Returns (t_med (N,), mat (N,), valid (N,))."""
     M = scene.med_neg_inv_density.shape[0]
-    raylen = torch.sqrt(dot(dr, dr))                        # (N,)
+    raylen = sqrt(dot(dr, dr))                        # (N,)
     n = org.shape[0]
     s0, s1 = sphere_both_ts(scene.med_sph_center.reshape(-1, 3),
                             scene.med_sph_radius.reshape(-1),

@@ -1517,6 +1517,13 @@ class KernelLibrary:
         self.adjoint_seg.argtypes = ([ctypes.POINTER(_Params),
                                       ctypes.POINTER(_VsParams)] + [ptr] * 8
                                      + [ctypes.c_int] * 3 + [ptr])
+        self.adjoint_probe = self.lib.rt_adjoint_bounce_probe
+        self.adjoint_probe.restype = ctypes.c_int
+        # params, vparams, tables, vtab, state, keys, cotangent, lam_io,
+        # rad_out, acc_out, store, NM, stream
+        self.adjoint_probe.argtypes = ([ctypes.POINTER(_Params),
+                                        ctypes.POINTER(_VsParams)]
+                                       + [ptr] * 9 + [ctypes.c_int, ptr])
         # the BVH walks, forward (cot null) and tex_color grad: params,
         # bparams, tables, btab, pix_lanes, carry_in, cot, rad_out,
         # carry_out, dg_out, iters, stream

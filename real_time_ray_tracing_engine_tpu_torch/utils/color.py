@@ -12,10 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .vecmath import sqrt
+
 
 def linear_to_gamma(c):
     """Gamma-2: sqrt of nonnegative components."""
-    return torch.sqrt(torch.clamp(c, min=0.0))
+    return sqrt(torch.clamp(c, min=0.0))
 
 
 def to_bytes(img) -> np.ndarray:

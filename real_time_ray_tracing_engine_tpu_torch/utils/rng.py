@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from .vecmath import sqrt
+
 N_DRAWS = 9
 (D_PICK, D_LIGHT_SEL, D_LIGHT_U, D_LIGHT_V, D_MAT_U, D_MAT_V,
  D_FUZZ_U, D_FUZZ_V, D_REFL) = range(N_DRAWS)
@@ -115,7 +117,7 @@ def unit_vector_from_uv(u1, u2):
     """Uniform point on the unit sphere from two uniforms
     (reference Vec3Utility.hpp:53-62 random_unit_vector)."""
     z = 1.0 - 2.0 * u1
-    r = torch.sqrt(torch.clamp(1.0 - z * z, min=1e-12))
+    r = sqrt(torch.clamp(1.0 - z * z, min=1e-12))
     phi = 2.0 * math.pi * u2
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
@@ -124,14 +126,14 @@ def cosine_direction_from_uv(u1, u2):
     """Cosine-weighted hemisphere direction, local z-up frame
     (reference Vec3Utility.hpp:94-104)."""
     phi = 2.0 * math.pi * u1
-    sq2 = torch.sqrt(torch.clamp(u2, min=1e-12))
-    z = torch.sqrt(torch.clamp(1.0 - u2, min=1e-12))
+    sq2 = sqrt(torch.clamp(u2, min=1e-12))
+    z = sqrt(torch.clamp(1.0 - u2, min=1e-12))
     return torch.stack([torch.cos(phi) * sq2, torch.sin(phi) * sq2, z],
                        dim=-1)
 
 
 def in_unit_disk_from_uv(u1, u2):
     """Uniform point in the unit disk (defocus sampling)."""
-    r = torch.sqrt(u1)
+    r = sqrt(u1)
     phi = 2.0 * math.pi * u2
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)

@@ -30,9 +30,21 @@ def cross(a, b):
                         ax * by - ay * bx], dim=-1)
 
 
+def sqrt(x):
+    """Correctly rounded sqrt. torch's float32 sqrt on the CPU is not (about
+    0.7% of inputs land one ulp off, and an element's rounding can depend
+    on the thread split); the float64 sqrt of a float32, rounded to
+    float32, is correctly rounded for every float32 input, as the JAX
+    package's sqrt on XLA:CPU and numpy's are. On CUDA torch.sqrt already
+    is. Autograd runs through either."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
+
+
 def safe_sqrt(x, eps=1e-12):
     """sqrt(max(x, eps))."""
-    return torch.sqrt(torch.clamp(x, min=eps))
+    return sqrt(torch.clamp(x, min=eps))
 
 
 def length_squared(a):
@@ -40,7 +52,7 @@ def length_squared(a):
 
 
 def length(a):
-    return torch.sqrt(length_squared(a))
+    return sqrt(length_squared(a))
 
 
 def normalize(a):

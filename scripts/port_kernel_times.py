@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Kernel times of one checkout of the PyTorch + CUDA port on one GPU.
+"""Kernel times of one checkout of the PyTorch + CUDA port on one GPU, and
+its outputs for a bit-for-bit comparison with another checkout's.
 
-    python3 scripts/port_kernel_times.py ROOT
+    python3 scripts/port_kernel_times.py ROOT [--outputs FILE]
+    python3 scripts/port_kernel_times.py --compare FILE_A FILE_B
 
 ROOT is the directory that holds the real_time_ray_tracing_engine_tpu_torch
 package to time (its kernels build into ROOT/build/kernels). The scenes and
@@ -13,13 +15,29 @@ has hard slots, the full-family grad kernel there (single pass); where it
 has the chunk scan, its forward at bouncing_spheres 400x225 spp9 d50 and
 the 301-quad city 400x225 spp9 d6 (single pass); where it has the
 suffix-radiance tier, that grad kernel (K8) at bouncing_spheres 1200x675
-spp16 d50 (single pass); where it has the adjoint, K9 there under the sky
-gradient and at 400x225 spp9 d50 under the flat sky (the JAX bench line's
-shape); where it has the segmented adjoint, K10 (SEG 8) at both; where it
-has the BVH walks, K11 (RTX_BVH_STACK=1) and K12 (RTX_LANE_BVH=1) on
-bouncing_spheres -b at 400x225 spp9 d50 and K11 on the city -b (single
-pass). With the times it prints each kernel's ptxas registers, stack and
-spills from the library's build. Prints one JSON line.
+spp16 d50 (single pass), and the chunk scan's other grad tiers at
+chip_smoke.py's large_grad_times shapes (1200x675 spp16 d50): K8 with the
+IOR slot (K4v) under the sky gradient, the weight planes (K3v) on the
+80-sphere scene and in shared memory on the 28-row scene, and the tangent
+bundles alone (K4v) on the 79-sphere scene's 4 slots; where it has the
+adjoint, K9 there under the sky gradient and at 400x225 spp9 d50 under the
+flat sky (the JAX bench line's shape); where it has the segmented adjoint,
+K10 (SEG 8) at both; where it has the BVH walks, K11 (RTX_BVH_STACK=1) and
+K12 (RTX_LANE_BVH=1) on bouncing_spheres -b at 400x225 spp9 d50 and K11 on
+the city -b (single pass). With the times it prints each kernel's ptxas
+registers, stack and spills from the library's build. Prints one JSON
+line.
+
+With --outputs it also saves (torch.save) the tangent-bundle kernels'
+outputs: the image, dG_tex and dG_hard of K4 at Cornell 1920x1080 spp64
+d50 (9 slots) and on chip_smoke.py's hard-slot parity scenes (Cornell,
+three_spheres, Cornell 1920x1080 spp4 d50) and on a sphere-light scene
+(materials, 26 slots) and a medium scene (cornell_smoke), and K4v's at its
+shape and on the MIS + medium scene (both light kinds, a medium; 9 slots:
+a fuzz, the ground sphere, the sphere light), and K8's with the IOR slot
+(K4v; its dG_tex adds with float atomics, so it may differ in the last
+bits from run to run). --compare prints, per output of two such files, whether they are
+equal bit for bit and otherwise the largest difference.
 
 To compare two checkouts on one card, unpack the other one (git archive)
 under a git-ignored directory and time both roots in one run, in turns:
@@ -88,6 +106,18 @@ def kernel_times(root: str) -> dict:
             out[f"{name}_ms"] = cs.cuda_ms(
                 torch, lambda: fwd(flat, cam, 0, 0, **kw))
     if hasattr(wc, "tex_form"):
+        for name, scene, slots, want_tex, sky in _vscan_grad_cases(pt):
+            vf, vc, vkw = cs.pass_args(pt, scene, dev)
+            vkw["sky_gradient"] = vkw["sky_gradient"] or sky
+            slots = _slots(wc, vf, slots)
+            vg = cs.cotangent(torch, vkw, dev, 6)
+            vgrad = functools.partial(
+                wc.render_pass_grad_kernel,
+                prepared=wc.prepare_kernel(vf, vc, slots))
+            out[f"{name}_ms"] = cs.cuda_ms(
+                torch, lambda: vgrad(vf, vc, 0, 0, cotangent=vg,
+                                     hard_slots=slots, want_tex=want_tex,
+                                     **vkw))
         flat, cam, kw = cs.pass_args(
             pt, cs.builtin(pt, "bouncing_spheres", 1200, 16, 50), dev)
         g = cs.cotangent(torch, kw, dev, 6)
@@ -133,6 +163,111 @@ def kernel_times(root: str) -> dict:
     return out
 
 
+def _vscan_grad_cases(pt):
+    """chip_smoke.py's large_grad_times cases past K8 alone: (name, scene,
+    slots, want_tex, sky gradient)."""
+    return (("k8_k4v_ior_1200_spp16_sky",
+             cs.builtin(pt, "bouncing_spheres", 1200, 16, 50), "mat_ior",
+             True, True),
+            ("k3v_scan_tex_1200_spp16",
+             cs.wide(cs.scan_tex_scene(pt), 1200, 16, 50), (), True, False),
+            ("k3v_rows28_1200_spp16",
+             cs.wide(cs.rows_scene(pt), 1200, 16, 50), (), True, False),
+            ("k4v_vscan_slots_1200_spp16",
+             cs.wide(cs.vscan_slots_scene(pt), 1200, 16, 50), "jax_test",
+             False, False))
+
+
+def _slots(wc, flat, slots):
+    """A case's hard slots: "jax_test" (chip_smoke.vscan_slots), "all",
+    "mixed9" (the first material slot, the first sphere's 4 and the last
+    sphere's 4: the ground and the sphere light of the MIS + medium scene),
+    a field name (its slots), or ()."""
+    from real_time_ray_tracing_engine_tpu_torch.scene.flat import (
+        MAT_DIELECTRIC, MAT_METAL)
+    if slots == "jax_test":
+        return cs.vscan_slots(flat.mat_type.cpu(), MAT_METAL, MAT_DIELECTRIC)
+    if slots == "mixed9":
+        every = wc.hard_param_slots(flat)
+        mats = [x for x in every if x[0] in ("fuzz", "ior")]
+        sph = [x for x in every if x[0] in ("sphc", "sphr")]
+        return tuple(mats[:1] + sph[:4] + sph[-4:])
+    if slots == "all":
+        return wc.hard_param_slots(flat)
+    if slots:
+        return wc.hard_param_slots(flat, {slots})
+    return ()
+
+
+def kernel_outputs(root: str) -> dict:
+    """{name: (image, dG_tex, dG_hard)} of the tangent-bundle kernels (K4,
+    K4v) on the cases the module docstring lists, single passes at seed
+    7."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+    import real_time_ray_tracing_engine_tpu_torch as pt
+    from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
+    dev = torch.device("cuda", 0)
+    cases = (
+        ("k4_cornell_1920x1080_spp64_d50",
+         cs.cornell_1080p(pt, cs.TRAIN_SPP, cs.TRAIN_DEPTH), "all", False),
+        ("k4_cornell_64_spp4_d16", cs.builtin(pt, "cornell_box", 64, 4, 16),
+         "all", False),
+        ("k4_three_spheres_64_spp4_d8",
+         cs.builtin(pt, "three_spheres", 64, 4, 8), "all", False),
+        ("k4_cornell_1920x1080_spp4_d50", cs.cornell_1080p(pt, 4, 50), "all",
+         False),
+        ("k4_materials_sphere_light_64_spp4_d16",
+         cs.sized(cs.materials_scene(pt), 64, 4, 16), "all", False),
+        ("k4_cornell_smoke_medium_96_spp4_d16",
+         cs.builtin(pt, "cornell_smoke", 96, 4, 16), "all", False),
+        ("k4v_vscan_slots_1200x675_spp16_d50",
+         cs.wide(cs.vscan_slots_scene(pt), 1200, 16, 50), "jax_test",
+         False),
+        ("k4v_mis_medium_128_spp4_d8",
+         cs.sized(cs.mis_medium_scene(pt), 128, 4, 8), "mixed9", False),
+        ("k8_k4v_ior_bouncing_400x225_spp4_d50_sky",
+         cs.builtin(pt, "bouncing_spheres", 400, 4, 50), "mat_ior", True))
+    out = {}
+    for name, scene, slots, sky in cases:
+        flat, cam, kw = cs.pass_args(pt, scene, dev)
+        kw["sky_gradient"] = kw["sky_gradient"] or sky
+        slots = _slots(wc, flat, slots)
+        g = cs.cotangent(torch, kw, dev, 5)
+        img, dgt, dgh = wc.render_pass_grad_kernel(
+            flat, cam, 7, 0, cotangent=g, hard_slots=slots,
+            want_tex=not name.startswith("k4v_vscan"), **kw)
+        out[name] = tuple(torch.empty(0) if t is None else t.cpu()
+                          for t in (img, dgt, dgh))
+    return out
+
+
+def compare(path_a: str, path_b: str) -> dict:
+    """Per output of two kernel_outputs files: bit-for-bit equality, else
+    the largest absolute difference and the largest entry."""
+    import torch
+    a, b = torch.load(path_a), torch.load(path_b)
+    rep = {}
+    for name in sorted(set(a) | set(b)):
+        if name not in a or name not in b:
+            rep[name] = "missing"
+            continue
+        for part, x, y in zip(("image", "dg_tex", "dg_hard"), a[name],
+                              b[name]):
+            key = f"{name}.{part}"
+            if x.shape != y.shape:
+                rep[key] = f"shapes {tuple(x.shape)} vs {tuple(y.shape)}"
+            elif torch.equal(x.view(torch.int32) if x.numel() else x,
+                             y.view(torch.int32) if y.numel() else y):
+                rep[key] = "equal bit for bit"
+            else:
+                rep[key] = {"max_abs_diff": float((x - y).abs().max()),
+                            "scale": float(y.abs().max()),
+                            "equal_as_floats": bool(torch.equal(x, y))}
+    return rep
+
+
 def _bouncing_400(torch, pt, dev):
     """(flat, cam, kw, cotangent) of bouncing_spheres at the JAX bench
     line's 400x225 spp9 d50, flat sky."""
@@ -142,4 +277,10 @@ def _bouncing_400(torch, pt, dev):
 
 
 if __name__ == "__main__":
-    print(json.dumps(kernel_times(sys.argv[1])), flush=True)
+    if sys.argv[1] == "--compare":
+        print(json.dumps(compare(sys.argv[2], sys.argv[3])), flush=True)
+    else:
+        print(json.dumps(kernel_times(sys.argv[1])), flush=True)
+        if len(sys.argv) > 3 and sys.argv[2] == "--outputs":
+            import torch
+            torch.save(kernel_outputs(sys.argv[1]), sys.argv[3])

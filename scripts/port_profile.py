@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""Where a kernel of the PyTorch + CUDA port spends its time, on one GPU.
+
+    python3 scripts/port_profile.py ROOT SET
+
+ROOT holds the real_time_ray_tracing_engine_tpu_torch package to profile.
+The script builds its csrc/wavefront.cu as the package does (the parts
+compiled in parallel, then linked) into ROOT/build/profile/, then builds
+variants: a copy of the source with a few lines replaced, of which only the
+part holding the kernel under study is compiled again and linked with the
+base build's other parts. Each variant library is timed with chip_smoke.py's
+scenes and timer (CUDA events, best of 3 after one warm-up, the scene
+packed once). A variant whose replacement text is missing from the source
+fails: the sets name the source they apply to. SET is one of:
+
+  parent  (the source before the slot groups and the hand-written
+          reverse, commit c0d1d3c; a checkout of it unpacked under a
+          git-ignored directory): K4, wavefront_grad_kernel<8,
+          true>, at Cornell 1920x1080 spp64 d50 with its 9 hard slots,
+          whole; with the dual passes' tangent writes (planes and dG) left
+          out, their values kept alive (the value half); with no dual pass
+          (the float pass and its selection); with the planes' shared
+          memory reads and writes left out, the tangents kept alive (their
+          shared-memory traffic); and the share of (warp, slot, bounce)
+          dual passes after which no lane of the warp holds a nonzero plane
+          or reads a cell of the slot (what an exact-zero skip removes).
+          K9, wavefront_adjoint_kernel, at bouncing_spheres 1200x675 spp16
+          d50 under the sky gradient, whole; phase F alone (no reverse
+          bounce); and with the double atomics left out (the values kept
+          alive).
+  new     (this source): K4 at the same shape with the slot-group width
+          HARD_W at 1 (the source's), 2 and 4, the group pass out of line
+          (the source's) or inlined into each instance, the ptxas figures
+          of each beside its time; the share of (warp, group, bounce) passes the warp-wide
+          skip removed; K9 at the same shape whole, phase F alone, without
+          the double atomics (the values kept alive), and with its
+          accumulators in the global row in place of the block's shared
+          memory.
+
+Prints one JSON line per measurement and each build's ptxas figures of the
+kernels under study (registers, stack, spills).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402  (stdlib only at import)
+
+K4 = "_Z21wavefront_grad_kernelILi8ELb1EEv8WfParamsPKfPKiS2_S2_PfS5_S5_Pi"
+K9 = "wavefront_adjoint_kernel"
+
+# ---- the parent's variants (wavefront.cu at commit c0d1d3c)
+_P_TANGENT_WRITES = (
+    """                dgs[k * WF_THREADS] = dgs[k * WF_THREADS]
+                    + (gc[0] * rd.x.t + gc[1] * rd.y.t + gc[2] * rd.z.t);
+                if (alive_new) {""",
+    """                dgs[k * WF_THREADS] = dgs[k * WF_THREADS] + 0.0f * (
+                    rd.x.v + rd.y.v + rd.z.v + od.x.v + od.y.v + od.z.v
+                    + dd.x.v + dd.y.v + dd.z.v + td.x.v + td.y.v + td.z.v);
+                if (false) {""")
+_P_NO_DUAL = ("const int n_dual = (SUFFIX && phB) ? 0 : P.K;",
+              "const int n_dual = 0;")
+_P_NO_SMEM = [(f"{a}.{c} = dual({s}.{c}, ds[{i} * WF_THREADS]);",
+               f"{a}.{c} = dual({s}.{c}, 0.0f);")
+              for i, (a, s, c) in enumerate(
+                  [(a, s, c) for a, s in (("od", "o0"), ("dd", "d0"),
+                                          ("td", "th0"))
+                   for c in "xyz"])] + [_P_TANGENT_WRITES[:1] + (
+    """                dgs[0] = dgs[0] + 0.0f * (
+                    gc[0] * rd.x.t + gc[1] * rd.y.t + gc[2] * rd.z.t
+                    + od.x.t + od.y.t + od.z.t + dd.x.t + dd.y.t + dd.z.t
+                    + td.x.t + td.y.t + td.z.t);
+                if (false) {""",)]
+# count, per (warp, slot, bounce) dual pass, whether any lane of the warp
+# holds a nonzero plane of the slot or reads one of its cells (the winner's
+# sphere row, the hit material's fuzz or IOR, a light row's source sphere at
+# an MIS bounce); read back by rt_prof_counts
+_COUNTERS = """
+__device__ unsigned long long prof_counts[2];
+extern "C" int rt_prof_counts(unsigned long long* out, int reset) {
+    cudaError_t e = cudaMemcpyFromSymbol(out, prof_counts,
+                                         2 * sizeof(unsigned long long));
+    if (reset) {
+        const unsigned long long z[2] = {0, 0};
+        cudaMemcpyToSymbol(prof_counts, z, sizeof(z));
+    }
+    return (int)e;
+}
+"""
+_P_SKIP_COUNT = [
+    ("#define SEL_LANE 3      // the lane BVH (K12)",
+     "#define SEL_LANE 3      // the lane BVH (K12)\n" + _COUNTERS),
+    ("u_med, Seed{0, 0, 0}, Wp, Gp, gc, SUFFIX ? &ev : nullptr,",
+     "u_med, Seed{0, 0, 0}, Wp, Gp, gc, &ev,"),
+    ("                float* ds = dst + 9 * k * WF_THREADS;\n"
+     "                const float* sl = sc.slot + SLOT_COLS * k;\n"
+     "                const Seed sd = {(int)sl[0], (int)sl[1], (int)sl[2]};\n",
+     """                float* ds = dst + 9 * k * WF_THREADS;
+                const float* sl = sc.slot + SLOT_COLS * k;
+                const Seed sd = {(int)sl[0], (int)sl[1], (int)sl[2]};
+                {
+                    bool need = false;
+                    for (int c = 0; c < 9; ++c)
+                        need = need || ds[c * WF_THREADS] != 0.0f;
+                    const int mt = ev.hit ? (int)sc.mati[ev.mat * 2] : 0;
+                    if (sd.tab == SEED_SPH && best >= 0 && best < sc.S
+                        && sd.row == best)
+                        need = true;
+                    if (sd.tab == SEED_MATF && ev.hit && sd.row == ev.mat
+                        && ((mt == MAT_METAL && sd.col == 0)
+                            || (mt == MAT_DIELECTRIC && sd.col == 1)))
+                        need = true;
+                    if (sd.tab == SEED_SPH && ev.hit && sc.L > 0
+                        && mt != MAT_METAL && mt != MAT_DIELECTRIC
+                        && mt != MAT_DIFFUSE_LIGHT) {
+                        for (int l = 0; l < sc.L; ++l)
+                            need = need || (int)sc.lsrc[l] == sd.row;
+                    }
+                    const unsigned act = __activemask();
+                    const unsigned any = __ballot_sync(act, need);
+                    if ((threadIdx.x & 31) == __ffs(act) - 1) {
+                        atomicAdd(&prof_counts[0], 1ull);
+                        if (!any) atomicAdd(&prof_counts[1], 1ull);
+                    }
+                }
+""")]
+_P_K9_NO_R = ("""        for (int b = n_used - 1; b >= 0; --b)
+            adj_reverse_bounce(""", """        for (int b = n_used - 1; b >= 0 && false; --b)
+            adj_reverse_bounce(""")
+_P_K9_NO_ATOMICS = [
+    ("if (v != 0.0f) atomicAdd(acc + 3 * eff + c, (double)v);",
+     "if (v != 0.0f) lam[0] = lam[0] + 0.0f * v;"),
+    ("else if (v != 0.0f) atomicAdd(acc + target, (double)v);",
+     "else if (v != 0.0f) nl[0] = nl[0] + 0.0f * v;")]
+
+# ---- this source's variants
+_N_K9_NO_R = _P_K9_NO_R
+_N_K9_NO_ATOMICS = [("if (v != 0.0f) atomicAdd(acc + i, (double)v);",
+                     "if (v == 1.2345e30f) acc[i] = (double)v;")]
+_N_SKIP_COUNT = [
+    ("#define SEL_LANE 3      // the lane BVH (K12)",
+     "#define SEL_LANE 3      // the lane BVH (K12)\n" + _COUNTERS),
+    ("""                    const bool run = __ballot_sync(
+                        __activemask(), (need & gm) != 0u) != 0u;""",
+     """                    const unsigned act = __activemask();
+                    const bool run = __ballot_sync(
+                        act, (need & gm) != 0u) != 0u;
+                    if ((threadIdx.x & 31) == __ffs(act) - 1) {
+                        atomicAdd(&prof_counts[0], 1ull);
+                        if (!run) atomicAdd(&prof_counts[1], 1ull);
+                    }""")]
+
+
+# hard_group inlined into each grad instance (the source keeps it out of
+# line)
+_INLINE = [("__device__ __noinline__ void hard_group(",
+            "__device__ __forceinline__ void hard_group(")]
+# the adjoint's accumulators in the global row (RED.F64 in the L2) in place
+# of the block's shared copy (compare-and-swap loops)
+_GLOBAL_ACC = [("""    shared_acc = boxes * sizeof(float) + n_acc * sizeof(double)
+        <= (size_t)(226 * 1024);""", """    shared_acc = false;""")]
+
+
+def _hard_w(w):
+    return [("#define HARD_W 1 ", f"#define HARD_W {w} ")]
+
+
+SETS = {
+    "parent": [
+        ("k4", "whole", 0, []),
+        ("k4", "values_only", 0, [_P_TANGENT_WRITES]),
+        ("k4", "float_pass_only", 0, [_P_NO_DUAL]),
+        ("k4", "no_plane_smem", 0, _P_NO_SMEM),
+        ("k4", "skip_count", 0, _P_SKIP_COUNT),
+        ("k9", "whole", 4, []),
+        ("k9", "phase_f_only", 4, [_P_K9_NO_R]),
+        ("k9", "no_atomics", 4, _P_K9_NO_ATOMICS),
+    ],
+    "new": [
+        ("k4", "whole", 0, []),
+        ("k4", "hard_w1_inline", 0, _INLINE),
+        ("k4", "hard_w2", 0, _hard_w(2)),
+        ("k4", "hard_w2_inline", 0, _hard_w(2) + _INLINE),
+        ("k4", "hard_w4", 0, _hard_w(4)),
+        ("k4", "hard_w4_inline", 0, _hard_w(4) + _INLINE),
+        ("k4", "skip_count", 0, _N_SKIP_COUNT),
+        ("k9", "whole", 4, []),
+        ("k9", "phase_f_only", 4, [_N_K9_NO_R]),
+        ("k9", "no_atomics", 4, _N_K9_NO_ATOMICS),
+        ("k9", "global_acc", 4, _GLOBAL_ACC),
+    ],
+}
+
+
+def _callee_ptxas(log: str) -> dict:
+    """Stack and spills of the out-of-line slot-group passes (ptxas prints
+    no register count for a device function)."""
+    lines = log.splitlines()
+    out = {}
+    for i, ln in enumerate(lines[:-1]):
+        if "Function properties for " in ln and "hard_group" in ln:
+            name = ln.split("Function properties for ")[-1].strip()
+            out[name.split("hard_group")[1][:8]] = lines[i + 1].strip()
+    return out
+
+
+def _compile(wc, source: Path, part: int, obj: Path) -> subprocess.Popen:
+    return subprocess.Popen(
+        [wc._nvcc()] + wc.NVCC_FLAGS + [f"-DWF_PART={part}", "-c", "-o",
+                                        str(obj), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(procs) -> str:
+    logs = [p.communicate(timeout=900)[0] for p in procs]
+    log = "\n".join(logs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    return log
+
+
+def _link(wc, objs, out: Path):
+    r = subprocess.run([wc._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                        "-shared", "-o", str(out)] + [str(o) for o in objs],
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"link failed:\n{r.stdout}\n{r.stderr}")
+
+
+def build_variants(wc, src: Path, out_dir: Path, variants) -> dict:
+    """{(kernel, name): (library, ptxas log of its part)}: the base build
+    (every part) and each variant's part, all compiled in parallel."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    base = src.read_text()
+    jobs, procs = [], []
+    for p in wc.WF_PARTS:
+        obj = out_dir / f"base_{p}.o"
+        procs.append(_compile(wc, src, p, obj))
+        jobs.append(("base", p, obj))
+    for kern, name, part, repl in variants:
+        if not repl:
+            continue
+        text = base
+        for old, new in repl:
+            if old not in text:
+                raise RuntimeError(f"{kern}/{name}: the source has no "
+                                   f"{old[:70]!r}")
+            text = text.replace(old, new)
+        vsrc = out_dir / f"{kern}_{name}.cu"
+        vsrc.write_text(text)
+        obj = out_dir / f"{kern}_{name}_{part}.o"
+        procs.append(_compile(wc, vsrc, part, obj))
+        jobs.append(((kern, name), part, obj))
+    t0 = time.perf_counter()
+    logs = [_finish([p]) for p in procs]
+    build_s = time.perf_counter() - t0
+    base_objs = {p: obj for (tag, p, obj) in jobs if tag == "base"}
+    base_log = "\n".join(lg for (tag, _, _), lg in zip(jobs, logs)
+                         if tag == "base")
+    libs = {}
+    base_lib = out_dir / "librt_base.so"
+    _link(wc, list(base_objs.values()), base_lib)
+    for (tag, part, obj), log in zip(jobs, logs):
+        if tag == "base":
+            continue
+        objs = [obj if p == part else base_objs[p] for p in wc.WF_PARTS]
+        lib = out_dir / f"librt_{tag[0]}_{tag[1]}.so"
+        _link(wc, objs, lib)
+        libs[tag] = (wc.KernelLibrary(lib, log, 0.0), log)
+    for kern, name, part, repl in variants:
+        if not repl:
+            libs[(kern, name)] = (wc.KernelLibrary(base_lib, base_log, 0.0),
+                                  base_log)
+    print(json.dumps({"build_s": build_s, "variants": len(libs)}), flush=True)
+    return libs
+
+
+def main(root: str, which: str) -> int:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+    import real_time_ray_tracing_engine_tpu_torch as pt
+    from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    cs.check(torch.cuda.is_available(), "this profile needs a CUDA device")
+    cs.check(wc.__file__.startswith(root + os.sep),
+             f"profiling {wc.__file__}, not the package under {root}")
+    print(cs.gpu_line(), flush=True)
+    dev = torch.device("cuda", 0)
+    variants = SETS[which]
+    libs = build_variants(wc, Path(root) / cs.KERNEL_SOURCE,
+                          Path(root) / "build" / "profile" / which, variants)
+
+    flat, cam, kw = cs.pass_args(
+        pt, cs.cornell_1080p(pt, cs.TRAIN_SPP, cs.TRAIN_DEPTH), dev)
+    g = cs.cotangent(torch, kw, dev, 6)
+    slots = wc.hard_param_slots(flat)
+    prep = wc.prepare_kernel(flat, cam, slots)
+    k4 = functools.partial(wc.render_pass_grad_kernel, flat, cam, 0, 0,
+                           cotangent=g, hard_slots=slots, prepared=prep, **kw)
+    bflat, bcam, bkw = cs.pass_args(
+        pt, cs.builtin(pt, "bouncing_spheres", 1200, 16, 50), dev)
+    bkw["sky_gradient"] = True
+    bg = cs.cotangent(torch, bkw, dev, 6)
+    bprep = wc.prepare_kernel(bflat, bcam, chunk_scan=True)
+    k9 = functools.partial(ac.render_pass_adjoint_kernel, bflat, bcam, 0, 0,
+                           cotangent=bg, prepared=bprep, **bkw)
+    runs = {"k4": (k4, K4, f"cornell_box 1920x1080 spp64 d50, {len(slots)} "
+                           f"hard slots"),
+            "k9": (k9, K9, "bouncing_spheres 1200x675 spp16 d50, sky "
+                           "gradient")}
+    for kern, name, _, _ in variants:
+        lib, log = libs[(kern, name)]
+        fn, sym, shape = runs[kern]
+        wc.load_library = lambda lib=lib: lib
+        rec = {"kernel": kern, "variant": name, "shape": shape,
+               "ptxas": cs.ptxas_table(log).get(sym),
+               "ptxas_calls": _callee_ptxas(log)}
+        if name == "skip_count":
+            counts = (ctypes.c_ulonglong * 2)()
+            cfn = lib.lib.rt_prof_counts
+            cfn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            cs.check(cfn(counts, 1) == 0, "rt_prof_counts failed")
+            fn()
+            torch.cuda.synchronize()
+            cs.check(cfn(counts, 0) == 0, "rt_prof_counts failed")
+            rec.update(passes=int(counts[0]), skippable=int(counts[1]),
+                       share=counts[1] / max(counts[0], 1))
+        else:
+            rec["ms"] = cs.cuda_ms(torch, fn)
+        print(json.dumps(rec), flush=True)
+    print(cs.gpu_line(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1], sys.argv[2]))

@@ -37,6 +37,7 @@ call's gradients divided by the samples, and a plain full-family step on
 bouncing_spheres lowers the loss. The kernel itself runs only on a GPU
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
+import dataclasses
 import functools
 import sys
 from pathlib import Path
@@ -72,6 +73,24 @@ PARTED78 = (("sphc", 0, 1), ("sphc", 32, 0), ("sphc", 32, 1),
             ("sphc", 32, 2), ("sphc", 63, 1), ("sphc", 69, 2), ("sphr", 0),
             ("sphr", 32), ("fuzz", 0), ("fuzz", 54))
 GAP_RTOL, GAP_ATOL_SCALE = 2e-2, 2e-2
+# the reverse bounce's oracle (_bounce_vjp) against float64 central
+# differences of bounce_step: relative to each lane's largest entry (the
+# differences' own error at h = 1e-6 is about 1e-9; a marble's turbulence
+# hashes its lattice in float32, 5e-6 here)
+PROBE_FD_RTOL = 1e-4
+PROBE_FD_LANES = 3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread in this module, as tests/test_torch_bvh.py: the
+    plain adjoint runs hundreds of small ops a bounce, and with the suite's
+    parallel workers sharing the cores, OpenMP's threads spin against each
+    other on each of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _slots_scene(m):
@@ -426,3 +445,89 @@ def test_plain_full_family_step_on_bouncing_lowers_the_loss():
     for f, v in p.items():
         assert bool(torch.isfinite(v.grad).all()), f
     assert float(p["mat_ior"].grad.abs().max()) > 0.0
+
+
+def _float64(flat):
+    return dataclasses.replace(flat, **{
+        f.name: getattr(flat, f.name).double()
+        for f in dataclasses.fields(flat)
+        if torch.is_tensor(getattr(flat, f.name))
+        and getattr(flat, f.name).is_floating_point()})
+
+
+@pytest.mark.parametrize("case", cs.PROBE_CASES,
+                         ids=[c[0] for c in cs.PROBE_CASES])
+def test_probe_oracle_matches_central_differences(case):
+    """The plain VJP that chip_smoke.py's adjoint_bounce_probe holds the
+    kernel's reverse bounce against (adjoint_bounce_probe_reference, one
+    _bounce_vjp a lane) equals float64 central differences of bounce_step's
+    <g, radiance increment> + <lam, (o', d', th')> in the state and in
+    every table entry the adjoint accumulates (tex_color, sphere centers
+    and radii, fuzz, IOR), on a few lanes of each of the probe's branches,
+    within PROBE_FD_RTOL of the lane's largest entry."""
+    from real_time_ray_tracing_engine_tpu_torch.ops.integrator import (
+        bounce_step, medium_uniforms)
+    from real_time_ray_tracing_engine_tpu_torch.utils import rng
+    scene = cs.probe_scene(pt, case[1])
+    flat = pt.compile_scene(scene)
+    cam = pcam.derive(scene.camera)
+    sky = case[2]
+    o, d, th, tm, pix, sample, bounce = cs.probe_rays(torch, case,
+                                                      torch.device("cpu"))
+    labels = cs.probe_labels(torch, flat, o, d, th, tm, pix, sample,
+                             bounce, 7, sky, cam.background)
+    idx = torch.tensor([i for i, lab in enumerate(labels)
+                        if lab == cs.probe_wanted(case)][:PROBE_FD_LANES])
+    assert idx.numel() == PROBE_FD_LANES, (case[0], labels)
+    f64 = wc.all_primitive(_float64(flat))
+    gen = np.random.default_rng(0)
+    g = torch.tensor(gen.standard_normal((idx.numel(), 3)))
+    lam = torch.tensor(gen.standard_normal((idx.numel(), 9)))
+    x = torch.cat([o[idx], d[idx], th[idx]], 1).double()
+    lam_in, rows = ac.adjoint_bounce_probe_reference(
+        f64, cam, x[:, 0:3], x[:, 3:6], x[:, 6:9], tm[idx], pix[idx],
+        sample[idx], bounce[idx], g, lam, seed=7, sky_gradient=sky)
+    keys = rng.ray_keys(7, pix[idx], sample[idx])
+    u = rng.bounce_uniforms(keys, bounce[idx])
+    u_med = medium_uniforms(f64, keys, bounce[idx])
+    live = torch.ones(idx.numel(), dtype=torch.bool)
+
+    def value(scene64, x):
+        drad, o2, d2, th2, _ = bounce_step(
+            scene64, x[:, 0:3], x[:, 3:6], tm[idx], x[:, 6:9], live, u,
+            u_med, cam.background.double(), sky)
+        return (g * drad).sum(1) + (lam * torch.cat([o2, d2, th2], 1)).sum(1)
+
+    def central(shift):
+        return (shift(1.0) - shift(-1.0)) / 2.0
+    want_state = torch.zeros_like(lam_in)
+    for j in range(9):
+        h = 1e-6 * torch.clamp(x[:, j].abs(), min=1.0)
+        want_state[:, j] = central(
+            lambda sg: value(f64, x + sg * h[:, None]
+                             * torch.eye(9, dtype=x.dtype)[j])) / h
+    NT, S, NM = ac.adjoint_layout(flat)
+    want_rows = torch.zeros_like(rows)
+    entries = ([("tex_color", (t, c), 3 * t + c)
+                for t in range(NT) for c in range(3)]
+               + [("sph_center", (r, c), 3 * NT + 4 * r + c)
+                  for r in range(S) for c in range(3)]
+               + [("sph_radius", (r,), 3 * NT + 4 * r + 3) for r in range(S)]
+               + [(f, (m,), 3 * NT + 4 * S + 2 * m + k)
+                  for m in range(NM)
+                  for k, f in enumerate(("mat_fuzz", "mat_ior"))])
+    for field, at, col in entries:
+        base = getattr(f64, field)
+        h = 1e-6 * max(1.0, abs(float(base[at])))
+
+        def shifted(sg):
+            t = base.clone()
+            t[at] += sg * h
+            return value(dataclasses.replace(f64, **{field: t}), x)
+        want_rows[:, col] = central(shifted) / h
+    got = torch.cat([lam_in, rows], 1)
+    want = torch.cat([want_state, want_rows], 1)
+    scale = want.abs().max(1).values[:, None]
+    assert bool((scale > 0).all())
+    err = (got - want).abs() / scale
+    assert float(err.max()) <= PROBE_FD_RTOL, (case[0], float(err.max()))

@@ -69,6 +69,18 @@ GAP_RTOL, GAP_ATOL_SCALE = 2e-2, 2e-2
 SWEEP_IMAGE_ATOL, SWEEP_RTOL, SWEEP_ATOL_SCALE = 1e-6, 1e-5, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread in this module, as tests/test_torch_bvh.py: the
+    plain sweeps run hundreds of small ops a bounce, and with the suite's
+    parallel workers sharing the cores, OpenMP's threads spin against each
+    other on each of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _smoke_scene(m):
     """cornell_smoke at 16 px, depth 4 (tests/test_torch_adjoint.py's)."""
     scene = m.builders.cornell_smoke()

@@ -10,8 +10,8 @@ and t bit for bit; kernel_mode and the gates agree with the JAX package's
 under each setting of RTX_BVH_STACK / RTX_LANE_BVH; training takes the
 JAX tier on a BVH-mode scene; the CLI's -b renders on the CPU. The CUDA
 instances run only on the card (tests/test_torch_cuda.py, chip_smoke.py).
-The exact-selection tests use test_torch_vscan.py's exactly rounded sqrt
-(see its docstring)."""
+The exact-selection tests rely on the port's correctly rounded sqrt
+(utils/vecmath.sqrt; see test_torch_vscan.py's docstring)."""
 import sys
 from pathlib import Path
 
@@ -41,7 +41,6 @@ from real_time_ray_tracing_engine_tpu_torch.scene.flat import FlatScene
 from real_time_ray_tracing_engine_tpu_torch.utils import cli
 
 from test_pallas import _assert_close as assert_close
-from test_torch_vscan import exact_sqrt  # noqa: F401  (a fixture)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402  (stdlib only at import)
@@ -249,7 +248,7 @@ def _scene_rays(flat, n, seed):
 @pytest.mark.parametrize("mode, name", [("stack", "random"),
                                         ("stack", "mixed"),
                                         ("lane", "spheres")])
-def test_select_references_match_closest_hit(mode, name, exact_sqrt):
+def test_select_references_match_closest_hit(mode, name):
     """Both plain selections pick the all-primitive winner and t bit for
     bit on seeded rays: the stack walk over mixed sphere / quad leaves, the
     lane walk on the all-sphere scene with movers."""
@@ -262,7 +261,7 @@ def test_select_references_match_closest_hit(mode, name, exact_sqrt):
         assert (prim >= flat.sph_center.shape[0]).any()
 
 
-def test_select_ties_go_to_the_lowest_id(exact_sqrt):
+def test_select_ties_go_to_the_lowest_id():
     """Six equal spheres at each of two spots, at time 0: a mover of the
     lowest id and five static ones at A, a static one of the lowest id and
     five movers at B. The build splits each group over leaves (the mover's
@@ -324,7 +323,7 @@ GRAZING = {
 
 
 @pytest.mark.parametrize("name", GRAZING)
-def test_select_grazing_node_box_faces(name, exact_sqrt):
+def test_select_grazing_node_box_faces(name):
     """Rays along the faces of the leaves' boxes, tangent to the sphere
     that spans each face, just inside and just outside: the widened boxes
     keep every grazing winner the all-primitive test finds, in both

@@ -532,6 +532,96 @@ def test_adjoint_kernel_matches_plain(name, cuda_device):
     assert float(grads_p["tex_color"].abs().max()) > 0.0
 
 
+@pytest.mark.parametrize("case", cs.PROBE_CASES,
+                         ids=[c[0] for c in cs.PROBE_CASES])
+def test_adjoint_probe_matches_plain_vjp(case, cuda_device):
+    """The adjoint kernels' reverse bounce alone (adj_reverse_bounce through
+    adjoint_bounce_probe) against torch autograd of the bounce
+    (adjoint_bounce_probe_reference), per lane, on each branch of
+    chip_smoke.py's probe: the state's cotangent and every accumulator
+    entry within PROBE_RTOL of the branch's largest entry."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    before = ac.adjoint_bounce_probe.launches
+    idx, lam_k, rows_k = cs.probe_run(torch, pt, ac, case, cuda_device,
+                                      ac.adjoint_bounce_probe)
+    assert ac.adjoint_bounce_probe.launches == before + 1
+    _, lam_p, rows_p = cs.probe_run(torch, pt, ac, case, cuda_device,
+                                    ac.adjoint_bounce_probe_reference)
+    assert idx.numel() >= 8, case[0]
+    got = torch.cat([lam_k.double(), rows_k], 1)
+    want = torch.cat([lam_p.double(), rows_p], 1)
+    scale = float(want.abs().max())
+    assert scale > 0.0 and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= cs.PROBE_RTOL * scale, case[0]
+
+
+def _wide_slots_scene():
+    """materials_scene with two more spheres: 34 hard slots (a fuzz, an
+    IOR, eight sphere rows), 8 primitives (the unrolled kernel)."""
+    scene = cs.materials_scene(pt)
+    for x in (-2.0, 2.0):
+        scene.objects.append(pt.Sphere(
+            (x, 0.4, 2.0), 0.4, pt.Lambertian(pt.SolidColor((0.3, 0.6,
+                                                             0.4)))))
+    scene.camera.image_width = 32
+    scene.camera.samples_per_pixel = 4
+    scene.camera.max_depth = 6
+    return scene
+
+
+@pytest.mark.parametrize("n_slots", [1, 5, 9, 32])
+def test_hard_grad_kernel_slot_groups_match_plain(n_slots, cuda_device):
+    """K4's slot groups (HARD_W slots a dual pass, the warp-wide skip) at K
+    = 1, 5 and 9 slots on Cornell (the glass IOR, the glass sphere, its
+    light-list copy: groups of 1 and 4) and the first 32 of 34 on a wider
+    scene (the gate's edge; the last sphere row's group cut at 2) against
+    the plain version's tangent bundles: dG_hard within 1e-4 of its largest
+    entry per family, the image the forward kernel's."""
+    if n_slots < 32:
+        flat, cam, kw = _pass_args("cornell_box", cuda_device, width=32)
+    else:
+        flat, cam, kw = cs.pass_args(pt, _wide_slots_scene(), cuda_device)
+    slots = wc.hard_param_slots(flat)[:n_slots]
+    assert len(slots) == n_slots
+    g = _cotangent(kw, cuda_device, 4)
+    img_k, _, dgh_k = wc.render_pass_grad_kernel(
+        flat, cam, 7, 0, cotangent=g, hard_slots=slots, **kw)
+    torch.cuda.synchronize()
+    _, _, dgh_p = wc.render_pass_grad_reference(
+        flat, cam, 7, 0, cotangent=g, hard_slots=slots, **kw)
+    fwd = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
+    np.testing.assert_array_equal(img_k.cpu().numpy(), fwd.cpu().numpy())
+    assert dgh_k.shape == (n_slots,)
+    for fam, (err, scale) in _family_errors(slots, dgh_k, dgh_p).items():
+        assert scale > 0.0 and err <= 1e-4 * scale, (fam, err, scale)
+
+
+def test_adjoint_kernel_on_a_medium_and_a_marble(cuda_device):
+    """K9 against its plain version on the MIS + medium scene with a marble
+    (noise) ground: a medium's free flight and a marble's position
+    gradient in the reverse bounce, both light kinds. The image is the
+    forward kernel's, each family within 1e-4 of its largest entry."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    scene = cs.mis_medium_scene(pt)
+    scene.objects[0] = pt.Sphere((0, -1000, 0), 1000.0,
+                                 pt.Lambertian(pt.Noise(3.0)))
+    scene = cs.sized(scene, 48, 4, 6)
+    flat, cam, kw = cs.pass_args(pt, scene, cuda_device)
+    assert flat.has_noise and flat.n_mediums == 1
+    g = cs.cotangent(torch, kw, cuda_device, 9)
+    img, grads = ac.render_pass_adjoint_kernel(flat, cam, 7, 0, cotangent=g,
+                                               **kw)
+    fwd = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
+    _, grads_p = ac.render_pass_adjoint_reference(flat, cam, 7, 0,
+                                                  cotangent=g, **kw)
+    np.testing.assert_array_equal(img.cpu().numpy(), fwd.cpu().numpy())
+    for f in ac.ADJOINT_FIELDS:
+        scale = float(grads_p[f].abs().max())
+        assert bool(torch.isfinite(grads[f]).all()), f
+        assert float((grads[f] - grads_p[f]).abs().max()) <= 1e-4 * scale, f
+    assert float(grads_p["sph_center"].abs().max()) > 0.0
+
+
 @pytest.mark.parametrize("name, seg", [("cornell", 3), ("slots", 6),
                                        ("smoke", 1)])
 def test_seg_adjoint_kernel_matches_plain(name, seg, cuda_device):

@@ -10,13 +10,13 @@ passes, which one is missing. The CUDA instance itself runs only on the
 card (tests/test_torch_cuda.py, chip_smoke.py).
 
 Exactness and torch's CPU sqrt: torch's float32 sqrt in CPU builds with
-AVX-512 and MKL (2.13.0+cpu) is not correctly rounded (about 0.6% of
+AVX-512 and MKL (2.13.0+cpu) is not correctly rounded (about 0.7% of
 random inputs land one ulp off) and rounds an element differently
-depending on where the thread split puts it, so two calls on different
-subsets of rays can differ in the last bit. The CUDA kernel and torch on the card round sqrt exactly.
-The exact-selection tests therefore run the primitive tests with an exactly
-rounded float32 sqrt (through float64), on both sides alike; what they
-check is the walk, the cull and the tie rule.
+depending on where the thread split puts it. The port's sqrt
+(utils/vecmath.sqrt) rounds the float64 sqrt to float32 on the CPU, which
+is correctly rounded for every input, as the JAX package's and the card's
+are (test_port_sqrt_is_correctly_rounded), so the exact-selection tests
+compare two calls on different subsets of rays bit for bit.
 """
 import sys
 from pathlib import Path
@@ -40,6 +40,7 @@ from real_time_ray_tracing_engine_tpu_torch.parallel import train
 from real_time_ray_tracing_engine_tpu_torch.scene.convert import (
     camera_from_numpy, camera_to_numpy, flat_from_numpy, flat_to_numpy)
 from real_time_ray_tracing_engine_tpu_torch.scene.flat import FlatScene
+from real_time_ray_tracing_engine_tpu_torch.utils import vecmath as vm
 
 from test_pallas import _assert_close as assert_close
 
@@ -57,12 +58,23 @@ def _carried(scene):
     return jf, flat_from_numpy(*flat_to_numpy(jf), device="cpu")
 
 
-@pytest.fixture
-def exact_sqrt(monkeypatch):
-    """Exactly rounded float32 sqrt in the primitive tests (see the module
-    docstring)."""
-    monkeypatch.setattr(pint, "safe_sqrt", lambda x, eps=1e-12: torch.sqrt(
-        torch.clamp(x, min=eps).double()).float())
+def test_port_sqrt_is_correctly_rounded():
+    """The port's sqrt equals the float64 sqrt rounded to float32 (the
+    correctly rounded result) and jnp.sqrt on XLA:CPU, bit for bit, on
+    seeded float32 values; torch.sqrt on the CPU does not, which is why the
+    port routes every sqrt of its plain versions through its own."""
+    x = np.random.default_rng(0).uniform(0.0, 1e4, 200_000).astype(
+        np.float32)
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    got = vm.sqrt(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(
+        np.asarray(jax.jit(jnp.sqrt)(x)).view(np.int32), want.view(np.int32))
+    assert (torch.sqrt(torch.from_numpy(x)).numpy() != want).any()
+    # and the gradient runs through it
+    t = torch.tensor([4.0, 9.0], requires_grad=True)
+    vm.sqrt(t).sum().backward()
+    np.testing.assert_allclose(t.grad.numpy(), [0.25, 1.0 / 6.0], rtol=1e-6)
 
 
 def _winners(flat, o, d, tm):
@@ -171,7 +183,7 @@ def _rays(flat, n, seed):
 
 
 @pytest.mark.parametrize("name", list(SCENES) + ["grid9"])
-def test_select_reference_matches_closest_hit(name, exact_sqrt):
+def test_select_reference_matches_closest_hit(name):
     scene = (cs.grid_scene(rt, 9) if name == "grid9" else SCENES[name]())
     _, pf = _carried(scene)
     vt = wc.pack_vscan_tables(pf)
@@ -182,7 +194,7 @@ def test_select_reference_matches_closest_hit(name, exact_sqrt):
         assert (prim >= vt.S).any()         # quad winners from the chunks
 
 
-def test_select_ties_go_to_the_lowest_id(exact_sqrt):
+def test_select_ties_go_to_the_lowest_id():
     """Two spheres equal at time 0, one static and one moving, land in
     different chunks (statics first, movers after); a ray at time 0 hits
     both at the same t, and the lower original id wins whichever chunk the
@@ -218,7 +230,7 @@ def test_select_ties_go_to_the_lowest_id(exact_sqrt):
     assert not ((prim == 150) | (prim == 200)).any()
 
 
-def test_select_grazing_chunk_box_faces(exact_sqrt):
+def test_select_grazing_chunk_box_faces():
     """Rays along the faces of the chunk boxes, tangent to the sphere that
     spans each face, just inside and just outside: the widened boxes keep
     every grazing winner the all-primitive test finds."""
