@@ -15,9 +15,11 @@ its own 1200x675, 100 spp, depth 50 through the chunk scan (K6), and a
 301-quad city scene file through its quad chunks (K7); and large-scene
 training, make_train_step on bouncing_spheres at 1200x675 spp16 d50 over
 tex_color (the suffix-radiance kernel K8) and tex_color + IOR (K4v riding
-K8), with the chunk scan's weight planes (K3v, in registers and for 17 to
-32 rows in shared memory) and tangent bundles (K4v) at their full-size
-shapes on the JAX tests' scenes and a 28-row scene; and full-family
+K8), the suffix tier's gradient equal bit for bit over two runs (K8, K8 +
+K4v, the BVH walks' tiers), with the chunk scan's weight planes (K3v, in
+registers and for 17 to 32 rows in shared memory) and tangent bundles
+(K4v) at their full-size shapes on the JAX tests' scenes and a 28-row
+scene; and full-family
 training at scale, make_train_step over all five families of
 bouncing_spheres (2,013 hard slots) through the adjoint backward (K9), at
 the JAX bench line's 400x225 spp9 d50 and at 1200x675 spp16 d50 under the
@@ -111,11 +113,13 @@ DG_RTOL = 1e-4
 # derivatives several times a family's largest entry through near-tangent
 # roots (a grazing hit on the radius-1000 ground, where the root formula's
 # two terms agree to 1e-4; a path that grazes a metal sphere), and every
-# two float32 routes part on such a lane by about 1e-4 of its own size: the
-# forward-mode kernel (K4v) and the plain version by 2.8e-4 of fuzz's
-# largest entry. The phase prints that gap beside K9's on the entries that
-# part most (PERF.md §6)
-ADJ_MAIN_RTOL = 3e-4
+# two float32 routes part on such a lane by about 1e-4 of its own size.
+# K9's hand-written reverse (its sphere root in double) parts from the plain
+# version there by at most 1.04e-4 of a family's largest entry (IOR; fuzz
+# 2.34e-5, the rest at most 1.8e-5) on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md §6); the bound is about twice that. The phase prints the gaps
+# beside K4v's on the entries that part most
+ADJ_MAIN_RTOL = 2e-4
 # the training main path: Cornell at the JAX package's fwd+bwd benchmark
 # shape (bench.py:122-198), tex_color only, from the three wall rows dimmed
 TRAIN_W, TRAIN_H, TRAIN_SPP, TRAIN_DEPTH = 1920, 1080, 64, 50
@@ -182,10 +186,12 @@ OPS_SLOT = 104.5
 # traversal (BVHNode.cu:9-31), 2 ceil(log2 N) box tests (AABB::hit, about
 # 10 operations an axis) and 2 primitive tests. A chunk scan does more.
 OPS_BOX = 30
-# the suffix tier (K8): phase B replays each phase-A bounce (a second
-# vscan_bounce_ops) and routes its hit's events: per channel the suffix
-# T - P, |at| against 1e-8, the division, the emission select, the sum,
-# the cotangent product and the accumulator add (7), and the prefix add
+# the suffix tier (K8): a forward bounce (vscan_bounce_ops) and the routes
+# of its hit's events: per channel the suffix T - P, |at| against 1e-8,
+# the division, the emission select, the sum, the cotangent product and the
+# accumulator add (7), and the path total's add. The JAX kernel's phase B,
+# which replays each bounce to learn P, is not work the function needs (the
+# kernel keeps P from its one trace)
 OPS_ROUTE = 3 * 8
 # the adjoint (K9): phase F is a forward bounce (vscan_bounce_ops); phase R
 # draws the bounce's numbers again (OPS_RNG) and pushes the cotangents back
@@ -630,6 +636,24 @@ def suffix_scene(api):
         background=(0.3, 0.4, 0.6)), name="suffix_grad")
 
 
+def nt16_scene(api):
+    """15 spheres of their own albedos and a sphere light under a dark sky,
+    16 texture rows: the unrolled tex grad instance at its NTMAX 16."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    objs = [api.Sphere(tuple(map(float, rng.uniform(-3, 3, 3))), 0.7,
+                       api.Lambertian(api.SolidColor(
+                           tuple(map(float, rng.uniform(0.2, 0.9, 3))))))
+            for _ in range(15)]
+    light = api.Sphere((0, 6, 0), 1.5,
+                       api.DiffuseLight(api.SolidColor((5., 5., 5.))))
+    return api.Scene(objects=objs + [light], lights=[light],
+                     camera=api.CameraConfig(
+                         image_width=64, aspect_ratio=1.0, vfov=50,
+                         lookfrom=(0, 1, 10), lookat=(0, 0, 0),
+                         background=(0.1, 0.1, 0.15)), name="nt16")
+
+
 def wide(scene, width, spp, depth):
     """sized() at 16:9, width x width * 9/16 (1200x675 at 1200)."""
     scene.camera.aspect_ratio = 16 / 9
@@ -942,6 +966,21 @@ def ptxas_table(log: str) -> dict:
             regs = lines[i + 2].split("Used ")[-1].split(",")[0]
             out[name] = f"{regs}; {lines[i + 1].strip()}"
     return out
+
+
+# the redesigned instances' symbols (patterns of the mangled names): K3,
+# the tex grad's own kernel (wavefront_tex_grad_kernel<8|16>), and K8, the
+# suffix tier on the chunk scan with and without K4v's slots
+# (wavefront_grad_vscan_kernel<0, *, true, false>)
+K3_SYMBOL = "_Z25wavefront_tex_grad_kernelILi"
+K8_SYMBOL = "_Z27wavefront_grad_vscan_kernelILi0ELb[01]ELb1ELb0E"
+
+
+def ptxas_prefix(log: str, pattern: str) -> dict:
+    """ptxas_table's entries whose kernel names start with `pattern` (a
+    regular expression)."""
+    pat = re.compile(pattern)
+    return {k: v for k, v in ptxas_table(log).items() if pat.match(k)}
 
 
 def ptxas_hard(log: str, kernel: str) -> dict:
@@ -1874,11 +1913,11 @@ def main() -> int:
     # bundles, K8 the suffix-radiance tier) against the plain grad pass on
     # the card, at the large-scene training path's image and depth
     # (1200x675 d50) at 4 of its 16 samples: the grad image equal to the
-    # forward kernel's, the bounces (the suffix tier traces each sample
-    # twice: twice the forward's, and the plain pass's), dG_tex and dG_hard
-    # (per family) within DG_RTOL of their largest entries (the suffix
-    # tier's accumulators add with float atomics, in no fixed order), and
-    # the compacted schedule (K5) against the single pass. bouncing's IOR
+    # forward kernel's, the bounces the forward's (the plain suffix tier
+    # traces each sample twice, phase A's bounces the forward's, the
+    # kernel once), dG_tex and dG_hard (per family) within DG_RTOL of their
+    # largest entries (the two sum the lanes in other orders), and the
+    # compacted schedule (K5) against the single pass. bouncing's IOR
     # slot is taken under the sky gradient: under its own constant
     # background no radiance depends on a direction, so every hard
     # gradient of the scene is exactly 0 (both versions give 0).
@@ -1989,8 +2028,8 @@ def main() -> int:
               f"{name}: compacted image differs from single by "
               f"{rec['compacted_image_max_abs_err']}")
         twice = 2 if form == "suffix" else 1
-        check(bk == bp == twice * bf, f"{name}: kernel traced {bk} "
-              f"bounces, plain {bp}, forward {bf} (x{twice})")
+        check(bk == bf and bp == twice * bf, f"{name}: kernel traced {bk} "
+              f"bounces, forward {bf}, plain {bp} (x{twice})")
         if want_tex:
             check(rec["dg_tex_scale"] > 0.0, f"{name}: plain dG_tex is 0")
             for key in ("dg_tex_max_abs_err", "dg_tex_compacted_max_abs_err"):
@@ -2190,7 +2229,7 @@ def main() -> int:
     # the sky gradient), K3v on the 80-sphere scene, K4v on the 79-sphere
     # scene's 4 slots; single pass and the compacted schedule (the default
     # grad caps), the scene packed once; bounds from the run's own bounces
-    # (the forward's: the suffix tier's phase-A bounces)
+    # (the forward's, which the suffix tier traces once)
     large_grad_times = {}
     for name, scene, slots, want_tex, sky in (
             ("k8", builtin(pt, "bouncing_spheres", 1200, 16, 50), (), True,
@@ -2223,7 +2262,7 @@ def main() -> int:
         form = wc.tex_form(flat, want_tex)
         ops = vscan_bounce_ops(flat) + OPS_SLOT * len(slots)
         if form == "suffix":
-            ops += vscan_bounce_ops(flat) + OPS_ROUTE
+            ops += OPS_ROUTE
         elif form == "planes":
             ops += OPS_PLANE * 3 * flat.tex_type.shape[0]
         n = kw["width"] * kw["height"] * kw["n_samples"]
@@ -2259,6 +2298,71 @@ def main() -> int:
         emit("large_grad_times", card=card, shape=f"{name} 1200x675 spp16 "
              "d50", **rec)
     done("large_grad_times")
+
+    # 8e. the suffix tier's sums are the same on every run: K8 launched
+    # twice at the large-scene training shape (bouncing_spheres 1200x675
+    # spp16 d50), single pass and under the compacted schedule (a path's
+    # records ride the carry across the passes), its image and dG_tex equal
+    # bit for bit between the runs; the same for K8 with the IOR slot (K4v
+    # riding it, under the sky gradient; dG_hard too) and for the BVH
+    # walks' suffix tiers (K11, K12) on the -b scene. The routes are summed
+    # in an order the data fixes (csrc/wavefront.cu, suffix_routes), so a
+    # walk's dG_tex is also the chunk scan's on the same scene, bit for bit
+    # (printed)
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    det_scene = builtin(pt, "bouncing_spheres", 1200, 16, 50)
+    dflat, dcam, dkw = pass_args(pt, det_scene, dev)
+    dbflat = pt.compile_scene(det_scene, use_bvh=True, device=dev)
+    suffix_det, det_tex = {}, {}
+    for name, mode, slots, sky in (
+            ("k8", "vscan", (), False),
+            ("k8_k4v_ior", "vscan", "mat_ior", True),
+            ("k8_b", "vscan", (), False),
+            ("k11", "stack", (), False),
+            ("k12", "lane", (), False)):
+        f = dbflat if name in ("k8_b", "k11", "k12") else dflat
+        kwd = dict(dkw, sky_gradient=dkw["sky_gradient"] or sky)
+        with kernel_mode_env(mode):
+            check(wc.kernel_mode(f)[0] == mode, f"suffix_determinism {name}")
+            sl = wc.hard_param_slots(f, {slots}) if slots else ()
+            gpass = functools.partial(wc.render_pass_grad_kernel,
+                                      prepared=wc.prepare_kernel(f, dcam, sl))
+            g = cotangent(torch, kwd, dev, 6)
+            gkw = dict(cotangent=g, hard_slots=sl, **kwd)
+            check(wc.tex_form(f) == "suffix", f"{name}: not the suffix tier")
+            rec = {"mode": mode, "slots": len(sl)}
+            for sched in ("single", "compacted"):
+                if sched == "single":
+                    runs = [gpass(f, dcam, 0, 0, **gkw) for _ in range(2)]
+                else:
+                    runs = [wc.render_pass_grad_compacted(
+                        f, dcam, 0, 0, pass_fn=gpass, **gkw)
+                        for _ in range(2)]
+                torch.cuda.synchronize()
+                a, b = runs
+                rec[sched] = {
+                    part: bool(torch.equal(bits(x), bits(y)))
+                    for part, x, y in zip(("image", "dg_tex", "dg_hard"), a,
+                                          b) if x is not None and x.numel()}
+                rec[sched]["dg_tex_scale"] = float(a[1].abs().max())
+                if sched == "single":
+                    det_tex[name] = a[1]
+        if name in ("k11", "k12"):
+            rec["dg_tex_equals_chunk_scan"] = bool(torch.equal(
+                bits(det_tex[name]), bits(det_tex["k8_b"])))
+        suffix_det[name] = rec
+        emit("suffix_determinism", case=name,
+             shape="bouncing_spheres 1200x675 spp16 d50"
+                   + (" -b" if f is dbflat else ""), **rec)
+        for sched in ("single", "compacted"):
+            r = rec[sched]
+            check(r["dg_tex_scale"] > 0.0, f"{name} {sched}: dG_tex is 0")
+            check(all(v for k, v in r.items() if k != "dg_tex_scale"),
+                  f"suffix_determinism {name} {sched}: two runs differ {r}")
+    del det_tex
+    done("suffix_determinism")
 
     # 9. the adjoint (K9) against its plain version on the card: bouncing
     # at the main path's two shapes, 400x225 spp9 d50 and 1200x675 spp16
@@ -3068,7 +3172,7 @@ def main() -> int:
     # the suffix tier (K8's) on the walk's selection; the loss falls at
     # every step, the walk's grad launches counted, no plain pass. The
     # first step's gradient, by render_loss_grad, equals K8's on the chunk
-    # scan (same paths; the suffix tier's float atomics add in any order):
+    # scan (same paths, the same routes summed in the same order):
     # within 1e-5 of its largest entry. Then one step over all five
     # families on the stack-mode scene at 400x225 spp9 d50 from the dimmed
     # rows: the hard slots take the adjoint (K9, on the chunk scan's
@@ -3166,6 +3270,10 @@ def main() -> int:
     emit("phase_seconds", **phase_s)
 
     hard_main = hard_err["cornell_box_1920x1080"]
+    k3_ptxas = ptxas_prefix(lib.build_log, K3_SYMBOL)
+    k8_ptxas = ptxas_prefix(lib.build_log, K8_SYMBOL)
+    check(len(k3_ptxas) == 2 and len(k8_ptxas) == 2,
+          f"ptxas figures of K3 {k3_ptxas} and K8 {k8_ptxas}")
     print(json.dumps({"kernels": [{
         "name": "wavefront_forward_kernel", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -3183,7 +3291,8 @@ def main() -> int:
                  f"d{TRAIN_DEPTH}",
         "plain_ms_at": grad_err["plain_ms_at"],
         "plain_compacted_ms": grad_err["plain_compacted_ms"],
-        "compacted_ms": t_gcomp}, {
+        "compacted_ms": t_gcomp,
+        "ptxas": k3_ptxas}, {
         "name": "wavefront_grad_kernel[hard_slots]", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
         "launches": ftrain_hard,
@@ -3273,7 +3382,13 @@ def main() -> int:
         "ms_at": "bouncing_spheres 1200x675 spp16 d50",
         "plain_ms_at": "bouncing_spheres 1200x675 spp4 d50",
         "max_abs_err_at": "dG_tex, bouncing_spheres 1200x675 spp4 d50",
-        "compacted_ms": large_grad_times["k8"]["compacted_ms"]}, {
+        "compacted_ms": large_grad_times["k8"]["compacted_ms"],
+        "with_ior_slot_ms": large_grad_times["k8_k4v_ior"]["single_ms"],
+        "same_on_every_run": all(
+            all(v for k, v in r[sched].items() if k != "dg_tex_scale")
+            for r in suffix_det.values()
+            for sched in ("single", "compacted")),
+        "ptxas": k8_ptxas}, {
         "name": "wavefront_adjoint_kernel", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K9,
         "launches": adj_launches,

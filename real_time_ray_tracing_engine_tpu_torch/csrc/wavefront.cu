@@ -57,7 +57,9 @@
 //   physics<float, NTMAX> updates them inside the branches of the radiance
 //   events and the scatter (kept there: gathering the events into a record
 //   and updating after the bounce made this kernel 12% slower on the
-//   H100). NTMAX is 8 (Cornell: NT = 6) or 16 (the gate's MAX_TEXS).
+//   H100). NTMAX is 8 (Cornell: NT = 6) or 16 (the gate's MAX_TEXS). For
+//   tex_color alone K3 is its own kernel, wavefront_tex_grad_kernel, held
+//   to four blocks an SM (see there).
 //
 // Gradient, tangent bundles (K4): with HARD, each of the K hard slots
 //   (metal fuzz, dielectric IOR, sphere center and radius scalars) has a
@@ -181,27 +183,40 @@
 //   sums reduce per block as dG does.
 //
 // Suffix-radiance tier (K8), for more than MAX_GRAD_TEXS texture rows,
-//   where weight planes (6 floats a row a lane) do not fit: each lane runs
-//   each sample twice from the same counter-RNG draws. Phase A traces it,
-//   owns the image and the hard slots' tangents, and sums the path's
-//   radiance T; phase B replays it bounce for bounce, sums the prefix P
-//   after each bounce, and routes g * [th at an emission + (T - P) / at at
-//   a non-dielectric hit] to the hit's eff row: what a path radiates after
-//   a hit is proportional to that hit's attenuation at, so one division
-//   gives d radiance / d at (0 where |at| <= 1e-8: a channel of albedo
-//   exactly 0 gets no scatter gradient, the JAX estimator's known limit).
-//   The routes add into a per-block 3 * NT accumulator in shared memory
-//   (5.5 KB at bouncing_spheres' 460 rows) with float atomicAdd, where the
-//   JAX kernel reduces 128-wide one-hot rows; the carry gains the phase, T
-//   and P (7 rows). The cost is about two forward passes, whatever NT is.
+//   where weight planes (6 floats a row a lane) do not fit: the gradient of
+//   a path's radiance T along a hit's attenuation at is (T - P) / at, P the
+//   prefix of T up to and including that hit's bounce (what the path
+//   radiates after a hit is proportional to at), plus th at an emission.
+//   The JAX kernel traces each sample twice from the same counter-RNG
+//   draws, phase A for T and phase B for each P. Here each sample is traced
+//   once: P after a bounce is the path total Tt so far, bit for bit (both
+//   sums start at 0 and add the same increments in the same order), so each
+//   scattering hit with an eff row stores a record (its eff row, at, and Tt
+//   after the bounce: SFX_REC floats in global memory, [record][field][lane]
+//   in the lane's column) and, when the path ends (a miss, a light, an
+//   absorption or max_depth) and T is known, each record routes g * (T - P)
+//   / at (0 where |at| <= 1e-8: a channel of albedo exactly 0 gets no
+//   scatter gradient, the JAX estimator's known limit) and the last hit g *
+//   [th at an emission + (T - T) / at], to the eff rows: every route value
+//   is the two-phase design's bit for bit. A capped pass leaves a path's
+//   pending records in the carry (after T and the record count: 4 +
+//   SFX_REC * max_depth rows), so a path spans the compacted driver's
+//   passes. The routes are summed in an order the data fixes: the lane loop
+//   runs warp-synchronously (a lane with no work left takes empty
+//   iterations), and after each iteration the warp routes its lanes'
+//   records in rounds: lanes routing to the same row combine by a shuffle
+//   sum in lane order (__match_any_sync), the lowest lane adding it to the
+//   warp's own 3 * NT row in global memory (the suffix scratch); at the end
+//   the block adds its four warp rows in warp order. dG_tex is then the
+//   same on every run (the JAX kernel reduces 128-wide one-hot rows in a
+//   fixed order), and takes no shared memory whatever NT is.
 //
 // Reductions: Gp (K3) per block by a shuffle tree in each warp and then the
 //   4 warps in order; dG (K4) per block by one thread per slot summing the
-//   block's 128 lanes in order. One partial row per block (3NT tex entries,
-//   then K hard ones); the wrapper sums the rows. Outside the suffix tier
-//   there are no float atomics, so those gradients are the same on every
-//   run; the suffix tier's per-block sums take its atomics' order, so its
-//   dG_tex may differ in the last bits from run to run.
+//   block's 128 lanes in order; the suffix tier's warp rows as above. One
+//   partial row per block (3NT tex entries, then K hard ones); the wrapper
+//   sums the rows. There are no float atomics, so every gradient is the
+//   same on every run.
 //
 // RNG: the PCG4D counter hash keyed per (pixel, absolute sample, mixed
 //   seed) with the tags camera 0x0CA4, bounce 0x4000000 + b and medium
@@ -214,12 +229,16 @@
 //   different material branches and finish their paths at different
 //   times); device-memory traffic is negligible: 12 floats read and 3 (or
 //   17) written per lane, plus 3 cotangent floats and (3*NT + 9*K) carry
-//   floats each way in the grad pass. The grad pass adds 3*NTMAX
+//   floats each way in the grad pass; K8's records, 7 floats a scattering
+//   hit, are written and read once. The grad pass adds 3*NTMAX
 //   multiply-adds per radiance event and per scatter for K3, and for K4 the
 //   dual passes: the tangent work is about a seventh of a dual bounce
 //   (chip_smoke.py counts it alone for the bound), the values the rest.
-// What the design does about it: K4 skips a slot group in a warp where its
-//   tangents are exactly zero, and can compute the values once a group
+// What the design does about it: K3 keeps the forward's four blocks an SM
+//   (its registers held to 128, a few spilled); K8 traces each sample once
+//   (the JAX kernel's replay only learned prefixes the trace already
+//   holds); K4 skips a slot group in a warp where its tangents are exactly
+//   zero, and can compute the values once a group
 //   (HARD_W; the values were 56% of the one-slot passes on Cornell's 9
 //   slots at 1920x1080 on an NVIDIA H100 80GB HBM3 at 700 W, but wider
 //   passes measured slower, PERF.md); K9 and K10 take the bounce's
@@ -274,6 +293,9 @@
 #define QROW_COLS 20    // quad chunk row: corner, u, v, normal, d, w, id, 0 0 0
 #define SEED_SPH 1
 #define SEED_MATF 2
+#define SFX_REC 7       // a suffix-tier record: eff row, at xyz, P xyz
+#define SFX_STATE 4     // the suffix tier's carry rows before its records:
+                        // T xyz, the record count
 
 // Mirrored field by field by ops/wavefront_cuda.py::_Params (ctypes).
 struct WfParams {
@@ -1558,6 +1580,82 @@ __device__ __noinline__ void hard_group(
     }
 }
 
+// The suffix tier's routes after one iteration of the lane loop, called by
+// every lane of the warp (the loop is warp-synchronous there): a lane owes
+// n_fl routes, the first fl_mem its path's records (rec, SFX_REC floats
+// each: eff row, at, the prefix P), then the path's last hit (ev, th0 its
+// pre-bounce throughput, P = T), each g * (e + (T - P) / at) per channel
+// to its eff row: the two-phase design's phase-B value, operation for
+// operation (e: th at an emission; the scatter term 0 for a dielectric or
+// where |at| <= 1e-8). Round j routes each lane's j-th; the lanes of a
+// round that route to one row combine by a shuffle sum in lane order and
+// the lowest adds it to the warp's row wrow: the order of every sum is the
+// data's, the same on every run.
+static __device__ __forceinline__ void suffix_routes(
+        float* __restrict__ wrow, const float* __restrict__ rec, int N,
+        const float (&gc)[3], V3 Tt, int n_fl, int fl_mem, const SfxEv& ev,
+        V3 th0) {
+    const unsigned full = 0xffffffffu;
+    const int wl = threadIdx.x & 31;
+    const float tt[3] = {Tt.x, Tt.y, Tt.z};
+    for (int j = 0;; ++j) {
+        const bool has = j < n_fl;
+        const unsigned hm = __ballot_sync(full, has);
+        if (hm == 0u) break;
+        int key = -1;
+        float v[3] = {0.0f, 0.0f, 0.0f};
+        if (has) {
+            int eff;
+            bool diel = false;
+            float at[3], pp[3], e[3] = {0.0f, 0.0f, 0.0f};
+            if (j < fl_mem) {
+                const float* r = rec + (size_t)SFX_REC * j * N;
+                eff = (int)r[0];
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    at[c] = r[(size_t)(1 + c) * N];
+                    pp[c] = r[(size_t)(4 + c) * N];
+                }
+            } else {
+                eff = ev.eff;
+                diel = ev.diel;
+                const float tv[3] = {th0.x, th0.y, th0.z};
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    at[c] = ev.at[c];
+                    pp[c] = tt[c];
+                    e[c] = ev.emit ? tv[c] : 0.0f;
+                }
+            }
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                const float sf = tt[c] - pp[c];
+                float sc_ = 0.0f;
+                if (!diel && fabsf(at[c]) > 1e-8f) sc_ = sf / at[c];
+                v[c] = gc[c] * (e[c] + sc_);
+            }
+            key = eff;
+        }
+        const unsigned grp = __match_any_sync(full, key);
+        float s[3] = {0.0f, 0.0f, 0.0f};
+        for (unsigned rem = hm; rem != 0u; rem &= rem - 1u) {
+            const int src = __ffs(rem) - 1;
+            const bool mine = (grp >> src) & 1u;
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                const float x = __shfl_sync(full, v[c], src);
+                if (mine) s[c] = s[c] + x;
+            }
+        }
+        if (has && wl == __ffs(grp) - 1) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+                if (s[c] != 0.0f) wrow[3 * key + c] = wrow[3 * key + c] + s[c];
+        }
+        __syncwarp();
+    }
+}
+
 // One thread's lane: its samples and bounces. NTMAX > 0 adds the tex_color
 // weight planes of the JAX kernel's grad_tex variant
 // (wavefront_pallas.py:2347-2349, 2392-2395, 2565-2603): Wp[3t+c] =
@@ -1567,16 +1665,19 @@ __device__ __noinline__ void hard_group(
 // bound of NT, so every plane index is a constant after unrolling. HARD
 // adds the K tangent bundles (see the top of this file). SEL is the
 // selection (SEL_*: every primitive, the chunk scan, a BVH walk). SUFFIX is
-// the suffix-radiance tier of tex_color (K8, see the top of this file).
-// `red` is the block's (WF_THREADS / 32, 3 * NTMAX) shared scratch of the
-// end-of-pass reduction (NTMAX > 0 only). V and vtab are the chunk scan's
-// tables, B and vtab a BVH walk's.
+// the suffix-radiance tier of tex_color (K8, see the top of this file);
+// sfx its scratch in global memory: each warp's 3 * NT row (gridDim.x *
+// WF_THREADS / 32 rows), then, for an uncapped pass, the lanes' records
+// (SFX_REC * max_depth floats a lane, [record][field][lane]; a capped pass
+// keeps them in its carry). `red` is the block's (WF_THREADS / 32, 3 *
+// NTMAX) shared scratch of the end-of-pass reduction (NTMAX > 0 only). V
+// and vtab are the chunk scan's tables, B and vtab a BVH walk's.
 //
 // Shared memory (smem): the tables (the chunk scan: its boxes; a BVH walk:
 // nothing), padded to plane_base; then (HARD) the tangent planes and their
-// sums, 10 * K * WF_THREADS floats; then (SUFFIX) the block's 3 * NT
-// tex_color accumulators, or (SPLANES) the weight planes Wp and Gp, 2 * 3 *
-// NT * WF_THREADS floats, for 17 to 32 rows that do not fit in registers.
+// sums, 10 * K * WF_THREADS floats; then (SPLANES) the weight planes Wp and
+// Gp, 2 * 3 * NT * WF_THREADS floats, for 17 to 32 rows that do not fit in
+// registers.
 template <int NTMAX, bool HARD, int SEL = SEL_UNROLLED, bool SUFFIX = false,
           bool SPLANES = false>
 __device__ __forceinline__ void wavefront_body(
@@ -1587,7 +1688,7 @@ __device__ __forceinline__ void wavefront_body(
         float* __restrict__ dg_out, int* __restrict__ iters_out,
         float* smem, float* cam, float* red, VsParams V = VsParams(),
         const float* __restrict__ vtab = nullptr, BvParams B = BvParams(),
-        int* skey = nullptr) {
+        int* skey = nullptr, float* __restrict__ sfx = nullptr) {
     constexpr bool GRAD = NTMAX > 0 || HARD || SUFFIX || SPLANES;
     static_assert(!SUFFIX || NTMAX == 0, "the suffix tier has no planes");
     static_assert(!SPLANES || (NTMAX == 0 && !SUFFIX),
@@ -1597,9 +1698,6 @@ __device__ __forceinline__ void wavefront_body(
     const int plane_base = SEL == SEL_VSCAN ? table_pad(V.n_box)
         : (SEL == SEL_UNROLLED ? table_pad(P.n_table) : 0);
     float* acc = smem + plane_base + (HARD ? 10 * P.K * WF_THREADS : 0);
-    if constexpr (SUFFIX) {
-        for (int i = threadIdx.x; i < 3 * P.NT; i += blockDim.x) acc[i] = 0.0f;
-    }
     if constexpr (SEL == SEL_VSCAN) {
         // the chunk scan reads the scene tables from global memory and
         // keeps only the chunk boxes in shared memory
@@ -1685,17 +1783,29 @@ __device__ __forceinline__ void wavefront_body(
             sw[(n_wp + k) * WF_THREADS] = 0.0f;
         }
     }
-    // the suffix tier's lane state: the phase (false: A traces the sample,
-    // true: B replays it), A's path total T and B's prefix P (carry rows
-    // 14 + 9K .. 14 + 9K + 6)
-    bool phB = false;
-    V3 Tt = v3(0.0f, 0.0f, 0.0f), Pp = v3(0.0f, 0.0f, 0.0f);
+    // the suffix tier's lane state: the path total T so far and the
+    // path's pending records (carry rows 14 + 9K .. 14 + 9K + 3, then the
+    // records); wrow is this warp's row of route sums, rec this lane's
+    // column of records (the capped pass's carry, else the scratch)
+    V3 Tt = v3(0.0f, 0.0f, 0.0f);
+    int n_rec = 0;
+    float* wrow = nullptr;
+    float* rec = nullptr;
     if constexpr (SUFFIX) {
+        const int n3 = 3 * P.NT;
+        wrow = sfx + ((size_t)blockIdx.x * (WF_THREADS / 32)
+                      + (threadIdx.x >> 5)) * n3;
+        for (int i = threadIdx.x & 31; i < n3; i += 32) wrow[i] = 0.0f;
+        __syncwarp();
+        const size_t cs = (size_t)(14 + 9 * P.K) * N;
+        rec = (carry_out ? carry_out + cs + (size_t)SFX_STATE * N
+               : sfx + (size_t)gridDim.x * (WF_THREADS / 32) * n3) + lane;
         if (carry_in) {
-            const float* cs = carry_in + (size_t)(14 + 9 * P.K) * N + lane;
-            phB = cs[0] > 0.5f;
-            Tt = v3(cs[1 * N], cs[2 * N], cs[3 * N]);
-            Pp = v3(cs[4 * N], cs[5 * N], cs[6 * N]);
+            const float* ci = carry_in + cs + lane;
+            Tt = v3(ci[0], ci[N], ci[2 * (size_t)N]);
+            n_rec = (int)ci[3 * (size_t)N];
+            for (int j = 0; j < SFX_REC * n_rec; ++j)
+                rec[(size_t)j * N] = ci[(size_t)(SFX_STATE + j) * N];
         }
     }
 
@@ -1754,108 +1864,90 @@ __device__ __forceinline__ void wavefront_body(
     }
 
     int it = 0;
-    for (; work && (P.cap == 0 || it < P.cap); ++it) {
-        // a finished path restarts on the pixel's next stratified sample;
-        // in the suffix tier a finished phase-A path first replays the same
-        // sample as phase B (the counter RNG draws the same numbers), and a
-        // finished phase B moves to the next sample's phase A
-        if (!alive) {
-            if constexpr (SUFFIX) {
-                if (phB) {
-                    sample += 1;
-                    Tt = v3(0.0f, 0.0f, 0.0f);
-                }
-                phB = !phB;
-                Pp = v3(0.0f, 0.0f, 0.0f);
-            } else {
-                sample += 1;
-            }
-            gen_ray(P, cam, k0, k2, fi, fj, P.sample_start + sample, o, d,
-                    tm);
-            th = v3(1.0f, 1.0f, 1.0f);
-            bounce = 0;
-            alive = true;
-            // a fresh path starts with throughput 1: no parameter
-            // dependence
-            if constexpr (NTMAX > 0) {
-#pragma unroll
-                for (int k = 0; k < 3 * NTMAX; ++k) Wp[k] = 0.0f;
-            }
-            if constexpr (SPLANES) {
-                for (int k = 0; k < n_wp; ++k) sw[k * WF_THREADS] = 0.0f;
-            }
-            if constexpr (HARD) {
-                for (int j = 0; j < 9 * P.K; ++j) dst[j * WF_THREADS] = 0.0f;
-                nzm = 0u;
-            }
-        }
-        const uint32_t k1 = (uint32_t)(P.sample_start + sample);
-        float u[9];
-        draws(k0, k1, k2, 0x4000000u + (uint32_t)bounce, u, 9);
-        float u_med[4];
-        if (sc.M > 0)
-            draws(k0, k1, k2, 1000000u + (uint32_t)bounce, u_med, sc.M);
-
-        float best_t;
-        int best;
-        if constexpr (SEL == SEL_VSCAN)
-            best = closest_select_vscan(sc, V, vtab, smem, o, d, tm,
-                                        &best_t);
-        else if constexpr (SEL == SEL_STACK)
-            best = closest_select_stack(B, vtab, o, d, tm, &best_t);
-        else if constexpr (SEL == SEL_LANE)
-            best = closest_select_lane(B, vtab, o, d, tm, &best_t);
-        else
-            best = closest_select(sc, o, d, tm, &best_t);
-        const V3 o0 = o, d0 = d, th0 = th;
-        // the suffix tier takes the bounce's radiance increment apart
-        V3 drad = v3(0.0f, 0.0f, 0.0f);
-        SfxEv ev;
-        ev.hit = false;
-        const bool alive_new = physics<float, NTMAX>(
-            sc, P, cam, best, best_t, o, d, th, SUFFIX ? drad : rad, tm, u,
-            u_med, Seeds<0>{}, Wp, Gp, gc, (SUFFIX || HARD) ? &ev : nullptr,
-            SPLANES ? sw : nullptr, SPLANES ? n_wp : 0);
+    for (;;) {
+        const bool act = work && (P.cap == 0 || it < P.cap);
         if constexpr (SUFFIX) {
-            if (!phB) {
-                // phase A owns the image and the path total
+            // the suffix tier's warp runs its lanes' iterations together
+            // (a lane with no work left takes empty ones), so its routes
+            // are summed at a point every lane reaches, in a fixed order
+            if (!__any_sync(0xffffffffu, act)) break;
+        } else if (!act) {
+            break;
+        }
+        // the suffix tier's routes this lane owes after the iteration:
+        // n_fl in all, its first fl_mem the path's records, then the last
+        // hit's (last, with its pre-bounce throughput last_th)
+        int n_fl = 0, fl_mem = 0;
+        SfxEv last;
+        V3 last_th;
+        if (act) {
+            // a finished path restarts on the pixel's next stratified sample
+            if (!alive) {
+                sample += 1;
+                if constexpr (SUFFIX) Tt = v3(0.0f, 0.0f, 0.0f);
+                gen_ray(P, cam, k0, k2, fi, fj, P.sample_start + sample, o, d,
+                        tm);
+                th = v3(1.0f, 1.0f, 1.0f);
+                bounce = 0;
+                alive = true;
+                // a fresh path starts with throughput 1: no parameter
+                // dependence
+                if constexpr (NTMAX > 0) {
+#pragma unroll
+                    for (int k = 0; k < 3 * NTMAX; ++k) Wp[k] = 0.0f;
+                }
+                if constexpr (SPLANES) {
+                    for (int k = 0; k < n_wp; ++k) sw[k * WF_THREADS] = 0.0f;
+                }
+                if constexpr (HARD) {
+                    for (int j = 0; j < 9 * P.K; ++j)
+                        dst[j * WF_THREADS] = 0.0f;
+                    nzm = 0u;
+                }
+            }
+            const uint32_t k1 = (uint32_t)(P.sample_start + sample);
+            float u[9];
+            draws(k0, k1, k2, 0x4000000u + (uint32_t)bounce, u, 9);
+            float u_med[4];
+            if (sc.M > 0)
+                draws(k0, k1, k2, 1000000u + (uint32_t)bounce, u_med, sc.M);
+
+            float best_t;
+            int best;
+            if constexpr (SEL == SEL_VSCAN)
+                best = closest_select_vscan(sc, V, vtab, smem, o, d, tm,
+                                            &best_t);
+            else if constexpr (SEL == SEL_STACK)
+                best = closest_select_stack(B, vtab, o, d, tm, &best_t);
+            else if constexpr (SEL == SEL_LANE)
+                best = closest_select_lane(B, vtab, o, d, tm, &best_t);
+            else
+                best = closest_select(sc, o, d, tm, &best_t);
+            const V3 o0 = o, d0 = d, th0 = th;
+            // the suffix tier takes the bounce's radiance increment apart
+            V3 drad = v3(0.0f, 0.0f, 0.0f);
+            SfxEv ev;
+            ev.hit = false;
+            const bool alive_new = physics<float, NTMAX>(
+                sc, P, cam, best, best_t, o, d, th, SUFFIX ? drad : rad, tm, u,
+                u_med, Seeds<0>{}, Wp, Gp, gc, (SUFFIX || HARD) ? &ev : nullptr,
+                SPLANES ? sw : nullptr, SPLANES ? n_wp : 0);
+            if constexpr (SUFFIX) {
+                // the image, and the path total T so far: the prefix P of the
+                // hit's routes, bit for bit
                 rad = add(rad, drad);
                 Tt = add(Tt, drad);
-            } else {
-                // phase B: the prefix after this bounce's events, and the
-                // hit's events routed to its eff row: g * th at an
-                // emission, g * (T - P) / at at a non-dielectric hit (what
-                // the path radiates after it is proportional to its
-                // attenuation; 0 where |at| <= 1e-8)
-                Pp = add(Pp, drad);
-                if (ev.hit && ev.eff >= 0) {
-                    const float tv[3] = {th0.x, th0.y, th0.z};
-                    const float sf[3] = {Tt.x - Pp.x, Tt.y - Pp.y,
-                                         Tt.z - Pp.z};
-#pragma unroll
-                    for (int c = 0; c < 3; ++c) {
-                        const float e = ev.emit ? tv[c] : 0.0f;
-                        float sc_ = 0.0f;
-                        if (!ev.diel && fabsf(ev.at[c]) > 1e-8f)
-                            sc_ = sf[c] / ev.at[c];
-                        const float v = gc[c] * (e + sc_);
-                        if (v != 0.0f) atomicAdd(acc + 3 * ev.eff + c, v);
-                    }
-                }
             }
-        }
-        if constexpr (HARD) {
-            // the slot groups' dual passes, from the same ray and selection
-            // along the slots' tangents, so the same outcome. Phase B's
-            // events repeat phase A's: the tangents count in A only (the
-            // planes stay 0 from B's regeneration on). A group runs in a
-            // warp where a lane holds a nonzero plane of one of its slots
-            // or its bounce reads one of their cells (physics' seeded
-            // reads: the winner's sphere row in hit_record, the hit
-            // material's fuzz or IOR, and at an MIS bounce every light
-            // row's source sphere); elsewhere its tangents are exactly
-            // zero, its planes and sums stay as they are.
-            if (!(SUFFIX && phB)) {
+            if constexpr (HARD) {
+                // the slot groups' dual passes, from the same ray and
+                // selection along the slots' tangents, so the same outcome.
+                // A group runs in a warp where a lane holds a nonzero plane
+                // of one of its slots or its bounce reads one of their cells
+                // (physics' seeded reads: the winner's sphere row in
+                // hit_record, the hit material's fuzz or IOR, and at an MIS
+                // bounce every light row's source sphere); elsewhere its
+                // tangents are exactly zero, its planes and sums stay as
+                // they are.
                 uint32_t need = nzm;
                 if (ev.hit) {
                     const int mt = (int)sc.mati[ev.mat * 2];
@@ -1889,12 +1981,39 @@ __device__ __forceinline__ void wavefront_body(
                     k = e;
                 }
             }
+            bounce += 1;
+            alive = alive_new && bounce < P.max_depth;
+            work = alive || (sample + 1 < P.n_samples);
+            if constexpr (SUFFIX) {
+                // a hit with an eff row: a record while the path goes on (a
+                // dielectric's at is 1, its route 0), and when the path ends
+                // the last hit (its emission, and T - T = 0 of scatter) and
+                // every record are routed below, T now known
+                const bool ev_row = ev.hit && ev.eff >= 0;
+                if (alive) {
+                    if (ev_row && !ev.diel) {
+                        float* r = rec + (size_t)SFX_REC * n_rec * N;
+                        r[0] = (float)ev.eff;
+                        r[1 * (size_t)N] = ev.at[0];
+                        r[2 * (size_t)N] = ev.at[1];
+                        r[3 * (size_t)N] = ev.at[2];
+                        r[4 * (size_t)N] = Tt.x;
+                        r[5 * (size_t)N] = Tt.y;
+                        r[6 * (size_t)N] = Tt.z;
+                        ++n_rec;
+                    }
+                } else {
+                    fl_mem = n_rec;
+                    n_fl = n_rec + (ev_row ? 1 : 0);
+                    n_rec = 0;
+                    last = ev;
+                    last_th = th0;
+                }
+            }
+            ++it;
         }
-        bounce += 1;
-        alive = alive_new && bounce < P.max_depth;
-        work = alive || (sample + 1 < P.n_samples);
-        // a finished phase-A path still owes its replay
-        if constexpr (SUFFIX) work = work || !phB;
+        if constexpr (SUFFIX)
+            suffix_routes(wrow, rec, N, gc, Tt, n_fl, fl_mem, last, last_th);
     }
 
     rad_out[0 * N + lane] = rad.x;
@@ -1930,16 +2049,17 @@ __device__ __forceinline__ void wavefront_body(
                 carry_out[(14 + n_wp + j) * N + lane] = dst[j * WF_THREADS];
         }
         if constexpr (SUFFIX) {
+            // T and the record count; the records are in place (rec)
             float* cs = carry_out + (size_t)(14 + 9 * P.K) * N + lane;
-            cs[0] = phB ? 1.0f : 0.0f;
-            cs[1 * N] = Tt.x; cs[2 * N] = Tt.y; cs[3 * N] = Tt.z;
-            cs[4 * N] = Pp.x; cs[5 * N] = Pp.y; cs[6 * N] = Pp.z;
+            cs[0] = Tt.x;
+            cs[N] = Tt.y;
+            cs[2 * (size_t)N] = Tt.z;
+            cs[3 * (size_t)N] = (float)n_rec;
         }
     }
     if constexpr (GRAD) {
         // one partial row per block: 3NT tex entries, then K hard ones,
-        // each summed in a fixed order (the suffix tier's tex entries are
-        // its shared accumulators, added to by float atomics)
+        // each summed in a fixed order
         const int n_tex = SUFFIX ? 3 * P.NT : n_wp;
         const int n_row = n_tex + (HARD ? P.K : 0);
         if constexpr (NTMAX > 0) {
@@ -1964,8 +2084,15 @@ __device__ __forceinline__ void wavefront_body(
             }
         }
         if constexpr (SUFFIX) {
-            for (int i = threadIdx.x; i < n_tex; i += blockDim.x)
-                dg_out[blockIdx.x * n_row + i] = acc[i];
+            // the block's warp rows, added in warp order
+            const float* w0 = sfx + (size_t)blockIdx.x * (WF_THREADS / 32)
+                * n_tex;
+            for (int i = threadIdx.x; i < n_tex; i += blockDim.x) {
+                float s = w0[i];
+                for (int w = 1; w < WF_THREADS / 32; ++w)
+                    s += w0[(size_t)w * n_tex + i];
+                dg_out[blockIdx.x * n_row + i] = s;
+            }
         }
         if constexpr (SPLANES) {
             // Gp: plane k's 128 lanes in lane order
@@ -2024,6 +2151,7 @@ struct GradArgs {
     float* carry_out;
     float* dg_out;
     int* iters_out;
+    float* sfx;     // the suffix tier's scratch (wavefront_body)
 };
 
 // the chunk scan's grad launchers (parts 1 and 2)
@@ -2039,8 +2167,9 @@ int launch_vgrad_splanes(const WfParams& P, const VsParams& V,
 // grad kernel's tiers over closest_select_vscan. The winner's original id
 // indexes the scene tables (global memory), so physics<T> and the slot
 // table's aliasing are the unrolled kernel's; shared memory holds the
-// chunk boxes, the tangent planes and the suffix accumulators or (SPLANES,
-// 17 to 32 rows) the weight planes.
+// chunk boxes, the tangent planes and (SPLANES, 17 to 32 rows) the weight
+// planes; the suffix tier's rows and records are in global memory
+// (A.sfx).
 template <int NTMAX, bool HARD, bool SUFFIX, bool SPLANES = false>
 __global__ void __launch_bounds__(WF_THREADS)
 wavefront_grad_vscan_kernel(WfParams P, VsParams V, GradArgs A) {
@@ -2051,12 +2180,12 @@ wavefront_grad_vscan_kernel(WfParams P, VsParams V, GradArgs A) {
         wavefront_body<NTMAX, HARD, SEL_VSCAN, SUFFIX, SPLANES>(
             P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out,
             A.carry_out, A.dg_out, A.iters_out, wf_tables, cam, red, V,
-            A.vtab, BvParams(), skey);
+            A.vtab, BvParams(), skey, A.sfx);
     } else {
         wavefront_body<NTMAX, HARD, SEL_VSCAN, SUFFIX, SPLANES>(
             P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out,
             A.carry_out, A.dg_out, A.iters_out, wf_tables, cam, red, V,
-            A.vtab);
+            A.vtab, BvParams(), nullptr, A.sfx);
     }
 }
 
@@ -2065,7 +2194,6 @@ static int launch_grad_vscan(const WfParams& P, const VsParams& V,
                              const GradArgs& A, cudaStream_t stream) {
     const size_t floats = (size_t)table_pad(V.n_box)
         + (HARD ? (size_t)10 * P.K * WF_THREADS : 0)
-        + (SUFFIX ? (size_t)3 * P.NT : 0)
         + (SPLANES ? (size_t)6 * P.NT * WF_THREADS : 0);
     const size_t smem = floats * sizeof(float);
     cudaError_t e = set_smem(
@@ -2137,15 +2265,15 @@ wavefront_grad_bvh_kernel(WfParams P, BvParams B, GradArgs A) {
     __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
     wavefront_body<NTMAX, false, SEL, SUFFIX, SPLANES>(
         P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out, A.carry_out,
-        A.dg_out, A.iters_out, wf_tables, cam, red, VsParams(), A.vtab, B);
+        A.dg_out, A.iters_out, wf_tables, cam, red, VsParams(), A.vtab, B,
+        nullptr, A.sfx);
 }
 
 template <int SEL, int NTMAX, bool SUFFIX, bool SPLANES>
 static int launch_grad_bvh(const WfParams& P, const BvParams& B,
                            const GradArgs& A, cudaStream_t stream) {
     const size_t smem = sizeof(float)
-        * ((SUFFIX ? (size_t)3 * P.NT : 0)
-           + (SPLANES ? (size_t)6 * P.NT * WF_THREADS : 0));
+        * (SPLANES ? (size_t)6 * P.NT * WF_THREADS : 0);
     cudaError_t e = set_smem(
         (const void*)wavefront_grad_bvh_kernel<SEL, NTMAX, SUFFIX, SPLANES>,
         smem);
@@ -2163,7 +2291,7 @@ static int launch_bvh(const WfParams& P, const BvParams& B,
     if (P.n_lanes % WF_THREADS != 0 || B.n_nodes < 1 || B.n_srows < 0
         || B.n_qrows < 0 || (SEL == SEL_LANE && B.n_qrows != 0) || P.K != 0
         || (A.cot && (!P.want_tex || P.NT < 1
-                      || (!P.suffix && P.NT > 32))))
+                      || (!P.suffix && P.NT > 32) || (P.suffix && !A.sfx))))
         return (int)cudaErrorInvalidValue;
     if (!A.cot) {
         wavefront_forward_bvh_kernel<SEL>
@@ -2183,9 +2311,10 @@ static int launch_bvh(const WfParams& P, const BvParams& B,
                         const float* tables, const float* btab,             \
                         const int* pix_lanes, const float* carry_in,        \
                         const float* cot, float* rad_out, float* carry_out, \
-                        float* dg_out, int* iters_out, void* stream) {      \
+                        float* dg_out, int* iters_out, float* sfx,          \
+                        void* stream) {                                     \
         const GradArgs A = {tables, btab, pix_lanes, carry_in, cot,         \
-                            rad_out, carry_out, dg_out, iters_out};         \
+                            rad_out, carry_out, dg_out, iters_out, sfx};    \
         return launch_bvh<SEL>(*params, *bparams, A, (cudaStream_t)stream); \
     }
 #endif  // WF_IN_PART(6) || WF_IN_PART(7)
@@ -3540,6 +3669,34 @@ wavefront_grad_kernel(WfParams P, const float* __restrict__ tables,
     }
 }
 
+// K3, the tex_color weight planes alone (NT <= NTMAX, 8 or 16): the grad
+// kernel's body, asking for four blocks an SM. With its 2 * 3 * NTMAX
+// register planes (48 floats at NTMAX 8) beside the bounce, left to
+// itself ptxas took 165 registers, three blocks an SM, where the forward
+// takes 113 and four, and K3 took 152 ms at Cornell 1920x1080 spp64 d50
+// against the forward's 127 ms; held to 128 registers it spills 88 B a
+// thread and takes 138 ms (an NVIDIA H100 80GB HBM3 at 700 W,
+// scripts/port_profile.py, PERF.md): the spills cost less than the fourth
+// block gains. The planes' arithmetic and the reduction are the grad
+// kernel's, so the image and dG_tex are its bit for bit. (The planes in
+// shared memory, all of them or Gp alone, measured slower.)
+template <int NTMAX>
+__global__ void __launch_bounds__(WF_THREADS, 4)
+wavefront_tex_grad_kernel(WfParams P, const float* __restrict__ tables,
+                          const int* __restrict__ pix_lanes,
+                          const float* __restrict__ carry_in,
+                          const float* __restrict__ cot,
+                          float* __restrict__ rad_out,
+                          float* __restrict__ carry_out,
+                          float* __restrict__ dg_out,
+                          int* __restrict__ iters_out) {
+    __shared__ float cam[22];
+    __shared__ float red[(WF_THREADS / 32) * 3 * NTMAX];
+    wavefront_body<NTMAX, false>(P, tables, pix_lanes, carry_in, cot,
+                                 rad_out, carry_out, dg_out, iters_out,
+                                 wf_tables, cam, red);
+}
+
 // Plain C entry points (bound with ctypes). Each launches on `stream` and
 // returns cudaGetLastError(): a launch that is refused never runs, and only
 // this reports it.
@@ -3604,6 +3761,23 @@ static int launch_grad(const WfParams& P, const float* tables,
     return (int)cudaGetLastError();
 }
 
+template <int NTMAX>
+static int launch_tex_grad(const WfParams& P, const float* tables,
+                           const int* pix_lanes, const float* carry_in,
+                           const float* cot, float* rad_out, float* carry_out,
+                           float* dg_out, int* iters_out,
+                           cudaStream_t stream) {
+    const size_t smem = (size_t)P.n_table * sizeof(float);
+    cudaError_t e = set_smem(
+        (const void*)wavefront_tex_grad_kernel<NTMAX>, smem);
+    if (e != cudaSuccess) return (int)e;
+    wavefront_tex_grad_kernel<NTMAX>
+        <<<P.n_lanes / WF_THREADS, WF_THREADS, smem, stream>>>(
+            P, tables, pix_lanes, carry_in, cot, rad_out, carry_out, dg_out,
+            iters_out);
+    return (int)cudaGetLastError();
+}
+
 // dg_out: (n_lanes / WF_THREADS, 3 * NT * want_tex + K) per-block partial
 // sums
 extern "C" int rt_wavefront_grad(const WfParams* params,
@@ -3621,8 +3795,8 @@ extern "C" int rt_wavefront_grad(const WfParams* params,
 #define WF_GRAD_ARGS P, tables, pix_lanes, carry_in, cot, rad_out, \
                      carry_out, dg_out, iters_out, s
     if (P.K == 0)
-        return P.NT <= 8 ? launch_grad<8, false>(WF_GRAD_ARGS)
-                         : launch_grad<16, false>(WF_GRAD_ARGS);
+        return P.NT <= 8 ? launch_tex_grad<8>(WF_GRAD_ARGS)
+                         : launch_tex_grad<16>(WF_GRAD_ARGS);
     if (!P.want_tex) return launch_grad<0, true>(WF_GRAD_ARGS);
     return P.NT <= 8 ? launch_grad<8, true>(WF_GRAD_ARGS)
                      : launch_grad<16, true>(WF_GRAD_ARGS);
@@ -3630,8 +3804,9 @@ extern "C" int rt_wavefront_grad(const WfParams* params,
 }
 
 // The chunk scan's grad passes: dg_out as rt_wavefront_grad's; P.suffix
-// selects the suffix tier (3 * NT accumulator entries in place of the
-// weight planes' 3 * NT, and its 7 carry rows after the tangent planes).
+// selects the suffix tier (3 * NT route sums in place of the weight
+// planes' 3 * NT, its carry rows after the tangent planes: SFX_STATE, then
+// SFX_REC * max_depth of records; sfx its scratch, wavefront_body).
 extern "C" int rt_wavefront_grad_vscan(const WfParams* params,
                                        const VsParams* vparams,
                                        const float* tables,
@@ -3640,18 +3815,19 @@ extern "C" int rt_wavefront_grad_vscan(const WfParams* params,
                                        const float* carry_in,
                                        const float* cot, float* rad_out,
                                        float* carry_out, float* dg_out,
-                                       int* iters_out, void* stream) {
+                                       int* iters_out, float* sfx,
+                                       void* stream) {
     const WfParams P = *params;
     const VsParams V = *vparams;
     if (P.n_lanes % WF_THREADS != 0 || V.C_small < 1 || V.n_big < 0
         || V.n_big > VCHUNK || V.Cq < 0 || V.n_box < 6 * V.C_small
         || P.K < 0 || P.K > MAX_SLOTS
-        || (P.suffix && (!P.want_tex || P.NT < 1))
+        || (P.suffix && (!P.want_tex || P.NT < 1 || !sfx))
         || (!P.suffix && P.want_tex && (P.NT < 1 || P.NT > 32))
         || (!P.want_tex && P.K == 0))
         return (int)cudaErrorInvalidValue;
     const GradArgs A = {tables, vtab, pix_lanes, carry_in, cot, rad_out,
-                        carry_out, dg_out, iters_out};
+                        carry_out, dg_out, iters_out, sfx};
     cudaStream_t s = (cudaStream_t)stream;
     if (P.want_tex && !P.suffix)
         return P.NT <= 16 ? launch_vgrad_planes(P, V, A, s)

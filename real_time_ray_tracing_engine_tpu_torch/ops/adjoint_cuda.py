@@ -414,17 +414,10 @@ def render_pass_adjoint_kernel(flat: FlatScene, cam: CameraState, seed,
                                               seg)
     else:
         n_rec, n_snap = max_depth * ADJ_STORE * n_lanes, 0
-    need = 4 * (n_rec + n_snap)
-    # what the device has free, and what torch's allocator holds unused
-    free = (torch.cuda.mem_get_info(device)[0]
-            + torch.cuda.memory_reserved(device)
-            - torch.cuda.memory_allocated(device))
-    if need > free:
-        raise RuntimeError(
-            f"the adjoint's scratch ({need / 2**30:.2f} GiB: "
-            f"{'K10 SEG ' + str(seg) if seg else 'K9'}, {n_lanes} lanes, "
-            f"{n_samples} samples, depth {max_depth}) exceeds the device's "
-            f"{free / 2**30:.2f} GiB free")
+    sweep = f"K10 SEG {seg}" if seg else "K9"
+    wc.check_free(device, 4 * (n_rec + n_snap),
+                  f"the adjoint's scratch ({sweep}, {n_lanes} lanes, "
+                  f"{n_samples} samples, depth {max_depth})")
     p = wc._Params(
         n_lanes=n_lanes, n_pix=n_pix, width=width, n_strata=n_strata,
         max_depth=max_depth, n_samples=n_samples,

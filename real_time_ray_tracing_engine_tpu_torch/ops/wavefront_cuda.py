@@ -21,7 +21,9 @@ it:
     (ops/integrator.py): persistent lane regeneration, `cap`, `carry` and
     `pix_lanes`, the same carry layout (14 rows; the grad pass appends its
     3*NT weight planes, 9 tangent planes per hard slot and the suffix
-    tier's 7 rows). The hard slots' tangents are torch.func.jvp of the
+    tier's rows: the plain version's two-phase state, SUFFIX_ROWS, the
+    kernel's single pass its path total, record count and records,
+    _kernel_carry_rows). The hard slots' tangents are torch.func.jvp of the
     bounce step, batched over the slots with torch.func.vmap. The CPU tests
     run them; on the card only the parity checks do.
   - `pass_function` / `grad_pass_function` / `render_pass`: the
@@ -122,9 +124,14 @@ BVH_NODE_COLS = 12    # node rows: box lo xyz, hi xyz (widened), the links
 LANE_BLOCK = 128  # = WF_THREADS, the kernel's block size
 CARRY_ROWS = 14   # work, alive, bounce, sample, time, o xyz, d xyz, th xyz
 # (the grad pass appends 3*NT weight-plane rows, then 9 tangent-plane rows
-# per hard slot, then the suffix tier's SUFFIX_ROWS: phase, T xyz, P xyz;
-# wavefront_pallas.py:3240-3249)
+# per hard slot, then the suffix tier's rows: in the plain version, which
+# traces each sample twice as the JAX kernel does, SUFFIX_ROWS: phase, T
+# xyz, P xyz (wavefront_pallas.py:3240-3249); in the kernel, which traces it
+# once, SFX_STATE: T xyz and the path's record count, then SFX_REC rows a
+# record, max_depth records: eff row, at xyz, P xyz; csrc/wavefront.cu)
 SUFFIX_ROWS = 7
+SFX_STATE = 4
+SFX_REC = 7
 
 # the hard trainable families and their slot kinds
 # (wavefront_pallas.py:382-383)
@@ -354,19 +361,17 @@ def grad_smem_bytes(flat: FlatScene, n_slots: int,
     """Shared memory of a grad launch (csrc/wavefront.cu, wavefront_body):
     the tables (the unrolled mode, with the slot table), the chunk boxes
     (the chunk scan, whose tables stay in global memory) or nothing (the
-    BVH modes), padded as table_pad does; 10 floats a hard slot a lane; the
-    suffix tier's 3 * NT accumulators; past the unrolled mode, weight planes
-    for more than MAX_TEXS rows, 6 floats a row a lane (Wp and its
-    cotangent sums Gp)."""
+    BVH modes), padded as table_pad does; 10 floats a hard slot a lane;
+    past the unrolled mode, weight planes for more than MAX_TEXS rows, 6
+    floats a row a lane (Wp and its cotangent sums Gp). The suffix tier's
+    route sums and records are in global memory."""
     NT = flat.tex_type.shape[0]
     mode = kernel_mode(flat)[0]
     n = {"unrolled": _table_floats(flat) + 3 * n_slots,
          "vscan": _vscan_box_floats(flat)}.get(mode, 0)
     n = -(-n // 32) * 32 + 10 * n_slots * LANE_BLOCK
-    form = tex_form(flat, want_tex)
-    if form == "suffix":
-        n += 3 * NT
-    elif form == "planes" and mode != "unrolled" and NT > MAX_TEXS:
+    if (tex_form(flat, want_tex) == "planes" and mode != "unrolled"
+            and NT > MAX_TEXS):
         n += 6 * NT * LANE_BLOCK
     return 4 * n
 
@@ -382,9 +387,9 @@ _BVH_SLOTS_REASON = ("hard-parameter slots need the unrolled or vscan kernel "
 
 def hard_slots_gate_reason(flat: FlatScene, n_slots: int) -> str | None:
     """Why n_slots hard slots cannot run in the grad kernel (None = they
-    can): grad_gate_reason without tex_color (the suffix tier's
-    accumulators are counted where want_tex is known, at the launch); in
-    the BVH modes none can, as in the JAX package."""
+    can): grad_gate_reason without tex_color (the weight planes' shared
+    memory is counted where want_tex is known, at the launch); in the BVH
+    modes none can, as in the JAX package."""
     return grad_gate_reason(flat, n_slots, want_tex=False)
 
 
@@ -1098,8 +1103,9 @@ def _grad_layout(flat: FlatScene, cot, hard_slots, want_tex,
                  force_planes: bool = False) -> tuple:
     """(weight-plane rows 3*NT or 0, hard slots K, suffix tier) of a pass:
     0, 0, False for the forward (cot None). Its carry has CARRY_ROWS +
-    3*NT (weight planes) + 9*K + SUFFIX_ROWS (suffix tier) rows. Raises for
-    a grad pass with nothing to differentiate."""
+    3*NT (weight planes) + 9*K rows, then the suffix tier's
+    (_carry_rows, _kernel_carry_rows). Raises for a grad pass with nothing
+    to differentiate."""
     if cot is None:
         return 0, 0, False
     if not want_tex and not hard_slots:
@@ -1111,6 +1117,25 @@ def _grad_layout(flat: FlatScene, cot, hard_slots, want_tex,
 
 def _carry_rows(n_wp: int, K: int, suffix: bool) -> int:
     return CARRY_ROWS + n_wp + 9 * K + (SUFFIX_ROWS if suffix else 0)
+
+
+def _kernel_carry_rows(n_wp: int, K: int, suffix: bool,
+                       max_depth: int) -> int:
+    """The grad kernel's carry rows: _carry_rows' with the single-pass
+    suffix tier's state and records in place of the two-phase state."""
+    return (CARRY_ROWS + n_wp + 9 * K
+            + (SFX_STATE + SFX_REC * max_depth if suffix else 0))
+
+
+def check_free(device, need: int, what: str):
+    """Raise if `need` bytes do not fit what the device has free and what
+    torch's allocator holds unused."""
+    free = (torch.cuda.mem_get_info(device)[0]
+            + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+    if need > free:
+        raise RuntimeError(f"{what} ({need / 2**30:.2f} GiB) exceeds the "
+                           f"device's {free / 2**30:.2f} GiB free")
 
 
 def _slot_tangents(flat: FlatScene, hard_slots) -> tuple:
@@ -1500,9 +1525,9 @@ class KernelLibrary:
         self.grad_vscan = self.lib.rt_wavefront_grad_vscan
         self.grad_vscan.restype = ctypes.c_int
         # params, vparams, tables, vtab, pix_lanes, carry_in, cotangent,
-        # rad_out, carry_out, dg_out, iters, stream
+        # rad_out, carry_out, dg_out, iters, the suffix scratch, stream
         self.grad_vscan.argtypes = [ctypes.POINTER(_Params),
-                                    ctypes.POINTER(_VsParams)] + [ptr] * 10
+                                    ctypes.POINTER(_VsParams)] + [ptr] * 11
         self.adjoint = self.lib.rt_wavefront_adjoint
         self.adjoint.restype = ctypes.c_int
         # params, vparams, tables, vtab, cotangent, rad_out, acc_out, store,
@@ -1526,13 +1551,13 @@ class KernelLibrary:
                                        + [ptr] * 9 + [ctypes.c_int, ptr])
         # the BVH walks, forward (cot null) and tex_color grad: params,
         # bparams, tables, btab, pix_lanes, carry_in, cot, rad_out,
-        # carry_out, dg_out, iters, stream
+        # carry_out, dg_out, iters, the suffix scratch, stream
         self.bvh = {"stack": self.lib.rt_wavefront_bvh_stack,
                     "lane": self.lib.rt_wavefront_bvh_lane}
         for fn in self.bvh.values():
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(_Params),
-                           ctypes.POINTER(_BvParams)] + [ptr] * 10
+                           ctypes.POINTER(_BvParams)] + [ptr] * 11
 
 
 def _nvcc() -> str:
@@ -1703,7 +1728,7 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     n_lanes = lane_count(n_pix)
     nt = prepared.fields["NT"]
     n_wp, K, suffix = _grad_layout(flat, cot, hard_slots, want_tex)
-    n_rows = _carry_rows(n_wp, K, suffix)
+    n_rows = _kernel_carry_rows(n_wp, K, suffix, max_depth)
     _check_carry(carry, pix_lanes, n_lanes, n_rows)
     _check_iters(iters, n_lanes, device)
     if n_strata * n_strata + int(sample_start) >= 1 << 24:
@@ -1726,6 +1751,18 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
             .contiguous()
     if carry is not None:
         carry = carry.to(device=device, dtype=torch.float32).contiguous()
+    sfx = None
+    if suffix:
+        # the suffix tier's scratch: each warp's 3 * NT route sums, then
+        # (uncapped; a capped pass keeps them in its carry) the records,
+        # SFX_REC floats each, max_depth a lane
+        n_warps = n_lanes // 32
+        n_sfx = n_warps * 3 * nt + (0 if cap else
+                                    SFX_REC * max_depth * n_lanes)
+        check_free(device, 4 * (n_sfx + (n_rows * n_lanes if cap else 0)),
+                   f"the suffix tier's scratch and carry ({n_lanes} lanes, "
+                   f"depth {max_depth})")
+        sfx = torch.empty(n_sfx, dtype=torch.float32, device=device)
     rad = torch.empty(3, n_lanes, dtype=torch.float32, device=device)
     st = (torch.empty(n_rows, n_lanes, dtype=torch.float32, device=device)
           if cap else None)
@@ -1744,7 +1781,7 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
                 ctypes.byref(p), ctypes.byref(_BvParams(**prepared.bfields)),
                 ptr(prepared.tables), ptr(prepared.btab), ptr(pix_lanes),
                 ptr(carry), ptr(cot), ptr(rad), ptr(st), ptr(partial),
-                ptr(iters), stream)
+                ptr(iters), ptr(sfx), stream)
         elif cot is None and prepared.mode == "vscan":
             err = lib.forward_vscan(
                 ctypes.byref(p), ctypes.byref(_VsParams(**prepared.vfields)),
@@ -1767,7 +1804,7 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
                     ctypes.byref(_VsParams(**prepared.vfields)),
                     ptr(prepared.tables), ptr(prepared.vtab),
                     ptr(pix_lanes), ptr(carry), ptr(cot), ptr(rad),
-                    ptr(st), ptr(partial), ptr(iters), stream)
+                    ptr(st), ptr(partial), ptr(iters), ptr(sfx), stream)
             else:
                 err = lib.grad(ctypes.byref(p), ptr(prepared.tables),
                                ptr(pix_lanes), ptr(carry), ptr(cot),
@@ -1841,8 +1878,15 @@ def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
     instances, the chunk scan's (K3v, K4v, K8) or a BVH walk's (K11, K12:
     tex_color only, weight planes or the suffix tier). The kernel writes
     one row of dG_tex and dG_hard partial sums per block; they are summed
-    here. Raises as render_pass_kernel does, for a malformed cotangent,
-    and for a pass outside grad_gate_reason. Each launch adds one to
+    here. The image, dG_hard and the bounces are the plain version's
+    semantics; the suffix tier traces each sample once (csrc/wavefront.cu,
+    K8), so its bounces are the forward's, and its capped carry holds the
+    path total, the path's record count and its records
+    (_kernel_carry_rows) in place of the plain version's phase and prefix;
+    its scratch (each warp's route sums and, uncapped, the records) is
+    checked against the device's free memory. Raises as render_pass_kernel
+    does, for a malformed cotangent, for a pass outside grad_gate_reason
+    and for scratch past the free memory. Each launch adds one to
     render_pass_grad_kernel.launches; one with hard slots (the K4
     instances) to .hard_launches; one on the chunk scan's selection with
     weight planes (K3v) to .vscan_tex_launches and one with hard slots

@@ -10,7 +10,8 @@ package to time (its kernels build into ROOT/build/kernels). The scenes and
 the timer are chip_smoke.py's (CUDA events, best of 3 after one warm-up,
 the scene packed once outside the timed calls): the forward kernel at
 Cornell 600x600 spp16 d50, the tex_color grad kernel at Cornell 1920x1080
-spp64 d50 (single pass and the compacted schedule) and, where the checkout
+spp64 d50 (single pass and the compacted schedule) and on a 16-row scene
+at 1080x1080 spp64 d50 (its NTMAX 16 instance) and, where the checkout
 has hard slots, the full-family grad kernel there (single pass); where it
 has the chunk scan, its forward at bouncing_spheres 400x225 spp9 d50 and
 the 301-quad city 400x225 spp9 d6 (single pass); where it has the
@@ -24,20 +25,27 @@ adjoint, K9 there under the sky gradient and at 400x225 spp9 d50 under the
 flat sky (the JAX bench line's shape); where it has the segmented adjoint,
 K10 (SEG 8) at both; where it has the BVH walks, K11 (RTX_BVH_STACK=1) and
 K12 (RTX_LANE_BVH=1) on bouncing_spheres -b at 400x225 spp9 d50 and K11 on
-the city -b (single pass). With the times it prints each kernel's ptxas
-registers, stack and spills from the library's build. Prints one JSON
-line.
+the city -b (single pass), and their suffix tiers' grad instances on
+bouncing_spheres -b at 1200x675 spp16 d50. With the times it prints each
+kernel's ptxas registers, stack and spills from the library's build.
+Prints one JSON line.
 
-With --outputs it also saves (torch.save) the tangent-bundle kernels'
-outputs: the image, dG_tex and dG_hard of K4 at Cornell 1920x1080 spp64
-d50 (9 slots) and on chip_smoke.py's hard-slot parity scenes (Cornell,
-three_spheres, Cornell 1920x1080 spp4 d50) and on a sphere-light scene
-(materials, 26 slots) and a medium scene (cornell_smoke), and K4v's at its
-shape and on the MIS + medium scene (both light kinds, a medium; 9 slots:
-a fuzz, the ground sphere, the sphere light), and K8's with the IOR slot
-(K4v; its dG_tex adds with float atomics, so it may differ in the last
-bits from run to run). --compare prints, per output of two such files, whether they are
-equal bit for bit and otherwise the largest difference.
+With --outputs it also saves (torch.save) the grad kernels' outputs, the
+image, dG_tex and dG_hard of single passes at seed 7: K3's at Cornell
+1920x1080 spp64 d50 and on chip_smoke.py's grad parity scenes (Cornell
+128x128 spp16 d50, cornell_smoke, Cornell 1920x1080 spp4 d50) and a
+16-row scene (its NTMAX 16); K3v's in registers (the 80-sphere scene) and
+in shared memory (the 28-row scene) at 1200x675 spp4 d50; K4's at Cornell
+1920x1080 spp64 d50 (9 slots) and on chip_smoke.py's hard-slot parity
+scenes (Cornell, three_spheres, Cornell 1920x1080 spp4 d50) and on a
+sphere-light scene (materials, 26 slots) and a medium scene
+(cornell_smoke); K4v's at its shape and on the MIS + medium scene (both
+light kinds, a medium; 9 slots: a fuzz, the ground sphere, the sphere
+light); K8's on bouncing_spheres at 1200x675 spp16 d50, with the IOR slot
+(K4v) at 400x225 spp4 d50, and on the suffix scene; and the BVH walks'
+suffix tiers (K11, K12) on bouncing_spheres -b at 1200x675 spp4 d50.
+--compare prints, per output of two such files, whether they are equal bit
+for bit and otherwise the largest difference.
 
 To compare two checkouts on one card, unpack the other one (git archive)
 under a git-ignored directory and time both roots in one run, in turns:
@@ -87,6 +95,14 @@ def kernel_times(root: str) -> dict:
     out["grad_1080_compacted_ms"] = cs.cuda_ms(
         torch, lambda: wc.render_pass_grad_compacted(
             flat, cam, 0, 0, cotangent=g, pass_fn=grad, **kw))
+    # K3's NTMAX 16 instance: 16 texture rows at 1080x1080 spp64 d50
+    nf, nc, nkw = cs.pass_args(pt, cs.sized(cs.nt16_scene(pt), 1080, 64, 50),
+                               dev)
+    ng = cs.cotangent(torch, nkw, dev, 6)
+    ngrad = functools.partial(wc.render_pass_grad_kernel,
+                              prepared=wc.prepare_kernel(nf, nc))
+    out["grad_nt16_1080_single_ms"] = cs.cuda_ms(
+        torch, lambda: ngrad(nf, nc, 0, 0, cotangent=ng, **nkw))
     if hasattr(wc, "hard_param_slots"):
         slots = wc.hard_param_slots(flat)
         hard = functools.partial(wc.render_pass_grad_kernel,
@@ -160,6 +176,18 @@ def kernel_times(root: str) -> dict:
                         prepared=wc.prepare_kernel(flat, cam))
                     out[f"bvh_{mode}_{name}_ms"] = cs.cuda_ms(
                         torch, lambda: fwd(flat, cam, 0, 0, **kw))
+        flat, cam, kw = cs.pass_args(
+            pt, cs.builtin(pt, "bouncing_spheres", 1200, 16, 50), dev,
+            use_bvh=True)
+        g = cs.cotangent(torch, kw, dev, 6)
+        for mode in ("stack", "lane"):
+            with cs.kernel_mode_env(mode):
+                grad = functools.partial(
+                    wc.render_pass_grad_kernel,
+                    prepared=wc.prepare_kernel(flat, cam))
+                out[f"bvh_{mode}_suffix_bouncing_1200_spp16_ms"] = \
+                    cs.cuda_ms(torch, lambda: grad(flat, cam, 0, 0,
+                                                   cotangent=g, **kw))
     return out
 
 
@@ -200,9 +228,8 @@ def _slots(wc, flat, slots):
 
 
 def kernel_outputs(root: str) -> dict:
-    """{name: (image, dG_tex, dG_hard)} of the tangent-bundle kernels (K4,
-    K4v) on the cases the module docstring lists, single passes at seed
-    7."""
+    """{name: (image, dG_tex, dG_hard)} of the grad kernels on the cases
+    the module docstring lists, single passes at seed 7."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -228,18 +255,45 @@ def kernel_outputs(root: str) -> dict:
         ("k4v_mis_medium_128_spp4_d8",
          cs.sized(cs.mis_medium_scene(pt), 128, 4, 8), "mixed9", False),
         ("k8_k4v_ior_bouncing_400x225_spp4_d50_sky",
-         cs.builtin(pt, "bouncing_spheres", 400, 4, 50), "mat_ior", True))
+         cs.builtin(pt, "bouncing_spheres", 400, 4, 50), "mat_ior", True),
+        ("k3_cornell_1920x1080_spp64_d50",
+         cs.cornell_1080p(pt, cs.TRAIN_SPP, cs.TRAIN_DEPTH), (), False),
+        ("k3_cornell_128_spp16_d50",
+         cs.builtin(pt, "cornell_box", 128, 16, 50), (), False),
+        ("k3_cornell_smoke_96_spp4_d16",
+         cs.builtin(pt, "cornell_smoke", 96, 4, 16), (), False),
+        ("k3_cornell_1920x1080_spp4_d50", cs.cornell_1080p(pt, 4, 50), (),
+         False),
+        ("k3_nt16_64_spp4_d8", cs.sized(cs.nt16_scene(pt), 64, 4, 8), (),
+         False),
+        ("k3v_scan_tex_1200x675_spp4_d50",
+         cs.wide(cs.scan_tex_scene(pt), 1200, 4, 50), (), False),
+        ("k3v_rows28_1200x675_spp4_d50",
+         cs.wide(cs.rows_scene(pt), 1200, 4, 50), (), False),
+        ("k8_bouncing_1200x675_spp16_d50",
+         cs.builtin(pt, "bouncing_spheres", 1200, 16, 50), (), False),
+        ("k8_suffix_scene_256_spp16_d8",
+         cs.sized(cs.suffix_scene(pt), 256, 16, 8), (), False),
+        ("k11_suffix_bouncing_1200x675_spp4_d50",
+         cs.builtin(pt, "bouncing_spheres", 1200, 4, 50), (), False),
+        ("k12_suffix_bouncing_1200x675_spp4_d50",
+         cs.builtin(pt, "bouncing_spheres", 1200, 4, 50), (), False))
     out = {}
     for name, scene, slots, sky in cases:
-        flat, cam, kw = cs.pass_args(pt, scene, dev)
+        mode = {"k11": "stack", "k12": "lane"}.get(name[:3], "vscan")
+        flat, cam, kw = cs.pass_args(pt, scene, dev,
+                                     use_bvh=mode != "vscan")
         kw["sky_gradient"] = kw["sky_gradient"] or sky
         slots = _slots(wc, flat, slots)
         g = cs.cotangent(torch, kw, dev, 5)
-        img, dgt, dgh = wc.render_pass_grad_kernel(
-            flat, cam, 7, 0, cotangent=g, hard_slots=slots,
-            want_tex=not name.startswith("k4v_vscan"), **kw)
+        with cs.kernel_mode_env(mode):
+            img, dgt, dgh = wc.render_pass_grad_kernel(
+                flat, cam, 7, 0, cotangent=g, hard_slots=slots,
+                want_tex=not name.startswith("k4v_vscan"), **kw)
         out[name] = tuple(torch.empty(0) if t is None else t.cpu()
                           for t in (img, dgt, dgh))
+        del img, dgt, dgh
+        torch.cuda.empty_cache()
     return out
 
 

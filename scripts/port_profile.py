@@ -36,6 +36,23 @@ fails: the sets name the source they apply to. SET is one of:
           the double atomics (the values kept alive), and with its
           accumulators in the global row in place of the block's shared
           memory.
+  k3      (the source before K3's redesign, commit c7f8bd9): K3,
+          wavefront_grad_kernel<8, false>, at Cornell 1920x1080 spp64 d50
+          (tex_color, NT 6), whole; with the weight planes' updates left
+          out (miss, emission and scatter; the planes then stay 0 and the
+          compiler drops them); with the block reduction's shuffle trees
+          left out (Gp kept alive); with an instance sized to NT 6 in
+          place of 8 (no padded planes); and the forward kernel
+          (wavefront_forward_kernel) at the same shape; each with the
+          blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+          at the launch's shared memory) beside its ptxas figures.
+  k3new   (this source): K3, now wavefront_tex_grad_kernel<8> (its
+          register planes held to four blocks an SM), at the same shape,
+          whole; with __launch_bounds__ asking for no block count (the
+          parent's three blocks an SM) and for five; with an instance
+          sized to NT 6; and the forward kernel; blocks an SM and ptxas
+          figures beside each. And K8, the suffix tier, at
+          bouncing_spheres 1200x675 spp16 d50, whole.
 
 Prints one JSON line per measurement and each build's ptxas figures of the
 kernels under study (registers, stack, spills).
@@ -159,6 +176,92 @@ _N_SKIP_COUNT = [
                     }""")]
 
 
+# ---- K3's variants (wavefront.cu at commit c7f8bd9)
+K3 = "_Z21wavefront_grad_kernelILi8ELb0EEv8WfParamsPKfPKiS2_S2_PfS5_S5_Pi"
+K3_NT6 = "_Z21wavefront_grad_kernelILi6ELb0EEv8WfParamsPKfPKiS2_S2_PfS5_S5_Pi"
+K1 = "wavefront_forward_kernel"
+# the blocks an SM holds of K3 (<8, false> and, where the variant has it,
+# <6, false>) and of the forward kernel, at n_table floats of dynamic shared
+# memory; read back by rt_prof_occupancy
+def _occupancy(nt6: bool = False) -> list:
+    return [("#endif  // WF_IN_PART(0)", """
+template <int NTMAX>
+static int prof_blocks(int* out, size_t smem) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, wavefront_grad_kernel<NTMAX, false>, WF_THREADS, smem);
+}
+extern "C" int rt_prof_occupancy(int n_table, int* out) {
+    const size_t smem = (size_t)n_table * sizeof(float);
+    int e = prof_blocks<8>(out, smem);
+    if (e == 0)
+        e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            out + 1, wavefront_forward_kernel, WF_THREADS, smem);
+""" + ("    if (e == 0) e = prof_blocks<6>(out + 2, smem);\n" if nt6 else "")
+        + """    return e;
+}
+#endif  // WF_IN_PART(0)""")]
+# ---- K3's variants on this source: its own kernel,
+# wavefront_tex_grad_kernel<8>, its register planes held to four blocks an
+# SM
+K3_NEW = "_Z25wavefront_tex_grad_kernelILi8EE"
+K8 = ("_Z27wavefront_grad_vscan_kernelILi0ELb0ELb1ELb0EEv8WfParams"
+      "8VsParams8GradArgs")
+_OCCUPANCY_NEW = [("#endif  // WF_IN_PART(0)", """
+extern "C" int rt_prof_occupancy(int smem_k3, int smem_fwd, int* out) {
+    int e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, wavefront_tex_grad_kernel<8>, WF_THREADS, (size_t)smem_k3);
+    if (e == 0)
+        e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            out + 1, wavefront_forward_kernel, WF_THREADS, (size_t)smem_fwd);
+    return e;
+}
+#endif  // WF_IN_PART(0)""")]
+_K3_NT6_NEW = [(
+    """        return P.NT <= 8 ? launch_tex_grad<8>(WF_GRAD_ARGS)""",
+            """        return P.NT <= 6 ? launch_tex_grad<6>(WF_GRAD_ARGS)
+            : P.NT <= 8 ? launch_tex_grad<8>(WF_GRAD_ARGS)""")]
+
+
+def _k3_blocks(n: int) -> list:
+    """K3's __launch_bounds__ asking for n blocks an SM (0: none)."""
+    return [("__global__ void __launch_bounds__(WF_THREADS, 4)\n"
+             "wavefront_tex_grad_kernel(",
+             "__global__ void __launch_bounds__(WF_THREADS"
+             + (f", {n}" if n else "") + ")\nwavefront_tex_grad_kernel(")]
+
+
+def _ptxas_prefix(log: str, prefix: str):
+    return next((v for k, v in cs.ptxas_table(log).items()
+                 if k.startswith(prefix)), None)
+
+
+_K3_NO_UPDATES = [
+    ("""            for (int k = 0; k < 3 * NTMAX; ++k)
+                Gp[k] = Gp[k] + gc[k % 3] * Wp[k] * sk[k % 3];""",
+     """            for (int k = 0; k < 0; ++k)
+                Gp[k] = Gp[k] + gc[k % 3] * Wp[k] * sk[k % 3];"""),
+    ("""            for (int k = 0; k < 3 * NTMAX; ++k)
+                Gp[k] = Gp[k] + gc[k % 3] * (""",
+     """            for (int k = 0; k < 0; ++k)
+                Gp[k] = Gp[k] + gc[k % 3] * ("""),
+    ("""            for (int k = 0; k < 3 * NTMAX; ++k)
+                Wp[k] = (Wp[k] * av[k % 3]""",
+     """            for (int k = 0; k < 0; ++k)
+                Wp[k] = (Wp[k] * av[k % 3]""")]
+_K3_NO_REDUCTION = [("""                float v = Gp[k];
+#pragma unroll
+                for (int off = 16; off > 0; off >>= 1)
+                    v += __shfl_down_sync(0xffffffffu, v, off);
+                if (wl == 0) red[warp * 3 * NTMAX + k] = v;""",
+                     """                float v = Gp[k];
+                if (v == 1.2345e30f) red[warp * 3 * NTMAX + k] = v;""")]
+_K3_NT6 = [("""        return P.NT <= 8 ? launch_grad<8, false>(WF_GRAD_ARGS)
+                         : launch_grad<16, false>(WF_GRAD_ARGS);""",
+            """        return P.NT <= 6 ? launch_grad<6, false>(WF_GRAD_ARGS)
+            : P.NT <= 8 ? launch_grad<8, false>(WF_GRAD_ARGS)
+                         : launch_grad<16, false>(WF_GRAD_ARGS);""")]
+
+
 # hard_group inlined into each grad instance (the source keeps it out of
 # line)
 _INLINE = [("__device__ __noinline__ void hard_group(",
@@ -196,6 +299,21 @@ SETS = {
         ("k9", "phase_f_only", 4, [_N_K9_NO_R]),
         ("k9", "no_atomics", 4, _N_K9_NO_ATOMICS),
         ("k9", "global_acc", 4, _GLOBAL_ACC),
+    ],
+    "k3": [
+        ("k3", "whole", 0, _occupancy()),
+        ("k3", "no_plane_updates", 0, _K3_NO_UPDATES + _occupancy()),
+        ("k3", "no_reduction", 0, _K3_NO_REDUCTION + _occupancy()),
+        ("k3", "nt6_instance", 0, _K3_NT6 + _occupancy(True)),
+        ("k1", "forward", 0, _occupancy()),
+    ],
+    "k3new": [
+        ("k3", "4_blocks", 0, _OCCUPANCY_NEW),
+        ("k3", "3_blocks", 0, _k3_blocks(0) + _OCCUPANCY_NEW),
+        ("k3", "5_blocks", 0, _k3_blocks(5) + _OCCUPANCY_NEW),
+        ("k3", "nt6_instance_4_blocks", 0, _K3_NT6_NEW + _OCCUPANCY_NEW),
+        ("k1", "forward", 0, _OCCUPANCY_NEW),
+        ("k8", "whole", 2, []),
     ],
 }
 
@@ -240,7 +358,7 @@ def build_variants(wc, src: Path, out_dir: Path, variants) -> dict:
     (every part) and each variant's part, all compiled in parallel."""
     out_dir.mkdir(parents=True, exist_ok=True)
     base = src.read_text()
-    jobs, procs = [], []
+    jobs, procs, texts = [], [], []
     for p in wc.WF_PARTS:
         obj = out_dir / f"base_{p}.o"
         procs.append(_compile(wc, src, p, obj))
@@ -254,13 +372,24 @@ def build_variants(wc, src: Path, out_dir: Path, variants) -> dict:
                 raise RuntimeError(f"{kern}/{name}: the source has no "
                                    f"{old[:70]!r}")
             text = text.replace(old, new)
+        same = [j for j, t in enumerate(texts) if t == (text, part)]
+        texts.append((text, part))
+        if same:
+            procs.append(procs[len(wc.WF_PARTS) + same[0]])
+            jobs.append(((kern, name), part, jobs[len(wc.WF_PARTS)
+                                                  + same[0]][2]))
+            continue
         vsrc = out_dir / f"{kern}_{name}.cu"
         vsrc.write_text(text)
         obj = out_dir / f"{kern}_{name}_{part}.o"
         procs.append(_compile(wc, vsrc, part, obj))
         jobs.append(((kern, name), part, obj))
     t0 = time.perf_counter()
-    logs = [_finish([p]) for p in procs]
+    finished = {}
+    for p in procs:
+        if id(p) not in finished:
+            finished[id(p)] = _finish([p])
+    logs = [finished[id(p)] for p in procs]
     build_s = time.perf_counter() - t0
     base_objs = {p: obj for (tag, p, obj) in jobs if tag == "base"}
     base_log = "\n".join(lg for (tag, _, _), lg in zip(jobs, logs)
@@ -313,8 +442,24 @@ def main(root: str, which: str) -> int:
     bprep = wc.prepare_kernel(bflat, bcam, chunk_scan=True)
     k9 = functools.partial(ac.render_pass_adjoint_kernel, bflat, bcam, 0, 0,
                            cotangent=bg, prepared=bprep, **bkw)
+    gk3 = cs.cotangent(torch, kw, dev, 6)
+    prep3 = wc.prepare_kernel(flat, cam)
+    k3 = functools.partial(wc.render_pass_grad_kernel, flat, cam, 0, 0,
+                           cotangent=gk3, prepared=prep3, **kw)
+    k1 = functools.partial(wc.render_pass_kernel, flat, cam, 0, 0,
+                           prepared=prep3, **kw)
+    sflat, scam, skw = cs.pass_args(
+        pt, cs.builtin(pt, "bouncing_spheres", 1200, 16, 50), dev)
+    sg = cs.cotangent(torch, skw, dev, 6)
+    k8 = functools.partial(wc.render_pass_grad_kernel, sflat, scam, 0, 0,
+                           cotangent=sg, prepared=wc.prepare_kernel(sflat,
+                                                                    scam),
+                           **skw)
     runs = {"k4": (k4, K4, f"cornell_box 1920x1080 spp64 d50, {len(slots)} "
                            f"hard slots"),
+            "k8": (k8, K8, "bouncing_spheres 1200x675 spp16 d50"),
+            "k3": (k3, K3, "cornell_box 1920x1080 spp64 d50, tex_color"),
+            "k1": (k1, K1, "cornell_box 1920x1080 spp64 d50, forward"),
             "k9": (k9, K9, "bouncing_spheres 1200x675 spp16 d50, sky "
                            "gradient")}
     for kern, name, _, _ in variants:
@@ -324,6 +469,31 @@ def main(root: str, which: str) -> int:
         rec = {"kernel": kern, "variant": name, "shape": shape,
                "ptxas": cs.ptxas_table(log).get(sym),
                "ptxas_calls": _callee_ptxas(log)}
+        if kern in ("k3", "k1") and which == "k3new":
+            occ = (ctypes.c_int * 3)()
+            ofn = lib.lib.rt_prof_occupancy
+            ofn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            n_table = prep3.fields["n_table"]
+            cs.check(ofn(4 * n_table, 4 * n_table, occ) == 0,
+                     "rt_prof_occupancy failed")
+            rec["blocks_per_sm"] = {"k3": occ[0], "forward": occ[1]}
+            rec["ptxas"] = _ptxas_prefix(log, K3_NEW)
+            if name.startswith("nt6"):
+                rec["ptxas_nt6"] = _ptxas_prefix(
+                    log, "_Z25wavefront_tex_grad_kernelILi6EE")
+            rec["ptxas_forward"] = cs.ptxas_table(log).get(K1)
+        elif kern in ("k3", "k1"):
+            occ = (ctypes.c_int * 3)()
+            ofn = lib.lib.rt_prof_occupancy
+            ofn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+            nt6 = name == "nt6_instance"
+            cs.check(ofn(prep3.fields["n_table"], occ) == 0,
+                     "rt_prof_occupancy failed")
+            rec["blocks_per_sm"] = {"k3": occ[0], "forward": occ[1]}
+            if nt6:
+                rec["blocks_per_sm"]["k3_nt6"] = occ[2]
+                rec["ptxas_nt6"] = cs.ptxas_table(log).get(K3_NT6)
+            rec["ptxas_forward"] = cs.ptxas_table(log).get(K1)
         if name == "skip_count":
             counts = (ctypes.c_ulonglong * 2)()
             cfn = lib.lib.rt_prof_counts

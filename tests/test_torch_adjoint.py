@@ -62,6 +62,7 @@ from real_time_ray_tracing_engine_tpu_torch.scene.flat import (
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402  (stdlib only at import)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 IMAGE_ATOL, IMAGE_RTOL = 1e-5, 3e-4
 PARTED = 1e-3
@@ -79,18 +80,6 @@ GAP_RTOL, GAP_ATOL_SCALE = 2e-2, 2e-2
 # hashes its lattice in float32, 5e-6 here)
 PROBE_FD_RTOL = 1e-4
 PROBE_FD_LANES = 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread in this module, as tests/test_torch_bvh.py: the
-    plain adjoint runs hundreds of small ops a bounce, and with the suite's
-    parallel workers sharing the cores, OpenMP's threads spin against each
-    other on each of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _slots_scene(m):

@@ -51,6 +51,7 @@ from real_time_ray_tracing_engine_tpu_torch.scene.convert import (
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402  (stdlib only at import)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # tests/test_torch_adjoint.py's tolerances against the JAX adjoint
 IMAGE_ATOL, IMAGE_RTOL = 1e-5, 3e-4
@@ -67,18 +68,6 @@ GAP_WITNESS = (("sphc", 63, 0),)
 GAP_RTOL, GAP_ATOL_SCALE = 2e-2, 2e-2
 # tests/test_grad.py:1181's rule between the two sweeps
 SWEEP_IMAGE_ATOL, SWEEP_RTOL, SWEEP_ATOL_SCALE = 1e-6, 1e-5, 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread in this module, as tests/test_torch_bvh.py: the
-    plain sweeps run hundreds of small ops a bounce, and with the suite's
-    parallel workers sharing the cores, OpenMP's threads spin against each
-    other on each of them."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _smoke_scene(m):

@@ -44,6 +44,7 @@ from test_pallas import _assert_close as assert_close
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402  (stdlib only at import)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 BVH_FIELDS = ("bvh_bbox_min", "bvh_bbox_max", "bvh_left", "bvh_right",
               "bvh_axis", "bvh_leaf", "bvh_prims", "bvh_leaf_sph",
@@ -66,19 +67,6 @@ def random_scene(api, n=150, seed=0):
 
 SCENES = {"random": random_scene, "bouncing_spheres":
           lambda api: api.builders.bouncing_spheres()}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Torch on one thread in this module: the plain BVH walks run hundreds
-    of small ops a bounce, and with the suite's parallel workers sharing
-    the cores, OpenMP's threads spin against each other on each of them
-    (one test here took a hundred times its own time in the suite's
-    parallel run on eight threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

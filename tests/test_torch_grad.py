@@ -29,6 +29,7 @@ from real_time_ray_tracing_engine_tpu_torch.scene.convert import (
     camera_from_numpy, camera_to_numpy, flat_from_numpy, flat_to_numpy)
 from real_time_ray_tracing_engine_tpu_torch.scene.flat import (
     TEX_CHECKER, TEX_NOISE)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _nested_checker(m):

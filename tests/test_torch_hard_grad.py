@@ -37,6 +37,7 @@ from real_time_ray_tracing_engine_tpu_torch.parallel import train
 from real_time_ray_tracing_engine_tpu_torch.scene.convert import (
     camera_from_numpy, camera_to_numpy, flat_from_numpy, flat_to_numpy,
     params_from_numpy)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LR = 0.02
 WALLS = [0, 1, 2]        # Cornell's green, red and white texture rows

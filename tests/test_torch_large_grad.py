@@ -49,6 +49,7 @@ from real_time_ray_tracing_engine_tpu_torch.scene.flat import (
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402  (stdlib only at import)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPLAY_TOL = dict(rtol=2e-2, atol=2e-3)
 
@@ -264,6 +265,47 @@ def test_suffix_compacted_matches_single():
                             wc.lane_count(kw["width"] * kw["height"]))
 
 
+def test_suffix_total_after_each_bounce_is_the_replay_prefix():
+    """The premise of the suffix tier's single pass (csrc/wavefront.cu,
+    K8): at every bounce, phase A's running path total equals phase B's
+    prefix at the same bounce of the same sample, bit for bit (both start
+    at 0 and add the same increments in the same order), so the prefix a
+    route needs is the total the one trace already holds. Stepped one
+    iteration at a time through the plain version's carry (its phase, T
+    and P rows) on bouncing_spheres; fails if the two sums ever part."""
+    _, _, pf, pc, kw, seed, g = _case("bouncing")
+    cot = torch.from_numpy(g)
+    sb = wc.CARRY_ROWS
+    totals, prefixes = {}, {}
+    carry, steps = None, 0
+    while carry is None or bool((carry[0] > 0.5).any()):
+        # the lanes that trace a bounce in this iteration
+        lanes = (torch.nonzero(carry[0] > 0.5).squeeze(1)
+                 if carry is not None else None)
+        carry = wc.render_pass_grad_reference(
+            pf, pc, seed, 0, cotangent=cot, cap=1, carry=carry, **kw)[3]
+        steps += 1
+        assert steps < 200
+        if lanes is None:
+            lanes = torch.arange(carry.shape[1])
+        phb = carry[sb] > 0.5
+        for lane in lanes.tolist():
+            key = (lane, int(carry[3, lane]), int(carry[2, lane]))
+            if bool(phb[lane]):
+                prefixes[key] = carry[sb + 4:sb + 7, lane].clone()
+            else:
+                totals[key] = carry[sb + 1:sb + 4, lane].clone()
+    assert len(prefixes) > 1000
+    assert set(prefixes) <= set(totals)
+    nonzero = 0
+    for key, p in prefixes.items():
+        t = totals[key]
+        assert torch.equal(t.view(torch.int32), p.view(torch.int32)), \
+            (key, t.tolist(), p.tolist())
+        nonzero += bool((p != 0).any())
+    assert nonzero > 100
+
+
 def _metals_scene(n_metals=30):
     """A chunk-scan scene of n_metals metals of their own albedos and 50
     lambertians of one: n_metals + 1 texture rows and n_metals fuzz
@@ -279,9 +321,10 @@ def test_large_grad_gates(capsys):
     """The grad gates admit the JAX fused tiers on the chunk scan (tex_color
     at any row count, up to MAX_HARD_SLOTS slots) and name what they cannot
     serve: K9/K10 past MAX_HARD_SLOTS slots, and a launch past a block's
-    shared memory, which counts the boxes, the tangent planes, the suffix
-    accumulators and the weight planes of 17 to 32 rows. Building a render
-    over a suffix scene prints the JAX package's zero-albedo notice."""
+    shared memory, which counts the boxes, the tangent planes and the
+    weight planes of 17 to 32 rows (the suffix tier's sums are in global
+    memory). Building a render over a suffix scene prints the JAX
+    package's zero-albedo notice."""
     bouncing = pt.compile_scene(pt.builders.bouncing_spheres())
     assert wc.tex_form(bouncing) == "suffix"
     assert wc.grad_gate_reason(bouncing) is None
@@ -290,8 +333,7 @@ def test_large_grad_gates(capsys):
     fuzz = wc.hard_param_slots(bouncing, {"mat_fuzz"})
     assert len(fuzz) == 72
     assert "K9/K10" in wc.grad_gate_reason(bouncing, len(fuzz))
-    assert wc.grad_smem_bytes(bouncing, 1) == 4 * (
-        32 + 10 * 128 + 3 * 460)
+    assert wc.grad_smem_bytes(bouncing, 1) == 4 * (32 + 10 * 128)
     metals = _metals_scene()
     NT = metals.tex_type.shape[0]
     assert wc.MAX_TEXS < NT <= wc.MAX_GRAD_TEXS

@@ -16,6 +16,7 @@ from real_time_ray_tracing_engine_tpu.utils import rng as jrng
 from real_time_ray_tracing_engine_tpu.utils import perlin as jperlin
 from real_time_ray_tracing_engine_tpu_torch.utils import rng as prng
 from real_time_ray_tracing_engine_tpu_torch.utils import perlin as pperlin
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _u32_inputs(seed):

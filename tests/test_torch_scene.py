@@ -19,6 +19,7 @@ from real_time_ray_tracing_engine_tpu_torch.scene.convert import (
     camera_from_numpy, flat_from_numpy, flat_to_numpy)
 from real_time_ray_tracing_engine_tpu_torch.scene.flat import STATIC_FIELDS
 from real_time_ray_tracing_engine_tpu_torch.utils import rng as prng
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCENES = ["cornell_box", "cornell_smoke", "simple_sphere", "three_spheres"]
 

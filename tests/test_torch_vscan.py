@@ -46,6 +46,7 @@ from test_pallas import _assert_close as assert_close
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402  (stdlib only at import)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SCENES = {"bouncing_spheres": rt.builders.bouncing_spheres,
           "multichunk": lambda: cs.multichunk_scene(rt),

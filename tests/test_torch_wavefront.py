@@ -30,6 +30,7 @@ from real_time_ray_tracing_engine_tpu_torch.scene.convert import (
     camera_from_numpy, camera_to_numpy, flat_from_numpy, flat_to_numpy)
 
 from test_pallas import _assert_close as assert_close
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
