@@ -490,6 +490,28 @@ def bvh_sphere_scene(api):
         background=(0.4, 0.5, 0.7)), name="bvh_spheres")
 
 
+def bvh_chain_scene(api, n=40):
+    """n spheres along the x axis at doubling distances and radii, seen
+    along the axis, beside a 6 x 5 block of small spheres (past the
+    unrolled bound of 64 primitives), 48 px, spp4, d4: the SAH tree peels
+    the far spheres off level by level, so the stack walk (K11) goes down a
+    chain with every far child met (the boxes' pad grows with the scene's
+    largest coordinate) and pushed, its stack more than 8 entries deep."""
+    objs = []
+    for i in range(n):
+        x = float(2.0 ** i) - 1.0
+        albedo = (0.3 + 0.6 * ((i * 7) % 10) / 10.0, 0.5, 0.6)
+        objs.append(api.Sphere((x, 0.1 * (i % 3), 0.0), 0.3 * 1.5 ** i,
+                               api.Lambertian(api.SolidColor(albedo))))
+    for i in range(30):
+        objs.append(api.Sphere((float(i % 6), -4.0, 2.0 + float(i // 6)),
+                               0.3, api.Metal((0.8, 0.8, 0.7), fuzz=0.1)))
+    return api.Scene(objects=objs, lights=[], camera=api.CameraConfig(
+        image_width=48, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+        vfov=60, lookfrom=(-6, 0.5, 0.5), lookat=(10, -1, 1),
+        background=(0.4, 0.5, 0.7)), name="bvh_chain")
+
+
 def city_scene(api, n_boxes=50):
     """scripts/bench_large.py:30-43 (city_scene): 6 n_boxes + 1 quads, the
     quad-chunk regime (K7): 301 at 50 boxes."""
@@ -3272,8 +3294,13 @@ def main() -> int:
     hard_main = hard_err["cornell_box_1920x1080"]
     k3_ptxas = ptxas_prefix(lib.build_log, K3_SYMBOL)
     k8_ptxas = ptxas_prefix(lib.build_log, K8_SYMBOL)
-    check(len(k3_ptxas) == 2 and len(k8_ptxas) == 2,
-          f"ptxas figures of K3 {k3_ptxas} and K8 {k8_ptxas}")
+    # K6 and K7: one instance, the chunk scan's forward
+    vscan_ptxas = ptxas_prefix(lib.build_log,
+                               "wavefront_forward_vscan_kernel$")
+    check(len(k3_ptxas) == 2 and len(k8_ptxas) == 2
+          and len(vscan_ptxas) == 1,
+          f"ptxas figures of K3 {k3_ptxas}, K8 {k8_ptxas} and K6 "
+          f"{vscan_ptxas}")
     print(json.dumps({"kernels": [{
         "name": "wavefront_forward_kernel", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -3318,7 +3345,8 @@ def main() -> int:
         "ms_at": "bouncing_spheres 1200x675 spp16 d50",
         "plain_ms_at": "bouncing_spheres 1200x675 spp16 d50",
         "compacted_ms":
-            large_times["bouncing_1200x675_spp16_d50"]["compacted_ms"]}, {
+            large_times["bouncing_1200x675_spp16_d50"]["compacted_ms"],
+        "ptxas": vscan_ptxas}, {
         "name": "wavefront_forward_vscan_kernel[vquad]", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_VQUAD,
         "launches": large["city301"]["launches"],
@@ -3330,7 +3358,8 @@ def main() -> int:
         "ms_at": "city301 400x225 spp9 d6",
         "plain_ms_at": "city301 400x225 spp9 d6",
         "compacted_ms":
-            large_times["city301_400x225_spp9_d6"]["compacted_ms"]}, {
+            large_times["city301_400x225_spp9_d6"]["compacted_ms"],
+        "ptxas": vscan_ptxas}, {
         "name": "wavefront_grad_vscan_kernel[planes]", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K3V,
         "launches": k3v_launches,

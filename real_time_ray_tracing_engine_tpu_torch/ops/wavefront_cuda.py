@@ -112,6 +112,15 @@ BIG = 1e30
 BOX_PAD = 1e-3
 VROW_COLS = 8         # sphere chunk rows: c0 xyz, cdelta xyz, radius, id
 QROW_COLS = 20        # quad chunk rows: corner, u, v, normal, d, w, id, pad
+# The chunk scan's second level (csrc/wavefront.cu VGROUP, QGROUP): each
+# sphere chunk is VCHUNK / VGROUP groups of VGROUP consecutive rows, each
+# quad chunk VCHUNK / QGROUP groups of QGROUP (a quad test costs more than
+# a sphere test), each group with its own box (motion-swept, widened by the
+# chunk boxes' pad), GBOX_COLS floats a row in the buffer: lo xyz, 0, hi
+# xyz, 0 (two float4s)
+VGROUP = 8
+QGROUP = 4
+GBOX_COLS = 8
 
 # the BVH modes (K11 stack, K12 lane; wavefront_pallas.py:464-492). The lane
 # walk's node and primitive bound (LANE_BVH_MAX, 685): ids ride as exact
@@ -120,6 +129,10 @@ BVH_MODES = ("stack", "lane")
 LANE_BVH_MAX = 1 << 22
 BVH_NODE_COLS = 12    # node rows: box lo xyz, hi xyz (widened), the links
 # (csrc/wavefront.cu BvParams; pack_bvh_tables says what each column holds)
+# The stack walk's (K11) rows: an inner node's two children's widened boxes
+# and their links, a leaf's runs (_bvh_stack_rows; csrc/wavefront.cu
+# BVH_STACK_COLS)
+BVH_STACK_COLS = 16
 
 LANE_BLOCK = 128  # = WF_THREADS, the kernel's block size
 CARRY_ROWS = 14   # work, alive, bounce, sample, time, o xyz, d xyz, th xyz
@@ -360,9 +373,10 @@ def grad_smem_bytes(flat: FlatScene, n_slots: int,
                     want_tex: bool = True) -> int:
     """Shared memory of a grad launch (csrc/wavefront.cu, wavefront_body):
     the tables (the unrolled mode, with the slot table), the chunk boxes
-    (the chunk scan, whose tables stay in global memory) or nothing (the
-    BVH modes), padded as table_pad does; 10 floats a hard slot a lane;
-    past the unrolled mode, weight planes for more than MAX_TEXS rows, 6
+    (the chunk scan, whose tables and group boxes stay in global memory)
+    or nothing (the BVH modes), padded as table_pad does; 10 floats a hard
+    slot a lane; past the unrolled mode, weight planes for more than
+    MAX_TEXS rows, 6
     floats a row a lane (Wp and its cotangent sums Gp). The suffix tier's
     route sums and records are in global memory."""
     NT = flat.tex_type.shape[0]
@@ -508,14 +522,17 @@ def _morton_codes(mid, act):
     return _morton3(q[:, 0], q[:, 1], q[:, 2])
 
 
-def _chunk_boxes(lo, hi, n_chunks: int):
-    """(n_chunks, 6) boxes [lo xyz, hi xyz] of consecutive VCHUNK-row
-    chunks; rows past lo's end count as empty (BIG / -BIG)."""
+def _chunk_boxes(lo, hi, n_chunks: int, rows: int = VCHUNK):
+    """(n_chunks * VCHUNK / rows, 6) boxes [lo xyz, hi xyz] of consecutive
+    `rows`-row runs of n_chunks VCHUNK-row chunks (the chunks' own boxes
+    at VCHUNK, their groups' at VGROUP); rows past lo's end count as
+    empty (BIG / -BIG)."""
     pad = n_chunks * VCHUNK - lo.shape[0]
     lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=BIG)
     hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-BIG)
-    return torch.cat([lo.reshape(n_chunks, VCHUNK, 3).min(1).values,
-                      hi.reshape(n_chunks, VCHUNK, 3).max(1).values], dim=1)
+    n = n_chunks * VCHUNK // rows
+    return torch.cat([lo.reshape(n, rows, 3).min(1).values,
+                      hi.reshape(n, rows, 3).max(1).values], dim=1)
 
 
 def _chunk_rows(rows, n_chunks: int, id_col: int):
@@ -546,6 +563,12 @@ class VscanTables:
       box (C + Cq, 6): the sphere chunks' boxes, swept over the motion
         interval (the big block's is empty), then the quad chunks'; empty
         boxes are [BIG, -BIG]. The cull widens them by `pad`.
+      gbox (C * VCHUNK / VGROUP + Cq * VCHUNK / QGROUP, 6): the second
+        level, the boxes of each sphere chunk's groups of VGROUP
+        consecutive rows, then of each quad chunk's groups of QGROUP, in
+        the chunks' order, built as `box` is (the big block's are empty,
+        as are groups of id -1 rows only); `box` is their union chunk by
+        chunk. The cull widens them by `pad` too.
       qrows (Cq * VCHUNK, 20): with vquad (Q > MAX_QUADS_VSCAN), quad rows
         [corner, u, v, normal, d, w, id, 0 0 0] in Morton order, inactive
         and pad rows id -1; qperm the original quad ids. Cq = 0 tests the
@@ -555,6 +578,7 @@ class VscanTables:
     rows: torch.Tensor
     perm: torch.Tensor
     box: torch.Tensor
+    gbox: torch.Tensor
     pad: float
     S: int
     C_small: int
@@ -620,6 +644,7 @@ def pack_vscan_tables(flat: FlatScene) -> VscanTables:
     lo_c = torch.where(culled, lo, BIG)[perm][:n_small]
     hi_c = torch.where(culled, hi, -BIG)[perm][:n_small]
     box = _chunk_boxes(lo_c, hi_c, C_small + (1 if n_big else 0))
+    gbox = _chunk_boxes(lo_c, hi_c, C_small + (1 if n_big else 0), VGROUP)
     scale = torch.where(culled, torch.maximum(lo.abs(), hi.abs()),
                         0.0).max() if S else torch.zeros((), device=dev)
 
@@ -644,21 +669,26 @@ def pack_vscan_tables(flat: FlatScene) -> VscanTables:
         qrows = _chunk_rows(torch.cat([
             quads[:, :16], qids.to(f32)[:, None],
             torch.zeros(Q, 3, dtype=f32, device=dev)], 1)[qperm], Cq, 16)
-        box = torch.cat([box, _chunk_boxes(
-            torch.where(qact[:, None], qlo, BIG)[qperm],
-            torch.where(qact[:, None], qhi, -BIG)[qperm], Cq)])
+        qlo_c = torch.where(qact[:, None], qlo, BIG)[qperm]
+        qhi_c = torch.where(qact[:, None], qhi, -BIG)[qperm]
+        box = torch.cat([box, _chunk_boxes(qlo_c, qhi_c, Cq)])
+        gbox = torch.cat([gbox, _chunk_boxes(qlo_c, qhi_c, Cq, QGROUP)])
         scale = torch.maximum(scale, torch.where(
             qact[:, None], torch.maximum(qlo.abs(), qhi.abs()), 0.0).max())
     pad = float(np.float32(BOX_PAD * (1.0 + float(scale))))
-    return VscanTables(rows=rows.contiguous(), perm=perm, box=box, pad=pad,
+    return VscanTables(rows=rows.contiguous(), perm=perm, box=box,
+                       gbox=gbox, pad=pad,
                        S=S, C_small=C_small, C_stat=C_stat, n_big=n_big,
                        qrows=qrows.contiguous(), qperm=qperm, Cq=Cq,
                        quads=quads)
 
 
-def _padded_boxes(vt: VscanTables) -> torch.Tensor:
-    """The boxes the cull tests: each non-empty box widened by vt.pad."""
-    lo, hi = vt.box[:, :3], vt.box[:, 3:]
+def _padded_boxes(vt: VscanTables, box=None) -> torch.Tensor:
+    """The boxes the cull tests: each non-empty box of `box` (the chunk
+    boxes vt.box by default, or the group boxes vt.gbox) widened by
+    vt.pad."""
+    box = vt.box if box is None else box
+    lo, hi = box[:, :3], box[:, 3:]
     empty = (lo > hi).any(1, keepdim=True)
     return torch.cat([torch.where(empty, lo, lo - vt.pad),
                       torch.where(empty, hi, hi + vt.pad)], 1)
@@ -666,14 +696,20 @@ def _padded_boxes(vt: VscanTables) -> torch.Tensor:
 
 def _vscan_buffer(vt: VscanTables):
     """One float32 buffer of what the vscan kernel reads beside the scene
-    tables: the sphere rows, the quad rows (16-byte aligned, for float4
-    loads) and the widened boxes; and the kernel's VsParams fields."""
-    parts = [vt.rows.reshape(-1), vt.qrows.reshape(-1),
+    tables: the widened group boxes (GBOX_COLS floats each, two float4s),
+    the sphere rows, the quad rows (each 16-byte aligned, for float4
+    loads) and the widened chunk boxes; and the kernel's VsParams
+    fields."""
+    g = _padded_boxes(vt, vt.gbox)
+    zero = torch.zeros_like(g[:, :1])
+    parts = [torch.cat([g[:, :3], zero, g[:, 3:], zero], 1).reshape(-1),
+             vt.rows.reshape(-1), vt.qrows.reshape(-1),
              _padded_boxes(vt).reshape(-1)]
+    n0, n1, n2 = (x.numel() for x in parts[:3])
     fields = dict(C_small=vt.C_small, n_big=vt.n_big, Cq=vt.Cq,
-                  off_rows=0, off_qrows=parts[0].numel(),
-                  off_box=parts[0].numel() + parts[1].numel(),
-                  n_box=parts[2].numel())
+                  off_rows=n0, off_qrows=n0 + n1, off_box=n0 + n1 + n2,
+                  n_box=parts[3].numel(), off_gbox=0,
+                  n_gbox=vt.gbox.shape[0])
     return torch.cat(parts).contiguous(), fields
 
 
@@ -685,10 +721,13 @@ def _inverse_dir(d):
                              torch.where(d < 0, -eps, eps), d)
 
 
-def _box_reaches(box, o, inv_d, t_far):
-    """The kernel's per-ray box cull (box_reaches): does the ray meet the
-    (widened, non-empty) box between T_MIN and t_far? box (6,) or one a
-    ray (n, 6), rays (n, 3)."""
+def _box_entry(box, o, inv_d, t_far):
+    """The kernel's per-ray box cull (box_entry): does the ray meet the
+    (widened) box between T_MIN and t_far (never, an empty box), and its
+    entry t into the box, tn = max(the slabs' near ts, T_MIN): (met, tn).
+    The box is met before a later t_far' <= t_far exactly where it was met
+    before t_far and tn <= t_far'. box (6,) or one a ray (n, 6), rays
+    (n, 3)."""
     t0 = (box[..., :3] - o) * inv_d
     t1 = (box[..., 3:] - o) * inv_d
     tn = torch.maximum(torch.maximum(torch.minimum(t0[:, 0], t1[:, 0]),
@@ -699,13 +738,19 @@ def _box_reaches(box, o, inv_d, t_far):
                                      torch.maximum(t0[:, 1], t1[:, 1])),
                        torch.minimum(torch.maximum(t0[:, 2], t1[:, 2]),
                                      t_far))
-    return tn <= tf
+    return (box[..., 0] <= box[..., 3]) & (tn <= tf), tn
+
+
+def _box_reaches(box, o, inv_d, t_far):
+    """_box_entry's cull alone (the kernel's box_reaches)."""
+    return _box_entry(box, o, inv_d, t_far)[0]
 
 
 def vscan_select_reference(vt: VscanTables, o, d, tm):
     """The plain version of the kernel's chunk-scan selection: the same
     walk (the big block, then each sphere chunk, then the quad chunks or
-    the quads one by one) and per-ray box cull against the running best t,
+    the quads one by one; in a chunk whose box a ray meets, each group
+    whose box it meets) and per-ray box culls against the running best t,
     for rays o, d (n, 3) at times tm (n,). Returns (the winner's
     original unified id, -1 on a miss; its t, BIG on a miss). The winner is
     the exact closest root, ties to the lowest unified id (spheres before
@@ -718,6 +763,7 @@ def vscan_select_reference(vt: VscanTables, o, d, tm):
     best = torch.full((n,), -1, dtype=torch.int64, device=dev)
     inv_d = _inverse_dir(d)
     boxes = _padded_boxes(vt)
+    gboxes = _padded_boxes(vt, vt.gbox)
     no_id = torch.iinfo(torch.int64).max
 
     def merge(idx, ts, ids):
@@ -744,24 +790,40 @@ def vscan_select_reference(vt: VscanTables, o, d, tm):
                                rows[:, 9:12], rows[:, 12], rows[:, 13:16],
                                rows[:, 16] > 0.5, o[idx], d[idx]), ids)
 
-    def culled(k):
-        box = boxes[k]
-        if bool(box[0] > box[3]):
-            return torch.zeros(0, dtype=torch.int64, device=dev)
-        return torch.nonzero(_box_reaches(box, o, inv_d, best_t)).squeeze(1)
+    def culled(box, idx):
+        """The rays of idx whose ray meets the (widened) box before their
+        best t."""
+        if bool(box[0] > box[3]) or not idx.numel():
+            return idx[:0]
+        return idx[_box_reaches(box, o[idx], inv_d[idx], best_t[idx])]
 
+    def groups(g0, size, idx):
+        """(rays, first row in the chunk) of each group, of `size` rows, of
+        the chunk whose group boxes start at g0 that the rays of idx meet,
+        group by group (the best t falls between groups)."""
+        for g in range(VCHUNK // size):
+            yield culled(gboxes[g0 + g], idx), g * size
+
+    every = torch.arange(n, device=dev)
     if vt.n_big:
         base = vt.C_small * VCHUNK
-        spheres(torch.arange(n, device=dev),
-                vt.rows[base:base + vt.n_big])
+        spheres(every, vt.rows[base:base + vt.n_big])
     for c in range(vt.C_small):
-        spheres(culled(c), vt.rows[c * VCHUNK:(c + 1) * VCHUNK])
+        for idx, r0 in groups(c * VCHUNK // VGROUP, VGROUP,
+                              culled(boxes[c], every)):
+            r0 += c * VCHUNK
+            spheres(idx, vt.rows[r0:r0 + VGROUP])
     if vt.Cq:
         for k in range(vt.Cq):
-            rows = vt.qrows[k * VCHUNK:(k + 1) * VCHUNK]
-            rows = rows[rows[:, 16] >= 0]
-            q = torch.cat([rows[:, :16], torch.ones_like(rows[:, :1])], 1)
-            quads(culled(vt.C + k), q, rows[:, 16].to(torch.int64))
+            g0 = (vt.C * VCHUNK // VGROUP) + k * VCHUNK // QGROUP
+            for idx, r0 in groups(g0, QGROUP,
+                                  culled(boxes[vt.C + k], every)):
+                r0 += k * VCHUNK
+                rows = vt.qrows[r0:r0 + QGROUP]
+                rows = rows[rows[:, 16] >= 0]
+                q = torch.cat([rows[:, :16], torch.ones_like(rows[:, :1])],
+                              1)
+                quads(idx, q, rows[:, 16].to(torch.int64))
     else:
         quads(torch.arange(n, device=dev), vt.quads,
               vt.S + torch.arange(vt.quads.shape[0], device=dev))
@@ -780,7 +842,8 @@ class BvhTables:
       box (B, 6): the node boxes [lo xyz, hi xyz] (flat.bvh_bbox_*); the
         walk tests each widened by its `pad` (B,) on every side
         (bvh_box_pad), so that no grazing root the all-primitive test
-        accepts falls outside its leaf's ancestors.
+        accepts falls outside its leaf's ancestors. The stack walk reads a
+        node's widened box in its parent's row (_bvh_stack_rows).
       link (B, 6): per node, for the stack walk: [leaf (1 or 0), split
         axis, left child | first sphere row, right child | sphere count,
         0 | first quad row, 0 | quad count]; for the lane walk: [hit link,
@@ -902,13 +965,50 @@ def _bvh_nodes(bt: BvhTables) -> torch.Tensor:
     return torch.cat([bt.box[:, :3] - pad, bt.box[:, 3:] + pad, bt.link], 1)
 
 
+def _bvh_stack_rows(bt: BvhTables) -> torch.Tensor:
+    """(B + 1, BVH_STACK_COLS) rows of the stack walk (K11), the usual GPU
+    BVH2 layout (Aila and Laine, HPG 2009): row i < B is tree node i's, an
+    inner node's [its left child's widened box (lo xyz, hi xyz), its right
+    child's, the left link, the right link, 0, 0], a leaf's [first sphere
+    row, sphere count, first quad row, quad count, 0...]; a link is the
+    child's node id, or -(id + 1) for a leaf. Row B enters the tree: an
+    inner row whose left child is the root (its widened box, tested once)
+    and whose right child is empty ([BIG, -BIG], never met). The boxes are
+    _bvh_nodes' (each node's own box widened by its own pad)."""
+    nodes = _bvh_nodes(bt)
+    B = nodes.shape[0]
+    link = bt.link.to(torch.int64)
+    leaf = link[:, 0] == 1
+    empty = torch.tensor([BIG] * 3 + [-BIG] * 3, dtype=torch.float32,
+                         device=nodes.device)
+
+    def child_link(c):
+        return torch.where(leaf[c], -(c + 1), c).to(torch.float32)
+
+    left = torch.where(leaf, 0, link[:, 2])
+    right = torch.where(leaf, 0, link[:, 3])
+    zero = torch.zeros(B, 2, dtype=torch.float32, device=nodes.device)
+    inner = torch.cat([nodes[left, :6], nodes[right, :6],
+                       child_link(left)[:, None], child_link(right)[:, None],
+                       zero], 1)
+    runs = torch.cat([bt.link[:, 2:6], torch.zeros(
+        B, BVH_STACK_COLS - 4, dtype=torch.float32, device=nodes.device)], 1)
+    root = torch.zeros(1, dtype=torch.int64, device=nodes.device)
+    entry = torch.cat([nodes[0, :6], empty, child_link(root),
+                       child_link(root), zero[0]])
+    return torch.cat([torch.where(leaf[:, None], runs, inner),
+                      entry[None]])
+
+
 def _bvh_buffer(bt: BvhTables):
     """One float32 buffer of what a BVH walk reads beside the scene tables:
-    the node rows, the sphere rows and the quad rows (each 16-byte aligned,
-    for float4 loads); and the kernel's BvParams fields."""
-    parts = [_bvh_nodes(bt).reshape(-1), bt.srows.reshape(-1),
-             bt.qrows.reshape(-1)]
-    fields = dict(n_nodes=bt.box.shape[0], n_srows=bt.srows.shape[0],
+    the node rows (the stack walk's _bvh_stack_rows, the lane walk's
+    _bvh_nodes), the sphere rows and the quad rows (each 16-byte aligned,
+    for float4 loads); and the kernel's BvParams fields (n_nodes counts
+    the rows: B + 1 for the stack walk, whose entry row is the last)."""
+    nodes = _bvh_stack_rows(bt) if bt.mode == "stack" else _bvh_nodes(bt)
+    parts = [nodes.reshape(-1), bt.srows.reshape(-1), bt.qrows.reshape(-1)]
+    fields = dict(n_nodes=nodes.shape[0], n_srows=bt.srows.shape[0],
                   n_qrows=bt.qrows.shape[0], off_nodes=0,
                   off_srows=parts[0].numel(),
                   off_qrows=parts[0].numel() + parts[1].numel())
@@ -950,45 +1050,59 @@ def _leaf_tests(bt, idx, s_off, n_s, q_off, n_q, o, d, tm, best_t, best):
 
 
 def bvh_stack_select_reference(bt: BvhTables, o, d, tm):
-    """The plain version of the stack BVH's selection (K11): each ray pops
-    a node, culls it by its widened box against [T_MIN, its best t], tests
-    a leaf's spheres then quads, or pushes an inner node's children, the
-    near one (by the ray's sign on the split axis) on top; for rays o, d
-    (n, 3) at times tm (n,). Returns (the winner's original unified id, -1
-    on a miss; its t, BIG on a miss): the all-primitive closest_hit's, bit
-    for bit (vscan_select_reference's rule)."""
+    """The plain version of the stack BVH's selection (K11), over the same
+    rows (_bvh_stack_rows): from the entry row, each ray at an inner row
+    tests both children's widened boxes against [T_MIN, its best t], goes
+    on into the met one with the nearer entry t (the left on a tie) and
+    pushes the other, if met, with its entry t; at a leaf it tests the
+    leaf's spheres then quads; then it pops entries until one's entry t is
+    at most its best t (that box is met still) or the stack is empty. For
+    rays o, d (n, 3) at times tm (n,). Returns (the winner's original
+    unified id, -1 on a miss; its t, BIG on a miss): the all-primitive
+    closest_hit's, bit for bit (vscan_select_reference's rule)."""
     n = o.shape[0]
     dev = o.device
     best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     best = torch.full((n,), -1, dtype=torch.int64, device=dev)
     inv_d = _inverse_dir(d)
-    nodes = _bvh_nodes(bt)
-    link = bt.link.to(torch.int64)
-    stack = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
-    sp = torch.ones(n, dtype=torch.int64, device=dev)
-    while bool((sp > 0).any()):
-        live = torch.nonzero(sp > 0).squeeze(1)
-        sp[live] -= 1
-        node = stack[live, sp[live]]
-        go = _box_reaches(nodes[node, :6], o[live], inv_d[live],
-                          best_t[live])
-        lk = link[node]
-        is_leaf = go & (lk[:, 0] == 1)
-        if bool(is_leaf.any()):
-            j = is_leaf.nonzero().squeeze(1)
-            _leaf_tests(bt, live[j], lk[j, 2], lk[j, 3], lk[j, 4], lk[j, 5],
+    rows = _bvh_stack_rows(bt)
+    pop = -(1 << 40)   # a ray's node when it pops next
+    node = torch.full((n,), rows.shape[0] - 1, dtype=torch.int64,
+                      device=dev)
+    stack_id = torch.zeros((n, STACK_DEPTH), dtype=torch.int64, device=dev)
+    stack_t = torch.zeros((n, STACK_DEPTH), dtype=torch.float32, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    while bool(live.any()):
+        r = torch.nonzero(live & (node >= 0)).squeeze(1)
+        if r.numel():
+            row = rows[node[r]]
+            hl, tl = _box_entry(row[:, 0:6], o[r], inv_d[r], best_t[r])
+            hr, tr = _box_entry(row[:, 6:12], o[r], inv_d[r], best_t[r])
+            cl, cr = row[:, 12].to(torch.int64), row[:, 13].to(torch.int64)
+            lfirst = tl <= tr
+            both = hl & hr
+            j = r[both]
+            stack_id[j, sp[j]] = torch.where(lfirst, cr, cl)[both]
+            stack_t[j, sp[j]] = torch.where(lfirst, tr, tl)[both]
+            sp[j] += 1
+            near = torch.where(both, torch.where(lfirst, cl, cr),
+                               torch.where(hl, cl, cr))
+            node[r] = torch.where(hl | hr, near, pop)
+        r = torch.nonzero(live & (node < 0) & (node != pop)).squeeze(1)
+        if r.numel():
+            run = rows[-node[r] - 1, 0:4].to(torch.int64)
+            _leaf_tests(bt, r, run[:, 0], run[:, 1], run[:, 2], run[:, 3],
                         o, d, tm, best_t, best)
-        inner = go & (lk[:, 0] == 0)
-        if bool(inner.any()):
-            j = inner.nonzero().squeeze(1)
-            r = live[j]
-            ax = lk[j, 1]
-            pos = d[r].gather(1, ax[:, None])[:, 0] >= 0.0
-            near = torch.where(pos, lk[j, 2], lk[j, 3])
-            far = torch.where(pos, lk[j, 3], lk[j, 2])
-            stack[r, sp[r]] = far
-            stack[r, sp[r] + 1] = near
-            sp[r] += 2
+            node[r] = pop
+        r = torch.nonzero(live & (node == pop)).squeeze(1)
+        if r.numel():
+            done = sp[r] == 0
+            live[r[done]] = False
+            r = r[~done]
+            sp[r] -= 1
+            met = stack_t[r, sp[r]] <= best_t[r]
+            node[r[met]] = stack_id[r, sp[r]][met]
     return best, best_t
 
 
@@ -1486,7 +1600,7 @@ class _VsParams(ctypes.Structure):
     """Mirror of csrc/wavefront.cu::VsParams."""
     _fields_ = [(n, ctypes.c_int) for n in (
         "C_small", "n_big", "Cq", "off_rows", "off_qrows", "off_box",
-        "n_box")]
+        "n_box", "off_gbox", "n_gbox")]
 
 
 class _BvParams(ctypes.Structure):

@@ -4,6 +4,7 @@ its outputs for a bit-for-bit comparison with another checkout's.
 
     python3 scripts/port_kernel_times.py ROOT [--outputs FILE]
     python3 scripts/port_kernel_times.py --compare FILE_A FILE_B
+    python3 scripts/port_kernel_times.py --sass ROOT_A ROOT_B PATTERN...
 
 ROOT is the directory that holds the real_time_ray_tracing_engine_tpu_torch
 package to time (its kernels build into ROOT/build/kernels). The scenes and
@@ -14,7 +15,9 @@ spp64 d50 (single pass and the compacted schedule) and on a 16-row scene
 at 1080x1080 spp64 d50 (its NTMAX 16 instance) and, where the checkout
 has hard slots, the full-family grad kernel there (single pass); where it
 has the chunk scan, its forward at bouncing_spheres 400x225 spp9 d50 and
-the 301-quad city 400x225 spp9 d6 (single pass); where it has the
+1200x675 spp16 d50, the 4,913-sphere grid 400x225 spp9 d8, the 301-quad
+city 400x225 spp9 d6 and K4v's 79-sphere scene at 1200x675 spp16 d50
+(single pass); where it has the
 suffix-radiance tier, that grad kernel (K8) at bouncing_spheres 1200x675
 spp16 d50 (single pass), and the chunk scan's other grad tiers at
 chip_smoke.py's large_grad_times shapes (1200x675 spp16 d50): K8 with the
@@ -24,11 +27,12 @@ bundles alone (K4v) on the 79-sphere scene's 4 slots; where it has the
 adjoint, K9 there under the sky gradient and at 400x225 spp9 d50 under the
 flat sky (the JAX bench line's shape); where it has the segmented adjoint,
 K10 (SEG 8) at both; where it has the BVH walks, K11 (RTX_BVH_STACK=1) and
-K12 (RTX_LANE_BVH=1) on bouncing_spheres -b at 400x225 spp9 d50 and K11 on
-the city -b (single pass), and their suffix tiers' grad instances on
-bouncing_spheres -b at 1200x675 spp16 d50. With the times it prints each
-kernel's ptxas registers, stack and spills from the library's build.
-Prints one JSON line.
+K12 (RTX_LANE_BVH=1) on bouncing_spheres -b at 400x225 spp9 d50 and
+1200x675 spp16 d50 and on the 4,913- and 32,768-sphere grids -b at 400x225
+spp9 d8, K11 on the city -b (single pass), and their suffix tiers' grad
+instances on bouncing_spheres -b at 1200x675 spp16 d50. With the times it
+prints each kernel's ptxas registers, stack and spills from the library's
+build. Prints one JSON line.
 
 With --outputs it also saves (torch.save) the grad kernels' outputs, the
 image, dG_tex and dG_hard of single passes at seed 7: K3's at Cornell
@@ -42,10 +46,23 @@ sphere-light scene (materials, 26 slots) and a medium scene
 (cornell_smoke); K4v's at its shape and on the MIS + medium scene (both
 light kinds, a medium; 9 slots: a fuzz, the ground sphere, the sphere
 light); K8's on bouncing_spheres at 1200x675 spp16 d50, with the IOR slot
-(K4v) at 400x225 spp4 d50, and on the suffix scene; and the BVH walks'
-suffix tiers (K11, K12) on bouncing_spheres -b at 1200x675 spp4 d50.
---compare prints, per output of two such files, whether they are equal bit
-for bit and otherwise the largest difference.
+(K4v) at 400x225 spp4 d50, and on the suffix scene; the BVH walks' suffix
+tiers (K11, K12) on bouncing_spheres -b at 1200x675 spp4 d50 and K11's
+shared-memory planes on the 28-row scene -b; each chunk-scan and walk case
+also under the compacted schedule. The forward kernels' image and bounces
+(single pass) and compacted image: K6 on bouncing_spheres 1200x675 spp4
+d50 and the 4,913-sphere grid, K7 on the city, K11 and K12 on
+bouncing_spheres -b and the 32,768-sphere grid -b, K11 on the city -b and
+on a chain of spheres whose walk outgrows its short stack. The adjoint's
+image and grads dict, K9 and K10 (SEG 8), on bouncing_spheres 400x225
+spp9 d50 under the sky gradient. --compare prints, per output of two such
+files, whether they are equal bit for bit and otherwise the largest
+difference, and how many are equal.
+
+--sass builds both roots' libraries (each in a process of its own) and
+says, per kernel whose mangled name contains a PATTERN, whether the two
+builds' SASS (`cuobjdump -sass`, addresses and comments dropped) is the
+same instruction for instruction, and each one's instruction count.
 
 To compare two checkouts on one card, unpack the other one (git archive)
 under a git-ignored directory and time both roots in one run, in turns:
@@ -114,8 +131,14 @@ def kernel_times(root: str) -> dict:
         for name, scene in (
                 ("vscan_bouncing_400_spp9", cs.builtin(
                     pt, "bouncing_spheres", 400, 9, 50)),
+                ("vscan_bouncing_1200_spp16", cs.builtin(
+                    pt, "bouncing_spheres", 1200, 16, 50)),
+                ("vscan_grid4913_400_spp9_d8", cs.sized(
+                    cs.grid_scene(pt), 400, 9, 8)),
                 ("vquad_city_400_spp9", cs.sized(cs.city_scene(pt), 400, 9,
-                                                 6))):
+                                                 6)),
+                ("vscan_slots_1200_spp16", cs.wide(
+                    cs.vscan_slots_scene(pt), 1200, 16, 50))):
             flat, cam, kw = cs.pass_args(pt, scene, dev)
             fwd = functools.partial(wc.render_pass_kernel,
                                     prepared=wc.prepare_kernel(flat, cam))
@@ -166,6 +189,14 @@ def kernel_times(root: str) -> dict:
         for name, scene, modes in (
                 ("bouncing_400_spp9", cs.builtin(
                     pt, "bouncing_spheres", 400, 9, 50), ("stack", "lane")),
+                ("bouncing_1200_spp16", cs.builtin(
+                    pt, "bouncing_spheres", 1200, 16, 50),
+                 ("stack", "lane")),
+                ("grid4913_400_spp9_d8", cs.sized(cs.grid_scene(pt), 400, 9,
+                                                  8), ("stack", "lane")),
+                ("grid32768_400_spp9_d8", cs.sized(cs.grid_scene(pt, 32),
+                                                   400, 9, 8),
+                 ("stack", "lane")),
                 ("city_400_spp9", cs.sized(cs.city_scene(pt), 400, 9, 6),
                  ("stack",))):
             flat, cam, kw = cs.pass_args(pt, scene, dev, use_bvh=True)
@@ -228,13 +259,18 @@ def _slots(wc, flat, slots):
 
 
 def kernel_outputs(root: str) -> dict:
-    """{name: (image, dG_tex, dG_hard)} of the grad kernels on the cases
-    the module docstring lists, single passes at seed 7."""
+    """{name: {part: tensor}} on the cases the module docstring lists, at
+    seed 7: the grad kernels' image, dG_tex and dG_hard of single passes
+    (and, on the chunk scan's and the walks' cases, of the compacted
+    schedule); the forward kernels' image and bounces of single passes and
+    image of the compacted schedule; the adjoint sweeps' image and grads
+    dict."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
     import real_time_ray_tracing_engine_tpu_torch as pt
     from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
     dev = torch.device("cuda", 0)
     cases = (
         ("k4_cornell_1920x1080_spp64_d50",
@@ -277,7 +313,9 @@ def kernel_outputs(root: str) -> dict:
         ("k11_suffix_bouncing_1200x675_spp4_d50",
          cs.builtin(pt, "bouncing_spheres", 1200, 4, 50), (), False),
         ("k12_suffix_bouncing_1200x675_spp4_d50",
-         cs.builtin(pt, "bouncing_spheres", 1200, 4, 50), (), False))
+         cs.builtin(pt, "bouncing_spheres", 1200, 4, 50), (), False),
+        ("k11_rows28_1200x675_spp4_d50",
+         cs.wide(cs.rows_scene(pt), 1200, 4, 50), (), False))
     out = {}
     for name, scene, slots, sky in cases:
         mode = {"k11": "stack", "k12": "lane"}.get(name[:3], "vscan")
@@ -286,15 +324,70 @@ def kernel_outputs(root: str) -> dict:
         kw["sky_gradient"] = kw["sky_gradient"] or sky
         slots = _slots(wc, flat, slots)
         g = cs.cotangent(torch, kw, dev, 5)
+        want_tex = not name.startswith("k4v_vscan")
         with cs.kernel_mode_env(mode):
-            img, dgt, dgh = wc.render_pass_grad_kernel(
-                flat, cam, 7, 0, cotangent=g, hard_slots=slots,
-                want_tex=not name.startswith("k4v_vscan"), **kw)
-        out[name] = tuple(torch.empty(0) if t is None else t.cpu()
-                          for t in (img, dgt, dgh))
-        del img, dgt, dgh
+            parts = dict(zip(("image", "dg_tex", "dg_hard"),
+                             wc.render_pass_grad_kernel(
+                                 flat, cam, 7, 0, cotangent=g,
+                                 hard_slots=slots, want_tex=want_tex, **kw)))
+            if wc.kernel_mode(flat)[0] != "unrolled":
+                parts.update(zip(
+                    ("compacted_image", "compacted_dg_tex",
+                     "compacted_dg_hard"),
+                    wc.render_pass_grad_compacted(
+                        flat, cam, 7, 0, cotangent=g, hard_slots=slots,
+                        want_tex=want_tex, **kw)))
+        out[name] = _cpu(torch, parts)
+        del parts
         torch.cuda.empty_cache()
+    # the forward kernels: K6, K7 (the city's quad chunks), K11, K12
+    forwards = (
+        ("k6_bouncing_1200x675_spp4_d50", "vscan",
+         cs.builtin(pt, "bouncing_spheres", 1200, 4, 50)),
+        ("k6_grid4913_400x225_spp9_d8", "vscan",
+         cs.sized(cs.grid_scene(pt), 400, 9, 8)),
+        ("k7_city301_400x225_spp9_d6", "vscan",
+         cs.sized(cs.city_scene(pt), 400, 9, 6)),
+        ("k11_bouncing_1200x675_spp4_d50", "stack",
+         cs.builtin(pt, "bouncing_spheres", 1200, 4, 50)),
+        ("k12_bouncing_1200x675_spp4_d50", "lane",
+         cs.builtin(pt, "bouncing_spheres", 1200, 4, 50)),
+        ("k11_city301_400x225_spp9_d6", "stack",
+         cs.sized(cs.city_scene(pt), 400, 9, 6)),
+        ("k11_grid32768_400x225_spp4_d8", "stack",
+         cs.sized(cs.grid_scene(pt, 32), 400, 4, 8)),
+        ("k12_grid32768_400x225_spp4_d8", "lane",
+         cs.sized(cs.grid_scene(pt, 32), 400, 4, 8)),
+        ("k11_chain_48_spp4_d4", "stack", cs.bvh_chain_scene(pt)))
+    for name, mode, scene in forwards:
+        flat, cam, kw = cs.pass_args(pt, scene, dev,
+                                     use_bvh=mode != "vscan")
+        with cs.kernel_mode_env(mode):
+            n_lanes = wc.lane_count(kw["width"] * kw["height"])
+            iters = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+            img = wc.render_pass_kernel(flat, cam, 7, 0, iters=iters, **kw)
+            two = wc.render_pass_compacted(flat, cam, 7, 0, **kw)
+        out[name] = _cpu(torch, {"image": img, "bounces": iters,
+                                 "compacted_image": two})
+    # the adjoint's sweeps (K9; K10 at SEG 8) on bouncing_spheres at the
+    # JAX bench line's shape under the sky gradient
+    flat, cam, kw = cs.pass_args(
+        pt, cs.builtin(pt, "bouncing_spheres", 400, 9, 50), dev)
+    kw["sky_gradient"] = True
+    g = cs.cotangent(torch, kw, dev, 5)
+    prep = wc.prepare_kernel(flat, cam, chunk_scan=True)
+    for name, seg in (("k9_bouncing_400x225_spp9_d50_sky", 0),
+                      ("k10_seg8_bouncing_400x225_spp9_d50_sky", 8)):
+        img, grads = ac.render_pass_adjoint_kernel(
+            flat, cam, 7, 0, cotangent=g, prepared=prep, seg=seg, **kw)
+        out[name] = _cpu(torch, {"image": img, **{
+            f"grad_{k}": v for k, v in sorted(grads.items())}})
     return out
+
+
+def _cpu(torch, parts: dict) -> dict:
+    return {k: torch.empty(0) if v is None else v.detach().cpu()
+            for k, v in parts.items()}
 
 
 def compare(path_a: str, path_b: str) -> dict:
@@ -307,9 +400,12 @@ def compare(path_a: str, path_b: str) -> dict:
         if name not in a or name not in b:
             rep[name] = "missing"
             continue
-        for part, x, y in zip(("image", "dg_tex", "dg_hard"), a[name],
-                              b[name]):
+        for part in sorted(set(a[name]) | set(b[name])):
             key = f"{name}.{part}"
+            if part not in a[name] or part not in b[name]:
+                rep[key] = "missing"
+                continue
+            x, y = a[name][part], b[name][part]
             if x.shape != y.shape:
                 rep[key] = f"shapes {tuple(x.shape)} vs {tuple(y.shape)}"
             elif torch.equal(x.view(torch.int32) if x.numel() else x,
@@ -319,6 +415,53 @@ def compare(path_a: str, path_b: str) -> dict:
                 rep[key] = {"max_abs_diff": float((x - y).abs().max()),
                             "scale": float(y.abs().max()),
                             "equal_as_floats": bool(torch.equal(x, y))}
+    n_equal = sum(v == "equal bit for bit" for v in rep.values())
+    rep["summary"] = f"{n_equal} of {len(rep)} outputs equal bit for bit"
+    return rep
+
+
+def _library_path(root: str) -> str:
+    """The kernel library of the package under root, built if need be, in
+    a process of its own (two roots' packages share a module name)."""
+    import subprocess
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); from "
+            "real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda"
+            " as wc; print(wc.load_library().path)")
+    out = subprocess.run([sys.executable, "-c", code, os.path.abspath(root)],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[-1]
+
+
+def _sass(lib: str) -> dict:
+    """{kernel: [instruction, ...]} of a library (cuobjdump -sass)."""
+    import re
+    import subprocess
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if name and m:
+            out[name].append(m.group(1))
+    return out
+
+
+def compare_sass(root_a: str, root_b: str, patterns) -> dict:
+    """Per kernel matching a pattern: same SASS or not, and the counts."""
+    a, b = (_sass(_library_path(r)) for r in (root_a, root_b))
+    rep = {}
+    for name in sorted(set(a) | set(b)):
+        if not any(p in name for p in patterns):
+            continue
+        x, y = a.get(name, []), b.get(name, [])
+        rep[name] = {"same": x == y, "instructions": [len(x), len(y)]}
     return rep
 
 
@@ -333,6 +476,9 @@ def _bouncing_400(torch, pt, dev):
 if __name__ == "__main__":
     if sys.argv[1] == "--compare":
         print(json.dumps(compare(sys.argv[2], sys.argv[3])), flush=True)
+    elif sys.argv[1] == "--sass":
+        print(json.dumps(compare_sass(sys.argv[2], sys.argv[3],
+                                      sys.argv[4:])), flush=True)
     else:
         print(json.dumps(kernel_times(sys.argv[1])), flush=True)
         if len(sys.argv) > 3 and sys.argv[2] == "--outputs":

@@ -53,6 +53,28 @@ fails: the sets name the source they apply to. SET is one of:
           sized to NT 6; and the forward kernel; blocks an SM and ptxas
           figures beside each. And K8, the suffix tier, at
           bouncing_spheres 1200x675 spp16 d50, whole.
+  k6, k11 (the source before the chunk scan's group boxes and the stack
+          walk's two-box rows, commit 13b9e41): the selections of K6/K7
+          (closest_select_vscan in wavefront_forward_vscan_kernel) at
+          bouncing_spheres 1200x675 spp16 d50, the 4,913-sphere grid
+          400x225 spp9 d8, the 301-quad city 400x225 spp9 d6 and K4v's
+          79-sphere scene 1200x675 spp16 d50, and of K11
+          (closest_select_stack) at bouncing_spheres -b 1200x675 spp16 d50
+          and the 4,913- and 32,768-sphere grids -b 400x225 spp9 d8: the
+          whole kernel; its counts a bounce (a counter that exists only in
+          the patched copy: box and sphere or quad tests; node fetches,
+          pushes and leaf-primitive tests); with a second selection (its
+          winner kept alive, never taken: the difference is the
+          selection's time); with a second walk whose primitive tests are
+          short-circuited, culled at the first's final t; each with its
+          ptxas figures and blocks an SM.
+  k6new, k11new (this source): the same splits (K6 also counts its group
+          boxes; K11 its inner and leaf rows, pushes, leaf primitives and
+          pops), and K6 with sphere groups of 4, 16 and 32 rows, quad
+          groups of 8, the group boxes in shared memory, the chunks walked
+          from the last where the ray's x is negative; K11 with one step a
+          loop iteration, and holding the first leaf it meets while it
+          walks on (speculative).
 
 Prints one JSON line per measurement and each build's ptxas figures of the
 kernels under study (registers, stack, spills).
@@ -318,6 +340,400 @@ SETS = {
 }
 
 
+# ---- the selections' splits (K6 and K7, the chunk scan's
+# closest_select_vscan in wavefront_forward_vscan_kernel, part 0; K11, the
+# stack walk's closest_select_stack in wavefront_forward_bvh_kernel<SEL_STACK>,
+# part 6). Six counters (rt_prof_counts): selections, then per kernel what
+# it tests (_COUNT_NAMES): on the parent's source (13b9e41), K6 box tests,
+# sphere tests, quad tests; K11 node fetches, pushes, leaf-primitive tests;
+# on this source K6 adds the group-box tests, K11 counts inner-row and leaf
+# fetches, pushes, leaf-primitive tests and pops apart. Each selection adds
+# its own counts once, a warp at a time.
+K6 = "wavefront_forward_vscan_kernel"
+K11 = "_Z28wavefront_forward_bvh_kernelILi2EEv8WfParams8BvParams8GradArgs"
+_SEL_COUNTERS = """
+__device__ unsigned long long prof_counts[6];
+extern "C" int rt_prof_counts(unsigned long long* out, int reset) {
+    cudaError_t e = cudaMemcpyFromSymbol(out, prof_counts,
+                                         6 * sizeof(unsigned long long));
+    if (reset) {
+        const unsigned long long z[6] = {0, 0, 0, 0, 0, 0};
+        cudaMemcpyToSymbol(prof_counts, z, sizeof(z));
+    }
+    return (int)e;
+}
+__device__ __forceinline__ void prof_add(int i, unsigned v) {
+    const unsigned m = __activemask();
+    const unsigned s = __reduce_add_sync(m, v);
+    if ((threadIdx.x & 31) == __ffs(m) - 1)
+        atomicAdd(&prof_counts[i], (unsigned long long)s);
+}
+"""
+_SEL_HEAD = ("#define SEL_LANE 3      // the lane BVH (K12)",
+             "#define SEL_LANE 3      // the lane BVH (K12)\n" + _SEL_COUNTERS)
+# the blocks an SM holds of the kernel under study at `smem` bytes of
+# dynamic shared memory (rt_prof_occupancy)
+_OCC_K6 = ("#endif  // WF_IN_PART(0)", """
+extern "C" int rt_prof_occupancy(int smem, int* out) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, wavefront_forward_vscan_kernel, WF_THREADS, (size_t)smem);
+}
+#endif  // WF_IN_PART(0)""")
+_OCC_K11 = ("WF_BVH_ENTRY(rt_wavefront_bvh_stack, SEL_STACK)", """WF_BVH_ENTRY(rt_wavefront_bvh_stack, SEL_STACK)
+extern "C" int rt_prof_occupancy(int smem, int* out) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, wavefront_forward_bvh_kernel<SEL_STACK>, WF_THREADS,
+        (size_t)smem);
+}""")
+
+
+def _function(text: str, head: str) -> str:
+    """The definition that starts at `head` in `text`, to its closing brace
+    at the start of a line."""
+    i = text.index(head)
+    return text[i:text.index("\n}\n", i) + 3]
+
+
+def _walk_copy(text: str, head: str, name: str) -> str:
+    """A copy of the selection at `head`, renamed `name`, whose primitive
+    tests are short-circuited (the rows are still fetched; a test that
+    cannot pass takes the place of sphere_root and quad_hit) and whose
+    running best t starts at *t_best: given the real selection's t, it
+    fetches the boxes, nodes and rows the real walk fetches once its
+    winner is known, and tests none of them."""
+    fn = _function(text, head)
+    old_name = head.split("(")[0].split()[-1]
+    fn = fn.replace(old_name + "(", name + "(", 1)
+    fn = fn.replace("float best_t = BIGF;", "float best_t = *t_best;")
+    fn = fn.replace("scan_spheres(", "scan_spheres_walk(")
+    fn = fn.replace("scan_quads(", "scan_quads_walk(")
+    sph = _function(text, "__device__ __forceinline__ void scan_spheres(")
+    sph = sph.replace("scan_spheres(", "scan_spheres_walk(", 1).replace(
+        "if (sphere_root(c, B.z, o, d, a, &t))",
+        "t = c.x;\n        if (B.z == 1.2345e30f)")
+    quad = _function(text, "__device__ __forceinline__ void scan_quads(")
+    quad = quad.replace("scan_quads(", "scan_quads_walk(", 1).replace(
+        "if (quad_hit(q, o, d, T_MINF, &t))",
+        "t = q[0];\n        if (q4.y == 1.2345e30f)")
+    return sph + "\n" + quad + "\n" + fn
+
+
+def _second_select(call: str, head: str, walk: bool) -> list:
+    """A second selection after the real one (`call`, its text in
+    wavefront_body): the same function (walk False; the difference to the
+    whole kernel is the selection's time) or its walk copy (walk True; the
+    boxes, nodes and rows without the tests). Its winner is kept alive
+    and never taken."""
+    fname = head.split("(")[0].split()[-1]
+    args = call[call.index("(") + 1:call.rindex("&best_t")]
+    if walk:
+        second = (f"float t2_ = best_t;\n                if ("
+                  f"{fname}_walk({args}&t2_) == -7) best = -1;")
+    else:
+        second = (f"float t2_;\n                if ({fname}({args}&t2_)"
+                  f" == -7) best = -1;")
+    call_line = call.strip()
+    repl = [(call, call.replace(call_line, "{ " + call_line + "\n"
+                                "                " + second + " }"))]
+    if walk:
+        repl.append(functools.partial(_walk_insert, head=head))
+    return repl
+
+
+def _walk_insert(text: str, head: str) -> str:
+    """text with the walk copy of `head` inserted after its definition."""
+    fn = _function(text, head)
+    fname = head.split("(")[0].split()[-1]
+    return text.replace(fn, fn + "\n" + _walk_copy(text, head,
+                                                    fname + "_walk"), 1)
+
+
+_VS_HEAD = "static __device__ int closest_select_vscan("
+_ST_HEAD = "static __device__ int closest_select_stack("
+_VS_CALL_P = """                best = closest_select_vscan(sc, V, vtab, smem, o, d, tm,
+                                            &best_t);"""
+_ST_CALL_P = """                best = closest_select_stack(B, vtab, o, d, tm, &best_t);"""
+# the parent's selections, counted (wavefront.cu at commit 13b9e41)
+_K6_COUNT_P = [_SEL_HEAD, (
+    """        if (box_reaches(box + 6 * c, o, inv, best_t))
+            scan_spheres(rows + (size_t)c * VCHUNK * VROW_COLS, VCHUNK, true,
+                         o, d, a, tm, best_t, best);""",
+    """        ++n_box;
+        if (box_reaches(box + 6 * c, o, inv, best_t)) {
+            const float* rr = rows + (size_t)c * VCHUNK * VROW_COLS;
+            for (int r = 0; r < VCHUNK; ++r) {
+                if (rr[r * VROW_COLS + 7] < 0.0f) break;
+                ++n_sph;
+            }
+            scan_spheres(rr, VCHUNK, true, o, d, a, tm, best_t, best);
+        }"""), (
+    """    if (V.n_big > 0)
+        scan_spheres(rows + (size_t)V.C_small * VCHUNK * VROW_COLS, V.n_big,
+                     false, o, d, a, tm, best_t, best);""",
+    """    unsigned n_box = 0, n_sph = V.n_big, n_quad = 0;
+    if (V.n_big > 0)
+        scan_spheres(rows + (size_t)V.C_small * VCHUNK * VROW_COLS, V.n_big,
+                     false, o, d, a, tm, best_t, best);"""), (
+    """            if (box_reaches(qbox + 6 * k, o, inv, best_t))
+                scan_quads(qrows + (size_t)k * VCHUNK * QROW_COLS, VCHUNK, o,
+                           d, best_t, best);""",
+    """            ++n_box;
+            if (box_reaches(qbox + 6 * k, o, inv, best_t)) {
+                const float* qq = qrows + (size_t)k * VCHUNK * QROW_COLS;
+                for (int r = 0; r < VCHUNK; ++r) {
+                    if (qq[r * QROW_COLS + 16] < 0.0f) break;
+                    ++n_quad;
+                }
+                scan_quads(qq, VCHUNK, o, d, best_t, best);
+            }"""), (
+    """                take_closer(t, sc.S + q, best_t, best);
+        }
+    }
+    *t_best = best_t;""",
+    """                take_closer(t, sc.S + q, best_t, best);
+        }
+        n_quad += sc.Q;
+    }
+    prof_add(0, 1u); prof_add(1, n_box); prof_add(2, n_sph);
+    prof_add(3, n_quad);
+    *t_best = best_t;""")]
+_K11_COUNT_P = [_SEL_HEAD, (
+    """        const int node = stack[--sp];
+        float b[6];""",
+    """        const int node = stack[--sp];
+        ++n_fetch;
+        float b[6];"""), (
+    """    int stack[STACK_DEPTH];
+    int sp = 0;
+    stack[sp++] = 0;""",
+    """    unsigned n_fetch = 0, n_push = 0, n_prim = 0;
+    int stack[STACK_DEPTH];
+    int sp = 0;
+    stack[sp++] = 0;"""), (
+    """        if (n1.z > 0.5f) {
+            scan_spheres(""",
+    """        if (n1.z > 0.5f) {
+            n_prim += (unsigned)n2.y + (unsigned)n2.w;
+            scan_spheres("""), (
+    """            stack[sp++] = da >= 0.0f ? left : right;
+        }
+    }
+    *t_best = best_t;""",
+    """            stack[sp++] = da >= 0.0f ? left : right;
+            n_push += 2;
+        }
+    }
+    prof_add(0, 1u); prof_add(1, n_fetch); prof_add(2, n_push);
+    prof_add(3, n_prim);
+    *t_best = best_t;""")]
+
+
+def _split_set(kern: str, part: int, call: str, head: str, count: list,
+               occ: tuple) -> list:
+    """A selection's splits: whole, counted, selected twice, and walked a
+    second time without its tests (each with rt_prof_occupancy)."""
+    return [(kern, "whole", part, [occ]),
+            (kern, "counts", part, count + [occ]),
+            (kern, "select_twice", part,
+             _second_select(call, head, False) + [occ]),
+            (kern, "walk_twice", part,
+             _second_select(call, head, True) + [occ])]
+
+
+SETS["k6"] = _split_set("k6", 0, _VS_CALL_P, _VS_HEAD, _K6_COUNT_P, _OCC_K6)
+SETS["k11"] = _split_set("k11", 6, _ST_CALL_P, _ST_HEAD, _K11_COUNT_P,
+                         _OCC_K11)
+
+# ---- this source's selections: K6's group boxes, K11's two-box rows
+_K6_COUNT = [_SEL_HEAD, (
+    """    if (V.n_big > 0)
+        scan_spheres(rows + (size_t)V.C_small * VCHUNK * VROW_COLS, V.n_big,
+                     false, o, d, a, tm, best_t, best);
+    for (int c = 0; c < V.C_small; ++c) {
+        if (!box_reaches(box + 6 * c, o, inv, best_t)) continue;
+        for (int g = 0; g < VGROUPS; ++g) {
+            if (group_reaches(gbox, c * VGROUPS + g, o, inv, best_t))
+                scan_spheres(""",
+    """    unsigned n_box = 0, n_gbox = 0, n_sph = V.n_big, n_quad = 0;
+    if (V.n_big > 0)
+        scan_spheres(rows + (size_t)V.C_small * VCHUNK * VROW_COLS, V.n_big,
+                     false, o, d, a, tm, best_t, best);
+    for (int c = 0; c < V.C_small; ++c) {
+        ++n_box;
+        if (!box_reaches(box + 6 * c, o, inv, best_t)) continue;
+        for (int g = 0; g < VGROUPS; ++g) {
+            ++n_gbox;
+            if (group_reaches(gbox, c * VGROUPS + g, o, inv, best_t))
+                for (int r = 0; r < VGROUP; ++r) {
+                    if (rows[(size_t)(c * VCHUNK + g * VGROUP + r)
+                             * VROW_COLS + 7] < 0.0f) break;
+                    ++n_sph;
+                }
+            if (group_reaches(gbox, c * VGROUPS + g, o, inv, best_t))
+                scan_spheres("""), (
+    """            if (!box_reaches(box + 6 * (j0 + k), o, inv, best_t)) continue;
+            for (int g = 0; g < QGROUPS; ++g) {
+                if (group_reaches(gbox, j0 * VGROUPS + k * QGROUPS + g, o,
+                                  inv, best_t))
+                    scan_quads(""",
+    """            ++n_box;
+            if (!box_reaches(box + 6 * (j0 + k), o, inv, best_t)) continue;
+            for (int g = 0; g < QGROUPS; ++g) {
+                ++n_gbox;
+                if (group_reaches(gbox, j0 * VGROUPS + k * QGROUPS + g, o,
+                                  inv, best_t))
+                    for (int r = 0; r < QGROUP; ++r) {
+                        if (qrows[(size_t)(k * VCHUNK + g * QGROUP + r)
+                                  * QROW_COLS + 16] < 0.0f) break;
+                        ++n_quad;
+                    }
+                if (group_reaches(gbox, j0 * VGROUPS + k * QGROUPS + g, o,
+                                  inv, best_t))
+                    scan_quads("""), (
+    """                take_closer(t, sc.S + q, best_t, best);
+        }
+    }
+    *t_best = best_t;""",
+    """                take_closer(t, sc.S + q, best_t, best);
+        }
+        n_quad += sc.Q;
+    }
+    prof_add(0, 1u); prof_add(1, n_box); prof_add(2, n_gbox);
+    prof_add(3, n_sph); prof_add(4, n_quad);
+    *t_best = best_t;""")]
+_K11_COUNT = [_SEL_HEAD, (
+    """    auto pop = [&]() {
+        while (sp > 0) {
+            --sp;""",
+    """    unsigned n_inner = 0, n_leaf = 0, n_push = 0, n_prim = 0, n_pop = 0;
+    auto pop = [&]() {
+        while (sp > 0) {
+            --sp;
+            ++n_pop;"""), (
+    """        while (node >= 0) {
+            const float4 r0 = __ldg(rows + 4 * node),""",
+    """        while (node >= 0) {
+            ++n_inner;
+            const float4 r0 = __ldg(rows + 4 * node),"""), (
+    """                ++sp;
+                node = lf ? cl : cr;""",
+    """                ++sp;
+                ++n_push;
+                node = lf ? cl : cr;"""), (
+    """        const float4 run = __ldg(rows + 4 * (-node - 1));""",
+    """        const float4 run = __ldg(rows + 4 * (-node - 1));
+        ++n_leaf;
+        n_prim += (unsigned)run.y + (unsigned)run.w;"""), (
+    """        node = pop();
+    }
+    *t_best = best_t;""",
+    """        node = pop();
+    }
+    prof_add(0, 1u); prof_add(1, n_inner); prof_add(2, n_leaf);
+    prof_add(3, n_push); prof_add(4, n_prim); prof_add(5, n_pop);
+    *t_best = best_t;""")]
+# K11 with one step a loop iteration, an inner row or a leaf (the leaf's
+# tests run in a warp wherever one lane holds a leaf), in place of this
+# source's inner rows down to a leaf, then the leaves
+_K11_IFIF = [("""        while (node >= 0) {
+            const float4 r0 = __ldg(rows + 4 * node),""",
+              """        if (node >= 0) {
+            const float4 r0 = __ldg(rows + 4 * node),"""), (
+    """            } else {
+                node = pop();
+            }
+        }
+        if (node == WALK_DONE) break;""",
+    """            } else {
+                node = pop();
+            }
+            continue;
+        }
+        if (node == WALK_DONE) break;""")]
+# K6's group widths VGROUP (spheres) and QGROUP (quads; the packer's too:
+# the profile sets wavefront_cuda.VGROUP / QGROUP to the same while it
+# packs)
+def _vgroup(g):
+    return [("#define VGROUP 8 ", f"#define VGROUP {g} ")]
+
+
+def _qgroup(g):
+    return [("#define QGROUP 4 ", f"#define QGROUP {g} ")]
+# the group boxes in shared memory beside the chunk boxes, in place of the
+# read-only path from the L2 (the forward only)
+_GBOX_SHARED = [(
+    """        for (int i = threadIdx.x; i < V.n_box; i += blockDim.x)
+            smem[i] = vtab[V.off_box + i];""",
+    """        for (int i = threadIdx.x; i < V.n_box; i += blockDim.x)
+            smem[i] = vtab[V.off_box + i];
+        for (int i = threadIdx.x; i < GBOX_COLS * V.n_gbox; i += blockDim.x)
+            smem[table_pad(V.n_box) + i] = vtab[V.off_gbox + i];"""), (
+    """    const float4* gbox = reinterpret_cast<const float4*>(vtab + V.off_gbox);""",
+    """    const float4* gbox = reinterpret_cast<const float4*>(
+        box + ((V.n_box + 31) & ~31));"""), (
+    """    const float4 lo = __ldg(gbox + 2 * k), hi = __ldg(gbox + 2 * k + 1);""",
+    """    const float* f = reinterpret_cast<const float*>(gbox) + GBOX_COLS * k;
+    const float4 lo = make_float4(f[0], f[1], f[2], 0.0f),
+                 hi = make_float4(f[4], f[5], f[6], 0.0f);"""), (
+    """    const size_t smem = (size_t)V.n_box * sizeof(float);
+    cudaError_t e = set_smem((const void*)wavefront_forward_vscan_kernel,""",
+    """    const size_t smem = (size_t)(table_pad(V.n_box) + GBOX_COLS * V.n_gbox)
+        * sizeof(float);
+    cudaError_t e = set_smem((const void*)wavefront_forward_vscan_kernel,""")]
+# the sphere chunks walked from the last when the ray's x is negative (the
+# Morton order's leading axis), near first more often
+_NEAR_FIRST = [(
+    """    for (int c = 0; c < V.C_small; ++c) {
+        if (!box_reaches(box + 6 * c, o, inv, best_t)) continue;""",
+    """    for (int cc = 0; cc < V.C_small; ++cc) {
+        const int c = d.x < 0.0f ? V.C_small - 1 - cc : cc;
+        if (!box_reaches(box + 6 * c, o, inv, best_t)) continue;""")]
+
+
+# K11 holding the first leaf it meets and walking on to the next before
+# testing it (Aila and Laine's speculative traversal, without the warp vote)
+_K11_SPECULATIVE = [("""    int node = B.n_nodes - 1;
+    for (;;) {
+        while (node >= 0) {""", """    int node = B.n_nodes - 1;
+    for (;;) {
+        int held = WALK_DONE;
+        for (;;) {
+            if (node < 0) {
+                if (node == WALK_DONE || held != WALK_DONE) break;
+                held = node;
+                node = pop();
+                continue;
+            }"""), ("""            } else {
+                node = pop();
+            }
+        }
+        if (node == WALK_DONE) break;
+        const float4 run = __ldg(rows + 4 * (-node - 1));""", """            } else {
+                node = pop();
+            }
+        }
+        if (held == WALK_DONE) break;
+        const float4 run = __ldg(rows + 4 * (-held - 1));"""), ("""        scan_quads(qrows + (size_t)(int)run.z * QROW_COLS, (int)run.w, o, d,
+                   best_t, best);
+        node = pop();
+    }""", """        scan_quads(qrows + (size_t)(int)run.z * QROW_COLS, (int)run.w, o, d,
+                   best_t, best);
+    }""")]
+
+SETS["k6new"] = _split_set("k6", 0, _VS_CALL_P, _VS_HEAD, _K6_COUNT,
+                           _OCC_K6) + [
+    ("k6", "vgroup4", 0, _vgroup(4) + [_OCC_K6], {"VGROUP": 4}),
+    ("k6", "qgroup8", 0, _qgroup(8) + [_OCC_K6], {"QGROUP": 8}),
+    ("k6", "vgroup16", 0, _vgroup(16) + [_OCC_K6], {"VGROUP": 16}),
+    ("k6", "vgroup32", 0, _vgroup(32) + [_OCC_K6], {"VGROUP": 32}),
+    ("k6", "gbox_shared", 0, _GBOX_SHARED + [_OCC_K6], {"gbox_shared": 1}),
+    ("k6", "near_first", 0, _NEAR_FIRST + [_OCC_K6])]
+SETS["k11new"] = _split_set("k11", 6, _ST_CALL_P, _ST_HEAD, _K11_COUNT,
+                            _OCC_K11) + [
+    ("k11", "if_if", 6, _K11_IFIF + [_OCC_K11]),
+    ("k11", "speculative", 6, _K11_SPECULATIVE + [_OCC_K11])]
+
+
 def _callee_ptxas(log: str) -> dict:
     """Stack and spills of the out-of-line slot-group passes (ptxas prints
     no register count for a device function)."""
@@ -363,11 +779,15 @@ def build_variants(wc, src: Path, out_dir: Path, variants) -> dict:
         obj = out_dir / f"base_{p}.o"
         procs.append(_compile(wc, src, p, obj))
         jobs.append(("base", p, obj))
-    for kern, name, part, repl in variants:
+    for kern, name, part, repl, *_ in variants:
         if not repl:
             continue
         text = base
-        for old, new in repl:
+        for r in repl:
+            if callable(r):
+                text = r(text)
+                continue
+            old, new = r
             if old not in text:
                 raise RuntimeError(f"{kern}/{name}: the source has no "
                                    f"{old[:70]!r}")
@@ -404,12 +824,104 @@ def build_variants(wc, src: Path, out_dir: Path, variants) -> dict:
         lib = out_dir / f"librt_{tag[0]}_{tag[1]}.so"
         _link(wc, objs, lib)
         libs[tag] = (wc.KernelLibrary(lib, log, 0.0), log)
-    for kern, name, part, repl in variants:
+    for kern, name, part, repl, *_ in variants:
         if not repl:
             libs[(kern, name)] = (wc.KernelLibrary(base_lib, base_log, 0.0),
                                   base_log)
     print(json.dumps({"build_s": build_s, "variants": len(libs)}), flush=True)
     return libs
+
+
+# the shapes of the selections' sets: (name, scene maker, BVH mode)
+_K6_SHAPES = (
+    ("bouncing_1200x675_spp16_d50",
+     lambda pt: cs.builtin(pt, "bouncing_spheres", 1200, 16, 50), "vscan"),
+    ("grid4913_400x225_spp9_d8",
+     lambda pt: cs.sized(cs.grid_scene(pt), 400, 9, 8), "vscan"),
+    ("city301_400x225_spp9_d6",
+     lambda pt: cs.sized(cs.city_scene(pt), 400, 9, 6), "vscan"),
+    ("vscan_slots_1200x675_spp16_d50",
+     lambda pt: cs.wide(cs.vscan_slots_scene(pt), 1200, 16, 50), "vscan"))
+_K11_SHAPES = (
+    ("bouncing_b_1200x675_spp16_d50",
+     lambda pt: cs.builtin(pt, "bouncing_spheres", 1200, 16, 50), "stack"),
+    ("grid4913_b_400x225_spp9_d8",
+     lambda pt: cs.sized(cs.grid_scene(pt), 400, 9, 8), "stack"),
+    ("grid32768_b_400x225_spp9_d8",
+     lambda pt: cs.sized(cs.grid_scene(pt, 32), 400, 9, 8), "stack"))
+SELECTION_SHAPES = {"k6": _K6_SHAPES, "k11": _K11_SHAPES,
+                    "k6new": _K6_SHAPES, "k11new": _K11_SHAPES}
+_COUNT_NAMES = {"k6": ("box_tests", "sphere_tests", "quad_tests"),
+                "k11": ("node_fetches", "pushes", "leaf_prim_tests"),
+                "k6new": ("box_tests", "group_box_tests", "sphere_tests",
+                          "quad_tests"),
+                "k11new": ("inner_row_fetches", "leaf_fetches", "pushes",
+                           "leaf_prim_tests", "pops")}
+
+
+def _launch_smem(wc, prep, py: dict) -> int:
+    """The dynamic shared memory of the forward launch of `prep`, as the
+    entry points size it: the chunk boxes (K6; and its group boxes in the
+    gbox_shared variant) or none (K11)."""
+    if prep.mode == "vscan":
+        n = prep.vfields["n_box"]
+        if py.get("gbox_shared"):
+            n = -(-n // 32) * 32 + wc.GBOX_COLS * prep.vfields["n_gbox"]
+        return 4 * n
+    return 0
+
+
+def selection_splits(torch, pt, wc, dev, libs, variants, shapes, which):
+    """Each variant of a selection's set at each shape: its time (or, for
+    "counts", its counts per selection, a selection being one bounce), the
+    kernel's ptxas figures and its blocks an SM."""
+    scenes = {}
+    for name, make, mode in shapes:
+        with cs.kernel_mode_env(mode):
+            flat, cam, kw = cs.pass_args(pt, make(pt), dev,
+                                         use_bvh=mode != "vscan")
+            scenes[name] = (flat, cam, kw, mode)
+    for kern, vname, _, _, *py in variants:
+        py = py[0] if py else {}
+        lib, log = libs[(kern, vname)]
+        wc.load_library = lambda lib=lib: lib
+        sym = K6 if kern == "k6" else K11
+        for name, (flat, cam, kw, mode) in scenes.items():
+            with cs.kernel_mode_env(mode):
+                widths = {k: getattr(wc, k) for k in ("VGROUP", "QGROUP")
+                          if k in py}
+                for k in widths:
+                    setattr(wc, k, py[k])
+                try:
+                    prep = wc.prepare_kernel(flat, cam)
+                finally:
+                    for k, v in widths.items():
+                        setattr(wc, k, v)
+                fn = functools.partial(wc.render_pass_kernel, flat, cam, 0,
+                                       0, prepared=prep, **kw)
+                rec = {"kernel": kern, "variant": vname, "shape": name,
+                       "ptxas": cs.ptxas_table(log).get(sym)}
+                occ = (ctypes.c_int * 1)()
+                ofn = lib.lib.rt_prof_occupancy
+                ofn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+                cs.check(ofn(_launch_smem(wc, prep, py), occ) == 0,
+                         "rt_prof_occupancy failed")
+                rec["blocks_per_sm"] = occ[0]
+                if vname == "counts":
+                    counts = (ctypes.c_ulonglong * 6)()
+                    cfn = lib.lib.rt_prof_counts
+                    cfn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                    cs.check(cfn(counts, 1) == 0, "rt_prof_counts failed")
+                    fn()
+                    torch.cuda.synchronize()
+                    cs.check(cfn(counts, 0) == 0, "rt_prof_counts failed")
+                    n_sel = max(int(counts[0]), 1)
+                    rec["selections"] = int(counts[0])
+                    rec.update({k: counts[i + 1] / n_sel for i, k in
+                                enumerate(_COUNT_NAMES[which])})
+                else:
+                    rec["ms"] = cs.cuda_ms(torch, fn)
+                print(json.dumps(rec), flush=True)
 
 
 def main(root: str, which: str) -> int:
@@ -427,6 +939,11 @@ def main(root: str, which: str) -> int:
     variants = SETS[which]
     libs = build_variants(wc, Path(root) / cs.KERNEL_SOURCE,
                           Path(root) / "build" / "profile" / which, variants)
+    if which in SELECTION_SHAPES:
+        selection_splits(torch, pt, wc, dev, libs, variants,
+                         SELECTION_SHAPES[which], which)
+        print(cs.gpu_line(), flush=True)
+        return 0
 
     flat, cam, kw = cs.pass_args(
         pt, cs.cornell_1080p(pt, cs.TRAIN_SPP, cs.TRAIN_DEPTH), dev)

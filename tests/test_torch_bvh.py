@@ -249,6 +249,95 @@ def test_select_references_match_closest_hit(mode, name):
         assert (prim >= flat.sph_center.shape[0]).any()
 
 
+@pytest.mark.parametrize("name", ["random", "chain", "spheres"])
+def test_stack_rows_match_the_tree(name):
+    """The stack walk's rows against the tree: each inner row holds its
+    children's boxes widened each by its own pad (the boxes the lane walk
+    and the tree's nodes carry, bit for bit) and their links (a leaf's
+    -(id + 1)); each leaf row its runs; the entry row the root."""
+    scene = {"random": random_scene, "chain": cs.bvh_chain_scene,
+             "spheres": cs.bvh_sphere_scene}[name](pt)
+    flat = pt.compile_scene(scene, use_bvh=True)
+    bt = wc.pack_bvh_tables(flat, "stack")
+    rows = wc._bvh_stack_rows(bt)
+    B = flat.bvh_left.shape[0]
+    assert rows.shape == (B + 1, wc.BVH_STACK_COLS)
+    box = torch.cat([flat.bvh_bbox_min, flat.bvh_bbox_max], 1)
+    wide = torch.cat([box[:, :3] - bt.pad[:, None],
+                      box[:, 3:] + bt.pad[:, None]], 1)
+    np.testing.assert_array_equal(wide.numpy(), wc._bvh_nodes(bt)[:, :6])
+    leaf = flat.bvh_leaf
+    inner = torch.nonzero(~leaf).squeeze(1)
+    kids = torch.stack([flat.bvh_left[inner], flat.bvh_right[inner]],
+                       1).long()
+    np.testing.assert_array_equal(rows[inner, :6].numpy(),
+                                  wide[kids[:, 0]].numpy())
+    np.testing.assert_array_equal(rows[inner, 6:12].numpy(),
+                                  wide[kids[:, 1]].numpy())
+    links = torch.where(leaf[kids], -(kids + 1), kids)
+    np.testing.assert_array_equal(rows[inner, 12:14].long().numpy(),
+                                  links.numpy())
+    assert not rows[inner, 14:].any()
+    lf = torch.nonzero(leaf).squeeze(1)
+    np.testing.assert_array_equal(rows[lf, :4].numpy(),
+                                  bt.link[lf, 2:6].numpy())
+    assert int(rows[lf, 1].sum() + rows[lf, 3].sum()) == int(
+        flat.bvh_right[lf].sum())
+    np.testing.assert_array_equal(rows[B, :6].numpy(), wide[0].numpy())
+    assert int(rows[B, 12]) == (-1 if bool(leaf[0]) else 0)
+
+
+@pytest.mark.parametrize("name", ["random", "mixed"])
+def test_stack_select_reference_matches_closest_hit_bvh(name):
+    """The stack walk's plain selection over its rows against the port's
+    traversal oracle closest_hit_bvh (which walks the tree's own node
+    arrays): the same hits at the same t bit for bit, and the same
+    materials, on seeded rays."""
+    scene = {"random": random_scene, "mixed": cs.bvh_mixed_scene}[name](pt)
+    flat = pt.compile_scene(scene, use_bvh=True)
+    o, d, tm = _scene_rays(flat, 1500, 9)
+    prim, t = wc.bvh_stack_select_reference(
+        wc.pack_bvh_tables(flat, "stack"), o, d, tm)
+    rec = pbvh.closest_hit_bvh(flat, o, d, tm)
+    hit = prim >= 0
+    np.testing.assert_array_equal(rec.hit.numpy(), hit.numpy())
+    assert 0.1 < float(hit.float().mean()) < 0.95
+    np.testing.assert_array_equal(rec.t.numpy()[hit.numpy()],
+                                  t.numpy()[hit.numpy()])
+    S = flat.sph_center.shape[0]
+    mat = torch.where(prim < S, flat.sph_mat[prim.clamp(0, S - 1)],
+                      flat.quad_mat[(prim - S).clamp(
+                          0, max(flat.quad_mat.shape[0] - 1, 0))]
+                      if flat.quad_mat.shape[0] else 0)
+    np.testing.assert_array_equal(rec.mat.numpy()[hit.numpy()],
+                                  mat.numpy()[hit.numpy()])
+
+
+def test_stack_walk_deeper_than_the_short_stack():
+    """A chain of spheres at doubling distances, seen along its axis: the
+    tree is deeper than a short stack of 8 entries (what a lane could keep
+    in shared memory or registers; the kernel keeps STACK_DEPTH entries in
+    local memory), every far child is met and pushed on the way down, and
+    the winners and ts stay the all-primitive selection's bit for bit."""
+    flat = pt.compile_scene(cs.bvh_chain_scene(pt), use_bvh=True)
+    depth = pbvh.tree_depth(flat.bvh_left.numpy(), flat.bvh_right.numpy(),
+                            flat.bvh_leaf.numpy())
+    assert 8 < depth < pbvh.STACK_DEPTH
+    g = np.random.default_rng(4)
+    n = 600
+    o = torch.tensor([[-6.0, 0.5, 0.5]] * n)
+    d = torch.from_numpy((g.normal(size=(n, 3)) * [0.2, 0.3, 0.3]
+                          + [1.0, 0.0, 0.0]).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    tm = torch.zeros(n)
+    bt = wc.pack_bvh_tables(flat, "stack")
+    prim, t = wc.bvh_stack_select_reference(bt, o, d, tm)
+    want_prim, want_t = _winners(flat, o, d, tm)
+    np.testing.assert_array_equal(prim.numpy(), want_prim.numpy())
+    np.testing.assert_array_equal(t.numpy(), want_t.numpy())
+    assert bool((prim >= 0).any()) and bool((prim < 0).any())
+
+
 def test_select_ties_go_to_the_lowest_id():
     """Six equal spheres at each of two spots, at time 0: a mover of the
     lowest id and five static ones at A, a static one of the lowest id and
@@ -351,39 +440,66 @@ def test_select_grazing_node_box_faces(name):
 
 
 def test_bvh_tables_layout():
-    """The walks' buffer: node rows of the widened boxes and the mode's
-    links, sphere and quad rows in leaf order (16-byte aligned), each
+    """The walks' buffers: the stack walk's rows (an inner node's two
+    children's widened boxes and links, a leaf's runs, the entry row last)
+    and the lane walk's node rows (the widened box and the skip links, as
+    they were), sphere and quad rows in leaf order (16-byte aligned), each
     leaf's runs where its links say."""
     flat = pt.compile_scene(cs.bvh_mixed_scene(pt), use_bvh=True)
     bt = wc.pack_bvh_tables(flat, "stack")
     buf, f = wc._bvh_buffer(bt)
     assert f["off_srows"] % 4 == 0 and f["off_qrows"] % 4 == 0
     B = flat.bvh_left.shape[0]
-    nodes = buf[:f["off_srows"]].reshape(B, wc.BVH_NODE_COLS)
+    assert f["n_nodes"] == B + 1
+    rows = buf[:f["off_srows"]].reshape(B + 1, wc.BVH_STACK_COLS)
     box = torch.cat([flat.bvh_bbox_min, flat.bvh_bbox_max], 1)
-    np.testing.assert_array_equal(nodes[:, :3].numpy(),
-                                  (box[:, :3] - bt.pad[:, None]).numpy())
-    np.testing.assert_array_equal(nodes[:, 3:6].numpy(),
-                                  (box[:, 3:] + bt.pad[:, None]).numpy())
+    wide = torch.cat([box[:, :3] - bt.pad[:, None],
+                      box[:, 3:] + bt.pad[:, None]], 1)
     assert bt.pad.shape == (B,) and bool((bt.pad > 0.0).all())
     S = flat.sph_center.shape[0]
     srows = buf[f["off_srows"]:f["off_qrows"]].reshape(-1, wc.VROW_COLS)
     qrows = buf[f["off_qrows"]:].reshape(-1, wc.QROW_COLS)
+
+    def link(c):
+        return -(c + 1) if flat.bvh_leaf[c] else c
+
     for i in range(B):
         lk = bt.link[i].long().tolist()
+        row = rows[i]
         if not flat.bvh_leaf[i]:
-            assert lk[0] == 0 and lk[2:4] == [int(flat.bvh_left[i]),
-                                              int(flat.bvh_right[i])]
+            left, right = int(flat.bvh_left[i]), int(flat.bvh_right[i])
+            assert lk[0] == 0 and lk[2:4] == [left, right]
+            np.testing.assert_array_equal(row[:6].numpy(), wide[left])
+            np.testing.assert_array_equal(row[6:12].numpy(), wide[right])
+            assert row[12:].tolist() == [link(left), link(right), 0, 0]
             continue
         off, cnt = int(flat.bvh_left[i]), int(flat.bvh_right[i])
         run = flat.bvh_prims[off:off + cnt].tolist()
+        assert row[:4].long().tolist() == lk[2:6]
+        assert not row[4:].any()
         got = (srows[lk[2]:lk[2] + lk[3], 7].long().tolist()
                + qrows[lk[4]:lk[4] + lk[5], 16].long().tolist())
         assert lk[0] == 1 and got == run and lk[3] + lk[5] == cnt
         assert all(p < S for p in run[:lk[3]])
-    lane = wc.pack_bvh_tables(pt.compile_scene(cs.bvh_sphere_scene(pt),
-                                               use_bvh=True), "lane")
+    # the entry row: the root's box and link, an empty right child
+    np.testing.assert_array_equal(rows[B, :6].numpy(), wide[0])
+    np.testing.assert_array_equal(
+        rows[B, 6:12].numpy(),
+        np.float32([wc.BIG] * 3 + [-wc.BIG] * 3))
+    assert rows[B, 12] == link(0)
+    sph = pt.compile_scene(cs.bvh_sphere_scene(pt), use_bvh=True)
+    lane = wc.pack_bvh_tables(sph, "lane")
     assert lane.qrows.shape[0] == 0
+    lbuf, lf = wc._bvh_buffer(lane)
+    LB = sph.bvh_left.shape[0]
+    assert lf["n_nodes"] == LB
+    nodes = lbuf[:lf["off_srows"]].reshape(LB, wc.BVH_NODE_COLS)
+    lbox = torch.cat([sph.bvh_bbox_min, sph.bvh_bbox_max], 1)
+    np.testing.assert_array_equal(nodes[:, :3].numpy(),
+                                  (lbox[:, :3] - lane.pad[:, None]).numpy())
+    np.testing.assert_array_equal(nodes[:, 3:6].numpy(),
+                                  (lbox[:, 3:] + lane.pad[:, None]).numpy())
+    np.testing.assert_array_equal(nodes[:, 6:].numpy(), lane.link.numpy())
     with pytest.raises(ValueError, match="spheres only"):
         wc.pack_bvh_tables(flat, "lane")
     with pytest.raises(ValueError, match="use_bvh"):

@@ -339,15 +339,23 @@ def test_full_family_train_step_runs_the_kernels(cuda_device):
             + wc.render_pass_grad_reference.calls) == plain
 
 
-@pytest.mark.parametrize("name", ["multichunk", "vquad"])
+@pytest.mark.parametrize("name", ["multichunk", "vquad", "bouncing"])
 def test_vscan_kernel_matches_plain(name, cuda_device):
-    """The chunk-scan instance (K6; K7 on the 90-quad scene's quad chunks)
-    against the plain pass, which tests every primitive: the same pixels
-    and the same bounces, its launches counted apart."""
-    scene = (cs.multichunk_scene(pt) if name == "multichunk"
-             else cs.vquad_scene(pt))
+    """The chunk-scan instance (K6; K7 on the 90-quad scene's quad chunks;
+    on bouncing_spheres, whose first chunk mixes static and moving spheres,
+    through their group boxes) against the plain pass, which tests every
+    primitive: the same pixels and the same bounces, its launches counted
+    apart."""
+    scene = (pt.builders.bouncing_spheres() if name == "bouncing" else
+             {"multichunk": cs.multichunk_scene,
+              "vquad": cs.vquad_scene}[name](pt))
     flat, cam, kw = cs.pass_args(pt, cs.sized(scene, 48, 4, 8), cuda_device)
     assert wc.kernel_mode(flat) == ("vscan", name == "vquad")
+    if name == "bouncing":
+        vt = wc.pack_vscan_tables(flat)
+        moving = (vt.rows[:wc.VCHUNK, 3:6] != 0).any(1) \
+            & (vt.rows[:wc.VCHUNK, 7] >= 0)
+        assert bool(moving.any()) and not bool(moving.all())
     n_lanes = wc.lane_count(kw["width"] * kw["height"])
     it_k = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
     it_p = torch.zeros_like(it_k)
@@ -932,16 +940,19 @@ def _bvh_env(monkeypatch, mode):
 
 @pytest.mark.parametrize("mode, name", [("stack", "mixed"),
                                         ("lane", "spheres"),
-                                        ("stack", "rows")])
+                                        ("stack", "rows"),
+                                        ("stack", "chain")])
 def test_bvh_kernels_match_plain(mode, name, cuda_device, monkeypatch):
     """The BVH walks (K11 on mixed sphere / quad leaves, K12 on spheres
-    with movers) against the plain pass, which tests every primitive: the
-    same pixels and bounces as the chunk scan (K6) and the plain pass,
-    the compacted schedule, and the tex_color grad instance (weight planes
-    in registers; for the 28-row scene in shared memory) against the plain
-    grad pass, with the forward's image; launches counted per mode."""
+    with movers; K11 on a chain of spheres whose stack goes more than 8
+    entries deep) against the plain pass, which tests every
+    primitive: the same pixels and bounces as the chunk scan (K6) and the
+    plain pass, the compacted schedule, and the tex_color grad instance
+    (weight planes in registers; for the 28-row scene in shared memory)
+    against the plain grad pass, with the forward's image; launches
+    counted per mode."""
     scene = {"mixed": cs.bvh_mixed_scene, "spheres": cs.bvh_sphere_scene,
-             "rows": cs.rows_scene}[name](pt)
+             "rows": cs.rows_scene, "chain": cs.bvh_chain_scene}[name](pt)
     flat, cam, kw = cs.pass_args(pt, cs.sized(scene, 48, 4, 8), cuda_device,
                                  use_bvh=True)
     _bvh_env(monkeypatch, mode)

@@ -158,6 +158,77 @@ def test_kernel_buffer_layout():
     np.testing.assert_array_equal(box[full, 3:].numpy(),
                                   (vt.box[full, 3:] + vt.pad).numpy())
     assert vt.pad > 0.0
+    # the group boxes (first, two float4s each) and their VsParams fields
+    assert f["off_gbox"] == 0 and f["off_rows"] % 4 == 0
+    assert f["n_gbox"] == vt.gbox.shape[0] == (
+        vt.C * wc.VCHUNK // wc.VGROUP + vt.Cq * wc.VCHUNK // wc.QGROUP)
+    assert f["off_rows"] == wc.GBOX_COLS * f["n_gbox"]
+    g = buf[:f["off_rows"]].reshape(-1, wc.GBOX_COLS)
+    np.testing.assert_array_equal(g[:, [3, 7]].numpy(), 0.0)
+    np.testing.assert_array_equal(
+        torch.cat([g[:, :3], g[:, 4:7]], 1).numpy(),
+        wc._padded_boxes(vt, vt.gbox).numpy())
+    assert [n for n, _ in wc._VsParams._fields_] == [
+        "C_small", "n_big", "Cq", "off_rows", "off_qrows", "off_box",
+        "n_box", "off_gbox", "n_gbox"]
+    wc._VsParams(**f)   # every field, no other
+
+
+@pytest.mark.parametrize("name", list(SCENES) + ["grid9"])
+def test_group_boxes(name):
+    """The chunk scan's second level: each active row (id >= 0) lies inside
+    its group's box (VGROUP rows a group in the sphere chunks, QGROUP in
+    the quad chunks), a group of id -1 rows only has the empty box [BIG,
+    -BIG], the big block's groups are empty, each chunk's box is the union
+    of its groups' (so each widened group box lies inside its widened chunk
+    box), for the sphere chunks and the quad chunks."""
+    scene = (cs.grid_scene(rt, 9) if name == "grid9" else SCENES[name]())
+    _, pf = _carried(scene)
+    vt = wc.pack_vscan_tables(pf)
+    G, NG = wc.VGROUP, wc.VCHUNK // wc.VGROUP
+    QG, NQ = wc.QGROUP, wc.VCHUNK // wc.QGROUP
+    assert vt.gbox.shape == (vt.C * NG + vt.Cq * NQ, 6)
+    big = torch.tensor(wc.BIG, dtype=torch.float32)
+    c0, cd, rad = pf.sph_center, pf.sph_cdelta, pf.sph_radius
+    lo = torch.minimum(c0, c0 + cd) - rad[:, None]
+    hi = torch.maximum(c0, c0 + cd) + rad[:, None]
+    rows = vt.rows[:vt.C_small * wc.VCHUNK]
+    ids = rows[:, 7].long()
+    gb = vt.gbox[:vt.C_small * NG].repeat_interleave(G, 0)
+    act = ids >= 0
+    assert bool(act.any())
+    assert bool((gb[act, :3] <= lo[ids[act]]).all())
+    assert bool((gb[act, 3:] >= hi[ids[act]]).all())
+    empty = ~act.reshape(-1, G).any(1)
+    np.testing.assert_array_equal(
+        vt.gbox[:vt.C_small * NG][empty].numpy(),
+        np.float32([[wc.BIG] * 3 + [-wc.BIG] * 3] * int(empty.sum())))
+    if vt.n_big:
+        np.testing.assert_array_equal(
+            vt.gbox[vt.C_small * NG:vt.C * NG, :3].numpy(), big.numpy())
+    if vt.Cq:
+        q = vt.qrows[:, 16].long()
+        qa = q >= 0
+        S = vt.S
+        corner, u, v = (pf.quad_corner[q[qa] - S], pf.quad_u[q[qa] - S],
+                        pf.quad_v[q[qa] - S])
+        pts = torch.stack([corner, corner + u, corner + v, corner + u + v])
+        qgb = vt.gbox[vt.C * NG:].repeat_interleave(QG, 0)[qa]
+        assert bool((qgb[:, :3] <= pts.min(0).values).all())
+        assert bool((qgb[:, 3:] >= pts.max(0).values).all())
+    wide = wc._padded_boxes(vt, vt.gbox)
+    for part, n, boxes in ((slice(0, vt.C * NG), NG, slice(0, vt.C)),
+                           (slice(vt.C * NG, None), NQ, slice(vt.C, None))):
+        per = vt.gbox[part].reshape(-1, n, 6)
+        np.testing.assert_array_equal(
+            torch.cat([per[:, :, :3].min(1).values,
+                       per[:, :, 3:].max(1).values], 1).numpy(),
+            vt.box[boxes].numpy())
+        wg = wide[part].reshape(-1, n, 6)
+        wb = wc._padded_boxes(vt)[boxes][:, None]
+        full = (per[..., 0] <= per[..., 3])
+        assert bool((wg[..., :3] >= wb[..., :3])[full].all())
+        assert bool((wg[..., 3:] <= wb[..., 3:])[full].all())
 
 
 def _rays(flat, n, seed):
@@ -216,6 +287,8 @@ def test_select_ties_go_to_the_lowest_id():
     vt = wc.pack_vscan_tables(pf)
     chunk = {int(i): p // wc.VCHUNK for p, i in enumerate(vt.perm)}
     assert chunk[3] != chunk[150] and chunk[5] != chunk[200]
+    group = {int(i): p // wc.VGROUP for p, i in enumerate(vt.perm)}
+    assert group[3] != group[150] and group[5] != group[200]
     n = 400
     o = torch.from_numpy(np.random.default_rng(6).uniform(
         -4, 4, (n, 3)).astype(np.float32))
@@ -259,6 +332,44 @@ def test_select_grazing_chunk_box_faces():
                         d.append(u)
     o, d = torch.stack(o), torch.stack(d)
     tm = torch.zeros(o.shape[0])
+    prim = _assert_same_winners(vt, pf, o, d, tm)
+    assert (prim >= 0).any() and (prim < 0).any()
+
+
+@pytest.mark.parametrize("name", ["multichunk", "bouncing_spheres"])
+def test_select_grazing_group_box_faces(name):
+    """Rays along the faces of the group boxes, tangent to the sphere that
+    spans each face, just inside and just outside: the widened group boxes
+    keep every grazing winner the all-primitive test finds (moving spheres
+    at the start and end of their sweep included)."""
+    _, pf = _carried(SCENES[name]())
+    vt = wc.pack_vscan_tables(pf)
+    o, d, tm = [], [], []
+    n_groups = vt.C_small * wc.VCHUNK // wc.VGROUP
+    for g in range(0, n_groups, max(1, n_groups // 24)):
+        rows = vt.rows[g * wc.VGROUP:(g + 1) * wc.VGROUP]
+        rows = rows[rows[:, 7] >= 0]
+        if not rows.shape[0]:
+            continue
+        for time in (0.0, 1.0):
+            c = rows[:, :3] + time * rows[:, 3:6]
+            for axis in range(3):
+                for side, pick in ((-1.0, (c[:, axis] - rows[:, 6]).argmin()),
+                                   (1.0, (c[:, axis] + rows[:, 6]).argmax())):
+                    tip = c[pick].clone()
+                    tip[axis] += side * rows[pick, 6]
+                    for k in range(4):
+                        u = torch.zeros(3)
+                        ang = k * np.pi / 4
+                        u[(axis + 1) % 3], u[(axis + 2) % 3] = (
+                            np.cos(ang), np.sin(ang))
+                        for off in (-1e-5, 0.0, 1e-5):
+                            p = tip.clone()
+                            p[axis] += side * off
+                            o.append(p - 3.0 * u)
+                            d.append(u)
+                            tm.append(time)
+    o, d, tm = torch.stack(o), torch.stack(d), torch.tensor(tm)
     prim = _assert_same_winners(vt, pf, o, d, tm)
     assert (prim >= 0).any() and (prim < 0).any()
 
