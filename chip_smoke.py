@@ -34,7 +34,10 @@ against the plain pass and the chunk scan on four scenes up to a
 32,768-sphere grid and timed beside the chunk scan, the CLI's -b on
 bouncing_spheres at 1200x675 spp100 d50 and on the grid's scene file in
 the three modes, tex_color training through each walk and a full-family
-step on a stack-mode scene (the adjoint). Every phase prints
+step on a stack-mode scene (the adjoint). The forward's persistent
+threads take lane slots from a counter zeroed for each launch: two
+launches in a row on one stream give the same outputs bit for bit
+(refill_repeat). Every phase prints
 one JSON line; any failure raises and the script exits non-zero. The last
 lines are each phase's seconds, the kernel table, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -1379,6 +1382,43 @@ def main() -> int:
                   f"{name} {sched}: compacted differs from single by {err}")
     done("compacted")
 
+    # 4b. the forward's persistent threads (K1, K2) take lane slots from a
+    # counter the wrapper zeroes on the launch's stream: two launches in a
+    # row on one stream, with no synchronisation between them, give the
+    # same radiance, carry and bounces bit for bit, single and capped, at
+    # the forward's timed shape (600x600 spp16 d50, 2,813 blocks' worth of
+    # slots) and on fewer slots than the card's resident threads
+    refill = {}
+    for name, scene in (
+            ("cornell_600x600_spp16_d50",
+             builtin(pt, "cornell_box", 600, 16, 50)),
+            ("cornell_100x100_spp4_d50",
+             sized(pt.builders.cornell_box(), 100, 4, 50))):
+        flat, cam, kw = pass_args(pt, scene, dev)
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        prep = wc.prepare_kernel(flat, cam)
+        runs = []
+        for _ in range(2):
+            it1 = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+            it2 = torch.zeros_like(it1)
+            img = wc.render_pass_kernel(flat, cam, 7, 0, iters=it1,
+                                        prepared=prep, **kw)
+            rad, carry = wc.render_pass_kernel(flat, cam, 7, 0, cap=40,
+                                               iters=it2, prepared=prep,
+                                               **kw)
+            runs.append((img, it1, rad, carry, it2))
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+                for a, b in zip(*runs)]
+        refill[name] = all(same)
+        emit("refill_repeat", scene=name, lanes=n_lanes,
+             equal=dict(zip(("image", "bounces", "capped_rad",
+                             "capped_carry", "capped_bounces"), same)))
+        check(all(same), f"{name}: two launches of the forward in a row "
+              f"differ ({same})")
+        check(int(runs[0][1].sum()) > 0, f"{name}: no bounces counted")
+    done("refill_repeat")
+
     # 5. the main path: the CLI's default Cornell render on the kernel
     out_ppm = Path("output") / "output_image.ppm"
     if out_ppm.exists():
@@ -1391,13 +1431,13 @@ def main() -> int:
     rc = cli.main(["--scene", "cornell_box"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = wc.render_pass_kernel.launches
+    main_launches = wc.render_pass_kernel.launches
     plain_calls = wc.render_pass_reference.calls + rd._render_pass.calls
     check(rc == 0, f"cli.main returned {rc}")
     check(out_ppm.exists(), f"{out_ppm} was not written")
     ppm = pt.read_ppm(out_ppm)
     check(ppm.shape == (600, 600, 3), f"PPM shape {ppm.shape}")
-    check(launches > 0, "the main path never launched the kernel")
+    check(main_launches > 0, "the main path never launched the kernel")
     check(plain_calls == 0, "the main path ran the plain torch engine")
     # the same render as the CLI's, timed without the PPM encoding
     scene = pt.builders.cornell_box()
@@ -1410,7 +1450,7 @@ def main() -> int:
     check(bool(torch.isfinite(img).all()), "main-path image not finite")
     paths = 600 * 600 * 100
     emit("main_path", argv=["--scene", "cornell_box"], ppm=str(out_ppm),
-         ppm_mean_byte=float(ppm.mean()), kernel_launches=launches,
+         ppm_mean_byte=float(ppm.mean()), kernel_launches=main_launches,
          plain_calls=plain_calls, cli_wall_s=cli_s, render_s=render_s,
          mpaths_per_s=paths / render_s / 1e6)
     done("main_path")
@@ -2969,8 +3009,10 @@ def main() -> int:
             "depth": pbvh.tree_depth(flat.bvh_left.numpy(),
                                      flat.bvh_right.numpy(),
                                      flat.bvh_leaf.numpy())}
+    # the walks' forward and grad instances (not the selection probe,
+    # bvh_select_probe_kernel, which only the GPU tests launch)
     bvh_ptxas = {k: v for k, v in ptxas_table(lib.build_log).items()
-                 if "bvh" in k}
+                 if "_bvh_kernel" in k}
     emit("bvh_build", builder="C++ (csrc/bvh_builder.cpp)" if native
          else "numpy", builder_compile_s=builder_s, scenes=bvh_build,
          ptxas=bvh_ptxas)
@@ -3304,10 +3346,20 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "wavefront_forward_kernel", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-        "launches": launches, "max_abs_err": main_err,
+        "launches": main_launches, "max_abs_err": main_err,
         "ms": times[16]["single_ms"], "plain_ms": times[16]["plain_ms"],
         "bound_ms": f_bound, "bound_by": "operations", "library_ms": None,
-        "ms_at": "cornell_box 600x600 spp16 d50"}, {
+        "ms_at": "cornell_box 600x600 spp16 d50",
+        "launches_at": "main_path, the CLI's cornell_box",
+        "compacted_ms": times[16]["compacted_ms"],
+        "spp100_ms": {k: times[100][k] for k in ("single_ms",
+                                                 "compacted_ms")},
+        "spp100_bound_ms": f_bounds[100],
+        "train_launches": {"tex_color": train_fwd,
+                           "full_family": ftrain_fwd},
+        "two_launches_equal": refill,
+        "ptxas": ptxas_prefix(lib.build_log,
+                              "wavefront_forward_kernel$")}, {
         "name": "wavefront_grad_kernel", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
         "launches": train_grad,

@@ -262,6 +262,38 @@ def _skip_links(left, right, leaf):
     return hit, miss
 
 
+def ordered_skip_links(left, right, leaf, left_first):
+    """_skip_links with each inner node's children in an order of its own,
+    for n orders at once: left_first (n, B) bool says, per order, whether
+    node i's left child comes first. Returns (hit, miss), each (n, B)
+    int32: an inner node's hit link is its first child, a leaf's its miss
+    link; a first child's miss link is its sibling, a second child's its
+    parent's; the root's is B (done). Built level by level from the root,
+    vectorised over the nodes of a level and the orders (at most the
+    tree's depth + 1 levels, which check_depth bounds)."""
+    left, right, leaf = (np.asarray(x) for x in (left, right, leaf))
+    left_first = np.asarray(left_first, bool)
+    n, B = left_first.shape
+    first = np.where(left_first, left[None], right[None]).astype(np.int64)
+    second = np.where(left_first, right[None], left[None]).astype(np.int64)
+    hit = np.zeros((n, B), np.int64)
+    miss = np.zeros((n, B), np.int64)
+    miss[:, 0] = B
+    rows = np.arange(n)[:, None]
+    level = np.zeros(1, np.int64)
+    while level.size:
+        inner = level[~leaf[level]]
+        if inner.size == 0:
+            break
+        f, s = first[:, inner], second[:, inner]
+        hit[:, inner] = f
+        miss[rows, f] = s
+        miss[rows, s] = miss[:, inner]
+        level = np.concatenate([left[inner], right[inner]])
+    hit[:, leaf] = miss[:, leaf]
+    return hit.astype(np.int32), miss.astype(np.int32)
+
+
 def _segregate_leaves(n_sph, left, right, leaf, prims):
     """Reorder each leaf's prim run spheres first (in place) and return the
     per-node sphere count."""

@@ -79,7 +79,7 @@ from ..models.camera import CameraState, generate_rays
 from ..utils import rng
 from ..utils.vecmath import normalize
 from . import intersect
-from .bvh import MAX_LEAF, STACK_DEPTH, check_depth
+from .bvh import MAX_LEAF, STACK_DEPTH, check_depth, ordered_skip_links
 from .integrator import bounce_step, medium_uniforms
 
 # gate bounds, as the JAX package's wavefront_pallas.py (MAX_* constants and
@@ -127,8 +127,12 @@ GBOX_COLS = 8
 # float32 integers
 BVH_MODES = ("stack", "lane")
 LANE_BVH_MAX = 1 << 22
-BVH_NODE_COLS = 12    # node rows: box lo xyz, hi xyz (widened), the links
-# (csrc/wavefront.cu BvParams; pack_bvh_tables says what each column holds)
+# The lane walk's (K12) node rows (_bvh_lane_rows; csrc/wavefront.cu
+# LANE_ROW float4s): the widened box lo xyz, hi xyz, the node's sphere run
+# (first row, count; 0 at an inner node), then the node's [hit, miss] links
+# for each of the 8 ray octants (their int32 bits)
+N_OCTANTS = 8
+BVH_LANE_COLS = 8 + 2 * N_OCTANTS
 # The stack walk's (K11) rows: an inner node's two children's widened boxes
 # and their links, a leaf's runs (_bvh_stack_rows; csrc/wavefront.cu
 # BVH_STACK_COLS)
@@ -844,11 +848,14 @@ class BvhTables:
         (bvh_box_pad), so that no grazing root the all-primitive test
         accepts falls outside its leaf's ancestors. The stack walk reads a
         node's widened box in its parent's row (_bvh_stack_rows).
-      link (B, 6): per node, for the stack walk: [leaf (1 or 0), split
-        axis, left child | first sphere row, right child | sphere count,
-        0 | first quad row, 0 | quad count]; for the lane walk: [hit link,
-        miss link, first sphere row, sphere count (0 at an inner node)],
-        the skip links of flat.bvh_hit / bvh_miss (B = done), two 0s.
+      link (B, 6): per node: [leaf (1 or 0), split axis, left child |
+        first sphere row, right child | sphere count, 0 | first quad row,
+        0 | quad count].
+      octant (8, B, 2) int32, the lane walk's only (None for the stack
+        walk): per ray octant o (bit k set where the ray's direction has
+        its sign bit set along axis k, -0.0 included) the skip links
+        [hit, miss] of the preorder that enters each inner node's child
+        nearer along its split axis for o's sign there first (octant_links).
       srows (NS, 8): the leaves' sphere rows in leaf order [c0 xyz, cdelta
         xyz, radius, original id]; id -1 for a radius <= 0 (never a
         winner, as in the all-primitive test).
@@ -863,6 +870,7 @@ class BvhTables:
     pad: torch.Tensor
     srows: torch.Tensor
     qrows: torch.Tensor
+    octant: torch.Tensor | None = None
 
 
 def bvh_box_pad(flat: FlatScene) -> torch.Tensor:
@@ -890,6 +898,32 @@ def bvh_box_pad(flat: FlatScene) -> torch.Tensor:
                        torch.maximum(n_lo.abs(), n_hi.abs()).amax(1), 0.0)
     node = torch.clamp(node.double(), min=float(scale))
     return (BOX_PAD * (1.0 + node)).to(torch.float32)
+
+
+def octant_links(flat: FlatScene) -> torch.Tensor:
+    """(8, B, 2) int32: the skip links [hit, miss] of each ray octant o
+    (bit k of o: the direction's sign bit along axis k) over flat's tree.
+    In octant o an inner node's first child is the one nearer along the
+    node's split axis (flat.bvh_axis) for o's sign on it: the child whose
+    box centre is lower there for a positive sign, higher for a negative
+    one, the left child on a tie (the builder does not keep the left child
+    low); ordered_skip_links gives the rest (a leaf's hit link is its miss
+    link, B ends the walk)."""
+    left = flat.bvh_left.cpu().numpy().astype(np.int64)
+    right = flat.bvh_right.cpu().numpy().astype(np.int64)
+    leaf = flat.bvh_leaf.cpu().numpy()
+    axis = np.clip(flat.bvh_axis.cpu().numpy().astype(np.int64), 0, 2)
+    # twice the box centres, in float64: the sum of float32 bounds is exact
+    mid = (flat.bvh_bbox_min.cpu().numpy().astype(np.float64)
+           + flat.bvh_bbox_max.cpu().numpy().astype(np.float64))
+    rows = np.arange(left.shape[0])
+    cl = mid[np.where(leaf, rows, left), axis]
+    cr = mid[np.where(leaf, rows, right), axis]
+    neg = (np.arange(N_OCTANTS)[:, None] >> axis[None]) & 1
+    left_first = np.where(neg == 1, cl[None] >= cr[None],
+                          cl[None] <= cr[None])
+    hit, miss = ordered_skip_links(left, right, leaf, left_first)
+    return torch.from_numpy(np.stack([hit, miss], 2)).to(flat.device)
 
 
 def pack_bvh_tables(flat: FlatScene, mode: str) -> BvhTables:
@@ -929,18 +963,11 @@ def pack_bvh_tables(flat: FlatScene, mode: str) -> BvhTables:
     s_off = torch.where(leaf, sph_before[leaf_off], 0)
     q_off = torch.where(leaf, quad_before[leaf_off], 0)
     nq = torch.where(leaf, right - nsph, 0)
-    zero = torch.zeros_like(left)
-    if mode == "stack":
-        link = torch.stack([leaf.to(torch.int64),
-                            flat.bvh_axis.to(torch.int64),
-                            torch.where(leaf, s_off, left),
-                            torch.where(leaf, nsph, right), q_off, nq], 1)
-    else:
-        if bool(is_quad.any()):
-            raise ValueError("the lane BVH (K12) takes spheres only")
-        link = torch.stack([flat.bvh_hit.to(torch.int64),
-                            flat.bvh_miss.to(torch.int64), s_off, nsph,
-                            zero, zero], 1)
+    if mode == "lane" and bool(is_quad.any()):
+        raise ValueError("the lane BVH (K12) takes spheres only")
+    link = torch.stack([leaf.to(torch.int64), flat.bvh_axis.to(torch.int64),
+                        torch.where(leaf, s_off, left),
+                        torch.where(leaf, nsph, right), q_off, nq], 1)
     sid = prims[is_sph]
     rad = flat.sph_radius[sid]
     srows = torch.cat([flat.sph_center[sid], flat.sph_cdelta[sid],
@@ -956,13 +983,31 @@ def pack_bvh_tables(flat: FlatScene, mode: str) -> BvhTables:
     box = torch.cat([flat.bvh_bbox_min, flat.bvh_bbox_max], 1).to(f32)
     return BvhTables(mode=mode, box=box, link=link.to(f32),
                      pad=bvh_box_pad(flat), srows=srows.contiguous(),
-                     qrows=qrows.contiguous())
+                     qrows=qrows.contiguous(),
+                     octant=octant_links(flat) if mode == "lane" else None)
 
 
 def _bvh_nodes(bt: BvhTables) -> torch.Tensor:
-    """(B, BVH_NODE_COLS) node rows: the widened box, then the links."""
+    """(B, 6) the nodes' widened boxes [lo xyz, hi xyz]."""
     pad = bt.pad[:, None]
-    return torch.cat([bt.box[:, :3] - pad, bt.box[:, 3:] + pad, bt.link], 1)
+    return torch.cat([bt.box[:, :3] - pad, bt.box[:, 3:] + pad], 1)
+
+
+def _bvh_lane_rows(bt: BvhTables) -> torch.Tensor:
+    """(B, BVH_LANE_COLS) float32 the lane walk's node rows: the widened
+    box, the node's sphere run [first sphere row, sphere count], then the
+    int32 bits of its octant links, [hit, miss] for octant 0, 1, ..., 7."""
+    B = bt.box.shape[0]
+    runs = torch.where(bt.link[:, :1] == 1, bt.link[:, 2:4], 0.0)
+    links = bt.octant.to(torch.int32).permute(1, 0, 2).reshape(
+        B, 2 * N_OCTANTS).contiguous().view(torch.float32)
+    return torch.cat([_bvh_nodes(bt), runs, links], 1)
+
+
+def _lane_row_links(rows: torch.Tensor) -> torch.Tensor:
+    """(B, 8, 2) int64 the octant links in lane rows (_bvh_lane_rows)."""
+    return rows[:, 8:].contiguous().view(torch.int32).reshape(
+        -1, N_OCTANTS, 2).to(torch.int64)
 
 
 def _bvh_stack_rows(bt: BvhTables) -> torch.Tensor:
@@ -1003,10 +1048,12 @@ def _bvh_stack_rows(bt: BvhTables) -> torch.Tensor:
 def _bvh_buffer(bt: BvhTables):
     """One float32 buffer of what a BVH walk reads beside the scene tables:
     the node rows (the stack walk's _bvh_stack_rows, the lane walk's
-    _bvh_nodes), the sphere rows and the quad rows (each 16-byte aligned,
-    for float4 loads); and the kernel's BvParams fields (n_nodes counts
-    the rows: B + 1 for the stack walk, whose entry row is the last)."""
-    nodes = _bvh_stack_rows(bt) if bt.mode == "stack" else _bvh_nodes(bt)
+    _bvh_lane_rows), the sphere rows and the quad rows (each 16-byte
+    aligned, for float4 loads); and the kernel's BvParams fields (n_nodes
+    counts the rows: B + 1 for the stack walk, whose entry row is the
+    last)."""
+    nodes = (_bvh_stack_rows(bt) if bt.mode == "stack"
+             else _bvh_lane_rows(bt))
     parts = [nodes.reshape(-1), bt.srows.reshape(-1), bt.qrows.reshape(-1)]
     fields = dict(n_nodes=nodes.shape[0], n_srows=bt.srows.shape[0],
                   n_qrows=bt.qrows.shape[0], off_nodes=0,
@@ -1106,34 +1153,79 @@ def bvh_stack_select_reference(bt: BvhTables, o, d, tm):
     return best, best_t
 
 
+def ray_octants(d) -> torch.Tensor:
+    """(n,) int64 octant of each direction (n, 3): bit k set where d's
+    sign bit is set along axis k (-0.0 counts as negative), as the lane
+    walk's kernel takes it."""
+    bits = torch.signbit(d).to(torch.int64)
+    return bits[:, 0] | (bits[:, 1] << 1) | (bits[:, 2] << 2)
+
+
 def bvh_lane_select_reference(bt: BvhTables, o, d, tm):
-    """The plain version of the lane BVH's selection (K12): each ray walks
-    the skip links from the root, taking the hit link where its widened box
-    meets [T_MIN, the ray's best t] (testing a leaf's spheres there) and
-    the miss link elsewhere, until the links end; the results as
-    bvh_stack_select_reference's."""
+    """The plain version of the lane BVH's selection (K12), over the same
+    rows (_bvh_lane_rows): each ray walks its octant's skip links (near
+    child first) from the root, taking the hit link where the node's
+    widened box meets [T_MIN, the ray's best t] (testing a leaf's spheres
+    there) and the miss link elsewhere, until the links end; the results
+    as bvh_stack_select_reference's."""
     n = o.shape[0]
     dev = o.device
     best_t = torch.full((n,), BIG, dtype=torch.float32, device=dev)
     best = torch.full((n,), -1, dtype=torch.int64, device=dev)
     inv_d = _inverse_dir(d)
-    nodes = _bvh_nodes(bt)
-    link = bt.link.to(torch.int64)
-    B = nodes.shape[0]
+    rows = _bvh_lane_rows(bt)
+    links = _lane_row_links(rows)
+    oct_ = ray_octants(d)
+    B = rows.shape[0]
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     while bool((node < B).any()):
         live = torch.nonzero(node < B).squeeze(1)
         nd = node[live]
-        go = _box_reaches(nodes[nd, :6], o[live], inv_d[live], best_t[live])
-        lk = link[nd]
-        leafy = go & (lk[:, 3] > 0)
+        row = rows[nd]
+        go = _box_reaches(row[:, :6], o[live], inv_d[live], best_t[live])
+        lk = links[nd, oct_[live]]
+        run = row[:, 6:8].to(torch.int64)
+        leafy = go & (run[:, 1] > 0)
         if bool(leafy.any()):
             j = leafy.nonzero().squeeze(1)
             zero = torch.zeros_like(j)
-            _leaf_tests(bt, live[j], lk[j, 2], lk[j, 3], zero, zero, o, d,
+            _leaf_tests(bt, live[j], run[j, 0], run[j, 1], zero, zero, o, d,
                         tm, best_t, best)
         node[live] = torch.where(go, lk[:, 0], lk[:, 1])
     return best, best_t
+
+
+def bvh_select_kernel(prepared: "KernelInputs", o, d, tm):
+    """The BVH walk of `prepared` (a BVH mode's packing) alone on the
+    card, one ray a thread: for rays o, d (n, 3) at times tm (n,) on the
+    packing's device, (the winner's original unified id, -1 on a miss; its
+    t, BIG on a miss), as bvh_stack_select_reference /
+    bvh_lane_select_reference give them. For the checks on the card; each
+    launch adds one to bvh_select_kernel.launches."""
+    if prepared.mode not in BVH_MODES:
+        raise ValueError(f"packed for {prepared.mode!r}, not a BVH walk")
+    dev = prepared.btab.device
+    rays = torch.cat([o, d, tm[:, None]], 1).to(
+        device=dev, dtype=torch.float32).contiguous()
+    n = rays.shape[0]
+    best = torch.empty(n, dtype=torch.int32, device=dev)
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bvh_select[prepared.mode](
+            ctypes.byref(_BvParams(**prepared.bfields)),
+            ctypes.c_void_p(prepared.btab.data_ptr()),
+            ctypes.c_void_p(rays.data_ptr()), n,
+            ctypes.c_void_p(best.data_ptr()), ctypes.c_void_p(t.data_ptr()),
+            ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"BVH selection launch failed: CUDA error {err}")
+    bvh_select_kernel.launches += 1
+    return best.to(torch.int64), t
+
+
+bvh_select_kernel.launches = 0
 
 
 # ------------------------------------------------------------ lane layout
@@ -1623,8 +1715,8 @@ class KernelLibrary:
         self.forward = self.lib.rt_wavefront_forward
         self.forward.restype = ctypes.c_int
         # params, tables, pix_lanes, carry_in, rad_out, carry_out, iters,
-        # stream
-        self.forward.argtypes = [ctypes.POINTER(_Params)] + [ptr] * 7
+        # the slot counter, stream
+        self.forward.argtypes = [ctypes.POINTER(_Params)] + [ptr] * 8
         self.forward_vscan = self.lib.rt_wavefront_forward_vscan
         self.forward_vscan.restype = ctypes.c_int
         # params, vparams, tables, vtab, pix_lanes, carry_in, rad_out,
@@ -1672,6 +1764,14 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(_Params),
                            ctypes.POINTER(_BvParams)] + [ptr] * 11
+        # the walks' selections alone (bvh_select_kernel): bparams, btab,
+        # rays, n, winners, ts, stream
+        self.bvh_select = {"stack": self.lib.rt_bvh_select_stack,
+                           "lane": self.lib.rt_bvh_select_lane}
+        for fn in self.bvh_select.values():
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.POINTER(_BvParams)] + [ptr] * 2
+                           + [ctypes.c_int] + [ptr] * 3)
 
 
 def _nvcc() -> str:
@@ -1902,9 +2002,12 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
                 ptr(prepared.tables), ptr(prepared.vtab), ptr(pix_lanes),
                 ptr(carry), ptr(rad), ptr(st), ptr(iters), stream)
         elif cot is None:
+            # the persistent threads' slot counter, 0 at the launch's start
+            # (zeroed on its stream)
+            slots = torch.zeros(1, dtype=torch.int32, device=device)
             err = lib.forward(ctypes.byref(p), ptr(prepared.tables),
                               ptr(pix_lanes), ptr(carry), ptr(rad), ptr(st),
-                              ptr(iters), stream)
+                              ptr(iters), ptr(slots), stream)
         else:
             cot = cot.to(device=device, dtype=torch.float32).contiguous()
             # one row of per-block partial sums (3NT tex entries, then K

@@ -2,7 +2,7 @@
 """Kernel times of one checkout of the PyTorch + CUDA port on one GPU, and
 its outputs for a bit-for-bit comparison with another checkout's.
 
-    python3 scripts/port_kernel_times.py ROOT [--outputs FILE]
+    python3 scripts/port_kernel_times.py ROOT [--outputs FILE | --forward]
     python3 scripts/port_kernel_times.py --compare FILE_A FILE_B
     python3 scripts/port_kernel_times.py --sass ROOT_A ROOT_B PATTERN...
 
@@ -10,7 +10,9 @@ ROOT is the directory that holds the real_time_ray_tracing_engine_tpu_torch
 package to time (its kernels build into ROOT/build/kernels). The scenes and
 the timer are chip_smoke.py's (CUDA events, best of 3 after one warm-up,
 the scene packed once outside the timed calls): the forward kernel at
-Cornell 600x600 spp16 d50, the tex_color grad kernel at Cornell 1920x1080
+Cornell 600x600 spp16 and spp100 d50 and 1920x1080 spp64 d50 (single pass
+and the compacted schedule) and the CLI's render (Cornell 600x600 spp100
+d50 in batches of 16, pt.render), the tex_color grad kernel at Cornell 1920x1080
 spp64 d50 (single pass and the compacted schedule) and on a 16-row scene
 at 1080x1080 spp64 d50 (its NTMAX 16 instance) and, where the checkout
 has hard slots, the full-family grad kernel there (single pass); where it
@@ -32,14 +34,16 @@ K12 (RTX_LANE_BVH=1) on bouncing_spheres -b at 400x225 spp9 d50 and
 spp9 d8, K11 on the city -b (single pass), and their suffix tiers' grad
 instances on bouncing_spheres -b at 1200x675 spp16 d50. With the times it
 prints each kernel's ptxas registers, stack and spills from the library's
-build. Prints one JSON line.
+build. Prints one JSON line. With --forward it times the unrolled
+forward's shapes and the CLI's render alone (any checkout whose
+forward takes prepare_kernel, commit 55b6ee0's among them).
 
 With --outputs it also saves (torch.save) the grad kernels' outputs, the
 image, dG_tex and dG_hard of single passes at seed 7: K3's at Cornell
 1920x1080 spp64 d50 and on chip_smoke.py's grad parity scenes (Cornell
-128x128 spp16 d50, cornell_smoke, Cornell 1920x1080 spp4 d50) and a
-16-row scene (its NTMAX 16); K3v's in registers (the 80-sphere scene) and
-in shared memory (the 28-row scene) at 1200x675 spp4 d50; K4's at Cornell
+128x128 spp16 d50, cornell_smoke, Cornell 1920x1080 spp4 d50) and a 16-row
+scene (its NTMAX 16); K3v's in registers (the 80-sphere scene) and in
+shared memory (the 28-row scene) at 1200x675 spp4 d50; K4's at Cornell
 1920x1080 spp64 d50 (9 slots) and on chip_smoke.py's hard-slot parity
 scenes (Cornell, three_spheres, Cornell 1920x1080 spp4 d50) and on a
 sphere-light scene (materials, 26 slots) and a medium scene
@@ -49,15 +53,20 @@ light); K8's on bouncing_spheres at 1200x675 spp16 d50, with the IOR slot
 (K4v) at 400x225 spp4 d50, and on the suffix scene; the BVH walks' suffix
 tiers (K11, K12) on bouncing_spheres -b at 1200x675 spp4 d50 and K11's
 shared-memory planes on the 28-row scene -b; each chunk-scan and walk case
-also under the compacted schedule. The forward kernels' image and bounces
-(single pass) and compacted image: K6 on bouncing_spheres 1200x675 spp4
-d50 and the 4,913-sphere grid, K7 on the city, K11 and K12 on
-bouncing_spheres -b and the 32,768-sphere grid -b, K11 on the city -b and
-on a chain of spheres whose walk outgrows its short stack. The adjoint's
-image and grads dict, K9 and K10 (SEG 8), on bouncing_spheres 400x225
-spp9 d50 under the sky gradient. --compare prints, per output of two such
-files, whether they are equal bit for bit and otherwise the largest
-difference, and how many are equal.
+also under the compacted schedule. The unrolled forward's (K1) image and
+bounces of a single pass, radiance, carry and bounces of a capped pass
+(cap 40) and of the capped pass resumed from its carry under a lane
+permutation (K2), and compacted image, on Cornell 600x600 spp16 d50,
+Cornell 100x100 spp4 d50 (10,000 pixels, not a multiple of 128) and
+cornell_smoke. The forward kernels' image and bounces (single pass) and
+compacted image: K6 on bouncing_spheres 1200x675 spp4 d50 and the
+4,913-sphere grid, K7 on the city, K11 and K12 on bouncing_spheres -b and
+the 4,913- and 32,768-sphere grids -b, K11 on the city -b and on a chain
+of spheres whose walk outgrows its short stack. The adjoint's image and
+grads dict, K9 and K10 (SEG 8), on bouncing_spheres 400x225 spp9 d50 under
+the sky gradient. --compare prints, per output of two such files, whether
+they are equal bit for bit and otherwise the largest difference, and how
+many are equal.
 
 --sass builds both roots' libraries (each in a process of its own) and
 says, per kernel whose mangled name contains a PATTERN, whether the two
@@ -81,7 +90,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402  (stdlib only at import)
 
 
-def kernel_times(root: str) -> dict:
+def kernel_times(root: str, forward_only: bool = False) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -93,14 +102,29 @@ def kernel_times(root: str) -> dict:
     t0 = time.perf_counter()
     lib = wc.load_library()
     out = {"root": root, "build_s": time.perf_counter() - t0,
-           "ptxas": cs.ptxas_table(lib.build_log)}
+           "ptxas": {k: v for k, v in cs.ptxas_table(lib.build_log).items()
+                     if not forward_only or k == "wavefront_forward_kernel"}}
 
-    flat, cam, kw = cs.pass_args(
-        pt, cs.builtin(pt, "cornell_box", 600, 16, 50), dev)
-    fwd = functools.partial(wc.render_pass_kernel,
-                            prepared=wc.prepare_kernel(flat, cam))
-    out["forward_600_spp16_ms"] = cs.cuda_ms(
-        torch, lambda: fwd(flat, cam, 0, 0, **kw))
+    for name, scene in (
+            ("600_spp16", cs.builtin(pt, "cornell_box", 600, 16, 50)),
+            ("600_spp100", cs.builtin(pt, "cornell_box", 600, 100, 50)),
+            ("1080_spp64", cs.cornell_1080p(pt, cs.TRAIN_SPP,
+                                            cs.TRAIN_DEPTH))):
+        flat, cam, kw = cs.pass_args(pt, scene, dev)
+        fwd = functools.partial(wc.render_pass_kernel,
+                                prepared=wc.prepare_kernel(flat, cam))
+        out[f"forward_{name}_ms"] = cs.cuda_ms(
+            torch, lambda: fwd(flat, cam, 0, 0, **kw))
+        out[f"forward_{name}_compacted_ms"] = cs.cuda_ms(
+            torch, lambda: wc.render_pass_compacted(flat, cam, 0, 0,
+                                                    pass_fn=fwd, **kw))
+    # the CLI's render: Cornell 600x600 spp100 d50 in batches of 16
+    scene = pt.builders.cornell_box()
+    out["cli_render_600_spp100_ms"] = cs.cuda_ms(
+        torch, lambda: pt.render(scene, device=dev, samples_per_batch=16,
+                                 progress=lambda s, t: None))
+    if forward_only:
+        return out
 
     flat, cam, kw = cs.pass_args(
         pt, cs.cornell_1080p(pt, cs.TRAIN_SPP, cs.TRAIN_DEPTH), dev)
@@ -340,6 +364,37 @@ def kernel_outputs(root: str) -> dict:
         out[name] = _cpu(torch, parts)
         del parts
         torch.cuda.empty_cache()
+    # the unrolled forward (K1) and its capped / resumed passes (K2): the
+    # image and bounces of a single pass; the radiance, carry and bounces
+    # of a capped pass and of a capped pass resumed from its carry under a
+    # lane permutation; the compacted image
+    for name, scene in (
+            ("k1_cornell_600x600_spp16_d50",
+             cs.builtin(pt, "cornell_box", 600, 16, 50)),
+            ("k1_cornell_100x100_spp4_d50",
+             cs.sized(pt.builders.cornell_box(), 100, 4, 50)),
+            ("k1_cornell_smoke_96_spp4_d16",
+             cs.builtin(pt, "cornell_smoke", 96, 4, 16))):
+        flat, cam, kw = cs.pass_args(pt, scene, dev)
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        its = [torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+               for _ in range(3)]
+        img = wc.render_pass_kernel(flat, cam, 7, 0, iters=its[0], **kw)
+        rad_c, carry_c = wc.render_pass_kernel(flat, cam, 7, 0, cap=40,
+                                               iters=its[1], **kw)
+        perm = torch.randperm(n_lanes, generator=torch.Generator()
+                              .manual_seed(3)).to(dev)
+        pix = wc._identity_pixels(n_lanes, kw["width"] * kw["height"],
+                                  dev)[perm]
+        rad_r, carry_r = wc.render_pass_kernel(
+            flat, cam, 7, 0, cap=40, carry=carry_c[:, perm], pix_lanes=pix,
+            iters=its[2], **kw)
+        two = wc.render_pass_compacted(flat, cam, 7, 0, **kw)
+        out[name] = _cpu(torch, {
+            "image": img, "bounces": its[0], "capped_rad": rad_c,
+            "capped_carry": carry_c, "capped_bounces": its[1],
+            "resumed_rad": rad_r, "resumed_carry": carry_r,
+            "resumed_bounces": its[2], "compacted_image": two})
     # the forward kernels: K6, K7 (the city's quad chunks), K11, K12
     forwards = (
         ("k6_bouncing_1200x675_spp4_d50", "vscan",
@@ -354,6 +409,10 @@ def kernel_outputs(root: str) -> dict:
          cs.builtin(pt, "bouncing_spheres", 1200, 4, 50)),
         ("k11_city301_400x225_spp9_d6", "stack",
          cs.sized(cs.city_scene(pt), 400, 9, 6)),
+        ("k11_grid4913_400x225_spp9_d8", "stack",
+         cs.sized(cs.grid_scene(pt), 400, 9, 8)),
+        ("k12_grid4913_400x225_spp9_d8", "lane",
+         cs.sized(cs.grid_scene(pt), 400, 9, 8)),
         ("k11_grid32768_400x225_spp4_d8", "stack",
          cs.sized(cs.grid_scene(pt, 32), 400, 4, 8)),
         ("k12_grid32768_400x225_spp4_d8", "lane",
@@ -480,7 +539,8 @@ if __name__ == "__main__":
         print(json.dumps(compare_sass(sys.argv[2], sys.argv[3],
                                       sys.argv[4:])), flush=True)
     else:
-        print(json.dumps(kernel_times(sys.argv[1])), flush=True)
+        print(json.dumps(kernel_times(sys.argv[1], "--forward" in sys.argv)),
+              flush=True)
         if len(sys.argv) > 3 and sys.argv[2] == "--outputs":
             import torch
             torch.save(kernel_outputs(sys.argv[1]), sys.argv[3])

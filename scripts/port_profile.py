@@ -76,6 +76,30 @@ fails: the sets name the source they apply to. SET is one of:
           loop iteration, and holding the first leaf it meets while it
           walks on (speculative).
 
+  k1, k12 (the source before the forward's persistent threads and the
+          lane walk's octant links, commit f55c712): the forward (K1,
+          wavefront_forward_kernel) at Cornell 600x600 spp16 and spp100 d50
+          and 1920x1080 spp64 d50, single pass and compacted schedule: the
+          whole kernel; the share of a warp's lanes each iteration of the
+          bounce loop keeps busy (active); each block's start, end and SM
+          (%globaltimer, %smid), giving the share of the launch with fewer
+          SMs busy than the card has and with fewer blocks than it keeps
+          resident (timeline); a second selection and a second bounce
+          (their winner and radiance kept alive, never taken); blocks an
+          SM, ptxas figures and the SASS count beside the float bounce of
+          commit 55b6ee0 (its source at FLOAT_BOUNCE_SOURCE). And the
+          lane walk (K12, closest_select_lane) at K11's shapes (k11's):
+          the whole kernel; node rows, boxes met and sphere tests a
+          selection, whether the first leaf it enters holds the final t
+          and whether it holds no hit; a second walk, and one without its
+          tests.
+  k1new, k12new (this source): the same splits; K1 with no block count
+          asked of __launch_bounds__, with 6, and in 64-thread blocks; K12
+          with its octant links in a table of their own, the top of the
+          tree in shared memory (breadth-first ids), breadth-first ids
+          alone, and persistent threads (K1's); the layouts and block
+          counts in two turns each.
+
 Prints one JSON line per measurement and each build's ptxas figures of the
 kernels under study (registers, stack, spills).
 """
@@ -734,6 +758,568 @@ SETS["k11new"] = _split_set("k11", 6, _ST_CALL_P, _ST_HEAD, _K11_COUNT,
     ("k11", "speculative", 6, _K11_SPECULATIVE + [_OCC_K11])]
 
 
+# ---- the lane walk (K12): the parent's (commit f55c712: the skip links of
+# flat.bvh_hit / bvh_miss, left child first, 12-float rows) and this
+# source's (octant links, near child first, 8-float rows and an int2 pair
+# a step). Counts a selection: node rows fetched, boxes met, sphere tests,
+# whether the first leaf the walk enters already holds the final t, and
+# whether it holds no hit at all.
+K12 = "_Z28wavefront_forward_bvh_kernelILi3EEv8WfParams8BvParams8GradArgs"
+_LA_HEAD = "static __device__ int closest_select_lane("
+_LA_CALL = """                best = closest_select_lane(B, vtab, o, d, tm, &best_t);"""
+_OCC_K12 = ("WF_BVH_ENTRY(rt_wavefront_bvh_lane, SEL_LANE)", """WF_BVH_ENTRY(rt_wavefront_bvh_lane, SEL_LANE)
+extern "C" int rt_prof_occupancy(int smem, int* out) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, wavefront_forward_bvh_kernel<SEL_LANE>, WF_THREADS,
+        (size_t)smem);
+}""")
+_LANE_COUNT_DECL = """    unsigned n_fetch = 0, n_met = 0, n_sph = 0;
+    bool seen_leaf = false;
+    float t_first = BIGF;
+    int node = 0;
+    while (node < B.n_nodes) {
+        ++n_fetch;"""
+_LANE_COUNT_END = """
+    prof_add(0, 1u); prof_add(1, n_fetch); prof_add(2, n_met);
+    prof_add(3, n_sph);
+    prof_add(4, (seen_leaf && t_first == best_t) ? 1u : 0u);
+    prof_add(5, (seen_leaf && t_first >= BIGF * 0.5f) ? 1u : 0u);
+    *t_best = best_t;"""
+_K12_COUNT_P = [_SEL_HEAD, ("""    int node = 0;
+    while (node < B.n_nodes) {
+        float b[6];""", _LANE_COUNT_DECL + """
+        float b[6];"""), ("""            scan_spheres(srows + (size_t)(int)n2.x * VROW_COLS, (int)n2.y,
+                         false, o, d, a, tm, best_t, best);""",
+    """            ++n_met;
+            n_sph += (unsigned)(int)n2.y;
+            scan_spheres(srows + (size_t)(int)n2.x * VROW_COLS, (int)n2.y,
+                         false, o, d, a, tm, best_t, best);
+            if ((int)n2.y > 0 && !seen_leaf) {
+                seen_leaf = true;
+                t_first = best_t;
+            }"""), ("""            node = (int)n1.w;
+        }
+    }
+    *t_best = best_t;""", """            node = (int)n1.w;
+        }
+    }""" + _LANE_COUNT_END)]
+_K12_COUNT = [_SEL_HEAD, ("""    int node = 0;
+    while (node < B.n_nodes) {
+        const float4* row = nodes + LANE_ROW * node;""", _LANE_COUNT_DECL + """
+        const float4* row = nodes + LANE_ROW * node;"""), (
+    """            scan_spheres(srows + (size_t)(int)n1.z * VROW_COLS, (int)n1.w,
+                         false, o, d, a, tm, best_t, best);""",
+    """            ++n_met;
+            n_sph += (unsigned)(int)n1.w;
+            scan_spheres(srows + (size_t)(int)n1.z * VROW_COLS, (int)n1.w,
+                         false, o, d, a, tm, best_t, best);
+            if ((int)n1.w > 0 && !seen_leaf) {
+                seen_leaf = true;
+                t_first = best_t;
+            }"""), ("""            node = lk.y;
+        }
+    }
+    *t_best = best_t;""", """            node = lk.y;
+        }
+    }""" + _LANE_COUNT_END)]
+# this source's walk with the octant links in a table of their own, [octant]
+# [node] int2 pairs after 8-float node rows (the box and the sphere run),
+# in place of the links in each node's row; packed by _lane_buffer_table
+_K12_LINKS_TABLE = [("""        const float4* row = nodes + LANE_ROW * node;
+        const float4 n0 = __ldg(row), n1 = __ldg(row + 1);
+        const int2 lk = __ldg(reinterpret_cast<const int2*>(row + 2) + oct);""",
+    """        const float4 n0 = __ldg(nodes + 2 * node),
+                     n1 = __ldg(nodes + 2 * node + 1);
+        const int2 lk = __ldg(ltab_ + node);"""), (
+    """    const int oct = ray_octant(d);
+    const float* srows = btab + B.off_srows;""",
+    """    const int oct = ray_octant(d);
+    const int2* ltab_ = reinterpret_cast<const int2*>(
+        btab + B.off_nodes + 8 * (size_t)B.n_nodes) + (size_t)oct * B.n_nodes;
+    const float* srows = btab + B.off_srows;""")]
+
+
+def _lane_buffer_table(wc):
+    """The packer of _K12_LINKS_TABLE: node rows of the box and the sphere
+    run, the octant links' int32 bits [octant][node][hit, miss], then the
+    sphere rows."""
+    import torch
+
+    def buffer(bt):
+        if bt.mode != "lane":
+            return _SAVED_BUFFER[0](bt)
+        B = bt.box.shape[0]
+        rows = wc._bvh_lane_rows(bt)[:, :8]
+        links = bt.octant.to(torch.int32).contiguous().view(torch.float32)
+        parts = [rows.reshape(-1), links.reshape(-1), bt.srows.reshape(-1)]
+        n = parts[0].numel() + parts[1].numel()
+        return torch.cat(parts).contiguous(), dict(
+            n_nodes=B, n_srows=bt.srows.shape[0], n_qrows=0, off_nodes=0,
+            off_srows=n, off_qrows=n + parts[2].numel())
+    return buffer
+
+
+_SAVED_BUFFER = []
+# this source's lane walk's forward with persistent threads over lane
+# slots (forward_refill<SEL_LANE>, K1's design), its slot counter a
+# device symbol zeroed on the launch's stream (the package passes K1's
+# its own)
+_K12_REFILL = [("""template <int SEL>
+__global__ void __launch_bounds__(WF_THREADS)
+wavefront_forward_bvh_kernel(WfParams P, BvParams B, GradArgs A) {
+    __shared__ float cam[22];
+    wavefront_body<0, false, SEL>(P, A.tables, A.pix_lanes, A.carry_in,
+                                  nullptr, A.rad_out, A.carry_out, nullptr,
+                                  A.iters_out, wf_tables, cam, nullptr,
+                                  VsParams(), A.vtab, B);
+}""", """__device__ int prof_next;
+template <int SEL>
+__global__ void __launch_bounds__(WF_THREADS)
+wavefront_forward_bvh_kernel(WfParams P, BvParams B, GradArgs A) {
+    __shared__ float cam[22];
+    if constexpr (SEL == SEL_LANE) {
+        forward_refill<SEL_LANE>(P, A.tables, A.pix_lanes, A.carry_in,
+                                 A.rad_out, A.carry_out, A.iters_out,
+                                 &prof_next, wf_tables, cam, A.vtab, B);
+    } else {
+        wavefront_body<0, false, SEL>(P, A.tables, A.pix_lanes, A.carry_in,
+                                      nullptr, A.rad_out, A.carry_out,
+                                      nullptr, A.iters_out, wf_tables, cam,
+                                      nullptr, VsParams(), A.vtab, B);
+    }
+}"""), ("""    if (!A.cot) {
+        wavefront_forward_bvh_kernel<SEL>
+            <<<P.n_lanes / WF_THREADS, WF_THREADS, 0, stream>>>(P, B, A);
+        return (int)cudaGetLastError();
+    }""", """    if (!A.cot) {
+        int blocks = P.n_lanes / WF_THREADS;
+        if (SEL == SEL_LANE) {
+            void* nx = nullptr;
+            cudaGetSymbolAddress(&nx, prof_next);
+            cudaMemsetAsync(nx, 0, sizeof(int), stream);
+            blocks = resident_blocks(
+                (const void*)wavefront_forward_bvh_kernel<SEL>, 0,
+                P.n_lanes);
+        }
+        wavefront_forward_bvh_kernel<SEL>
+            <<<blocks, WF_THREADS, 0, stream>>>(P, B, A);
+        return (int)cudaGetLastError();
+    }""")]
+
+# this source's walk with the top of the tree in shared memory: the lane
+# tables renumbered breadth first (_lane_buffer_bfs), and each block of the
+# lane walk's kernels copies the first LANE_SMEM node rows and their 8
+# octants' links into shared memory; a step reads a node below LANE_SMEM
+# there, the rest through the read-only path
+_K12_SMEM_DECL = """
+#define LANE_SMEM 384
+__shared__ float4 lane_rows_s[LANE_ROW * LANE_SMEM];
+__shared__ int lane_ns;
+__device__ __forceinline__ void lane_smem_fill(const BvParams& B,
+                                               const float* btab) {
+    const int ns = B.n_nodes < LANE_SMEM ? B.n_nodes : LANE_SMEM;
+    const float4* rows = reinterpret_cast<const float4*>(btab + B.off_nodes);
+    for (int i = threadIdx.x; i < LANE_ROW * ns; i += blockDim.x)
+        lane_rows_s[i] = rows[i];
+    if (threadIdx.x == 0) lane_ns = ns;
+}
+"""
+_K12_SMEM = [(
+    "static __device__ int closest_select_lane(",
+    _K12_SMEM_DECL + "static __device__ int closest_select_lane("), (
+    """    int node = 0;
+    while (node < B.n_nodes) {
+        const float4* row = nodes + LANE_ROW * node;
+        const float4 n0 = __ldg(row), n1 = __ldg(row + 1);
+        const int2 lk = __ldg(reinterpret_cast<const int2*>(row + 2) + oct);""",
+    """    const int ns = lane_ns;
+    int node = 0;
+    while (node < B.n_nodes) {
+        float4 n0, n1;
+        int2 lk;
+        if (node < ns) {
+            const float4* row = lane_rows_s + LANE_ROW * node;
+            n0 = row[0];
+            n1 = row[1];
+            lk = reinterpret_cast<const int2*>(row + 2)[oct];
+        } else {
+            const float4* row = nodes + LANE_ROW * node;
+            n0 = __ldg(row);
+            n1 = __ldg(row + 1);
+            lk = __ldg(reinterpret_cast<const int2*>(row + 2) + oct);
+        }"""), ("""wavefront_forward_bvh_kernel(WfParams P, BvParams B, GradArgs A) {
+    __shared__ float cam[22];""", """wavefront_forward_bvh_kernel(WfParams P, BvParams B, GradArgs A) {
+    __shared__ float cam[22];
+    if constexpr (SEL == SEL_LANE) lane_smem_fill(B, A.vtab);"""), (
+    """    __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
+    wavefront_body<NTMAX, false, SEL, SUFFIX, SPLANES>(
+        P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out, A.carry_out,""",
+    """    __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
+    if constexpr (SEL == SEL_LANE) lane_smem_fill(B, A.vtab);
+    wavefront_body<NTMAX, false, SEL, SUFFIX, SPLANES>(
+        P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out, A.carry_out,""")]
+
+
+def _lane_buffer_bfs(wc):
+    """The packer of _K12_SMEM: the lane walk's node rows renumbered
+    breadth first (the root 0, then each level in order), so that the
+    first LANE_SMEM ids are the top of the tree, their links renumbered
+    with them (the children from the tables' links)."""
+    import numpy as np
+    import torch
+
+    def buffer(bt):
+        if bt.mode != "lane":
+            return _SAVED_BUFFER[0](bt)
+        link = bt.link.to(torch.int64).cpu().numpy()
+        B = link.shape[0]
+        inner = link[:, 0] == 0
+        order, level = [], np.zeros(1, np.int64)
+        while level.size:
+            order.append(level)
+            level = link[level[inner[level]], 2:4].reshape(-1)
+        order = np.concatenate(order)
+        new = np.empty(B + 1, np.int64)
+        new[order] = np.arange(B)
+        new[B] = B
+        rows = wc._bvh_lane_rows(bt).cpu()[torch.from_numpy(order)]
+        links = rows[:, 8:].contiguous().view(torch.int32).numpy()
+        rows[:, 8:] = torch.from_numpy(new[links].astype(np.int32)).view(
+            torch.float32)
+        parts = [rows.to(bt.box.device).reshape(-1), bt.srows.reshape(-1)]
+        return torch.cat(parts).contiguous(), dict(
+            n_nodes=B, n_srows=bt.srows.shape[0], n_qrows=0, off_nodes=0,
+            off_srows=parts[0].numel(),
+            off_qrows=parts[0].numel() + parts[1].numel())
+    return buffer
+
+
+SETS["k12"] = _split_set("k12", 7, _LA_CALL, _LA_HEAD, _K12_COUNT_P,
+                         _OCC_K12)
+SETS["k12new"] = _split_set("k12", 7, _LA_CALL, _LA_HEAD, _K12_COUNT,
+                            _OCC_K12) + [
+    (kern, name + suffix, part, repl, *py)
+    for suffix in ("", "_again")
+    for kern, name, part, repl, *py in (
+        (("k12", "whole", 7, [_OCC_K12]),) if suffix else ()) + (
+        ("k12", "links_table", 7, _K12_LINKS_TABLE + [_OCC_K12],
+         {"_bvh_buffer": _lane_buffer_table}),
+        ("k12", "smem_top", 7, _K12_SMEM + [_OCC_K12],
+         {"_bvh_buffer": _lane_buffer_bfs}),
+        ("k12", "bfs_order", 7, [_OCC_K12],
+         {"_bvh_buffer": _lane_buffer_bfs}),
+        ("k12", "refill", 7, _K12_REFILL + [_OCC_K12]))]
+
+# ---- the unrolled forward (K1, K2): the parent's (commit f55c712: one
+# lane a thread, n_lanes / 128 blocks) and this source's (persistent
+# threads over lane slots). Counters: the warp iterations of the bounce
+# loop and their active lanes (the share of lanes a warp iteration keeps
+# busy); per block its start and end (%globaltimer) and its SM (%smid).
+_K1_COUNTERS = _SEL_COUNTERS + """
+__device__ __forceinline__ void prof_active() {
+    const unsigned m = __activemask();
+    if ((threadIdx.x & 31) == __ffs(m) - 1) {
+        atomicAdd(&prof_counts[0], 1ull);
+        atomicAdd(&prof_counts[1], (unsigned long long)__popc(m));
+    }
+}
+#define PROF_BLOCKS 65536
+__device__ unsigned long long prof_timeline[3 * PROF_BLOCKS];
+extern "C" int rt_prof_timeline(unsigned long long* out, int n) {
+    cudaError_t e = n < 1 ? cudaSuccess : cudaMemcpyFromSymbol(
+        out, prof_timeline, 3 * (size_t)n * sizeof(unsigned long long));
+    void* p = nullptr;
+    if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, prof_timeline);
+    if (e == cudaSuccess)
+        e = cudaMemset(p, 0, sizeof(unsigned long long) * 3 * PROF_BLOCKS);
+    return (int)e;
+}
+__device__ __forceinline__ unsigned long long prof_clock() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+__device__ __forceinline__ void prof_block(unsigned long long t0) {
+    __syncthreads();
+    if (threadIdx.x == 0 && blockIdx.x < PROF_BLOCKS) {
+        unsigned sm;
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+        prof_timeline[3 * blockIdx.x] = t0;
+        prof_timeline[3 * blockIdx.x + 1] = prof_clock();
+        prof_timeline[3 * blockIdx.x + 2] = sm;
+    }
+}
+"""
+_K1_HEAD = ("#define SEL_LANE 3      // the lane BVH (K12)",
+            "#define SEL_LANE 3      // the lane BVH (K12)\n" + _K1_COUNTERS)
+_OCC_K1 = ("#endif  // WF_IN_PART(0)", """
+extern "C" int rt_prof_occupancy(int smem, int threads, int* out) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, wavefront_forward_kernel, threads, (size_t)smem);
+}
+#endif  // WF_IN_PART(0)""")
+_K1_BODY_P = """    wavefront_body<0, false>(P, tables, pix_lanes, carry_in, nullptr,
+                             rad_out, carry_out, nullptr, iters_out,
+                             wf_tables, cam, nullptr);
+}"""
+_K1_BODY = """    forward_refill<SEL_UNROLLED>(P, tables, pix_lanes, carry_in, rad_out,
+                                 carry_out, iters_out, next, wf_tables, cam);
+}"""
+
+
+def _k1_timeline(body: str) -> list:
+    return [_K1_HEAD, (body, "    const unsigned long long t0_ = "
+                       "prof_clock();\n" + body[:-2]
+                       + "\n    prof_block(t0_);\n}")]
+
+
+_K1_ACTIVE_P = [_K1_HEAD, ("""        } else if (!act) {
+            break;
+        }
+""", """        } else if (!act) {
+            break;
+        }
+        if constexpr (!GRAD && SEL == SEL_UNROLLED) prof_active();
+""")]
+_K1_ACTIVE = [_K1_HEAD, ("""            continue;
+        }
+        // a finished path restarts on the pixel's next stratified sample
+""", """            continue;
+        }
+        prof_active();
+        // a finished path restarts on the pixel's next stratified sample
+""")]
+_K1_SELECT2_P = [("""            else
+                best = closest_select(sc, o, d, tm, &best_t);""",
+                  """            else {
+                best = closest_select(sc, o, d, tm, &best_t);
+                float t2_;
+                if (closest_select(sc, o, d, tm, &t2_) == -7) best = -1;
+            }""")]
+_K1_SELECT2 = [("""        else
+            best = closest_select(sc, o, d, tm, &best_t);
+        const bool alive_new = physics<float, 0>(""",
+                """        else {
+            best = closest_select(sc, o, d, tm, &best_t);
+            float t2_;
+            if (closest_select(sc, o, d, tm, &t2_) == -7) best = -1;
+        }
+        const bool alive_new = physics<float, 0>(""")]
+_PHYSICS2 = """{
+                V3 o2_ = o, d2_ = d, th2_ = th, r2_ = rad;
+                float w2_[1], g2_[1];
+                const float c2_[3] = {0.0f, 0.0f, 0.0f};
+                if (physics<float, 0>(sc, P, cam, best, best_t, o2_, d2_,
+                                      th2_, r2_, tm, u, u_med, Seeds<0>{},
+                                      w2_, g2_, c2_)
+                    && r2_.x == -1.2345e30f)
+                    best_t = -best_t;
+            }
+"""
+_K1_PHYSICS2_P = [("""            const bool alive_new = physics<float, NTMAX>(""",
+                   "            if constexpr (!GRAD && SEL == SEL_UNROLLED) "
+                   + _PHYSICS2
+                   + """            const bool alive_new = physics<float, NTMAX>(""")]
+_K1_PHYSICS2 = [("""        const bool alive_new = physics<float, 0>(""",
+                 "        " + _PHYSICS2
+                 + """        const bool alive_new = physics<float, 0>(""")]
+
+
+def _k1_bounds(n: int) -> list:
+    """The refilled forward's __launch_bounds__ asking for n blocks an SM
+    (0: none; the source asks for 7)."""
+    return [("__global__ void __launch_bounds__(WF_THREADS, 7)\n"
+             "wavefront_forward_kernel(",
+             "__global__ void __launch_bounds__(WF_THREADS"
+             + (f", {n}" if n else "") + ")\nwavefront_forward_kernel(")]
+
+
+# the refilled forward in blocks of 64 threads (its slots do not depend on
+# the block size)
+_K1_THREADS64 = [("__global__ void __launch_bounds__(WF_THREADS, 7)\n"
+                  "wavefront_forward_kernel(",
+                  "__global__ void __launch_bounds__(64)\n"
+                  "wavefront_forward_kernel("), (
+    """    const int blocks = resident_blocks((const void*)wavefront_forward_kernel,
+                                       smem, P.n_lanes);
+    if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
+    wavefront_forward_kernel<<<blocks, WF_THREADS, smem,""",
+    """    int dev_ = 0, sms_ = 0, per_ = 0;
+    cudaGetDevice(&dev_);
+    cudaDeviceGetAttribute(&sms_, cudaDevAttrMultiProcessorCount, dev_);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_, wavefront_forward_kernel, 64, smem);
+    int blocks = per_ * sms_;
+    if (blocks > (P.n_lanes + 63) / 64) blocks = (P.n_lanes + 63) / 64;
+    if (blocks < 1) return (int)cudaErrorLaunchOutOfResources;
+    wavefront_forward_kernel<<<blocks, 64, smem,""")]
+
+SETS["k1"] = [
+    ("k1", "whole", 0, [_OCC_K1]),
+    ("k1", "active", 0, _K1_ACTIVE_P + [_OCC_K1]),
+    ("k1", "timeline", 0, _k1_timeline(_K1_BODY_P) + [_OCC_K1]),
+    ("k1", "select_twice", 0, _K1_SELECT2_P + [_OCC_K1]),
+    ("k1", "physics_twice", 0, _K1_PHYSICS2_P + [_OCC_K1])]
+SETS["k1new"] = [
+    ("k1", "active", 0, _K1_ACTIVE + [_OCC_K1]),
+    ("k1", "timeline", 0, _k1_timeline(_K1_BODY) + [_OCC_K1]),
+    ("k1", "select_twice", 0, _K1_SELECT2 + [_OCC_K1]),
+    ("k1", "physics_twice", 0, _K1_PHYSICS2 + [_OCC_K1])] + [
+    ("k1", name + suffix, 0, repl + [_OCC_K1], *py)
+    for suffix in ("", "_again")
+    for name, repl, *py in (("whole", []), ("bounds_none", _k1_bounds(0)),
+                            ("bounds6", _k1_bounds(6)),
+                            ("threads64", _K1_THREADS64, {"threads": 64}))]
+# the forward's shapes: (name, scene maker)
+_K1_SHAPES = (
+    ("cornell_600_spp16_d50",
+     lambda pt: cs.builtin(pt, "cornell_box", 600, 16, 50)),
+    ("cornell_600_spp100_d50",
+     lambda pt: cs.builtin(pt, "cornell_box", 600, 100, 50)),
+    ("cornell_1920x1080_spp64_d50",
+     lambda pt: cs.cornell_1080p(pt, cs.TRAIN_SPP, cs.TRAIN_DEPTH)))
+
+
+def _timeline_shares(rows, n_sm: int, capacity: int) -> dict:
+    """From per-block (start, end, SM) of one launch: its span, and the
+    shares of the span during which fewer SMs hold a block than the card
+    has, and fewer blocks run than the card keeps resident (capacity, or
+    the launch's block count if smaller)."""
+    ev = []
+    for t0, t1, sm in rows:
+        ev.append((t0, 1, sm))
+        ev.append((t1, -1, sm))
+    ev.sort(key=lambda e: (e[0], e[1]))
+    cap = min(capacity, len(rows))
+    per_sm = [0] * max(n_sm, 1 + max(int(r[2]) for r in rows))
+    busy = running = 0
+    idle_sm = under = 0
+    last = ev[0][0]
+    for t, kind, sm in ev:
+        dt = t - last
+        if busy < n_sm:
+            idle_sm += dt
+        if running < cap:
+            under += dt
+        last = t
+        running += kind
+        sm = int(sm)
+        if kind > 0:
+            busy += per_sm[sm] == 0
+            per_sm[sm] += 1
+        else:
+            per_sm[sm] -= 1
+            busy -= per_sm[sm] == 0
+    span = ev[-1][0] - ev[0][0]
+    return {"span_ms": span / 1e6, "blocks": len(rows),
+            "share_fewer_sms_busy": idle_sm / max(span, 1),
+            "share_under_resident": under / max(span, 1),
+            "last_start_ms": (max(r[0] for r in rows) - ev[0][0]) / 1e6}
+
+
+def _sass_count(lib: str, kernel: str) -> dict:
+    """Instructions of `kernel` in a library or cubin (cuobjdump -sass),
+    with a histogram of their opcodes."""
+    import port_kernel_times as pk
+    ins = pk._sass(lib).get(kernel, [])
+    ops = {}
+    for i in ins:
+        op = i.split()[0] if not i.startswith("@") else i.split()[1]
+        op = op.split(".")[0]
+        ops[op] = ops.get(op, 0) + 1
+    return {"instructions": len(ins),
+            "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+
+
+# the source of commit 55b6ee0 (its float bounce before the dual-number
+# body), unpacked beforehand under the git-ignored build/ for a run on a
+# copy without git history: git show 55b6ee0:real_time_ray_tracing_engine_
+# tpu_torch/csrc/wavefront.cu > build/ab/float_bounce/wavefront.cu
+FLOAT_BOUNCE_SOURCE = (Path("build") / "ab" / "float_bounce"
+                       / "wavefront.cu")
+
+
+def _float_bounce_sass(wc, out_dir: Path, source: Path) -> dict:
+    """The forward kernel's SASS count in another source (the float bounce
+    of commit 55b6ee0, its whole file in one unit), compiled with the
+    package's flags."""
+    cubin = out_dir / "float_bounce_forward.cubin"
+    r = subprocess.run([wc._nvcc()] + [f for f in wc.NVCC_FLAGS
+                                      if f not in ("-shared",)]
+                       + ["-cubin", "-o", str(cubin), str(source)],
+                       capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        return {"error": r.stdout[-2000:] + r.stderr[-2000:]}
+    return _sass_count(str(cubin), K1)
+
+
+def forward_splits(torch, pt, wc, dev, libs, variants, float_src: Path):
+    """Each variant of the forward's set at each shape, single pass and
+    compacted schedule: its time; or its share of active lanes per warp
+    iteration (active) or its launch's block timeline (timeline, single
+    pass); with the ptxas figures, blocks an SM and SASS count."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    scenes = {}
+    for name, make in _K1_SHAPES:
+        flat, cam, kw = cs.pass_args(pt, make(pt), dev)
+        scenes[name] = (flat, cam, kw, wc.prepare_kernel(flat, cam))
+    base = libs[("k1", "whole")][0]
+    rec = {"kernel": "k1", "sass": _sass_count(str(base.path), K1)}
+    if float_src.exists():
+        rec["sass_float_bounce"] = _float_bounce_sass(wc, base.path.parent,
+                                                      float_src)
+    print(json.dumps(rec), flush=True)
+    for kern, vname, _, _, *py in variants:
+        py = py[0] if py else {}
+        lib, log = libs[(kern, vname)]
+        wc.load_library = lambda lib=lib: lib
+        threads = py.get("threads", 128)
+        for name, (flat, cam, kw, prep) in scenes.items():
+            rec = {"kernel": kern, "variant": vname, "shape": name,
+                   "ptxas": cs.ptxas_table(log).get(K1)}
+            occ = (ctypes.c_int * 1)()
+            ofn = lib.lib.rt_prof_occupancy
+            ofn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            cs.check(ofn(4 * prep.fields["n_table"], threads, occ) == 0,
+                     "rt_prof_occupancy failed")
+            rec["blocks_per_sm"] = occ[0]
+            one = functools.partial(wc.render_pass_kernel, flat, cam, 0, 0,
+                                    prepared=prep, **kw)
+            comp = functools.partial(
+                wc.render_pass_compacted, flat, cam, 0, 0,
+                pass_fn=functools.partial(wc.render_pass_kernel,
+                                          prepared=prep), **kw)
+            if vname == "active":
+                cfn = lib.lib.rt_prof_counts
+                cfn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                for sched, fn in (("single", one), ("compacted", comp)):
+                    counts = (ctypes.c_ulonglong * 6)()
+                    cs.check(cfn(counts, 1) == 0, "rt_prof_counts failed")
+                    fn()
+                    torch.cuda.synchronize()
+                    cs.check(cfn(counts, 0) == 0, "rt_prof_counts failed")
+                    rec[sched] = {
+                        "warp_iterations": int(counts[0]),
+                        "active_share": counts[1] / max(32 * counts[0], 1)}
+            elif vname == "timeline":
+                tfn = lib.lib.rt_prof_timeline
+                tfn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                cs.check(tfn(None, 0) == 0, "rt_prof_timeline failed")
+                one()
+                torch.cuda.synchronize()
+                n_lanes = wc.lane_count(kw["width"] * kw["height"])
+                n_blocks = min(-(-n_lanes // threads), 65536)
+                buf = (ctypes.c_ulonglong * (3 * n_blocks))()
+                cs.check(tfn(buf, n_blocks) == 0, "rt_prof_timeline failed")
+                rows = [(buf[3 * i], buf[3 * i + 1], buf[3 * i + 2])
+                        for i in range(n_blocks) if buf[3 * i + 1] > 0]
+                rec.update(_timeline_shares(rows, n_sm, occ[0] * n_sm))
+            else:
+                rec["single_ms"] = cs.cuda_ms(torch, one)
+                rec["compacted_ms"] = cs.cuda_ms(torch, comp)
+            print(json.dumps(rec), flush=True)
+
+
 def _callee_ptxas(log: str) -> dict:
     """Stack and spills of the out-of-line slot-group passes (ptxas prints
     no register count for a device function)."""
@@ -849,14 +1435,21 @@ _K11_SHAPES = (
      lambda pt: cs.sized(cs.grid_scene(pt), 400, 9, 8), "stack"),
     ("grid32768_b_400x225_spp9_d8",
      lambda pt: cs.sized(cs.grid_scene(pt, 32), 400, 9, 8), "stack"))
+_K12_SHAPES = tuple((name.replace("_b_", "_lane_"), make, "lane")
+                    for name, make, _ in _K11_SHAPES)
 SELECTION_SHAPES = {"k6": _K6_SHAPES, "k11": _K11_SHAPES,
-                    "k6new": _K6_SHAPES, "k11new": _K11_SHAPES}
+                    "k6new": _K6_SHAPES, "k11new": _K11_SHAPES,
+                    "k12": _K12_SHAPES, "k12new": _K12_SHAPES}
 _COUNT_NAMES = {"k6": ("box_tests", "sphere_tests", "quad_tests"),
                 "k11": ("node_fetches", "pushes", "leaf_prim_tests"),
                 "k6new": ("box_tests", "group_box_tests", "sphere_tests",
                           "quad_tests"),
                 "k11new": ("inner_row_fetches", "leaf_fetches", "pushes",
-                           "leaf_prim_tests", "pops")}
+                           "leaf_prim_tests", "pops"),
+                "k12": ("node_rows", "boxes_met", "sphere_tests",
+                        "first_leaf_final_t", "first_leaf_no_hit"),
+                "k12new": ("node_rows", "boxes_met", "sphere_tests",
+                           "first_leaf_final_t", "first_leaf_no_hit")}
 
 
 def _launch_smem(wc, prep, py: dict) -> int:
@@ -885,13 +1478,16 @@ def selection_splits(torch, pt, wc, dev, libs, variants, shapes, which):
         py = py[0] if py else {}
         lib, log = libs[(kern, vname)]
         wc.load_library = lambda lib=lib: lib
-        sym = K6 if kern == "k6" else K11
+        sym = {"k6": K6, "k11": K11, "k12": K12}[kern]
         for name, (flat, cam, kw, mode) in scenes.items():
             with cs.kernel_mode_env(mode):
-                widths = {k: getattr(wc, k) for k in ("VGROUP", "QGROUP")
-                          if k in py}
+                widths = {k: getattr(wc, k) for k in py if hasattr(wc, k)}
                 for k in widths:
-                    setattr(wc, k, py[k])
+                    if k == "_bvh_buffer":
+                        _SAVED_BUFFER[:] = [widths[k]]
+                        setattr(wc, k, py[k](wc))
+                    else:
+                        setattr(wc, k, py[k])
                 try:
                     prep = wc.prepare_kernel(flat, cam)
                 finally:
@@ -942,6 +1538,12 @@ def main(root: str, which: str) -> int:
     if which in SELECTION_SHAPES:
         selection_splits(torch, pt, wc, dev, libs, variants,
                          SELECTION_SHAPES[which], which)
+        print(cs.gpu_line(), flush=True)
+        return 0
+    if which in ("k1", "k1new"):
+        forward_splits(torch, pt, wc, dev, libs, variants,
+                       Path(__file__).resolve().parents[1]
+                       / FLOAT_BOUNCE_SOURCE)
         print(cs.gpu_line(), flush=True)
         return 0
 

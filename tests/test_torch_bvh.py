@@ -12,6 +12,7 @@ JAX tier on a BVH-mode scene; the CLI's -b renders on the CPU. The CUDA
 instances run only on the card (tests/test_torch_cuda.py, chip_smoke.py).
 The exact-selection tests rely on the port's correctly rounded sqrt
 (utils/vecmath.sqrt; see test_torch_vscan.py's docstring)."""
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -235,17 +236,23 @@ def _scene_rays(flat, n, seed):
 
 @pytest.mark.parametrize("mode, name", [("stack", "random"),
                                         ("stack", "mixed"),
-                                        ("lane", "spheres")])
+                                        ("lane", "spheres"),
+                                        ("lane", "chain"),
+                                        ("lane", "ground")])
 def test_select_references_match_closest_hit(mode, name):
     """Both plain selections pick the all-primitive winner and t bit for
     bit on seeded rays: the stack walk over mixed sphere / quad leaves, the
-    lane walk on the all-sphere scene with movers."""
+    lane walk (its octant links) on the all-sphere scene with movers, on a
+    chain deeper than a short stack and over a ground sphere of radius
+    1e6."""
     scene = {"random": random_scene, "mixed": cs.bvh_mixed_scene,
-             "spheres": cs.bvh_sphere_scene}[name](pt)
+             "spheres": cs.bvh_sphere_scene, "chain": cs.bvh_chain_scene,
+             "ground": ground_scene}[name](pt)
     flat = pt.compile_scene(scene, use_bvh=True)
-    prim = _assert_same_winners(flat, mode, *_scene_rays(flat, 2000, 3))
-    assert (prim >= 0).float().mean() > 0.1
-    if name != "spheres":
+    rays = _chain_rays() if name == "chain" else _scene_rays(flat, 2000, 3)
+    prim = _assert_same_winners(flat, mode, *rays)
+    assert (prim >= 0).float().mean() > (0.05 if name == "chain" else 0.1)
+    if mode == "stack":
         assert (prim >= flat.sph_center.shape[0]).any()
 
 
@@ -287,6 +294,142 @@ def test_stack_rows_match_the_tree(name):
     assert int(rows[B, 12]) == (-1 if bool(leaf[0]) else 0)
 
 
+def _near_first_preorder(flat, octant):
+    """The tree's preorder in which each inner node's child nearer along
+    its split axis for octant's sign there comes first (the lower box
+    centre for a positive sign, the higher for a negative one, the left
+    child on a tie), written out node by node; and each node's subtree
+    size."""
+    left, right = flat.bvh_left.numpy(), flat.bvh_right.numpy()
+    leaf, axis = flat.bvh_leaf.numpy(), flat.bvh_axis.numpy()
+    mid = (flat.bvh_bbox_min.numpy().astype(np.float64)
+           + flat.bvh_bbox_max.numpy().astype(np.float64))
+    order, stack = [], [0]
+    while stack:
+        i = int(stack.pop())
+        order.append(i)
+        if not leaf[i]:
+            a = int(axis[i])
+            cl, cr = mid[left[i], a], mid[right[i], a]
+            near_left = cl >= cr if (octant >> a) & 1 else cl <= cr
+            first, second = ((left[i], right[i]) if near_left
+                             else (right[i], left[i]))
+            stack += [second, first]
+    size = np.ones(left.shape[0], np.int64)
+    for i in reversed(order):
+        if not leaf[i]:
+            size[i] += size[left[i]] + size[right[i]]
+    return order, size
+
+
+OCTANT_SCENES = {"random": random_scene, "chain": cs.bvh_chain_scene,
+                 "spheres": cs.bvh_sphere_scene,
+                 "bouncing": lambda api: api.builders.bouncing_spheres()}
+
+
+@pytest.mark.parametrize("name", list(OCTANT_SCENES))
+def test_octant_links_visit_the_near_child_first(name):
+    """In each of the 8 ray octants the lane walk's links visit every node
+    once, in the preorder that enters each inner node's nearer child (along
+    its split axis, for the octant's sign there) first: the hit links
+    alone walk that preorder, a miss link is the node after the subtree in
+    it (B after the last), a leaf's hit link is its miss link, and the
+    root's miss link is B. The octants do not all walk one order."""
+    flat = pt.compile_scene(OCTANT_SCENES[name](pt), use_bvh=True)
+    links = wc.octant_links(flat).numpy()
+    B = flat.bvh_left.shape[0]
+    assert links.shape == (wc.N_OCTANTS, B, 2) and links.dtype == np.int32
+    leaf = flat.bvh_leaf.numpy()
+    for octant in range(wc.N_OCTANTS):
+        hit, miss = links[octant, :, 0], links[octant, :, 1]
+        order, size = _near_first_preorder(flat, octant)
+        seen, node = [], 0
+        while node < B:
+            seen.append(int(node))
+            node = hit[node]
+        assert seen == order and sorted(seen) == list(range(B))
+        at = np.empty(B, np.int64)
+        at[order] = np.arange(B)
+        nxt = at + size
+        want = np.where(nxt < B, np.asarray(order + [B])[np.minimum(nxt, B)],
+                        B)
+        np.testing.assert_array_equal(miss, want)
+        np.testing.assert_array_equal(hit[leaf], miss[leaf])
+        assert miss[0] == B
+    assert len({links[o].tobytes() for o in range(wc.N_OCTANTS)}) > 1
+
+
+def test_octant_links_agree_with_skip_links(compiled):
+    """ordered_skip_links with the left child first at every node gives
+    _skip_links (the JAX package's bvh_hit / bvh_miss) on both scenes'
+    trees; and on a three-node tree whose left child lies high along the
+    root's split axis, the octant with a positive sign there enters the
+    right child first and the one with a negative sign the left."""
+    for jf, pf in compiled.values():
+        left, right = pf.bvh_left.numpy(), pf.bvh_right.numpy()
+        leaf = pf.bvh_leaf.numpy()
+        hit, miss = pbvh.ordered_skip_links(
+            left, right, leaf, np.ones((1, left.shape[0]), bool))
+        h0, m0 = pbvh._skip_links(left, right, leaf)
+        np.testing.assert_array_equal(hit[0], h0)
+        np.testing.assert_array_equal(miss[0], m0)
+        np.testing.assert_array_equal(hit[0], np.asarray(jf.bvh_hit))
+        np.testing.assert_array_equal(miss[0], np.asarray(jf.bvh_miss))
+    i32 = torch.int32
+    tree = pt.compile_scene(cs.bvh_sphere_scene(pt), use_bvh=True)
+    tree = dataclasses.replace(
+        tree, bvh_left=torch.tensor([1, 0, 1], dtype=i32),
+        bvh_right=torch.tensor([2, 1, 1], dtype=i32),
+        bvh_leaf=torch.tensor([False, True, True]),
+        bvh_axis=torch.tensor([0, 0, 0], dtype=i32),
+        bvh_bbox_min=torch.tensor([[0.0, 0, 0], [5, 0, 0], [0, 0, 0]]),
+        bvh_bbox_max=torch.tensor([[6.0, 1, 1], [6, 1, 1], [1, 1, 1]]))
+    links = wc.octant_links(tree).tolist()
+    for octant in range(wc.N_OCTANTS):
+        if octant & 1:      # x negative: the left child (high x) first
+            assert links[octant] == [[1, 3], [2, 2], [3, 3]]
+        else:
+            assert links[octant] == [[2, 3], [3, 3], [1, 1]]
+
+
+def test_lane_select_signed_zero_directions():
+    """Axis-aligned rays whose zero components are +0.0 or -0.0 in every
+    combination: the sign bit picks the octant (-0.0 negative, as the
+    kernel's signbit does), so the same ray walks different links, and the
+    winner and t stay the all-primitive closest_hit's and closest_hit_bvh's
+    bit for bit."""
+    flat = pt.compile_scene(cs.bvh_sphere_scene(pt), use_bvh=True)
+    g = np.random.default_rng(8)
+    base = g.uniform(-5.0, 5.0, (40, 3)).astype(np.float32)
+    o, d = [], []
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            for zeros in range(4):
+                u = np.zeros(3, np.float32)
+                u[axis] = sign
+                others = [k for k in range(3) if k != axis]
+                for j, k in enumerate(others):
+                    u[k] = -0.0 if (zeros >> j) & 1 else 0.0
+                for p in base:
+                    q = p.copy()
+                    q[axis] = -8.0 * sign
+                    o.append(q)
+                    d.append(u)
+    o = torch.from_numpy(np.stack(o))
+    d = torch.from_numpy(np.stack(d))
+    tm = torch.zeros(o.shape[0])
+    assert sorted(set(wc.ray_octants(d).tolist())) == list(range(8))
+    assert bool(torch.signbit(d).any()) and bool((d == 0).any())
+    prim = _assert_same_winners(flat, "lane", o, d, tm)
+    assert (prim >= 0).float().mean() > 0.2 and bool((prim < 0).any())
+    rec = pbvh.closest_hit_bvh(flat, o, d, tm)
+    hit = (prim >= 0).numpy()
+    np.testing.assert_array_equal(rec.hit.numpy(), hit)
+    _, t = wc.bvh_lane_select_reference(wc.pack_bvh_tables(flat, "lane"), o,
+                                        d, tm)
+    np.testing.assert_array_equal(rec.t.numpy()[hit], t.numpy()[hit])
+
+
 @pytest.mark.parametrize("name", ["random", "mixed"])
 def test_stack_select_reference_matches_closest_hit_bvh(name):
     """The stack walk's plain selection over its rows against the port's
@@ -313,6 +456,15 @@ def test_stack_select_reference_matches_closest_hit_bvh(name):
                                   mat.numpy()[hit.numpy()])
 
 
+def _chain_rays(n=600, seed=4):
+    """Rays from the chain scene's camera, spread about its axis."""
+    g = np.random.default_rng(seed)
+    o = torch.tensor([[-6.0, 0.5, 0.5]] * n)
+    d = torch.from_numpy((g.normal(size=(n, 3)) * [0.2, 0.3, 0.3]
+                          + [1.0, 0.0, 0.0]).astype(np.float32))
+    return o, d / d.norm(dim=1, keepdim=True), torch.zeros(n)
+
+
 def test_stack_walk_deeper_than_the_short_stack():
     """A chain of spheres at doubling distances, seen along its axis: the
     tree is deeper than a short stack of 8 entries (what a lane could keep
@@ -323,13 +475,7 @@ def test_stack_walk_deeper_than_the_short_stack():
     depth = pbvh.tree_depth(flat.bvh_left.numpy(), flat.bvh_right.numpy(),
                             flat.bvh_leaf.numpy())
     assert 8 < depth < pbvh.STACK_DEPTH
-    g = np.random.default_rng(4)
-    n = 600
-    o = torch.tensor([[-6.0, 0.5, 0.5]] * n)
-    d = torch.from_numpy((g.normal(size=(n, 3)) * [0.2, 0.3, 0.3]
-                          + [1.0, 0.0, 0.0]).astype(np.float32))
-    d = d / d.norm(dim=1, keepdim=True)
-    tm = torch.zeros(n)
+    o, d, tm = _chain_rays()
     bt = wc.pack_bvh_tables(flat, "stack")
     prim, t = wc.bvh_stack_select_reference(bt, o, d, tm)
     want_prim, want_t = _winners(flat, o, d, tm)
@@ -442,9 +588,10 @@ def test_select_grazing_node_box_faces(name):
 def test_bvh_tables_layout():
     """The walks' buffers: the stack walk's rows (an inner node's two
     children's widened boxes and links, a leaf's runs, the entry row last)
-    and the lane walk's node rows (the widened box and the skip links, as
-    they were), sphere and quad rows in leaf order (16-byte aligned), each
-    leaf's runs where its links say."""
+    and the lane walk's node rows (the widened box, the sphere run and
+    the 8 octants' [hit, miss] int32 pairs: six float4s), sphere and quad
+    rows in leaf order (16-byte aligned), each leaf's runs where its links
+    say."""
     flat = pt.compile_scene(cs.bvh_mixed_scene(pt), use_bvh=True)
     bt = wc.pack_bvh_tables(flat, "stack")
     buf, f = wc._bvh_buffer(bt)
@@ -492,14 +639,26 @@ def test_bvh_tables_layout():
     assert lane.qrows.shape[0] == 0
     lbuf, lf = wc._bvh_buffer(lane)
     LB = sph.bvh_left.shape[0]
-    assert lf["n_nodes"] == LB
-    nodes = lbuf[:lf["off_srows"]].reshape(LB, wc.BVH_NODE_COLS)
+    assert lf["n_nodes"] == LB and bt.octant is None
+    assert lf["off_srows"] == LB * wc.BVH_LANE_COLS
+    assert lf["off_srows"] % 4 == 0 and wc.BVH_LANE_COLS % 4 == 0
+    nodes = lbuf[:lf["off_srows"]].reshape(LB, wc.BVH_LANE_COLS)
     lbox = torch.cat([sph.bvh_bbox_min, sph.bvh_bbox_max], 1)
     np.testing.assert_array_equal(nodes[:, :3].numpy(),
                                   (lbox[:, :3] - lane.pad[:, None]).numpy())
     np.testing.assert_array_equal(nodes[:, 3:6].numpy(),
                                   (lbox[:, 3:] + lane.pad[:, None]).numpy())
-    np.testing.assert_array_equal(nodes[:, 6:].numpy(), lane.link.numpy())
+    np.testing.assert_array_equal(lane.link.numpy(),
+                                  wc.pack_bvh_tables(sph, "stack").link)
+    runs = torch.where(sph.bvh_leaf[:, None], lane.link[:, 2:4], 0.0)
+    np.testing.assert_array_equal(nodes[:, 6:8].numpy(), runs.numpy())
+    links = nodes[:, 8:].contiguous().view(torch.int32)
+    np.testing.assert_array_equal(
+        links.reshape(LB, wc.N_OCTANTS, 2).permute(1, 0, 2).numpy(),
+        lane.octant.numpy())
+    np.testing.assert_array_equal(
+        lbuf[lf["off_srows"]:].reshape(-1, wc.VROW_COLS).numpy(),
+        lane.srows.numpy())
     with pytest.raises(ValueError, match="spheres only"):
         wc.pack_bvh_tables(flat, "lane")
     with pytest.raises(ValueError, match="use_bvh"):

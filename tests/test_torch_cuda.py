@@ -86,6 +86,71 @@ def test_kernel_carry_matches_plain(cuda_device):
                                rtol=1e-5, atol=1e-4)
 
 
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("name, width", [("cornell_box", 64),
+                                         ("cornell_box", 100),
+                                         ("cornell_smoke", 16)])
+def test_refilled_forward_matches_one_lane_a_thread(name, width,
+                                                    cuda_device):
+    """The forward's persistent threads (K1) against the one-lane-a-thread
+    body on the same scene (the chunk scan's instance, K6, whose winner
+    and t are the all-primitive selection's): the image and bounces of a
+    single pass, the radiance, carry and bounces of a capped pass and of
+    a capped pass resumed from its carry under a lane permutation, bit for
+    bit; at 64 x 64, at 100 x 100 (10,000 pixels, not a multiple of 128)
+    and at 16 x 16 (two blocks' worth of slots, fewer than the card keeps
+    resident)."""
+    flat, cam, kw = _pass_args(name, cuda_device, width=width, depth=16)
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    k1 = wc.prepare_kernel(flat, cam)
+    k6 = wc.prepare_kernel(flat, cam, chunk_scan=True)
+    assert (k1.mode, k6.mode) == ("unrolled", "vscan")
+    perm = torch.randperm(n_lanes, device=cuda_device,
+                          generator=torch.Generator(device=cuda_device)
+                          .manual_seed(1))
+    pix = wc._identity_pixels(n_lanes, kw["width"] * kw["height"],
+                              cuda_device)[perm]
+    outs = []
+    for prep in (k1, k6):
+        its = [torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
+               for _ in range(3)]
+        img = wc.render_pass_kernel(flat, cam, 7, 3, iters=its[0],
+                                    prepared=prep, **kw)
+        rad, carry = wc.render_pass_kernel(flat, cam, 7, 3, cap=5,
+                                           iters=its[1], prepared=prep, **kw)
+        rad2, carry2 = wc.render_pass_kernel(
+            flat, cam, 7, 3, cap=5, carry=carry[:, perm], pix_lanes=pix,
+            iters=its[2], prepared=prep, **kw)
+        outs.append([img, rad, carry, rad2, carry2] + its)
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int(outs[0][5].sum()) > n_lanes and float(outs[0][0].mean()) > 0
+
+
+def test_refilled_forward_twice_in_a_row(cuda_device):
+    """Two launches of the forward in a row on one stream, unsynchronised:
+    each takes its lane slots from a counter zeroed for it, so both give
+    the same radiance, carry and bounces bit for bit."""
+    flat, cam, kw = _pass_args("cornell_box", cuda_device, width=96,
+                               depth=16)
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    prep = wc.prepare_kernel(flat, cam)
+    runs = []
+    for _ in range(2):
+        it = torch.zeros(n_lanes, dtype=torch.int32, device=cuda_device)
+        rad, carry = wc.render_pass_kernel(flat, cam, 7, 0, cap=7, iters=it,
+                                           prepared=prep, **kw)
+        runs.append((rad, carry, it))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int(runs[0][2].sum()) > 0
+
+
 @pytest.mark.parametrize("name", ["cornell_box", "cornell_smoke"])
 def test_kernel_compacted_matches_single(name, cuda_device):
     flat, cam, kw = _pass_args(name, cuda_device, width=40)
@@ -941,16 +1006,17 @@ def _bvh_env(monkeypatch, mode):
 @pytest.mark.parametrize("mode, name", [("stack", "mixed"),
                                         ("lane", "spheres"),
                                         ("stack", "rows"),
-                                        ("stack", "chain")])
+                                        ("stack", "chain"),
+                                        ("lane", "chain")])
 def test_bvh_kernels_match_plain(mode, name, cuda_device, monkeypatch):
     """The BVH walks (K11 on mixed sphere / quad leaves, K12 on spheres
-    with movers; K11 on a chain of spheres whose stack goes more than 8
+    with movers; both on a chain of spheres whose stack goes more than 8
     entries deep) against the plain pass, which tests every
     primitive: the same pixels and bounces as the chunk scan (K6) and the
-    plain pass, the compacted schedule, and the tex_color grad instance
-    (weight planes in registers; for the 28-row scene in shared memory)
-    against the plain grad pass, with the forward's image; launches
-    counted per mode."""
+    plain pass (and K12's as K11's), the compacted schedule, and the
+    tex_color grad instance (weight planes in registers; for the 28-row
+    scene in shared memory) against the plain grad pass, with the
+    forward's image; launches counted per mode."""
     scene = {"mixed": cs.bvh_mixed_scene, "spheres": cs.bvh_sphere_scene,
              "rows": cs.rows_scene, "chain": cs.bvh_chain_scene}[name](pt)
     flat, cam, kw = cs.pass_args(pt, cs.sized(scene, 48, 4, 8), cuda_device,
@@ -976,6 +1042,12 @@ def test_bvh_kernels_match_plain(mode, name, cuda_device, monkeypatch):
     monkeypatch.setenv("RTX_LANE_BVH", "0")
     k6 = wc.render_pass_kernel(flat, cam, 7, 0, **kw)
     np.testing.assert_array_equal(k6.cpu().numpy(), k)
+    if mode == "lane":
+        _bvh_env(monkeypatch, "stack")
+        it_s = torch.zeros_like(it_k)
+        k11 = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_s, **kw)
+        np.testing.assert_array_equal(k11.cpu().numpy(), k)
+        assert torch.equal(it_s, it_k)
     _bvh_env(monkeypatch, mode)
     two = wc.render_pass_compacted(flat, cam, 7, 0, **kw)
     assert np.allclose(k, two.cpu().numpy(), atol=1e-5)
@@ -991,6 +1063,64 @@ def test_bvh_kernels_match_plain(mode, name, cuda_device, monkeypatch):
     scale = float(dg_p.abs().max())
     assert scale > 0.0
     assert float((dg_k - dg_p).abs().max()) <= cs.DG_RTOL * scale
+
+
+def _axis_rays(flat, device):
+    """Rays along the six axis directions from seeded points around the
+    scene, their zero components +0.0 or -0.0 in every combination, and
+    rays at the scene's spheres from seeded points (the last third)."""
+    g = np.random.default_rng(12)
+    lo = np.maximum(flat.bvh_bbox_min[0].cpu().numpy() - 1.0, -30.0)
+    hi = np.minimum(flat.bvh_bbox_max[0].cpu().numpy() + 1.0, 30.0)
+    o, d = [], []
+    for p in g.uniform(lo, hi, (48, 3)).astype(np.float32):
+        for axis in range(3):
+            for sign in (1.0, -1.0):
+                for zeros in range(4):
+                    u = np.zeros(3, np.float32)
+                    u[axis] = sign
+                    others = [k for k in range(3) if k != axis]
+                    for j, k in enumerate(others):
+                        u[k] = -0.0 if (zeros >> j) & 1 else 0.0
+                    o.append(p)
+                    d.append(u)
+    c = flat.sph_center.cpu().numpy()
+    for p in g.uniform(lo, hi, (len(o) // 2, 3)).astype(np.float32):
+        t = c[g.integers(c.shape[0])] - p
+        o.append(p)
+        d.append((t / np.linalg.norm(t)).astype(np.float32))
+    o = torch.from_numpy(np.stack(o)).to(device)
+    d = torch.from_numpy(np.stack(d)).to(device)
+    return o, d, torch.zeros(o.shape[0], device=device)
+
+
+@pytest.mark.parametrize("name", ["spheres", "chain", "bouncing"])
+def test_bvh_walks_select_alike(name, cuda_device, monkeypatch):
+    """The walks' selections alone on the card (bvh_select_kernel): K12 on
+    its octant links, K11 and the plain lane walk give the same winner and
+    t bit for bit, on axis-aligned rays whose zero components are +0.0 or
+    -0.0 (so the same ray takes different octants' links) and on rays at
+    the spheres; the plain walk's winners are the all-primitive ones (the
+    CPU tests)."""
+    scene = {"spheres": cs.bvh_sphere_scene, "chain": cs.bvh_chain_scene,
+             "bouncing": lambda api: api.builders.bouncing_spheres()}[name](
+                 pt)
+    flat = pt.compile_scene(scene, device=cuda_device, use_bvh=True)
+    cam = pcam.derive(scene.camera, device=cuda_device)
+    o, d, tm = _axis_rays(flat, cuda_device)
+    got = {}
+    for mode in ("lane", "stack"):
+        _bvh_env(monkeypatch, mode)
+        before = wc.bvh_select_kernel.launches
+        got[mode] = wc.bvh_select_kernel(wc.prepare_kernel(flat, cam), o, d,
+                                         tm)
+        assert wc.bvh_select_kernel.launches == before + 1
+    plain = wc.bvh_lane_select_reference(wc.pack_bvh_tables(flat, "lane"),
+                                         o, d, tm)
+    for mode in ("lane", "stack"):
+        assert torch.equal(got[mode][0], plain[0]), mode
+        assert torch.equal(_bits(got[mode][1]), _bits(plain[1])), mode
+    assert bool((plain[0] >= 0).any()) and bool((plain[0] < 0).any())
 
 
 def test_bvh_mode_is_fixed_when_packed(cuda_device, monkeypatch):
