@@ -16,10 +16,12 @@ its own 1200x675, 100 spp, depth 50 through the chunk scan (K6), and a
 training, make_train_step on bouncing_spheres at 1200x675 spp16 d50 over
 tex_color (the suffix-radiance kernel K8) and tex_color + IOR (K4v riding
 K8), the suffix tier's gradient equal bit for bit over two runs (K8, K8 +
-K4v, the BVH walks' tiers), with the chunk scan's weight planes (K3v, in
-registers and for 17 to 32 rows in shared memory) and tangent bundles
-(K4v) at their full-size shapes on the JAX tests' scenes and a 28-row
-scene; and full-family
+K4v, the BVH walks' tiers), with the chunk scan's weight planes (K3v, the
+planes of the rows each path has scattered on, up to 32 rows; equal bit
+for bit over two runs, and in a closed room where paths hold many rows)
+and tangent bundles (K4v) at their full-size shapes on the JAX tests'
+scenes and a 28-row scene, and K3v with 30 of K4v's slots beside 31 rows
+timed against the adjoint (K9) on the same request; and full-family
 training at scale, make_train_step over all five families of
 bouncing_spheres (2,013 hard slots) through the adjoint backward (K9), at
 the JAX bench line's 400x225 spp9 d50 and at 1200x675 spp16 d50 under the
@@ -47,6 +49,7 @@ It never imports JAX: the port stands alone on the GPU machine.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import json
@@ -170,6 +173,12 @@ OPS_SHADE = 91            # ONB (40), cosine sample (35), pdfs and MIS
 OPS_LIGHT_PDF = {"sphere": 55, "quad": 62}       # per light, every bounce
 OPS_LIGHT_SAMPLE = {"sphere": 100, "quad": 25}   # one light, half the time
 OPS_PLANE = 4             # grad: one weight plane's update at a scatter
+# the weight planes a bounce must update at the least: the scattering hit's
+# own eff row (3 planes). A path's other rows hold nonzero planes only
+# where it scattered on them before (1.14 and 1.63 rows at a scatter on
+# K3v's two scenes, PERF.md), and a radiance event's reads are left out: a
+# lower bound of the tex_color gradient's work, whatever the tier
+OPS_PLANES_BOUNCE = 3 * OPS_PLANE
 # grad, hard slots: the tangent work of one slot on a Lambertian bounce off
 # Cornell's walls, beside the float bounce that computes every value once
 # (as jax.linearize does; the kernel's physics<Dual> redoes the values per
@@ -620,8 +629,8 @@ def vscan_slots(mat_type, mat_metal: int, mat_diel: int) -> tuple:
 def rows_scene(api):
     """79 spheres over 27 materials (24 lambertian albedos, 2 metals, a
     glass) and a sphere light: 28 texture rows, between MAX_TEXS and
-    MAX_GRAD_TEXS, so the chunk scan's weight planes in shared memory (K3v,
-    NT 17-32)."""
+    MAX_GRAD_TEXS (K3v past the register planes' bound, its Gp summed in
+    lane order)."""
     import numpy as np
     rng = np.random.default_rng(31)
     mats = ([api.Lambertian(api.SolidColor(tuple(map(
@@ -637,6 +646,47 @@ def rows_scene(api):
         image_width=24, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
         vfov=45, lookfrom=(0, 2, 11), lookat=(0, 0, 0),
         background=(0.3, 0.4, 0.6)), name="rows_grad")
+
+
+def room_scene(api):
+    """rows_scene inside a closed room of six gray lambertian walls (29
+    texture rows): no path escapes to the sky, so paths run to depth or to
+    the light and scatter on many rows: K3v's planes of a path hold
+    several rows (csrc/wavefront.cu, WpRows)."""
+    scene = rows_scene(api)
+    wall = api.Lambertian(api.SolidColor((0.75, 0.75, 0.75)))
+    lo, hi = (-8.0, -6.0, -8.0), (8.0, 12.0, 14.0)
+    dx, dy, dz = (hi[0] - lo[0], 0, 0), (0, hi[1] - lo[1], 0), \
+        (0, 0, hi[2] - lo[2])
+    scene.objects += [
+        api.Quad(lo, dx, dz, wall),
+        api.Quad((lo[0], hi[1], lo[2]), dx, dz, wall),
+        api.Quad(lo, dx, dy, wall),
+        api.Quad((lo[0], lo[1], hi[2]), dx, dy, wall),
+        api.Quad(lo, dz, dy, wall),
+        api.Quad((hi[0], lo[1], lo[2]), dz, dy, wall)]
+    scene.name = "room"
+    return scene
+
+
+def metals_scene(api):
+    """tests/test_torch_large_grad.py::_metals_scene's materials in view:
+    80 unit spheres in a 10 x 8 wall, the first 30 metals of their own
+    albedos (fuzz 0.3), the rest lambertians of one albedo that no metal
+    shares: 31 texture rows and 30 fuzz slots. tex_color with those slots
+    took the adjoint (K9) while the planes of 17 to 32 rows were in shared
+    memory (a block could not hold them beside 30 tangent bundles), and
+    runs K3v with K4v's slots since. Under the sky gradient, so the fuzz
+    moves the radiance (no light)."""
+    lam = api.Lambertian(api.SolidColor((0.45, 0.45, 0.45)))
+    objs = [api.Sphere((2.5 * (i % 10) - 11.25, 2.5 * (i // 10) - 8.75,
+                        -1.5 * ((i * 7) % 3)), 1.0,
+                       api.Metal((0.5, 0.4 + 0.01 * i, 0.5), 0.3)
+                       if i < 30 else lam) for i in range(80)]
+    return api.Scene(objects=objs, camera=api.CameraConfig(
+        image_width=24, aspect_ratio=16 / 9, samples_per_pixel=4,
+        max_depth=4, vfov=50, lookfrom=(0, 4, 26), lookat=(0, 0, 0),
+        sky_gradient=True), name="metals31")
 
 
 def suffix_scene(api):
@@ -744,7 +794,7 @@ def bounce_ops(flat, grad: bool, n_slots: int = 0) -> float:
            + OPS_SPHERE * int(flat.sph_active.sum())
            + OPS_QUAD * int(flat.quad_active.sum()) + light_ops(flat))
     if grad:
-        ops += OPS_PLANE * 3 * flat.tex_type.shape[0]
+        ops += OPS_PLANES_BOUNCE
     return float(ops + OPS_SLOT * n_slots)
 
 
@@ -998,7 +1048,11 @@ def ptxas_table(log: str) -> dict:
 # suffix tier on the chunk scan with and without K4v's slots
 # (wavefront_grad_vscan_kernel<0, *, true, false>)
 K3_SYMBOL = "_Z25wavefront_tex_grad_kernelILi"
-K8_SYMBOL = "_Z27wavefront_grad_vscan_kernelILi0ELb[01]ELb1ELb0E"
+K8_SYMBOL = "_Z27wavefront_grad_vscan_kernelILi0ELb[01]ELb1EE"
+# K3v, the chunk scan's row planes (wavefront_planes_vscan_kernel<HARD>):
+# alone, and with K4v's tangent bundles (True)
+K3V_SYMBOL = {False: "_Z29wavefront_planes_vscan_kernelILb0E",
+              True: "_Z29wavefront_planes_vscan_kernelILb1E"}
 
 
 def ptxas_prefix(log: str, pattern: str) -> dict:
@@ -1982,7 +2036,13 @@ def main() -> int:
     # compacted schedule (K5) against the single pass. bouncing's IOR
     # slot is taken under the sky gradient: under its own constant
     # background no radiance depends on a direction, so every hard
-    # gradient of the scene is exactly 0 (both versions give 0).
+    # gradient of the scene is exactly 0 (both versions give 0). The weight
+    # planes (K3v) run twice, equal bit for bit, and count the paths whose
+    # planes came to hold a second row (csrc/wavefront.cu, WpRows): in the
+    # closed room (29 rows, depth 50) there must be some, held to the plain
+    # version like the rest. K3v with 30 fuzz slots beside 31 rows (the
+    # request the adjoint took while the planes of 17 to 32 rows lived in
+    # shared memory) is held to the plain version at 320x180.
     large_grad = [
         ("k8_bouncing", builtin(pt, "bouncing_spheres", 1200, 4, 50), (),
          True, False),
@@ -1995,12 +2055,19 @@ def main() -> int:
         ("k3v_rows28", wide(rows_scene(pt), 1200, 4, 50), (), True, False),
         ("k3v_k4v_rows28", wide(rows_scene(pt), 1200, 4, 50),
          "mat_fuzz,mat_ior", True, False),
+        ("k3v_room29", wide(room_scene(pt), 400, 4, 50), (), True, False),
+        ("k3v_k4v_metals31_fuzz30", wide(metals_scene(pt), 320, 4, 50),
+         "mat_fuzz", True, False),
         ("k4v_vscan_slots", wide(vscan_slots_scene(pt), 1200, 4, 50),
          "jax_test", False, False),
         ("k8_k4v_vscan_slots", wide(vscan_slots_scene(pt), 1200, 4, 50),
          "jax_test", True, False)]
     from real_time_ray_tracing_engine_tpu_torch.scene.flat import (
         MAT_DIELECTRIC, MAT_METAL)
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
     lg_err = {}
     for name, scene, slots, want_tex, sky in large_grad:
         flat, cam, kw = pass_args(pt, scene, dev)
@@ -2017,8 +2084,11 @@ def main() -> int:
         it_f = torch.zeros_like(it_k)
         it_p = torch.zeros_like(it_k)
         gkw = dict(cotangent=g, hard_slots=slots, want_tex=want_tex, **kw)
-        img_k, dgt_k, dgh_k = wc.render_pass_grad_kernel(flat, cam, 7, 0,
-                                                         iters=it_k, **gkw)
+        multi = torch.zeros(1, dtype=torch.int32, device=dev)
+        img_k, dgt_k, dgh_k = wc.render_pass_grad_kernel(
+            flat, cam, 7, 0, iters=it_k, multi_rows=multi, **gkw)
+        again = (wc.render_pass_grad_kernel(flat, cam, 7, 0, **gkw)
+                 if form == "planes" else None)
         fwd = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_f, **kw)
         img_c, dgt_c, dgh_c = wc.render_pass_grad_compacted(flat, cam, 7, 0,
                                                             **gkw)
@@ -2043,6 +2113,12 @@ def main() -> int:
                float((img_c - img_k).abs().max()), "kernel_bounces": bk,
                "forward_bounces": bf, "plain_bounces": bp,
                "plain_ms": plain_ms, "plain_peak_gib": plain_gib}
+        if again is not None:
+            rec["multi_row_paths"] = int(multi)
+            rec["paths"] = kw["width"] * kw["height"] * kw["n_samples"]
+            rec["same_bits_twice"] = all(
+                bool(torch.equal(bits(x), bits(y))) for x, y in
+                zip((img_k, dgt_k, dgh_k), again) if x is not None)
         if want_tex:
             rec["dg_tex_scale"] = float(dgt_p.abs().max())
             rec["dg_tex_max_abs_err"] = float((dgt_k - dgt_p).abs().max())
@@ -2082,6 +2158,12 @@ def main() -> int:
                   f"by {r['dg_tex_max_abs_err']} (limit {DG_RTOL} x "
                   f"{rec['dg_tex_scale']})")
         assert_close(f"{name} grad", stats)
+        if again is not None:
+            check(rec["same_bits_twice"], f"{name}: two runs of the weight "
+                  "planes differ")
+        if name == "k3v_room29":
+            check(rec["multi_row_paths"] > 0, f"{name}: no path's weight "
+                  "planes held two rows")
         check(rec["vs_forward_max_abs_err"] <= 1e-6, f"{name}: the grad "
               f"image differs from the forward kernel's by "
               f"{rec['vs_forward_max_abs_err']}")
@@ -2213,9 +2295,10 @@ def main() -> int:
     # (every builtin chunk-scan scene has more than 32 texture rows): the
     # JAX tests' 80-sphere scene at 1200x675 spp16 d50, one render_loss_grad
     # over tex_color on the kernels (K6 forward, K3v backward, both under
-    # the compacted schedule), the same on the 28-row scene (K3v's planes
-    # in shared memory), and the 79-sphere scene's 4 slots through the
-    # compacted grad driver, one pass each
+    # the compacted schedule), the same on the 28-row scene, and on it -b
+    # under each BVH walk (their row planes, wavefront_planes_bvh_kernel),
+    # and the 79-sphere scene's 4 slots through the compacted grad driver,
+    # one pass each
     sflat, scam, skw = pass_args(pt, wide(scan_tex_scene(pt), 1200, 16, 50),
                                  dev)
     skw.pop("n_samples")
@@ -2246,6 +2329,24 @@ def main() -> int:
     torch.cuda.synchronize()
     rows_s = time.perf_counter() - t0
     rows_launches = wc.render_pass_grad_kernel.vscan_tex_launches
+    rbflat = pt.compile_scene(wide(rows_scene(pt), 1200, 16, 50),
+                              use_bvh=True, device=dev)
+    rows_bvh = {}
+    for mode in ("stack", "lane"):
+        with kernel_mode_env(mode):
+            for c in ("stack_launches", "lane_launches", "suffix_launches"):
+                setattr(wc.render_pass_grad_kernel, c, 0)
+            _, bgrads = train.render_loss_grad(
+                train.set_params(rbflat, {"tex_color":
+                                          rbflat.tex_color * 0.7}), rcam,
+                TRAIN_SEED, rtar, engine="cuda", **rkw)
+            torch.cuda.synchronize()
+        rows_bvh[mode] = {
+            "launches": getattr(wc.render_pass_grad_kernel,
+                                f"{mode}_launches"),
+            "suffix_launches": wc.render_pass_grad_kernel.suffix_launches,
+            "dg_tex_max_abs": float(bgrads["tex_color"].abs().max()),
+            "finite": bool(torch.isfinite(bgrads["tex_color"]).all())}
     vflat, vcam, vkw = pass_args(pt, wide(vscan_slots_scene(pt), 1200, 16,
                                           50), dev)
     vslots = vscan_slots(vflat.mat_type.cpu(), MAT_METAL, MAT_DIELECTRIC)
@@ -2267,7 +2368,8 @@ def main() -> int:
         k3v_rows28={"scene": "rows (28 rows) 1200x675 spp16 d50",
                     "loss": float(rloss), "seconds": rows_s,
                     "launches": rows_launches, "dg_tex_max_abs":
-                    float(rgrads["tex_color"].abs().max())},
+                    float(rgrads["tex_color"].abs().max()),
+                    "bvh": rows_bvh},
         k4v={"scene": "vscan_slots 1200x675 spp16 d50",
              "slots": [list(s) for s in vslots], "seconds": k4v_s,
              "launches": k4v_launches, "dg_hard": vdg.tolist()},
@@ -2278,6 +2380,10 @@ def main() -> int:
     check(bool(torch.isfinite(rgrads["tex_color"]).all())
           and float(rgrads["tex_color"].abs().max()) > 0.0,
           "K3v 28-row main shape: dG_tex not finite or all zero")
+    for mode, r in rows_bvh.items():
+        check(r["launches"] >= 1 and r["suffix_launches"] == 0
+              and r["finite"] and r["dg_tex_max_abs"] > 0.0,
+              f"the {mode} walk's row planes at the 28-row main shape: {r}")
     check(bool(torch.isfinite(sgrads["tex_color"]).all())
           and float(sgrads["tex_color"].abs().max()) > 0.0,
           "K3v main shape: dG_tex not finite or all zero")
@@ -2288,10 +2394,13 @@ def main() -> int:
 
     # 8d. the chunk scan's grad kernels' times at the main path's shape
     # (1200x675 spp16 d50): K8 on bouncing (and with its IOR slot, K4v, under
-    # the sky gradient), K3v on the 80-sphere scene, K4v on the 79-sphere
-    # scene's 4 slots; single pass and the compacted schedule (the default
-    # grad caps), the scene packed once; bounds from the run's own bounces
-    # (the forward's, which the suffix tier traces once)
+    # the sky gradient), K3v on the 80-sphere scene and the 28-row scene
+    # (alone and with K4v's fuzz and IOR slots), K3v with K4v's 30 fuzz
+    # slots on the 31-row metals scene beside the adjoint (K9) on the same
+    # request, K4v on the 79-sphere scene's 4 slots; single pass and the
+    # compacted schedule (the default grad caps), the scene packed once;
+    # bounds from the run's own bounces (the forward's, which the suffix
+    # tier traces once)
     large_grad_times = {}
     for name, scene, slots, want_tex, sky in (
             ("k8", builtin(pt, "bouncing_spheres", 1200, 16, 50), (), True,
@@ -2301,6 +2410,10 @@ def main() -> int:
             ("k3v", wide(scan_tex_scene(pt), 1200, 16, 50), (), True, False),
             ("k3v_rows28", wide(rows_scene(pt), 1200, 16, 50), (), True,
              False),
+            ("k3v_k4v_rows28", wide(rows_scene(pt), 1200, 16, 50),
+             "mat_fuzz,mat_ior", True, False),
+            ("k3v_k4v_metals31", wide(metals_scene(pt), 1200, 16, 50),
+             "mat_fuzz", True, False),
             ("k4v", wide(vscan_slots_scene(pt), 1200, 16, 50), "jax_test",
              False, False)):
         flat, cam, kw = pass_args(pt, scene, dev)
@@ -2309,7 +2422,7 @@ def main() -> int:
             slots = vscan_slots(flat.mat_type.cpu(), MAT_METAL,
                                 MAT_DIELECTRIC)
         elif slots:
-            slots = wc.hard_param_slots(flat, {slots})
+            slots = wc.hard_param_slots(flat, set(slots.split(",")))
         prep = wc.prepare_kernel(flat, cam, slots)
         gpass = functools.partial(wc.render_pass_grad_kernel, prepared=prep)
         g = cotangent(torch, kw, dev, 6)
@@ -2326,7 +2439,7 @@ def main() -> int:
         if form == "suffix":
             ops += OPS_ROUTE
         elif form == "planes":
-            ops += OPS_PLANE * 3 * flat.tex_type.shape[0]
+            ops += OPS_PLANES_BOUNCE
         n = kw["width"] * kw["height"] * kw["n_samples"]
         rec = {"form": form, "slots": len(slots), "single_ms": t_single,
                "compacted_ms": t_comp,
@@ -2356,6 +2469,24 @@ def main() -> int:
                     "compacted_ms": cuda_ms(
                         torch, lambda: wc.render_pass_grad_compacted(
                             bflat, cam, 0, 0, pass_fn=bpass, **gkw))}
+        if form == "planes":
+            # the row planes' instance (with K4v's slots, its own): its
+            # ptxas figures and the blocks an SM the card keeps of it
+            hard = bool(slots)
+            occ = ctypes.c_int(0)
+            check(lib.vgrad_planes_blocks[hard](
+                wc.grad_smem_bytes(flat, len(slots)), ctypes.byref(occ))
+                == 0, f"{name}: the occupancy query failed")
+            rec["blocks_per_sm"] = occ.value
+            rec["ptxas"] = ptxas_prefix(lib.build_log, K3V_SYMBOL[hard])
+        if name == "k3v_k4v_metals31":
+            # the adjoint on the same request (its one sweep serves every
+            # family), which the request took before the weight planes of
+            # 17 to 32 rows left shared memory
+            aprep = wc.prepare_kernel(flat, cam, chunk_scan=True)
+            rec["k9_ms"] = cuda_ms(
+                torch, lambda: ac.render_pass_adjoint_kernel(
+                    flat, cam, 0, 0, cotangent=g, prepared=aprep, **kw))
         large_grad_times[name] = rec
         emit("large_grad_times", card=card, shape=f"{name} 1200x675 spp16 "
              "d50", **rec)
@@ -2371,9 +2502,6 @@ def main() -> int:
     # in an order the data fixes (csrc/wavefront.cu, suffix_routes), so a
     # walk's dG_tex is also the chunk scan's on the same scene, bit for bit
     # (printed)
-    def bits(t):
-        return t.contiguous().view(torch.int32)
-
     det_scene = builtin(pt, "bouncing_spheres", 1200, 16, 50)
     dflat, dcam, dkw = pass_args(pt, det_scene, dev)
     dbflat = pt.compile_scene(det_scene, use_bvh=True, device=dev)
@@ -3017,7 +3145,9 @@ def main() -> int:
          else "numpy", builder_compile_s=builder_s, scenes=bvh_build,
          ptxas=bvh_ptxas)
     check(native is not None, "the C++ BVH builder did not build")
-    check(len(bvh_ptxas) == 10, f"K11/K12 instances: {sorted(bvh_ptxas)}")
+    # a walk's forward and its two tex_color grad tiers (the row planes,
+    # the suffix tier), for each of the two walks
+    check(len(bvh_ptxas) == 6, f"K11/K12 instances: {sorted(bvh_ptxas)}")
     done("bvh_build")
 
     # 11b. the walks against the plain pass (every primitive) and the chunk
@@ -3412,7 +3542,7 @@ def main() -> int:
         "compacted_ms":
             large_times["city301_400x225_spp9_d6"]["compacted_ms"],
         "ptxas": vscan_ptxas}, {
-        "name": "wavefront_grad_vscan_kernel[planes]", "route": "cuda",
+        "name": "wavefront_planes_vscan_kernel[7_rows]", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K3V,
         "launches": k3v_launches,
         "max_abs_err": lg_err["k3v_scan_tex"]["dg_tex_max_abs_err"],
@@ -3423,8 +3553,11 @@ def main() -> int:
         "ms_at": "scan_tex (80 spheres, 7 rows) 1200x675 spp16 d50",
         "plain_ms_at": "scan_tex 1200x675 spp4 d50",
         "max_abs_err_at": "dG_tex, scan_tex 1200x675 spp4 d50",
-        "compacted_ms": large_grad_times["k3v"]["compacted_ms"]}, {
-        "name": "wavefront_grad_vscan_kernel[shared_planes]",
+        "compacted_ms": large_grad_times["k3v"]["compacted_ms"],
+        "blocks_per_sm": large_grad_times["k3v"]["blocks_per_sm"],
+        "ptxas": large_grad_times["k3v"]["ptxas"],
+        "same_bits_twice": lg_err["k3v_scan_tex"]["same_bits_twice"]}, {
+        "name": "wavefront_planes_vscan_kernel[28_rows]",
         "route": "cuda", "source": KERNEL_SOURCE, "replaces": TPU_K3V,
         "launches": rows_launches,
         "max_abs_err": lg_err["k3v_rows28"]["dg_tex_max_abs_err"],
@@ -3435,7 +3568,29 @@ def main() -> int:
         "ms_at": "rows (79 spheres, 28 rows) 1200x675 spp16 d50",
         "plain_ms_at": "rows 1200x675 spp4 d50",
         "max_abs_err_at": "dG_tex, rows 1200x675 spp4 d50",
-        "compacted_ms": large_grad_times["k3v_rows28"]["compacted_ms"]}, {
+        "compacted_ms": large_grad_times["k3v_rows28"]["compacted_ms"],
+        "blocks_per_sm": large_grad_times["k3v_rows28"]["blocks_per_sm"],
+        "ptxas": large_grad_times["k3v_rows28"]["ptxas"],
+        "with_fuzz_ior_slots_ms":
+            large_grad_times["k3v_k4v_rows28"]["single_ms"],
+        "with_fuzz_ior_slots_blocks_per_sm":
+            large_grad_times["k3v_k4v_rows28"]["blocks_per_sm"],
+        "with_fuzz_ior_slots_ptxas":
+            large_grad_times["k3v_k4v_rows28"]["ptxas"],
+        "metals31_with_30_fuzz_slots_ms":
+            large_grad_times["k3v_k4v_metals31"]["single_ms"],
+        "metals31_with_30_fuzz_slots_k9_ms":
+            large_grad_times["k3v_k4v_metals31"]["k9_ms"],
+        "metals31_with_30_fuzz_slots_max_abs_err": {
+            "dg_tex": lg_err["k3v_k4v_metals31_fuzz30"]["dg_tex_max_abs_err"],
+            "dg_hard": lg_err["k3v_k4v_metals31_fuzz30"]["dg_hard"]["fuzz"][
+                "max_abs_err"]},
+        "room_multi_row_paths": lg_err["k3v_room29"]["multi_row_paths"],
+        "room_paths": lg_err["k3v_room29"]["paths"],
+        "room_max_abs_err": lg_err["k3v_room29"]["dg_tex_max_abs_err"],
+        "same_bits_twice": all(lg_err[c]["same_bits_twice"] for c in (
+            "k3v_rows28", "k3v_k4v_rows28", "k3v_room29",
+            "k3v_k4v_metals31_fuzz30"))}, {
         "name": "wavefront_grad_vscan_kernel[hard_slots]", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K4V,
         "launches": large_train["tex_color+mat_ior"]["launches"][
@@ -3543,6 +3698,26 @@ def main() -> int:
         "compacted_ms": large_grad_times["k8"]["bvh"][mode]["compacted_ms"],
         "ptxas": {k: v for k, v in bvh_ptxas.items()
                   if "grad" in k and f"ILi{sel}E" in k}}
+        for mode, tpu, sel in (("stack", TPU_K11, 2), ("lane", TPU_K12, 3))]
+        + [{
+        "name": f"wavefront_planes_bvh_kernel[{mode}]", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": tpu,
+        "launches": rows_bvh[mode]["launches"],
+        "max_abs_err": lg_err["k3v_rows28"]["bvh"][mode][
+            "dg_tex_max_abs_err"],
+        "ms": large_grad_times["k3v_rows28"]["bvh"][mode]["single_ms"],
+        "plain_ms": lg_err["k3v_rows28"]["plain_ms"],
+        "bound_ms": large_grad_times["k3v_rows28"]["bound_ms"],
+        "bound_by": "operations", "library_ms": None,
+        "ms_at": "rows (28 rows) -b 1200x675 spp16 d50, the row planes",
+        "plain_ms_at": "rows 1200x675 spp4 d50",
+        "max_abs_err_at": "dG_tex, rows -b 1200x675 spp4 d50",
+        "launches_at": "large_grad_main_shapes, one render_loss_grad on "
+                       "rows -b 1200x675 spp16 d50",
+        "compacted_ms":
+            large_grad_times["k3v_rows28"]["bvh"][mode]["compacted_ms"],
+        "ptxas": {k: v for k, v in bvh_ptxas.items()
+                  if "planes" in k and f"ILi{sel}E" in k}}
         for mode, tpu, sel in (("stack", TPU_K11, 2), ("lane", TPU_K12, 3))]}),
         flush=True)
     print(gpu_line(), flush=True)

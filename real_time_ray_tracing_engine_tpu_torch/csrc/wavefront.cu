@@ -211,23 +211,31 @@
 //   bouncing_spheres -b 1200x675 spp16 d50 (13.6 with the fixed order), 2.9
 //   and 5.7 ms on the grids (4.3, 13.2) (PERF.md). No ray packets, treelets or
 //   node compression: the walk is per thread. The grad instances take
-//   tex_color only (weight planes in registers up to 16 rows, in shared memory
-//   for 17-32, the suffix tier past them); hard slots on such a scene take the
-//   adjoint, as in the JAX package.
+//   tex_color only (the chunk scan's row planes up to 32 rows, the suffix tier
+//   past them); hard slots on such a scene take the adjoint, as in the JAX
+//   package.
 //
-// Chunk-scan grad (K3v, K4v): wavefront_grad_vscan_kernel is the grad
-//   kernel's tiers over closest_select_vscan. The winner's original id
-//   indexes the scene tables, so physics<T> and the slot table's aliasing
-//   (rd_sph by original row, light rows through light_src) are the unrolled
-//   kernel's: the JAX kernel's post-gather theta aliasing needs nothing
-//   more here. The tables stay in global memory, as K6 reads them; shared
-//   memory holds the chunk boxes and the tangent planes. The weight planes
-//   stay in registers for up to 16 rows (NTMAX 8 or 16); for 17 to 32 rows
-//   (96 + 96 floats a thread, which registers cannot hold beside the
-//   bounce) they live in shared memory, [plane][thread] as the tangent
-//   planes do (SPLANES: 48 KB a block at 16 rows, 96 KB at 32), where the
-//   chunk scan has room since its tables stay in global memory; their Gp
-//   sums reduce per block as dG does.
+// Chunk-scan grad (K3v, K4v): wavefront_planes_vscan_kernel (the weight
+//   planes, with and without K4v's slots) and wavefront_grad_vscan_kernel
+//   (K4v alone, K8) are the grad kernel's tiers over closest_select_vscan.
+//   The winner's original id indexes the scene tables, so physics<T> and
+//   the slot table's aliasing (rd_sph by original row, light rows through
+//   light_src) are the unrolled kernel's: the JAX kernel's post-gather
+//   theta aliasing needs nothing more here. The tables stay in global
+//   memory, as K6 reads them; shared memory holds the chunk boxes and the
+//   tangent planes. The weight planes (WROWS, one instance for NT <= 32)
+//   are kept for the rows the path has scattered on only, a float4 row
+//   each in global scratch beside the lane's Gp rows, and a bit a row in
+//   a register (WpRows). What bounds K3v on this card is K6's selection, as
+//   for the forward; the dense planes it replaces (in registers up to 16
+//   rows, in shared memory for 17 to 32: 86 KB a block at 28 rows, two
+//   blocks an SM) updated all 3 * NT planes at every event where a path
+//   holds a row or two (64% of the 28-row scene's paths none, 24.5% one;
+//   PERF.md). Gp reduces per block in the dense tiers' orders, so dG_tex
+//   is theirs bit for bit. On an NVIDIA H100 80GB HBM3 at 700.00 W it takes
+//   3.55 ms at the 80-sphere scene 1200x675 spp16 d50 (4.84 dense) and
+//   14.52 ms at the 28-row scene (36.02), 1.14x the forward on the same
+//   scenes (PERF.md).
 //
 // Suffix-radiance tier (K8), for more than MAX_GRAD_TEXS texture rows,
 //   where weight planes (6 floats a row a lane) do not fit: the gradient of
@@ -259,7 +267,8 @@
 //   fixed order), and takes no shared memory whatever NT is.
 //
 // Reductions: Gp (K3) per block by a shuffle tree in each warp and then the
-//   4 warps in order; dG (K4) per block by one thread per slot summing the
+//   4 warps in order (K3v's row planes the same up to 16 rows, past them
+//   each plane's 128 lanes in lane order, as the shared planes did); dG (K4) per block by one thread per slot summing the
 //   block's 128 lanes in order; the suffix tier's warp rows as above. One
 //   partial row per block (3NT tex entries, then K hard ones); the wrapper
 //   sums the rows. There are no float atomics, so every gradient is the
@@ -1435,6 +1444,129 @@ struct SfxEv {
     float factor;
 };
 
+// The chunk scan's and the BVH walks' tex_color weight planes (K3v; K4v
+// rides them), for NT <= MAX_GRAD_TEXS = 32 rows: Wp[3t+c] = d th_c /
+// d tex_color[t][c] is nonzero only for the rows the path has scattered on
+// (a scatter maps a zero plane to zero, a fresh sample resets them all),
+// so the path keeps the planes of those rows only, each a float4 row of
+// the lane's plane rows in global scratch, and a bit a row it holds
+// (rows). Every value is computed by the dense planes' float operations in
+// the same order, so each nonzero plane is the dense one's bit for bit,
+// and a row not held is the dense plane's 0. Gp, the lane's cotangent sums
+// over the pass, are rows of global scratch too; gm marks the rows this
+// lane has written, so they need no zeroing and the block reduction takes
+// a lane that never touched a row as the dense sum's exact 0. A form that
+// also kept one to four of a path's rows in registers measured 2% to 29%
+// slower (PERF.md): a path holds one row or none at most events, and the
+// register rows cost the bounce registers.
+#define WP_TREE_ROWS 16 // rows up to which Gp reduces as the register
+                        // planes' did (wavefront_body; MAX_TEXS)
+#define WP_BLOCKS 7     // blocks an SM the row planes' instances ask for
+#define WP_HARD_BLOCKS 5 // and the chunk scan's with tangent bundles
+struct WpRows {
+    uint32_t rows;          // rows the path holds planes of
+    uint32_t gm;            // Gp rows this lane has written
+};
+// The lane's rows in global scratch, NT float4s each, one 16-byte access
+// a row: Gp's row t at gs[4t .. 4t + 2], the planes' at ws[4t .. 4t + 2];
+// multi (nullable) counts the paths whose planes came to hold a second
+// row.
+struct WpCols {
+    float* gs;
+    float* ws;
+    int* multi;
+};
+
+__device__ __forceinline__ void wp_load(const WpCols& C, int t,
+                                        float (&w)[3]) {
+    const float4 q = *reinterpret_cast<const float4*>(C.ws + 4 * t);
+    w[0] = q.x;
+    w[1] = q.y;
+    w[2] = q.z;
+}
+__device__ __forceinline__ void wp_store(const WpCols& C, int t,
+                                         const float (&w)[3]) {
+    *reinterpret_cast<float4*>(C.ws + 4 * t) =
+        make_float4(w[0], w[1], w[2], 0.0f);
+}
+
+// Gp[3t+c] += x[c]
+__device__ __forceinline__ void wp_gadd(WpRows& L, const WpCols& C, int t,
+                                        const float (&x)[3]) {
+    const float4 prev = ((L.gm >> t) & 1u)
+        ? *reinterpret_cast<const float4*>(C.gs + 4 * t)
+        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *reinterpret_cast<float4*>(C.gs + 4 * t) = make_float4(
+        prev.x + x[0], prev.y + x[1], prev.z + x[2], 0.0f);
+    L.gm |= 1u << t;
+}
+
+// a miss: Gp += g * Wp * sky over the path's rows
+__device__ __forceinline__ void wp_miss(WpRows& L, const WpCols& C,
+                                        const float (&gc)[3],
+                                        const float (&sk)[3]) {
+    for (uint32_t m = L.rows; m; m &= m - 1u) {
+        const int t = __ffs(m) - 1;
+        float w[3], x[3];
+        wp_load(C, t, w);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) x[c] = gc[c] * w[c] * sk[c];
+        wp_gadd(L, C, t, x);
+    }
+}
+
+// an emission: Gp += g * (Wp * emitted + [row == eff] * th) over the
+// path's rows and the emitter's own row
+__device__ __forceinline__ void wp_emit(WpRows& L, const WpCols& C,
+                                        const float (&gc)[3],
+                                        const float (&tv)[3],
+                                        const float (&tt)[3], int eff) {
+    for (uint32_t m = L.rows; m; m &= m - 1u) {
+        const int t = __ffs(m) - 1;
+        const bool me = t == eff;
+        float w[3], x[3];
+        wp_load(C, t, w);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+            x[c] = gc[c] * (w[c] * tv[c] + (me ? tt[c] : 0.0f));
+        wp_gadd(L, C, t, x);
+    }
+    // the emitter's own row, where the path holds no plane of it
+    if (eff >= 0 && !((L.rows >> eff) & 1u)) {
+        float x[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) x[c] = gc[c] * (0.0f * tv[c] + tt[c]);
+        wp_gadd(L, C, eff, x);
+    }
+}
+
+// a scatter, th <- th * at * f: Wp <- (Wp * at + [row == t] * th) * f over
+// the path's rows, and the hit's eff row taken on if it is new (row -1, a
+// dielectric's: at = 1, no row)
+__device__ __forceinline__ void wp_scatter(WpRows& L, const WpCols& C,
+                                           int row, const float (&av)[3],
+                                           const float (&tt)[3], float f) {
+    for (uint32_t m = L.rows; m; m &= m - 1u) {
+        const int t = __ffs(m) - 1;
+        const bool me = t == row;
+        float w[3];
+        wp_load(C, t, w);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+            w[c] = (w[c] * av[c] + (me ? tt[c] : 0.0f)) * f;
+        wp_store(C, t, w);
+    }
+    if (row >= 0 && !((L.rows >> row) & 1u)) {
+        float x[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) x[c] = (0.0f * av[c] + tt[c]) * f;
+        wp_store(C, row, x);
+        if (L.rows != 0u && (L.rows & (L.rows - 1u)) == 0u && C.multi)
+            atomicAdd(C.multi, 1);
+        L.rows |= 1u << row;
+    }
+}
+
 // (ops/integrator.py::bounce_step) the bounce after selection, for the
 // winner `best` (-1: no surface) at t best_t, in place: rad gets the
 // radiance increment, and o, d, th the next ray state where the path goes
@@ -1445,11 +1577,11 @@ struct SfxEv {
 // only) also updates the tex_color weight planes at the radiance events
 // and the scatter (wavefront_pallas.py:2565-2603): Wp[3t+c] = d th_c /
 // d tex_color[t][c], Gp its cotangent sums, gc the lane's cotangent. ev
-// (float only; nullptr elsewhere) gets a hit's suffix-tier event. sw (float
-// only; nullptr elsewhere) holds the same planes in shared memory instead,
-// for 17 to 32 rows (K3v): plane k of Wp at sw[k * WF_THREADS], of Gp at
-// sw[(n_sw + k) * WF_THREADS], this thread's column, n_sw = 3 * NT; the
-// updates are the register planes', operation for operation.
+// (float only; nullptr elsewhere) gets a hit's suffix-tier event. wpl
+// (float only; nullptr elsewhere) holds the same planes as the rows the
+// path has scattered on (WpRows, the chunk scan's and the BVH walks'
+// instances), updated at the same events with the register planes'
+// operations; wcol are the lane's rows in global scratch (WpCols).
 template <typename T, int NTMAX>
 __device__ __forceinline__ bool physics(
         const Scene& sc, const WfParams& P, const float* cam, int best,
@@ -1457,9 +1589,9 @@ __device__ __forceinline__ bool physics(
         float tm, const float* u, const float* u_med, const SeedsOf<T>& sd,
         float (&Wp)[NTMAX > 0 ? 3 * NTMAX : 1],
         float (&Gp)[NTMAX > 0 ? 3 * NTMAX : 1], const float (&gc)[3],
-        SfxEv* ev = nullptr, float* sw = nullptr, int n_sw = 0) {
+        SfxEv* ev = nullptr, WpRows* wpl = nullptr,
+        WpCols wcol = WpCols()) {
     constexpr bool FLOAT = std::is_same<T, float>::value;
-    float* sg = sw + n_sw * WF_THREADS;
     HitT<T> h = hit_record(sc, best, best_t, o, d, tm, sd);
     if (sc.M > 0) {
         int mrow;
@@ -1497,11 +1629,9 @@ __device__ __forceinline__ bool physics(
                 Gp[k] = Gp[k] + gc[k % 3] * Wp[k] * sk[k % 3];
         }
         if constexpr (FLOAT) {
-            if (sw) {
+            if (wpl) {
                 const float sk[3] = {sky.x, sky.y, sky.z};
-                for (int k = 0; k < n_sw; ++k)
-                    sg[k * WF_THREADS] = sg[k * WF_THREADS]
-                        + gc[k % 3] * sw[k * WF_THREADS] * sk[k % 3];
+                wp_miss(*wpl, wcol, gc, sk);
             }
         }
         return false;
@@ -1541,12 +1671,9 @@ __device__ __forceinline__ bool physics(
                     Wp[k] * tv[k % 3] + (eff == k / 3 ? tt[k % 3] : 0.0f));
         }
         if constexpr (FLOAT) {
-            if (sw) {
+            if (wpl) {
                 const float tv[3] = {tc.x, tc.y, tc.z};
-                for (int k = 0; k < n_sw; ++k)
-                    sg[k * WF_THREADS] = sg[k * WF_THREADS] + gc[k % 3] * (
-                        sw[k * WF_THREADS] * tv[k % 3]
-                        + (eff == k / 3 ? tt[k % 3] : 0.0f));
+                wp_emit(*wpl, wcol, gc, tv, tt, eff);
             }
         }
     }
@@ -1628,12 +1755,9 @@ __device__ __forceinline__ bool physics(
                          + (row == k / 3 ? tt[k % 3] : 0.0f)) * f;
         }
         if constexpr (FLOAT) {
-            if (sw) {
+            if (wpl) {
                 const float av[3] = {at.x, at.y, at.z};
-                const int row = is_diel ? -1 : eff;
-                for (int k = 0; k < n_sw; ++k)
-                    sw[k * WF_THREADS] = (sw[k * WF_THREADS] * av[k % 3]
-                        + (row == k / 3 ? tt[k % 3] : 0.0f)) * factor;
+                wp_scatter(*wpl, wcol, is_diel ? -1 : eff, av, tt, factor);
             }
         }
         if constexpr (FLOAT) {
@@ -1818,21 +1942,27 @@ static __device__ __forceinline__ void suffix_routes(
 // bound of NT, so every plane index is a constant after unrolling. HARD
 // adds the K tangent bundles (see the top of this file). SEL is the
 // selection (SEL_*: every primitive, the chunk scan, a BVH walk). SUFFIX is
-// the suffix-radiance tier of tex_color (K8, see the top of this file);
-// sfx its scratch in global memory: each warp's 3 * NT row (gridDim.x *
-// WF_THREADS / 32 rows), then, for an uncapped pass, the lanes' records
-// (SFX_REC * max_depth floats a lane, [record][field][lane]; a capped pass
-// keeps them in its carry). `red` is the block's (WF_THREADS / 32, 3 *
-// NTMAX) shared scratch of the end-of-pass reduction (NTMAX > 0 only). V
-// and vtab are the chunk scan's tables, B and vtab a BVH walk's.
+// the suffix-radiance tier of tex_color (K8, see the top of this file).
+// WROWS carries the weight planes as the path's rows (WpRows) in place of
+// NTMAX's register planes: the chunk scan's and the BVH walks' instances,
+// NT <= 32.
+// scr is the grad tier's scratch in global memory: the suffix tier's, each
+// warp's 3 * NT row (gridDim.x * WF_THREADS / 32 rows), then, for an
+// uncapped pass, the lanes' records (SFX_REC * max_depth floats a lane,
+// [record][field][lane]; a capped pass keeps them in its carry); WROWS's,
+// every lane's Gp rows and then every lane's plane rows, NT float4s a lane
+// each (WpCols). `red` is the block's shared scratch of the end-of-pass
+// reduction: (WF_THREADS / 32, 3 * NTMAX) floats (NTMAX > 0), or for WROWS
+// (WF_THREADS / 32, 3 * WP_TREE_ROWS), which also holds the lanes' gm
+// masks. multi (WROWS, nullable) counts the paths whose planes came to
+// hold a second row. V and vtab are the chunk scan's tables, B and vtab a
+// BVH walk's.
 //
 // Shared memory (smem): the tables (the chunk scan: its boxes; a BVH walk:
 // nothing), padded to plane_base; then (HARD) the tangent planes and their
-// sums, 10 * K * WF_THREADS floats; then (SPLANES) the weight planes Wp and
-// Gp, 2 * 3 * NT * WF_THREADS floats, for 17 to 32 rows that do not fit in
-// registers.
+// sums, 10 * K * WF_THREADS floats.
 template <int NTMAX, bool HARD, int SEL = SEL_UNROLLED, bool SUFFIX = false,
-          bool SPLANES = false>
+          bool WROWS = false>
 __device__ __forceinline__ void wavefront_body(
         const WfParams& P, const float* __restrict__ tables,
         const int* __restrict__ pix_lanes,
@@ -1841,16 +1971,17 @@ __device__ __forceinline__ void wavefront_body(
         float* __restrict__ dg_out, int* __restrict__ iters_out,
         float* smem, float* cam, float* red, VsParams V = VsParams(),
         const float* __restrict__ vtab = nullptr, BvParams B = BvParams(),
-        int* skey = nullptr, float* __restrict__ sfx = nullptr) {
-    constexpr bool GRAD = NTMAX > 0 || HARD || SUFFIX || SPLANES;
+        int* skey = nullptr, float* __restrict__ scr = nullptr,
+        int* multi = nullptr) {
+    constexpr bool GRAD = NTMAX > 0 || HARD || SUFFIX || WROWS;
     static_assert(!SUFFIX || NTMAX == 0, "the suffix tier has no planes");
-    static_assert(!SPLANES || (NTMAX == 0 && !SUFFIX),
-                  "shared-memory planes replace the register planes");
+    static_assert(!WROWS || (NTMAX == 0 && !SUFFIX && SEL != SEL_UNROLLED),
+                  "the row planes replace the register planes past the "
+                  "unrolled selection");
     static_assert(!HARD || SEL == SEL_UNROLLED || SEL == SEL_VSCAN,
                   "the BVH walks carry no tangent bundles");
     const int plane_base = SEL == SEL_VSCAN ? table_pad(V.n_box)
         : (SEL == SEL_UNROLLED ? table_pad(P.n_table) : 0);
-    float* acc = smem + plane_base + (HARD ? 10 * P.K * WF_THREADS : 0);
     if constexpr (SEL == SEL_VSCAN) {
         // the chunk scan reads the scene tables from global memory and
         // keeps only the chunk boxes in shared memory
@@ -1925,15 +2056,26 @@ __device__ __forceinline__ void wavefront_body(
         sample = 0;
     }
     V3 rad = v3(0.0f, 0.0f, 0.0f);
-    const int n_wp = (NTMAX > 0 || SPLANES) ? 3 * P.NT : 0;
-    // the shared-memory planes: Wp then Gp, [plane][thread] after the
-    // tangent planes (acc's place), this thread's column
-    float* sw = acc + threadIdx.x;
-    if constexpr (SPLANES) {
-        for (int k = 0; k < n_wp; ++k) {
-            sw[k * WF_THREADS] = carry_in ? carry_in[(14 + k) * N + lane]
-                                          : 0.0f;
-            sw[(n_wp + k) * WF_THREADS] = 0.0f;
+    const int n_wp = (NTMAX > 0 || WROWS) ? 3 * P.NT : 0;
+    // the row planes: no row held, no Gp row written; a resumed path
+    // holds its nonzero rows (not counted again in multi)
+    WpRows wpl;
+    const WpCols wcol = {scr + (size_t)4 * P.NT * lane,
+                         scr + (size_t)4 * P.NT * (N + lane), multi};
+    if constexpr (WROWS) {
+        wpl.rows = 0u;
+        wpl.gm = 0u;
+        if (carry_in) {
+            for (int t = 0; t < P.NT; ++t) {
+                float x[3];
+#pragma unroll
+                for (int c = 0; c < 3; ++c)
+                    x[c] = carry_in[(size_t)(14 + 3 * t + c) * N + lane];
+                if (x[0] != 0.0f || x[1] != 0.0f || x[2] != 0.0f) {
+                    wp_store(wcol, t, x);
+                    wpl.rows |= 1u << t;
+                }
+            }
         }
     }
     // the suffix tier's lane state: the path total T so far and the
@@ -1946,13 +2088,13 @@ __device__ __forceinline__ void wavefront_body(
     float* rec = nullptr;
     if constexpr (SUFFIX) {
         const int n3 = 3 * P.NT;
-        wrow = sfx + ((size_t)blockIdx.x * (WF_THREADS / 32)
+        wrow = scr + ((size_t)blockIdx.x * (WF_THREADS / 32)
                       + (threadIdx.x >> 5)) * n3;
         for (int i = threadIdx.x & 31; i < n3; i += 32) wrow[i] = 0.0f;
         __syncwarp();
         const size_t cs = (size_t)(14 + 9 * P.K) * N;
         rec = (carry_out ? carry_out + cs + (size_t)SFX_STATE * N
-               : sfx + (size_t)gridDim.x * (WF_THREADS / 32) * n3) + lane;
+               : scr + (size_t)gridDim.x * (WF_THREADS / 32) * n3) + lane;
         if (carry_in) {
             const float* ci = carry_in + cs + lane;
             Tt = v3(ci[0], ci[N], ci[2 * (size_t)N]);
@@ -2049,9 +2191,7 @@ __device__ __forceinline__ void wavefront_body(
 #pragma unroll
                     for (int k = 0; k < 3 * NTMAX; ++k) Wp[k] = 0.0f;
                 }
-                if constexpr (SPLANES) {
-                    for (int k = 0; k < n_wp; ++k) sw[k * WF_THREADS] = 0.0f;
-                }
+                if constexpr (WROWS) wpl.rows = 0u;
                 if constexpr (HARD) {
                     for (int j = 0; j < 9 * P.K; ++j)
                         dst[j * WF_THREADS] = 0.0f;
@@ -2084,7 +2224,7 @@ __device__ __forceinline__ void wavefront_body(
             const bool alive_new = physics<float, NTMAX>(
                 sc, P, cam, best, best_t, o, d, th, SUFFIX ? drad : rad, tm, u,
                 u_med, Seeds<0>{}, Wp, Gp, gc, (SUFFIX || HARD) ? &ev : nullptr,
-                SPLANES ? sw : nullptr, SPLANES ? n_wp : 0);
+                WROWS ? &wpl : nullptr, wcol);
             if constexpr (SUFFIX) {
                 // the image, and the path total T so far: the prefix P of the
                 // hit's routes, bit for bit
@@ -2193,9 +2333,15 @@ __device__ __forceinline__ void wavefront_body(
             for (int k = 0; k < 3 * NTMAX; ++k)
                 if (k < n_wp) carry_out[(14 + k) * N + lane] = Wp[k];
         }
-        if constexpr (SPLANES) {
-            for (int k = 0; k < n_wp; ++k)
-                carry_out[(14 + k) * N + lane] = sw[k * WF_THREADS];
+        if constexpr (WROWS) {
+            // the dense planes: 0 but for the rows the path holds
+            for (int t = 0; t < P.NT; ++t) {
+                float x[3] = {0.0f, 0.0f, 0.0f};
+                if ((wpl.rows >> t) & 1u) wp_load(wcol, t, x);
+#pragma unroll
+                for (int c = 0; c < 3; ++c)
+                    carry_out[(size_t)(14 + 3 * t + c) * N + lane] = x[c];
+            }
         }
         if constexpr (HARD) {
             for (int j = 0; j < 9 * P.K; ++j)
@@ -2227,6 +2373,26 @@ __device__ __forceinline__ void wavefront_body(
                 if (wl == 0) red[warp * 3 * NTMAX + k] = v;
             }
         }
+        if constexpr (WROWS) {
+            // Gp in the order the dense tiers summed it: up to
+            // WP_TREE_ROWS rows the register planes' (a shuffle tree in
+            // each warp, then the warps in order), past them the shared
+            // planes' (each plane's 128 lanes in lane order); a lane that
+            // never wrote a row adds its exact 0 nowhere
+            if (P.NT <= WP_TREE_ROWS) {
+                const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+                for (int k = 0; k < n_wp; ++k) {
+                    const bool had = (wpl.gm >> (k / 3)) & 1u;
+                    float v = had ? wcol.gs[4 * (k / 3) + k % 3] : 0.0f;
+#pragma unroll
+                    for (int off = 16; off > 0; off >>= 1)
+                        v += __shfl_down_sync(0xffffffffu, v, off);
+                    if (ln == 0) red[warp * 3 * WP_TREE_ROWS + k] = v;
+                }
+            } else {
+                reinterpret_cast<uint32_t*>(red)[threadIdx.x] = wpl.gm;
+            }
+        }
         __syncthreads();
         if constexpr (NTMAX > 0) {
             if (threadIdx.x < n_wp) {
@@ -2236,24 +2402,45 @@ __device__ __forceinline__ void wavefront_body(
                 dg_out[blockIdx.x * n_row + threadIdx.x] = s;
             }
         }
+        if constexpr (WROWS) {
+            if (threadIdx.x < n_wp) {
+                const int k = threadIdx.x, t = k / 3;
+                float s = 0.0f;
+                if (P.NT <= WP_TREE_ROWS) {
+                    for (int w = 0; w < WF_THREADS / 32; ++w)
+                        s += red[w * 3 * WP_TREE_ROWS + k];
+                } else {
+                    // (a lane that never wrote the row adds its exact 0: s
+                    // starts at +0 and is never -0, so s + 0 is s)
+                    const uint32_t* gms = reinterpret_cast<const uint32_t*>(
+                        red);
+                    // lane i's sum at col[i * stride]
+                    const size_t lane0 = (size_t)blockIdx.x * WF_THREADS;
+                    const float* col = scr + lane0 * 4 * P.NT + 4 * t
+                        + k % 3;
+                    const size_t stride = 4 * P.NT;
+                    for (int i0 = 0; i0 < WF_THREADS; i0 += 8) {
+                        float x[8];
+#pragma unroll
+                        for (int i = 0; i < 8; ++i)
+                            x[i] = ((gms[i0 + i] >> t) & 1u)
+                                ? col[(i0 + i) * stride] : 0.0f;
+#pragma unroll
+                        for (int i = 0; i < 8; ++i) s += x[i];
+                    }
+                }
+                dg_out[blockIdx.x * n_row + k] = s;
+            }
+        }
         if constexpr (SUFFIX) {
             // the block's warp rows, added in warp order
-            const float* w0 = sfx + (size_t)blockIdx.x * (WF_THREADS / 32)
+            const float* w0 = scr + (size_t)blockIdx.x * (WF_THREADS / 32)
                 * n_tex;
             for (int i = threadIdx.x; i < n_tex; i += blockDim.x) {
                 float s = w0[i];
                 for (int w = 1; w < WF_THREADS / 32; ++w)
                     s += w0[(size_t)w * n_tex + i];
                 dg_out[blockIdx.x * n_row + i] = s;
-            }
-        }
-        if constexpr (SPLANES) {
-            // Gp: plane k's 128 lanes in lane order
-            if (threadIdx.x < n_wp) {
-                const float* col = acc + (n_wp + threadIdx.x) * WF_THREADS;
-                float s = 0.0f;
-                for (int i = 0; i < WF_THREADS; ++i) s += col[i];
-                dg_out[blockIdx.x * n_row + threadIdx.x] = s;
             }
         }
         if constexpr (HARD) {
@@ -2417,7 +2604,7 @@ __device__ __forceinline__ void forward_refill(
             best = closest_select(sc, o, d, tm, &best_t);
         const bool alive_new = physics<float, 0>(
             sc, P, cam, best, best_t, o, d, th, rad, tm, u, u_med,
-            Seeds<0>{}, Wp, Gp, gc, nullptr, nullptr, 0);
+            Seeds<0>{}, Wp, Gp, gc, nullptr, nullptr);
         bounce += 1;
         alive = alive_new && bounce < P.max_depth;
         work = alive || (sample + 1 < P.n_samples);
@@ -2444,9 +2631,9 @@ static int resident_blocks(const void* kernel, size_t smem, int n_lanes) {
 // unit of its own, compiled in parallel and linked into one shared library
 // (ops/wavefront_cuda.py::build_library): WF_PART 0 holds the forward
 // instances, the unrolled grad instances and the other C entry points; 1 the
-// chunk scan's weight-plane grad instances for at most 16 rows (K3v, with
-// K4v); 2 its hard-slot-only and suffix instances (K4v, K8); 3 its
-// shared-memory weight planes for 17 to 32 rows (K3v, with K4v); 4 the
+// chunk scan's weight-plane grad instance (K3v); 2 its hard-slot-only and
+// suffix instances (K4v, K8); 3 its weight planes with tangent bundles (K3v
+// with K4v); 4 the
 // adjoint's per-sample sweep (K9) and its C entry point; 5 its
 // segmented-regeneration sweep (K10) and its C entry point; 6 the stack BVH's
 // forward and tex_color grad instances (K11) and their C entry point; 7 the
@@ -2475,71 +2662,116 @@ struct GradArgs {
     float* carry_out;
     float* dg_out;
     int* iters_out;
-    float* sfx;     // the suffix tier's scratch (wavefront_body)
+    float* scr;     // the grad tier's scratch (wavefront_body)
+    int* multi;     // paths whose row planes held two rows (nullable)
 };
 
-// the chunk scan's grad launchers (parts 1 and 2)
+// the chunk scan's grad launchers (parts 1, 2 and 3)
 int launch_vgrad_planes(const WfParams& P, const VsParams& V,
                         const GradArgs& A, cudaStream_t stream);
 int launch_vgrad_other(const WfParams& P, const VsParams& V,
                        const GradArgs& A, cudaStream_t stream);
-int launch_vgrad_splanes(const WfParams& P, const VsParams& V,
-                         const GradArgs& A, cudaStream_t stream);
+int launch_vgrad_planes_hard(const WfParams& P, const VsParams& V,
+                             const GradArgs& A, cudaStream_t stream);
 
 // The chunk scan's grad passes (K3v weight planes, K4v tangent bundles,
 // K8 the suffix-radiance tier, each with the carry of K5): the unrolled
 // grad kernel's tiers over closest_select_vscan. The winner's original id
 // indexes the scene tables (global memory), so physics<T> and the slot
 // table's aliasing are the unrolled kernel's; shared memory holds the
-// chunk boxes, the tangent planes and (SPLANES, 17 to 32 rows) the weight
-// planes; the suffix tier's rows and records are in global memory
-// (A.sfx).
-template <int NTMAX, bool HARD, bool SUFFIX, bool SPLANES = false>
+// chunk boxes and the tangent planes; the row planes' rows and the suffix
+// tier's rows and records are in global memory (A.scr). This template
+// holds K4v alone and K8 (with and without K4v); the weight planes' are
+// wavefront_planes_vscan_kernel below.
+template <int NTMAX, bool HARD, bool SUFFIX>
 __global__ void __launch_bounds__(WF_THREADS)
 wavefront_grad_vscan_kernel(WfParams P, VsParams V, GradArgs A) {
     __shared__ float cam[22];
     __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
     if constexpr (HARD) {
         __shared__ int skey[MAX_SLOTS];
-        wavefront_body<NTMAX, HARD, SEL_VSCAN, SUFFIX, SPLANES>(
+        wavefront_body<NTMAX, HARD, SEL_VSCAN, SUFFIX>(
             P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out,
             A.carry_out, A.dg_out, A.iters_out, wf_tables, cam, red, V,
-            A.vtab, BvParams(), skey, A.sfx);
+            A.vtab, BvParams(), skey, A.scr);
     } else {
-        wavefront_body<NTMAX, HARD, SEL_VSCAN, SUFFIX, SPLANES>(
+        wavefront_body<NTMAX, HARD, SEL_VSCAN, SUFFIX>(
             P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out,
             A.carry_out, A.dg_out, A.iters_out, wf_tables, cam, red, V,
-            A.vtab, BvParams(), nullptr, A.sfx);
+            A.vtab, BvParams(), nullptr, A.scr);
     }
 }
 
-template <int NTMAX, bool HARD, bool SUFFIX, bool SPLANES = false>
+// the dynamic shared memory of a chunk-scan grad launch: the chunk boxes,
+// then (HARD) the tangent planes and their sums
+static size_t vgrad_smem(const WfParams& P, const VsParams& V, bool hard) {
+    return sizeof(float) * ((size_t)table_pad(V.n_box)
+                            + (hard ? (size_t)10 * P.K * WF_THREADS : 0));
+}
+
+template <int NTMAX, bool HARD, bool SUFFIX>
 static int launch_grad_vscan(const WfParams& P, const VsParams& V,
                              const GradArgs& A, cudaStream_t stream) {
-    const size_t floats = (size_t)table_pad(V.n_box)
-        + (HARD ? (size_t)10 * P.K * WF_THREADS : 0)
-        + (SPLANES ? (size_t)6 * P.NT * WF_THREADS : 0);
-    const size_t smem = floats * sizeof(float);
+    const size_t smem = vgrad_smem(P, V, HARD);
     cudaError_t e = set_smem(
-        (const void*)
-            wavefront_grad_vscan_kernel<NTMAX, HARD, SUFFIX, SPLANES>,
-        smem);
+        (const void*)wavefront_grad_vscan_kernel<NTMAX, HARD, SUFFIX>, smem);
     if (e != cudaSuccess) return (int)e;
-    wavefront_grad_vscan_kernel<NTMAX, HARD, SUFFIX, SPLANES>
+    wavefront_grad_vscan_kernel<NTMAX, HARD, SUFFIX>
         <<<P.n_lanes / WF_THREADS, WF_THREADS, smem, stream>>>(P, V, A);
     return (int)cudaGetLastError();
 }
 
+// The weight planes (K3v), NT <= 32, alone (part 1) and with tangent
+// bundles (K4v riding them, HARD; part 3): the chunk scan's grad body with
+// the row planes. Alone it asks for WP_BLOCKS = 7 blocks an SM, its
+// registers held to 72 with 146 B of spill stores: at 5 blocks (96
+// registers, no spills) it is 12% slower at the 28-row shape (PERF.md);
+// with the tangent bundles WP_HARD_BLOCKS = 5 (96 registers, 616 B of
+// spills; 153 registers and three blocks, 4% slower).
+template <bool HARD>
+__global__ void __launch_bounds__(WF_THREADS,
+                                  HARD ? WP_HARD_BLOCKS : WP_BLOCKS)
+wavefront_planes_vscan_kernel(WfParams P, VsParams V, GradArgs A) {
+    __shared__ float cam[22];
+    __shared__ float red[(WF_THREADS / 32) * 3 * WP_TREE_ROWS];
+    __shared__ int skey[HARD ? MAX_SLOTS : 1];
+    wavefront_body<0, HARD, SEL_VSCAN, false, true>(
+        P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out, A.carry_out,
+        A.dg_out, A.iters_out, wf_tables, cam, red, V, A.vtab, BvParams(),
+        HARD ? skey : nullptr, A.scr, A.multi);
+}
+
+template <bool HARD>
+static int launch_planes_vscan(const WfParams& P, const VsParams& V,
+                               const GradArgs& A, cudaStream_t stream) {
+    const size_t smem = vgrad_smem(P, V, HARD);
+    cudaError_t e = set_smem(
+        (const void*)wavefront_planes_vscan_kernel<HARD>, smem);
+    if (e != cudaSuccess) return (int)e;
+    wavefront_planes_vscan_kernel<HARD>
+        <<<P.n_lanes / WF_THREADS, WF_THREADS, smem, stream>>>(P, V, A);
+    return (int)cudaGetLastError();
+}
+
+// blocks an SM the card keeps resident of that instance at smem bytes of
+// dynamic shared memory (for the checks on the card: chip_smoke.py)
+template <bool HARD>
+static int planes_vscan_blocks(int smem, int* out) {
+    const void* k = (const void*)wavefront_planes_vscan_kernel<HARD>;
+    const cudaError_t e = set_smem(k, (size_t)smem);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, k, WF_THREADS, (size_t)smem);
+}
+
 #if WF_IN_PART(1)
-// weight planes for NT <= 16, with or without tangent bundles
 int launch_vgrad_planes(const WfParams& P, const VsParams& V,
                         const GradArgs& A, cudaStream_t stream) {
-    if (P.K == 0)
-        return P.NT <= 8 ? launch_grad_vscan<8, false, false>(P, V, A, stream)
-                         : launch_grad_vscan<16, false, false>(P, V, A,
-                                                               stream);
-    return P.NT <= 8 ? launch_grad_vscan<8, true, false>(P, V, A, stream)
-                     : launch_grad_vscan<16, true, false>(P, V, A, stream);
+    return launch_planes_vscan<false>(P, V, A, stream);
+}
+
+extern "C" int rt_vgrad_planes_blocks(int smem, int* out) {
+    return planes_vscan_blocks<false>(smem, out);
 }
 #endif
 
@@ -2554,23 +2786,21 @@ int launch_vgrad_other(const WfParams& P, const VsParams& V,
 #endif
 
 #if WF_IN_PART(3)
-// weight planes for 17 to 32 rows, in shared memory, with or without
-// tangent bundles
-int launch_vgrad_splanes(const WfParams& P, const VsParams& V,
-                         const GradArgs& A, cudaStream_t stream) {
-    return P.K == 0 ? launch_grad_vscan<0, false, false, true>(P, V, A,
-                                                               stream)
-                    : launch_grad_vscan<0, true, false, true>(P, V, A,
-                                                              stream);
+int launch_vgrad_planes_hard(const WfParams& P, const VsParams& V,
+                             const GradArgs& A, cudaStream_t stream) {
+    return launch_planes_vscan<true>(P, V, A, stream);
+}
+
+extern "C" int rt_vgrad_planes_hard_blocks(int smem, int* out) {
+    return planes_vscan_blocks<true>(smem, out);
 }
 #endif
 
 #if WF_IN_PART(6) || WF_IN_PART(7)
 // ------------------------------------------------------ BVH walks (K11, K12)
 // The forward (K2's carry included) and the tex_color grad tiers with the
-// selection a BVH walk (SEL_STACK, K11; SEL_LANE, K12): weight planes in
-// registers for up to 16 rows, in shared memory for 17 to 32, the suffix
-// tier past them; no tangent bundles (hard slots on such a scene take the
+// selection a BVH walk (SEL_STACK, K11; SEL_LANE, K12): the row planes
+// (WpRows) for up to 32 rows, the suffix tier past them; no tangent bundles (hard slots on such a scene take the
 // adjoint, on the chunk scan). A.vtab is the walk's buffer (BvParams).
 template <int SEL>
 __global__ void __launch_bounds__(WF_THREADS)
@@ -2582,29 +2812,28 @@ wavefront_forward_bvh_kernel(WfParams P, BvParams B, GradArgs A) {
                                   VsParams(), A.vtab, B);
 }
 
-template <int SEL, int NTMAX, bool SUFFIX, bool SPLANES>
+// the suffix tier (K8's) on a walk
+template <int SEL>
 __global__ void __launch_bounds__(WF_THREADS)
 wavefront_grad_bvh_kernel(WfParams P, BvParams B, GradArgs A) {
     __shared__ float cam[22];
-    __shared__ float red[(WF_THREADS / 32) * 3 * (NTMAX > 0 ? NTMAX : 1)];
-    wavefront_body<NTMAX, false, SEL, SUFFIX, SPLANES>(
+    wavefront_body<0, false, SEL, true>(
         P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out, A.carry_out,
-        A.dg_out, A.iters_out, wf_tables, cam, red, VsParams(), A.vtab, B,
-        nullptr, A.sfx);
+        A.dg_out, A.iters_out, wf_tables, cam, nullptr, VsParams(), A.vtab,
+        B, nullptr, A.scr);
 }
 
-template <int SEL, int NTMAX, bool SUFFIX, bool SPLANES>
-static int launch_grad_bvh(const WfParams& P, const BvParams& B,
-                           const GradArgs& A, cudaStream_t stream) {
-    const size_t smem = sizeof(float)
-        * (SPLANES ? (size_t)6 * P.NT * WF_THREADS : 0);
-    cudaError_t e = set_smem(
-        (const void*)wavefront_grad_bvh_kernel<SEL, NTMAX, SUFFIX, SPLANES>,
-        smem);
-    if (e != cudaSuccess) return (int)e;
-    wavefront_grad_bvh_kernel<SEL, NTMAX, SUFFIX, SPLANES>
-        <<<P.n_lanes / WF_THREADS, WF_THREADS, smem, stream>>>(P, B, A);
-    return (int)cudaGetLastError();
+// the row planes (K3v's) on a walk, held to WP_BLOCKS blocks an SM as the
+// chunk scan's instance is
+template <int SEL>
+__global__ void __launch_bounds__(WF_THREADS, WP_BLOCKS)
+wavefront_planes_bvh_kernel(WfParams P, BvParams B, GradArgs A) {
+    __shared__ float cam[22];
+    __shared__ float red[(WF_THREADS / 32) * 3 * WP_TREE_ROWS];
+    wavefront_body<0, false, SEL, false, true>(
+        P, A.tables, A.pix_lanes, A.carry_in, A.cot, A.rad_out, A.carry_out,
+        A.dg_out, A.iters_out, wf_tables, cam, red, VsParams(), A.vtab, B,
+        nullptr, A.scr, A.multi);
 }
 
 // A.cot null: the forward; else the tex_color grad tier of P (dg_out as
@@ -2614,20 +2843,21 @@ static int launch_bvh(const WfParams& P, const BvParams& B,
                       const GradArgs& A, cudaStream_t stream) {
     if (P.n_lanes % WF_THREADS != 0 || B.n_nodes < 1 || B.n_srows < 0
         || B.n_qrows < 0 || (SEL == SEL_LANE && B.n_qrows != 0) || P.K != 0
-        || (A.cot && (!P.want_tex || P.NT < 1
-                      || (!P.suffix && P.NT > 32) || (P.suffix && !A.sfx))))
+        || (A.cot && (!P.want_tex || P.NT < 1 || !A.scr
+                      || (!P.suffix && P.NT > 32))))
         return (int)cudaErrorInvalidValue;
     if (!A.cot) {
         wavefront_forward_bvh_kernel<SEL>
             <<<P.n_lanes / WF_THREADS, WF_THREADS, 0, stream>>>(P, B, A);
         return (int)cudaGetLastError();
     }
-    if (P.suffix) return launch_grad_bvh<SEL, 0, true, false>(P, B, A, stream);
-    if (P.NT > 16)
-        return launch_grad_bvh<SEL, 0, false, true>(P, B, A, stream);
-    return P.NT <= 8 ? launch_grad_bvh<SEL, 8, false, false>(P, B, A, stream)
-                     : launch_grad_bvh<SEL, 16, false, false>(P, B, A,
-                                                              stream);
+    if (P.suffix)
+        wavefront_grad_bvh_kernel<SEL>
+            <<<P.n_lanes / WF_THREADS, WF_THREADS, 0, stream>>>(P, B, A);
+    else
+        wavefront_planes_bvh_kernel<SEL>
+            <<<P.n_lanes / WF_THREADS, WF_THREADS, 0, stream>>>(P, B, A);
+    return (int)cudaGetLastError();
 }
 
 // The walk's selection alone, one ray a thread, for the checks on the card
@@ -2668,10 +2898,11 @@ bvh_select_probe_kernel(BvParams B, const float* __restrict__ btab,
                         const float* tables, const float* btab,             \
                         const int* pix_lanes, const float* carry_in,        \
                         const float* cot, float* rad_out, float* carry_out, \
-                        float* dg_out, int* iters_out, float* sfx,          \
-                        void* stream) {                                     \
+                        float* dg_out, int* iters_out, float* scr,          \
+                        int* multi, void* stream) {                         \
         const GradArgs A = {tables, btab, pix_lanes, carry_in, cot,         \
-                            rad_out, carry_out, dg_out, iters_out, sfx};    \
+                            rad_out, carry_out, dg_out, iters_out, scr,     \
+                            multi};                                         \
         return launch_bvh<SEL>(*params, *bparams, A, (cudaStream_t)stream); \
     }
 #endif  // WF_IN_PART(6) || WF_IN_PART(7)
@@ -4178,7 +4409,10 @@ extern "C" int rt_wavefront_grad(const WfParams* params,
 // The chunk scan's grad passes: dg_out as rt_wavefront_grad's; P.suffix
 // selects the suffix tier (3 * NT route sums in place of the weight
 // planes' 3 * NT, its carry rows after the tangent planes: SFX_STATE, then
-// SFX_REC * max_depth of records; sfx its scratch, wavefront_body).
+// SFX_REC * max_depth of records). scr is the tex_color tier's scratch
+// (wavefront_body): the suffix tier's, or the weight planes' two columns;
+// multi (nullable) gets one for each path whose weight planes came to hold
+// a second row.
 extern "C" int rt_wavefront_grad_vscan(const WfParams* params,
                                        const VsParams* vparams,
                                        const float* tables,
@@ -4187,24 +4421,25 @@ extern "C" int rt_wavefront_grad_vscan(const WfParams* params,
                                        const float* carry_in,
                                        const float* cot, float* rad_out,
                                        float* carry_out, float* dg_out,
-                                       int* iters_out, float* sfx,
-                                       void* stream) {
+                                       int* iters_out, float* scr,
+                                       int* multi, void* stream) {
     const WfParams P = *params;
     const VsParams V = *vparams;
     if (P.n_lanes % WF_THREADS != 0 || V.C_small < 1 || V.n_big < 0
         || V.n_big > VCHUNK || V.Cq < 0 || V.n_box < 6 * V.C_small
         || !vscan_groups_ok(V)
         || P.K < 0 || P.K > MAX_SLOTS
-        || (P.suffix && (!P.want_tex || P.NT < 1 || !sfx))
-        || (!P.suffix && P.want_tex && (P.NT < 1 || P.NT > 32))
+        || (P.want_tex && (P.NT < 1 || !scr))
+        || (!P.suffix && P.want_tex && P.NT > 32)
+        || (P.suffix && !P.want_tex)
         || (!P.want_tex && P.K == 0))
         return (int)cudaErrorInvalidValue;
     const GradArgs A = {tables, vtab, pix_lanes, carry_in, cot, rad_out,
-                        carry_out, dg_out, iters_out, sfx};
+                        carry_out, dg_out, iters_out, scr, multi};
     cudaStream_t s = (cudaStream_t)stream;
     if (P.want_tex && !P.suffix)
-        return P.NT <= 16 ? launch_vgrad_planes(P, V, A, s)
-                          : launch_vgrad_splanes(P, V, A, s);
+        return P.K == 0 ? launch_vgrad_planes(P, V, A, s)
+                        : launch_vgrad_planes_hard(P, V, A, s);
     return launch_vgrad_other(P, V, A, s);
 }
 #endif  // WF_IN_PART(0)

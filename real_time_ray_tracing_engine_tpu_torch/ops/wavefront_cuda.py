@@ -274,9 +274,13 @@ def grad_gate_reason(flat: FlatScene, n_slots: int = 0,
     cannot run on the grad kernels (None = it can): the forward's gate; at
     most MAX_HARD_SLOTS slots (past them training takes the adjoint, K9,
     as the JAX package takes its adjoint kernels K9/K10); and the launch's
-    shared memory (grad_smem_bytes), which the chunk scan's weight planes
-    for 17 to MAX_GRAD_TEXS rows share with the tangent planes. The BVH
-    modes take no hard slot (hard_slots_gate_reason)."""
+    shared memory (grad_smem_bytes: the unrolled mode's tables beside the
+    tangent planes; past the unrolled mode the weight planes and the
+    suffix tier are in global memory, so up to MAX_HARD_SLOTS slots always
+    fit). want_tex does not change the answer (past the unrolled mode the
+    weight planes take no shared memory); it stays in the JAX rule's
+    signature. The BVH modes take no hard slot
+    (hard_slots_gate_reason)."""
     reason = kernel_gate_reason(flat)
     if reason is not None:
         return reason
@@ -287,7 +291,7 @@ def grad_gate_reason(flat: FlatScene, n_slots: int = 0,
         return (f"{n_slots} hard slots exceed the tangent-bundle kernel's "
                 f"MAX_HARD_SLOTS={MAX_HARD_SLOTS}; from 33 slots training "
                 "takes the adjoint backward (K9/K10; ops/adjoint_cuda.py)")
-    n_bytes = grad_smem_bytes(flat, n_slots, want_tex)
+    n_bytes = grad_smem_bytes(flat, n_slots)
     if n_bytes > MAX_SHARED_BYTES:
         return (f"a grad pass with {n_slots} hard slots and {NT} texture "
                 f"rows needs {n_bytes} B of shared memory, over the "
@@ -373,25 +377,35 @@ def _vscan_box_floats(flat: FlatScene) -> int:
     return 6 * (C_small + (1 if n_big else 0) + Cq)
 
 
-def grad_smem_bytes(flat: FlatScene, n_slots: int,
-                    want_tex: bool = True) -> int:
+def grad_smem_bytes(flat: FlatScene, n_slots: int) -> int:
     """Shared memory of a grad launch (csrc/wavefront.cu, wavefront_body):
     the tables (the unrolled mode, with the slot table), the chunk boxes
     (the chunk scan, whose tables and group boxes stay in global memory)
     or nothing (the BVH modes), padded as table_pad does; 10 floats a hard
-    slot a lane; past the unrolled mode, weight planes for more than
-    MAX_TEXS rows, 6
-    floats a row a lane (Wp and its cotangent sums Gp). The suffix tier's
-    route sums and records are in global memory."""
-    NT = flat.tex_type.shape[0]
+    slot a lane. The unrolled mode's weight planes are registers; past it
+    the weight planes of the rows a path holds and their cotangent sums are
+    rows of global memory (_tex_scratch_floats), as the suffix tier's route
+    sums and records are."""
     mode = kernel_mode(flat)[0]
     n = {"unrolled": _table_floats(flat) + 3 * n_slots,
          "vscan": _vscan_box_floats(flat)}.get(mode, 0)
-    n = -(-n // 32) * 32 + 10 * n_slots * LANE_BLOCK
-    if (tex_form(flat, want_tex) == "planes" and mode != "unrolled"
-            and NT > MAX_TEXS):
-        n += 6 * NT * LANE_BLOCK
-    return 4 * n
+    return 4 * (-(-n // 32) * 32 + 10 * n_slots * LANE_BLOCK)
+
+
+def _tex_scratch_floats(form: str | None, mode: str, nt: int, n_lanes: int,
+                        cap: int, max_depth: int) -> int:
+    """Floats of global scratch a tex_color grad launch needs
+    (csrc/wavefront.cu, wavefront_body's scr): past the unrolled mode the
+    weight planes' Gp rows and plane rows, 4 * NT floats a lane each;
+    the suffix tier's route sums, 3 * NT a warp, and (uncapped; a capped
+    pass keeps them in its carry) its records, SFX_REC floats each,
+    max_depth a lane; else none."""
+    if form == "planes" and mode != "unrolled":
+        return 8 * nt * n_lanes
+    if form == "suffix":
+        return (n_lanes // 32) * 3 * nt + (0 if cap else
+                                           SFX_REC * max_depth * n_lanes)
+    return 0
 
 
 # the JAX package's reason (pallas_hard_slots_gate_reason,
@@ -405,9 +419,8 @@ _BVH_SLOTS_REASON = ("hard-parameter slots need the unrolled or vscan kernel "
 
 def hard_slots_gate_reason(flat: FlatScene, n_slots: int) -> str | None:
     """Why n_slots hard slots cannot run in the grad kernel (None = they
-    can): grad_gate_reason without tex_color (the weight planes' shared
-    memory is counted where want_tex is known, at the launch); in the BVH
-    modes none can, as in the JAX package."""
+    can): grad_gate_reason without tex_color; in the BVH modes none can,
+    as in the JAX package."""
     return grad_gate_reason(flat, n_slots, want_tex=False)
 
 
@@ -1731,9 +1744,10 @@ class KernelLibrary:
         self.grad_vscan = self.lib.rt_wavefront_grad_vscan
         self.grad_vscan.restype = ctypes.c_int
         # params, vparams, tables, vtab, pix_lanes, carry_in, cotangent,
-        # rad_out, carry_out, dg_out, iters, the suffix scratch, stream
+        # rad_out, carry_out, dg_out, iters, the tex_color tier's scratch,
+        # the multi-row path counter, stream
         self.grad_vscan.argtypes = [ctypes.POINTER(_Params),
-                                    ctypes.POINTER(_VsParams)] + [ptr] * 11
+                                    ctypes.POINTER(_VsParams)] + [ptr] * 12
         self.adjoint = self.lib.rt_wavefront_adjoint
         self.adjoint.restype = ctypes.c_int
         # params, vparams, tables, vtab, cotangent, rad_out, acc_out, store,
@@ -1757,13 +1771,23 @@ class KernelLibrary:
                                        + [ptr] * 9 + [ctypes.c_int, ptr])
         # the BVH walks, forward (cot null) and tex_color grad: params,
         # bparams, tables, btab, pix_lanes, carry_in, cot, rad_out,
-        # carry_out, dg_out, iters, the suffix scratch, stream
+        # carry_out, dg_out, iters, the tex_color tier's scratch, the
+        # multi-row path counter, stream
         self.bvh = {"stack": self.lib.rt_wavefront_bvh_stack,
                     "lane": self.lib.rt_wavefront_bvh_lane}
         for fn in self.bvh.values():
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.POINTER(_Params),
-                           ctypes.POINTER(_BvParams)] + [ptr] * 11
+                           ctypes.POINTER(_BvParams)] + [ptr] * 12
+        # blocks an SM of the chunk scan's weight-plane instances (K3v;
+        # True: with tangent bundles, K4v) at a dynamic shared memory in
+        # bytes: smem, out
+        self.vgrad_planes_blocks = {
+            False: self.lib.rt_vgrad_planes_blocks,
+            True: self.lib.rt_vgrad_planes_hard_blocks}
+        for fn in self.vgrad_planes_blocks.values():
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int, ptr]
         # the walks' selections alone (bvh_select_kernel): bparams, btab,
         # rays, n, winners, ts, stream
         self.bvh_select = {"stack": self.lib.rt_bvh_select_stack,
@@ -1911,7 +1935,7 @@ def prepare_kernel(flat: FlatScene, cam: CameraState,
 def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
             width, height, n_strata, max_depth, n_samples, sky_gradient, cap,
             carry, pix_lanes, prepared, iters, cot, hard_slots=(),
-            want_tex=True):
+            want_tex=True, multi_rows=None):
     """Check the inputs, launch the forward (cot None) or the grad kernel on
     the current stream, and raise if the launch fails. Returns (radiance
     (3, n_lanes), carry or None, dG_tex (NT, 3) or None, dG_hard (K,) or
@@ -1945,6 +1969,11 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     n_rows = _kernel_carry_rows(n_wp, K, suffix, max_depth)
     _check_carry(carry, pix_lanes, n_lanes, n_rows)
     _check_iters(iters, n_lanes, device)
+    if multi_rows is not None and (multi_rows.device != device
+                                   or multi_rows.dtype != torch.int32
+                                   or multi_rows.shape != (1,)):
+        raise ValueError("multi_rows must be a (1,) int32 tensor on the "
+                         "scene's device")
     if n_strata * n_strata + int(sample_start) >= 1 << 24:
         raise ValueError("sample indices must stay below 2^24")
 
@@ -1965,18 +1994,23 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
             .contiguous()
     if carry is not None:
         carry = carry.to(device=device, dtype=torch.float32).contiguous()
-    sfx = None
-    if suffix:
-        # the suffix tier's scratch: each warp's 3 * NT route sums, then
-        # (uncapped; a capped pass keeps them in its carry) the records,
-        # SFX_REC floats each, max_depth a lane
-        n_warps = n_lanes // 32
-        n_sfx = n_warps * 3 * nt + (0 if cap else
-                                    SFX_REC * max_depth * n_lanes)
-        check_free(device, 4 * (n_sfx + (n_rows * n_lanes if cap else 0)),
-                   f"the suffix tier's scratch and carry ({n_lanes} lanes, "
-                   f"depth {max_depth})")
-        sfx = torch.empty(n_sfx, dtype=torch.float32, device=device)
+    scratch = None
+    n_scr = _tex_scratch_floats(
+        tex_form(flat, want_tex) if cot is not None else None,
+        prepared.mode, nt, n_lanes, cap, max_depth)
+    if n_scr:
+        # the tex_color tier's scratch (_tex_scratch_floats), not zeroed:
+        # the kernel writes each cell before it reads it. The suffix tier's
+        # records grow with max_depth and are checked against the free
+        # memory first; the weight planes' rows are bounded (8 * NT <= 256
+        # floats a lane, about a capped pass's carry) and skip the check,
+        # 0.4-0.8 ms of host time a launch (scripts/port_profile.py k3vnew)
+        if suffix:
+            check_free(device,
+                       4 * (n_scr + (n_rows * n_lanes if cap else 0)),
+                       f"the suffix tier's scratch and carry ({n_lanes} "
+                       f"lanes, depth {max_depth})")
+        scratch = torch.empty(n_scr, dtype=torch.float32, device=device)
     rad = torch.empty(3, n_lanes, dtype=torch.float32, device=device)
     st = (torch.empty(n_rows, n_lanes, dtype=torch.float32, device=device)
           if cap else None)
@@ -1995,7 +2029,7 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
                 ctypes.byref(p), ctypes.byref(_BvParams(**prepared.bfields)),
                 ptr(prepared.tables), ptr(prepared.btab), ptr(pix_lanes),
                 ptr(carry), ptr(cot), ptr(rad), ptr(st), ptr(partial),
-                ptr(iters), ptr(sfx), stream)
+                ptr(iters), ptr(scratch), ptr(multi_rows), stream)
         elif cot is None and prepared.mode == "vscan":
             err = lib.forward_vscan(
                 ctypes.byref(p), ctypes.byref(_VsParams(**prepared.vfields)),
@@ -2021,7 +2055,8 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
                     ctypes.byref(_VsParams(**prepared.vfields)),
                     ptr(prepared.tables), ptr(prepared.vtab),
                     ptr(pix_lanes), ptr(carry), ptr(cot), ptr(rad),
-                    ptr(st), ptr(partial), ptr(iters), ptr(sfx), stream)
+                    ptr(st), ptr(partial), ptr(iters), ptr(scratch),
+                    ptr(multi_rows), stream)
             else:
                 err = lib.grad(ctypes.byref(p), ptr(prepared.tables),
                                ptr(pix_lanes), ptr(carry), ptr(cot),
@@ -2087,7 +2122,7 @@ def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
                             sky_gradient: bool = False, cap: int = 0,
                             carry=None, pix_lanes=None,
                             prepared: KernelInputs | None = None,
-                            iters=None):
+                            iters=None, multi_rows=None):
     """The grad kernel's (K3, K4, K8) wrapper: render_pass_grad_reference's
     signature and results (the tier by tex_form), on a CUDA device.
     `prepared` is prepare_kernel(flat, cam, hard_slots), packed here when
@@ -2099,9 +2134,13 @@ def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
     semantics; the suffix tier traces each sample once (csrc/wavefront.cu,
     K8), so its bounces are the forward's, and its capped carry holds the
     path total, the path's record count and its records
-    (_kernel_carry_rows) in place of the plain version's phase and prefix;
-    its scratch (each warp's route sums and, uncapped, the records) is
-    checked against the device's free memory. Raises as render_pass_kernel
+    (_kernel_carry_rows) in place of the plain version's phase and prefix.
+    The tex_color tier's scratch in global memory (_tex_scratch_floats:
+    the chunk scan's and the walks' weight-plane rows, or the suffix
+    tier's route sums and records; the latter checked against the
+    device's free memory). `multi_rows`, a (1,) int32 tensor, gets one
+    for each path whose weight planes came to hold a second row on those
+    instances. Raises as render_pass_kernel
     does, for a malformed cotangent, for a pass outside grad_gate_reason
     and for scratch past the free memory. Each launch adds one to
     render_pass_grad_kernel.launches; one with hard slots (the K4
@@ -2119,7 +2158,7 @@ def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
         prepared=prepared, iters=iters, cot=cot, hard_slots=hard_slots,
-        want_tex=want_tex)
+        want_tex=want_tex, multi_rows=multi_rows)
     render_pass_grad_kernel.launches += 1
     form = tex_form(flat, want_tex)
     if hard_slots:

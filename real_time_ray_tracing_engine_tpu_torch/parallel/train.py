@@ -25,7 +25,10 @@ The tier policy is the JAX package's (train.py:160-216, `use_adjoint`): a
 request with hard slots takes the adjoint (K9/K10) when it has
 ADJOINT_MIN_SLOTS slots or more, or when the forward-mode kernels cannot
 serve a scene inside their gate (grad_gate_reason on a scene
-kernel_gate_reason admits); every other request takes the forward-mode
+kernel_gate_reason admits); the port adds one rule of its own, measured
+on the card: tex_color's weight planes of more than MAX_TEXS rows beside
+ADJOINT_PLANES_SLOTS slots or more take the adjoint too. Every other
+request takes the forward-mode
 tiers as before, so a scene outside the kernels' gate, which only the
 plain engine renders, keeps the plain tangent bundles under
 ADJOINT_MIN_SLOTS. The adjoint returns every family's gradient, and each
@@ -58,7 +61,7 @@ from ..models.camera import CameraState
 from ..models.render import pick_engine
 from ..ops.adjoint_cuda import (adjoint_pass_function, adjoint_sweep,
                                 plain_adjoint_pass)
-from ..ops.wavefront_cuda import (HARD_FIELDS, MAX_GRAD_TEXS,
+from ..ops.wavefront_cuda import (HARD_FIELDS, MAX_GRAD_TEXS, MAX_TEXS,
                                   grad_gate_reason, grad_pass_function,
                                   hard_param_slots, kernel_gate_reason,
                                   pass_function,
@@ -74,6 +77,15 @@ TRAINABLE_FIELDS = ("tex_color", "mat_fuzz", "mat_ior", "sph_center",
 # from this many hard slots training takes the adjoint (K9/K10), below it the
 # tangent bundles (JAX train.py:43)
 ADJOINT_MIN_SLOTS = 33
+# from this many hard slots beside the chunk scan's weight planes of more
+# than MAX_TEXS rows (K3v with K4v's tangent bundles) training takes the
+# adjoint as well: on chip_smoke.py's 31-row metals scene at 1200x675
+# spp16 d50 K3v + K4v takes 16.92 ms with 16 fuzz slots and 29.26 with 24,
+# K9 21.45 on the same request (an NVIDIA H100 80GB HBM3 at 700 W;
+# scripts/port_profile.py k3vnew, PERF.md). The requests the adjoint took
+# while those planes were in shared memory (30 slots beside 31 rows) stay
+# on it.
+ADJOINT_PLANES_SLOTS = 20
 # a pass of at least this many samples takes the compacted schedule, as the
 # JAX make_kernel_render does (train.py:136-146)
 COMPACT_MIN_SAMPLES = 8
@@ -108,7 +120,10 @@ def grad_slots(flat: FlatScene, fields) -> tuple:
 
 def use_adjoint(flat: FlatScene, slots: tuple, want_tex: bool) -> bool:
     """Whether a request takes the adjoint backward (JAX train.py:196-199):
-    it has hard slots, and either ADJOINT_MIN_SLOTS of them or a pass the
+    it has hard slots, and either ADJOINT_MIN_SLOTS of them,
+    ADJOINT_PLANES_SLOTS of them beside tex_color's weight planes of more
+    than MAX_TEXS rows on a scene inside the kernels' gate (the port's
+    rule: K9 measured faster there), or a pass the
     forward-mode kernels cannot serve on a scene inside their gate
     (grad_gate_reason; in the BVH modes, K11 and K12, any hard slot, since
     their walks carry no tangent bundles, as in the JAX package: tex_color
@@ -116,9 +131,13 @@ def use_adjoint(flat: FlatScene, slots: tuple, want_tex: bool) -> bool:
     scene outside the forward kernel's gate
     (kernel_gate_reason, which is the adjoint kernel's too) is no reason:
     only the plain engine renders it, and its tangent bundles serve it."""
+    inside = kernel_gate_reason(flat) is None
     return bool(slots) and (
         len(slots) >= ADJOINT_MIN_SLOTS
-        or (kernel_gate_reason(flat) is None
+        or (inside and len(slots) >= ADJOINT_PLANES_SLOTS
+            and tex_form(flat, want_tex) == "planes"
+            and flat.tex_type.shape[0] > MAX_TEXS)
+        or (inside
             and grad_gate_reason(flat, len(slots), want_tex) is not None))
 
 

@@ -3,6 +3,7 @@
 its outputs for a bit-for-bit comparison with another checkout's.
 
     python3 scripts/port_kernel_times.py ROOT [--outputs FILE | --forward]
+    python3 scripts/port_kernel_times.py ROOT --outputs-only FILE PREFIXES
     python3 scripts/port_kernel_times.py --compare FILE_A FILE_B
     python3 scripts/port_kernel_times.py --sass ROOT_A ROOT_B PATTERN...
 
@@ -24,15 +25,17 @@ suffix-radiance tier, that grad kernel (K8) at bouncing_spheres 1200x675
 spp16 d50 (single pass), and the chunk scan's other grad tiers at
 chip_smoke.py's large_grad_times shapes (1200x675 spp16 d50): K8 with the
 IOR slot (K4v) under the sky gradient, the weight planes (K3v) on the
-80-sphere scene and in shared memory on the 28-row scene, and the tangent
-bundles alone (K4v) on the 79-sphere scene's 4 slots; where it has the
+80-sphere scene and on the 28-row scene, with K4v's fuzz slot (sky
+gradient) and fuzz and IOR slots on them, and the tangent bundles alone
+(K4v) on the 79-sphere scene's 4 slots; where it has the
 adjoint, K9 there under the sky gradient and at 400x225 spp9 d50 under the
 flat sky (the JAX bench line's shape); where it has the segmented adjoint,
 K10 (SEG 8) at both; where it has the BVH walks, K11 (RTX_BVH_STACK=1) and
 K12 (RTX_LANE_BVH=1) on bouncing_spheres -b at 400x225 spp9 d50 and
 1200x675 spp16 d50 and on the 4,913- and 32,768-sphere grids -b at 400x225
-spp9 d8, K11 on the city -b (single pass), and their suffix tiers' grad
-instances on bouncing_spheres -b at 1200x675 spp16 d50. With the times it
+spp9 d8, K11 on the city -b (single pass), their suffix tiers' grad
+instances on bouncing_spheres -b at 1200x675 spp16 d50 and their weight
+planes on K3v's two scenes -b at the same shape. With the times it
 prints each kernel's ptxas registers, stack and spills from the library's
 build. Prints one JSON line. With --forward it times the unrolled
 forward's shapes and the CLI's render alone (any checkout whose
@@ -42,8 +45,10 @@ With --outputs it also saves (torch.save) the grad kernels' outputs, the
 image, dG_tex and dG_hard of single passes at seed 7: K3's at Cornell
 1920x1080 spp64 d50 and on chip_smoke.py's grad parity scenes (Cornell
 128x128 spp16 d50, cornell_smoke, Cornell 1920x1080 spp4 d50) and a 16-row
-scene (its NTMAX 16); K3v's in registers (the 80-sphere scene) and in
-shared memory (the 28-row scene) at 1200x675 spp4 d50; K4's at Cornell
+scene (its NTMAX 16); K3v's on the 80-sphere scene and the 28-row
+scene at 1200x675 spp4 d50, with K4v's fuzz slot (80 spheres, sky
+gradient) and fuzz and IOR slots (28 rows), and in the closed room at
+400x225 spp4 d50 (paths holding many rows); K4's at Cornell
 1920x1080 spp64 d50 (9 slots) and on chip_smoke.py's hard-slot parity
 scenes (Cornell, three_spheres, Cornell 1920x1080 spp4 d50) and on a
 sphere-light scene (materials, 26 slots) and a medium scene
@@ -51,8 +56,9 @@ sphere-light scene (materials, 26 slots) and a medium scene
 light kinds, a medium; 9 slots: a fuzz, the ground sphere, the sphere
 light); K8's on bouncing_spheres at 1200x675 spp16 d50, with the IOR slot
 (K4v) at 400x225 spp4 d50, and on the suffix scene; the BVH walks' suffix
-tiers (K11, K12) on bouncing_spheres -b at 1200x675 spp4 d50 and K11's
-shared-memory planes on the 28-row scene -b; each chunk-scan and walk case
+tiers (K11, K12) on bouncing_spheres -b at 1200x675 spp4 d50 and their
+weight planes on the 28-row scene -b (K11 also on the 80-sphere scene
+-b); each chunk-scan and walk case
 also under the compacted schedule. The unrolled forward's (K1) image and
 bounces of a single pass, radiance, carry and bounces of a capped pass
 (cap 40) and of the capped pass resumed from its carry under a lane
@@ -64,7 +70,9 @@ compacted image: K6 on bouncing_spheres 1200x675 spp4 d50 and the
 the 4,913- and 32,768-sphere grids -b, K11 on the city -b and on a chain
 of spheres whose walk outgrows its short stack. The adjoint's image and
 grads dict, K9 and K10 (SEG 8), on bouncing_spheres 400x225 spp9 d50 under
-the sky gradient. --compare prints, per output of two such files, whether
+the sky gradient. --outputs-only saves the grad cases whose names start
+with one of the comma-separated PREFIXES and times nothing. --compare
+prints, per output of two such files, whether
 they are equal bit for bit and otherwise the largest difference, and how
 many are equal.
 
@@ -243,6 +251,20 @@ def kernel_times(root: str, forward_only: bool = False) -> dict:
                 out[f"bvh_{mode}_suffix_bouncing_1200_spp16_ms"] = \
                     cs.cuda_ms(torch, lambda: grad(flat, cam, 0, 0,
                                                    cotangent=g, **kw))
+        # the walks' weight-plane tiers (K3v's scenes compiled with -b)
+        for name, scene in (
+                ("scan_tex", cs.wide(cs.scan_tex_scene(pt), 1200, 16, 50)),
+                ("rows28", cs.wide(cs.rows_scene(pt), 1200, 16, 50))):
+            flat, cam, kw = cs.pass_args(pt, scene, dev, use_bvh=True)
+            g = cs.cotangent(torch, kw, dev, 6)
+            for mode in ("stack", "lane"):
+                with cs.kernel_mode_env(mode):
+                    grad = functools.partial(
+                        wc.render_pass_grad_kernel,
+                        prepared=wc.prepare_kernel(flat, cam))
+                    out[f"bvh_{mode}_planes_{name}_1200_spp16_ms"] = \
+                        cs.cuda_ms(torch, lambda: grad(flat, cam, 0, 0,
+                                                       cotangent=g, **kw))
     return out
 
 
@@ -256,6 +278,12 @@ def _vscan_grad_cases(pt):
              cs.wide(cs.scan_tex_scene(pt), 1200, 16, 50), (), True, False),
             ("k3v_rows28_1200_spp16",
              cs.wide(cs.rows_scene(pt), 1200, 16, 50), (), True, False),
+            ("k3v_k4v_scan_tex_fuzz_1200_spp16_sky",
+             cs.wide(cs.scan_tex_scene(pt), 1200, 16, 50), "mat_fuzz", True,
+             True),
+            ("k3v_k4v_rows28_fuzz_ior_1200_spp16",
+             cs.wide(cs.rows_scene(pt), 1200, 16, 50), "mat_fuzz,mat_ior",
+             True, False),
             ("k4v_vscan_slots_1200_spp16",
              cs.wide(cs.vscan_slots_scene(pt), 1200, 16, 50), "jax_test",
              False, False))
@@ -265,7 +293,7 @@ def _slots(wc, flat, slots):
     """A case's hard slots: "jax_test" (chip_smoke.vscan_slots), "all",
     "mixed9" (the first material slot, the first sphere's 4 and the last
     sphere's 4: the ground and the sphere light of the MIS + medium scene),
-    a field name (its slots), or ()."""
+    field names joined by commas (their slots), or ()."""
     from real_time_ray_tracing_engine_tpu_torch.scene.flat import (
         MAT_DIELECTRIC, MAT_METAL)
     if slots == "jax_test":
@@ -278,17 +306,18 @@ def _slots(wc, flat, slots):
     if slots == "all":
         return wc.hard_param_slots(flat)
     if slots:
-        return wc.hard_param_slots(flat, {slots})
+        return wc.hard_param_slots(flat, set(slots.split(",")))
     return ()
 
 
-def kernel_outputs(root: str) -> dict:
+def kernel_outputs(root: str, only: tuple = ()) -> dict:
     """{name: {part: tensor}} on the cases the module docstring lists, at
     seed 7: the grad kernels' image, dG_tex and dG_hard of single passes
     (and, on the chunk scan's and the walks' cases, of the compacted
     schedule); the forward kernels' image and bounces of single passes and
     image of the compacted schedule; the adjoint sweeps' image and grads
-    dict."""
+    dict. `only` (name prefixes) keeps the grad cases whose names start
+    with one of them, and nothing else."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -339,7 +368,20 @@ def kernel_outputs(root: str) -> dict:
         ("k12_suffix_bouncing_1200x675_spp4_d50",
          cs.builtin(pt, "bouncing_spheres", 1200, 4, 50), (), False),
         ("k11_rows28_1200x675_spp4_d50",
-         cs.wide(cs.rows_scene(pt), 1200, 4, 50), (), False))
+         cs.wide(cs.rows_scene(pt), 1200, 4, 50), (), False),
+        ("k12_rows28_1200x675_spp4_d50",
+         cs.wide(cs.rows_scene(pt), 1200, 4, 50), (), False),
+        ("k11_scan_tex_1200x675_spp4_d50",
+         cs.wide(cs.scan_tex_scene(pt), 1200, 4, 50), (), False),
+        ("k3v_k4v_scan_tex_fuzz_1200x675_spp4_d50_sky",
+         cs.wide(cs.scan_tex_scene(pt), 1200, 4, 50), "mat_fuzz", True),
+        ("k3v_k4v_rows28_fuzz_ior_1200x675_spp4_d50",
+         cs.wide(cs.rows_scene(pt), 1200, 4, 50), "mat_fuzz,mat_ior",
+         False),
+        ("k3v_room_400x225_spp4_d50",
+         cs.wide(cs.room_scene(pt), 400, 4, 50), (), False))
+    if only:
+        cases = tuple(c for c in cases if c[0].startswith(only))
     out = {}
     for name, scene, slots, sky in cases:
         mode = {"k11": "stack", "k12": "lane"}.get(name[:3], "vscan")
@@ -364,6 +406,8 @@ def kernel_outputs(root: str) -> dict:
         out[name] = _cpu(torch, parts)
         del parts
         torch.cuda.empty_cache()
+    if only:
+        return out
     # the unrolled forward (K1) and its capped / resumed passes (K2): the
     # image and bounces of a single pass; the radiance, carry and bounces
     # of a capped pass and of a capped pass resumed from its carry under a
@@ -538,6 +582,10 @@ if __name__ == "__main__":
     elif sys.argv[1] == "--sass":
         print(json.dumps(compare_sass(sys.argv[2], sys.argv[3],
                                       sys.argv[4:])), flush=True)
+    elif len(sys.argv) > 4 and sys.argv[2] == "--outputs-only":
+        import torch
+        torch.save(kernel_outputs(sys.argv[1], tuple(sys.argv[4].split(","))),
+                   sys.argv[3])
     else:
         print(json.dumps(kernel_times(sys.argv[1], "--forward" in sys.argv)),
               flush=True)

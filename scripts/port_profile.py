@@ -100,6 +100,31 @@ fails: the sets name the source they apply to. SET is one of:
           alone, and persistent threads (K1's); the layouts and block
           counts in two turns each.
 
+  k3v     (the source before K3v's redesign, commit 9c24ad0; a checkout
+          of it as ROOT): K3v, wavefront_grad_vscan_kernel<8, false,
+          false> on the 80-sphere scene (7 rows) and <0, false, false,
+          true> (its planes in shared memory) on the 28-row scene, at
+          1200x675 spp16 d50, single pass and compacted: whole; with the
+          planes' updates left out; the histograms of the distinct eff
+          rows a path scatters on (its Wp rows) and of the rows a lane's
+          Gp touches over its samples, with the rows a scatter's and a
+          radiance event's planes hold; beside them the chunk-scan forward
+          (K6) on both scenes and the suffix tier (K8) forced onto the
+          28-row scene; ptxas figures and blocks an SM of each.
+  k3vnew  (this source): K3v's row planes (wavefront_planes_vscan_kernel)
+          on both scenes, with K4v's slots, and the walks'
+          (wavefront_planes_bvh_kernel) on the 28-row scene -b: the
+          source's 7 blocks an SM (5 with the slots); 4, 5, 6 and 8 blocks
+          (2, 3 and 4 with the slots; the walks 5, 6 and no block count);
+          the planes' updates left out, at the scatter only or at the
+          radiance events only; the source again, measured last; K6
+          beside them; the host's free-memory check and scratch
+          allocation, which a pass's CUDA-event time also counts; and
+          tex_color with 8, 16, 24 and 30 fuzz slots on chip_smoke.py's
+          metals scene (31 rows) at 1200x675 spp16 d50 under the sky
+          gradient, K3v with K4v's slots, beside the adjoint (K9) on the
+          same request.
+
 Prints one JSON line per measurement and each build's ptxas figures of the
 kernels under study (registers, stack, spills).
 """
@@ -1520,6 +1545,332 @@ def selection_splits(torch, pt, wc, dev, libs, variants, shapes, which):
                 print(json.dumps(rec), flush=True)
 
 
+# ---- the chunk scan's weight planes (K3v): wavefront_grad_vscan_kernel
+# <8, false, false> (NT <= 16, part 1) on the 80-sphere scene and <0, false,
+# false, true> (NT 17-32, planes in shared memory, part 3) on the 28-row
+# scene, at 1200x675 spp16 d50; beside them the chunk-scan forward (K6,
+# part 0) on both scenes and the suffix tier (K8, part 2) forced onto the
+# 28-row scene (tex_form "suffix") as yardsticks. Each variant adds
+# rt_prof_occupancy(smem, out) for its instance in its part.
+K3V_SHAPES = (
+    ("scan_tex80_1200x675_spp16_d50",
+     lambda pt: cs.wide(cs.scan_tex_scene(pt), 1200, 16, 50), "vscan"),
+    ("rows28_1200x675_spp16_d50",
+     lambda pt: cs.wide(cs.rows_scene(pt), 1200, 16, 50), "vscan"),
+    ("rows28_b_stack_1200x675_spp16_d50",
+     lambda pt: cs.wide(cs.rows_scene(pt), 1200, 16, 50), "stack"),
+    ("rows28_b_lane_1200x675_spp16_d50",
+     lambda pt: cs.wide(cs.rows_scene(pt), 1200, 16, 50), "lane"))
+_K3V_PART_HEAD = {
+    1: "#if WF_IN_PART(1)\n",
+    2: "#if WF_IN_PART(2)\n",
+    3: "#if WF_IN_PART(3)\n"}
+
+
+def _occ_vgrad(part: int, inst: str) -> tuple:
+    """rt_prof_occupancy for wavefront_grad_vscan_kernel<inst> in `part`."""
+    head = _K3V_PART_HEAD[part]
+    return (head, head + f"""extern "C" int rt_prof_occupancy(int smem, int* out) {{
+    const cudaError_t e = set_smem(
+        (const void*)wavefront_grad_vscan_kernel<{inst}>, (size_t)smem);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, wavefront_grad_vscan_kernel<{inst}>, WF_THREADS, (size_t)smem);
+}}
+""")
+
+
+# the shared-memory planes' updates left out (miss, emission, scatter)
+_K3V_NO_SW = [("for (int k = 0; k < n_sw; ++k)",
+               "for (int k = 0; k < 0; ++k)")]
+# per path, the distinct eff rows its scatters write into Wp (a histogram
+# of their count at the path's end, prof_hist[0..32]); per lane, the rows
+# its radiance events read or add into Gp over all its samples
+# (prof_hist[33..65]); the radiance events and the Wp rows each one reads
+# (66, 67); the scatters and the Wp rows after each (68, 69)
+_K3V_HIST = [
+    ("#define SEL_LANE 3      // the lane BVH (K12)",
+     """#define SEL_LANE 3      // the lane BVH (K12)
+__device__ unsigned long long prof_hist[70];
+extern "C" int rt_prof_hist(unsigned long long* out, int reset) {
+    cudaError_t e = cudaMemcpyFromSymbol(out, prof_hist,
+                                         70 * sizeof(unsigned long long));
+    if (reset) {
+        unsigned long long z[70] = {0};
+        cudaMemcpyToSymbol(prof_hist, z, sizeof(z));
+    }
+    return (int)e;
+}"""),
+    ("    int it = 0;\n    for (;;) {\n",
+     "    uint32_t prof_pm = 0u, prof_lm = 0u;\n"
+     "    int it = 0;\n    for (;;) {\n"),
+    ("u_med, Seeds<0>{}, Wp, Gp, gc, (SUFFIX || HARD) ? &ev : nullptr,",
+     "u_med, Seeds<0>{}, Wp, Gp, gc, &ev,"),
+    ("            alive = alive_new && bounce < P.max_depth;\n",
+     """            if constexpr (NTMAX > 0 || SPLANES) {
+                if (!ev.hit || ev.emit) {
+                    atomicAdd(&prof_hist[66], 1ull);
+                    atomicAdd(&prof_hist[67],
+                              (unsigned long long)__popc(prof_pm));
+                    prof_lm |= prof_pm;
+                    if (ev.emit && ev.eff >= 0) prof_lm |= 1u << ev.eff;
+                }
+                if (alive_new && ev.hit && ev.eff >= 0 && !ev.diel) {
+                    prof_pm |= 1u << ev.eff;
+                    atomicAdd(&prof_hist[68], 1ull);
+                    atomicAdd(&prof_hist[69],
+                              (unsigned long long)__popc(prof_pm));
+                }
+            }
+            alive = alive_new && bounce < P.max_depth;
+            if constexpr (NTMAX > 0 || SPLANES) {
+                if (!alive) {
+                    atomicAdd(&prof_hist[__popc(prof_pm)], 1ull);
+                    prof_pm = 0u;
+                }
+            }
+"""),
+    ("\n    rad_out[0 * N + lane] = rad.x;",
+     """
+    if constexpr (NTMAX > 0 || SPLANES)
+        atomicAdd(&prof_hist[33 + __popc(prof_lm)], 1ull);
+    rad_out[0 * N + lane] = rad.x;""")]
+_OCC_K3V16 = _occ_vgrad(1, "8, false, false")
+_OCC_K3V28 = _occ_vgrad(3, "0, false, false, true")
+K3V_SETS = ("k3v", "k3vnew")
+SETS["k3v"] = [
+    ("k3v16", "whole", 1, [_OCC_K3V16]),
+    ("k3v16", "no_plane_updates", 1, _K3_NO_UPDATES + [_OCC_K3V16]),
+    ("k3v16", "hist", 1, _K3V_HIST + [_OCC_K3V16]),
+    ("k3v28", "whole", 3, [_OCC_K3V28]),
+    ("k3v28", "no_plane_updates", 3, _K3V_NO_SW + [_OCC_K3V28]),
+    ("k3v28", "hist", 3, _K3V_HIST + [_OCC_K3V28]),
+    ("k6", "forward", 0, [_OCC_K6]),
+    ("k8", "forced_rows28", 2, [_occ_vgrad(2, "0, false, true")]),
+]
+
+
+# ---- this source's K3v: the row planes, a path's rows in global scratch
+# and a bit a row in a register (wavefront_planes_vscan_kernel<false>, part
+# 1, held to WP_BLOCKS blocks an SM; its blocks an SM from
+# rt_vgrad_planes_blocks) on both scenes, with K4v's slots (<true>, part 3,
+# WP_HARD_BLOCKS), and the walks' row planes (wavefront_planes_bvh_kernel,
+# parts 6 and 7) on the 28-row scene -b: the source's (7 blocks; 5 with the
+# slots); 4, 5, 6 and 8 blocks an SM (2, 3, 4 with the slots; the walks 5,
+# 6 and no block count); the planes' updates left out (miss, emission and
+# scatter), at the scatter only or at the radiance events only (the path
+# then holds no row); the source's build again, measured last; and (its
+# build) K3v with 8 to 30 of K4v's slots on the metals scene beside K9
+def _wp_blocks(n: int) -> tuple:
+    return ("#define WP_BLOCKS 7 ", f"#define WP_BLOCKS {n} ")
+
+
+def _bvh_unbounded() -> tuple:
+    return ("__launch_bounds__(WF_THREADS, WP_BLOCKS)\n"
+            "wavefront_planes_bvh_kernel(",
+            "__launch_bounds__(WF_THREADS)\nwavefront_planes_bvh_kernel(")
+
+
+_K3VL_NO_UPDATES = [("            if (wpl) {", "            if (wpl && false) {")]
+_K3VL_NO_RADIANCE = [
+    ("                wp_miss(*wpl, wcol, gc, sk);", "                (void)sk;"),
+    ("                wp_emit(*wpl, wcol, gc, tv, tt, eff);",
+     "                (void)tv;")]
+_K3VL_NO_SCATTER = [
+    ("                wp_scatter(*wpl, wcol, is_diel ? -1 : eff, av, tt, factor);",
+     "                (void)av;")]
+
+
+def _wp_hard_blocks(n: int) -> tuple:
+    return ("#define WP_HARD_BLOCKS 5 ", f"#define WP_HARD_BLOCKS {n} ")
+
+
+SETS["k3vnew"] = [
+    ("k3vl", "7_blocks", 1, []),
+    ("k3vl", "6_blocks", 1, [_wp_blocks(6)]),
+    ("k3vl", "4_blocks", 1, [_wp_blocks(4)]),
+    ("k3vl", "5_blocks", 1, [_wp_blocks(5)]),
+    ("k3vl", "8_blocks", 1, [_wp_blocks(8)]),
+    ("k3vl", "7_blocks_no_plane_updates", 1, _K3VL_NO_UPDATES),
+    ("k3vl", "7_blocks_radiance_only", 1, _K3VL_NO_SCATTER),
+    ("k3vl", "7_blocks_scatter_only", 1, _K3VL_NO_RADIANCE),
+    ("k3vl", "7_blocks_again", 1, [("#define WP_TREE_ROWS 16 ",
+                                    "#define WP_TREE_ROWS (16) ")]),
+    ("k3vlh", "hard_5_blocks", 3, []),
+    ("k3vlh", "hard_3_blocks", 3, [_wp_hard_blocks(3)]),
+    ("k3vlh", "hard_4_blocks", 3, [_wp_hard_blocks(4)]),
+    ("k3vlh", "hard_2_blocks", 3, [_wp_hard_blocks(2)]),
+    ("k11p", "7_blocks", 6, []),
+    ("k11p", "6_blocks", 6, [_wp_blocks(6)]),
+    ("k11p", "5_blocks", 6, [_wp_blocks(5)]),
+    ("k11p", "no_block_count", 6, [_bvh_unbounded()]),
+    ("k12p", "7_blocks", 7, []),
+    ("k12p", "6_blocks", 7, [_wp_blocks(6)]),
+    ("k12p", "5_blocks", 7, [_wp_blocks(5)]),
+    ("k12p", "no_block_count", 7, [_bvh_unbounded()]),
+    ("k6", "forward", 0, [_OCC_K6]),
+]
+# the kernels' symbols (patterns) and the shapes each runs at
+_K3V_SYMBOLS = {"k3v16": r"_Z27wavefront_grad_vscan_kernelILi8ELb0ELb0E",
+                "k3v28": r"_Z27wavefront_grad_vscan_kernelILi0ELb0ELb0ELb1E",
+                "k3vl": r"_Z29wavefront_planes_vscan_kernelILb0E",
+                "k3vlh": r"_Z29wavefront_planes_vscan_kernelILb1E",
+                "k11p": r"_Z27wavefront_planes_bvh_kernelILi2E",
+                "k12p": r"_Z27wavefront_planes_bvh_kernelILi3E",
+                "k6": r"wavefront_forward_vscan_kernel$",
+                "k8": r"_Z27wavefront_grad_vscan_kernelILi0ELb0ELb1E"}
+_K3V_RUNS = {"k3v16": (K3V_SHAPES[0][0],), "k3v28": (K3V_SHAPES[1][0],),
+             "k3vl": (K3V_SHAPES[0][0], K3V_SHAPES[1][0]),
+             "k6": (K3V_SHAPES[0][0], K3V_SHAPES[1][0]),
+             "k8": (K3V_SHAPES[1][0],), "k11p": (K3V_SHAPES[2][0],),
+             "k12p": (K3V_SHAPES[3][0],),
+             "k3vlh": (K3V_SHAPES[0][0], K3V_SHAPES[1][0])}
+# K3v with K4v's slots: the metals' fuzz under the sky gradient on the
+# 80-sphere scene, fuzz and IOR on the 28-row scene
+_K3VLH_SLOTS = {K3V_SHAPES[0][0]: ({"mat_fuzz"}, True),
+                K3V_SHAPES[1][0]: ({"mat_fuzz", "mat_ior"}, False)}
+
+
+def k3v_splits(torch, pt, wc, dev, libs, variants):
+    """Each variant of the k3v set at its shapes: single pass and compacted
+    schedule times (or, for "hist", the histograms), the kernel's ptxas
+    figures and its blocks an SM at the launch's shared memory."""
+    scenes, modes = {}, {}
+    for name, make, mode in K3V_SHAPES:
+        with cs.kernel_mode_env(mode):
+            flat, cam, kw = cs.pass_args(pt, make(pt), dev,
+                                         use_bvh=mode != "vscan")
+            scenes[name] = (flat, cam, kw, wc.prepare_kernel(flat, cam),
+                            cs.cotangent(torch, kw, dev, 6))
+        modes[name] = mode
+    tex_form = wc.tex_form
+    # warm the card up (its clocks) before the first measurement
+    wc.load_library = lambda lib=libs[variants[0][:2]][0]: lib
+    flat, cam, kw, prep, _ = scenes[K3V_SHAPES[1][0]]
+    for _ in range(30):
+        wc.render_pass_kernel(flat, cam, 0, 0, prepared=prep, **kw)
+    torch.cuda.synchronize()
+    for kern, vname, _, _, *py in variants:
+        lib, log = libs[(kern, vname)]
+        wc.load_library = lambda lib=lib: lib
+        for name in _K3V_RUNS[kern]:
+            flat, cam, kw, prep, g = scenes[name]
+            rec = {"kernel": kern, "variant": vname, "shape": name,
+                   "textures": flat.tex_type.shape[0],
+                   "ptxas": list(cs.ptxas_prefix(
+                       log, _K3V_SYMBOLS[kern]).values())}
+            if kern == "k8":
+                wc.tex_form = lambda *a, **k: "suffix"
+            env = cs.kernel_mode_env(modes[name])
+            env.__enter__()
+            slots = ()
+            if kern == "k3vlh":
+                fields, sky = _K3VLH_SLOTS[name]
+                slots = wc.hard_param_slots(flat, fields)
+                kw = dict(kw, sky_gradient=kw["sky_gradient"] or sky)
+                prep = wc.prepare_kernel(flat, cam, slots)
+                rec["slots"] = len(slots)
+            try:
+                if kern == "k6":
+                    smem = 4 * prep.vfields["n_box"]
+                    one = functools.partial(wc.render_pass_kernel, flat, cam,
+                                            0, 0, prepared=prep, **kw)
+                    comp = functools.partial(
+                        wc.render_pass_compacted, flat, cam, 0, 0,
+                        pass_fn=functools.partial(wc.render_pass_kernel,
+                                                  prepared=prep), **kw)
+                else:
+                    smem = wc.grad_smem_bytes(flat, len(slots))
+                    gpass = functools.partial(wc.render_pass_grad_kernel,
+                                              prepared=prep)
+                    one = functools.partial(gpass, flat, cam, 0, 0,
+                                            cotangent=g, hard_slots=slots,
+                                            **kw)
+                    comp = functools.partial(
+                        wc.render_pass_grad_compacted, flat, cam, 0, 0,
+                        pass_fn=gpass, cotangent=g, hard_slots=slots, **kw)
+                occ = (ctypes.c_int * 1)()
+                if kern in ("k3vl", "k3vlh"):
+                    ofn = lib.vgrad_planes_blocks[kern == "k3vlh"]
+                elif kern in ("k11p", "k12p"):
+                    ofn = None
+                else:
+                    ofn = lib.lib.rt_prof_occupancy
+                    ofn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+                if ofn is not None:
+                    cs.check(ofn(smem, occ) == 0,
+                             "rt_prof_occupancy failed")
+                    rec["blocks_per_sm"] = occ[0]
+                rec["smem_bytes"] = smem
+                if vname == "hist":
+                    h = (ctypes.c_ulonglong * 70)()
+                    hfn = lib.lib.rt_prof_hist
+                    hfn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                    cs.check(hfn(h, 1) == 0, "rt_prof_hist failed")
+                    one()
+                    torch.cuda.synchronize()
+                    cs.check(hfn(h, 0) == 0, "rt_prof_hist failed")
+                    rec["path_rows_hist"] = [int(x) for x in h[0:33]]
+                    rec["lane_rows_hist"] = [int(x) for x in h[33:66]]
+                    rec["radiance_events"] = int(h[66])
+                    rec["rows_per_radiance_event"] = h[67] / max(h[66], 1)
+                    rec["scatters"] = int(h[68])
+                    rec["rows_per_scatter"] = h[69] / max(h[68], 1)
+                else:
+                    rec["single_ms"] = cs.cuda_ms(torch, one)
+                    rec["compacted_ms"] = cs.cuda_ms(torch, comp)
+            finally:
+                wc.tex_form = tex_form
+                env.__exit__(None, None, None)
+            print(json.dumps(rec), flush=True)
+    # the host's part of a grad launch that a kernel's time also counts:
+    # the free-memory check and the scratch's allocation (28 rows)
+    flat, cam, kw, prep, g = scenes[K3V_SHAPES[1][0]]
+    n_lanes = wc.lane_count(kw["width"] * kw["height"])
+    n_scr = 8 * flat.tex_type.shape[0] * n_lanes
+    print(json.dumps({
+        "kernel": "host", "check_free_ms": cs.cuda_ms(
+            torch, lambda: wc.check_free(dev, 4 * n_scr, "scratch")),
+        "scratch_alloc_ms": cs.cuda_ms(
+            torch, lambda: torch.empty(n_scr, device=dev))}), flush=True)
+    if ("k3vl", "7_blocks") in libs:
+        wc.load_library = lambda lib=libs[("k3vl", "7_blocks")][0]: lib
+        metals_slots(torch, pt, wc, dev)
+
+
+def metals_slots(torch, pt, wc, dev):
+    """tex_color with the first 8, 16, 24 and 30 fuzz slots of
+    chip_smoke.py's metals scene (31 rows) at 1200x675 spp16 d50 under the
+    sky gradient: K3v with K4v's slots (wavefront_planes_vscan_kernel<true>)
+    single pass and compacted, beside the adjoint (K9), which serves any
+    request on the scene in one sweep."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    flat, cam, kw = cs.pass_args(pt, cs.wide(cs.metals_scene(pt), 1200, 16,
+                                             50), dev)
+    g = cs.cotangent(torch, kw, dev, 6)
+    fuzz = wc.hard_param_slots(flat, {"mat_fuzz"})
+    shape = "metals31_1200x675_spp16_d50_sky"
+    for n in (8, 16, 24, len(fuzz)):
+        slots = fuzz[:n]
+        prep = wc.prepare_kernel(flat, cam, slots)
+        gpass = functools.partial(wc.render_pass_grad_kernel, prepared=prep)
+        rec = {"kernel": "k3vlh", "variant": "7_blocks", "shape": shape,
+               "textures": flat.tex_type.shape[0], "slots": n,
+               "single_ms": cs.cuda_ms(torch, lambda: gpass(
+                   flat, cam, 0, 0, cotangent=g, hard_slots=slots, **kw)),
+               "compacted_ms": cs.cuda_ms(
+                   torch, lambda: wc.render_pass_grad_compacted(
+                       flat, cam, 0, 0, pass_fn=gpass, cotangent=g,
+                       hard_slots=slots, **kw))}
+        print(json.dumps(rec), flush=True)
+    aprep = wc.prepare_kernel(flat, cam, chunk_scan=True)
+    print(json.dumps({
+        "kernel": "k9", "variant": "source", "shape": shape,
+        "ms": cs.cuda_ms(torch, lambda: ac.render_pass_adjoint_kernel(
+            flat, cam, 0, 0, cotangent=g, prepared=aprep, **kw))}),
+        flush=True)
+
+
 def main(root: str, which: str) -> int:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -1538,6 +1889,10 @@ def main(root: str, which: str) -> int:
     if which in SELECTION_SHAPES:
         selection_splits(torch, pt, wc, dev, libs, variants,
                          SELECTION_SHAPES[which], which)
+        print(cs.gpu_line(), flush=True)
+        return 0
+    if which in K3V_SETS:
+        k3v_splits(torch, pt, wc, dev, libs, variants)
         print(cs.gpu_line(), flush=True)
         return 0
     if which in ("k1", "k1new"):

@@ -378,10 +378,15 @@ def test_train_takes_the_adjoint_from_33_slots():
         assert float(gr.abs().max()) > 0.0, f
 
 
-def test_tier_policy():
+def test_tier_policy(monkeypatch):
     """use_adjoint is the JAX package's rule: hard slots, and either
     ADJOINT_MIN_SLOTS of them or a pass the forward-mode tiers cannot
-    serve; tex_color alone never takes it. On the (faked) card an
+    serve (any hard slot under a BVH walk, which carries no tangent
+    bundles); tex_color alone never takes it. The port's own rule:
+    ADJOINT_PLANES_SLOTS slots beside tex_color's weight planes of more
+    than MAX_TEXS rows take it too (30 tangent bundles beside 31 rows'
+    planes, which the kernels serve since the planes left a block's shared
+    memory), fewer slots or fewer rows do not. On the (faked) card an
     adjoint request builds its render without a gate error."""
     spheres = pt.compile_scene(pt.Scene(objects=[
         pt.Sphere((3.0 * i, 0, 0), 1.0,
@@ -392,13 +397,35 @@ def test_tier_policy():
     fuzz = train.grad_slots(spheres, ("mat_fuzz",))
     assert len(fuzz) == 30
     assert not train.use_adjoint(spheres, fuzz, False)
-    # 30 tangent bundles beside 31 rows' weight planes: past a block
-    assert wc.grad_gate_reason(spheres, 30, True) is not None
+    assert wc.grad_gate_reason(spheres, 30, True) is None
+    assert spheres.tex_type.shape[0] > wc.MAX_TEXS
     assert train.use_adjoint(spheres, fuzz, True)
+    n = train.ADJOINT_PLANES_SLOTS
+    assert train.use_adjoint(spheres, fuzz[:n], True)
+    assert not train.use_adjoint(spheres, fuzz[:n - 1], True)
+    few = pt.compile_scene(pt.Scene(objects=[
+        pt.Sphere((3.0 * i, 0, 0), 1.0,
+                  pt.Metal((0.5, 0.5, 0.5), 0.1 + 0.01 * i) if i < 30
+                  else pt.Lambertian(pt.SolidColor((1, 1, 1))))
+        for i in range(80)]))
+    assert few.tex_type.shape[0] <= wc.MAX_TEXS
+    assert wc.kernel_mode(few)[0] == "vscan"
+    few_fuzz = train.grad_slots(few, ("mat_fuzz",))
+    assert len(few_fuzz) == 30
+    assert not train.use_adjoint(few, few_fuzz, True)
     radii = train.grad_slots(spheres, ("sph_radius",))
     assert train.use_adjoint(spheres, radii[:33], False)
     assert not train.use_adjoint(spheres, radii[:32], False)
     assert ac.adjoint_gate_reason(spheres) is None
+    walked = pt.compile_scene(pt.Scene(objects=[
+        pt.Sphere((3.0 * i, 0, 0), 1.0, pt.Metal((0.5, 0.5, 0.5), 0.3))
+        for i in range(80)]), use_bvh=True)
+    monkeypatch.setenv("RTX_BVH_STACK", "1")
+    assert wc.kernel_mode(walked)[0] == "stack"
+    assert wc.grad_gate_reason(walked, 1) is not None
+    assert train.use_adjoint(walked, train.grad_slots(walked,
+                                                      ("mat_fuzz",)), True)
+    assert not train.use_adjoint(walked, (), True)
 
 
 def test_plain_full_family_step_on_bouncing_lowers_the_loss():

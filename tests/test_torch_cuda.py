@@ -449,31 +449,42 @@ def test_vscan_kernel_matches_plain(name, cuda_device):
 
 def _large_grad_case(name, device):
     """(flat, cam, kw, slots, want_tex) of the chunk scan's grad cases:
-    weight planes (K3v), in shared memory for 28 rows (K3v, NT 17-32) and
-    with the metals' fuzz and the glass's IOR, one slot per hard family
+    weight planes (K3v) for 7 rows, for 28 rows alone and with the metals'
+    fuzz and the glass's IOR, for 31 rows with 30 fuzz slots (the metals
+    scene, under the sky gradient), and for 29 rows in a closed room at
+    depth 50 (paths whose planes hold many rows), one slot per hard family
     alone (K4v), the suffix tier (K8), and K4v riding K8."""
     from real_time_ray_tracing_engine_tpu_torch.scene.flat import (
         MAT_DIELECTRIC, MAT_METAL)
     build = {"planes": cs.scan_tex_scene, "planes28": cs.rows_scene,
-             "planes28_hard": cs.rows_scene, "hard": cs.vscan_slots_scene,
-             "suffix": cs.suffix_scene,
+             "planes28_hard": cs.rows_scene, "planes_room": cs.room_scene,
+             "planes31_fuzz30": cs.metals_scene,
+             "hard": cs.vscan_slots_scene, "suffix": cs.suffix_scene,
              "suffix_hard": cs.vscan_slots_scene}[name]
-    flat, cam, kw = cs.pass_args(pt, cs.sized(build(pt), 48, 4, 8), device)
+    depth = 50 if name == "planes_room" else 8
+    flat, cam, kw = cs.pass_args(pt, cs.sized(build(pt), 48, 4, depth),
+                                 device)
     slots = (cs.vscan_slots(flat.mat_type.cpu(), MAT_METAL, MAT_DIELECTRIC)
              if name in ("hard", "suffix_hard") else ())
     if name == "planes28_hard":
         slots = wc.hard_param_slots(flat, {"mat_fuzz", "mat_ior"})
+    if name == "planes31_fuzz30":
+        slots = wc.hard_param_slots(flat, {"mat_fuzz"})
+        assert len(slots) == 30 and flat.tex_type.shape[0] == 31
     return flat, cam, kw, slots, name != "hard"
 
 
 @pytest.mark.parametrize("name", ["planes", "planes28", "planes28_hard",
-                                  "hard", "suffix", "suffix_hard"])
+                                  "planes31_fuzz30", "planes_room", "hard",
+                                  "suffix", "suffix_hard"])
 def test_large_grad_kernels_match_plain(name, cuda_device):
     """The chunk scan's grad instances (K3v, K4v, K8) against the plain
     grad pass: the forward kernel's image and bounces (the plain suffix
     tier traces each sample twice, the kernel once), dG_tex and dG_hard
     within 1e-4 of their largest entries (the lanes are summed in another
-    order), and the compacted schedule (K5) against the single pass."""
+    order), and the compacted schedule (K5) against the single pass. In
+    the closed room some paths' weight planes hold two rows or more
+    (counted by the kernel)."""
     flat, cam, kw, slots, want_tex = _large_grad_case(name, cuda_device)
     assert wc.kernel_mode(flat)[0] == "vscan"
     form = wc.tex_form(flat, want_tex)
@@ -485,9 +496,12 @@ def test_large_grad_kernels_match_plain(name, cuda_device):
     it_f = torch.zeros_like(it_k)
     it_p = torch.zeros_like(it_k)
     suffix = wc.render_pass_grad_kernel.suffix_launches
+    multi = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     img, dgt, dgh = wc.render_pass_grad_kernel(
         flat, cam, 7, 0, cotangent=g, hard_slots=slots, want_tex=want_tex,
-        iters=it_k, **kw)
+        iters=it_k, multi_rows=multi, **kw)
+    if name == "planes_room":
+        assert int(multi) > 0
     fwd = wc.render_pass_kernel(flat, cam, 7, 0, iters=it_f, **kw)
     torch.cuda.synchronize()
     assert wc.render_pass_grad_kernel.suffix_launches == suffix + (
@@ -1014,8 +1028,8 @@ def test_bvh_kernels_match_plain(mode, name, cuda_device, monkeypatch):
     entries deep) against the plain pass, which tests every
     primitive: the same pixels and bounces as the chunk scan (K6) and the
     plain pass (and K12's as K11's), the compacted schedule, and the
-    tex_color grad instance (weight planes in registers; for the 28-row
-    scene in shared memory) against the plain grad pass, with the
+    tex_color grad instance (the row planes, on each scene, the 28-row
+    one among them) against the plain grad pass, with the
     forward's image; launches counted per mode."""
     scene = {"mixed": cs.bvh_mixed_scene, "spheres": cs.bvh_sphere_scene,
              "rows": cs.rows_scene, "chain": cs.bvh_chain_scene}[name](pt)

@@ -69,6 +69,7 @@ SCENES = {
     "suffix41": (cs.suffix_scene, 24, 4, 0, 5),
     "bouncing": (_bouncing, 24, 3, 3, 9),
     "scan_tex": (cs.scan_tex_scene, 16, 3, 5, 2),
+    "rows28": (cs.rows_scene, 24, 4, 0, 31),
     "vscan_slots": (cs.vscan_slots_scene, 24, 4, 0, 21),
 }
 
@@ -187,6 +188,23 @@ def test_vscan_weight_planes_match_jax_replay():
     want, g = _replay_tex_grad("scan_tex")
     _, dg, _ = _grad("scan_tex", g)
     assert np.abs(want).max() > 0.05
+    np.testing.assert_allclose(dg.numpy(), want, **REPLAY_TOL)
+
+
+def test_vscan_weight_planes_28_rows_match_jax_replay():
+    """Weight planes on a chunk-scan scene of 28 texture rows, between
+    MAX_TEXS and MAX_GRAD_TEXS (K3v's semantics where the kernel's Gp sums
+    reduce in lane order: 79 spheres over 24 lambertian albedos, 2 metals
+    and a glass, and a sphere light), against the replay."""
+    _, _, pf, _, _, _, _ = _case("rows28")
+    assert wc.kernel_mode(pf)[0] == "vscan"
+    assert wc.tex_form(pf) == "planes"
+    assert wc.MAX_TEXS < pf.tex_type.shape[0] == 28 <= wc.MAX_GRAD_TEXS
+    assert wc.grad_gate_reason(pf) is None
+    want, g = _replay_tex_grad("rows28")
+    _, dg, _ = _grad("rows28", g)
+    assert np.abs(want).max() > 0.05
+    assert (np.abs(want).max(axis=1) > 0).sum() >= 20   # most rows seen
     np.testing.assert_allclose(dg.numpy(), want, **REPLAY_TOL)
 
 
@@ -320,10 +338,11 @@ def _metals_scene(n_metals=30):
 def test_large_grad_gates(capsys):
     """The grad gates admit the JAX fused tiers on the chunk scan (tex_color
     at any row count, up to MAX_HARD_SLOTS slots) and name what they cannot
-    serve: K9/K10 past MAX_HARD_SLOTS slots, and a launch past a block's
-    shared memory, which counts the boxes, the tangent planes and the
-    weight planes of 17 to 32 rows (the suffix tier's sums are in global
-    memory). Building a render over a suffix scene prints the JAX
+    serve: K9/K10 past MAX_HARD_SLOTS slots. A launch's shared memory
+    counts the chunk boxes and the tangent planes only (the weight planes
+    of up to 32 rows and their sums are rows of global memory, as the
+    suffix tier's are), so 30 slots beside the metals' planes fit a
+    block. Building a render over a suffix scene prints the JAX
     package's zero-albedo notice."""
     bouncing = pt.compile_scene(pt.builders.bouncing_spheres())
     assert wc.tex_form(bouncing) == "suffix"
@@ -339,10 +358,11 @@ def test_large_grad_gates(capsys):
     assert wc.MAX_TEXS < NT <= wc.MAX_GRAD_TEXS
     assert wc.tex_form(metals) == "planes"
     assert wc.grad_gate_reason(metals) is None
-    assert wc.grad_smem_bytes(metals, 30) == 4 * (
-        32 + 10 * 30 * 128 + 6 * NT * 128)
-    assert "shared memory" in wc.grad_gate_reason(metals, 30)
+    assert wc.grad_smem_bytes(metals, 30) == 4 * (32 + 10 * 30 * 128)
+    assert wc.grad_smem_bytes(metals, 32) <= wc.MAX_SHARED_BYTES
+    assert wc.grad_gate_reason(metals, 30) is None
     assert wc.grad_gate_reason(metals, 30, want_tex=False) is None
+    assert "K9/K10" in wc.grad_gate_reason(metals, 33)
     cornell = pt.compile_scene(pt.builders.cornell_box())
     assert wc.tex_form(cornell) == "planes"
     assert wc.grad_gate_reason(cornell, 9) is None
@@ -356,12 +376,14 @@ def test_large_grad_gates(capsys):
 
 
 def test_requests_the_kernels_cannot_serve_raise(monkeypatch):
-    """On the (faked) card, a request past a block's shared memory (31
-    texture rows' weight planes beside 30 tangent bundles), which raised
-    NotImplementedError before the adjoint was ported, takes the adjoint
-    (K9) at its first call, before any pass; tex_color alone (K3v's planes
-    for 17 to 32 rows) and the fuzz slots alone keep the forward-mode
-    tiers."""
+    """On the (faked) card, a request the forward-mode kernels cannot
+    serve (33 or more hard slots: tex_color, 30 fuzz slots and 80 radii),
+    which raised NotImplementedError before the adjoint was ported, takes
+    the adjoint (K9) at its first call, before any pass, and so does
+    tex_color with the 30 fuzz slots (weight planes of more than MAX_TEXS
+    rows beside ADJOINT_PLANES_SLOTS slots or more: K9 measured faster
+    than K3v with K4v, which the kernels now serve); tex_color alone and
+    the fuzz slots alone keep the forward-mode tiers."""
     flat = _metals_scene()
     cam = pcam.derive(pt.CameraConfig(image_width=8))
     applied = []
@@ -373,11 +395,14 @@ def test_requests_the_kernels_cannot_serve_raise(monkeypatch):
     monkeypatch.setattr(train._KernelRender, "apply",
                         lambda *a: applied.append(a[3])
                         or torch.zeros(5, 8, 3))
-    assert "shared memory" in wc.grad_gate_reason(flat, 30)
+    assert wc.grad_gate_reason(flat, 30) is None
     render({"tex_color": flat.tex_color, "mat_fuzz": flat.mat_fuzz},
            cam, 0)
+    render({"tex_color": flat.tex_color, "mat_fuzz": flat.mat_fuzz,
+            "sph_radius": flat.sph_radius}, cam, 0)
     render({"tex_color": flat.tex_color}, cam, 0)
     render({"mat_fuzz": flat.mat_fuzz}, cam, 0)
     assert [(r.names, len(r.slots), r.adjoint) for r in applied] == [
-        (("tex_color", "mat_fuzz"), 30, True), (("tex_color",), 0, False),
-        (("mat_fuzz",), 30, False)]
+        (("tex_color", "mat_fuzz"), 30, True),
+        (("tex_color", "mat_fuzz", "sph_radius"), 110, True),
+        (("tex_color",), 0, False), (("mat_fuzz",), 30, False)]

@@ -221,10 +221,12 @@ def test_engines_follow_the_gate(monkeypatch):
     """engine="cuda" on the CPU raises; on a (faked) card a scene outside
     the forward kernel's gate raises under auto, as render does; a scene
     the forward renders through the chunk scan (past the unrolled bounds)
-    builds, and a request its grad kernels cannot serve (31 texture rows'
-    weight planes beside 30 tangent bundles, past a block's shared memory)
-    takes the adjoint (K9) at its first call, before any pass, where it
-    raised NotImplementedError before K9."""
+    builds, and a request its grad kernels cannot serve (tex_color with 30
+    fuzz slots and 80 radii: 110 hard slots) takes the adjoint (K9) at its
+    first call, before any pass, where it raised NotImplementedError before
+    K9, as does tex_color with 30 fuzz slots beside weight planes of more
+    than MAX_TEXS rows (ADJOINT_PLANES_SLOTS), which the grad kernels
+    serve (K3v with K4v) and the adjoint serves faster."""
     _, _, pf, pc, kw = _cornell(width=8, spp=1, depth=2)
     with pytest.raises(ValueError, match="CUDA"):
         train.make_kernel_render(pf, engine="cuda", **kw)
@@ -243,14 +245,18 @@ def test_engines_follow_the_gate(monkeypatch):
         with pytest.raises(ValueError, match="gate"):
             train.make_kernel_render(mediums, **kw)
         render = train.make_kernel_render(spheres, **kw)
-    assert "shared memory" in wc.grad_gate_reason(spheres, 30, True)
+    assert wc.grad_gate_reason(spheres, 30, True) is None
     applied = []
     monkeypatch.setattr(train._KernelRender, "apply",
                         lambda *a: applied.append(a[3])
                         or torch.zeros(8, 8, 3))
     render({"tex_color": spheres.tex_color,
+            "mat_fuzz": spheres.mat_fuzz, "sph_radius": spheres.sph_radius},
+           pc, 0)
+    render({"tex_color": spheres.tex_color,
             "mat_fuzz": spheres.mat_fuzz}, pc, 0)
-    assert [(len(r.slots), r.adjoint) for r in applied] == [(30, True)]
+    assert [(len(r.slots), r.adjoint) for r in applied] == [(110, True),
+                                                            (30, True)]
 
 
 def test_plain_engine_on_the_card_stays_plain(monkeypatch):
