@@ -36,7 +36,17 @@ against the plain pass and the chunk scan on four scenes up to a
 32,768-sphere grid and timed beside the chunk scan, the CLI's -b on
 bouncing_spheres at 1200x675 spp100 d50 and on the grid's scene file in
 the three modes, tex_color training through each walk and a full-family
-step on a stack-mode scene (the adjoint). The forward's persistent
+step on a stack-mode scene (the adjoint); and the dynamic camera: the
+CLI's --camera dynamic on the Cornell box at 600x600 spp100 d50, stopped
+at 40 strata with --frames and resumed from its --checkpoint, one forward
+launch a stratum, its PPM and acc / 100 equal bit for bit to render() in
+passes of one sample, and the Cornell golden through ProgressiveRenderer;
+ProgressiveRenderer on bouncing_spheres at 1200x675 spp100 d50 through
+the chunk scan, steps doubling to 8 (the compacted schedule), a camera
+move, then steps of 16 equal bit for bit to render() at the moved camera,
+its checkpoint saved, loaded and refused by another scene; the terminal
+viewer (run_viewer, no TTY); one step's wall and kernel time at 1, 4 and
+16 strata; and the CLI's -d dump. The forward's persistent
 threads take lane slots from a counter zeroed for each launch: two
 launches in a row on one stream give the same outputs bit for bit
 (refill_repeat). Every phase prints
@@ -1144,6 +1154,345 @@ def pool(img, cell):
     return x.mean(axis=(1, 3))
 
 
+def pooled_rule(np, gold, ours) -> tuple:
+    """tests/test_reference_images.py's pooled comparison of two byte
+    images: (the mean of the cells' differences, the share of cells within
+    ALLCLOSE_TOL)."""
+    a = pool(gold.astype(np.float32) / 255.0, CELL)
+    b = pool(ours.astype(np.float32) / 255.0, CELL)
+    diff = np.abs(a - b).mean(axis=-1)
+    return float(diff.mean()), float((diff < ALLCLOSE_TOL).mean())
+
+
+def golden_scene(pt, np, name):
+    """A reference golden's image, and its scene at the golden's width and
+    depth."""
+    gold = np.load(GOLDEN_DIR / f"{name}.npz")["image"]
+    meta = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
+    scene = pt.load_scene(str(GOLDEN_DIR / f"{name}_scene.json"))
+    scene.camera.image_width = meta["width"]
+    scene.camera.max_depth = meta["depth"]
+    return gold, scene
+
+
+# the dynamic camera's move in progressive_large (lookfrom and lookat)
+LARGE_MOVE = (0.5, 0.25, -1.0)
+# progressive_times: a step of each k, wall median of PROG_REPS after one
+# warm-up; the kernel reps start behind PROG_SLEEP_CYCLES of
+# torch.cuda._sleep (a few ms), so the host has queued the step's launches
+# before the card reaches them and the events bracket only their work
+PROG_KS, PROG_REPS, PROG_SLEEP_CYCLES = (1, 4, 16), 5, 10_000_000
+
+
+class CallCount:
+    """Counts the calls of owner.attr while installed; restore() puts the
+    original back."""
+
+    def __init__(self, owner, attr):
+        self.owner, self.attr, self.fn = owner, attr, getattr(owner, attr)
+        self.calls = 0
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            return self.fn(*args, **kwargs)
+        setattr(owner, attr, counted)
+
+    def restore(self):
+        setattr(self.owner, self.attr, self.fn)
+
+
+def reset_forward_counts(wc, rd):
+    wc.render_pass_kernel.launches = 0
+    wc.render_pass_kernel.launches_vscan = 0
+    wc.render_pass_kernel.launches_vquad = 0
+    wc.render_pass_reference.calls = 0
+    rd._render_pass.calls = 0
+
+
+def plain_calls(wc, rd) -> int:
+    return wc.render_pass_reference.calls + rd._render_pass.calls
+
+
+def progressive_phases(torch, np, pt, wc, rd, cli, dev, card, done) -> dict:
+    """The dynamic camera on the card (models/render.py::
+    ProgressiveRenderer, models/viewer.py, the CLI's --camera dynamic,
+    --checkpoint, --frames, --view, -d): five phases, each a JSON line.
+    Returns the launch counts the kernels line reads."""
+    import io
+    from real_time_ray_tracing_engine_tpu_torch.models import viewer
+    from real_time_ray_tracing_engine_tpu_torch.utils import color
+    out = {}
+    Path("output").mkdir(exist_ok=True)
+
+    # 12. the CLI's dynamic camera on cornell_box at its own 600x600 spp100
+    # d50: 40 strata with --frames 40 --checkpoint, then a second run that
+    # resumes at 40 and converges at 100, one forward launch a stratum and
+    # no plain pass; its PPM and its final checkpoint's acc / 100 equal
+    # render() in passes of one sample (the same passes summed in the same
+    # order) bit for bit. Then the progressive renderer on the cornell_box
+    # golden's scene meets reference_images' pooled rule.
+    ckpt = Path("output") / "progressive_cornell.npz"
+    ppm_path = Path("output") / "progressive_cornell.ppm"
+    for f in (ckpt, ppm_path):
+        if f.exists():
+            f.unlink()
+    argv = ["--scene", "cornell_box", "--camera", "dynamic", "--checkpoint",
+            str(ckpt), "--output", "progressive_cornell"]
+    reset_forward_counts(wc, rd)
+    walls = []
+    for extra in (["--frames", "40"], []):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv + extra)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check(rc == 0, f"cli.main({argv + extra}) returned {rc}")
+        with np.load(ckpt) as d:
+            taken = int(d["samples_taken"])
+            acc = d["acc"]
+        check(taken == (40 if extra else 100),
+              f"the checkpoint holds {taken} strata after {extra or 'resume'}")
+    launches = wc.render_pass_kernel.launches
+    plain = plain_calls(wc, rd)
+    check(launches == 100, f"the dynamic CLI launched the forward kernel "
+          f"{launches} times for 100 strata")
+    check(plain == 0, "the dynamic CLI ran the plain engine")
+    img = pt.render(pt.builders.cornell_box(), device=dev,
+                    samples_per_batch=1, schedule="single",
+                    progress=lambda s, t: None)
+    same_ppm = ppm_path.read_bytes() == color.encode_ppm_p3(
+        color.to_bytes(img))
+    same_acc = bool(torch.equal(torch.from_numpy(acc).to(dev) / 100, img))
+    check(same_ppm, "the resumed dynamic CLI's PPM differs from render() "
+          "in passes of one sample")
+    check(same_acc, "the final checkpoint's acc / 100 differs from render() "
+          "in passes of one sample")
+    gold, gscene = golden_scene(pt, np, "cornell_box")
+    spp, mean_tol, min_rate = REF_SCENES["cornell_box"]
+    gscene.camera.samples_per_pixel = spp
+    prog = pt.ProgressiveRenderer(gscene, device=dev, seed=11)
+    while prog.step(4):
+        pass
+    mean_diff, rate = pooled_rule(np, gold, pt.to_bytes(prog.image()))
+    out["main"] = {"launches": launches}
+    emit("progressive_main_path", card=card, argv=argv,
+         shape="600x600 spp100 d50", frames_then_resume=[40, 60],
+         kernel_launches=launches, plain_calls=plain,
+         cli_wall_s=walls, strata_per_s=[40 / walls[0], 60 / walls[1]],
+         ppm_equal_render=same_ppm, acc_equal_render=same_acc,
+         golden={"scene": "cornell_box", "spp": spp,
+                 "cell_mean_diff": mean_diff, "allclose_rate": rate,
+                 "mean_tol": mean_tol, "min_rate": min_rate})
+    check(mean_diff < mean_tol and rate >= min_rate,
+          f"progressive cornell_box golden: cell mean diff {mean_diff}, "
+          f"allclose rate {rate}")
+    done("progressive_main_path")
+
+    # 12b. ProgressiveRenderer on bouncing_spheres at its own 1200x675
+    # spp100 d50 through the chunk scan (K6): steps doubling as
+    # AdaptiveWork's k does at a high frame rate (1, 2, 4, 8: the 8 on the
+    # compacted schedule, K2 over K6) until 10 strata are passed (15), one
+    # move_camera, then steps of 16 to convergence, which equal render()
+    # of the moved scene in batches of 16 bit for bit (the camera-only
+    # repack against a fresh packing). Then save, load into a fresh
+    # renderer, and a checkpoint refused by another scene.
+    import dataclasses
+    scene = pt.builders.bouncing_spheres()
+    reset_forward_counts(wc, rd)
+    compacted = CallCount(rd, "render_pass_compacted")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog = pt.ProgressiveRenderer(scene, device=dev)
+        ctrl, ks = viewer.AdaptiveWork(), []
+        while prog.samples_taken < 10:
+            ks.append(ctrl.k)
+            prog.step(ctrl.k)
+            ctrl.update(math.inf)
+        before_move = prog.samples_taken
+        prog.move_camera(LARGE_MOVE)
+        while not prog.converged:
+            ks.append(min(16, 100 - prog.samples_taken))
+            prog.step(16)
+        torch.cuda.synchronize()
+        prog_s = time.perf_counter() - t0
+    finally:
+        compacted.restore()
+    vscan = wc.render_pass_kernel.launches_vscan
+    launches = wc.render_pass_kernel.launches
+    plain = plain_calls(wc, rd)
+    check(vscan > 0, "progressive bouncing_spheres never launched the chunk "
+          "scan")
+    check(vscan == launches, f"{launches - vscan} launches off the chunk "
+          "scan")
+    check(plain == 0, "progressive bouncing_spheres ran the plain engine")
+    check(compacted.calls > 0, "no compacted step (K2) in progressive "
+          "bouncing_spheres")
+    moved = pt.builders.bouncing_spheres()
+    c = moved.camera
+    moved.camera = dataclasses.replace(
+        c, lookfrom=tuple(a + b for a, b in zip(c.lookfrom, LARGE_MOVE)),
+        lookat=tuple(a + b for a, b in zip(c.lookat, LARGE_MOVE)))
+    check(moved.camera == prog.cfg, "the moved camera's configuration")
+    img = pt.render(moved, device=dev, samples_per_batch=16,
+                    progress=lambda s, t: None)
+    same = bool(torch.equal(prog.image(), img))
+    check(same, "progressive bouncing_spheres after move_camera differs "
+          "from render() at the moved camera in batches of 16")
+    path = Path("output") / "progressive_bouncing.npz"
+    prog.save(str(path))
+    again = pt.ProgressiveRenderer(pt.builders.bouncing_spheres(),
+                                   device=dev)
+    again.load(str(path))
+    check(again.cfg == prog.cfg and again.samples_taken == 100
+          and bool(torch.equal(again.acc, prog.acc)),
+          "the loaded checkpoint differs from the saved renderer")
+    other = pt.builders.bouncing_spheres()
+    other.objects = other.objects[:-1]
+    refused = None
+    try:
+        pt.ProgressiveRenderer(other, device=dev).load(str(path))
+    except rd.CheckpointMismatch as e:
+        refused = str(e)
+    check(refused is not None and "another scene" in refused,
+          "a checkpoint of bouncing_spheres loaded into another scene")
+    out["large"] = {"launches_vscan": vscan, "compacted_steps":
+                    compacted.calls}
+    emit("progressive_large", card=card, shape="1200x675 spp100 d50",
+         steps=ks, strata_before_move=before_move, move=LARGE_MOVE,
+         launches=launches, launches_vscan=vscan,
+         compacted_steps=compacted.calls, plain_calls=plain,
+         progressive_s=prog_s, equal_render_after_move=same,
+         checkpoint_mib=path.stat().st_size / 2**20,
+         refused_other_scene=refused)
+    done("progressive_large")
+
+    # 12c. the terminal viewer: run_viewer on cornell_box 600x600 spp100
+    # d50 with a non-TTY stdin, its frames into a StringIO, at most 30
+    # frames, adaptive steps; its preview equals the host's downsample of
+    # image() byte for byte
+    steps = []
+    step_fn = rd.ProgressiveRenderer.step
+
+    def step(self, k=1):
+        steps.append((k, time.perf_counter()))
+        return step_fn(self, k)
+    reset_forward_counts(wc, rd)
+    compacted = CallCount(rd, "render_pass_compacted")
+    stdin, rd.ProgressiveRenderer.step = sys.stdin, step
+    sys.stdin = io.StringIO()
+    buf = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog = viewer.run_viewer(pt.builders.cornell_box(), device=dev,
+                                 max_frames=30, out=buf)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        sys.stdin, rd.ProgressiveRenderer.step = stdin, step_fn
+        compacted.restore()
+    launches = wc.render_pass_kernel.launches
+    plain = plain_calls(wc, rd)
+    got = prog.preview(80, 44)
+    want = viewer._downsample(pt.to_bytes(prog.image()), 80, 44)
+    same = bool(np.array_equal(got, want))
+    frames = len(steps)
+    fps = (frames - 1) / (steps[-1][1] - steps[0][1]) if frames > 1 else None
+    emit("viewer", card=card, shape="600x600 spp100 d50", frames=frames,
+         frames_per_s=fps, wall_s=wall, ks=[k for k, _ in steps],
+         largest_k=max(k for k, _ in steps),
+         samples_taken=prog.samples_taken, converged=prog.converged,
+         kernel_launches=launches, compacted_steps=compacted.calls,
+         plain_calls=plain, text_bytes=len(buf.getvalue()),
+         preview_equal=same)
+    check(launches > 0 and plain == 0, "the viewer's kernel launches "
+          f"{launches}, plain calls {plain}")
+    check(same, "the viewer's preview differs from the downsampled image")
+    check("fps" in buf.getvalue(), "the viewer drew no frame")
+    done("viewer")
+
+    # 12d. one step's times: wall (host clock after torch.cuda.synchronize,
+    # median of PROG_REPS after a warm-up), the forward launches' time in
+    # the same step (CUDA events around each launch, behind a queued
+    # torch.cuda._sleep) and the host's share of the wall, 1 - kernel /
+    # wall; and preview(80, 44)
+    times = {}
+    for name, scene in (("cornell_box_600x600_d50", pt.builders.cornell_box()),
+                        ("bouncing_spheres_1200x675_d50",
+                         pt.builders.bouncing_spheres())):
+        prog = pt.ProgressiveRenderer(scene, device=dev)
+        run_pass, events = prog._run_pass, []
+
+        def timed(*args, **kwargs):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            r = run_pass(*args, **kwargs)
+            e.record()
+            events.append((s, e))
+            return r
+        rec = {}
+        for k in PROG_KS:
+            walls, kerns = [], []
+            for rep in range(PROG_REPS + 1):
+                prog.reset()
+                prog._run_pass = run_pass
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                prog.step(k)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                prog.reset()
+                prog._run_pass, events = timed, []
+                torch.cuda.synchronize()
+                torch.cuda._sleep(PROG_SLEEP_CYCLES)
+                prog.step(k)
+                torch.cuda.synchronize()
+                kerns.append(sum(s.elapsed_time(e) for s, e in events))
+            prog._run_pass = run_pass
+            wall, kern = (float(np.median(v[1:])) for v in (walls, kerns))
+            rec[f"k{k}"] = {"wall_ms": wall, "kernel_ms": kern,
+                            "host_share": 1.0 - kern / wall,
+                            "launches": len(events),
+                            "wall_ms_runs": walls[1:],
+                            "kernel_ms_runs": kerns[1:]}
+        prev = []
+        for rep in range(PROG_REPS + 1):
+            t0 = time.perf_counter()
+            prog.preview(80, 44)
+            prev.append((time.perf_counter() - t0) * 1e3)
+        rec["preview_80x44_ms"] = float(np.median(prev[1:]))
+        rec["mode"] = wc.kernel_mode(prog.flat)[0]
+        times[name] = rec
+        emit("progressive_times", card=card, scene=name, **rec)
+    out["times"] = times
+    done("progressive_times")
+
+    # 12e. the CLI's -d on bouncing_spheres -b: the flat-scene dump equals
+    # golden_json of the same compile, and the complexity report is written
+    logs = [Path("logs") / "flat_scene_debug.json",
+            Path("logs") / "scene_complexity_debug.txt"]
+    for f in logs:
+        if f.exists():
+            f.unlink()
+    argv = ["--scene", "bouncing_spheres", "-b", "-d", "--samples", "16",
+            "--output", "debug_dump"]
+    rc = cli.main(argv)
+    check(rc == 0, f"cli.main({argv}) returned {rc}")
+    check(all(f.exists() for f in logs), f"-d wrote {logs}")
+    want = pt.golden_json(pt.compile_scene(pt.builders.bouncing_spheres(),
+                                           use_bvh=True))
+    same = logs[0].read_text() == want
+    report = logs[1].read_text()
+    emit("debug_dump", argv=argv, json_bytes=logs[0].stat().st_size,
+         json_equal_golden=same, report_head=report.splitlines()[:9])
+    check(same, "-d's flat_scene_debug.json differs from golden_json")
+    check("Scene Complexity: bouncing_spheres" in report,
+          "-d's complexity report")
+    done("debug_dump")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1730,20 +2079,12 @@ def main() -> int:
 
     # 6. reference images (tests/test_reference_images.py's pooled rule)
     for name, (spp, mean_tol, min_rate) in REF_SCENES.items():
-        gold = np.load(GOLDEN_DIR / f"{name}.npz")["image"]
-        meta = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
-        scene = pt.load_scene(str(GOLDEN_DIR / f"{name}_scene.json"))
-        scene.camera.image_width = meta["width"]
-        scene.camera.max_depth = meta["depth"]
+        gold, scene = golden_scene(pt, np, name)
         ours = pt.to_bytes(pt.render(scene, device=dev, spp=spp, seed=11,
                                      engine="cuda"))
         check(ours.shape == gold.shape, f"{name}: {ours.shape} vs "
               f"{gold.shape}")
-        a = pool(gold.astype(np.float32) / 255.0, CELL)
-        b = pool(ours.astype(np.float32) / 255.0, CELL)
-        diff = np.abs(a - b).mean(axis=-1)
-        rate = float((diff < ALLCLOSE_TOL).mean())
-        mean_diff = float(diff.mean())
+        mean_diff, rate = pooled_rule(np, gold, ours)
         rec = {}
         if name == "textured_spheres":
             g = float(gold[MARBLE_REGION].astype(np.float32).mean()) / 255.0
@@ -3461,6 +3802,7 @@ def main() -> int:
           and loss > 0.0,
           f"BVH full-family step: {full}, {loss}")
     done("bvh_train_main_path")
+    prog = progressive_phases(torch, np, pt, wc, rd, cli, dev, card, done)
     emit("phase_seconds", **phase_s)
 
     hard_main = hard_err["cornell_box_1920x1080"]
@@ -3481,6 +3823,10 @@ def main() -> int:
         "bound_ms": f_bound, "bound_by": "operations", "library_ms": None,
         "ms_at": "cornell_box 600x600 spp16 d50",
         "launches_at": "main_path, the CLI's cornell_box",
+        "progressive_launches": prog["main"]["launches"],
+        "progressive_launches_at": "progressive_main_path, the CLI's "
+                                   "cornell_box --camera dynamic, 40 strata "
+                                   "and a resume to 100",
         "compacted_ms": times[16]["compacted_ms"],
         "spp100_ms": {k: times[100][k] for k in ("single_ms",
                                                  "compacted_ms")},
@@ -3526,6 +3872,10 @@ def main() -> int:
         "bound_by": "operations", "library_ms": None,
         "ms_at": "bouncing_spheres 1200x675 spp16 d50",
         "plain_ms_at": "bouncing_spheres 1200x675 spp16 d50",
+        "progressive_launches": prog["large"]["launches_vscan"],
+        "progressive_launches_at": "progressive_large, bouncing_spheres "
+                                   "1200x675 spp100 d50, a move after 15 "
+                                   "strata",
         "compacted_ms":
             large_times["bouncing_1200x675_spp16_d50"]["compacted_ms"],
         "ptxas": vscan_ptxas}, {

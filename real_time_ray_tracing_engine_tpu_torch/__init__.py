@@ -14,7 +14,7 @@ from .scene.schema import (Scene, CameraConfig, Sphere, Quad, Box, Translate,
 from .scene.compile import compile_scene, golden_json
 from .scene.flat import FlatScene
 from .scene import builders
-from .models.render import render
+from .models.render import render, ProgressiveRenderer
 from .models import camera
 from .ops.integrator import trace
 from .utils.color import write_ppm, read_ppm, to_bytes

@@ -1905,7 +1905,6 @@ def prepare_kernel(flat: FlatScene, cam: CameraState,
     if reason is not None:
         raise ValueError(f"scene outside the CUDA kernel's gate: {reason}")
     tables, off, med_cols = _kernel_tables(flat, hard_slots)
-    cam_s = cam.scalars().to("cpu").tolist()
     fields = dict(
         perlin_seed=int(flat.perlin_seed.cpu()) & rng.MASK32,
         has_noise=int(bool(flat.has_noise)),
@@ -1918,7 +1917,7 @@ def prepare_kernel(flat: FlatScene, cam: CameraState,
         off_light=off["light"], off_mati=off["mati"], off_matf=off["matf"],
         off_tex=off["tex"], off_med=off["med"], off_lsrc=off["lsrc"],
         off_slot=off["slot"], med_cols=med_cols, n_table=tables.numel(),
-        cam=(ctypes.c_float * 22)(*cam_s))
+        cam=_camera_field(cam))
     env = kernel_env()
     mode = "vscan" if chunk_scan else kernel_mode(flat, env)[0]
     if mode == "unrolled":
@@ -1930,6 +1929,21 @@ def prepare_kernel(flat: FlatScene, cam: CameraState,
     vtab, vfields = _vscan_buffer(pack_vscan_tables(flat))
     return KernelInputs(tables, fields, hard_slots, mode, vtab, vfields,
                         env=env)
+
+
+def _camera_field(cam: CameraState):
+    """WfParams' camera: the 22 floats of cam.scalars(), read back to the
+    host."""
+    return (ctypes.c_float * 22)(*cam.scalars().to("cpu").tolist())
+
+
+def with_camera(prepared: KernelInputs, cam: CameraState) -> KernelInputs:
+    """`prepared` with its camera fields taken from `cam`: the tables
+    (`tables`, `vtab`, `btab`), their fields and the mode are the input's,
+    not packed again. A moved camera reads its 22 floats back to the host
+    here, once; the passes after it read none."""
+    return dataclasses.replace(
+        prepared, fields={**prepared.fields, "cam": _camera_field(cam)})
 
 
 def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,

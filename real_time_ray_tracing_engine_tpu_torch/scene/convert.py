@@ -12,6 +12,11 @@ JAX one table by table:
     params = params_from_numpy(
         {k: np.asarray(v) for k, v in jax_train.get_params(jax_flat).items()},
         device="cpu")
+    prog = progressive_from_numpy(                # a JAX progressive run
+        scene, {"acc": np.asarray(jax_prog.acc),
+                "samples_taken": jax_prog.samples_taken,
+                "seed": jax_prog.seed, "n_strata": jax_prog.n_strata},
+        device="cpu")                             # continued in the port
 """
 from __future__ import annotations
 
@@ -81,3 +86,21 @@ def params_from_numpy(params: dict, device) -> dict:
     each array as numpy) as this package's tensors on `device`: the same
     names, shapes and dtypes, so both packages train from one state."""
     return {k: _tensor(np.asarray(v), device) for k, v in params.items()}
+
+
+def progressive_from_numpy(scene, state: dict, *, device="cuda",
+                           use_bvh: bool = False, engine: str = "auto"):
+    """A ProgressiveRenderer of `scene` that continues the JAX package's
+    progressive state, given as numpy: `acc` (H, W, 3) float32, the
+    radiance sum of `samples_taken` strata drawn under `seed`, at
+    `n_strata` strata an axis, at the scene's own camera. Raises
+    ValueError when n_strata or the image shape is not the scene's."""
+    from ..models.render import ProgressiveRenderer
+    prog = ProgressiveRenderer(scene, device=device, use_bvh=use_bvh,
+                               seed=int(state["seed"]), engine=engine)
+    if int(state["n_strata"]) != prog.n_strata:
+        raise ValueError(f"n_strata is {int(state['n_strata'])}, the "
+                         f"scene's is {prog.n_strata}")
+    prog.restore(np.asarray(state["acc"]),
+                 int(state["samples_taken"]), int(state["seed"]))
+    return prog

@@ -1185,3 +1185,54 @@ def test_bvh_train_step_runs_the_kernels(cuda_device, monkeypatch):
     assert wc.render_pass_grad_kernel.lane_launches == lane
     assert (wc.render_pass_reference.calls
             + wc.render_pass_grad_reference.calls) == plain
+
+
+@pytest.mark.parametrize("name, width", [("cornell_box", 64),
+                                         ("bouncing_spheres", 96)])
+def test_camera_repack_matches_a_fresh_packing(name, width, cuda_device):
+    """ProgressiveRenderer.move_camera swaps only the camera's fields into
+    its packing (wavefront_cuda.with_camera): the image after the move is
+    a fresh prepare_kernel's at the moved camera, bit for bit, on the
+    unrolled kernel and on the chunk scan."""
+    from real_time_ray_tracing_engine_tpu_torch.models.render import \
+        ProgressiveRenderer
+    scene = pt.builders.BUILTIN_SCENES[name]()
+    scene.camera.image_width = width
+    scene.camera.samples_per_pixel = 16
+    scene.camera.max_depth = 8
+    prog = ProgressiveRenderer(scene, device=cuda_device, seed=5)
+    prog.step(2)
+    tables = prog._prepared.tables
+    prog.move_camera((0.5, -0.25, 1.0))
+    assert prog._prepared.tables is tables
+    prog.step(4)
+    fresh = wc.prepare_kernel(prog.flat, prog.cam)
+    assert list(prog._prepared.fields["cam"]) == list(fresh.fields["cam"])
+    w, h = pcam.image_size(prog.cfg)
+    want = wc.render_pass_kernel(
+        prog.flat, prog.cam, 5, 0, width=w, height=h, n_strata=4,
+        max_depth=8, n_samples=4, sky_gradient=scene.camera.sky_gradient,
+        prepared=fresh)
+    torch.cuda.synchronize()
+    assert torch.equal(prog.acc, want)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_progressive_equals_render_in_the_same_batches(k, cuda_device):
+    """Steps of k samples sum the passes render() runs in batches of k, in
+    the same order: the images are equal bit for bit (k = 8 on the
+    compacted schedule)."""
+    from real_time_ray_tracing_engine_tpu_torch.models.render import \
+        ProgressiveRenderer
+    scene = pt.builders.cornell_box()
+    scene.camera.image_width = 48
+    scene.camera.samples_per_pixel = 16
+    scene.camera.max_depth = 8
+    prog = ProgressiveRenderer(scene, device=cuda_device, seed=2)
+    before = wc.render_pass_kernel.launches
+    while prog.step(k):
+        pass
+    assert wc.render_pass_kernel.launches > before
+    img = pt.render(scene, device=cuda_device, seed=2, samples_per_batch=k,
+                    progress=lambda s, t: None)
+    assert torch.equal(prog.image(), img)
