@@ -46,7 +46,15 @@ the chunk scan, steps doubling to 8 (the compacted schedule), a camera
 move, then steps of 16 equal bit for bit to render() at the moved camera,
 its checkpoint saved, loaded and refused by another scene; the terminal
 viewer (run_viewer, no TTY); one step's wall and kernel time at 1, 4 and
-16 strata; and the CLI's -d dump. The forward's persistent
+16 strata; and the CLI's -d dump; and the sharded layer: every kernel
+instance at an image shard (row0 > 0) against its plain version and the
+forward's whole-image rows, the shards of four (tile, sample) layouts
+summed in one process against one pass (tile-only layouts bit for bit)
+and their gradients through make_kernel_render(mesh=), two ranks sharing
+the card over gloo (render_on_mesh, three full-family make_train_step
+(mesh=) steps at Cornell 1920x1080 spp64 d50 against the one-process
+steps, a bouncing adjoint step), a one-rank NCCL group, and the CLI's -p
+on one rank and on two under torch.distributed.run. The forward's persistent
 threads take lane slots from a counter zeroed for each launch: two
 launches in a row on one stream give the same outputs bit for bit
 (refill_repeat). Every phase prints
@@ -1004,6 +1012,31 @@ def adjoint_errors(got, want) -> dict:
                 "scale": float(want[f].abs().max())} for f in want}
 
 
+def full_family_start(wc, train, flat):
+    """full_train_main_path's start on Cornell: (its hard slots, the glass
+    material rows, the glass sphere rows, every family's parameters, the
+    three wall rows dimmed to 0.7 and the glass at START_IOR and
+    START_RADIUS; detached copies)."""
+    slots = wc.hard_param_slots(flat)
+    glass_mats = [sl[1] for sl in slots if sl[0] == "ior"]
+    glass_rows = [sl[1] for sl in slots if sl[0] == "sphr"]
+    params = {k: v.detach().clone() for k, v in train.get_params(flat).items()}
+    params["tex_color"][WALL_ROWS] *= 0.7
+    params["mat_ior"][glass_mats] = START_IOR
+    params["sph_radius"][glass_rows] = START_RADIUS
+    return slots, glass_mats, glass_rows, params
+
+
+def full_family_adam(torch, params):
+    """Adam at TRAIN_LR for tex_color, IOR and fuzz and at GEOM_LR for the
+    sphere centers and radii."""
+    return torch.optim.Adam([
+        {"params": [params["tex_color"], params["mat_ior"],
+                    params["mat_fuzz"]], "lr": TRAIN_LR},
+        {"params": [params["sph_center"], params["sph_radius"]],
+         "lr": GEOM_LR}])
+
+
 def adjoint_training_start(torch, train, wc, flat, cam, kw, engine):
     """The adjoint's 1200x675 training start on bouncing_spheres under the
     sky gradient: (params, target), the target the render at the true
@@ -1493,6 +1526,655 @@ def progressive_phases(torch, np, pt, wc, rd, cli, dev, card, done) -> dict:
     return out
 
 
+# ----------------------------------------------------------- the sharded layer
+MESH_LAYOUTS = ((2, 1), (4, 1), (1, 2), (2, 2))
+# a mesh's image against the one-process pass of the same samples: a
+# tile-only layout under the single schedule bit for bit (a pixel's samples
+# are summed by one thread, in order), any other within MESH_RTOL of the
+# image's largest entry (the same samples summed in another order)
+MESH_RTOL = 1e-5
+# mesh_ranks: make_train_step(mesh=) steps over all five families. Each is
+# held against the one-process step from the same parameters and Adam
+# state, not against the one-process trajectory from the start: a mesh
+# sums a gradient's parts in another order, which can round a parameter
+# one float32 ulp away after Adam's update, and one ulp of the glass
+# sphere's center moves its gradient row by 30-96% of its largest entry and
+# the loss after 3 steps by 2.5-10% in one process (NVIDIA H100 80GB HBM3,
+# 700 W; scripts/port_mesh_divergence.py, PERF.md §6). The phase
+# prints full_train_main_path's losses, the one-process trajectory, beside
+MESH_STEPS = 3
+RANKS_S = 900              # the time limit of a spawned world or a CLI run
+PPM_BYTE_TOL = 1           # a -p PPM against the one-process CLI's
+
+
+def shard_sum(torch, mesh_mod, run_pass, flat, cam, layout, *, width,
+              height, n_strata, max_depth, sky_gradient, schedule) -> tuple:
+    """(the (height, width, 3) sum of every shard of `layout` rendered in
+    this process, each shard's ms): render_shard of each, timed alone, the
+    sample shards of a tile added in order, the tiles stacked, the padding
+    of the last tile cropped."""
+    n_tile, n_sample = layout
+    total = n_strata * n_strata
+    hp = -(-height // n_tile) * n_tile
+    tiles, times = [], []
+    for t in range(n_tile):
+        acc = None
+        for s in range(n_sample):
+            row0, h, s0, spp = mesh_mod.local_shard(
+                n_tile, n_sample, t, s).shard(hp, total)
+            out = {}
+
+            def one():
+                out["img"] = mesh_mod.render_shard(
+                    flat, cam, 7, width=width, h_local=h, row0=row0,
+                    n_strata=n_strata, spp_local=spp, sample0=s0,
+                    max_depth=max_depth, sky_gradient=sky_gradient,
+                    schedule=schedule, run_pass=run_pass)
+            times.append(cuda_ms(torch, one, reps=1, warmup=0))
+            acc = out["img"] if acc is None else acc + out["img"]
+        tiles.append(acc)
+    return torch.cat(tiles)[:height], times
+
+
+def mesh_train_steps(torch, train, flat, cam, kw, target, start, mesh,
+                     dev) -> dict:
+    """MESH_STEPS make_train_step(mesh=) steps over all five families of
+    Cornell from `start` (full_family_adam): per step the loss, the step's
+    seconds, its gradients (summed over the ranks) and the parameters and
+    Adam state it started from; and the parameters after the last, all on
+    the CPU."""
+    params = {k: v.to(dev).clone().requires_grad_(True)
+              for k, v in start.items()}
+    opt = full_family_adam(torch, params)
+    step = train.make_train_step(opt, flat=flat, engine="cuda", mesh=mesh,
+                                 **kw)
+    steps = []
+    for _ in range(MESH_STEPS):
+        before = {"params": {k: v.detach().cpu().clone()
+                             for k, v in params.items()},
+                  "adam": {k: {s: t.detach().cpu().clone() for s, t in
+                               opt.state[v].items()}
+                           for k, v in params.items() if opt.state[v]}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(params, cam, TRAIN_SEED, target))
+        torch.cuda.synchronize()
+        steps.append({"loss": loss, "s": time.perf_counter() - t0,
+                      "grads": {k: v.grad.detach().cpu()
+                                for k, v in params.items()}, **before})
+    return {"steps": steps, "params": {k: v.detach().cpu()
+                                       for k, v in params.items()}}
+
+
+def one_process_step(torch, train, flat, cam, kw, target, before, dev):
+    """The one-process step from a mesh step's starting point: (loss,
+    gradients, parameters after full_family_adam's update), the Adam state
+    `before["adam"]` restored."""
+    params = {k: v.to(dev).clone().requires_grad_(True)
+              for k, v in before["params"].items()}
+    opt = full_family_adam(torch, params)
+    for k, st in before["adam"].items():
+        opt.state[params[k]] = {s: t.to(dev) if s != "step" else t.clone()
+                                for s, t in st.items()}
+    step = train.make_train_step(opt, flat=flat, engine="cuda", **kw)
+    loss = float(step(params, cam, TRAIN_SEED, target))
+    return (loss, {k: v.grad.detach().cpu() for k, v in params.items()},
+            {k: v.detach().cpu() for k, v in params.items()})
+
+
+def mesh_rank_worker(rank, n, init_method, job):
+    """One of the ranks of mesh_ranks, on the card with the others (gloo):
+    render_on_mesh of Cornell 600^2 spp16 d50 on each layout, MESH_STEPS
+    make_train_step(mesh=) steps over all five families at Cornell
+    1920x1080 spp64 d50 from full_train_main_path's start (mesh_train_
+    steps), and on the (1, 2) layout one all-family adjoint step on
+    bouncing_spheres 1200x675 spp16 d50 under the sky gradient. Returns
+    its images, losses, parameters, gradients, times and the kernels'
+    launch counts."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    import real_time_ray_tracing_engine_tpu_torch as pt
+    from real_time_ray_tracing_engine_tpu_torch.models import render as rd
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
+    from real_time_ray_tracing_engine_tpu_torch.parallel import distributed
+    from real_time_ray_tracing_engine_tpu_torch.parallel import mesh as pm
+    from real_time_ray_tracing_engine_tpu_torch.parallel import train
+    distributed.initialize(device="cuda", init_method=init_method, rank=rank,
+                           world_size=n, local_rank=rank, local_world_size=n)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"backend": torch.distributed.get_backend(), "layouts": {}}
+
+    def counts():
+        return {"forward": wc.render_pass_kernel.launches,
+                "grad": wc.render_pass_grad_kernel.launches,
+                "hard_grad": wc.render_pass_grad_kernel.hard_launches,
+                "adjoint": ac.render_pass_adjoint_kernel.launches,
+                "plain": (wc.render_pass_reference.calls
+                          + wc.render_pass_grad_reference.calls
+                          + rd._render_pass.calls
+                          + ac.render_pass_adjoint_reference.calls)}
+
+    def reset():
+        for fn, names in ((wc.render_pass_kernel, ("launches",)),
+                          (wc.render_pass_grad_kernel,
+                           ("launches", "hard_launches")),
+                          (ac.render_pass_adjoint_kernel, ("launches",)),
+                          (wc.render_pass_reference, ("calls",)),
+                          (wc.render_pass_grad_reference, ("calls",)),
+                          (rd._render_pass, ("calls",)),
+                          (ac.render_pass_adjoint_reference, ("calls",))):
+            for a in names:
+                setattr(fn, a, 0)
+
+    tflat, tcam, tkw = pass_args(
+        pt, cornell_1080p(pt, TRAIN_SPP, TRAIN_DEPTH), dev)
+    tkw.pop("n_samples")
+    target = train.make_kernel_render(tflat, engine="cuda", **tkw)(
+        {"tex_color": tflat.tex_color}, tcam, TRAIN_SEED).detach()
+    for layout in job["layouts"]:
+        mesh = pm.make_render_mesh(*layout)
+        rec = {"shard": [mesh.tile, mesh.sample]}
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = pm.render_on_mesh(builtin(pt, "cornell_box", 600, 16, 50),
+                                mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        rec["render_s"] = time.perf_counter() - t0
+        rec["render_counts"] = counts()
+        rec["image"] = img.cpu()
+        reset()
+        rec.update(mesh_train_steps(torch, train, tflat, tcam, tkw, target,
+                                    job["start"], mesh, dev))
+        rec["train_counts"] = counts()
+        out["layouts"][layout] = rec
+    if job["adjoint"]:
+        mesh = pm.make_render_mesh(1, 2)
+        bflat, bcam, bkw = pass_args(
+            pt, builtin(pt, "bouncing_spheres", 1200, 16, 50), dev)
+        bkw.pop("n_samples")
+        bkw["sky_gradient"] = True
+        bparams, btarget = adjoint_training_start(torch, train, wc, bflat,
+                                                  bcam, bkw, "cuda")
+        bstep = train.make_train_step(
+            adjoint_optimizer(torch, bparams, ADJ_GEOM_LR), flat=bflat,
+            engine="cuda", mesh=mesh, **bkw)
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(bstep(bparams, bcam, TRAIN_SEED, btarget))
+        torch.cuda.synchronize()
+        out["adjoint"] = {"loss": loss, "step_s": time.perf_counter() - t0,
+                          "counts": counts(), "shard": [mesh.tile,
+                                                        mesh.sample],
+                          "grads": {k: v.grad.cpu()
+                                    for k, v in bparams.items()}}
+    return out
+
+
+def cli_ranks(text: str) -> list:
+    """The -p rank lines of a CLI run's standard error: (rank, forward
+    kernel launches, plain passes)."""
+    pat = re.compile(r"-p rank (\d+): .*; (\d+) forward kernel launches, "
+                     r"(\d+) plain passes")
+    return [tuple(int(x) for x in m.groups()) for m in pat.finditer(text)]
+
+
+def sharded_phases(torch, np, pt, wc, rd, train, dev, card, done,
+                   cli_ppm, full_losses) -> dict:
+    """The sharded layer on the card (parallel/mesh.py, parallel/
+    distributed.py, make_train_step(mesh=), the CLI's -p): four phases,
+    each a JSON line. cli_ppm is the one-process CLI's Cornell PPM
+    (main_path), full_losses full_train_main_path's losses (the
+    one-process trajectory from the mesh steps' start). Returns the launch
+    counts the kernels line reads."""
+    from real_time_ray_tracing_engine_tpu_torch.ops import adjoint_cuda as ac
+    from real_time_ray_tracing_engine_tpu_torch.parallel import mesh as pm
+    from real_time_ray_tracing_engine_tpu_torch.parallel import distributed
+    out = {}
+
+    # 13. row_offset: every kernel instance at a shard of row0 > 0 against
+    # its plain version at the same shard, under the rules of the parity
+    # phases (the image per pixel, the bounces, each gradient within
+    # DG_RTOL of its largest entry); the forward instances also against
+    # the same rows of their whole-image pass, bit for bit
+    cases = []
+    cornell = builtin(pt, "cornell_box", 64, 4, 16)
+    bouncing = wide(pt.builders.bouncing_spheres(), 192, 4, 16)
+    bouncing.camera.sky_gradient = True
+    for name, scene, row0, h, use_bvh, modes in (
+            ("cornell_box", cornell, 24, 16, False, ("K1", "K2", "K3",
+                                                    "K4")),
+            ("bouncing_spheres", bouncing, 40, 32, False, ("K6", "K8", "K9",
+                                                          "K10")),
+            ("bouncing_spheres -b", bouncing, 40, 32, True, ("K11", "K12"))):
+        flat, cam, kw = pass_args(pt, scene, dev, use_bvh=use_bvh)
+        whole_h = kw["height"]
+        kw["height"] = h
+        g = cotangent(torch, kw, dev, 5)
+        n_lanes = wc.lane_count(kw["width"] * h)
+        cases.append((name, flat, cam, kw, row0, whole_h, g, n_lanes,
+                      modes))
+
+    def bounce_counts(run_k, run_p, n_lanes):
+        it_k = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        it_p = torch.zeros_like(it_k)
+        return run_k(it_k), run_p(it_p), int(it_k.sum()), int(it_p.sum())
+
+    for name, flat, cam, kw, row0, whole_h, g, n_lanes, modes in cases:
+        for mode in modes:
+            rec = {"kernel": mode, "scene": name, "row0": row0,
+                   "shape": f"{kw['width']}x{kw['height']} of "
+                            f"{kw['width']}x{whole_h} spp{kw['n_samples']}"
+                            f" d{kw['max_depth']}"}
+            if mode in ("K1", "K6", "K11", "K12"):
+                env = {"K11": "stack", "K12": "lane"}.get(mode, "vscan")
+                with kernel_mode_env(env):
+                    prep = wc.prepare_kernel(flat, cam)
+                    img_k, img_p, bk, bp = bounce_counts(
+                        lambda it: wc.render_pass_kernel(
+                            flat, cam, 7, 0, row0=row0, iters=it,
+                            prepared=prep, **kw),
+                        lambda it: wc.render_pass_reference(
+                            flat, cam, 7, 0, row0=row0, iters=it, **kw),
+                        n_lanes)
+                    whole = wc.render_pass_kernel(
+                        flat, cam, 7, 0, prepared=prep,
+                        **{**kw, "height": whole_h})
+                rec["mode"] = prep.mode
+                rec["equal_to_whole_rows"] = bool(torch.equal(
+                    img_k, whole[row0:row0 + kw["height"]]))
+                check(rec["equal_to_whole_rows"], f"row_offset {mode} "
+                      f"{name}: the shard differs from its rows of the "
+                      "whole image's pass")
+            elif mode == "K2":
+                img_k = wc.render_pass_compacted(flat, cam, 7, 0, row0=row0,
+                                                 caps=(6,), **kw)
+                img_p = wc.render_pass_compacted(
+                    flat, cam, 7, 0, row0=row0, caps=(6,),
+                    pass_fn=wc.render_pass_reference, **kw)
+                single = wc.render_pass_kernel(flat, cam, 7, 0, row0=row0,
+                                               **kw)
+                rec["vs_single_max_abs_err"] = float(
+                    (img_k - single).abs().max())
+                check(torch.allclose(img_k, single, atol=COMPACT_ATOL),
+                      f"row_offset K2 {name}: compacted against single "
+                      f"{rec['vs_single_max_abs_err']}")
+                bk = bp = None
+            elif mode in ("K3", "K4", "K8"):
+                slots = (wc.hard_param_slots(flat) if mode == "K4" else ())
+                (img_k, dt_k, dh_k), (img_p, dt_p, dh_p), bk, bp = \
+                    bounce_counts(
+                        lambda it: wc.render_pass_grad_kernel(
+                            flat, cam, 7, 0, row0=row0, cotangent=g,
+                            hard_slots=slots, iters=it, **kw),
+                        lambda it: wc.render_pass_grad_reference(
+                            flat, cam, 7, 0, row0=row0, cotangent=g,
+                            hard_slots=slots, iters=it, **kw), n_lanes)
+                errs = {"tex_color": {
+                    "max_abs_err": float((dt_k - dt_p).abs().max()),
+                    "scale": float(dt_p.abs().max())}}
+                if slots:
+                    errs.update(family_errors(slots, dh_k, dh_p))
+                rec["grads"] = errs
+            else:
+                seg = ADJ_SEG if mode == "K10" else 0
+                plain = (functools.partial(
+                    ac.render_pass_adjoint_seg_reference, seg=seg) if seg
+                    else ac.render_pass_adjoint_reference)
+                (img_k, gr_k), (img_p, gr_p), bk, bp = bounce_counts(
+                    lambda it: ac.render_pass_adjoint_kernel(
+                        flat, cam, 7, 0, row0=row0, cotangent=g, seg=seg,
+                        iters=it, **kw),
+                    lambda it: plain(flat, cam, 7, 0, row0=row0,
+                                     cotangent=g, iters=it, **kw), n_lanes)
+                rec["grads"] = adjoint_errors(gr_k, gr_p)
+            rec.update(per_pixel(img_k, img_p))
+            rec["kernel_bounces"], rec["plain_bounces"] = bk, bp
+            emit("row_offset", **rec)
+            assert_close(f"row_offset {mode} {name}", rec)
+            # the plain suffix tier (K8) traces each sample twice
+            twice = 2 if mode == "K8" else 1
+            check(bk is None or bk * twice == bp, f"row_offset {mode} "
+                  f"{name}: the kernel traced {bk} bounces, the plain "
+                  f"version {bp} (x{twice})")
+            for fam, e in rec.get("grads", {}).items():
+                check(e["max_abs_err"] <= DG_RTOL * e["scale"],
+                      f"row_offset {mode} {name}: {fam} differs by "
+                      f"{e['max_abs_err']} (limit {DG_RTOL} x "
+                      f"{e['scale']})")
+            check(rec.get("grads", {}).get("tex_color", {"scale": 1.0})[
+                "scale"] > 0.0, f"row_offset {mode} {name}: no gradient")
+    torch.cuda.empty_cache()
+    done("row_offset")
+
+    # 14. mesh_shards: in this process, every shard of each layout rendered
+    # by render_shard and summed against the one-process pass of the same
+    # samples: Cornell 600^2 spp16 d50 (K1) and bouncing 1200x675 spp16 d50
+    # (K6), single schedule (tile-only layouts bit for bit) and the auto
+    # schedule (compacted from 8 samples a shard); then the gradients of a
+    # fixed cotangent, the per-shard gradients of the mesh training render
+    # (make_kernel_render(mesh=local_shard(...))) summed against the
+    # one-process render's: Cornell 1920x1080 spp64 d50 over all five
+    # families (K3 + K4 under K5) and bouncing 1200x675 spp16 d50 over all
+    # five (K9; its layouts divide its 675 rows)
+    for name, scene in (
+            ("cornell_box 600x600 spp16 d50",
+             builtin(pt, "cornell_box", 600, 16, 50)),
+            ("bouncing_spheres 1200x675 spp16 d50",
+             builtin(pt, "bouncing_spheres", 1200, 16, 50))):
+        flat, cam, kw = pass_args(pt, scene, dev)
+        prep = wc.prepare_kernel(flat, cam)
+        run_pass = wc.pass_function(flat, cam, prep)
+        common = {k: v for k, v in kw.items() if k != "n_samples"}
+        for schedule in ("single", "auto"):
+            ones = {}
+
+            def one():
+                ones["img"] = rd._pass_sum(
+                    "cuda", flat, cam, run_pass, 7, 0, kw["n_samples"],
+                    schedule=schedule, caps=None, tile_rows=1, **common)
+            one_ms = cuda_ms(torch, one, reps=1, warmup=1)
+            whole = ones["img"]
+            scale = float(whole.abs().max())
+            for layout in MESH_LAYOUTS:
+                img, times = shard_sum(torch, pm, run_pass, flat, cam,
+                                       layout, schedule=schedule, **common)
+                diff = float((img - whole).abs().max())
+                rec = {"scene": name, "mode": prep.mode, "layout": layout,
+                       "schedule": schedule, "equal": bool(
+                           torch.equal(img, whole)),
+                       "max_abs_diff": diff, "scale": scale,
+                       "one_process_ms": one_ms, "shard_ms": times,
+                       "card": card}
+                emit("mesh_shards", **rec)
+                if schedule == "single" and layout[1] == 1:
+                    check(rec["equal"], f"mesh_shards {name} {layout}: a "
+                          f"tile-only layout differs by {diff}")
+                check(diff <= MESH_RTOL * scale, f"mesh_shards {name} "
+                      f"{layout} {schedule}: {diff} (limit {MESH_RTOL} x "
+                      f"{scale})")
+    grad_cases = (
+        ("cornell_box 1920x1080 spp64 d50", cornell_1080p(pt, TRAIN_SPP,
+                                                          TRAIN_DEPTH),
+         False, MESH_LAYOUTS, DG_RTOL),
+        ("bouncing_spheres 1200x675 spp16 d50, sky gradient",
+         builtin(pt, "bouncing_spheres", 1200, 16, 50), True,
+         ((1, 2), (3, 1), (3, 2)), ADJ_MAIN_RTOL))
+    for name, scene, sky, layouts, rtol in grad_cases:
+        flat, cam, kw = pass_args(pt, scene, dev)
+        kw.pop("n_samples")
+        kw["sky_gradient"] = kw["sky_gradient"] or sky
+        g = cotangent(torch, {**kw}, dev, 5)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in train.get_params(flat).items()}
+
+        def grads_of(mesh, rows):
+            render = train.make_kernel_render(flat, engine="cuda", mesh=mesh,
+                                              **kw)
+            img = render(params, cam, TRAIN_SEED)
+            return torch.autograd.grad((img * g[rows]).sum(),
+                                       list(params.values()))
+        t0 = time.perf_counter()
+        want = grads_of(None, slice(None))
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        for layout in layouts:
+            n_tile, n_sample = layout
+            h = kw["height"] // n_tile
+            got = [torch.zeros_like(p) for p in params.values()]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(n_tile):
+                for s in range(n_sample):
+                    for i, d in enumerate(grads_of(
+                            pm.local_shard(n_tile, n_sample, t, s),
+                            slice(t * h, (t + 1) * h))):
+                        got[i] += d
+            torch.cuda.synchronize()
+            fams = {f: {"max_abs_err": float((a - b).abs().max()),
+                        "scale": float(b.abs().max())}
+                    for f, a, b in zip(params, got, want)}
+            rec = {"scene": name, "layout": layout, "families": fams,
+                   "rtol": rtol, "one_process_s": one_s,
+                   "shards_s": time.perf_counter() - t0, "card": card}
+            emit("mesh_shards", **rec)
+            for f, e in fams.items():
+                check(e["max_abs_err"] <= rtol * e["scale"],
+                      f"mesh_shards {name} {layout}: {f} differs by "
+                      f"{e['max_abs_err']} (limit {rtol} x {e['scale']})")
+            check(fams["tex_color"]["scale"] > 0.0
+                  and fams["sph_radius"]["scale"] > 0.0,
+                  f"mesh_shards {name}: no gradient")
+    del params, want, got
+    torch.cuda.empty_cache()
+    done("mesh_shards")
+
+    # 15. mesh_ranks: two processes share the card over gloo (NCCL refuses
+    # two ranks on one device; parallel/distributed.py::choose_backend),
+    # layouts (2, 1) and (1, 2): render_on_mesh of Cornell 600^2 spp16 d50
+    # against the one-process image; MESH_STEPS make_train_step(mesh=)
+    # steps over all five families at Cornell 1920x1080 spp64 d50 from
+    # full_train_main_path's start, each against the one-process step from
+    # its starting point (loss, gradients and the parameters after Adam's
+    # update; MESH_STEPS says why not the trajectory, whose losses
+    # full_train_main_path took and the phase prints beside), parameters
+    # equal across the ranks, the loss falling; one all-family adjoint
+    # step on
+    # bouncing 1200x675 spp16 d50 at (1, 2) against the same step in this
+    # process. Times from two ranks on one card measure contention, not
+    # scaling. Then a one-rank NCCL group in this process: render_on_mesh,
+    # its all_reduce and all_gather launched on the card
+    tflat, tcam, tkw = pass_args(
+        pt, cornell_1080p(pt, TRAIN_SPP, TRAIN_DEPTH), dev)
+    tkw.pop("n_samples")
+    target = train.make_kernel_render(tflat, engine="cuda", **tkw)(
+        {"tex_color": tflat.tex_color}, tcam, TRAIN_SEED).detach()
+    fstart = full_family_start(wc, train, tflat)[3]
+    one_img = pm.render_on_mesh(builtin(pt, "cornell_box", 600, 16, 50),
+                                device=dev)
+    bflat, bcam, bkw = pass_args(
+        pt, builtin(pt, "bouncing_spheres", 1200, 16, 50), dev)
+    bkw.pop("n_samples")
+    bkw["sky_gradient"] = True
+    bparams, btarget = adjoint_training_start(torch, train, wc, bflat, bcam,
+                                              bkw, "cuda")
+    bstep = train.make_train_step(
+        adjoint_optimizer(torch, bparams, ADJ_GEOM_LR), flat=bflat,
+        engine="cuda", **bkw)
+    bloss = float(bstep(bparams, bcam, TRAIN_SEED, btarget))
+    bgrads = {k: v.grad.detach().clone() for k, v in bparams.items()}
+    del bparams, bstep
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = distributed.spawn_ranks(
+        mesh_rank_worker, 2, {"layouts": ((2, 1), (1, 2)),
+                              "start": {k: v.cpu() for k, v in
+                                        fstart.items()},
+                              "adjoint": True},
+        timeout_s=RANKS_S)
+    ranks_s = time.perf_counter() - t0
+    img_scale = float(one_img.abs().max())
+    ranks_rec = {"card": card, "ranks": 2, "backend": ranks[0]["backend"],
+                 "wall_s": ranks_s, "times": "two ranks on one card: "
+                 "contention, not scaling", "layouts": {}}
+    # the checks run after the phase's line is printed
+    deferred = []
+
+    def later(ok, msg):
+        deferred.append((bool(ok), msg))
+    later(all(r["backend"] == "gloo" for r in ranks),
+          f"two ranks on one card took {ranks[0]['backend']}")
+    for layout in ((2, 1), (1, 2)):
+        recs = [r["layouts"][layout] for r in ranks]
+        img_diff = max(float((r["image"].to(dev) - one_img).abs().max())
+                       for r in recs)
+        # each step against the one-process step from its starting point
+        # (rank 0's; the ranks' parameters are equal, checked below)
+        steps = recs[0]["steps"]
+        after = [st["params"] for st in steps[1:]] + [recs[0]["params"]]
+        per_step = []
+        for st, nxt in zip(steps, after):
+            loss, grads, params = one_process_step(
+                torch, train, tflat, tcam, tkw, target, st, dev)
+            per_step.append({
+                "loss": [st["loss"], loss],
+                "loss_rel_err": abs(st["loss"] - loss) / loss,
+                "grads": {f: {"max_abs_err": float((st["grads"][f] - g)
+                                                   .abs().max()),
+                              "scale": float(g.abs().max())}
+                          for f, g in grads.items()},
+                "params": {f: {"max_abs_err": float((nxt[f] - p).abs()
+                                                    .max()),
+                               "scale": float(p.abs().max())}
+                           for f, p in params.items()}})
+        same = all(torch.equal(recs[0]["params"][f], recs[1]["params"][f])
+                   for f in recs[0]["params"])
+        counts = [r["train_counts"] for r in recs]
+        losses = [[st["loss"] for st in r["steps"]] for r in recs]
+        lrec = {"shards": [r["shard"] for r in recs],
+                "render_max_abs_diff": img_diff, "render_scale": img_scale,
+                "render_equal": all(torch.equal(r["image"].to(dev), one_img)
+                                    for r in recs),
+                "render_s": [r["render_s"] for r in recs],
+                "render_counts": [r["render_counts"] for r in recs],
+                "losses": losses, "per_step": per_step,
+                "one_process_trajectory_losses": full_losses[:MESH_STEPS],
+                "params_equal_across_ranks": same,
+                "step_s": [[st["s"] for st in r["steps"]] for r in recs],
+                "train_counts": counts}
+        ranks_rec["layouts"][str(layout)] = lrec
+        later(img_diff <= MESH_RTOL * img_scale, f"mesh_ranks {layout}: the "
+              f"image differs by {img_diff}")
+        for i, ps in enumerate(per_step):
+            later(ps["loss_rel_err"] <= DG_RTOL, f"mesh_ranks {layout} step "
+                  f"{i}: the loss differs by {ps['loss_rel_err']} of the "
+                  "one-process step's")
+            for what in ("grads", "params"):
+                for f, e in ps[what].items():
+                    later(e["max_abs_err"] <= DG_RTOL * e["scale"],
+                          f"mesh_ranks {layout} step {i}: {f} ({what}) "
+                          f"differs by {e['max_abs_err']} (limit {DG_RTOL}"
+                          f" x {e['scale']})")
+        later(same, f"mesh_ranks {layout}: the ranks' parameters differ")
+        later(all(ls[-1] < ls[0] for ls in losses),
+              f"mesh_ranks {layout}: the loss did not fall {losses}")
+        for c in counts + [r["render_counts"] for r in recs]:
+            later(c["forward"] > 0 and c["plain"] == 0,
+                  f"mesh_ranks {layout}: launches {c}")
+        later(all(c["hard_grad"] >= MESH_STEPS for c in counts),
+              f"mesh_ranks {layout}: the hard-slot grad kernel ran {counts}")
+    adj = [r["adjoint"] for r in ranks]
+    afams = {f: {"max_abs_err": max(float((a["grads"][f].to(dev)
+                                           - bgrads[f]).abs().max())
+                                    for a in adj),
+                 "scale": float(bgrads[f].abs().max())} for f in bgrads}
+    ranks_rec["adjoint"] = {
+        "layout": (1, 2), "shards": [a["shard"] for a in adj],
+        "losses": [a["loss"] for a in adj], "one_process_loss": bloss,
+        "families": afams, "step_s": [a["step_s"] for a in adj],
+        "counts": [a["counts"] for a in adj]}
+    for a in adj:
+        later(abs(a["loss"] - bloss) <= DG_RTOL * bloss,
+              f"mesh_ranks adjoint: loss {a['loss']} against {bloss}")
+        later(a["counts"]["adjoint"] >= 1 and a["counts"]["plain"] == 0,
+              f"mesh_ranks adjoint: launches {a['counts']}")
+    for f, e in afams.items():
+        later(e["max_abs_err"] <= ADJ_MAIN_RTOL * e["scale"],
+              f"mesh_ranks adjoint: {f} differs by {e['max_abs_err']} "
+              f"(limit {ADJ_MAIN_RTOL} x {e['scale']})")
+    launches = {k: sum(lr[c][k] for r in ranks
+                       for lr in r["layouts"].values()
+                       for c in ("render_counts", "train_counts"))
+                for k in ("forward", "grad", "hard_grad")}
+    launches["adjoint"] = sum(a["counts"]["adjoint"] for a in adj)
+    ranks_rec["launches"] = launches
+    emit("mesh_ranks", **ranks_rec)
+    # the one-rank NCCL group
+    import tempfile
+    store = Path(tempfile.mkdtemp(prefix="rtx_nccl_")) / "store"
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        mesh = pm.make_render_mesh()
+        nccl = {"backend": torch.distributed.get_backend(),
+                "mesh": [mesh.n_tile, mesh.n_sample]}
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            img = pm.render_on_mesh(builtin(pt, "cornell_box", 600, 16, 50),
+                                    mesh=mesh, device=dev)
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if "nccl" in e.key.lower()})
+        nccl.update(equal=bool(torch.equal(img, one_img)),
+                    profiled_nccl=names)
+    finally:
+        torch.distributed.destroy_process_group()
+    emit("mesh_ranks_nccl", card=card, **nccl)
+    for ok, msg in deferred:
+        check(ok, msg)
+    check(nccl["backend"] == "nccl" and nccl["equal"],
+          f"mesh_ranks: the one-rank NCCL render {nccl}")
+    out["mesh_ranks"] = ranks_rec
+    torch.cuda.empty_cache()
+    done("mesh_ranks")
+
+    # 16. cli_parallel: the CLI's -p at its Cornell default (600x600 spp100
+    # d50), one rank on the card and two under torch.distributed.run
+    # sharing it (gloo), each rank's forward launches and plain passes from
+    # its -p line; the PPM against the one-process CLI's (main_path) within
+    # PPM_BYTE_TOL (a shard's pass sums the same samples in another order
+    # than the CLI's batches of 16)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    cli_rec = {}
+    for name, launcher, n in (
+            ("one_rank", [], 1),
+            ("torchrun_2", ["-m", "torch.distributed.run", "--standalone",
+                            "--nproc-per-node", "2"], 2)):
+        ppm_path = Path("output") / f"cli_parallel_{name}.ppm"
+        if ppm_path.exists():
+            ppm_path.unlink()
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, *launcher, "-m", PKG, "-p", "--output",
+             ppm_path.stem], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=RANKS_S)
+        wall = time.perf_counter() - t0
+        lines = cli_ranks(run.stderr)
+        rec = {"card": card, "argv": launcher + ["-m", PKG, "-p"],
+               "rc": run.returncode, "wall_s": wall, "ranks": lines,
+               "mesh": [ln for ln in run.stderr.splitlines()
+                        if "[INFO] -p:" in ln]}
+        if run.returncode == 0 and ppm_path.exists():
+            ppm = pt.read_ppm(ppm_path).astype(np.int64)
+            rec["ppm_max_byte_diff"] = int(np.abs(
+                ppm - cli_ppm.astype(np.int64)).max())
+            rec["ppm_bytes_differing"] = int((ppm != cli_ppm).sum())
+        if n == 2:
+            rec["times"] = "two ranks on one card: contention, not scaling"
+        cli_rec[name] = rec
+        emit("cli_parallel", name=name, **rec)
+        check(run.returncode == 0, f"cli_parallel {name}: rc "
+              f"{run.returncode}: {run.stderr[-2000:]}")
+        check(sorted(r for r, _, _ in lines) == list(range(n)),
+              f"cli_parallel {name}: rank lines {lines}")
+        check(all(k > 0 and p == 0 for _, k, p in lines),
+              f"cli_parallel {name}: launches, plain passes {lines}")
+        check(run.stderr.count("[INFO] wrote") == 1,
+              f"cli_parallel {name}: the PPM written "
+              f"{run.stderr.count('[INFO] wrote')} times")
+        check(rec.get("ppm_max_byte_diff", 99) <= PPM_BYTE_TOL,
+              f"cli_parallel {name}: the PPM differs by "
+              f"{rec.get('ppm_max_byte_diff')}")
+    out["cli_parallel"] = cli_rec
+    out["launches"] = {**launches, "cli_forward": sum(
+        k for rec in cli_rec.values() for _, k, _ in rec["ranks"])}
+    done("cli_parallel")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1839,6 +2521,7 @@ def main() -> int:
     check(rc == 0, f"cli.main returned {rc}")
     check(out_ppm.exists(), f"{out_ppm} was not written")
     ppm = pt.read_ppm(out_ppm)
+    cli_ppm = ppm             # the -p runs' reference (cli_parallel)
     check(ppm.shape == (600, 600, 3), f"PPM shape {ppm.shape}")
     check(main_launches > 0, "the main path never launched the kernel")
     check(plain_calls == 0, "the main path ran the plain torch engine")
@@ -2002,21 +2685,12 @@ def main() -> int:
     # the JAX north star, bench.py:122-198), Adam at TRAIN_LR for tex_color,
     # IOR and fuzz and GEOM_LR for sphere geometry, from the dimmed walls
     # and the glass sphere at START_IOR and START_RADIUS
-    slots = wc.hard_param_slots(tflat)
-    glass_mats = [sl[1] for sl in slots if sl[0] == "ior"]
-    glass_rows = [sl[1] for sl in slots if sl[0] == "sphr"]
-    fparams = {k: v.detach().clone()
-               for k, v in train.get_params(tflat).items()}
-    fparams["tex_color"][WALL_ROWS] *= 0.7
-    fparams["mat_ior"][glass_mats] = START_IOR
-    fparams["sph_radius"][glass_rows] = START_RADIUS
+    slots, glass_mats, glass_rows, fparams = full_family_start(wc, train,
+                                                               tflat)
     for v in fparams.values():
         v.requires_grad_(True)
-    fstep = train.make_train_step(torch.optim.Adam([
-        {"params": [fparams["tex_color"], fparams["mat_ior"],
-                    fparams["mat_fuzz"]], "lr": TRAIN_LR},
-        {"params": [fparams["sph_center"], fparams["sph_radius"]],
-         "lr": GEOM_LR}]), flat=tflat, engine="cuda", **tkw)
+    fstep = train.make_train_step(full_family_adam(torch, fparams),
+                                  flat=tflat, engine="cuda", **tkw)
     flosses, fstep_s, first_grads = [], [], None
     wc.render_pass_kernel.launches = 0
     wc.render_pass_grad_kernel.launches = 0
@@ -3803,6 +4477,8 @@ def main() -> int:
           f"BVH full-family step: {full}, {loss}")
     done("bvh_train_main_path")
     prog = progressive_phases(torch, np, pt, wc, rd, cli, dev, card, done)
+    sharded = sharded_phases(torch, np, pt, wc, rd, train, dev, card, done,
+                             cli_ppm, flosses)
     emit("phase_seconds", **phase_s)
 
     hard_main = hard_err["cornell_box_1920x1080"]
@@ -3833,6 +4509,12 @@ def main() -> int:
         "spp100_bound_ms": f_bounds[100],
         "train_launches": {"tex_color": train_fwd,
                            "full_family": ftrain_fwd},
+        "sharded_launches": {"mesh_ranks": sharded["launches"]["forward"],
+                             "cli_parallel":
+                                 sharded["launches"]["cli_forward"]},
+        "sharded_launches_at": "mesh_ranks (two ranks: render_on_mesh and "
+                               "3 full-family steps at each of 2 layouts); "
+                               "cli_parallel (-p on one and on two ranks)",
         "two_launches_equal": refill,
         "ptxas": ptxas_prefix(lib.build_log,
                               "wavefront_forward_kernel$")}, {
@@ -3861,6 +4543,9 @@ def main() -> int:
         "max_abs_err_at": f"dG_hard, cornell_box {TRAIN_W}x{TRAIN_H} spp4 "
                           f"d{TRAIN_DEPTH}",
         "compacted_ms": t_hcomp,
+        "sharded_launches": sharded["launches"]["hard_grad"],
+        "sharded_launches_at": "mesh_ranks (two ranks, 3 full-family steps "
+                               "at each of 2 layouts)",
         "ptxas": ptxas_hard(lib.build_log, "wavefront_grad_kernel")}, {
         "name": "wavefront_forward_vscan_kernel", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_VSCAN,
@@ -3989,6 +4674,8 @@ def main() -> int:
         "max_abs_err_at": "the largest family's, bouncing_spheres 1200x675 "
                           "spp16 d50",
         "launches_at": "adjoint_train_main_path (2 x 4 steps)",
+        "sharded_launches": sharded["launches"]["adjoint"],
+        "sharded_launches_at": "mesh_ranks (two ranks, one step at (1, 2))",
         "ptxas": adj_ptxas}, {
         "name": "wavefront_adjoint_seg_kernel", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": TPU_K10,

@@ -370,8 +370,14 @@
                         // T xyz, the record count
 
 // Mirrored field by field by ops/wavefront_cuda.py::_Params (ctypes).
+// row0 is the first image row of a shard (parallel/mesh.py): a lane's pixel
+// id is row0 * width + its pixel in the shard, and that absolute id keys
+// the pixel's random streams and places its camera rays, so a shard draws
+// the image's own samples for its rows. n_pix, the lanes and pix_lanes
+// stay the shard's.
 struct WfParams {
-    int n_lanes, n_pix, width, n_strata, max_depth, n_samples, sample_start;
+    int n_lanes, n_pix, width, n_strata, max_depth, n_samples, sample_start,
+        row0;
     unsigned int seed_mix, perlin_seed;
     int sky_gradient, has_noise, checker_depth, cap;
     int S, Q, L, M, MS, MQ, NT, K, want_tex, suffix;
@@ -2024,8 +2030,9 @@ __device__ __forceinline__ void wavefront_body(
     sc.perlin_seed = P.perlin_seed;
 
     // pad lanes of the identity layout repeat the last pixel (cropped later)
-    const int pix = pix_lanes ? pix_lanes[lane]
-                              : (lane < P.n_pix ? lane : P.n_pix - 1);
+    const int pix = P.row0 * P.width
+        + (pix_lanes ? pix_lanes[lane]
+                     : (lane < P.n_pix ? lane : P.n_pix - 1));
     const uint32_t k0 = (uint32_t)pix;
     const uint32_t k2 = P.seed_mix;
     const float fi = (float)(pix % P.width);
@@ -2552,8 +2559,9 @@ __device__ __forceinline__ void forward_refill(
             lane = next_slot(next);
             if (lane >= N) break;
             // pad lanes of the identity layout repeat the last pixel
-            const int pix = pix_lanes ? pix_lanes[lane]
-                                      : (lane < P.n_pix ? lane : P.n_pix - 1);
+            const int pix = P.row0 * P.width
+                + (pix_lanes ? pix_lanes[lane]
+                             : (lane < P.n_pix ? lane : P.n_pix - 1));
             k0 = (uint32_t)pix;
             fi = (float)(pix % P.width);
             fj = (float)(pix / P.width);
@@ -3859,7 +3867,7 @@ wavefront_adjoint_kernel(WfParams P, VsParams V, AdjArgs A) {
     const Scene sc = adj_scene(P, A.tables);
 
     // pad lanes repeat the last pixel (their cotangent is 0)
-    const int pix = lane < P.n_pix ? lane : P.n_pix - 1;
+    const int pix = P.row0 * P.width + (lane < P.n_pix ? lane : P.n_pix - 1);
     const uint32_t k0 = (uint32_t)pix;
     const uint32_t k2 = P.seed_mix;
     const float fi = (float)(pix % P.width);
@@ -4093,7 +4101,7 @@ wavefront_adjoint_seg_kernel(WfParams P, VsParams V, AdjSegArgs G) {
     const Scene sc = adj_scene(P, A.tables);
 
     // pad lanes repeat the last pixel (their cotangent is 0)
-    const int pix = lane < P.n_pix ? lane : P.n_pix - 1;
+    const int pix = P.row0 * P.width + (lane < P.n_pix ? lane : P.n_pix - 1);
     const uint32_t k0 = (uint32_t)pix;
     const uint32_t k2 = P.seed_mix;
     const float fi = (float)(pix % P.width);

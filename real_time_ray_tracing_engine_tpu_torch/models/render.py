@@ -65,11 +65,13 @@ def default_tile_rows(width: int, height: int, n_prims: int) -> int:
 def _render_pass(scene: FlatScene, cam: cam_mod.CameraState, seed,
                  sample_start, *, width: int, height: int, tile_rows: int,
                  n_strata: int, max_depth: int, sky_gradient: bool,
-                 n_samples: int) -> torch.Tensor:
+                 n_samples: int, row0: int = 0) -> torch.Tensor:
     """Sum of `n_samples` consecutive stratified samples for the whole
     image by the plain torch integrator; (height, width, 3), not averaged.
     Rows past the image in the last tile render the last pixel's rays and
-    are cropped."""
+    are cropped. row0 > 0 renders rows [row0, row0 + height) of an image
+    `width` wide (a tile shard, parallel/mesh.py): the pixel ids that key
+    the draws and place the rays are absolute, as the kernels' are."""
     _render_pass.calls += 1
     device = scene.device
     n_tiles = -(-height // tile_rows)
@@ -78,7 +80,7 @@ def _render_pass(scene: FlatScene, cam: cam_mod.CameraState, seed,
     for tile in range(n_tiles):
         pix = torch.arange(tile * tile_rows * width,
                            (tile + 1) * tile_rows * width, device=device)
-        pixc = torch.clamp(pix, max=width * height - 1)
+        pixc = torch.clamp(pix, max=width * height - 1) + row0 * width
         acc = torch.zeros(pix.shape[0], 3, dtype=torch.float32,
                           device=device)
         for k in range(n_samples):
@@ -135,8 +137,9 @@ def _pass_sum(eng: str, flat: FlatScene, cam: cam_mod.CameraState,
     whole image, (height, width, 3): on the kernel ("cuda") run_pass (the
     scene packed once, pass_function) as one pass or under the compacted
     schedule (_compacted), on the plain engine ("torch") _render_pass in
-    tiles of tile_rows rows. The one pass body of render and
-    ProgressiveRenderer.step."""
+    tiles of tile_rows rows. The one pass body of render,
+    ProgressiveRenderer.step and a mesh shard (parallel/mesh.py::
+    render_shard, which passes its row0 in `common`)."""
     if eng != "cuda":
         return _render_pass(flat, cam, seed, sample_start,
                             tile_rows=tile_rows, n_samples=k, **common)
@@ -210,8 +213,20 @@ def render(scene: Scene | FlatScene, cfg: CameraConfig | None = None, *,
 
 
 class CheckpointMismatch(ValueError):
-    """A checkpoint that ProgressiveRenderer.load refuses: of another
+    """A checkpoint that ProgressiveRenderer.load (or a shard checkpoint,
+    parallel/distributed.py::load_progressive_shard) refuses: of another
     scene, image shape, depth or sample count, or without a fingerprint."""
+
+
+def scene_fingerprint(flat: FlatScene, width: int, height: int,
+                      max_depth: int, sky_gradient: bool) -> str:
+    """sha256 of the compiled scene (golden_json) with the image's width,
+    height, max_depth and sky_gradient: what an accumulation was rendered
+    against, the camera aside."""
+    h = hashlib.sha256(golden_json(flat).encode())
+    h.update(json.dumps([width, height, max_depth,
+                         bool(sky_gradient)]).encode())
+    return h.hexdigest()
 
 
 def _camera_from_json(text: str) -> CameraConfig:
@@ -337,14 +352,12 @@ class ProgressiveRenderer:
 
     # ------------------------------------------------------- checkpoint
     def fingerprint(self) -> str:
-        """sha256 of the compiled scene (golden_json) with the image's
-        width, height, max_depth and sky_gradient: what a checkpoint's
-        accumulation was rendered against, the camera aside."""
+        """scene_fingerprint of the renderer's scene and image settings:
+        what a checkpoint's accumulation was rendered against."""
         if self._fingerprint is None:
-            h = hashlib.sha256(golden_json(self.flat).encode())
-            h.update(json.dumps([self.width, self.height, self.cfg.max_depth,
-                                 bool(self.cfg.sky_gradient)]).encode())
-            self._fingerprint = h.hexdigest()
+            self._fingerprint = scene_fingerprint(
+                self.flat, self.width, self.height, self.cfg.max_depth,
+                self.cfg.sky_gradient)
         return self._fingerprint
 
     def _settings(self) -> dict:

@@ -163,10 +163,12 @@ def _add_grads(grads: dict, got: dict) -> None:
 
 
 def _adjoint_setup(flat: FlatScene, cotangent, width: int, height: int,
-                   iters):
+                   iters, row0: int = 0):
     """What both plain sweeps start from: (n_lanes, the lanes' pixels, the
     cotangent lanes (n_lanes, 3), the trainable tables, zero grads, zero
-    radiance (n_lanes, 3)), in the dtype of the scene's tables."""
+    radiance (n_lanes, 3)), in the dtype of the scene's tables. The lanes
+    are the shard's (height rows); their pixels are absolute, row0 * width
+    added, as the kernels' are."""
     device = flat.device
     n_pix = width * height
     n_lanes = wc.lane_count(n_pix)
@@ -174,7 +176,8 @@ def _adjoint_setup(flat: FlatScene, cotangent, width: int, height: int,
     dt = flat.sph_center.dtype
     g = wc.cotangent_lanes(cotangent, width=width, height=height).to(
         device=device, dtype=dt).T                           # (n_lanes, 3)
-    pix = wc._identity_pixels(n_lanes, n_pix, device)
+    pix = (wc._identity_pixels(n_lanes, n_pix, device)
+           + wc._check_row0(row0) * width)
     tables = {f: getattr(flat, f).detach() for f in ADJOINT_FIELDS}
     grads = {f: torch.zeros_like(t) for f, t in tables.items()}
     rad = torch.zeros(n_lanes, 3, dtype=dt, device=device)
@@ -185,7 +188,8 @@ def render_pass_adjoint_reference(flat: FlatScene, cam: CameraState, seed,
                                   sample_start, *, width: int, height: int,
                                   n_strata: int, max_depth: int,
                                   n_samples: int, cotangent,
-                                  sky_gradient: bool = False, iters=None):
+                                  sky_gradient: bool = False, iters=None,
+                                  row0: int = 0):
     """The plain version of the adjoint kernel's per-sample sweep (K9):
     (image, grads) with image the (height, width, 3) radiance sum of
     n_samples samples a pixel (the forward pass's) and grads the dict of
@@ -201,13 +205,14 @@ def render_pass_adjoint_reference(flat: FlatScene, cam: CameraState, seed,
     iters, when given, counts each lane's phase-F bounces. The lanes'
     radiance, cotangents and gradients take the dtype of the scene's tables
     (float32; float64 tables give a float64 reference past the camera's
-    float32 rays). Each call adds one to
-    render_pass_adjoint_reference.calls."""
+    float32 rays). row0 > 0 renders the image rows [row0, row0 + height)
+    of a tile shard (render_pass_reference's), the cotangent the shard's.
+    Each call adds one to render_pass_adjoint_reference.calls."""
     render_pass_adjoint_reference.calls += 1
     flat = wc.all_primitive(flat)
     device = flat.device
     n_lanes, pix, g, tables, grads, rad = _adjoint_setup(
-        flat, cotangent, width, height, iters)
+        flat, cotangent, width, height, iters, row0)
     dt = rad.dtype
     sample_start = int(sample_start)
     background = cam.background
@@ -267,7 +272,7 @@ def render_pass_adjoint_seg_reference(flat: FlatScene, cam: CameraState,
                                       max_depth: int, n_samples: int,
                                       cotangent, seg: int,
                                       sky_gradient: bool = False,
-                                      iters=None):
+                                      iters=None, row0: int = 0):
     """The plain version of the adjoint kernel's segmented-regeneration
     sweep (K10, wavefront_pallas.py 2958-3092): render_pass_adjoint_
     reference's arguments and results, by another orchestration of the same
@@ -284,7 +289,8 @@ def render_pass_adjoint_seg_reference(flat: FlatScene, cam: CameraState,
     state, draws and regeneration flags, then reverses them with the
     per-sample sweep's bounce VJP (_bounce_vjp), lam carried across
     segments and set to 0 where a lane regenerated. iters, when given,
-    counts sweep 1's bounces. Each call adds one to
+    counts sweep 1's bounces; row0 as render_pass_adjoint_reference's.
+    Each call adds one to
     render_pass_adjoint_seg_reference.calls."""
     render_pass_adjoint_seg_reference.calls += 1
     if seg < 1:
@@ -292,7 +298,7 @@ def render_pass_adjoint_seg_reference(flat: FlatScene, cam: CameraState,
     flat = wc.all_primitive(flat)
     device = flat.device
     n_lanes, pix, g, tables, grads, rad = _adjoint_setup(
-        flat, cotangent, width, height, iters)
+        flat, cotangent, width, height, iters, row0)
     dt = rad.dtype
     sample_start = int(sample_start)
     background = cam.background
@@ -375,11 +381,12 @@ def render_pass_adjoint_kernel(flat: FlatScene, cam: CameraState, seed,
                                n_strata: int, max_depth: int, n_samples: int,
                                cotangent, sky_gradient: bool = False,
                                prepared: wc.KernelInputs | None = None,
-                               iters=None, seg: int = 0):
+                               iters=None, seg: int = 0, row0: int = 0):
     """The adjoint kernel's wrapper: render_pass_adjoint_reference's
     signature and results, on a CUDA device; seg = 0 launches the
     per-sample sweep (K9), seg > 0 the segmented-regeneration sweep with
-    SEG = seg (K10, render_pass_adjoint_seg_reference's results).
+    SEG = seg (K10, render_pass_adjoint_seg_reference's results); row0 a
+    tile shard's first row, its lanes, scratch and cotangent the shard's.
     `prepared` is prepare_kernel(flat, cam, chunk_scan=True), packed here
     when not given. Launches on the current stream; raises, before the
     launch, if the scene is outside adjoint_gate_reason, the inputs are
@@ -421,7 +428,8 @@ def render_pass_adjoint_kernel(flat: FlatScene, cam: CameraState, seed,
     p = wc._Params(
         n_lanes=n_lanes, n_pix=n_pix, width=width, n_strata=n_strata,
         max_depth=max_depth, n_samples=n_samples,
-        sample_start=int(sample_start), seed_mix=rng.mix_seed(seed),
+        sample_start=int(sample_start), row0=wc._check_row0(row0),
+        seed_mix=rng.mix_seed(seed),
         sky_gradient=int(bool(sky_gradient)), cap=0, K=0, want_tex=0,
         suffix=0, inv_strata=float(np.float32(1.0 / n_strata)),
         **prepared.fields)

@@ -1264,6 +1264,13 @@ def _check_carry(carry, pix_lanes, n_lanes: int, rows: int = CARRY_ROWS):
                          f"expected ({n_lanes},)")
 
 
+def _check_row0(row0) -> int:
+    """row0 as an int: the first image row of a shard, 0 or more."""
+    if int(row0) != row0 or row0 < 0:
+        raise ValueError(f"row0 must be a row index >= 0, got {row0!r}")
+    return int(row0)
+
+
 def _check_iters(iters, n_lanes: int, device):
     if iters is not None and (tuple(iters.shape) != (n_lanes,)
                               or iters.dtype != torch.int32
@@ -1414,7 +1421,7 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
                          sample_start, *, width, height, n_strata, max_depth,
                          n_samples, sky_gradient, cap, carry, pix_lanes,
                          iters, cot, hard_slots=(), want_tex=True,
-                         force_planes=False):
+                         force_planes=False, row0=0):
     """The persistent lane wavefront in plain torch; with `cot` ((3,
     n_lanes) cotangent lanes) also the JAX grad kernel's tiers: with
     want_tex the tex_color weight planes (wavefront_pallas.py:865-873,
@@ -1445,6 +1452,10 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
         Dst[k] <- the bounce's JVP along (theta_k, Dst[k]) under the
             throughput's guard (_hard_tangents).
 
+    A lane's pixel is row0 * width plus its pixel in the shard (the
+    identity layout or pix_lanes, both of the shard's height rows): that
+    absolute id keys its draws and places its camera rays.
+
     Returns (radiance (3, n_lanes), carry or None, dG_tex (NT, 3) or None,
     dG_hard (K,) or None). iters ((n_lanes,) int32), when given, gets one
     added per lane per bounce it traces."""
@@ -1458,7 +1469,8 @@ def _wavefront_reference(flat: FlatScene, cam: CameraState, seed,
     _check_carry(carry, pix_lanes, n_lanes, _carry_rows(n_wp, K, suffix))
     _check_iters(iters, n_lanes, device)
     pix = (_identity_pixels(n_lanes, n_pix, device) if pix_lanes is None
-           else pix_lanes.to(device=device, dtype=torch.int64))
+           else pix_lanes.to(device=device, dtype=torch.int64)) \
+        + _check_row0(row0) * width
     sample_start = int(sample_start)
     background = cam.background
 
@@ -1620,9 +1632,13 @@ def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
                           sample_start, *, width: int, height: int,
                           n_strata: int, max_depth: int, n_samples: int,
                           sky_gradient: bool = False, cap: int = 0,
-                          carry=None, pix_lanes=None, iters=None):
+                          carry=None, pix_lanes=None, iters=None,
+                          row0: int = 0):
     """Sum of n_samples stratified samples per pixel by a persistent lane
-    wavefront in plain torch — the kernel's semantics, lane for lane.
+    wavefront in plain torch — the kernel's semantics, lane for lane. With
+    row0 > 0 the pass renders the image rows [row0, row0 + height) of an
+    image `width` wide (a tile shard, parallel/mesh.py): the same rays and
+    draws as those rows of the whole image's pass.
 
     Each loop iteration advances every lane that still has work by one
     bounce; a lane whose path ended restarts on its pixel's next sample. A
@@ -1637,7 +1653,7 @@ def render_pass_reference(flat: FlatScene, cam: CameraState, seed,
         flat, cam, seed, sample_start, width=width, height=height,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
-        iters=iters, cot=None)
+        iters=iters, cot=None, row0=row0)
     return _pass_result(rad, st, cap=cap, pix_lanes=pix_lanes, width=width,
                         height=height)
 
@@ -1652,7 +1668,7 @@ def render_pass_grad_reference(flat: FlatScene, cam: CameraState, seed,
                                hard_slots: tuple = (), want_tex: bool = True,
                                sky_gradient: bool = False, cap: int = 0,
                                carry=None, pix_lanes=None, iters=None,
-                               force_planes: bool = False):
+                               force_planes: bool = False, row0: int = 0):
     """The plain version of the grad kernel (K3, K4, K8 and their
     chunk-scan instances: the plain pass tests every primitive in every
     mode): render_pass_reference's pass plus, for g the cotangent, dG_tex =
@@ -1668,7 +1684,8 @@ def render_pass_grad_reference(flat: FlatScene, cam: CameraState, seed,
     (height, width, 3), or (3, n_lanes) lane planes under pix_lanes
     (cotangent_lanes). Returns (image, dG_tex, dG_hard), (radiance planes,
     dG_tex, dG_hard) under pix_lanes, (radiance, dG_tex, dG_hard, carry)
-    when capped. Each call adds one to render_pass_grad_reference.calls."""
+    when capped. row0 as render_pass_reference's (the cotangent is the
+    shard's). Each call adds one to render_pass_grad_reference.calls."""
     render_pass_grad_reference.calls += 1
     cot = cotangent_lanes(cotangent, width=width, height=height,
                           pix_lanes=pix_lanes).to(flat.device)
@@ -1677,7 +1694,7 @@ def render_pass_grad_reference(flat: FlatScene, cam: CameraState, seed,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
         iters=iters, cot=cot, hard_slots=tuple(hard_slots),
-        want_tex=want_tex, force_planes=force_planes)
+        want_tex=want_tex, force_planes=force_planes, row0=row0)
     return _grad_result(rad, dg_tex, dg_hard, st, cap=cap,
                         pix_lanes=pix_lanes, width=width, height=height)
 
@@ -1690,7 +1707,7 @@ class _Params(ctypes.Structure):
     """Mirror of csrc/wavefront.cu::WfParams."""
     _fields_ = ([(n, ctypes.c_int) for n in (
         "n_lanes", "n_pix", "width", "n_strata", "max_depth", "n_samples",
-        "sample_start")]
+        "sample_start", "row0")]
         + [("seed_mix", ctypes.c_uint), ("perlin_seed", ctypes.c_uint)]
         + [(n, ctypes.c_int) for n in (
             "sky_gradient", "has_noise", "checker_depth", "cap",
@@ -1949,7 +1966,7 @@ def with_camera(prepared: KernelInputs, cam: CameraState) -> KernelInputs:
 def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
             width, height, n_strata, max_depth, n_samples, sky_gradient, cap,
             carry, pix_lanes, prepared, iters, cot, hard_slots=(),
-            want_tex=True, multi_rows=None):
+            want_tex=True, multi_rows=None, row0=0):
     """Check the inputs, launch the forward (cot None) or the grad kernel on
     the current stream, and raise if the launch fails. Returns (radiance
     (3, n_lanes), carry or None, dG_tex (NT, 3) or None, dG_hard (K,) or
@@ -1994,7 +2011,8 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     p = _Params(
         n_lanes=n_lanes, n_pix=n_pix, width=width, n_strata=n_strata,
         max_depth=max_depth, n_samples=n_samples,
-        sample_start=int(sample_start), seed_mix=rng.mix_seed(seed),
+        sample_start=int(sample_start), row0=_check_row0(row0),
+        seed_mix=rng.mix_seed(seed),
         sky_gradient=int(bool(sky_gradient)), cap=int(cap), K=K,
         want_tex=int(bool(want_tex) and cot is not None),
         suffix=int(suffix),
@@ -2091,7 +2109,7 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
                        n_strata: int, max_depth: int, n_samples: int,
                        sky_gradient: bool = False, cap: int = 0, carry=None,
                        pix_lanes=None, prepared: KernelInputs | None = None,
-                       iters=None):
+                       iters=None, row0: int = 0):
     """The forward kernel's wrapper: render_pass_reference's signature and
     results, on a CUDA device. `prepared` is prepare_kernel(flat, cam),
     packed here when not given; its mode picks the instance: the unrolled
@@ -2110,7 +2128,7 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
         flat, cam, seed, sample_start, width=width, height=height,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
-        prepared=prepared, iters=iters, cot=None)
+        prepared=prepared, iters=iters, cot=None, row0=row0)
     render_pass_kernel.launches += 1
     if prepared.mode == "vscan":
         render_pass_kernel.launches_vscan += 1
@@ -2136,7 +2154,7 @@ def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
                             sky_gradient: bool = False, cap: int = 0,
                             carry=None, pix_lanes=None,
                             prepared: KernelInputs | None = None,
-                            iters=None, multi_rows=None):
+                            iters=None, multi_rows=None, row0: int = 0):
     """The grad kernel's (K3, K4, K8) wrapper: render_pass_grad_reference's
     signature and results (the tier by tex_form), on a CUDA device.
     `prepared` is prepare_kernel(flat, cam, hard_slots), packed here when
@@ -2172,7 +2190,7 @@ def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
         prepared=prepared, iters=iters, cot=cot, hard_slots=hard_slots,
-        want_tex=want_tex, multi_rows=multi_rows)
+        want_tex=want_tex, multi_rows=multi_rows, row0=row0)
     render_pass_grad_kernel.launches += 1
     form = tex_form(flat, want_tex)
     if hard_slots:
@@ -2296,14 +2314,15 @@ def render_pass_compacted(flat: FlatScene, cam: CameraState, seed,
                           n_strata: int, max_depth: int, n_samples: int,
                           sky_gradient: bool = False, cap: int = 0,
                           phases: int = 2, caps: tuple | None = None,
-                          pass_fn=None):
+                          pass_fn=None, row0: int = 0):
     """Capped + lane-compacted schedule: run the wavefront for caps[0]
     iterations, sort lanes by remaining samples, resume the carried states
     under that lane -> pixel permutation, and so on; an uncapped pass
     finishes. RNG keys are pixel ids, so the permutation changes no sample
     stream. caps == () is one uncapped pass. pass_fn runs each phase
     (default pass_function(flat, cam); the plain version may be given
-    explicitly for a scene on the card).
+    explicitly for a scene on the card). row0 (a tile shard's first row)
+    goes to every phase; the lanes and their permutation stay the shard's.
     Returns the (height, width, 3) radiance-sum image."""
     if caps is None:
         caps = default_caps(flat, n_samples, max_depth, cap, phases)
@@ -2312,7 +2331,7 @@ def render_pass_compacted(flat: FlatScene, cam: CameraState, seed,
         pass_fn = pass_function(flat, cam)
     common = dict(width=width, height=height, n_strata=n_strata,
                   max_depth=max_depth, n_samples=n_samples,
-                  sky_gradient=sky_gradient)
+                  sky_gradient=sky_gradient, row0=row0)
     if caps == ():
         return pass_fn(flat, cam, seed, sample_start, **common)
 
@@ -2331,15 +2350,17 @@ def render_pass_grad_compacted(flat: FlatScene, cam: CameraState, seed,
                                n_samples: int, cotangent,
                                hard_slots: tuple = (), want_tex: bool = True,
                                sky_gradient: bool = False,
-                               caps: tuple | None = None, pass_fn=None):
+                               caps: tuple | None = None, pass_fn=None,
+                               row0: int = 0):
     """The capped + lane-compacted schedule of the grad pass (K5,
     wavefront_pallas.py:3807-3888): render_pass_compacted's phases, with
     the weight and tangent planes riding the carry, the cotangent lanes
     permuted with the lanes, and dG_tex and dG_hard (sums over lanes, which
     no permutation changes) summed across phases. caps default to
     default_grad_caps; () is one uncapped grad pass. pass_fn runs each
-    phase (default grad_pass_function(flat, cam, hard_slots=hard_slots)).
-    Returns (image, dG_tex, dG_hard) as the single grad pass does."""
+    phase (default grad_pass_function(flat, cam, hard_slots=hard_slots));
+    row0 as render_pass_compacted's. Returns (image, dG_tex, dG_hard) as
+    the single grad pass does."""
     if caps is None:
         caps = default_grad_caps(flat, width, height, n_samples, max_depth)
     caps = _check_caps(caps)
@@ -2348,7 +2369,7 @@ def render_pass_grad_compacted(flat: FlatScene, cam: CameraState, seed,
     common = dict(width=width, height=height, n_strata=n_strata,
                   max_depth=max_depth, n_samples=n_samples,
                   sky_gradient=sky_gradient, hard_slots=hard_slots,
-                  want_tex=want_tex)
+                  want_tex=want_tex, row0=row0)
     if caps == ():
         return pass_fn(flat, cam, seed, sample_start, cotangent=cotangent,
                        **common)

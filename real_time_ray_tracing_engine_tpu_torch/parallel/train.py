@@ -1,6 +1,6 @@
 """Differentiable rendering: optimize scene parameters against target images.
 
-Port of the JAX package's parallel/train.py (one shard, no mesh). The loss
+Port of the JAX package's parallel/train.py. The loss
 forward renders with the forward kernel (K1, or the chunk scan's K6/K7 past
 the unrolled bounds, or on a use_bvh scene that opts in the BVH walk's K11
 or K12; K2 under the compacted schedule); its backward is the
@@ -48,6 +48,24 @@ CUDA device and "torch" on the CPU. Both engines take the same tier for a
 request. On "cuda" a request no kernel can serve (tex_color alone past a
 block's shared memory) raises NotImplementedError naming what is missing
 before any pass runs; there is no plain fallback.
+
+Over a mesh (mesh=, parallel/mesh.py::RenderMesh; JAX train.py:124-143,
+310-323, 326-392) each rank renders its shard: its tile's rows (the
+passes' row0) and its range of the samples (their sample_start), the
+compacted schedule from COMPACT_MIN_SAMPLES samples of the shard, and
+its backward takes the shard's own rows of the cotangent. The shards of a
+tile are merged by _SampleSum: its forward is a plain all_reduce (sum)
+over "sample", its backward the identity. So each rank's backward is the
+vector-Jacobian product of its own shard at its tile's cotangent, and
+the gradient is the sum of those products over every rank: the explicit
+all_reduce of all_reduce_grads, after the local backward, over the world.
+Two designs this avoids: an autograd-aware all_reduce over "sample"
+(whose backward sums the cotangent over the sample ranks, so the world's
+sum would count each shard's product n_sample times), and a plain
+all_reduce in place on the image (which cuts the graph).
+tests/test_torch_mesh.py pins the factor. The loss of a rank is the sum
+of its tile's squared errors over the whole image's entry count; summed
+over "tile" it is the one-process loss (mesh_loss).
 """
 from __future__ import annotations
 
@@ -59,6 +77,7 @@ import torch
 from ..scene.flat import FlatScene
 from ..models.camera import CameraState
 from ..models.render import pick_engine
+from .mesh import RenderMesh, all_reduce_sum
 from ..ops.adjoint_cuda import (adjoint_pass_function, adjoint_sweep,
                                 plain_adjoint_pass)
 from ..ops.wavefront_cuda import (HARD_FIELDS, MAX_GRAD_TEXS, MAX_TEXS,
@@ -146,10 +165,12 @@ class _Plan:
     """What a kernel render fixes at build time."""
     baked: FlatScene
     engine: str          # "cuda" | "torch"
-    common: dict         # width, height, n_strata, max_depth, n_samples,
-                         # sky_gradient
+    common: dict         # width, height (the shard's rows), n_strata,
+                         # max_depth, n_samples (the shard's), sky_gradient,
+                         # row0 (the shard's first row)
     compacted: bool
     adjoint_seg: int = 0  # an adjoint request's sweep (adjoint_sweep)
+    sample0: int = 0      # the shard's first sample
 
 
 @dataclass(frozen=True)
@@ -222,9 +243,9 @@ class _KernelRender(torch.autograd.Function):
         fwd, grad = _pass_functions(plan, flat, cam, req)
         ctx.state = (plan, flat, cam, seed, req, grad)
         if plan.compacted:
-            return render_pass_compacted(flat, cam, seed, 0, pass_fn=fwd,
-                                         **plan.common)
-        return fwd(flat, cam, seed, 0, **plan.common)
+            return render_pass_compacted(flat, cam, seed, plan.sample0,
+                                         pass_fn=fwd, **plan.common)
+        return fwd(flat, cam, seed, plan.sample0, **plan.common)
 
     @staticmethod
     def backward(ctx, g):
@@ -233,7 +254,7 @@ class _KernelRender(torch.autograd.Function):
         if req.adjoint:
             # every family at once; each requested tensor takes its own
             # (JAX train.py:207-216)
-            _, grads = grad(flat, cam, seed, 0,
+            _, grads = grad(flat, cam, seed, plan.sample0,
                             cotangent=g.to(torch.float32).contiguous(),
                             **plan.common)
             return (None, None, None, None) + tuple(grads[n]
@@ -248,20 +269,91 @@ class _KernelRender(torch.autograd.Function):
                       want_tex=req.want_tex, **plan.common)
             if plan.compacted:
                 _, dg_tex, dg_hard = render_pass_grad_compacted(
-                    flat, cam, seed, 0, pass_fn=grad, **kw)
+                    flat, cam, seed, plan.sample0, pass_fn=grad, **kw)
             else:
-                _, dg_tex, dg_hard = grad(flat, cam, seed, 0, **kw)
+                _, dg_tex, dg_hard = grad(flat, cam, seed, plan.sample0,
+                                          **kw)
         return (None, None, None, None) + _scatter_grads(req, params, dg_tex,
                                                          dg_hard)
+
+
+class _SampleSum(torch.autograd.Function):
+    """The shards of a tile summed over the mesh's "sample" axis: a plain
+    all_reduce forward, the identity backward (this module's docstring
+    says why: each rank differentiates its own shard, and
+    all_reduce_grads sums the ranks' gradients once)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_reduce_grads(params, mesh: RenderMesh | None) -> None:
+    """Sum each tensor's .grad over every rank of `mesh`, in place: the
+    explicit gradient all_reduce of a mesh training step, run after the
+    local backward (nothing to do on a mesh without a process group: one
+    process, or a local shard)."""
+    group = mesh.world_group() if mesh is not None else None
+    if group is None:
+        return
+    for p in params:
+        if p.grad is not None:
+            p.grad.copy_(all_reduce_sum(p.grad, group))
+
+
+def mesh_loss(img: torch.Tensor, target: torch.Tensor,
+              mesh: RenderMesh | None) -> torch.Tensor:
+    """The L2 loss of this rank's rows of the image against the whole
+    (height, width, 3) target: torch.mean((img - target) ** 2) on a
+    one-rank mesh; over a mesh, the tile's sum of squared errors over the
+    image's entry count, whose sum over "tile" (reduce_loss) is the
+    one-process loss."""
+    if mesh is None or mesh.size == 1:
+        return torch.mean((img - target) ** 2)
+    h = img.shape[0]
+    rows = target[mesh.tile * h:(mesh.tile + 1) * h]
+    if rows.shape != img.shape or target.shape[0] != h * mesh.n_tile:
+        raise ValueError(f"target {tuple(target.shape)} is not the image "
+                         f"of {mesh.n_tile} tiles of {tuple(img.shape)}")
+    return torch.sum((img - rows) ** 2) / target.numel()
+
+
+def reduce_loss(loss: torch.Tensor, mesh: RenderMesh | None) -> torch.Tensor:
+    """The whole image's loss from a rank's mesh_loss: its sum over the
+    "tile" axis (detached)."""
+    loss = loss.detach()
+    return loss if mesh is None else all_reduce_sum(loss, mesh.group("tile"))
+
+
+def _step_mesh(mesh: RenderMesh | None) -> RenderMesh | None:
+    """mesh, refused where a step over it would be neither the shard's
+    nor the image's: a layout of more than one rank without a process
+    group (local_shard) has no group to merge its samples, its loss or
+    its gradients over. A local shard is rendered through
+    make_kernel_render."""
+    if mesh is not None and mesh.size > 1 and mesh.device_mesh is None:
+        raise ValueError(f"a {mesh.n_tile} x {mesh.n_sample} mesh without a "
+                         "process group (a local shard) cannot take a "
+                         "training step: use make_kernel_render(mesh=)")
+    return mesh
 
 
 def make_kernel_render(baked: FlatScene, *, width: int, height: int,
                        n_strata: int, max_depth: int,
                        sky_gradient: bool = False, engine: str = "auto",
-                       adjoint_seg: int | None = None):
+                       adjoint_seg: int | None = None,
+                       mesh: RenderMesh | None = None):
     """Differentiable render at kernel speed: (params, cam, seed) -> the
     (height, width, 3) image, the radiance sum over n_strata^2 samples
-    divided by their count (JAX train.py:54-323, one shard).
+    divided by their count (JAX train.py:54-323). Over a mesh (a
+    RenderMesh; None is one process) the image is this rank's rows of it,
+    (height / n_tile, width, 3): its shard's sum merged over "sample"
+    (_SampleSum) and divided by the image's count. height must be a
+    multiple of n_tile and n_strata^2 of n_sample.
 
     params maps trainable field names (TRAINABLE_FIELDS) to tensors shaped
     as `baked`'s; the other scene tables are `baked`'s. The forward is the
@@ -272,7 +364,10 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
     adjoint_sweep(adjoint_seg) gives: K9, or K10 at SEG > 0; a negative
     adjoint_seg raises here). cam and seed get no gradient. On the kernels
     a request none of them can serve raises NotImplementedError at its
-    first call, before any pass."""
+    first call, before any pass. Over a mesh every pass is the shard's
+    (its rows and samples; the schedule's rule and the caps take its
+    sample count), and the gradients a backward leaves are this rank's
+    part, which all_reduce_grads sums over the world."""
     eng = pick_engine(baked, engine)
     if tex_form(baked) == "suffix":
         # the JAX package's build-time notice (train.py:112-123)
@@ -283,12 +378,15 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
               "boundary); nudge dark initializations by epsilon if "
               "training from black", flush=True)
     total = n_strata * n_strata
+    mesh = mesh or RenderMesh()
+    row0, h_local, sample0, spp_local = mesh.shard(height, total)
+    sample_group = mesh.group("sample")
     plan = _Plan(baked=baked, engine=eng,
-                 common=dict(width=width, height=height, n_strata=n_strata,
-                             max_depth=max_depth, n_samples=total,
-                             sky_gradient=sky_gradient),
-                 compacted=total >= COMPACT_MIN_SAMPLES,
-                 adjoint_seg=adjoint_sweep(adjoint_seg))
+                 common=dict(width=width, height=h_local, n_strata=n_strata,
+                             max_depth=max_depth, n_samples=spp_local,
+                             sky_gradient=sky_gradient, row0=row0),
+                 compacted=spp_local >= COMPACT_MIN_SAMPLES,
+                 adjoint_seg=adjoint_sweep(adjoint_seg), sample0=sample0)
     requests = {}       # the slots of each requested set of fields, once
 
     def render_image(params: dict, cam: CameraState, seed) -> torch.Tensor:
@@ -313,8 +411,11 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
                 raise ValueError(f"{n} must be {tuple(want.shape)} on "
                                  f"{baked.device}, got {tuple(p.shape)} on "
                                  f"{p.device}")
-        return _KernelRender.apply(plan, cam, seed, requests[names],
-                                   *(params[n] for n in names)) / total
+        img = _KernelRender.apply(plan, cam, seed, requests[names],
+                                  *(params[n] for n in names))
+        if sample_group is not None:
+            img = _SampleSum.apply(img, sample_group)
+        return img / total
 
     return render_image
 
@@ -322,26 +423,34 @@ def make_kernel_render(baked: FlatScene, *, width: int, height: int,
 def make_train_step(optimizer: torch.optim.Optimizer, *, flat: FlatScene,
                     width: int, height: int, n_strata: int, max_depth: int,
                     sky_gradient: bool = False, engine: str = "auto",
-                    adjoint_seg: int | None = None):
+                    adjoint_seg: int | None = None,
+                    mesh: RenderMesh | None = None):
     """One optimizer step: params -> rendered image -> L2 loss -> update
     (JAX train.py:326-377, with a torch.optim optimizer in place of optax).
 
     `optimizer` holds the tensors of `params`; `flat` gives every other
-    table; adjoint_seg the adjoint's sweep (make_kernel_render). Returns
-    step(params, cam, seed, target) -> loss (a detached scalar, the loss
-    before the update); the step updates params in place."""
+    table; adjoint_seg the adjoint's sweep and mesh the rank's shard
+    (make_kernel_render). Returns step(params, cam, seed, target) -> loss
+    (a detached scalar, the loss before the update; target the whole
+    image); the step updates params in place. Over a mesh the rank's
+    gradients are summed over the world (all_reduce_grads) before the
+    update, so every rank that starts from the same params takes the same
+    step, and the loss is the whole image's on every rank. A mesh without
+    a process group raises (_step_mesh)."""
+    mesh = _step_mesh(mesh)
     render_image = make_kernel_render(
         flat, width=width, height=height, n_strata=n_strata,
         max_depth=max_depth, sky_gradient=sky_gradient, engine=engine,
-        adjoint_seg=adjoint_seg)
+        adjoint_seg=adjoint_seg, mesh=mesh)
 
     def step(params: dict, cam: CameraState, seed, target) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         img = render_image(params, cam, seed)
-        loss = torch.mean((img - target) ** 2)
+        loss = mesh_loss(img, target, mesh)
         loss.backward()
+        all_reduce_grads(params.values(), mesh)
         optimizer.step()
-        return loss.detach()
+        return reduce_loss(loss, mesh)
 
     return step
 
@@ -350,16 +459,23 @@ def render_loss_grad(flat: FlatScene, cam: CameraState, seed, target, *,
                      width: int, height: int, n_strata: int, max_depth: int,
                      sky_gradient: bool = False,
                      fields: tuple = ("tex_color",), engine: str = "auto",
-                     adjoint_seg: int | None = None):
+                     adjoint_seg: int | None = None,
+                     mesh: RenderMesh | None = None):
     """One-shot L2 loss and parameter gradients (no optimizer state):
-    (loss, {field: gradient}); adjoint_seg as make_kernel_render's."""
+    (loss, {field: gradient}); adjoint_seg and mesh as make_kernel_render's
+    (target the whole image). Over a mesh the loss and gradients are the
+    whole image's, summed over the ranks, on every rank; a mesh without a
+    process group raises (_step_mesh)."""
     check_fields(fields)
+    mesh = _step_mesh(mesh)
     params = {f: getattr(flat, f).detach().clone().requires_grad_(True)
               for f in fields}
     render_image = make_kernel_render(
         flat, width=width, height=height, n_strata=n_strata,
         max_depth=max_depth, sky_gradient=sky_gradient, engine=engine,
-        adjoint_seg=adjoint_seg)
-    loss = torch.mean((render_image(params, cam, seed) - target) ** 2)
-    grads = torch.autograd.grad(loss, list(params.values()))
-    return loss.detach(), dict(zip(params, grads))
+        adjoint_seg=adjoint_seg, mesh=mesh)
+    loss = mesh_loss(render_image(params, cam, seed), target, mesh)
+    loss.backward()
+    all_reduce_grads(params.values(), mesh)
+    return (reduce_loss(loss, mesh),
+            {f: p.grad for f, p in params.items()})

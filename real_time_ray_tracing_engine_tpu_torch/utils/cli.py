@@ -29,10 +29,20 @@ The other modes, after the JAX package's CLI:
                             scene, golden_json) and
                             logs/scene_complexity_debug.txt before the
                             render
---frames, --checkpoint and --view need --camera dynamic. --device cpu runs
-any mode on the CPU instead (the plain torch engine; a -b scene through the
-BVH oracle); without it a missing GPU is an error. -p/--parallel (the
-sharded render) is not ported yet and exits with a message.
+  -p/--parallel             the static render sharded over ranks, rows on
+                            "tile" and samples on "sample"
+                            (parallel/mesh.py::render_on_mesh, the JAX
+                            package's default layout): under torchrun
+                            (python -m torch.distributed.run
+                            --nproc-per-node N -m
+                            real_time_ray_tracing_engine_tpu_torch -p) the
+                            launched world, else one rank per visible GPU
+                            (one rank in this process on one GPU or with
+                            --device cpu); rank 0 writes the PPM
+--frames, --checkpoint and --view need --camera dynamic; -p needs the
+static camera. --device cpu runs any mode on the CPU instead (the plain
+torch engine; a -b scene through the BVH oracle); without it a missing GPU
+is an error.
 """
 from __future__ import annotations
 
@@ -41,9 +51,6 @@ import os
 import sys
 import time
 
-NOT_PORTED = {
-    "parallel": "-p/--parallel (sharded multi-device render)",
-}
 # the progressive loop's flags, which need --camera dynamic
 DYNAMIC_ONLY = {"view": "--view", "checkpoint": "--checkpoint",
                 "frames": "--frames"}
@@ -84,7 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu must be asked for)")
     p.add_argument("-p", "--parallel", action="store_true",
-                   help="not ported yet")
+                   help="shard the static render over ranks (tile x "
+                        "sample): the torchrun world, else one rank per "
+                        "visible GPU")
     p.add_argument("-b", "--bvh", action="store_true",
                    help="build the SAH BVH (traversed by the stack or lane "
                         "BVH kernel under RTX_BVH_STACK=1 / RTX_LANE_BVH=1, "
@@ -117,11 +126,9 @@ def load_scene_arg(name: str):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    asked = [msg for flag, msg in NOT_PORTED.items()
-             if getattr(args, flag) not in (False, None)]
-    if asked:
-        parser.exit(2, f"{parser.prog}: error: not yet ported: "
-                       f"{'; '.join(asked)}\n")
+    if args.parallel and args.camera == "dynamic":
+        parser.error("-p/--parallel shards the static render; it does not "
+                     "run with --camera dynamic")
     if args.camera != "dynamic":
         wrong = [msg for flag, msg in DYNAMIC_ONLY.items()
                  if getattr(args, flag) not in (False, None)]
@@ -163,6 +170,8 @@ def main(argv=None) -> int:
         print("[DEBUG] wrote logs/flat_scene_debug.json and "
               "logs/scene_complexity_debug.txt", file=sys.stderr)
 
+    if args.parallel:
+        return _parallel(args, scene, device, caps, out_path)
     t0 = time.time()
     if args.camera == "static":
         # batch size follows the schedule: auto/compacted need >= 8 samples
@@ -189,6 +198,85 @@ def main(argv=None) -> int:
         print("[ERROR] the image holds non-finite radiance", file=sys.stderr)
         return 1
     return 0
+
+
+def _parallel(args, scene, device, caps, out_path) -> int:
+    """-p: under torchrun (WORLD_SIZE set) this process is one rank of the
+    launched world; otherwise one rank per visible GPU, spawned
+    (parallel/distributed.py::spawn_ranks), or this process alone on one
+    GPU or the CPU. Returns the exit code."""
+    import torch
+    if os.environ.get("WORLD_SIZE") is not None:
+        return _parallel_rank(args, scene, device.type, caps, out_path)
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n <= 1:
+        return _parallel_rank(args, scene, device.type, caps, out_path)
+    from ..parallel.distributed import spawn_ranks
+    return max(spawn_ranks(_spawned_rank, n, args, scene, caps, out_path,
+                           timeout_s=None))
+
+
+def _spawned_rank(rank, n, init_method, args, scene, caps, out_path) -> int:
+    from ..parallel.distributed import initialize
+    initialize(device="cuda", init_method=init_method, rank=rank,
+               world_size=n, local_rank=rank, local_world_size=n)
+    return _parallel_rank(args, scene, "cuda", caps, out_path)
+
+
+def _parallel_rank(args, scene, device, caps, out_path) -> int:
+    """One rank of -p: start the group (parallel/distributed.py::
+    initialize; nothing for one process), compile the scene and take rank
+    0's tables (replicate), render_on_mesh, report the rank's shard, its
+    kernel launches and plain passes, and on rank 0 write the PPM."""
+    import torch
+    import torch.distributed as dist
+    from ..models import camera as cam_mod
+    from ..models import render as rd
+    from ..ops import wavefront_cuda as wc
+    from ..parallel import distributed as pdist
+    from ..parallel.mesh import make_render_mesh, mesh_strata, render_on_mesh
+    from ..scene.compile import compile_scene
+    from ..utils.color import write_ppm
+
+    t0 = time.time()
+    pdist.initialize(device=device)
+    try:
+        mesh = make_render_mesh()
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        if rank == 0:
+            print(f"[INFO] -p: {pdist.describe(mesh, device)}",
+                  file=sys.stderr)
+        flat = pdist.replicate(compile_scene(scene, use_bvh=args.bvh,
+                                             device=device), mesh)
+        def plain_calls():
+            return wc.render_pass_reference.calls + rd._render_pass.calls
+        launches, plain = wc.render_pass_kernel.launches, plain_calls()
+        img = render_on_mesh(flat, scene.camera, mesh=mesh, seed=args.seed,
+                             engine=args.engine, schedule=args.schedule,
+                             caps=caps)
+        width, height = cam_mod.image_size(scene.camera)
+        n_strata = mesh_strata(cam_mod.sqrt_spp(scene.camera), mesh.n_sample)
+        row0, rows, s0, spp = mesh.shard(
+            -(-height // mesh.n_tile) * mesh.n_tile, n_strata * n_strata)
+        print(f"[INFO] -p rank {rank}: tile {mesh.tile} rows [{row0}, "
+              f"{row0 + rows}), sample {mesh.sample} samples [{s0}, "
+              f"{s0 + spp}); {wc.render_pass_kernel.launches - launches} "
+              f"forward kernel launches, {plain_calls() - plain} plain "
+              "passes", file=sys.stderr)
+        if rank != 0:
+            return 0
+        finite = bool(torch.isfinite(img).all())
+        write_ppm(out_path, img)
+        print(f"[INFO] wrote {out_path} in {time.time() - t0:.1f}s",
+              file=sys.stderr)
+        if not finite:
+            print("[ERROR] the image holds non-finite radiance",
+                  file=sys.stderr)
+            return 1
+        return 0
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _dynamic(args, scene, device):

@@ -100,14 +100,22 @@ def test_encode_ppm_p3_matches_the_join(shape):
 @pytest.mark.parametrize("flags", [["-p"], ["-b", "-p"],
                                    ["--camera", "dynamic", "-p"]])
 def test_cli_flags_not_yet_ported(flags, tmp_path, monkeypatch, capsys):
-    """Each flag of a mode not yet ported exits before any work, naming
-    it; -b (tests/test_torch_bvh.py) and --camera dynamic
-    (tests/test_torch_progressive.py) are ported and not named beside
-    one."""
+    """No flag exits "not yet ported" any more: -p (the sharded render,
+    tests/test_torch_distributed.py) renders on the CPU as one rank, with
+    -b through the BVH oracle, and rank 0 writes the PPM; -p with --camera
+    dynamic is refused before any work (exit 2), naming both."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--scene", "cornell_box", "--device", "cpu", *flags])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and "--bvh" not in err
-    assert not (tmp_path / "output").exists()
+    argv = ["--scene", "cornell_box", "--device", "cpu", "--width", "8",
+            "--samples", "1", "--depth", "2", *flags]
+    if "dynamic" in flags:
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert "-p/--parallel" in err and "--camera dynamic" in err
+        assert not (tmp_path / "output").exists()
+    else:
+        assert cli.main(argv) == 0
+        err = capsys.readouterr().err
+        assert "not yet ported" not in err and "[INFO] -p rank 0" in err
+        assert (tmp_path / "output" / "output_image.ppm").exists()
