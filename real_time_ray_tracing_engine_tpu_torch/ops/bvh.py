@@ -26,17 +26,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 import sys
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..utils.native import BUILD, CSRC, shared_library
 from ..utils.vecmath import T_MIN, BIG
 from ..scene.flat import FlatScene
 from .intersect import HitRecord, quad_hits, shade_prim, sphere_roots
@@ -48,11 +43,8 @@ COST_INTERSECT = 2.0  # reference BVHNode.hpp:170
 STACK_DEPTH = 64      # reference BVHNode.cpp:398
 BBOX_PAD = 1e-4       # reference AABB.cpp:167-176 pad_to_minimums
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "bvh_builder.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bvh"
-# the JAX package's flags (native/__init__.py): other flags contract the
-# builder's float32 SAH sums differently and give another tree
-CXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+_SOURCE = CSRC / "bvh_builder.cpp"
+BUILD_DIR = BUILD / "bvh"
 
 _announced = set()
 
@@ -176,27 +168,11 @@ def _build_numpy(bb_min, bb_max, active):
 
 def _native_library():
     """The C++ builder's ctypes handle, compiled at first use into
-    BUILD_DIR under a hash of the source and flags; None where no C++
-    compiler exists or the build fails."""
-    h = hashlib.sha256(_SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    path = BUILD_DIR / h.hexdigest()[:16] / "libbvh.so"
-    if not path.exists():
-        cxx = shutil.which("g++") or shutil.which("c++")
-        if cxx is None:
-            return None
-        path.parent.mkdir(parents=True, exist_ok=True)
-        # build to a temporary file and rename: parallel builders race here
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-        os.close(fd)
-        try:
-            subprocess.run([cxx] + CXX_FLAGS + ["-o", tmp, str(_SOURCE)],
-                           check=True, capture_output=True, timeout=120)
-            os.replace(tmp, path)
-        except (OSError, subprocess.SubprocessError):
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            return None
+    BUILD_DIR (utils/native.py); None where no C++ compiler exists or the
+    build fails."""
+    path = shared_library(_SOURCE, BUILD_DIR, "libbvh.so")
+    if path is None:
+        return None
     lib = ctypes.CDLL(str(path))
     f32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
     i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
