@@ -57,9 +57,9 @@ steps, a bouncing adjoint step), a one-rank NCCL group, and the CLI's -p
 on one rank and on two under torch.distributed.run; and the profiling layer:
 render() of Cornell 600x600 and bouncing_spheres 1200x675 at spp16 d50
 under timed (rays/s, the fp32 roofline share) and profiler_trace (the
-kernel's events in the chrome trace, the device's busy share), the plain
-trace's counted operations a bounce, the schedule replays of Cornell's
-pass (the path lengths summed equal to the kernel's bounces) and the C++
+kernel's events and the program's spans in the chrome trace, the
+device's busy share, the forward's bounce counter), Cornell's path
+lengths (summed, equal to the kernel's bounces) and the C++
 and numpy P3 encoders' bytes. The forward's persistent
 threads take lane slots from a counter zeroed for each launch: two
 launches in a row on one stream give the same outputs bit for bit
@@ -2087,14 +2087,14 @@ def profiling_phase(torch, pt, wc, rd, dev, card, done) -> dict:
     render's rays/s and fp32 roofline share (bounce_ops, vscan_bounce_ops)
     beside the pass's CUDA-event time and its bound; no plain pass.
     profiler_trace: one more render of each; the chrome trace holds the
-    kernel's events, and the device's busy share of the traced window.
-    measured_ops_per_bounce of Cornell at 64 px d8 beside bounce_ops. The
-    replays of Cornell's pass on the card's plain trace (one trace of the
-    pass's path lengths for the three): the lengths summed over the image
-    equal to the kernel's bounces on the image's lanes (a path's length is
-    the bounces it traces; the lanes past the image repeat its last pixel),
-    and the predicted gain of the compacted schedule (default_caps) beside
-    the measured single and compacted times.
+    kernel's events and the program's spans, and the device's busy share
+    of the window of the outermost span; the forward's bounce counter
+    (render_pass_kernel.bounces) of that render against the kernel's own
+    count of the pass (the lanes past the image, which repeat its last
+    pixel, at most max_depth bounces a sample more). Cornell's path
+    lengths on the card's plain trace: summed over the image, equal to
+    the kernel's bounces on the image's lanes (a path's length is the
+    bounces it traces), and the compacted schedule's measured gain.
     The P3 encoders on the bouncing render's 1200x675 image: equal bytes,
     both timed."""
     from real_time_ray_tracing_engine_tpu_torch.utils import color
@@ -2149,13 +2149,21 @@ def profiling_phase(torch, pt, wc, rd, dev, card, done) -> dict:
         check(bool(torch.isfinite(img).all()), f"{label}: image not finite")
 
         reset_forward_counts(wc, rd)
+        wc.render_pass_kernel.bounces = 0
         with prof.profiler_trace(log_dir) as tr:
             img = pt.render(scene, device=dev)
         launches = getattr(wc.render_pass_kernel, counter)
         plain = plain_calls(wc, rd)
+        counted = int(wc.render_pass_kernel.bounces)
+        extra = (wc.lane_count(n_pix) - n_pix) * kw["n_samples"] \
+            * kw["max_depth"]
         check(os.path.exists(tr.path), f"{label}: no trace at {tr.path}")
         busy = prof.device_busy(tr.path)
         found = {n: k for n, k in busy["kernels"].items() if kernel in n}
+        with open(tr.path) as f:
+            spans = sorted({e["name"] for e in json.load(f)["traceEvents"]
+                            if e.get("cat") == "user_annotation"
+                            and e["name"].startswith("rt.")})
         emit("profiling_trace", card=card, shape=label, trace=tr.path,
              window_ms=busy["window_ms"], busy_ms=busy["busy_ms"],
              busy_share=busy["busy_share"],
@@ -2165,6 +2173,8 @@ def profiling_phase(torch, pt, wc, rd, dev, card, done) -> dict:
              traced_kernel=found, top_kernels={
                  n[:60]: k for n, k in sorted(busy["kernels"].items(),
                                               key=lambda nk: -nk[1]["ms"])[:4]},
+             spans=spans, counted_bounces=counted, pass_bounces=bounces,
+             counted_per_path=counted / paths,
              **{counter: launches}, plain_calls=plain)
         check(bool(found), f"{label}: the profiler trace holds no CUDA "
               f"kernel event named {kernel} (its kernels: "
@@ -2172,50 +2182,34 @@ def profiling_phase(torch, pt, wc, rd, dev, card, done) -> dict:
         check(sum(k["launches"] for k in found.values()) == launches,
               f"{label}: {launches} launches counted, the trace holds "
               f"{found}")
+        check({"rt.render", "rt.compile", "rt.pack", "rt.launch",
+               "rt.compact"} <= set(spans),
+              f"{label}: the trace's program spans are {spans}")
+        check(bounces <= counted <= bounces + extra,
+              f"{label}: the traced render counted {counted} bounces, the "
+              f"pass's image lanes {bounces} (+ at most {extra} past it)")
         check(plain == 0, f"{label}: the traced render ran a plain pass")
         out[name] = {"timed": rec, "busy": busy, "iters": iters[:n_pix],
                      "flat": flat, "scene": scene, "kw": kw, "img": img}
 
-    # the plain trace's aten ops per bounce against the source's count
+    # Cornell's path lengths on the card's plain trace
     c = out["cornell_box"]
-    measured = prof.measured_ops_per_bounce(c["flat"], c["scene"].camera,
-                                            width=64, max_depth=8)
-    counted = prof.bounce_ops(c["flat"])
-    emit("profiling_ops", card=card, scene="cornell_box", width=64, depth=8,
-         measured_ops_per_bounce=measured, bounce_ops=counted,
-         ratio=measured / counted if measured else None)
-    check(measured is not None and 100.0 < measured < 20000.0,
-          f"measured_ops_per_bounce {measured}")
-
-    # the replays of Cornell's pass on the card's plain trace
     kw, cfg = c["kw"], c["scene"].camera
-    caps = wc.default_caps(c["flat"], kw["n_samples"], kw["max_depth"])
-    args = dict(n_samples=kw["n_samples"], max_depth=kw["max_depth"])
     t0 = time.perf_counter()
-    lengths = prof.path_lengths(c["flat"], cfg, **args)
+    lengths = prof.path_lengths(c["flat"], cfg, n_samples=kw["n_samples"],
+                                max_depth=kw["max_depth"])
     trace_s = time.perf_counter() - t0
-    wave = prof.wavefront_utilization(c["flat"], cfg, lengths=lengths,
-                                      **args)
-    single = prof.schedule_utilization(c["flat"], cfg, caps=(),
-                                       lengths=lengths, **args)
-    comp = prof.schedule_utilization(c["flat"], cfg, caps=caps,
-                                     lengths=lengths, **args)
     per_pixel_k = c["iters"].cpu().numpy()
     per_pixel_l = lengths.sum(axis=0)
     t = c["timed"]
-    emit("profiling_replay", card=card, shape=PROFILED[0][0],
-         caps=list(caps), wavefront=wave, single=single, compacted=comp,
+    emit("profiling_lengths", card=card, shape=PROFILED[0][0],
          trace_s=trace_s, lengths_sum=int(per_pixel_l.sum()),
          kernel_bounces=t["bounces"],
          pixels_differing=int((per_pixel_l != per_pixel_k).sum()),
-         predicted_compaction_gain=comp["utilization"]
-         / single["utilization"],
          measured_single_ms=t["single_ms"], measured_compacted_ms=t["pass_ms"],
          measured_compaction_gain=t["single_ms"] / t["pass_ms"])
-    for r in (wave, single, comp):
-        check(0.0 < r["utilization"] <= 1.0, f"replay utilization {r}")
     check(int(per_pixel_l.sum()) == t["bounces"],
-          f"the replay's lengths sum to {int(per_pixel_l.sum())}, the "
+          f"the plain trace's lengths sum to {int(per_pixel_l.sum())}, the "
           f"kernel traced {t['bounces']} bounces for the image's paths")
 
     # the P3 encoders on the CLI's bouncing_spheres image, each warmed once

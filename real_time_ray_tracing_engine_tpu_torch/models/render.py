@@ -36,6 +36,7 @@ from ..scene.schema import CameraConfig, Scene
 from ..scene.flat import FlatScene
 from ..scene.compile import compile_scene, golden_json
 from ..utils import rng
+from ..utils.profiling import recording, spanned
 from ..utils.color import to_bytes
 from ..ops.integrator import trace
 from ..ops.wavefront_cuda import (kernel_gate_reason, pass_function,
@@ -71,8 +72,11 @@ def _render_pass(scene: FlatScene, cam: cam_mod.CameraState, seed,
     Rows past the image in the last tile render the last pixel's rays and
     are cropped. row0 > 0 renders rows [row0, row0 + height) of an image
     `width` wide (a tile shard, parallel/mesh.py): the pixel ids that key
-    the draws and place the rays are absolute, as the kernels' are."""
+    the draws and place the rays are absolute, as the kernels' are. While
+    a profiler records, the bounces of the image's paths are added to
+    _render_pass.bounces."""
     _render_pass.calls += 1
+    count = recording()
     device = scene.device
     n_tiles = -(-height // tile_rows)
     out = torch.zeros(n_tiles * tile_rows * width, 3, dtype=torch.float32,
@@ -88,13 +92,22 @@ def _render_pass(scene: FlatScene, cam: cam_mod.CameraState, seed,
             keys = rng.ray_keys(seed, pixc, s)
             org, dr, tm = cam_mod.generate_rays(
                 cam, width, pixc, torch.full_like(pixc, s), n_strata, keys)
-            acc = acc + trace(scene, org, dr, tm, keys, cam.background,
-                              max_depth=max_depth, sky_gradient=sky_gradient)
+            rad = trace(scene, org, dr, tm, keys, cam.background,
+                        max_depth=max_depth, sky_gradient=sky_gradient,
+                        return_lengths=count)
+            if count:
+                rad, length = rad
+                _render_pass.bounces = _render_pass.bounces + length[
+                    pix < width * height].to(torch.int64).sum()
+            acc = acc + rad
         out[pix] = acc
     return out.reshape(n_tiles * tile_rows, width, 3)[:height]
 
 
 _render_pass.calls = 0
+# the image's bounces traced while a profiler records (utils/profiling.py):
+# a device-side total, as the kernel's render_pass_kernel.bounces is
+_render_pass.bounces = 0
 
 
 def pick_engine(flat: FlatScene, engine: str = "auto") -> str:
@@ -150,6 +163,7 @@ def _pass_sum(eng: str, flat: FlatScene, cam: cam_mod.CameraState,
     return run_pass(flat, cam, seed, sample_start, n_samples=k, **common)
 
 
+@spanned("rt.render")
 def render(scene: Scene | FlatScene, cfg: CameraConfig | None = None, *,
            device="cuda", seed: int = 0, use_bvh: bool = False,
            tile_rows: int | None = None, samples_per_batch: int = 4,
@@ -283,6 +297,7 @@ class ProgressiveRenderer:
     def converged(self) -> bool:
         return self.samples_taken >= self.n_strata * self.n_strata
 
+    @spanned("rt.frame.step")
     def step(self, k: int = 1) -> bool:
         """Accumulate k strata (clamped to what remains) in one pass;
         False once converged. k >= 8 takes the compacted schedule on the
@@ -302,6 +317,7 @@ class ProgressiveRenderer:
         self.samples_taken += k
         return True
 
+    @spanned("rt.frame.image")
     def image(self) -> torch.Tensor:
         return self.acc / max(1, self.samples_taken)
 
@@ -321,6 +337,7 @@ class ProgressiveRenderer:
                         / max(1, self.samples_taken))
 
     # ----------------------------------------------------- camera motion
+    @spanned("rt.frame.camera")
     def _set_camera(self, cfg: CameraConfig):
         """Derive `cfg`'s camera on the device and, on the kernel, swap its
         fields into the packing (packed here the first time)."""

@@ -68,6 +68,7 @@ import torch
 from ..scene.flat import FlatScene
 from ..models.camera import CameraState, generate_rays
 from ..utils import rng
+from ..utils.profiling import span
 from ..utils.vecmath import normalize
 from .integrator import bounce_step, medium_uniforms
 from . import wavefront_cuda as wc
@@ -404,63 +405,65 @@ def render_pass_adjoint_kernel(flat: FlatScene, cam: CameraState, seed,
     elif prepared.mode != "vscan":
         raise ValueError("the adjoint kernel runs on the chunk scan's tables:"
                          " prepare_kernel(flat, cam, chunk_scan=True)")
-    n_pix = width * height
-    n_lanes = wc.lane_count(n_pix)
-    wc._check_iters(iters, n_lanes, device)
-    if n_strata * n_strata + int(sample_start) >= 1 << 24:
-        raise ValueError("sample indices must stay below 2^24")
-    if max_depth < 1 or n_samples < 1:
-        raise ValueError("max_depth and n_samples must be positive")
-    if seg < 0:
-        raise ValueError(f"seg must be 0 (K9) or positive (K10), got {seg}")
-    cot = wc.cotangent_lanes(cotangent, width=width, height=height).to(
-        device=device, dtype=torch.float32).contiguous()
-    NT, S, NM = adjoint_layout(flat)
-    if seg:
-        nseg_max, n_rec, n_snap = seg_scratch(n_lanes, n_samples, max_depth,
-                                              seg)
-    else:
-        n_rec, n_snap = max_depth * ADJ_STORE * n_lanes, 0
-    sweep = f"K10 SEG {seg}" if seg else "K9"
-    wc.check_free(device, 4 * (n_rec + n_snap),
-                  f"the adjoint's scratch ({sweep}, {n_lanes} lanes, "
-                  f"{n_samples} samples, depth {max_depth})")
-    p = wc._Params(
-        n_lanes=n_lanes, n_pix=n_pix, width=width, n_strata=n_strata,
-        max_depth=max_depth, n_samples=n_samples,
-        sample_start=int(sample_start), row0=wc._check_row0(row0),
-        seed_mix=rng.mix_seed(seed),
-        sky_gradient=int(bool(sky_gradient)), cap=0, K=0, want_tex=0,
-        suffix=0, inv_strata=float(np.float32(1.0 / n_strata)),
-        **prepared.fields)
-    rad = torch.empty(3, n_lanes, dtype=torch.float32, device=device)
-    acc = torch.zeros(3 * NT + 4 * S + 2 * NM, dtype=torch.float64,
-                      device=device)
-    store = torch.empty(n_rec, dtype=torch.float32, device=device)
-    snap = torch.empty(n_snap, dtype=torch.float32, device=device)
-
-    def ptr(t):
-        return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
-    lib = wc.load_library()
-    vp = wc._VsParams(**prepared.vfields)
-    with torch.cuda.device(device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(device)
-                                 .cuda_stream)
+    with span("rt.launch"):
+        n_pix = width * height
+        n_lanes = wc.lane_count(n_pix)
+        wc._check_iters(iters, n_lanes, device)
+        if n_strata * n_strata + int(sample_start) >= 1 << 24:
+            raise ValueError("sample indices must stay below 2^24")
+        if max_depth < 1 or n_samples < 1:
+            raise ValueError("max_depth and n_samples must be positive")
+        if seg < 0:
+            raise ValueError(f"seg must be 0 (K9) or positive (K10), got "
+                             f"{seg}")
+        cot = wc.cotangent_lanes(cotangent, width=width, height=height).to(
+            device=device, dtype=torch.float32).contiguous()
+        NT, S, NM = adjoint_layout(flat)
         if seg:
-            err = lib.adjoint_seg(ctypes.byref(p), ctypes.byref(vp),
+            nseg_max, n_rec, n_snap = seg_scratch(n_lanes, n_samples,
+                                                  max_depth, seg)
+        else:
+            n_rec, n_snap = max_depth * ADJ_STORE * n_lanes, 0
+        sweep = f"K10 SEG {seg}" if seg else "K9"
+        wc.check_free(device, 4 * (n_rec + n_snap),
+                      f"the adjoint's scratch ({sweep}, {n_lanes} lanes, "
+                      f"{n_samples} samples, depth {max_depth})")
+        p = wc._Params(
+            n_lanes=n_lanes, n_pix=n_pix, width=width, n_strata=n_strata,
+            max_depth=max_depth, n_samples=n_samples,
+            sample_start=int(sample_start), row0=wc._check_row0(row0),
+            seed_mix=rng.mix_seed(seed),
+            sky_gradient=int(bool(sky_gradient)), cap=0, K=0, want_tex=0,
+            suffix=0, inv_strata=float(np.float32(1.0 / n_strata)),
+            **prepared.fields)
+        rad = torch.empty(3, n_lanes, dtype=torch.float32, device=device)
+        acc = torch.zeros(3 * NT + 4 * S + 2 * NM, dtype=torch.float64,
+                          device=device)
+        store = torch.empty(n_rec, dtype=torch.float32, device=device)
+        snap = torch.empty(n_snap, dtype=torch.float32, device=device)
+
+        def ptr(t):
+            return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+        lib = wc.load_library()
+        vp = wc._VsParams(**prepared.vfields)
+        with torch.cuda.device(device):
+            stream = ctypes.c_void_p(torch.cuda.current_stream(device)
+                                     .cuda_stream)
+            if seg:
+                err = lib.adjoint_seg(ctypes.byref(p), ctypes.byref(vp),
+                                      ptr(prepared.tables), ptr(prepared.vtab),
+                                      ptr(cot), ptr(rad), ptr(acc), ptr(store),
+                                      ptr(snap), ptr(iters), NM, seg, nseg_max,
+                                      stream)
+            else:
+                err = lib.adjoint(ctypes.byref(p), ctypes.byref(vp),
                                   ptr(prepared.tables), ptr(prepared.vtab),
                                   ptr(cot), ptr(rad), ptr(acc), ptr(store),
-                                  ptr(snap), ptr(iters), NM, seg, nseg_max,
-                                  stream)
-        else:
-            err = lib.adjoint(ctypes.byref(p), ctypes.byref(vp),
-                              ptr(prepared.tables), ptr(prepared.vtab),
-                              ptr(cot), ptr(rad), ptr(acc), ptr(store),
-                              ptr(iters), NM, stream)
-    if err != 0:
-        raise RuntimeError(f"adjoint kernel ({'K10' if seg else 'K9'}) "
-                           f"launch failed: CUDA error {err}")
+                                  ptr(iters), NM, stream)
+        if err != 0:
+            raise RuntimeError(f"adjoint kernel ({'K10' if seg else 'K9'}) "
+                               f"launch failed: CUDA error {err}")
     if seg:
         render_pass_adjoint_kernel.seg_launches += 1
     else:

@@ -150,8 +150,9 @@ def trace(scene: FlatScene, org, dr, tm, keys, background, *,
     from rng.ray_keys. Paths alive after max_depth bounces contribute
     nothing further (Camera.cpp:236-237). With return_lengths also the (N,)
     float32 count of bounce iterations each path was alive for (its
-    wavefront work, the bounces a kernel lane traces for it): the input to
-    utils/profiling.py's schedule replays. The loop stops once every path
+    wavefront work, the bounces a kernel lane traces for it): what
+    utils/profiling.py::path_lengths and the plain engine's bounce total
+    (models/render.py::_render_pass) read. The loop stops once every path
     has ended; the bounces left would add nothing to the radiance or the
     counts."""
     dr = normalize(dr)

@@ -77,6 +77,7 @@ from ..scene.flat import (FlatScene, MAT_DIELECTRIC, MAT_METAL, TEX_CHECKER,
                           TEX_NOISE)
 from ..models.camera import CameraState, generate_rays
 from ..utils import rng
+from ..utils.profiling import recording, span, spanned
 from ..utils.vecmath import normalize
 from . import intersect
 from .bvh import MAX_LEAF, STACK_DEPTH, check_depth, ordered_skip_links
@@ -1353,6 +1354,7 @@ def _kernel_carry_rows(n_wp: int, K: int, suffix: bool,
             + (SFX_STATE + SFX_REC * max_depth if suffix else 0))
 
 
+@spanned("rt.memcheck")
 def check_free(device, need: int, what: str):
     """Raise if `need` bytes do not fit what the device has free and what
     torch's allocator holds unused."""
@@ -1902,6 +1904,7 @@ class KernelInputs:
     env: tuple = ("0", "0")
 
 
+@spanned("rt.pack")
 def prepare_kernel(flat: FlatScene, cam: CameraState,
                    hard_slots: tuple = (),
                    chunk_scan: bool = False) -> KernelInputs:
@@ -1963,6 +1966,7 @@ def with_camera(prepared: KernelInputs, cam: CameraState) -> KernelInputs:
         prepared, fields={**prepared.fields, "cam": _camera_field(cam)})
 
 
+@spanned("rt.launch")
 def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
             width, height, n_strata, max_depth, n_samples, sky_gradient, cap,
             carry, pix_lanes, prepared, iters, cot, hard_slots=(),
@@ -2121,14 +2125,25 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
     render_pass_kernel.launches, one of the chunk scan's to
     render_pass_kernel.launches_vscan, one of those with quad chunks to
     render_pass_kernel.launches_vquad, one of the stack walk's to
-    .launches_stack and one of the lane walk's to .launches_lane."""
+    .launches_stack and one of the lane walk's to .launches_lane. While a
+    profiler records (utils/profiling.py::recording) and iters is None, a
+    zeroed bounce buffer goes to the launch and its sum is added to
+    render_pass_kernel.bounces, a device-side total (no host sync): every
+    bounce the launch traced, the lanes past the image's pixels included
+    (they repeat its last pixel). With no profiler no buffer is made."""
     if prepared is None:
         prepared = prepare_kernel(flat, cam)
+    count = iters is None and recording()
+    if count:
+        iters = torch.zeros(lane_count(width * height), dtype=torch.int32,
+                            device=flat.device)
     rad, st, _, _ = _launch(
         flat, cam, seed, sample_start, width=width, height=height,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
         sky_gradient=sky_gradient, cap=cap, carry=carry, pix_lanes=pix_lanes,
         prepared=prepared, iters=iters, cot=None, row0=row0)
+    if count:
+        render_pass_kernel.bounces = render_pass_kernel.bounces + iters.sum()
     render_pass_kernel.launches += 1
     if prepared.mode == "vscan":
         render_pass_kernel.launches_vscan += 1
@@ -2144,6 +2159,7 @@ render_pass_kernel.launches_vscan = 0
 render_pass_kernel.launches_vquad = 0
 render_pass_kernel.launches_stack = 0
 render_pass_kernel.launches_lane = 0
+render_pass_kernel.bounces = 0
 
 
 def render_pass_grad_kernel(flat: FlatScene, cam: CameraState, seed,
@@ -2300,11 +2316,13 @@ def _compacted_schedule(run_phase, caps: tuple, n_samples: int,
     pix_abs = _identity_pixels(n_lanes, n_pix, rad.device)
     perm = torch.arange(n_lanes, device=rad.device)
     for cap_i in caps[1:] + (0,):
-        key = torch.where(st[0] > 0.5, n_samples - st[3],
-                          torch.full_like(st[3], -1.0))
-        order = torch.argsort(-key, stable=True)
-        perm = perm[order]
-        r, st = run_phase(cap_i, pix_abs[perm], st[:, order], perm)
+        with span("rt.compact"):
+            key = torch.where(st[0] > 0.5, n_samples - st[3],
+                              torch.full_like(st[3], -1.0))
+            order = torch.argsort(-key, stable=True)
+            perm = perm[order]
+            lanes, carry = pix_abs[perm], st[:, order]
+        r, st = run_phase(cap_i, lanes, carry, perm)
         rad.index_add_(1, perm, r)
     return rad
 

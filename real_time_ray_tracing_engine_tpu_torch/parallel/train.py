@@ -77,6 +77,7 @@ import torch
 from ..scene.flat import FlatScene
 from ..models.camera import CameraState
 from ..models.render import pick_engine
+from ..utils.profiling import span, spanned
 from .mesh import RenderMesh, all_reduce_sum
 from ..ops.adjoint_cuda import (adjoint_pass_function, adjoint_sweep,
                                 plain_adjoint_pass)
@@ -208,6 +209,7 @@ def _pass_functions(plan: _Plan, flat: FlatScene, cam: CameraState,
     return render_pass_reference, render_pass_grad_reference
 
 
+@spanned("rt.train.scatter")
 def _scatter_grads(req: _Request, params, dg_tex, dg_hard) -> tuple:
     """Per requested tensor, its gradient: dG_tex for tex_color, dG_hard's
     slots added at their entries of the hard families (JAX
@@ -443,13 +445,18 @@ def make_train_step(optimizer: torch.optim.Optimizer, *, flat: FlatScene,
         max_depth=max_depth, sky_gradient=sky_gradient, engine=engine,
         adjoint_seg=adjoint_seg, mesh=mesh)
 
+    @spanned("rt.train.step")
     def step(params: dict, cam: CameraState, seed, target) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        img = render_image(params, cam, seed)
-        loss = mesh_loss(img, target, mesh)
-        loss.backward()
+        with span("rt.train.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with span("rt.train.forward"):
+            img = render_image(params, cam, seed)
+            loss = mesh_loss(img, target, mesh)
+        with span("rt.train.backward"):
+            loss.backward()
         all_reduce_grads(params.values(), mesh)
-        optimizer.step()
+        with span("rt.train.optimizer"):
+            optimizer.step()
         return reduce_loss(loss, mesh)
 
     return step

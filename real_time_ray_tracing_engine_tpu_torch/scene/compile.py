@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
 from . import schema as S
 from .flat import (FlatScene, MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC,
                    MAT_DIFFUSE_LIGHT, MAT_ISOTROPIC, TEX_SOLID, TEX_CHECKER,
@@ -199,6 +200,7 @@ def _bool(x):
     return torch.from_numpy(np.asarray(x, bool))
 
 
+@spanned("rt.compile")
 def compile_scene(scene: S.Scene, use_bvh: bool = False,
                   device="cpu") -> FlatScene:
     """Compile `scene` into FlatScene tables on `device`; use_bvh=True also

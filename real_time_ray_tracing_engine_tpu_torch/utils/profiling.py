@@ -1,5 +1,5 @@
-"""Profiling: the rays/s meter, torch.profiler traces, an fp32 roofline and
-the schedule replays.
+"""Profiling: spans on the profiler's clock, the rays/s meter,
+torch.profiler traces and an fp32 roofline.
 
 Port of the JAX package's utils/profiling.py. The reference's only
 instrumentation is a per-scanline progress log (StaticCamera.cpp:63-65)
@@ -8,21 +8,30 @@ signal (DynamicCamera.cpp:182-194). SURVEY.md §5 asks for more: profiler
 traces, a rays/s meter derived from (W*H*spp*avg_depth)/wall and a
 roofline comparison. Here:
 
+  - span(name) marks a step of the program (rt.*, listed there) as a
+    torch.profiler.record_function range while a profiler records, and
+    costs one flag check otherwise; the spans share the trace's clock with
+    the CUPTI kernel and copy intervals, and a span's parent is the span
+    that encloses it on its thread;
+  - while a profiler records, the forward kernel's wrapper counts the
+    bounces it traces (ops/wavefront_cuda.py::render_pass_kernel.bounces,
+    a device-side total beside its launch counters; the plain engine's in
+    models/render.py::_render_pass.bounces);
   - the roofline's peak is the card's float32 rate outside the tensor
     cores (_PEAK_FP32_FLOPS, keyed by a prefix of the CUDA device's name);
   - the operations of a bounce come from the kernels' source, counted by
     hand (OPS_*, bounce_ops and the rest: the bounds chip_smoke.py prints
-    for every kernel), or from the plain trace's aten ops
-    (measured_ops_per_bounce);
+    for every kernel);
   - profiler_trace is torch.profiler around a block, writing a chrome
     trace; device_busy reads the card's busy share out of one;
-  - the replays (wavefront_utilization, schedule_utilization) model the
-    JAX kernel's tiles on per-path lengths from the plain trace.
+  - path_lengths gives the plain trace's per-path lengths, which the
+    kernels' bounce counts are held against.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -30,10 +39,53 @@ import time
 
 import numpy as np
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
 from . import rng
+
+# whether a profiler records on this thread: one flag read
+recording = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A record_function range named `name` while a profiler records
+    (recording()); otherwise a shared no-op context: nothing is built,
+    allocated, synchronised or read back. The program's spans:
+
+      rt.render        models/render.py::render, the whole call
+      rt.compile       scene/compile.py::compile_scene
+      rt.pack          ops/wavefront_cuda.py::prepare_kernel: the tables,
+                       the chunk scan's and the BVH's packing, the camera
+                       and Perlin readback
+      rt.launch        ops/wavefront_cuda.py::_launch and the launch of
+                       ops/adjoint_cuda.py::render_pass_adjoint_kernel:
+                       checks, parameters, scratch, the library call
+      rt.compact       ops/wavefront_cuda.py::_compacted_schedule: the sort
+                       and permutation between phases
+      rt.memcheck      ops/wavefront_cuda.py::check_free (cudaMemGetInfo)
+      rt.frame.camera  ProgressiveRenderer._set_camera: derive, with_camera
+                       and its readback
+      rt.frame.step, rt.frame.image   ProgressiveRenderer.step, .image
+      rt.train.step    parallel/train.py::make_train_step's step, around
+                       rt.train.forward (the render and loss),
+                       rt.train.backward (loss.backward(), around
+                       rt.train.scatter: _scatter_grads) and
+                       rt.train.optimizer (zero_grad; optimizer.step())"""
+    if not recording():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function inside span(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
 
 # The float32 rate of one NVIDIA H100 SXM outside the tensor cores, FMA
 # counted as two operations (NVIDIA's data sheet, at the 700 W limit). The
@@ -46,7 +98,7 @@ _PEAK_FP32_FLOPS = {
 
 # Fallback cost of one wavefront bounce per ray lane, in float32 op
 # equivalents (the JAX package's anchor). Prefer bounce_ops (the kernels'
-# source, counted) or measured_ops_per_bounce (the plain trace, counted).
+# source, counted).
 DEFAULT_OPS_PER_BOUNCE = 1200.0
 
 # Operations of one bounce of the kernel on a Lambertian hit, counted by
@@ -156,64 +208,6 @@ def vscan_bound_ms(flat, bounces: int) -> float:
     """bound_ms for the chunk scan's forward (vscan_bounce_ops). Bytes stay
     negligible: the tables (under 1 MB) are read once into L2."""
     return vscan_bounce_ops(flat) * bounces / PEAK_FP32 * 1e3
-
-
-class _OpCount(TorchDispatchMode):
-    """Counts the arithmetic of the aten ops run under it (see
-    measured_ops_per_bounce)."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if torch.Tag.pointwise in func.tags:
-            self.ops += sum(t.numel() for t in tree_leaves(out)
-                            if isinstance(t, torch.Tensor))
-        elif torch.Tag.reduction in func.tags:
-            self.ops += next(t.numel() for t in tree_leaves(args)
-                             if isinstance(t, torch.Tensor))
-        return out
-
-
-def measured_ops_per_bounce(flat, cam_cfg, *, width=64, max_depth=8,
-                            seed=0) -> float | None:
-    """Arithmetic operations per wavefront bounce iteration of the plain
-    trace (ops/integrator.py), counted on the device of `flat`.
-
-    The rays are one sample of a `width`-pixel-wide image of cam_cfg's
-    camera (the JAX package's version reads cam_cfg's own width). Torch
-    has no cost model of an eager function (the JAX package reads XLA's
-    cost_analysis()["flops"]), so the aten ops the trace runs are counted
-    under a TorchDispatchMode: an op tagged pointwise (arithmetic,
-    comparisons, selects, bitwise and logical ops, casts of values such as
-    floor, transcendental functions) counts one operation an element of
-    its output, an op tagged reduction (sum, any, amin, argmin, ...) one
-    an element of its input, and nothing else counts (indexing, gathers,
-    copies, dtype conversions, views, allocation). The count is divided by
-    the rays times the bounce iterations the loop ran: it stops once every
-    path has ended, so that is the longest path's length, not max_depth.
-    Returns None where nothing was counted."""
-    from ..models import camera as cam_mod
-    from ..ops.integrator import trace
-
-    cfg = dataclasses.replace(cam_cfg, image_width=width)
-    dev = flat.device
-    cam = cam_mod.derive(cfg, device=dev)
-    w, h = cam_mod.image_size(cfg)
-    pix = torch.arange(w * h, device=dev)
-    keys = rng.ray_keys(seed, pix, 0)
-    org, dr, tm = cam_mod.generate_rays(cam, w, pix, 0, 1, keys)
-    kw = dict(max_depth=max_depth, sky_gradient=cfg.sky_gradient)
-    _, length = trace(flat, org, dr, tm, keys, cam.background,
-                      return_lengths=True, **kw)
-    iters = int(length.max())
-    with _OpCount() as count:
-        trace(flat, org, dr, tm, keys, cam.background, **kw)
-    if count.ops == 0 or iters == 0:
-        return None
-    return count.ops / (w * h * iters)
 
 
 @dataclasses.dataclass
@@ -334,16 +328,26 @@ def profiler_trace(log_dir: str = "logs/torch_trace"):
 
 def device_busy(path: str) -> dict:
     """The device's busy share of a chrome trace written by profiler_trace:
-    the union of its kernels' intervals over the traced window (from the
-    trace's first complete event to the end of its last, host events
-    included), with each kernel's summed time and launches by name. A
-    trace with no kernel event (the CPU's) is busy 0."""
+    the union of its kernels' intervals over the traced window, with each
+    kernel's summed time and launches by name. The window runs from the
+    start of the first outermost program span (rt.*, span) to the end of
+    the last one, or of the last kernel if that ends later, so that the
+    profiler's own start and stop stay outside it; a trace without such a
+    span takes its first event to the end of its last. A trace with no
+    kernel event (the CPU's) is busy 0."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
     kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
                       e["name"]) for e in events if e.get("cat") == "kernel")
-    busy_us, end = 0.0, -math.inf
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith("rt.")]
+    ends = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+            for e in (spans or events)]
+    lo = min((s for s, _ in ends), default=0.0)
+    hi = max([e for _, e in ends] + ([kernels[-1][1]] if spans and kernels
+                                     else []), default=0.0)
+    busy_us, end = 0.0, lo
     by_name = {}
     for t0, t1, name in kernels:
         busy_us += max(0.0, t1 - max(t0, end))
@@ -351,23 +355,10 @@ def device_busy(path: str) -> dict:
         k = by_name.setdefault(name, {"ms": 0.0, "launches": 0})
         k["ms"] += (t1 - t0) / 1e3
         k["launches"] += 1
-    window_us = (max(float(e["ts"]) + float(e["dur"]) for e in events)
-                 - min(float(e["ts"]) for e in events)) if events else 0.0
+    window_us = hi - lo
     return {"window_ms": window_us / 1e3, "busy_ms": busy_us / 1e3,
             "busy_share": busy_us / window_us if window_us > 0 else 0.0,
             "kernels": by_name}
-
-
-def _scene_flat(flat, cam_cfg, scene, width, device):
-    """(flat, cam_cfg), compiling `scene` at `width` on `device` where it
-    is given (the JAX package's replays set its camera's width too)."""
-    if scene is None:
-        return flat, cam_cfg
-    from ..models.render import resolve_device
-    from ..scene.compile import compile_scene
-    scene.camera.image_width = width
-    return (compile_scene(scene, device=resolve_device(device)),
-            scene.camera)
 
 
 def path_lengths(flat, cam_cfg, *, n_samples=16, max_depth=50, seed=0):
@@ -395,134 +386,3 @@ def path_lengths(flat, cam_cfg, *, n_samples=16, max_depth=50, seed=0):
                       return_lengths=True)
         L[s] = ln.cpu().numpy()
     return L
-
-
-def _replay_lengths(flat, cam_cfg, lengths, n_samples, max_depth, seed):
-    """(lengths, width, height): the given lengths, checked against the
-    image and sample count, or path_lengths traced here."""
-    from ..models import camera as cam_mod
-    w, h = cam_mod.image_size(cam_cfg)
-    if lengths is None:
-        lengths = path_lengths(flat, cam_cfg, n_samples=n_samples,
-                               max_depth=max_depth, seed=seed)
-    elif np.shape(lengths) != (n_samples, w * h):
-        raise ValueError(f"lengths of shape {np.shape(lengths)}; this "
-                         f"replay needs ({n_samples}, {w * h})")
-    return np.asarray(lengths, np.float64), w, h
-
-
-def wavefront_utilization(flat, cam_cfg=None, *, scene=None, width=128,
-                          n_samples=16, max_depth=50, rows_per_tile=None,
-                          seed=0, device="cuda", lengths=None):
-    """Lane-occupancy analysis of the JAX kernel's persistent-wavefront
-    schedule (ROADMAP ray-sorting/compaction lever).
-
-    That megakernel regenerates a dead lane on its pixel's next stratified
-    sample, so a lane is busy for sum_s L(pixel, sample_s) bounce iterations
-    (L = path length) and a TILE of rows_per_tile x 128 lanes runs until
-    its slowest lane finishes. Utilization = total productive
-    lane-iterations / total lane-iterations executed = mean(lane_work) /
-    mean-over-tiles(max(lane_work)), computed exactly from per-path lengths
-    traced by the plain integrator (ops/integrator.py::trace(return_lengths
-    =True), the kernels' RNG streams) on the device of `flat` (with
-    `scene`: compiled on `device`), or given as `lengths` (path_lengths of
-    the same arguments). The port's forward (K1) is not tiled
-    so: its persistent threads take lane slots from a counter as they
-    finish, so its tail is the last slots' work, not each tile's maximum;
-    this replays the JAX schedule, as the JAX package's does.
-
-    Returns dict(utilization, mean_path_len, tail_fraction, ...)."""
-    flat, cam_cfg = _scene_flat(flat, cam_cfg, scene, width, device)
-    L, w, h = _replay_lengths(flat, cam_cfg, lengths, n_samples, max_depth,
-                              seed)
-    lane_work = L.sum(axis=0)
-
-    if rows_per_tile is None:
-        rows_per_tile = 32 if flat.n_prims <= 64 else 16
-    lanes = rows_per_tile * 128
-
-    def util_of(order):
-        """Exact schedule utilization for pixel->lane assignment `order`."""
-        work = lane_work[order] if order is not None else lane_work
-        pad = (-work.size) % lanes
-        tiles = np.pad(work, (0, pad)).reshape(-1, lanes)
-        per_tile = tiles.max(axis=1)     # a tile runs to its slowest lane
-        return (float(work.sum() / max(per_tile.sum() * lanes, 1.0)),
-                float(per_tile.mean()))
-
-    n_pix = w * h
-    utilization, mean_iters = util_of(None)
-    # candidate re-assignments: stride-permuted interleave (spread image
-    # regions across each tile) and the oracle upper bound (lanes sorted
-    # by total work, the assignment that minimizes sum-of-tile-maxima)
-    n_tiles = -(-n_pix // lanes)
-    stride_order = np.argsort(np.arange(n_pix) % n_tiles, kind="stable")
-    util_stride, _ = util_of(stride_order)
-    util_sorted, _ = util_of(np.argsort(lane_work, kind="stable"))
-    return dict(
-        utilization=utilization,
-        utilization_stride=util_stride,
-        utilization_sorted=util_sorted,
-        mean_path_len=float(lane_work.sum() / (n_pix * n_samples)),
-        mean_tile_iters=mean_iters,
-        tail_fraction=float(1.0 - utilization),
-        rows_per_tile=rows_per_tile, n_samples=n_samples,
-        max_depth=max_depth, width=w, height=h)
-
-
-def schedule_utilization(flat=None, cam_cfg=None, *, scene=None, width=128,
-                         n_samples=16, max_depth=50, rows_per_tile=16,
-                         caps=(), key="samples", seed=0, device="cuda",
-                         lengths=None):
-    """Exact replay of the capped + compacted schedule
-    (ops/wavefront_cuda.py::render_pass_compacted, the JAX package's
-    render_pass_pallas_compacted) on the plain trace's per-(pixel, sample)
-    path lengths, in the JAX kernel's tiles of rows_per_tile x 128 lanes
-    that each run to their slowest lane (see wavefront_utilization: the
-    port's K1 is not tiled so); `lengths` as there. This is the tool that
-    selected the JAX package's cap schedules, which default_caps carries
-    over.
-
-    Phases run `caps` bounce-iteration caps, re-sorting lanes between
-    phases by `key`:
-      "samples" - remaining-sample count, the only quantity the real
-        schedule can know (sample streams are stochastic);
-      "oracle"  - exact remaining work, the unreachable upper bound.
-
-    Returns dict(utilization, per-phase iters, mean_path_len, ...)."""
-    flat, cam_cfg = _scene_flat(flat, cam_cfg, scene, width, device)
-    L, w, h = _replay_lengths(flat, cam_cfg, lengths, n_samples, max_depth,
-                              seed)
-    lanes = rows_per_tile * 128
-    n_pix = w * h
-    work = L.sum(axis=0)
-    pad = (-n_pix) % lanes
-    rem = np.pad(work, (0, pad))
-    cum = np.pad(np.cumsum(L, axis=0), ((0, 0), (0, pad)),
-                 constant_values=0.0)
-    w0 = rem.copy()
-    total = 0.0
-    phase_iters = []
-    for cap in caps:
-        tiles = rem.reshape(-1, lanes)
-        iters = np.minimum(tiles.max(axis=1), cap)
-        total += iters.sum() * lanes
-        phase_iters.append(float(iters.mean()))
-        rem = np.maximum(rem - cap, 0.0)
-        consumed = w0 - rem
-        if key == "oracle":
-            k = np.where(rem > 0, rem, -1.0)
-        else:
-            s_done = (cum <= consumed[None, :] + 1e-9).sum(axis=0)
-            k = np.where(rem > 0, (n_samples - s_done).astype(float), -1.0)
-        order = np.argsort(-k, kind="stable")
-        rem, w0, cum = rem[order], w0[order], cum[:, order]
-    tiles = rem.reshape(-1, lanes)
-    total += tiles.max(axis=1).sum() * lanes
-    phase_iters.append(float(tiles.max(axis=1).mean()))
-    return dict(
-        utilization=float(work.sum() / max(total, 1.0)),
-        phase_mean_iters=phase_iters,
-        mean_path_len=float(work.sum() / (n_pix * n_samples)),
-        caps=tuple(caps), key=key, rows_per_tile=rows_per_tile,
-        n_samples=n_samples, max_depth=max_depth, width=w, height=h)

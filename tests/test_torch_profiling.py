@@ -1,13 +1,13 @@
-"""The port's profiling layer (utils/profiling.py), the trace's path lengths
-and the native P3 encoder (csrc/ppm_io.cpp), against the JAX package's.
+"""The port's profiling layer (utils/profiling.py): its spans and the
+forward's bounce counter, the trace's path lengths and the native P3
+encoder (csrc/ppm_io.cpp), against the JAX package's.
 
 Path lengths follow the rule tests/test_pallas.py::_assert_close holds
 images to: the two integrators draw the same streams, and XLA:CPU contracts
 FMAs under jit where torch does not, so a few paths take another branch at
 depth 4 (2-5 of 1,024 on Cornell, none or one on cornell_smoke): under 1%
-of paths may end at another bounce. The replays' arithmetic is held to the
-JAX package's to 1e-9 on the JAX package's own lengths, and the port's
-whole replay to the JAX test's assertions (tests/test_parallel.py:115-133).
+of paths may end at another bounce. The bounce totals are compared where no
+path parts (depth 3 on Cornell, 4 on simple_sphere, the seeds below).
 """
 import dataclasses
 import json
@@ -25,8 +25,10 @@ from real_time_ray_tracing_engine_tpu.ops import integrator as jint
 from real_time_ray_tracing_engine_tpu.utils import profiling as jprof
 from real_time_ray_tracing_engine_tpu.utils import rng as jrng
 from real_time_ray_tracing_engine_tpu_torch.models import camera as pcam
+from real_time_ray_tracing_engine_tpu_torch.models import render as rd
 from real_time_ray_tracing_engine_tpu_torch.ops import wavefront_cuda as wc
 from real_time_ray_tracing_engine_tpu_torch.ops.integrator import trace
+from real_time_ray_tracing_engine_tpu_torch.parallel import train
 from real_time_ray_tracing_engine_tpu_torch.scene.convert import (
     camera_from_numpy, camera_to_numpy, flat_from_numpy, flat_to_numpy)
 from real_time_ray_tracing_engine_tpu_torch.utils import color
@@ -97,93 +99,6 @@ def test_lengths_count_the_wavefront_bounces():
     np.testing.assert_array_equal(L.sum(axis=0), iters[:w * h].numpy())
 
 
-# the replays at a small size: Cornell 32 px wide, 4 samples, depth 4,
-# tiles of 2 x 128 lanes
-REPLAY_KW = dict(width=32, n_samples=4, max_depth=4, rows_per_tile=2)
-REPLAYS = {
-    "wavefront": ("wavefront_utilization", {}),
-    "single": ("schedule_utilization", {"caps": ()}),
-    "caps_6_6": ("schedule_utilization", {"caps": (6, 6)}),
-    "oracle": ("schedule_utilization", {"caps": (6, 6), "key": "oracle"}),
-}
-
-
-@pytest.fixture(scope="module")
-def jax_replays():
-    """Each JAX replay of REPLAYS, and the lengths its trace returned."""
-    out, jax_trace = {}, jint.trace
-    with pytest.MonkeyPatch.context() as mp:
-        for case, (fn, kw) in REPLAYS.items():
-            seen = []
-
-            def traced(*args, **kwargs):
-                res = jax_trace(*args, **kwargs)
-                seen.append(np.asarray(res[1], np.float64))
-                return res
-            mp.setattr(jint, "trace", traced)
-            res = getattr(jprof, fn)(None, scene=rt.builders.cornell_box(),
-                                     **REPLAY_KW, **kw)
-            mp.undo()
-            out[case] = (res, np.stack(seen))
-    return out
-
-
-@pytest.mark.parametrize("case", list(REPLAYS))
-def test_replays_match_jax(case, jax_replays):
-    """The port's replay arithmetic on the JAX package's lengths (given as
-    lengths=) gives the JAX package's result for the same arguments: every
-    key, numbers to 1e-9; the port's own lengths (its trace) part from
-    JAX's on fewer than 1% of the paths; lengths of another shape raise."""
-    fn, kw = REPLAYS[case]
-    want, L = jax_replays[case]
-    scene = _builtin(pt, "cornell_box", 32)
-    own = prof.path_lengths(pt.compile_scene(scene), scene.camera,
-                            n_samples=4, max_depth=4)
-    assert own.shape == L.shape and (own != L).mean() < FLIP_FRAC
-    got = getattr(prof, fn)(None, scene=pt.builders.cornell_box(),
-                            device="cpu", lengths=L, **REPLAY_KW, **kw)
-    assert got.keys() == want.keys()
-    for k, v in want.items():
-        if isinstance(v, float):
-            assert abs(got[k] - v) <= 1e-9, (k, got[k], v)
-        elif isinstance(v, list):
-            np.testing.assert_allclose(got[k], v, rtol=0, atol=1e-9)
-        else:
-            assert got[k] == v, (k, got[k], v)
-    with pytest.raises(ValueError, match="lengths of shape"):
-        getattr(prof, fn)(None, scene=pt.builders.cornell_box(),
-                          device="cpu", lengths=L[:, :-1], **REPLAY_KW, **kw)
-
-
-def test_schedule_replay_assertions():
-    """tests/test_parallel.py::test_schedule_utilization_replay on the
-    port: compaction beats the single pass, the oracle key bounds the
-    samples key, utilization in (0, 1], three phase entries; and the
-    wavefront replay's utilizations in (0, 1], the sorted assignment the
-    best of the three."""
-    kw = dict(width=64, n_samples=9, max_depth=12, rows_per_tile=8,
-              device="cpu")
-    single = prof.schedule_utilization(
-        caps=(), scene=pt.builders.cornell_box(), **kw)
-    two = prof.schedule_utilization(
-        caps=(18, 18), scene=pt.builders.cornell_box(), **kw)
-    oracle = prof.schedule_utilization(
-        caps=(18, 18), key="oracle", scene=pt.builders.cornell_box(), **kw)
-    for r in (single, two, oracle):
-        assert 0.0 < r["utilization"] <= 1.0, r
-    assert two["utilization"] > single["utilization"], (single, two)
-    assert oracle["utilization"] >= two["utilization"] - 1e-9
-    assert len(two["phase_mean_iters"]) == 3
-    wave = prof.wavefront_utilization(
-        None, scene=pt.builders.cornell_box(), width=32, n_samples=4, max_depth=8,
-        device="cpu")
-    for k in ("utilization", "utilization_stride", "utilization_sorted"):
-        assert 0.0 < wave[k] <= 1.0, wave
-    assert wave["utilization_sorted"] >= max(wave["utilization"],
-                                             wave["utilization_stride"])
-    assert wave["rows_per_tile"] == 32     # Cornell: <= 64 primitives
-
-
 @pytest.mark.parametrize("kind", ["cpu", H100])
 def test_render_stats_match_jax(kind):
     """RenderStats on the same inputs as the JAX package's: paths, rates
@@ -223,27 +138,6 @@ def test_timed_matches_jax():
         **{**dataclasses.asdict(want), "wall_s": 1.0})
 
 
-def test_measured_ops_per_bounce():
-    """The plain trace's aten ops per ray and bounce iteration: the JAX
-    test's range for Cornell at 32 px d4 (tests/test_parallel.py:100-112),
-    more on bouncing_spheres (485 spheres, each tested every bounce), None
-    where no bounce ran. The counts are 2268.5 (Cornell) and 22293.2
-    (bouncing) on the CPU, 2.53 and 3.24 times the JAX package's XLA
-    cost_analysis flops per ray and max_depth iteration (895.0 and
-    6876.9): the rules differ (comparisons, selects and the RNG's integer
-    ops count in this one)."""
-    s = _builtin(pt, "cornell_box", 32)
-    v = prof.measured_ops_per_bounce(pt.compile_scene(s), s.camera,
-                                     width=32, max_depth=4)
-    assert 100.0 < v < 20000.0, v
-    b = _builtin(pt, "bouncing_spheres", 32)
-    vb = prof.measured_ops_per_bounce(pt.compile_scene(b), b.camera,
-                                      width=32, max_depth=4)
-    assert vb > v, (vb, v)
-    assert prof.measured_ops_per_bounce(pt.compile_scene(s), s.camera,
-                                        width=8, max_depth=0) is None
-
-
 def test_profiler_trace_on_the_cpu(tmp_path):
     """profiler_trace writes a chrome trace into log_dir holding the plain
     trace's aten ops; with no device, device_busy finds no kernel."""
@@ -263,27 +157,57 @@ def test_profiler_trace_on_the_cpu(tmp_path):
     assert busy["busy_ms"] == 0.0 and busy["kernels"] == {}
 
 
-def test_device_busy_reads_kernel_intervals(tmp_path):
-    """device_busy: the union of the kernels' intervals over the window
-    from the first event to the end of the last, kernels by name."""
-    events = [
-        {"ph": "X", "cat": "cpu_op", "name": "aten::mul", "ts": 100.0,
-         "dur": 900.0},
-        {"ph": "X", "cat": "kernel", "name": "k1", "ts": 200.0, "dur": 100},
-        {"ph": "X", "cat": "kernel", "name": "k1", "ts": 250.0, "dur": 100},
-        {"ph": "X", "cat": "kernel", "name": "k2", "ts": 600.0, "dur": 200},
-        {"ph": "f", "cat": "ac2g", "name": "flow", "ts": 50.0},
-    ]
+def _busy(tmp_path, events):
     path = tmp_path / "t.json"
     path.write_text(json.dumps({"traceEvents": events}))
-    busy = prof.device_busy(str(path))
-    assert busy["window_ms"] == pytest.approx(0.9)
+    return prof.device_busy(str(path))
+
+
+# a host op, three kernels, a flow event and, from 0 to 1.1 ms, the
+# profiler's own span around everything
+EVENTS = [
+    {"ph": "X", "cat": "Trace", "name": "PyTorch Profiler (0)", "ts": 0.0,
+     "dur": 1100.0},
+    {"ph": "X", "cat": "cpu_op", "name": "aten::mul", "ts": 100.0,
+     "dur": 900.0},
+    {"ph": "X", "cat": "kernel", "name": "k1", "ts": 200.0, "dur": 100},
+    {"ph": "X", "cat": "kernel", "name": "k1", "ts": 250.0, "dur": 100},
+    {"ph": "X", "cat": "kernel", "name": "k2", "ts": 600.0, "dur": 200},
+    {"ph": "f", "cat": "ac2g", "name": "flow", "ts": 50.0},
+]
+KERNELS = {"k1": {"ms": pytest.approx(0.2), "launches": 2},
+           "k2": {"ms": pytest.approx(0.2), "launches": 1}}
+
+
+def test_device_busy_reads_kernel_intervals(tmp_path):
+    """device_busy: the union of the kernels' intervals over the window
+    from the first program span's start to the end of the last one or of
+    the last kernel, whichever is later (the profiler's span and the host
+    op around it, and the spans' GPU annotation, outside it), kernels by
+    name."""
+    events = EVENTS + [
+        {"ph": "X", "cat": "user_annotation", "name": "rt.render",
+         "ts": 150.0, "dur": 550.0},
+        {"ph": "X", "cat": "user_annotation", "name": "rt.compile",
+         "ts": 160.0, "dur": 20.0},
+        {"ph": "X", "cat": "gpu_user_annotation", "name": "rt.render",
+         "ts": 200.0, "dur": 800.0},
+        {"ph": "X", "cat": "user_annotation", "name": "other", "ts": 10.0,
+         "dur": 1000.0}]
+    busy = _busy(tmp_path, events)
+    assert busy["window_ms"] == pytest.approx(0.65)       # 150 to 800 us
     assert busy["busy_ms"] == pytest.approx(0.35)
-    assert busy["busy_share"] == pytest.approx(0.35 / 0.9)
-    assert busy["kernels"] == {"k1": {"ms": pytest.approx(0.2),
-                                      "launches": 2},
-                               "k2": {"ms": pytest.approx(0.2),
-                                      "launches": 1}}
+    assert busy["busy_share"] == pytest.approx(0.35 / 0.65)
+    assert busy["kernels"] == KERNELS
+
+
+def test_device_busy_without_spans_takes_the_whole_trace(tmp_path):
+    """A trace with no program span (a block of the user's own) keeps the
+    window of its first event to the end of its last."""
+    busy = _busy(tmp_path, EVENTS)
+    assert busy["window_ms"] == pytest.approx(1.1)
+    assert busy["busy_ms"] == pytest.approx(0.35)
+    assert busy["kernels"] == KERNELS
 
 
 @pytest.mark.parametrize("name,want", [
@@ -358,3 +282,226 @@ def test_write_ppm_either_encoder(tmp_path, monkeypatch):
     assert a == (tmp_path / "numpy.ppm").read_bytes()
     np.testing.assert_array_equal(color.read_ppm(tmp_path / "native.ppm"),
                                   color.to_bytes(img))
+
+
+# ---------------------------------------------------- spans and bounces
+def _profiled(fn):
+    """fn() under torch.profiler (CPU activity); the profile."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as p:
+        fn()
+    return p
+
+
+def _span_tree(p) -> list:
+    """(name, parent) of every rt.* span of profile p in start order; the
+    parent is the innermost rt.* span around it on its thread, None at the
+    top."""
+    evs = sorted(((e.name(), e.start_thread_id(), e.start_ns(),
+                   e.start_ns() + e.duration_ns())
+                  for e in p.profiler.kineto_results.events()
+                  if e.name().startswith("rt.")),
+                 key=lambda x: (x[2], -x[3]))
+    out = []
+    for i, (name, tid, s, e) in enumerate(evs):
+        around = [o for j, o in enumerate(evs) if j < i and o[1] == tid
+                  and o[2] <= s and e <= o[3]]
+        out.append((name, around[-1][0] if around else None))
+    return out
+
+
+def _tiny(name="cornell_box", width=8, spp=4, depth=2):
+    scene = _builtin(pt, name, width)
+    scene.camera.samples_per_pixel = spp
+    scene.camera.max_depth = depth
+    return scene
+
+
+def _train_step():
+    """A make_train_step step over tex_color on the plain engine at 8 px
+    (4 samples: one pass forward, one backward), and its arguments."""
+    scene = _tiny()
+    flat, cam = pt.compile_scene(scene), pcam.derive(scene.camera)
+    kw = dict(width=8, height=8, n_strata=2, max_depth=2)
+    tgt = train.make_kernel_render(flat, engine="torch", **kw)(
+        {"tex_color": flat.tex_color}, cam, 0).detach()
+    p = {"tex_color": (flat.tex_color * 0.7).requires_grad_(True)}
+    step = train.make_train_step(torch.optim.Adam(p.values(), lr=0.02),
+                                 flat=flat, engine="torch", **kw)
+    return lambda: step(p, cam, 0, tgt)
+
+
+def _main_paths():
+    """The render, frame and training calls, each ready to run."""
+    scene = _tiny()
+    r = pt.ProgressiveRenderer(_tiny(), device="cpu")
+
+    def frame():
+        r.move_camera((0.0, 0.0, 1.0))
+        r.step()
+        r.image()
+    return {"render": lambda: pt.render(scene, device="cpu"),
+            "frame": frame, "train": _train_step()}
+
+
+SPAN_TREES = {
+    "render": [("rt.render", None), ("rt.compile", "rt.render")],
+    "frame": [("rt.frame.camera", None), ("rt.frame.step", None),
+              ("rt.frame.image", None)],
+    "train": [("rt.train.step", None),
+              ("rt.train.optimizer", "rt.train.step"),
+              ("rt.train.forward", "rt.train.step"),
+              ("rt.train.backward", "rt.train.step"),
+              ("rt.train.scatter", "rt.train.backward"),
+              ("rt.train.optimizer", "rt.train.step")],
+}
+
+
+def test_span_is_a_shared_no_op_without_a_profiler():
+    """With no profiler, span returns one shared context whatever the name
+    (nothing built); under one, a record_function range, nested in the
+    span around it."""
+    assert not prof.recording()
+    assert prof.span("rt.render") is prof.span("rt.train.step")
+
+    @prof.spanned("rt.compile")
+    def inner():
+        return 3
+
+    def outer():
+        with prof.span("rt.render"):
+            assert prof.recording() and inner() == 3
+
+    assert _span_tree(_profiled(outer)) == [("rt.render", None),
+                                            ("rt.compile", "rt.render")]
+
+
+def test_main_paths_enter_no_record_function_without_a_profiler(
+        monkeypatch):
+    """A render, a frame (move, step, image) and a training step run with
+    record_function made to raise on a program span's name: no span site
+    enters one (torch.optim enters its own, whatever the profiler)."""
+    paths = _main_paths()
+    real = torch.autograd.profiler.record_function
+
+    def refuse(name, *a, **k):
+        if name.startswith("rt."):
+            raise AssertionError(f"{name} entered with no profiler")
+        return real(name, *a, **k)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    for run in paths.values():
+        run()
+
+
+@pytest.mark.parametrize("path", list(SPAN_TREES))
+def test_spans_of_the_main_paths(path):
+    """Under torch.profiler the plain engine's render, a frame and a
+    training step record exactly their spans, nested as stated (the
+    kernels' rt.pack, rt.launch and rt.memcheck are the card's)."""
+    run = _main_paths()[path]
+    assert _span_tree(_profiled(run)) == SPAN_TREES[path]
+
+
+def test_compacted_schedule_spans():
+    """The compacted schedule records one rt.compact between each two
+    phases, outside the passes."""
+    scene = _tiny(spp=4, depth=3)
+    flat, cam = pt.compile_scene(scene), pcam.derive(scene.camera)
+    kw = dict(width=8, height=8, n_strata=2, max_depth=3, n_samples=4)
+    p = _profiled(lambda: wc.render_pass_compacted(
+        flat, cam, 0, 0, caps=(2, 2), pass_fn=wc.render_pass_reference,
+        **kw))
+    assert _span_tree(p) == [("rt.compact", None)] * 2
+
+
+def _jax_bounces(name, width, spp, depth, seed) -> int:
+    """The JAX package's trace lengths summed over the image's pixels and
+    the samples of a render (its streams: seed, pixel, sample)."""
+    scene = _builtin(rt, name, width)
+    jf, jc = rt.compile_scene(scene), jcam.derive(scene.camera)
+    w, h = jcam.image_size(scene.camera)
+    n = int(np.sqrt(spp))
+    pix = jnp.arange(w * h, dtype=jnp.int32)
+    total = 0
+    for s in range(n * n):
+        keys = jrng.ray_keys(seed, pix, jnp.full(pix.shape, s, jnp.int32))
+        org, dr, tm = jcam.generate_rays(jc, w, pix, jnp.asarray(s, jnp.int32),
+                                         n, keys)
+        _, ln = jint.trace(jf, org, dr, tm, keys, jc.background,
+                           max_depth=depth,
+                           sky_gradient=scene.camera.sky_gradient,
+                           return_lengths=True)
+        total += int(np.asarray(ln).sum())
+    return total
+
+
+@pytest.mark.parametrize("name,depth", [("cornell_box", 3),
+                                        ("simple_sphere", 4)])
+def test_bounce_total_equals_jax_lengths(name, depth):
+    """A plain-engine render at 32 px, 4 spp, under torch.profiler adds to
+    _render_pass.bounces the sum of the JAX package's trace lengths on the
+    same scene, camera and seed."""
+    scene = _tiny(name, width=32, spp=4, depth=depth)
+    before = rd._render_pass.bounces
+    _profiled(lambda: pt.render(scene, device="cpu", seed=7))
+    got = int(rd._render_pass.bounces - before)
+    assert got == _jax_bounces(name, 32, 4, depth, 7) > 0
+
+
+def test_plain_engine_makes_no_bounce_buffer_without_a_profiler(
+        monkeypatch):
+    """With no profiler the plain engine asks the trace for no lengths and
+    its total stays the same object."""
+    asked = []
+
+    def traced(*a, return_lengths=False, **k):
+        asked.append(return_lengths)
+        return trace(*a, return_lengths=return_lengths, **k)
+    monkeypatch.setattr(rd, "trace", traced)
+    before = rd._render_pass.bounces
+    pt.render(_tiny(), device="cpu")
+    assert asked and not any(asked)
+    assert rd._render_pass.bounces is before
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_kernel_wrapper_counts_bounces(profiled, monkeypatch):
+    """render_pass_kernel hands the launch a zeroed int32 bounce buffer of
+    the lanes while a profiler records, and adds its sum to .bounces (a
+    tensor, not read back); with no profiler, or with the caller's own
+    iters, it passes that and counts nothing. The launch is a stand-in
+    that traces 2 bounces a lane (no card here)."""
+    seen = []
+
+    def launch(flat, cam, seed, sample_start, *, iters, **kw):
+        seen.append(None if iters is None else iters.clone())
+        if iters is not None:
+            iters += 2
+        n_lanes = wc.lane_count(kw["width"] * kw["height"])
+        return torch.zeros(3, n_lanes), None, None, None
+    monkeypatch.setattr(wc, "_launch", launch)
+    monkeypatch.setattr(wc.render_pass_kernel, "bounces", 0)
+    scene = _tiny()
+    flat, cam = pt.compile_scene(scene), pcam.derive(scene.camera)
+    kw = dict(width=8, height=8, n_strata=1, max_depth=2, n_samples=1,
+              prepared=wc.KernelInputs(torch.zeros(1), {}))
+    own = torch.zeros(wc.lane_count(64), dtype=torch.int32)
+
+    def run():
+        img = wc.render_pass_kernel(flat, cam, 0, 0, **kw)
+        wc.render_pass_kernel(flat, cam, 0, 0, iters=own, **kw)
+        assert img.shape == (8, 8, 3)
+    if profiled:
+        _profiled(run)
+    else:
+        run()
+    assert seen[1] is not None and int(own.sum()) == 2 * own.numel()
+    total = wc.render_pass_kernel.bounces
+    if profiled:
+        assert seen[0].dtype == torch.int32 and not seen[0].any()
+        assert seen[0].shape == (wc.lane_count(64),)
+        assert isinstance(total, torch.Tensor)
+        assert int(total) == 2 * wc.lane_count(64)
+    else:
+        assert seen[0] is None and total == 0
