@@ -110,9 +110,10 @@ _render_pass.calls = 0
 _render_pass.bounces = 0
 
 
-def pick_engine(flat: FlatScene, engine: str = "auto") -> str:
-    """Resolve the compute path: "cuda" (the forward megakernel) or "torch"
-    (the plain integrator).
+def pick_engine(flat: FlatScene, engine: str = "auto",
+                device=None) -> str:
+    """Resolve the compute path on `device` (None: the scene's): "cuda"
+    (the forward megakernel) or "torch" (the plain integrator).
 
     On a CUDA device "auto" is the kernel, and raises, as engine="cuda"
     does, for a scene outside kernel_gate_reason (more than 4 mediums or 32
@@ -120,19 +121,20 @@ def pick_engine(flat: FlatScene, engine: str = "auto") -> str:
     engine runs on the card only when engine="torch" asks for it. On the
     CPU "auto" is the plain engine (on a use_bvh scene through the BVH
     oracle, ops/bvh.py::closest_hit_bvh), and engine="cuda" raises."""
-    on_cuda = flat.device.type == "cuda"
+    dev = flat.device if device is None else torch.device(device)
+    on_cuda = dev.type == "cuda"
     if engine == "torch" or (engine == "auto" and not on_cuda):
         return "torch"
     if engine not in ("auto", "cuda"):
         raise ValueError(f"unknown engine {engine!r} (auto | cuda | torch)")
     if not on_cuda:
         raise ValueError(f"engine='cuda' needs a CUDA device; the scene "
-                         f"is on {flat.device}")
+                         f"is on {dev}")
     reason = kernel_gate_reason(flat)
     if reason is not None:
         raise ValueError(f"scene outside the CUDA kernel's gate: {reason}; "
                          f"engine='torch' (--engine torch) runs the plain "
-                         f"torch engine on {flat.device}")
+                         f"torch engine on {dev}")
     return "cuda"
 
 
@@ -172,8 +174,11 @@ def render(scene: Scene | FlatScene, cfg: CameraConfig | None = None, *,
            ) -> torch.Tensor:
     """Render a full image; returns (H, W, 3) linear float32 on `device`.
 
-    Accepts a schema Scene (compiled here) or a FlatScene plus an explicit
-    CameraConfig. engine: "auto" | "cuda" | "torch" (pick_engine).
+    Accepts a schema Scene (compiled here, on the host) or a FlatScene plus
+    an explicit CameraConfig. engine: "auto" | "cuda" | "torch"
+    (pick_engine). On the kernel, a scene on the host is packed there and
+    sent to the card in one copy, and one on the card is packed there
+    (prepare_kernel); the plain engine moves the scene to `device`.
 
     schedule (cuda engine only): "auto" | "single" | "compacted". "auto"
     takes the capped + lane-compacted schedule for passes of >= 8 samples.
@@ -183,19 +188,22 @@ def render(scene: Scene | FlatScene, cfg: CameraConfig | None = None, *,
         raise ValueError(f"unknown schedule {schedule!r}")
     if isinstance(scene, Scene):
         cfg = cfg or scene.camera
-        flat = compile_scene(scene, use_bvh=use_bvh, device=dev)
+        flat = compile_scene(scene, use_bvh=use_bvh)
     else:
         if cfg is None:
             raise ValueError("a FlatScene needs an explicit CameraConfig")
-        flat = scene.to(dev)
+        flat = scene
+    eng = pick_engine(flat, engine, dev)
+    if eng != "cuda" or flat.device.type != "cpu":
+        flat = flat.to(dev)
 
     width, height = cam_mod.image_size(cfg)
     n_strata = cam_mod.sqrt_spp(
         cfg if spp is None else
         CameraConfig(**{**cfg.__dict__, "samples_per_pixel": spp}))
     total = n_strata * n_strata
-    cam = cam_mod.derive(cfg, device=dev)
-    eng = pick_engine(flat, engine)
+    # beside the scene: on the host, the packing takes its floats there
+    cam = cam_mod.derive(cfg, device=flat.device)
     tr = tile_rows or default_tile_rows(width, height, flat.n_prims)
     if eng == "cuda" and progress is None:
         # lane regeneration amortizes dead-lane waste across samples: the
@@ -205,7 +213,9 @@ def render(scene: Scene | FlatScene, cfg: CameraConfig | None = None, *,
     common = dict(width=width, height=height, n_strata=n_strata,
                   max_depth=cfg.max_depth, sky_gradient=cfg.sky_gradient)
     # the kernel's tables and scalars are packed once for the whole render
-    run_pass = pass_function(flat, cam) if eng == "cuda" else None
+    run_pass = (pass_function(flat, cam, prepare_kernel(flat, cam,
+                                                        device=dev))
+                if eng == "cuda" else None)
     acc = torch.zeros(height, width, 3, dtype=torch.float32, device=dev)
     caps_noted = False
     s = 0

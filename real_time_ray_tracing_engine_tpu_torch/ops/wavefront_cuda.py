@@ -432,54 +432,48 @@ def _pack_tables(flat: FlatScene):
     Returns (sphf (S, 8), quadf (Q, 18), prim_mat (S+Q,), lightf (L, 25),
     mati (NM, 2), matf (NM, 2), texf (NT, 14), medf (M, 3+4*MS+17*MQ)) with
     the same columns. The JAX package's scan-mode resolved row table
-    (primmatf) waits for the large-scene kernel that reads it."""
-    f32 = torch.float32
+    (primmatf) waits for the large-scene kernel that reads it. A flag or
+    an index column becomes float32 in its torch.cat (type promotion: the
+    exact float of each)."""
     sphf = torch.cat([flat.sph_center, flat.sph_cdelta,
-                      flat.sph_radius[:, None],
-                      flat.sph_active.to(f32)[:, None]], dim=1)
+                      flat.sph_radius[:, None], flat.sph_active[:, None]],
+                     dim=1)
     quadf = torch.cat([flat.quad_corner, flat.quad_u, flat.quad_v,
                        flat.quad_normal, flat.quad_d[:, None], flat.quad_w,
-                       flat.quad_area[:, None],
-                       flat.quad_active.to(f32)[:, None]], dim=1)
+                       flat.quad_area[:, None], flat.quad_active[:, None]],
+                      dim=1)
     prim_mat = torch.cat([flat.sph_mat, flat.quad_mat])
 
+    # a light row: is_sph, its sphere's c0, cdelta, radius (sphf's first
+    # 7 columns), its quad's corner ... area (quadf's first 17)
     S = flat.sph_center.shape[0]
-    li = flat.light_prim.to(torch.int64)
-    is_sph = (li < S).to(f32)
+    li = flat.light_prim
     si = torch.clamp(li, 0, S - 1)
     qi = torch.clamp(li - S, 0, flat.quad_corner.shape[0] - 1)
-    lightf = torch.cat([
-        is_sph[:, None], flat.sph_center[si], flat.sph_cdelta[si],
-        flat.sph_radius[si][:, None],
-        flat.quad_corner[qi], flat.quad_u[qi], flat.quad_v[qi],
-        flat.quad_normal[qi], flat.quad_d[qi][:, None], flat.quad_w[qi],
-        flat.quad_area[qi][:, None]], dim=1)
+    lightf = torch.cat([(li < S)[:, None], sphf[si, :7], quadf[qi, :17]],
+                       dim=1)
 
     mati = torch.stack([flat.mat_type, flat.mat_tex], dim=1)
     matf = torch.stack([flat.mat_fuzz, flat.mat_ior], dim=1)
 
-    even_i = flat.tex_child_even.to(torch.int64)
-    odd_i = flat.tex_child_odd.to(torch.int64)
-    even_c = flat.tex_color[even_i]
-    odd_c = flat.tex_color[odd_i]
-    is_chk = (flat.tex_type == TEX_CHECKER).to(f32)
-    is_noi = (flat.tex_type == TEX_NOISE).to(f32)
+    even, odd = flat.tex_child_even, flat.tex_child_odd
     texf = torch.cat([
-        flat.tex_color, flat.tex_scale[:, None], is_chk[:, None],
-        even_c, odd_c, flat.tex_child_even.to(f32)[:, None],
-        flat.tex_child_odd.to(f32)[:, None], is_noi[:, None]], dim=1)
+        flat.tex_color, flat.tex_scale[:, None],
+        (flat.tex_type == TEX_CHECKER)[:, None], flat.tex_color[even],
+        flat.tex_color[odd], even[:, None], odd[:, None],
+        (flat.tex_type == TEX_NOISE)[:, None]], dim=1)
 
     n_med = flat.med_mat.shape[0]
     quad_cols = torch.cat([
         flat.med_quad_corner, flat.med_quad_u, flat.med_quad_v,
         flat.med_quad_normal, flat.med_quad_d[..., None], flat.med_quad_w,
-        flat.med_quad_active.to(f32)[..., None]], dim=2).reshape(n_med, -1)
+        flat.med_quad_active[..., None]], dim=2).reshape(n_med, -1)
     sph_cols = torch.cat([flat.med_sph_center,
                           flat.med_sph_radius[..., None]],
                          dim=2).reshape(n_med, -1)
     medf = torch.cat([flat.med_neg_inv_density[:, None],
-                      flat.med_active.to(f32)[:, None], sph_cols, quad_cols,
-                      flat.med_mat.to(f32)[:, None]], dim=1)
+                      flat.med_active[:, None], sph_cols, quad_cols,
+                      flat.med_mat[:, None]], dim=1)
     return (sphf, quadf, prim_mat, lightf, mati, matf, texf, medf)
 
 
@@ -496,8 +490,9 @@ def _table_floats(flat: FlatScene) -> int:
 
 def _kernel_tables(flat: FlatScene, hard_slots=()):
     """One contiguous float32 buffer of the tables the kernel reads, and
-    the offset of each (integer columns stored as exact floats): the scene,
-    the light rows' source spheres and the hard slots' table."""
+    the offset of each (integer columns stored as exact floats, by the
+    torch.cat's type promotion): the scene, the light rows' source spheres
+    and the hard slots' table."""
     sphf, quadf, prim_mat, lightf, mati, matf, texf, medf = \
         _pack_tables(flat)
     parts = {"sph": sphf, "quad": quadf, "pmat": prim_mat,
@@ -509,7 +504,9 @@ def _kernel_tables(flat: FlatScene, hard_slots=()):
     offsets, off, flat_parts = {}, 0, []
     for name, t in parts.items():
         offsets[name] = off
-        t = t.to(device=flat.device, dtype=torch.float32).reshape(-1)
+        if t.device != flat.device:
+            t = t.to(flat.device)
+        t = t.reshape(-1)
         off += t.numel()
         flat_parts.append(t)
     buf = torch.cat(flat_parts).contiguous()
@@ -517,40 +514,36 @@ def _kernel_tables(flat: FlatScene, hard_slots=()):
 
 
 # ------------------------------------------------------ chunk-scan tables
-def _morton3(x, y, z):
-    """30-bit Morton codes of 10-bit coordinates (wavefront_pallas.py:176),
-    in int64: torch's CPU builds have no uint32 shift or add, and no step
-    here leaves 32 bits."""
-    def spread(v):
-        v = v & 0x3FF
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        return (v | (v << 2)) & 0x09249249
-    return (spread(x) << 2) | (spread(y) << 1) | spread(z)
-
-
 def _morton_codes(mid, act):
-    """Morton codes of box midpoints (n, 3) quantized over the active ones'
-    span, as the JAX packers do."""
-    wmin = torch.where(act[:, None], mid, BIG).min(0).values
-    wmax = torch.where(act[:, None], mid, -BIG).max(0).values
+    """30-bit Morton codes (wavefront_pallas.py:176) of box midpoints (n,
+    3) quantized to 10 bits over the active ones' span, as the JAX packers
+    do: each axis's bits spread to every third bit, x highest. In int64:
+    torch's CPU builds have no uint32 shift or add, and no step here leaves
+    32 bits."""
+    act = act[:, None]
+    wmin = torch.where(act, mid, BIG).amin(0)
+    wmax = torch.where(act, mid, -BIG).amax(0)
     scale = 1023.0 / torch.clamp(wmax - wmin, min=1e-6)
-    q = torch.clamp((mid - wmin) * scale, 0.0, 1023.0).to(torch.int64)
-    return _morton3(q[:, 0], q[:, 1], q[:, 2])
+    v = torch.clamp((mid - wmin) * scale, 0.0, 1023.0).to(torch.int64)
+    v = v & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return (v[:, 0] << 2) | (v[:, 1] << 1) | v[:, 2]
 
 
-def _chunk_boxes(lo, hi, n_chunks: int, rows: int = VCHUNK):
-    """(n_chunks * VCHUNK / rows, 6) boxes [lo xyz, hi xyz] of consecutive
-    `rows`-row runs of n_chunks VCHUNK-row chunks (the chunks' own boxes
-    at VCHUNK, their groups' at VGROUP); rows past lo's end count as
-    empty (BIG / -BIG)."""
+def _chunk_boxes(lo, hi, n_chunks: int, runs=(VCHUNK, VGROUP)) -> list:
+    """For each run length r of `runs`, the (n_chunks * VCHUNK / r, 6)
+    boxes [lo xyz, hi xyz] of consecutive r-row runs of n_chunks
+    VCHUNK-row chunks (the chunks' own boxes at VCHUNK, their groups' at
+    VGROUP or QGROUP); rows past lo's end count as empty (BIG / -BIG)."""
     pad = n_chunks * VCHUNK - lo.shape[0]
     lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=BIG)
     hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-BIG)
-    n = n_chunks * VCHUNK // rows
-    return torch.cat([lo.reshape(n, rows, 3).min(1).values,
-                      hi.reshape(n, rows, 3).max(1).values], dim=1)
+    return [torch.cat([lo.reshape(-1, r, 3).amin(1),
+                       hi.reshape(-1, r, 3).amax(1)], dim=1)
+            for r in runs]
 
 
 def _chunk_rows(rows, n_chunks: int, id_col: int):
@@ -620,15 +613,16 @@ def _sphere_boxes(flat: FlatScene):
     c0, cd, rad = flat.sph_center, flat.sph_cdelta, flat.sph_radius
     S = c0.shape[0]
     active = flat.sph_active & (rad > 0.0)
-    lo = torch.minimum(c0, c0 + cd) - rad[:, None]
-    hi = torch.maximum(c0, c0 + cd) + rad[:, None]
+    c1, r = c0 + cd, rad[:, None]
+    lo = torch.minimum(c0, c1) - r
+    hi = torch.maximum(c0, c1) + r
     moving = (cd != 0.0).any(1)
     n_big = VSCAN_BIG if S > VCHUNK else 0
     is_big = torch.zeros(S, dtype=torch.bool, device=flat.device)
     if n_big:
         static_bigs = int(flat.n_sph_active_static) >= n_big
         pool = (active & ~moving) if static_bigs else active
-        extent = (hi - lo).max(1).values
+        extent = (hi - lo).amax(1)
         order = torch.argsort(-torch.where(pool, extent, -1.0), stable=True)
         is_big[order[:n_big]] = True
     return active, lo, hi, moving, is_big
@@ -655,14 +649,13 @@ def pack_vscan_tables(flat: FlatScene) -> VscanTables:
     n_small_static = max(nas - n_big, 0) if pick_static_bigs else 0
     C_stat = min(n_small_static // VCHUNK, C_small)
     ids = torch.where(active, torch.arange(S, device=dev), -1)
-    rows = torch.cat([c0, cd, rad[:, None], ids.to(f32)[:, None]], 1)[perm]
+    rows = torch.cat([c0, cd, rad[:, None], ids[:, None]], 1)[perm]
     rows = torch.cat([_chunk_rows(rows[:n_small], C_small, 7)]
                      + [_chunk_rows(rows[n_small:], 1, 7)] * (n_big > 0))
     culled = (active & ~is_big)[:, None]
     lo_c = torch.where(culled, lo, BIG)[perm][:n_small]
     hi_c = torch.where(culled, hi, -BIG)[perm][:n_small]
-    box = _chunk_boxes(lo_c, hi_c, C_small + (1 if n_big else 0))
-    gbox = _chunk_boxes(lo_c, hi_c, C_small + (1 if n_big else 0), VGROUP)
+    box, gbox = _chunk_boxes(lo_c, hi_c, C_small + (1 if n_big else 0))
     scale = torch.where(culled, torch.maximum(lo.abs(), hi.abs()),
                         0.0).max() if S else torch.zeros((), device=dev)
 
@@ -670,7 +663,7 @@ def pack_vscan_tables(flat: FlatScene) -> VscanTables:
     qact = flat.quad_active
     quads = torch.cat([flat.quad_corner, flat.quad_u, flat.quad_v,
                        flat.quad_normal, flat.quad_d[:, None], flat.quad_w,
-                       qact.to(f32)[:, None]], 1)
+                       qact[:, None]], 1)
     Cq = 0
     qrows = torch.zeros(0, QROW_COLS, dtype=f32, device=dev)
     qperm = torch.zeros(0, dtype=torch.int64, device=dev)
@@ -685,12 +678,13 @@ def pack_vscan_tables(flat: FlatScene) -> VscanTables:
         Cq = -(-Q // VCHUNK)
         qids = torch.where(qact, S + torch.arange(Q, device=dev), -1)
         qrows = _chunk_rows(torch.cat([
-            quads[:, :16], qids.to(f32)[:, None],
+            quads[:, :16], qids[:, None],
             torch.zeros(Q, 3, dtype=f32, device=dev)], 1)[qperm], Cq, 16)
         qlo_c = torch.where(qact[:, None], qlo, BIG)[qperm]
         qhi_c = torch.where(qact[:, None], qhi, -BIG)[qperm]
-        box = torch.cat([box, _chunk_boxes(qlo_c, qhi_c, Cq)])
-        gbox = torch.cat([gbox, _chunk_boxes(qlo_c, qhi_c, Cq, QGROUP)])
+        qbox, qgbox = _chunk_boxes(qlo_c, qhi_c, Cq, (VCHUNK, QGROUP))
+        box = torch.cat([box, qbox])
+        gbox = torch.cat([gbox, qgbox])
         scale = torch.maximum(scale, torch.where(
             qact[:, None], torch.maximum(qlo.abs(), qhi.abs()), 0.0).max())
     pad = float(np.float32(BOX_PAD * (1.0 + float(scale))))
@@ -718,10 +712,9 @@ def _vscan_buffer(vt: VscanTables):
     the sphere rows, the quad rows (each 16-byte aligned, for float4
     loads) and the widened chunk boxes; and the kernel's VsParams
     fields."""
-    g = _padded_boxes(vt, vt.gbox)
-    zero = torch.zeros_like(g[:, :1])
-    parts = [torch.cat([g[:, :3], zero, g[:, 3:], zero], 1).reshape(-1),
-             vt.rows.reshape(-1), vt.qrows.reshape(-1),
+    g = torch.nn.functional.pad(_padded_boxes(vt, vt.gbox).reshape(-1, 2, 3),
+                                (0, 1))
+    parts = [g.reshape(-1), vt.rows.reshape(-1), vt.qrows.reshape(-1),
              _padded_boxes(vt).reshape(-1)]
     n0, n1, n2 = (x.numel() for x in parts[:3])
     fields = dict(C_small=vt.C_small, n_big=vt.n_big, Cq=vt.Cq,
@@ -1890,9 +1883,8 @@ class KernelInputs:
     scan's buffer `vtab` and its VsParams fields `vfields` (Cq > 0: vquad);
     for a BVH mode ("stack", "lane") the walk's buffer `btab` and its
     BvParams fields `bfields`. `env` is the kernel_env() the mode was
-    chosen under. Packing gathers on the device and reads the camera and
-    the Perlin seed back to the host, so a render (or a training step)
-    packs once and hands the result to every launch."""
+    chosen under. A render (or a training step) packs once and hands the
+    result to every launch."""
     tables: torch.Tensor
     fields: dict
     hard_slots: tuple = ()
@@ -1906,19 +1898,29 @@ class KernelInputs:
 
 @spanned("rt.pack")
 def prepare_kernel(flat: FlatScene, cam: CameraState,
-                   hard_slots: tuple = (),
-                   chunk_scan: bool = False) -> KernelInputs:
+                   hard_slots: tuple = (), chunk_scan: bool = False,
+                   device=None) -> KernelInputs:
     """Pack `flat` and `cam` (and the slot table of `hard_slots`, for the
-    grad kernel) for the kernel wrappers; raises for a scene that is not on
-    a CUDA device or is outside the forward kernel's gate, and for slots
-    outside hard_slots_gate_reason. A grad launch on a scene outside
-    grad_gate_reason raises in _launch. The mode is kernel_mode's under the
-    environment now (kernel_env), fixed in the packing; chunk_scan packs
-    the chunk scan's tables whatever the scene's mode (the adjoint, K9/K10,
-    always runs on them)."""
-    if flat.device.type != "cuda":
+    grad kernel) for the kernel wrappers, where the tables live. A scene on
+    the card (training's parameters, the progressive renderer's scene) is
+    packed there, and its camera and Perlin seed are read back to the host.
+    A scene on the host (what render compiles) is packed on the host, its
+    camera's floats and Perlin seed taken from the host (`cam` on the host
+    reads nothing back), and the buffers go to the CUDA `device` in one
+    copy (_send): nothing reads the card. The packing counts in
+    prepare_kernel.device_packs or .host_packs. Raises for a scene on the
+    host with no CUDA `device`, for one outside the forward kernel's gate,
+    and for slots outside hard_slots_gate_reason. A grad launch on a scene
+    outside grad_gate_reason raises in _launch. The mode is kernel_mode's
+    under the environment now (kernel_env), fixed in the packing;
+    chunk_scan packs the chunk scan's tables whatever the scene's mode (the
+    adjoint, K9/K10, always runs on them)."""
+    on_host = flat.device.type == "cpu"
+    target = torch.device(device) if on_host and device is not None \
+        else flat.device
+    if target.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
-                         f"{flat.device}")
+                         f"{target}")
     hard_slots = tuple(hard_slots)
     reason = (hard_slots_gate_reason(flat, len(hard_slots)) if hard_slots
               else kernel_gate_reason(flat))
@@ -1940,20 +1942,50 @@ def prepare_kernel(flat: FlatScene, cam: CameraState,
         cam=_camera_field(cam))
     env = kernel_env()
     mode = "vscan" if chunk_scan else kernel_mode(flat, env)[0]
-    if mode == "unrolled":
-        return KernelInputs(tables, fields, hard_slots, env=env)
+    bufs, meta = {"tables": tables}, {}
     if mode in BVH_MODES:
-        btab, bfields = _bvh_buffer(pack_bvh_tables(flat, mode))
-        return KernelInputs(tables, fields, hard_slots, mode, btab=btab,
-                            bfields=bfields, env=env)
-    vtab, vfields = _vscan_buffer(pack_vscan_tables(flat))
-    return KernelInputs(tables, fields, hard_slots, mode, vtab, vfields,
-                        env=env)
+        bufs["btab"], meta["bfields"] = _bvh_buffer(
+            pack_bvh_tables(flat, mode))
+    elif mode == "vscan":
+        bufs["vtab"], meta["vfields"] = _vscan_buffer(
+            pack_vscan_tables(flat))
+    if on_host:
+        bufs = dict(zip(bufs, _send(list(bufs.values()), target)))
+        prepare_kernel.host_packs += 1
+    else:
+        prepare_kernel.device_packs += 1
+    return KernelInputs(fields=fields, hard_slots=hard_slots, mode=mode,
+                        env=env, **bufs, **meta)
+
+
+prepare_kernel.host_packs = 0
+prepare_kernel.device_packs = 0
+
+# a buffer's start in _send's copy, in floats: 256 bytes, cudaMalloc's
+# alignment, so each view's float4 rows load as from a buffer of its own
+SEND_ALIGN = 64
+
+
+def _send(parts, device) -> list:
+    """The float32 host buffers `parts` on `device` after one copy: packed
+    into one pinned host buffer, each at a SEND_ALIGN boundary, copied
+    without waiting on the host, and split into views on the card (the
+    caching host allocator keeps the pinned buffer until the copy is
+    done)."""
+    starts, n = [], 0
+    for p in parts:
+        starts.append(n)
+        n += -(-p.numel() // SEND_ALIGN) * SEND_ALIGN
+    buf = torch.empty(n, dtype=torch.float32, pin_memory=True)
+    for p, a in zip(parts, starts):
+        buf[a:a + p.numel()] = p.reshape(-1)
+    dev = buf.to(device, non_blocking=True)
+    return [dev[a:a + p.numel()] for p, a in zip(parts, starts)]
 
 
 def _camera_field(cam: CameraState):
     """WfParams' camera: the 22 floats of cam.scalars(), read back to the
-    host."""
+    host from a camera on the card."""
     return (ctypes.c_float * 22)(*cam.scalars().to("cpu").tolist())
 
 
@@ -1975,16 +2007,15 @@ def _launch(flat: FlatScene, cam: CameraState, seed, sample_start, *,
     the current stream, and raise if the launch fails. Returns (radiance
     (3, n_lanes), carry or None, dG_tex (NT, 3) or None, dG_hard (K,) or
     None)."""
-    device = flat.device
-    if device.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got "
-                         f"{device}")
     hard_slots = tuple(hard_slots) if cot is not None else ()
     if prepared is None:
         prepared = prepare_kernel(flat, cam, hard_slots)
     elif cot is not None and tuple(prepared.hard_slots) != hard_slots:
         raise ValueError(f"prepared for hard slots {prepared.hard_slots}, "
                          f"launched with {hard_slots}")
+    # the card the tables were packed for (a scene packed on the host
+    # stays there: the launch reads only its static fields)
+    device = prepared.tables.device
     if kernel_mode(flat)[0] != kernel_mode(flat, prepared.env)[0]:
         # the JAX package's round-3 lesson behind _kernel_env: a packing
         # made under one mode is never launched where another is asked for
@@ -2136,7 +2167,7 @@ def render_pass_kernel(flat: FlatScene, cam: CameraState, seed,
     count = iters is None and recording()
     if count:
         iters = torch.zeros(lane_count(width * height), dtype=torch.int32,
-                            device=flat.device)
+                            device=prepared.tables.device)
     rad, st, _, _ = _launch(
         flat, cam, seed, sample_start, width=width, height=height,
         n_strata=n_strata, max_depth=max_depth, n_samples=n_samples,
@@ -2233,9 +2264,10 @@ render_pass_grad_kernel.lane_launches = 0
 def pass_function(flat: FlatScene, cam: CameraState,
                   prepared: KernelInputs | None = None):
     """The pass function for the scene's device: the CUDA kernel, with the
-    scene and camera packed once (or `prepared`), for a scene on a CUDA
-    device; the plain torch version for a scene on the CPU."""
-    if flat.device.type == "cuda":
+    scene and camera packed once (or `prepared`, also a scene on the host
+    packed for the card), for a scene on a CUDA device; the plain torch
+    version for a scene on the CPU."""
+    if prepared is not None or flat.device.type == "cuda":
         return functools.partial(
             render_pass_kernel,
             prepared=prepared or prepare_kernel(flat, cam))

@@ -29,70 +29,97 @@ from .flat import (FlatScene, MAT_LAMBERTIAN, MAT_METAL, MAT_DIELECTRIC,
 MIN_MED_QUADS = 6   # table floor (a box boundary); grows to the scene max
 
 
+def _json_key(v):
+    """The dedup key of a row value, which two values share exactly when
+    json.dumps writes them alike: a float as it is, or by its JSON text
+    where == would merge what JSON keeps apart (0.0 and -0.0) or keep apart
+    what JSON merges (NaNs); an int or a bool tagged with its kind, so that
+    1, 1.0 and True stay three values; a tuple or list by its items;
+    anything else by its JSON text (raising where json.dumps does)."""
+    if isinstance(v, float):
+        return v if v == v and v != 0.0 else float.__repr__(v)
+    if isinstance(v, (tuple, list)):
+        return tuple(map(_json_key, v))
+    if isinstance(v, bool):
+        return (bool, v)
+    if isinstance(v, int):
+        return (int, int(v))
+    return json.dumps(v)
+
+
 class _Tables:
     """Dedup is by *content* (row value), not Python object identity as in
     the reference's pointer-keyed converter maps (MaterialConverter.cuh:26):
     JSON scenes cannot express object sharing, and content dedup makes
-    in-memory and round-tripped scenes compile to identical tables."""
+    in-memory and round-tripped scenes compile to identical tables. Two
+    rows are one where json.dumps writes them alike; each row's key holds
+    what varies within its kind (_json_key)."""
 
     def __init__(self):
-        self.tex_rows = []      # dicts
-        self.mat_rows = []
+        self.tex_rows = []      # (type, color, scale, even, odd)
+        self.mat_rows = []      # (type, tex, fuzz, ior)
         # NOTE: no id()-keyed fast path — temporaries (e.g. the SolidColor
         # wrapped around a Metal albedo) die between add_* calls and CPython
         # reuses their addresses, which silently merges distinct materials.
         self.tex_keys = {}      # content key -> index
         self.mat_keys = {}
-        self.spheres = []       # dicts
+        self.spheres = []       # (sphere, R, t, radius, material), _walk
         self.quads = []
         self.mediums = []
 
-    def _intern(self, row, rows, keys) -> int:
-        key = json.dumps(row, sort_keys=True)
-        if key in keys:
-            return keys[key]
-        rows.append(row)
-        keys[key] = len(rows) - 1
-        return keys[key]
+    @staticmethod
+    def _intern(row, rows, keys, key) -> int:
+        """The index of `row` in `rows`, appended the first time its
+        content `key` is met."""
+        i = keys.get(key)
+        if i is None:
+            i = keys[key] = len(rows)
+            rows.append(row)
+        return i
 
     # -------------------------------------------------------- textures
+    def _solid(self, color: tuple) -> int:
+        return self._intern((TEX_SOLID, color, 1.0, 0, 0), self.tex_rows,
+                            self.tex_keys, (TEX_SOLID, _json_key(color)))
+
     def add_texture(self, t) -> int:
         if isinstance(t, S.SolidColor):
-            row = dict(type=TEX_SOLID, color=tuple(t.albedo), scale=1.0,
-                       even=0, odd=0)
-        elif isinstance(t, S.Noise):
-            row = dict(type=TEX_NOISE, color=(0, 0, 0), scale=float(t.scale),
-                       even=0, odd=0)
+            return self._solid(tuple(t.albedo))
+        if isinstance(t, S.Noise):
+            row = (TEX_NOISE, (0, 0, 0), float(t.scale), 0, 0)
         elif isinstance(t, S.Checker):
             even = self.add_texture(t.even)
             odd = self.add_texture(t.odd)
-            row = dict(type=TEX_CHECKER, color=(0, 0, 0), scale=float(t.scale),
-                       even=even, odd=odd)
+            row = (TEX_CHECKER, (0, 0, 0), float(t.scale), even, odd)
         else:
             raise TypeError(f"unknown texture {t!r}")
-        return self._intern(row, self.tex_rows, self.tex_keys)
+        kind, _, scale, even, odd = row
+        return self._intern(row, self.tex_rows, self.tex_keys,
+                            (kind, _json_key(scale), even, odd))
 
     # -------------------------------------------------------- materials
+    def _material(self, kind: int, tex: int, fuzz: float = 0.0,
+                  ior: float = 1.0) -> int:
+        return self._intern((kind, tex, fuzz, ior), self.mat_rows,
+                            self.mat_keys,
+                            (kind, tex, _json_key(fuzz), _json_key(ior)))
+
     def add_material(self, m) -> int:
         if isinstance(m, S.Lambertian):
-            row = dict(type=MAT_LAMBERTIAN, tex=self.add_texture(m.texture),
-                       fuzz=0.0, ior=1.0)
-        elif isinstance(m, S.Metal):
-            tex = self.add_texture(S.SolidColor(tuple(m.albedo)))
-            row = dict(type=MAT_METAL, tex=tex, fuzz=float(m.fuzz), ior=1.0)
-        elif isinstance(m, S.Dielectric):
-            tex = self.add_texture(S.SolidColor((1.0, 1.0, 1.0)))
-            row = dict(type=MAT_DIELECTRIC, tex=tex, fuzz=0.0,
-                       ior=float(m.refraction_index))
-        elif isinstance(m, S.DiffuseLight):
-            row = dict(type=MAT_DIFFUSE_LIGHT, tex=self.add_texture(m.texture),
-                       fuzz=0.0, ior=1.0)
-        elif isinstance(m, S.Isotropic):
-            row = dict(type=MAT_ISOTROPIC, tex=self.add_texture(m.texture),
-                       fuzz=0.0, ior=1.0)
-        else:
-            raise TypeError(f"unknown material {m!r}")
-        return self._intern(row, self.mat_rows, self.mat_keys)
+            return self._material(MAT_LAMBERTIAN, self.add_texture(m.texture))
+        if isinstance(m, S.Metal):
+            return self._material(MAT_METAL, self._solid(tuple(m.albedo)),
+                                  fuzz=float(m.fuzz))
+        if isinstance(m, S.Dielectric):
+            return self._material(MAT_DIELECTRIC,
+                                  self._solid((1.0, 1.0, 1.0)),
+                                  ior=float(m.refraction_index))
+        if isinstance(m, S.DiffuseLight):
+            return self._material(MAT_DIFFUSE_LIGHT,
+                                  self.add_texture(m.texture))
+        if isinstance(m, S.Isotropic):
+            return self._material(MAT_ISOTROPIC, self.add_texture(m.texture))
+        raise TypeError(f"unknown material {m!r}")
 
 
 def _rot_y(deg: float) -> np.ndarray:
@@ -101,11 +128,20 @@ def _rot_y(deg: float) -> np.ndarray:
     return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], dtype=np.float64)
 
 
+def _cross(u, v) -> np.ndarray:
+    """np.cross of two float64 3-vectors: its products and differences,
+    rounded one by one as its ufuncs round them, without its per-call
+    overhead."""
+    (a0, a1, a2), (b0, b1, b2) = u.tolist(), v.tolist()
+    return np.array([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                     a0 * b1 - a1 * b0])
+
+
 def _quad_row(corner, u, v, mat):
     corner = np.asarray(corner, np.float64)
     u = np.asarray(u, np.float64)
     v = np.asarray(v, np.float64)
-    n = np.cross(u, v)
+    n = _cross(u, v)
     nlen = np.linalg.norm(n)
     normal = n / max(nlen, 1e-12)
     return dict(corner=corner, u=u, v=v, normal=normal,
@@ -131,18 +167,17 @@ def _box_quads(a, b):
     ]
 
 
+_EYE = np.eye(3)   # the walk's starting rotation (read only)
+
+
 def _walk(obj, R, t, tab: _Tables, out_spheres, out_quads):
     """Collect transformed primitives from an object subtree.
 
-    R (3,3), t (3,): accumulated world = R @ p + t."""
+    R (3,3), t (3,): accumulated world = R @ p + t. A sphere is collected
+    as (sphere, R, t, radius, material row), transformed by _sphere_rows."""
     if isinstance(obj, S.Sphere):
-        c0 = R @ np.asarray(obj.center, np.float64) + t
-        c2 = obj.center2
-        delta = (R @ (np.asarray(c2, np.float64) - np.asarray(obj.center))
-                 if c2 is not None else np.zeros(3))
-        out_spheres.append(dict(center=c0, cdelta=delta,
-                                radius=float(obj.radius),
-                                mat=tab.add_material(obj.material)))
+        out_spheres.append((obj, R, t, float(obj.radius),
+                            tab.add_material(obj.material)))
     elif isinstance(obj, S.Quad):
         m = tab.add_material(obj.material)
         out_quads.append(_quad_row(R @ np.asarray(obj.corner, np.float64) + t,
@@ -177,14 +212,44 @@ def _walk(obj, R, t, tab: _Tables, out_spheres, out_quads):
         raise TypeError(f"unknown scene object {obj!r}")
 
 
+def _sphere_rows(spheres, n_pad: int = 0):
+    """(center (n, 3), cdelta (n, 3), radius (n,)) float64 of spheres
+    collected by _walk, n the larger of their count and n_pad (the rows past
+    them zero): center R @ c + t, cdelta R @ (center2 - c), zero for a
+    static sphere. The spheres under no rotation (R is _EYE) are
+    transformed in one matrix product: the identity's products and sums are
+    exact, so each row is the bits its own R @ c gives."""
+    n = max(len(spheres), n_pad)
+    center, cdelta, radius = np.zeros((n, 3)), np.zeros((n, 3)), np.zeros(n)
+    radius[:len(spheres)] = [r for _, _, _, r, _ in spheres]
+    eye = [k for k, (_, R, _, _, _) in enumerate(spheres) if R is _EYE]
+    if eye:
+        c = np.array([spheres[k][0].center for k in eye], np.float64)
+        ts = [spheres[k][2] for k in eye]
+        t = ts[0] if all(x is ts[0] for x in ts) else np.array(ts)
+        center[eye] = c @ _EYE + t
+        moving = [k for k in eye if spheres[k][0].center2 is not None]
+        if moving:
+            c2 = np.array([spheres[k][0].center2 for k in moving], np.float64)
+            c1 = np.array([spheres[k][0].center for k in moving], np.float64)
+            cdelta[moving] = (c2 - c1) @ _EYE
+    for k, (obj, R, t, _, _) in enumerate(spheres):
+        if R is not _EYE:
+            center[k] = R @ np.asarray(obj.center, np.float64) + t
+            if obj.center2 is not None:
+                cdelta[k] = R @ (np.asarray(obj.center2, np.float64)
+                                 - np.asarray(obj.center))
+    return center, cdelta, radius
+
+
 def _checker_depth(tex_rows) -> int:
     """Longest checker chain in the texture DAG (depth 0 = no checkers).
     Children always precede parents in the interned table (add_texture
     interns children first), so one forward pass suffices."""
     depth = [0] * len(tex_rows)
-    for i, t in enumerate(tex_rows):
-        if t["type"] == TEX_CHECKER:
-            depth[i] = 1 + max(depth[t["even"]], depth[t["odd"]])
+    for i, (kind, _, _, even, odd) in enumerate(tex_rows):
+        if kind == TEX_CHECKER:
+            depth[i] = 1 + max(depth[even], depth[odd])
     return max(depth, default=0)
 
 
@@ -207,7 +272,7 @@ def compile_scene(scene: S.Scene, use_bvh: bool = False,
     builds the SAH BVH over the active primitives (ops/bvh.py::build_bvh),
     as the JAX package's compile_scene does."""
     tab = _Tables()
-    I, z = np.eye(3), np.zeros(3)
+    I, z = _EYE, np.zeros(3)
 
     for obj in scene.objects:
         _walk(obj, I, z, tab, tab.spheres, tab.quads)
@@ -232,16 +297,18 @@ def compile_scene(scene: S.Scene, use_bvh: bool = False,
     l_pad = max(len(light_prims), 1)
     m_pad = max(len(tab.mediums), 1)
     if not tab.mat_rows:
-        tab.mat_rows.append(dict(type=MAT_LAMBERTIAN, tex=0, fuzz=0.0, ior=1.0))
+        tab.mat_rows.append((MAT_LAMBERTIAN, 0, 0.0, 1.0))
     if not tab.tex_rows:
-        tab.tex_rows.append(dict(type=TEX_SOLID, color=(0.5, 0.5, 0.5),
-                                 scale=1.0, even=0, odd=0))
+        tab.tex_rows.append((TEX_SOLID, (0.5, 0.5, 0.5), 1.0, 0, 0))
+    mat_type, mat_tex, mat_fuzz, mat_ior = zip(*tab.mat_rows)
+    tex_type, tex_color, tex_scale, tex_even, tex_odd = zip(*tab.tex_rows)
 
     def pad_rows(rows, n, template):
         return rows + [template] * (n - len(rows))
 
-    zero_sph = dict(center=z, cdelta=z, radius=0.0, mat=0)
-    spheres_p = pad_rows(spheres, sph_pad, zero_sph)
+    # spheres padded with zero rows (radius 0, material 0) to sph_pad
+    center, cdelta, radius = _sphere_rows(spheres, sph_pad)
+    sph_mat = [m for _, _, _, _, m in spheres] + [0] * (sph_pad - n_sph)
     zero_quad = _quad_row(z, np.array([1e-6, 0, 0]), np.array([0, 1e-6, 0]), 0)
     quads_p = pad_rows(quads, quad_pad, zero_quad)
 
@@ -264,9 +331,10 @@ def compile_scene(scene: S.Scene, use_bvh: bool = False,
     for i, m in enumerate(med):
         med_nid[i] = m["neg_inv_density"]
         med_mat[i] = m["mat"]
-        for j, sp in enumerate(m["spheres"]):
-            med_sph_center[i, j] = sp["center"]
-            med_sph_radius[i, j] = sp["radius"]
+        if m["spheres"]:
+            b_center, _, b_radius = _sphere_rows(m["spheres"])
+            med_sph_center[i, :len(b_radius)] = b_center
+            med_sph_radius[i, :len(b_radius)] = b_radius
         for j, q in enumerate(m["quads"]):
             med_qc[i, j] = q["corner"]
             med_qu[i, j] = q["u"]
@@ -276,11 +344,13 @@ def compile_scene(scene: S.Scene, use_bvh: bool = False,
             med_qw[i, j] = q["w"]
             med_qact[i, j] = True
 
+    cdelta = cdelta.astype(np.float32)
+    moving = (cdelta != 0).any(1)
     flat = FlatScene(
-        sph_center=_f32([s["center"] for s in spheres_p]),
-        sph_cdelta=_f32([s["cdelta"] for s in spheres_p]),
-        sph_radius=_f32([s["radius"] for s in spheres_p]),
-        sph_mat=_i32([s["mat"] for s in spheres_p]),
+        sph_center=_f32(center),
+        sph_cdelta=torch.from_numpy(cdelta),
+        sph_radius=_f32(radius),
+        sph_mat=_i32(sph_mat),
         sph_active=_bool(
             [i < n_world_sph for i in range(sph_pad)]),
         quad_corner=_f32([q["corner"] for q in quads_p]),
@@ -308,15 +378,15 @@ def compile_scene(scene: S.Scene, use_bvh: bool = False,
         med_quad_w=_f32(med_qw),
         med_quad_active=_bool(med_qact),
         med_active=_bool([i < len(med) for i in range(m_pad)]),
-        mat_type=_i32([m["type"] for m in tab.mat_rows]),
-        mat_tex=_i32([m["tex"] for m in tab.mat_rows]),
-        mat_fuzz=_f32([m["fuzz"] for m in tab.mat_rows]),
-        mat_ior=_f32([m["ior"] for m in tab.mat_rows]),
-        tex_type=_i32([t["type"] for t in tab.tex_rows]),
-        tex_color=_f32([t["color"] for t in tab.tex_rows]),
-        tex_scale=_f32([t["scale"] for t in tab.tex_rows]),
-        tex_child_even=_i32([t["even"] for t in tab.tex_rows]),
-        tex_child_odd=_i32([t["odd"] for t in tab.tex_rows]),
+        mat_type=_i32(mat_type),
+        mat_tex=_i32(mat_tex),
+        mat_fuzz=_f32(mat_fuzz),
+        mat_ior=_f32(mat_ior),
+        tex_type=_i32(tex_type),
+        tex_color=_f32(tex_color),
+        tex_scale=_f32(tex_scale),
+        tex_child_even=_i32(tex_even),
+        tex_child_odd=_i32(tex_odd),
         perlin_seed=torch.tensor(scene.perlin_seed & 0xFFFFFFFF,
                                  dtype=torch.uint32),
         bvh_bbox_min=_f32(np.zeros((1, 3))),
@@ -334,21 +404,17 @@ def compile_scene(scene: S.Scene, use_bvh: bool = False,
         n_lights=len(light_prims),
         n_mediums=len(med),
         use_bvh=False,
-        has_noise=any(t["type"] == TEX_NOISE for t in tab.tex_rows),
-        has_motion=any(np.any(np.asarray(s["cdelta"], np.float32) != 0)
-                       for s in spheres_p),
-        n_sph_active_static=sum(
-            1 for i, s in enumerate(spheres_p)
-            if i < n_world_sph and s["radius"] > 0
-            and not np.any(np.asarray(s["cdelta"], np.float32) != 0)),
+        has_noise=TEX_NOISE in tex_type,
+        has_motion=bool(moving.any()),
+        n_sph_active_static=int(
+            ((radius[:n_world_sph] > 0) & ~moving[:n_world_sph]).sum()),
         checker_depth=_checker_depth(tab.tex_rows),
-        tex_struct=tuple((int(t["type"]), int(t["even"]), int(t["odd"]))
-                         for t in tab.tex_rows),
+        tex_struct=tuple(zip(tex_type, tex_even, tex_odd)),
     )
     if use_bvh:
         from ..ops.bvh import build_bvh
         flat = build_bvh(flat)
-    return flat.to(device)
+    return flat if torch.device(device).type == "cpu" else flat.to(device)
 
 
 def golden_json(flat: FlatScene) -> str:

@@ -55,8 +55,9 @@ def span(name: str):
       rt.render        models/render.py::render, the whole call
       rt.compile       scene/compile.py::compile_scene
       rt.pack          ops/wavefront_cuda.py::prepare_kernel: the tables,
-                       the chunk scan's and the BVH's packing, the camera
-                       and Perlin readback
+                       the chunk scan's and the BVH's packing, the camera's
+                       and Perlin seed's readback from a scene on the card,
+                       the one copy of a scene packed on the host
       rt.launch        ops/wavefront_cuda.py::_launch and the launch of
                        ops/adjoint_cuda.py::render_pass_adjoint_kernel:
                        checks, parameters, scratch, the library call

@@ -1236,3 +1236,143 @@ def test_progressive_equals_render_in_the_same_batches(k, cuda_device):
     img = pt.render(scene, device=cuda_device, seed=2, samples_per_batch=k,
                     progress=lambda s, t: None)
     assert torch.equal(prog.image(), img)
+
+
+# ------------------------------------------------ packing on the host
+# (name, scene, use_bvh, RTX_BVH_STACK, RTX_LANE_BVH, prepare_kernel's
+# keywords): the unrolled mode with quads and mediums, the chunk scan with
+# and without quad chunks (with quads, two light kinds and a medium), both
+# BVH walks, the adjoint's chunk-scan packing and a slot table
+HOST_PACK_CASES = {
+    "cornell_box": (lambda: pt.builders.cornell_box(), False, "0", "0", {}),
+    "cornell_smoke": (lambda: pt.builders.cornell_smoke(), False, "0", "0",
+                      {}),
+    "bouncing_spheres": (lambda: pt.builders.bouncing_spheres(), False, "0",
+                         "0", {}),
+    "mis_medium": (lambda: cs.mis_medium_scene(pt), False, "0", "0", {}),
+    "vquad": (lambda: cs.vquad_scene(pt), False, "0", "0", {}),
+    "bvh_stack": (lambda: cs.bvh_mixed_scene(pt), True, "1", "0", {}),
+    "bvh_lane": (lambda: cs.bvh_sphere_scene(pt), True, "0", "1", {}),
+    "cornell_chunk_scan": (lambda: pt.builders.cornell_box(), False, "0",
+                           "0", {"chunk_scan": True}),
+    "cornell_slots": (lambda: pt.builders.cornell_box(), False, "0", "0",
+                      {"hard_slots": "all"}),
+}
+
+
+@pytest.mark.parametrize("case", list(HOST_PACK_CASES))
+def test_host_packing_equals_device_packing(case, cuda_device, monkeypatch):
+    """A scene compiled on the host, packed there and sent in one copy is
+    the packing made on the card of the scene compiled there, bit for bit:
+    the tables, the chunk scan's or the walk's buffer (each view 16-byte
+    aligned for the kernels' float4 rows), and every field, the camera's
+    22 floats and the Perlin seed among them."""
+    make, use_bvh, stack, lane, kw = HOST_PACK_CASES[case]
+    monkeypatch.setenv("RTX_BVH_STACK", stack)
+    monkeypatch.setenv("RTX_LANE_BVH", lane)
+    scene = make()
+    host_flat = pt.compile_scene(scene, use_bvh=use_bvh)
+    dev_flat = pt.compile_scene(scene, use_bvh=use_bvh, device=cuda_device)
+    if kw.get("hard_slots") == "all":
+        kw = {"hard_slots": wc.hard_param_slots(host_flat)}
+    counts = (wc.prepare_kernel.host_packs, wc.prepare_kernel.device_packs)
+    host = wc.prepare_kernel(host_flat, pcam.derive(scene.camera),
+                             device=cuda_device, **kw)
+    dev = wc.prepare_kernel(dev_flat,
+                            pcam.derive(scene.camera, device=cuda_device),
+                            **kw)
+    assert (wc.prepare_kernel.host_packs,
+            wc.prepare_kernel.device_packs) == (counts[0] + 1, counts[1] + 1)
+    assert (host.mode, host.env, host.hard_slots, host.vfields,
+            host.bfields) == (dev.mode, dev.env, dev.hard_slots, dev.vfields,
+                              dev.bfields)
+    assert host.mode == {"bvh_stack": "stack", "bvh_lane": "lane"}.get(
+        case, "unrolled" if case in ("cornell_box", "cornell_smoke",
+                                     "cornell_slots") else "vscan")
+    for name in ("tables", "vtab", "btab"):
+        a, b = getattr(host, name), getattr(dev, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.device == b.device and a.dtype == b.dtype, name
+            assert a.data_ptr() % 16 == 0, name
+            assert torch.equal(a, b), name
+    assert bytes(host.fields["cam"]) == bytes(dev.fields["cam"])
+    assert ({k: v for k, v in host.fields.items() if k != "cam"}
+            == {k: v for k, v in dev.fields.items() if k != "cam"})
+
+
+@pytest.mark.parametrize("name", ["cornell_box", "bouncing_spheres"])
+def test_render_packs_a_scene_on_the_host(name, cuda_device):
+    """render(scene) compiles and packs on the host, once an image (one
+    host packing, none on the card), and its image is, bit for bit, that of
+    the same scene compiled onto the card and packed there, under the
+    compacted schedule and in single passes."""
+    scene = pt.builders.BUILTIN_SCENES[name]()
+    cs.sized(scene, 48, 16, 8)
+    for schedule in ("auto", "single"):
+        counts = (wc.prepare_kernel.host_packs,
+                  wc.prepare_kernel.device_packs)
+        img = pt.render(scene, device=cuda_device, seed=5, schedule=schedule)
+        assert (wc.prepare_kernel.host_packs,
+                wc.prepare_kernel.device_packs) == (counts[0] + 1, counts[1])
+        ref = pt.render(pt.compile_scene(scene, device=cuda_device),
+                        scene.camera, device=cuda_device, seed=5,
+                        schedule=schedule)
+        assert (wc.prepare_kernel.host_packs,
+                wc.prepare_kernel.device_packs) == (counts[0] + 1,
+                                                    counts[1] + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(img, ref), schedule
+
+
+def test_render_sends_one_copy_and_reads_nothing_back(cuda_device):
+    """Under torch.profiler, a Cornell render copies to the card at most
+    twice, and reads nothing back, before its first kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    scene = cs.sized(pt.builders.cornell_box(), 48, 16, 8)
+    pt.render(scene, device=cuda_device)       # the library, the pools
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pt.render(scene, device=cuda_device)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    names = [e.name for e in events]
+    first = next(i for i, n in enumerate(names) if "wavefront" in n)
+    before = names[:first]
+    to_card = [n for n in before if "HtoD" in n]
+    assert 1 <= len(to_card) <= 2, before
+    assert not [n for n in before if "DtoH" in n], before
+
+
+def test_training_and_progressive_pack_on_the_card(cuda_device):
+    """A scene already on the card is packed there, as before: a
+    ProgressiveRenderer once (a camera move swaps the camera's fields
+    only), and a training step at each step; neither packs on the host."""
+    from real_time_ray_tracing_engine_tpu_torch.models.render import \
+        ProgressiveRenderer
+    scene = cs.sized(pt.builders.cornell_box(), 16, 4, 4)
+    host0, dev0 = (wc.prepare_kernel.host_packs,
+                   wc.prepare_kernel.device_packs)
+    prog = ProgressiveRenderer(scene, device=cuda_device)
+    prog.step()
+    prog.move_camera((0.5, 0.0, 0.0))
+    prog.step()
+    assert (wc.prepare_kernel.host_packs,
+            wc.prepare_kernel.device_packs) == (host0, dev0 + 1)
+    flat, cam, kw = _pass_args("cornell_box", cuda_device, width=16, spp=4,
+                               depth=4)
+    kw = {k: v for k, v in kw.items() if k != "n_samples"}
+    target = train.make_kernel_render(flat, **kw)(
+        {"tex_color": flat.tex_color}, cam, 0).detach()
+    params = {"tex_color": (flat.tex_color * 0.7).requires_grad_(True)}
+    step = train.make_train_step(torch.optim.Adam(params.values(), lr=0.02),
+                                 flat=flat, **kw)
+    for _ in range(2):
+        dev1 = wc.prepare_kernel.device_packs
+        step(params, cam, 0, target)
+        assert wc.prepare_kernel.device_packs > dev1
+    assert wc.prepare_kernel.host_packs == host0

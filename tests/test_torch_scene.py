@@ -21,7 +21,8 @@ from real_time_ray_tracing_engine_tpu_torch.scene.flat import STATIC_FIELDS
 from real_time_ray_tracing_engine_tpu_torch.utils import rng as prng
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-SCENES = ["cornell_box", "cornell_smoke", "simple_sphere", "three_spheres"]
+SCENES = ["cornell_box", "cornell_smoke", "simple_sphere", "three_spheres",
+          "bouncing_spheres"]
 
 
 def jax_flat_numpy(flat):
@@ -131,6 +132,64 @@ def test_pack_tables_match(name):
     assert len(port_tables) == len(jax_tables)
     for (n, a), b in zip(jax_tables.items(), port_tables):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=n)
+
+
+def _dedup_scene(mod):
+    """Rows that == would merge and JSON keeps apart (1, 1.0 and True;
+    0.0 and -0.0) and NaN rows that JSON merges, in either package's
+    schema."""
+    nan = float("nan")
+    colors = [(1, 1, 1), (1.0, 1.0, 1.0), (True, 1, 1), (0.0, 0.5, 0.5),
+              (-0.0, 0.5, 0.5), (nan, 0.5, 0.5), (nan, 0.5, 0.5),
+              (np.float64(0.25), 0.5, 0.5), (0.25, 0.5, 0.5)]
+    objs = [mod.Sphere((i * 3.0, 0, 0), 1.0,
+                       mod.Lambertian(mod.SolidColor(c)))
+            for i, c in enumerate(colors)]
+    objs += [mod.Sphere((0, 3.0, i), 1.0, m) for i, m in enumerate([
+        mod.Metal((0.5, 0.5, 0.5), 0.0), mod.Metal((0.5, 0.5, 0.5), -0.0),
+        mod.Dielectric(1.5), mod.Dielectric(1.5),
+        mod.Lambertian(mod.Noise(0.0)), mod.Lambertian(mod.Noise(-0.0))])]
+    return mod.Scene(objects=objs)
+
+
+def test_compile_dedup_follows_json():
+    """The port interns rows by a key of their values, the JAX package by
+    their json.dumps text: the same rows in the same order."""
+    jf = rt.compile_scene(_dedup_scene(rt))
+    pf = pt.compile_scene(_dedup_scene(pt))
+    arrays, _ = jax_flat_numpy(jf)
+    for n in ("mat_type", "mat_tex", "mat_fuzz", "mat_ior", "tex_type",
+              "tex_color", "tex_scale", "sph_mat"):
+        np.testing.assert_array_equal(getattr(pf, n).numpy(), arrays[n],
+                                      err_msg=n)
+    assert pf.tex_type.shape[0] == 10 and pf.mat_type.shape[0] == 12
+
+
+def test_prepare_kernel_packs_a_host_scene_on_the_host(monkeypatch):
+    """A scene on the host is packed there and sent to the card by _send
+    (here handing the host buffers back): the buffers are the host packers'
+    own, the camera's floats and the Perlin seed the host values, and the
+    packing counts in host_packs. A scene on the host with no CUDA device
+    to send it to raises, as before."""
+    sent = []
+    monkeypatch.setattr(wc, "_send",
+                        lambda parts, device: sent.append(device) or parts)
+    scene = pt.builders.bouncing_spheres(image_width=24)
+    flat, cam = pt.compile_scene(scene), pcam.derive(scene.camera)
+    counts = (wc.prepare_kernel.host_packs, wc.prepare_kernel.device_packs)
+    prep = wc.prepare_kernel(flat, cam, device="cuda")
+    assert (wc.prepare_kernel.host_packs,
+            wc.prepare_kernel.device_packs) == (counts[0] + 1, counts[1])
+    assert sent == [torch.device("cuda")]
+    tables, off, _ = wc._kernel_tables(flat)
+    vtab, vfields = wc._vscan_buffer(wc.pack_vscan_tables(flat))
+    assert prep.mode == "vscan" and prep.vfields == vfields
+    assert torch.equal(prep.tables, tables) and torch.equal(prep.vtab, vtab)
+    assert prep.fields["off_tex"] == off["tex"]
+    assert bytes(prep.fields["cam"]) == cam.scalars().numpy().tobytes()
+    assert prep.fields["perlin_seed"] == int(flat.perlin_seed) & 0xFFFFFFFF
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        wc.prepare_kernel(flat, cam)
 
 
 def _gate_scenes(mod):
